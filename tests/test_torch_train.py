@@ -1,0 +1,248 @@
+"""The whole slice: lightgbm_tpu_torch.train against lightgbm_tpu.train on
+the same data (CPU), model text interchange, the device rule, and the
+package's independence from JAX."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import lightgbm_tpu as lj
+import lightgbm_tpu_torch as lt
+from lightgbm_tpu_torch import convert
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "lightgbm_tpu_torch"
+
+N, F = 2000, 8
+PARAMS = dict(objective="binary", num_leaves=31, max_bin=63,
+              learning_rate=0.1, verbose=-1)
+
+
+def _data(seed=0, nan_frac=0.0):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((N, F))
+    y = (X[:, 0] + 0.5 * X[:, 1] * X[:, 2] - 0.3 * np.abs(X[:, 3])
+         + 0.3 * rng.standard_normal(N) > 0).astype(np.float64)
+    X[rng.random((N, F)) < nan_frac] = np.nan
+    return X, y
+
+
+def _weights(seed):
+    """Row weights for the parity runs.  Unweighted, the first tree's
+    gradients take two values (one per label), so two candidate splits
+    with the same row and positive counts tie EXACTLY, and each package
+    breaks the tie by the rounding of its own sums (the two frameworks'
+    f32 exp differ by an ulp, and XLA's CPU reduce and cumsum add in
+    another order than torch's).  Continuous weights make every
+    candidate's gain distinct, so the trees can be compared node by node."""
+    return np.random.default_rng(seed + 100).uniform(0.5, 1.5, N)
+
+
+def _train_both(X, y, rounds=5, seed=0, **extra):
+    params = dict(PARAMS, **extra)
+    w = _weights(seed)
+    bj = lj.train(params, lj.Dataset(X, label=y, weight=w), rounds,
+                  verbose_eval=False)
+    bt = lt.train(dict(params, device_type="cpu"),
+                  lt.Dataset(X, label=y, weight=w), rounds,
+                  verbose_eval=False)
+    return bj, bt
+
+
+def _assert_same_structure(bj, bt, X):
+    """Same split features, topology and leaf counts in every tree, and
+    every training row lands in the same leaf.  Thresholds are compared
+    through that routing: where a leaf's rows leave the bins between two
+    thresholds empty, the candidates tie exactly, and which one wins is
+    decided by ulps (XLA's CPU cumsum adds in blocks, torch's in
+    sequence), so the chosen bin may differ while no row moves."""
+    for tj, tt in zip(bj._model.trees, bt._model.trees):
+        assert tt.num_leaves == tj.num_leaves
+        nl = tj.num_leaves
+        for k in ("split_feature", "left_child", "right_child",
+                  "internal_count"):
+            np.testing.assert_array_equal(getattr(tt, k)[:nl - 1],
+                                          getattr(tj, k)[:nl - 1], err_msg=k)
+        np.testing.assert_array_equal(tt.leaf_count[:nl], tj.leaf_count[:nl])
+    np.testing.assert_array_equal(bt._model.predict_leaf_index(X),
+                                  bj._model.predict_leaf_index(X))
+
+
+@pytest.mark.parametrize("case", [dict(seed=0), dict(seed=1, nan_frac=0.05),
+                                  dict(seed=2, min_data_in_leaf=40,
+                                       lambda_l2=1.0),
+                                  dict(seed=3, feature_fraction=0.6,
+                                       max_depth=4)])
+def test_training_matches_jax(case):
+    case = dict(case)
+    seed = case.pop("seed")
+    X, y = _data(seed, case.pop("nan_frac", 0.0))
+    bj, bt = _train_both(X, y, seed=seed, **case)
+    assert bt.device == torch.device("cpu")
+    assert bt.current_iteration() == bj.current_iteration() == 5
+    _assert_same_structure(bj, bt, X)
+    np.testing.assert_allclose(bt.predict(X, raw_score=True),
+                               bj.predict(X, raw_score=True), atol=1e-5)
+    np.testing.assert_allclose(bt.predict(X), bj.predict(X), atol=1e-5)
+
+
+def test_host_binning_matches():
+    X, y = _data(3, nan_frac=0.1)
+    cfg = dict(PARAMS)
+    dj = lj.Dataset(X, label=y).construct(lj.Config(cfg)).binned
+    dt = lt.Dataset(X, label=y).construct(lt.Config(cfg)).binned
+    np.testing.assert_array_equal(dt.bins, dj.bins)
+    assert dt.feature_infos() == dj.feature_infos()
+    assert dt.num_data_padded == dj.num_data_padded
+
+
+def test_model_text_loads_across_packages():
+    X, y = _data(4)
+    bj, bt = _train_both(X, y, seed=4)
+    sj, st = bj.model_to_string(), bt.model_to_string()
+    # Not byte-identical: leaf values, gains and internal values differ in
+    # the last f32 digits, because the two frameworks' exp differ by an
+    # ulp in the binary gradients and XLA's CPU reduce and cumsum add in
+    # another order than torch.sum / torch.cumsum; the same ulps can pick
+    # another of two exactly tied thresholds (see _assert_same_structure).
+    # The header and feature lines are identical.
+    _assert_same_structure(bj, bt, X)
+    lines_j, lines_t = sj.splitlines(), st.splitlines()
+    assert len(lines_j) == len(lines_t)
+    head = lines_j.index("tree_sizes=" + sj.split("tree_sizes=")[1]
+                         .splitlines()[0])
+    assert lines_t[:head] == lines_j[:head]
+    # each package loads the other's model and predicts what its author does
+    tj_from_t = lj.Booster(model_str=st)
+    tt_from_j = lt.Booster(model_str=sj)
+    np.testing.assert_array_equal(tt_from_j.predict(X, raw_score=True),
+                                  bj.predict(X, raw_score=True))
+    np.testing.assert_array_equal(tj_from_t.predict(X, raw_score=True),
+                                  bt.predict(X, raw_score=True))
+    # and a round trip through the port is the identity on the text
+    assert lt.Booster(model_str=st).model_to_string() == st
+
+
+def test_save_model_and_train_metric(tmp_path):
+    X, y = _data(5)
+    ds = lt.Dataset(X, label=y)
+    bst = lt.train(dict(PARAMS, device_type="cpu", metric="auc,binary_logloss"),
+                   ds, 3, valid_sets=[ds], verbose_eval=False)
+    names = {m: v for m, v in bst.best_score["training"].items()}
+    assert names["auc"] > 0.8 and names["binary_logloss"] < 0.69
+    path = tmp_path / "model.txt"
+    bst.save_model(str(path))
+    loaded = lt.Booster(model_file=str(path))
+    np.testing.assert_array_equal(loaded.predict(X), bst.predict(X))
+    # training scores kept in the payload match the model's predictions
+    raw = bst._engine.raw_train_score()[0]
+    np.testing.assert_allclose(raw, bst.predict(X, raw_score=True),
+                               atol=1e-5)
+
+
+def test_train_without_cpu_request_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    X, y = _data(6)
+    for params in (PARAMS, dict(PARAMS, device_type="cuda"),
+                   dict(PARAMS, device="gpu")):
+        with pytest.raises(lt.LightGBMError, match="no CUDA device"):
+            lt.train(params, lt.Dataset(X, label=y), 1, verbose_eval=False)
+    with pytest.raises(lt.LightGBMError, match="device_type"):
+        lt.train(dict(PARAMS, device_type="tpu"), lt.Dataset(X, label=y), 1,
+                 verbose_eval=False)
+
+
+@pytest.mark.parametrize("params", [dict(boosting="dart"),
+                                    dict(bagging_fraction=0.5,
+                                         bagging_freq=1),
+                                    dict(tree_learner="data"),
+                                    dict(monotone_constraints=[1] + [0] * 7),
+                                    dict(objective="regression")])
+def test_unported_options_raise(params):
+    X, y = _data(7)
+    with pytest.raises(NotImplementedError):
+        lt.train(dict(PARAMS, device_type="cpu", **params),
+                 lt.Dataset(X, label=y), 1, verbose_eval=False)
+
+
+def test_categorical_features_raise():
+    # the categorical split search is not ported: training must refuse a
+    # categorical feature rather than drop it from the search
+    X, y = _data(7)
+    X[:, 0] = np.floor(np.abs(X[:, 0]) * 3)
+    with pytest.raises(NotImplementedError, match="categorical"):
+        lt.train(dict(PARAMS, device_type="cpu"),
+                 lt.Dataset(X, label=y, categorical_feature=[0]), 1,
+                 verbose_eval=False)
+
+
+
+def test_payload_conversion_roundtrip():
+    rng = np.random.default_rng(8)
+    pay = rng.standard_normal((300, 38)).astype(np.float32)
+    pay[5, 3] = np.nan
+    t = convert.payload_from_numpy(pay)
+    assert t.dtype == torch.float32 and t.is_contiguous()
+    back = convert.payload_to_numpy(t)
+    assert back.tobytes() == pay.tobytes()
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, lightgbm_tpu_torch\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'lightgbm_tpu' or "
+            "m.startswith('lightgbm_tpu.')]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_port_source_imports_jax_or_the_jax_package():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    for path in files:
+        for name in _imports(path):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "lightgbm_tpu"), \
+                "%s imports %s" % (path.relative_to(ROOT), name)
+
+
+def _run_chip_smoke(cwd):
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=str(cwd),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_card_or_checkout(alone, tmp_path):
+    """chip_smoke.py exits non-zero and prints no result on a machine
+    without a CUDA device, and in a directory holding only itself."""
+    if torch.cuda.is_available():
+        pytest.skip("this check is for machines without a CUDA device")
+    cwd = ROOT
+    if alone:
+        (tmp_path / "chip_smoke.py").write_text(
+            (ROOT / "chip_smoke.py").read_text())
+        cwd = tmp_path
+    out = _run_chip_smoke(cwd)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
