@@ -3,14 +3,26 @@
     python3 chip_smoke.py [--rows N] [--iters N] [--seed N]
 
 Builds the hand-written kernels from lightgbm_tpu_torch/csrc with nvcc,
-holds each against its plain PyTorch version at main-path shapes, checks
-that CUDA and CPU training agree on a small problem, then trains the main
-path (binary objective, 28 dense features, max_bin 255, 255 leaves,
-lr 0.1) through lightgbm_tpu_torch.train on the card, predicts held-out
-rows with Booster.predict, and times two more iterations, the second
-under torch.profiler.  Every phase always runs and prints one line; any
-failed check exits non-zero.  The last line is the device record
-{"ok": true, "device": {...}}.  Imports nothing of JAX or lightgbm_tpu.
+holds each against its plain PyTorch version at main-path shapes (the f32
+histogram B1, the int32 histogram B4 at the int8 and int16 grids, the
+batched histogram B5 in f32 and int32, and the partition B2 whole and as
+its stage and commit halves), times each beside its bound and a PyTorch
+yardstick, checks that CUDA and CPU training agree on a small problem,
+then trains through lightgbm_tpu_torch.train on the card, at full width
+(binary objective, 28 dense features, max_bin 255, 255 leaves, lr 0.1):
+the f32 main path, then quantized gradients (int8, int16), the
+frontier-batched grower (tpu_frontier_batch=8) and the two together.
+Each training path resets the kernels' launch counts before it and reads
+them after it; the quantized paths must not launch the f32 histogram, the
+frontier paths must take fewer rounds than splits, and the quantized
+frontier path must write the quantized one-leaf loop's model byte for
+byte.  Held-out AUC is checked on every path (within 0.002 of the f32
+main path for the new ones).  After the main path, the quantized int8
+path and the frontier path, two more iterations are timed, the second
+under torch.profiler.  Every phase always runs and
+prints one line; any failed check exits non-zero.  The last line is the
+device record {"ok": true, "device": {...}}.  Imports nothing of JAX or
+lightgbm_tpu.
 """
 from __future__ import annotations
 
@@ -28,9 +40,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # the port, from this checkout only: alone in a directory this script fails
 import lightgbm_tpu_torch as lt  # noqa: E402
 import torch  # noqa: E402
-from lightgbm_tpu_torch.ops import build, cuda_segment  # noqa: E402
+from lightgbm_tpu_torch.ops import build, cuda_segment, quantize  # noqa: E402
 from lightgbm_tpu_torch.ops import segment as seg  # noqa: E402
 from lightgbm_tpu_torch.ops.segment import SplitPredicate  # noqa: E402
+from lightgbm_tpu_torch.ops.split import (FeatureMeta,  # noqa: E402
+                                          dequantize_hist,
+                                          find_best_split_batched)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and
 # f32 (non-tensor-core) operations/s
@@ -166,15 +181,51 @@ def hist_errors(pay, start, count, f, got) -> float:
     return float(err.max()) if err.numel() else 0.0
 
 
+def quantize_columns(pay: torch.Tensor, n: int, qmax: int,
+                     seed: int) -> torch.Tensor:
+    """A copy of `pay` whose grad/hess columns hold quantized gradients:
+    integers on the grid of half-range qmax (hessians in [0, qmax]), zero
+    where the count mask is 0."""
+    out = pay.clone()
+    gen = torch.Generator(device=pay.device)
+    gen.manual_seed(seed)
+    mask = out[:n, COLS["cnt"]]
+    g = torch.randint(-qmax, qmax + 1, (n,), generator=gen,
+                      device=pay.device).to(torch.float32)
+    h = torch.randint(0, qmax + 1, (n,), generator=gen,
+                      device=pay.device).to(torch.float32)
+    out[:n, COLS["grad"]] = g * mask
+    out[:n, COLS["hess"]] = h * mask
+    return out
+
+
+def batch_segments(n: int, sizes) -> tuple:
+    """Disjoint (start, count) segments of the given sizes, laid out one
+    after another from row 0 with a gap of 17 rows between them."""
+    starts, s = [], 0
+    for c in sizes:
+        starts.append(s)
+        s += c + 17
+    check(s <= n, "batched segments do not fit in %d rows" % n)
+    return starts, list(sizes)
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple:
+    """(bound_ms, bound_by) against the H100's HBM and f32 peaks."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
 def kernels_phase(n: int, seed: int, dev) -> dict:
     pay = make_payload(n, F, P, seed, dev)
     hk = dict(num_features=F, num_bins=B, grad_col=COLS["grad"],
               hess_col=COLS["hess"], cnt_col=COLS["cnt"])
     i32 = dict(dtype=torch.int32, device=dev)
+    segments = ((0, n), (100, 37), (500, 0), (12345, n // 3))
 
-    # histogram: segments full / unaligned / empty / mid, plus F = 137
+    # B1 histogram: segments full / unaligned / empty / mid, plus F = 137
     hist_err = 0.0
-    for s, c in ((0, n), (100, 37), (500, 0), (12345, n // 3)):
+    for s, c in segments:
         got = cuda_segment.segment_histogram(
             pay, torch.tensor(s, **i32), torch.tensor(c, **i32), **hk)
         torch.cuda.synchronize()
@@ -191,54 +242,191 @@ def kernels_phase(n: int, seed: int, dev) -> dict:
     hist_err = max(hist_err, hist_errors(pay_w, 0, n_wide, f_wide, got))
     del pay_w
 
+    # B4 int32 histogram at the int8 grid and at the int16 grid's qmax
+    # for n rows: bit-identical to the plain version on every segment
+    qmax16 = quantize.derive_qmax(n, "int16")
+    qpays = {}
+    for qmax in (127, qmax16):
+        qpay = quantize_columns(pay, n, qmax, seed + qmax)
+        qpays[qmax] = qpay
+        for s, c in segments:
+            got = cuda_segment.segment_histogram_quant(
+                qpay, torch.tensor(s, **i32), torch.tensor(c, **i32), **hk)
+            torch.cuda.synchronize()
+            plain = seg.segment_histogram(qpay, s, c, quantized=True, **hk)
+            check(got.dtype == torch.int32 and torch.equal(got, plain),
+                  "int32 histogram differs from plain at qmax %d (%d, %d)"
+                  % (qmax, s, c))
+
+    # B5 batched histogram: K = 8 disjoint segments of uneven sizes, one
+    # empty and one of a single row; f32 held to B1's bound per slice with
+    # an exact count channel, int32 bit for bit
+    starts, counts = batch_segments(n, (n // 5, 1, 0, 37, n // 9, 4099,
+                                        n // 3, n // 10 + 3))
+    st_t, ct_t = torch.tensor(starts, **i32), torch.tensor(counts, **i32)
+    got = cuda_segment.segment_histogram_batched(pay, st_t, ct_t, **hk)
+    torch.cuda.synchronize()
+    plain = seg.segment_histogram_batched(pay, starts, counts, **hk)
+    check(torch.equal(got[..., 2], plain[..., 2]),
+          "batched histogram count channel differs from plain")
+    batched_err = 0.0
+    for k, (s, c) in enumerate(zip(starts, counts)):
+        batched_err = max(batched_err, hist_errors(pay, s, c, F, got[k]))
+    for qmax, qpay in qpays.items():
+        got = cuda_segment.segment_histogram_batched(qpay, st_t, ct_t,
+                                                     quantized=True, **hk)
+        torch.cuda.synchronize()
+        plain = seg.segment_histogram_batched(qpay, starts, counts,
+                                              quantized=True, **hk)
+        check(got.dtype == torch.int32 and torch.equal(got, plain),
+              "int32 batched histogram differs from plain at qmax %d" % qmax)
+
+    # the split search gives each histogram the same bits at any batch
+    # size (the frontier grower searches 2K children at once, the one-leaf
+    # loop 2): 16 dequantized int32 histograms at once against 8 pairs
+    qh = seg.segment_histogram_batched(qpays[127], starts + starts,
+                                       counts + counts, quantized=True, **hk)
+    sums = dequantize_hist(qh[:, 0].sum(dim=1), 0.01, 0.002)
+    meta = FeatureMeta(
+        num_bin=torch.full((F,), B, **i32),
+        missing_type=torch.tensor([0, 1, 2, 0] * (F // 4), **i32),
+        default_bin=torch.full((F,), 7, **i32),
+        is_trivial=torch.zeros(F, dtype=torch.bool, device=dev),
+        is_categorical=torch.zeros(F, dtype=torch.bool, device=dev),
+        penalty=torch.ones(F, device=dev),
+        monotone=torch.zeros(F, **i32))
+    search = dict(meta=meta, l1=0.0, l2=0.0, max_delta_step=0.0,
+                  min_data_in_leaf=1, min_sum_hessian_in_leaf=1e-3,
+                  min_gain_to_split=0.0)
+    fmask = torch.ones(F, dtype=torch.bool, device=dev)
+    res16 = find_best_split_batched(
+        dequantize_hist(qh, 0.01, 0.002), sums[:, 0], sums[:, 1],
+        sums[:, 2], fmask, **search)
+    for q in range(0, 16, 2):
+        res2 = find_best_split_batched(
+            dequantize_hist(qh[q:q + 2], 0.01, 0.002), sums[q:q + 2, 0],
+            sums[q:q + 2, 1], sums[q:q + 2, 2], fmask, **search)
+        for field, a, b in zip(res2._fields, res16, res2):
+            a = a[q:q + 2]
+            if a.is_floating_point():  # bits: a leaf with no split has NaN
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            check(torch.equal(a, b),
+                  "split search %s differs between Q = 16 and Q = 2" % field)
+    del qh, sums
+
     # partition: every predicate on the full segment, plus the unaligned,
     # empty and mid segments; payload, aux segment and num_left must be
-    # byte-identical to the plain version
+    # byte-identical to the plain version, whole (B2) and as stage then
+    # commit, and the stage alone must leave the payload untouched
     lv, rv = torch.tensor(-0.25, device=dev), torch.tensor(0.75, device=dev)
     preds = predicates(dev)
     cases = [(name, 0, n) for name in preds] + [
         ("numerical", 100, 37), ("nan_missing_default_left", 500, 0),
         ("categorical", 777, n // 2), ("efb_offset", 12345, n // 3)]
+    pay_bytes = pay.view(torch.int32)
     for name, s, c in cases:
         a_pay, a_aux = pay.clone(), torch.zeros_like(pay)
         b_pay, b_aux = pay.clone(), torch.zeros_like(pay)
+        c_pay, c_aux = pay.clone(), torch.zeros_like(pay)
+        st, ct = torch.tensor(s, **i32), torch.tensor(c, **i32)
         a_pay, a_aux, a_nl = cuda_segment.partition_segment(
-            a_pay, a_aux, torch.tensor(s, **i32), torch.tensor(c, **i32),
-            preds[name], lv, rv, COLS["value"])
+            a_pay, a_aux, st, ct, preds[name], lv, rv, COLS["value"])
+        nl_vec = torch.full((4,), -1, **i32)
+        c_aux, c_nl = cuda_segment.partition_segment_stage(
+            c_pay, c_aux, st, ct, preds[name], nl_vec, 2)
+        torch.cuda.synchronize()
+        check(torch.equal(c_pay.view(torch.int32), pay_bytes),
+              "partition stage wrote the payload: %s (%d, %d)" % (name, s, c))
+        check(nl_vec[[0, 1, 3]].tolist() == [-1, -1, -1],
+              "partition stage wrote outside its num_left slot")
+        c_pay = cuda_segment.partition_segment_commit(
+            c_pay, c_aux, st, ct, c_nl, lv, rv, COLS["value"])
         torch.cuda.synchronize()
         b_pay, b_aux, b_nl = seg.partition_segment(
             b_pay, b_aux, s, c, preds[name], lv, rv, COLS["value"])
-        check(int(a_nl) == int(b_nl),
-              "partition num_left %s (%d, %d): %d vs %d"
-              % (name, s, c, int(a_nl), int(b_nl)))
-        check(torch.equal(a_pay.view(torch.int32), b_pay.view(torch.int32)),
-              "partition payload not byte-identical: %s (%d, %d)"
-              % (name, s, c))
-        check(torch.equal(a_aux[s:s + c].view(torch.int32),
-                          b_aux[s:s + c].view(torch.int32)),
-              "partition aux not byte-identical: %s (%d, %d)" % (name, s, c))
+        for label, x_pay, x_aux, x_nl in (("whole", a_pay, a_aux, a_nl),
+                                          ("stage+commit", c_pay, c_aux,
+                                           c_nl)):
+            check(int(x_nl) == int(b_nl),
+                  "partition (%s) num_left %s (%d, %d): %d vs %d"
+                  % (label, name, s, c, int(x_nl), int(b_nl)))
+            check(torch.equal(x_pay.view(torch.int32),
+                              b_pay.view(torch.int32)),
+                  "partition (%s) payload not byte-identical: %s (%d, %d)"
+                  % (label, name, s, c))
+            check(torch.equal(x_aux[s:s + c].view(torch.int32),
+                              b_aux[s:s + c].view(torch.int32)),
+                  "partition (%s) aux not byte-identical: %s (%d, %d)"
+                  % (label, name, s, c))
         if name == "all_left":
             check(int(a_nl) == c, "all_left routed a row right")
         if name == "all_right":
             check(int(a_nl) == 0, "all_right routed a row left")
+    # a commit of count 0 (a staged candidate that did not commit) is a
+    # no-op
+    z_pay = pay.clone()
+    cuda_segment.partition_segment_commit(
+        z_pay, torch.zeros_like(pay), torch.tensor(7, **i32),
+        torch.tensor(0, **i32), torch.tensor(5, **i32), lv, rv,
+        COLS["value"])
+    torch.cuda.synchronize()
+    check(torch.equal(z_pay.view(torch.int32), pay_bytes),
+          "a partition commit of count 0 wrote the payload")
+    del z_pay, a_pay, a_aux, b_pay, b_aux, c_pay, c_aux
 
     # times at the root segment of the main path (n rows, F = 28, P = 38)
     reps = 20
     start0, count = torch.zeros((), **i32), torch.tensor(n, **i32)
+    rows = pay[:n]
+    flat = (rows[:, :F].long()
+            + torch.arange(F, device=dev)[None, :] * B).reshape(-1)
+
+    def lib_vals(src, dtype):
+        r = src[:n]
+        return torch.stack([r[:, COLS["grad"]], r[:, COLS["hess"]],
+                            r[:, COLS["cnt"]]], 1)[:, None, :] \
+            .expand(n, F, 3).reshape(-1, 3).to(dtype).contiguous()
+
     hist_ms = time_ms(lambda: cuda_segment.segment_histogram(
         pay, start0, count, **hk), reps)
     hist_plain_ms = time_ms(lambda: seg.segment_histogram(
         pay, 0, n, **hk), 3)
-    rows = pay[:n]
-    lib_idx = (rows[:, :F].long()
-               + torch.arange(F, device=dev)[None, :] * B).reshape(-1)
-    lib_vals = torch.stack([rows[:, COLS["grad"]], rows[:, COLS["hess"]],
-                            rows[:, COLS["cnt"]]], 1)[:, None, :] \
-        .expand(n, F, 3).reshape(-1, 3).contiguous()
+    vals = lib_vals(pay, torch.float32)
     lib_out = torch.zeros(F * B, 3, device=dev)
-    hist_lib_ms = time_ms(lambda: lib_out.index_add_(0, lib_idx, lib_vals),
-                          reps)
-    del lib_idx, lib_vals
+    hist_lib_ms = time_ms(lambda: lib_out.index_add_(0, flat, vals), reps)
+
+    qpay = qpays[127]
+    quant_ms = time_ms(lambda: cuda_segment.segment_histogram_quant(
+        qpay, start0, count, **hk), reps)
+    quant_plain_ms = time_ms(lambda: seg.segment_histogram(
+        qpay, 0, n, quantized=True, **hk), 3)
+    vals = lib_vals(qpay, torch.int32)
+    lib_out = torch.zeros(F * B, 3, **i32)
+    quant_lib_ms = time_ms(lambda: lib_out.index_add_(0, flat, vals), reps)
+    del vals, lib_out, flat
+
+    # B5 at K = 8 disjoint segments from a quarter of the rows down to 1/64
+    tstarts, tcounts = batch_segments(n, [n // d for d in (4, 5, 8, 10, 16,
+                                                           20, 32, 64)])
+    ts_t, tc_t = torch.tensor(tstarts, **i32), torch.tensor(tcounts, **i32)
+    bat_ms = time_ms(lambda: cuda_segment.segment_histogram_batched(
+        pay, ts_t, tc_t, **hk), reps)
+    bat_q_ms = time_ms(lambda: cuda_segment.segment_histogram_batched(
+        qpay, ts_t, tc_t, quantized=True, **hk), reps)
+    bat_plain_ms = time_ms(lambda: seg.segment_histogram_batched(
+        pay, tstarts, tcounts, **hk), 3)
+    seg_rows = torch.cat([pay[s:s + c] for s, c in zip(tstarts, tcounts)])
+    seg_id = torch.cat([torch.full((c,), k, dtype=torch.long, device=dev)
+                        for k, c in enumerate(tcounts)])
+    flat = ((seg_id[:, None] * F + torch.arange(F, device=dev)[None, :]) * B
+            + seg_rows[:, :F].long()).reshape(-1)
+    m = seg_rows.shape[0]
+    vals = torch.stack([seg_rows[:, COLS["grad"]], seg_rows[:, COLS["hess"]],
+                        seg_rows[:, COLS["cnt"]]], 1)[:, None, :] \
+        .expand(m, F, 3).reshape(-1, 3).contiguous()
+    lib_out = torch.zeros(len(tcounts) * F * B, 3, device=dev)
+    bat_lib_ms = time_ms(lambda: lib_out.index_add_(0, flat, vals), reps)
+    del seg_rows, seg_id, flat, vals, lib_out, qpays, qpay
 
     pred = preds["numerical"]
     aux = torch.zeros_like(pay)
@@ -246,31 +434,53 @@ def kernels_phase(n: int, seed: int, dev) -> dict:
         pay, aux, start0, count, pred, lv, rv, COLS["value"]), reps)
     part_plain_ms = time_ms(lambda: seg.partition_segment(
         pay, aux, 0, n, pred, lv, rv, COLS["value"]), 3)
+    # yardstick: a stable argsort of the routing (computed beforehand)
+    # and one index_select of the rows into aux
+    right = (~seg.go_left_chunk(rows, pred)).to(torch.uint8)
+    part_lib_ms = time_ms(lambda: torch.index_select(
+        rows, 0, torch.argsort(right, stable=True), out=aux[:n]), reps)
+    del right, aux
 
     hist_bytes = n * (F + 3) * 4
     hist_ops = n * F * 3
     # read the segment's rows once and write them once; aux is scratch
     # that the grower never reads, so its traffic is not part of the bound
     part_bytes = 2 * n * P * 4
-    return {
+    bat_rows = sum(tcounts)
+    records = {
         "segment_histogram": dict(
             name="segment_histogram", route="cuda",
             source="lightgbm_tpu_torch/csrc/segment_hist.cu",
             replaces="lightgbm_tpu/ops/pallas_segment.py:473",
             max_abs_err=hist_err, ms=hist_ms, plain_ms=hist_plain_ms,
-            bound_ms=max(hist_bytes / HBM_BYTES_PER_S,
-                         hist_ops / F32_OPS_PER_S) * 1e3,
-            bound_by=("bytes" if hist_bytes / HBM_BYTES_PER_S
-                      >= hist_ops / F32_OPS_PER_S else "operations"),
             library_ms=hist_lib_ms),
         "partition_segment": dict(
             name="partition_segment", route="cuda",
             source="lightgbm_tpu_torch/csrc/segment_partition.cu",
             replaces="lightgbm_tpu/ops/pallas_segment.py:1616",
             max_abs_err=0.0, ms=part_ms, plain_ms=part_plain_ms,
-            bound_ms=part_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-            library_ms=None),
+            library_ms=part_lib_ms),
+        "segment_histogram_quant": dict(
+            name="segment_histogram_quant", route="cuda",
+            source="lightgbm_tpu_torch/csrc/segment_hist.cu",
+            replaces="lightgbm_tpu/ops/pallas_segment.py:786",
+            max_abs_err=0.0, ms=quant_ms, plain_ms=quant_plain_ms,
+            library_ms=quant_lib_ms),
+        "segment_histogram_batched": dict(
+            name="segment_histogram_batched", route="cuda",
+            source="lightgbm_tpu_torch/csrc/segment_hist.cu",
+            replaces="lightgbm_tpu/ops/pallas_segment.py:649",
+            max_abs_err=batched_err, ms=bat_ms, ms_int32=bat_q_ms,
+            plain_ms=bat_plain_ms, library_ms=bat_lib_ms),
     }
+    for key, (nb, no) in {
+            "segment_histogram": (hist_bytes, hist_ops),
+            "partition_segment": (part_bytes, 0),
+            "segment_histogram_quant": (hist_bytes, hist_ops),
+            "segment_histogram_batched": (bat_rows * (F + 3) * 4,
+                                          bat_rows * F * 3)}.items():
+        records[key]["bound_ms"], records[key]["bound_by"] = bound(nb, no)
+    return records
 
 
 # ---------------------------------------------------------------------------
@@ -305,55 +515,148 @@ def parity_phase(seed: int) -> str:
             % (runs["cuda"][:2], runs["cuda"][2], runs["cpu"][2], d_auc))
 
 
-def main_path_phase(rows: int, iters: int, seed: int) -> tuple:
+#: the wrappers whose launch counts each training path reads
+COUNTED = ("segment_histogram", "segment_histogram_quant",
+           "segment_histogram_batched", "partition_segment",
+           "partition_segment_stage", "partition_segment_commit")
+
+
+def reset_counts() -> None:
+    for name in COUNTED:
+        getattr(cuda_segment, name).launches = 0
+
+
+def read_counts() -> dict:
+    return {name: getattr(cuda_segment, name).launches for name in COUNTED}
+
+
+def make_main_data(rows: int, seed: int, params: dict) -> tuple:
+    """The main path's data: `rows` training rows binned once (every
+    training path shares the binned Dataset) and 100k held-out rows."""
     n_valid = 100_000
     X, y = synth(rows + n_valid, F, seed)
-    Xt, yt, Xv, yv = X[:rows], y[:rows], X[rows:], y[rows:]
-    params = train_params(255)
     t0 = time.perf_counter()
-    ds = lt.Dataset(Xt, label=yt)
+    ds = lt.Dataset(X[:rows], label=y[:rows])
     ds.construct(lt.Config(params))
-    t_bin = time.perf_counter() - t0
+    return ds, X[rows:], y[rows:], time.perf_counter() - t0
 
+
+def train_path(name: str, ds, Xv, yv, params: dict, iters: int) -> dict:
+    """Train one configuration of the main path through
+    lightgbm_tpu_torch.train on the card, with every launch count set to
+    0 just before and read just after; predict the held-out rows."""
     torch.cuda.reset_peak_memory_stats()
-    cuda_segment.segment_histogram.launches = 0
-    cuda_segment.partition_segment.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     bst = lt.train(params, ds, iters, verbose_eval=False)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
-    launches = {"segment_histogram": cuda_segment.segment_histogram.launches,
-                "partition_segment": cuda_segment.partition_segment.launches}
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-
-    check(bst.device.type == "cuda", "main path ran on %s" % bst.device)
-    check(bst.current_iteration() == iters, "trained %d of %d iterations"
-          % (bst.current_iteration(), iters))
-    check(launches["segment_histogram"] >= iters,
-          "histogram kernel launched %d times" % launches["segment_histogram"])
-    check(launches["partition_segment"] > 0, "partition kernel never ran")
+    check(bst.device.type == "cuda", "%s ran on %s" % (name, bst.device))
+    check(bst.current_iteration() == iters, "%s trained %d of %d iterations"
+          % (name, bst.current_iteration(), iters))
     t0 = time.perf_counter()
     pred = bst.predict(Xv)
     t_pred = time.perf_counter() - t0
-    check(pred.shape == (n_valid,) and bool(np.isfinite(pred).all()),
-          "held-out predictions malformed")
+    check(pred.shape == (len(yv),) and bool(np.isfinite(pred).all()),
+          "%s: held-out predictions malformed" % name)
     auc = auc_score(yv, pred)
-    check(auc > 0.8, "held-out AUC %.4f too low" % auc)
-    syncs = bst.host_syncs_per_tree()
+    check(auc > 0.8, "%s: held-out AUC %.4f too low" % (name, auc))
     leaves = [t.num_leaves for t in bst._model.trees]
-    line = ("main path: %dx%d, max_bin 255, 255 leaves, lr 0.1, %d iters: "
-            "%.4f s/iter (train %.3f s, binning %.3f s), syncs/tree %s, "
-            "leaves/tree %s, max_memory_allocated %d B, held-out AUC %.6f "
-            "on %d rows (predict %.3f s), launches %s"
-            % (rows, F, iters, t_train / iters, t_train, t_bin,
-               syncs, leaves, peak, auc, n_valid, t_pred,
-               json.dumps(launches)))
-    return line, launches, bst
+    syncs = bst.host_syncs_per_tree()
+    return dict(name=name, bst=bst, model_text=bst.model_to_string(),
+                launches=launches, auc=auc,
+                s_per_iter=t_train / iters, t_train=t_train, t_pred=t_pred,
+                peak=peak, syncs=syncs, leaves=leaves,
+                splits_per_tree=float(np.mean(leaves)) - 1.0,
+                rounds_per_tree=bst.split_rounds_per_tree())
 
 
-def profile_phase(bst) -> str:
-    """Two more boosting iterations of the main-path booster: one timed
+def path_line(r: dict, rows: int, iters: int, extra: str = "") -> str:
+    return ("%s: %dx%d, max_bin 255, 255 leaves, lr 0.1, %d iters: "
+            "%.4f s/iter (train %.3f s), syncs/tree %s (mean %.2f), split "
+            "rounds/tree %.2f, splits/tree %.2f, max_memory_allocated %d B, "
+            "held-out AUC %.6f on %d rows (predict %.3f s)%s, launches %s"
+            % (r["name"], rows, F, iters, r["s_per_iter"], r["t_train"],
+               r["syncs"], float(np.mean(r["syncs"])), r["rounds_per_tree"],
+               r["splits_per_tree"], r["peak"], r["auc"], 100_000,
+               r["t_pred"], extra, json.dumps(r["launches"])))
+
+
+def main_path_phase(rows: int, iters: int, seed: int) -> tuple:
+    params = train_params(255)
+    ds, Xv, yv, t_bin = make_main_data(rows, seed, params)
+    r = train_path("main path", ds, Xv, yv, params, iters)
+    launches = r["launches"]
+    check(launches["segment_histogram"] >= iters,
+          "histogram kernel launched %d times" % launches["segment_histogram"])
+    check(launches["partition_segment"] > 0, "partition kernel never ran")
+    line = path_line(r, rows, iters, ", binning %.3f s" % t_bin)
+    return line, r, (ds, Xv, yv)
+
+
+def quantized_phases(data, f32: dict, rows: int, iters: int) -> dict:
+    """The new paths at full width: int8 and int16 quantized gradients,
+    f32 with tpu_frontier_batch=8, and int8 with tpu_frontier_batch=8.
+    Prints one line per path (and a profile of the int8 and frontier
+    paths) as it goes; returns the results by name."""
+    ds, Xv, yv = data
+    runs = {}
+    for name, extra in (
+            ("quantized int8", dict(gradient_quantization=True,
+                                    gradient_quant_dtype="int8")),
+            ("quantized int16", dict(gradient_quantization=True,
+                                     gradient_quant_dtype="int16")),
+            ("frontier 8", dict(tpu_frontier_batch=8)),
+            ("quantized int8 + frontier 8", dict(
+                gradient_quantization=True, gradient_quant_dtype="int8",
+                tpu_frontier_batch=8))):
+        r = train_path(name, ds, Xv, yv, train_params(255, **extra), iters)
+        runs[name] = r
+        n = r["launches"]
+        d_auc = abs(r["auc"] - f32["auc"])
+        check(d_auc <= 0.002, "%s: |dAUC| %.6f against f32 > 0.002"
+              % (name, d_auc))
+        note = ", |dAUC| vs f32 main path %.6f" % d_auc
+        if "quantized" in name:
+            check(n["segment_histogram"] == 0,
+                  "%s launched the f32 histogram %d times"
+                  % (name, n["segment_histogram"]))
+            check(n["segment_histogram_quant"] >= iters,
+                  "%s: int32 histogram launched %d times"
+                  % (name, n["segment_histogram_quant"]))
+            note += ", qmax %d" % r["bst"].quant_report["qmax"]
+        if "frontier" in name:
+            check(n["segment_histogram_batched"] > 0,
+                  "%s: batched histogram never ran" % name)
+            check(n["partition_segment_stage"] > 0
+                  and n["partition_segment_commit"] > 0,
+                  "%s: partition stage/commit never ran" % name)
+            check(r["rounds_per_tree"] < r["splits_per_tree"],
+                  "%s: %.2f rounds/tree not below %.2f splits/tree"
+                  % (name, r["rounds_per_tree"], r["splits_per_tree"]))
+        if name == "quantized int8 + frontier 8":
+            # integer histograms: the trees must be those of the one-leaf
+            # loop, node for node
+            ref = runs["quantized int8"]
+            same = r["model_text"] == ref["model_text"]
+            first = next((i for i, (a, b) in enumerate(zip(
+                r["model_text"].split("Tree="), ref["model_text"]
+                .split("Tree="))) if a != b), None)
+            check(same, "quantized frontier trees differ from the one-leaf "
+                  "loop's, first at tree %s" % first)
+            note += ", model text identical to quantized int8: %s" % same
+        print(path_line(r, rows, iters, note), flush=True)
+        if name in ("quantized int8", "frontier 8"):
+            print(profile_phase(r["bst"], name), flush=True)
+        del r["bst"]
+    return runs
+
+
+def profile_phase(bst, label: str) -> str:
+    """Two more boosting iterations of a trained booster: one timed
     on the host clock alone, then one under torch.profiler.  Prints both
     walls, the profiled iteration's summed kernel time, the device's idle
     share against each wall (the unprofiled one is the reading; the
@@ -375,20 +678,23 @@ def profile_phase(bst) -> str:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     check(busy > 0, "the profiler saw no device time")
+    # the histogram kernels share one template: <float> serves B1 and the
+    # f32 B5, <int> B4 and the int32 B5
     ported = {}
-    for prefix, name in (("segment_hist_kernel", "segment_histogram"),
-                         ("part_", "partition_segment")):
+    for prefix, name in (("segment_hist_kernel<float>", "histogram f32"),
+                         ("segment_hist_kernel<int>", "histogram int32"),
+                         ("part_", "partition")):
         hits = [e for e in kernels if prefix in e.key]
         ported[name] = [sum(e.count for e in hits),
                         round(sum(e.self_device_time_total
                                   for e in hits) / 1e3, 4)]
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    return ("profile: one iteration %.4f s wall unprofiled, %.4f s wall "
-            "profiled, %.4f s summed kernel time (profiled), device idle "
+    return ("profile (%s): one iteration %.4f s wall unprofiled, %.4f s "
+            "wall profiled, %.4f s summed kernel time (profiled), device idle "
             "share %.4f against the unprofiled wall (%.4f against the "
             "profiled), %d kernel launches; ported kernels [launches, ms]: "
             "%s; top [name, launches, ms]: %s"
-            % (wall, wall_prof, busy, 1.0 - busy / wall,
+            % (label, wall, wall_prof, busy, 1.0 - busy / wall,
                1.0 - busy / wall_prof, sum(e.count for e in kernels),
                json.dumps(ported),
                json.dumps([[e.key[:60], e.count,
@@ -434,10 +740,30 @@ def main() -> int:
                                                  "max_abs_err")}
                         for k, v in kernels.items()}), flush=True)
     print(parity_phase(args.seed), flush=True)
-    line, launches, bst = main_path_phase(args.rows, args.iters, args.seed)
+    line, main_run, data = main_path_phase(args.rows, args.iters, args.seed)
     print(line, flush=True)
-    print(profile_phase(bst), flush=True)
-    record = [dict(v, launches=launches[k]) for k, v in kernels.items()]
+    print(profile_phase(main_run["bst"], "main path"), flush=True)
+    del main_run["bst"]
+    runs = quantized_phases(data, main_run, args.rows, args.iters)
+    # each kernel's launches are read from the path it serves; every
+    # path's counts stand beside them
+    paths = {"main path": main_run["launches"]}
+    paths.update({k: v["launches"] for k, v in runs.items()})
+    serves = {"segment_histogram": "main path",
+              "partition_segment": "main path",
+              "segment_histogram_quant": "quantized int8",
+              "segment_histogram_batched": "frontier 8"}
+    record = []
+    for key, rec in kernels.items():
+        rec = dict(rec, launches=paths[serves[key]][key], path=serves[key],
+                   launches_by_path={p: c[key] for p, c in paths.items()})
+        if key == "partition_segment":
+            for half in ("stage", "commit"):
+                name = "partition_segment_" + half
+                rec[half + "_launches"] = paths["frontier 8"][name]
+                rec[half + "_launches_by_path"] = {
+                    p: c[name] for p, c in paths.items()}
+        record.append(rec)
     print(json.dumps({"kernels": record}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -133,6 +133,19 @@ class Booster:
         """Blocking device-to-host reads each trained tree paid."""
         return list(self._engine.host_syncs) if self._engine else []
 
+    def split_rounds_per_tree(self) -> Optional[float]:
+        """Mean sequential grower rounds per trained tree: splits per tree
+        on the one-leaf loop, fewer once tpu_frontier_batch > 1 commits
+        several splits per round (None before the first tree)."""
+        return self._engine.split_rounds_per_tree() if self._engine else None
+
+    @property
+    def quant_report(self) -> Optional[Dict]:
+        """The quantized mode's grid and bytes (dtype, qmax, grad/hess
+        bytes per row and their reduction against f32), or None when
+        training in f32."""
+        return self._engine.quant_report if self._engine else None
+
     # -- evaluation ----------------------------------------------------------
     def eval_train(self, feval=None) -> List:
         if feval is not None:

@@ -4,9 +4,14 @@ Role parity with the reference src/boosting/gbdt.cpp: Init, TrainOneIter
 (:387-482), BoostFromAverage (:363-385).  This slice ports the serial
 partition-ordered fast path for one tree per iteration (K = 1): the
 `_FastState` payload, the fused step (gradient fill -> grow -> score
-add), `_boost_from_average` and `_finish_tree_host`.  Bagging, GOSS, DART,
-RF, boosting windows, the dispatch pipeline, validation sets and the
-parallel learners are not ported; asking for one raises.
+add), `_boost_from_average` and `_finish_tree_host`, in f32 or with
+quantized gradients (gradient_quantization: the grad/hess columns hold
+integers, histograms are int32), growing one leaf per round or
+frontier-batched (tpu_frontier_batch).  Bagging, GOSS, DART, RF, the
+non-finite sentinel, validation sets and the parallel learners are not
+ported; asking for one raises.  boost_window and pipeline_depth change
+only how the JAX package dispatches its work, never the model, and are
+accepted as no-ops.
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ from ..io.dataset import BinnedDataset
 from ..models.gbdt_model import GBDTModel
 from ..models.tree import Tree
 from ..ops import segment as seg
+from ..ops.quantize import (F32_GH_BYTES, QUANT_GH_BYTES, derive_qmax,
+                            quant_seed, quantize_pair)
 from ..ops.split import FeatureMeta
 from ..utils.log import Log
 from ..utils.random import Random, partition_seed
@@ -116,16 +123,25 @@ class _FastState:
         self.payload = pay
         self.aux = torch.zeros_like(pay)
 
-    def fill_gradients(self, objective) -> None:
+    def fill_gradients(self, objective, qmax: int = 0,
+                       generator: Optional[torch.Generator] = None):
         """Write the masked gradients of the current scores into the
-        grad/hess columns, in the payload's current row order."""
+        grad/hess columns, in the payload's current row order.  With
+        qmax > 0 (the quantized mode, gbdt.py:500-511 of the JAX package)
+        they are quantized first, after the count mask, with `generator`'s
+        draws, and the [2] scales are returned; else None."""
         pay = self.payload
         g, h = objective.get_gradients_multi(pay[:, self.score0][None],
                                              pay[:, self.label_col],
                                              pay[:, self.weight_col])
         valid = pay[:, self.cnt_col]
-        seg.payload_col_write(pay, self.grad_col, g[0] * valid)
-        seg.payload_col_write(pay, self.hess_col, h[0] * valid)
+        g, h = g[0] * valid, h[0] * valid
+        qscale = None
+        if qmax:
+            g, h, qscale = quantize_pair(g, h, generator, float(qmax))
+        seg.payload_col_write(pay, self.grad_col, g)
+        seg.payload_col_write(pay, self.hess_col, h)
+        return qscale
 
     def raw_scores(self) -> np.ndarray:
         """[1, n_pad] scores in ORIGINAL row order (host)."""
@@ -173,6 +189,27 @@ class GBDT:
         self.num_tree_per_iteration = 1
         #: host syncs of every finished tree (grower loop tests + the fetch)
         self.host_syncs: List[int] = []
+        #: sequential grower rounds paid by the finished trees (== splits
+        #: unless the frontier-batched grower committed several per round)
+        self.split_rounds_total = 0
+        self.trees_finished = 0
+
+        # quantized-gradient training (the JAX package's gate,
+        # gbdt.py:994-1026): the grid is capped by the int32 overflow
+        # bound, which raises when no grid is left
+        self._qmax = 0
+        self.quant_report = None
+        if bool(config.gradient_quantization):
+            qdtype = str(config.gradient_quant_dtype or "int16")
+            self._qmax = derive_qmax(train_set.num_data_padded, qdtype)
+            gh_bytes = QUANT_GH_BYTES[qdtype]
+            self.quant_report = {
+                "dtype": qdtype, "qmax": self._qmax,
+                "hist_gh_bytes_per_row": gh_bytes,
+                "hist_bytes_reduction_vs_f32": F32_GH_BYTES / gh_bytes,
+            }
+            Log.info("gradient quantization on: %s grid (qmax=%d)", qdtype,
+                     self._qmax)
 
         self.model = GBDTModel()
         self.model.num_class = self.num_class
@@ -191,7 +228,9 @@ class GBDT:
             max_delta_step=float(config.max_delta_step),
             min_data_in_leaf=int(config.min_data_in_leaf),
             min_sum_hessian_in_leaf=float(config.min_sum_hessian_in_leaf),
-            min_gain_to_split=float(config.min_gain_to_split))
+            min_gain_to_split=float(config.min_gain_to_split),
+            frontier_batch=max(1, int(config.tpu_frontier_batch or 1)),
+            quantized=self._qmax > 0, qmax=self._qmax)
 
         md = train_set.metadata
         n_pad = train_set.num_data_padded
@@ -225,7 +264,13 @@ class GBDT:
             (ds.num_data_padded + 1 >= _IDX_EXACT_LIMIT,
              "%d rows (the f32 row-index column is exact below 2^24)"
              % ds.num_data_padded),
+            (str(cfg.sentinel_nonfinite) != "off",
+             "sentinel_nonfinite=%s" % cfg.sentinel_nonfinite),
         ]
+        if str(cfg.tpu_histogram_impl) not in ("auto", "pallas", "lax"):
+            raise ValueError("tpu_histogram_impl must be one of "
+                             "auto|pallas|lax, got %r"
+                             % (cfg.tpu_histogram_impl,))
         for bad, what in unsupported:
             if bad:
                 raise NotImplementedError(
@@ -252,13 +297,25 @@ class GBDT:
 
         # the fused step: gradients -> grow -> score add (stumps must not
         # move the scores; gbdt.cpp stops instead)
-        fs.fill_gradients(self.objective)
-        out, fs.payload, fs.aux = self.grower(fs.payload, fs.aux, fmask)
+        if self._qmax:
+            # one generator per (iteration, class), seeded on the JAX
+            # schedule, so reruns on one device quantize identically
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(quant_seed(self.config.seed or 0, self.iter,
+                                       self.num_tree_per_iteration, 0))
+            qscale = fs.fill_gradients(self.objective, self._qmax, gen)
+            out, fs.payload, fs.aux = self.grower(fs.payload, fs.aux, fmask,
+                                                  qscale)
+        else:
+            fs.fill_gradients(self.objective)
+            out, fs.payload, fs.aux = self.grower(fs.payload, fs.aux, fmask)
         if out["num_leaves"] > 1:
             seg.payload_col_write(fs.payload, fs.score0,
                                   fs.payload[:, fs.value_col] * lr, "add")
         host = _fetch_packed(out)
         self.host_syncs.append(out["host_syncs"] + 1)
+        self.split_rounds_total += out["split_rounds"]
+        self.trees_finished += 1
         tree = self._finish_tree_host(host, init_score, lr)
         self.model.trees.append(tree)
         self.iter += 1
@@ -336,6 +393,14 @@ class GBDT:
             tree.leaf_value[0] = float(host["leaf_value"][0]) * lr + init_score
             tree.shrinkage = 1.0
         return tree
+
+    def split_rounds_per_tree(self) -> Optional[float]:
+        """Mean sequential grower rounds per finished tree (< splits per
+        tree once the frontier-batched grower commits several splits in
+        one round)."""
+        if self.trees_finished == 0:
+            return None
+        return self.split_rounds_total / self.trees_finished
 
     # -- evaluation ----------------------------------------------------------
     def raw_train_score(self) -> np.ndarray:

@@ -8,29 +8,43 @@ is built from rows, and the sibling comes from subtraction
 ops/cuda_segment.py: hand-written kernels for CUDA tensors, the plain
 PyTorch versions for CPU tensors.
 
-This slice ports the serial, unforced, f32, unpooled, non-frontier,
-non-monotone path.  The JAX grower is one on-device `lax.while_loop`;
-this one is an eager Python loop that asks the device once per split
-whether a positive-gain split remains (one host sync, counted in the
-tree's `host_syncs`).  Everything else — segment bounds, num_left, the
-split records — stays on the device.
+The port covers the serial, unforced, unpooled, non-monotone path, in
+f32 or quantized (int32 histograms, dequantized at the split search), one
+leaf per round or frontier-batched.  The JAX grower is one on-device
+`lax.while_loop`; this one is an eager Python loop.
+
+- One leaf per round (the default): the loop asks the device once per
+  split whether a positive-gain split remains (one host sync, counted in
+  the tree's `host_syncs`).  Everything else — segment bounds, num_left,
+  the split records — stays on the device.
+- Frontier-batched (`GrowerConfig.frontier_batch` = K > 1, the JAX
+  package's `round_body`): each round stages the partitions of the K
+  best frontier leaves, builds the K smaller children's histograms in ONE
+  batched launch, searches the 2K children at once, then replays the
+  sequential grower's argmax order on the host against those
+  evaluations and commits the splits it accepts.  The round's one host
+  sync fetches the gains the replay needs; the host then knows every
+  leaf's gain, so no other read is needed.  Models are byte-identical to
+  K = 1 (see `frontier_round` in `make_partitioned_grower`).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..ops import cuda_segment
 from ..ops.bundle import identity_bundle_map
 from ..ops.segment import GUARD, SplitPredicate, payload_col_write
-from ..ops.split import (FeatureMeta, K_MIN_SCORE, find_best_split_batched,
-                         leaf_output)
+from ..ops.split import (FeatureMeta, K_MIN_SCORE, dequantize_hist,
+                         find_best_split_batched, leaf_output)
 
 
 class GrowerConfig(NamedTuple):
     """Static scalars of one grower (the JAX package's GrowerConfig,
-    without the knobs of paths this slice does not port)."""
+    without the knobs of paths this package does not port, plus the
+    quantized / qmax arguments of its make_partitioned_grower)."""
     num_leaves: int
     max_depth: int
     lambda_l1: float
@@ -39,6 +53,13 @@ class GrowerConfig(NamedTuple):
     min_data_in_leaf: int
     min_sum_hessian_in_leaf: float
     min_gain_to_split: float
+    # frontier window (Config.tpu_frontier_batch): > 1 evaluates up to
+    # that many frontier leaves per round; models stay byte-identical
+    frontier_batch: int = 1
+    # quantized gradients (Config.gradient_quantization): integer-valued
+    # grad/hess columns on a grid of half-range qmax, int32 histograms
+    quantized: bool = False
+    qmax: int = 0
 
 
 class PayloadCols(NamedTuple):
@@ -56,21 +77,47 @@ TREE_DEVICE_FIELDS = ("split_feature", "split_bin", "default_left",
                       "split_is_cat", "split_cat_bitset", "left_child",
                       "right_child")
 
+#: per-leaf records of a leaf's best split, and the SplitResult field each
+#: is taken from
+_BEST_FIELDS = (("bgain", "gain"), ("bfeat", "feature"),
+                ("bbin", "threshold_bin"), ("bdleft", "default_left"),
+                ("blg", "left_sum_g"), ("blh", "left_sum_h"),
+                ("blc", "left_count"), ("bcat", "is_cat"),
+                ("bbitset", "cat_bitset"), ("blo", "left_output"),
+                ("bro", "right_output"))
+
+#: per-node records of the finished tree
+_NODE_FIELDS = ("split_feature", "split_bin", "split_gain", "default_left",
+                "split_is_cat", "split_cat_bitset", "left_child",
+                "right_child", "internal_value", "internal_count")
+
 
 def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                             num_bins_max: int, cols: PayloadCols,
                             num_features: int):
-    """Returns grow(payload, aux, feature_mask) -> (tree dict, payload, aux).
+    """Returns grow(payload, aux, feature_mask[, qscale]) ->
+    (tree dict, payload, aux).
 
     payload/aux: [N_pad + GUARD, P] f32 with a GUARD-row tail whose
     count-mask is 0.  Valid rows are [0, N_pad); the root segment covers
     all of them whatever order previous trees left them in.  payload and
     aux are updated in place.  Numerical splits only (the categorical
     search and monotone constraints are not ported; gbdt refuses them).
-    Storage columns are the features themselves (no EFB bundles)."""
+    Storage columns are the features themselves (no EFB bundles).
+
+    cfg.quantized: the grad/hess columns hold integer-valued quantized
+    gradients (ops/quantize.py); histograms, their state and the
+    subtraction are int32, and `grow` takes a fourth argument, the [2]
+    f32 (gradient, hessian) scales, with which `dequantize_hist` turns a
+    histogram into f32 exactly where the split search consumes it.
+    Every histogram goes through the int32 kernel, at either grid."""
     L = cfg.num_leaves
     B = num_bins_max
     F = num_features
+    quantized = bool(cfg.quantized)
+    if quantized and cfg.qmax < 2:
+        raise ValueError("the quantized grower needs the derive_qmax grid "
+                         "(qmax >= 2), got %d" % cfg.qmax)
     find_kwargs = dict(
         l1=cfg.lambda_l1, l2=cfg.lambda_l2, max_delta_step=cfg.max_delta_step,
         min_data_in_leaf=cfg.min_data_in_leaf,
@@ -78,38 +125,66 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
         min_gain_to_split=cfg.min_gain_to_split)
     hist_kwargs = dict(num_features=F, num_bins=B, grad_col=cols.grad,
                        hess_col=cols.hess, cnt_col=cols.cnt)
+    # the JAX gate (grower2.py:325-350): serial, unforced and unpooled hold
+    # by construction here
+    fb = max(int(cfg.frontier_batch or 1), 1)
+    KB = min(fb, L - 1) if fb > 1 and L > 2 else 1
 
     def out_fn(sum_g, sum_h):
         return leaf_output(sum_g, sum_h, cfg.lambda_l1, cfg.lambda_l2,
                            cfg.max_delta_step)
 
-    def hist_fn(payload, start, count):
-        return cuda_segment.segment_histogram(payload, start, count,
-                                              **hist_kwargs)
+    if quantized:
+        def hist_fn(payload, start, count):
+            return cuda_segment.segment_histogram_quant(payload, start, count,
+                                                        **hist_kwargs)
+    else:
+        def hist_fn(payload, start, count):
+            return cuda_segment.segment_histogram(payload, start, count,
+                                                  **hist_kwargs)
 
-    def find_split_batched(hists, sgs, shs, cnts, feature_mask):
-        """The one search routine: root (Q = 1) and children (Q = 2)."""
-        return find_best_split_batched(hists, sgs, shs, cnts, feature_mask,
-                                       meta=meta, **find_kwargs)
+    def hist_batched_fn(payload, starts, counts):
+        return cuda_segment.segment_histogram_batched(
+            payload, starts, counts, quantized=quantized, **hist_kwargs)
 
     def grow(payload: torch.Tensor, aux: torch.Tensor,
-             feature_mask: torch.Tensor):
+             feature_mask: torch.Tensor, qscale: torch.Tensor = None):
         dev = payload.device
         bmap = identity_bundle_map(F, dev)
         n_rows = payload.shape[0] - GUARD
         i32 = dict(dtype=torch.int32, device=dev)
         f32 = dict(dtype=torch.float32, device=dev)
 
+        # dequantize at the boundary: int32 histograms become f32 views
+        # exactly where the split search consumes them
+        if quantized:
+            if qscale is None:
+                raise ValueError("the quantized grower needs the [2] scales")
+
+            def deq(h):
+                return dequantize_hist(h, qscale[0], qscale[1])
+        else:
+            def deq(h):
+                return h
+
+        def find_split_batched(hists, sgs, shs, cnts):
+            """The one search routine: root (Q = 1), the two children of a
+            split (Q = 2) and the 2K children of a frontier round."""
+            return find_best_split_batched(deq(hists), sgs, shs, cnts,
+                                           feature_mask, meta=meta,
+                                           **find_kwargs)
+
         # a filled device scalar, not torch.tensor: a host-to-device copy
         # would wait for the stream
         hist_root = hist_fn(payload, torch.zeros((), **i32),
                             torch.full((), n_rows, **i32))
         # every row lands in exactly one bin of storage column 0, so the
-        # root totals fall out of the histogram
-        totals = torch.sum(hist_root[0], dim=0)
+        # root totals fall out of the histogram (exact integers in the
+        # quantized mode, f32 only from the boundary on)
+        totals = deq(torch.sum(hist_root[0], dim=0, dtype=hist_root.dtype))
         root_g, root_h, root_c = totals[0], totals[1], totals[2]
         res0 = find_split_batched(hist_root[None], totals[0:1], totals[1:2],
-                                  totals[2:3], feature_mask)
+                                  totals[2:3])
         # rows start as one root segment with the root Newton step as the
         # per-row output (covers the unsplittable-stump case)
         payload_col_write(payload, cols.value, out_fn(root_g, root_h))
@@ -144,22 +219,21 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             "split_is_cat": torch.zeros(ni, dtype=torch.bool, device=dev),
             "split_cat_bitset": torch.zeros((ni, B), dtype=torch.bool,
                                             device=dev),
-            "left_child": torch.zeros(ni, **i32),
-            "right_child": torch.zeros(ni, **i32),
+            # one slot past the last node: the frontier round's parent
+            # update sends the writes it must not make there
+            "left_child": torch.zeros(ni + 1, **i32),
+            "right_child": torch.zeros(ni + 1, **i32),
             "internal_value": torch.zeros(ni, **f32),
             "internal_count": torch.zeros(ni, **f32),
-            "hist": torch.zeros((L, F, B, 3), **f32),
+            # int32 in the quantized mode: the subtraction stays exact
+            "hist": torch.zeros((L, F, B, 3), dtype=hist_root.dtype,
+                                device=dev),
         }
         st["seg_cnt"][0] = n_rows
         st["sum_g"][0] = root_g
         st["sum_h"][0] = root_h
         st["cnt"][0] = root_c
-        for key, field in (("bgain", "gain"), ("bfeat", "feature"),
-                           ("bbin", "threshold_bin"),
-                           ("bdleft", "default_left"), ("blg", "left_sum_g"),
-                           ("blh", "left_sum_h"), ("blc", "left_count"),
-                           ("bcat", "is_cat"), ("bbitset", "cat_bitset"),
-                           ("blo", "left_output"), ("bro", "right_output")):
+        for key, field in _BEST_FIELDS:
             st[key][0] = getattr(res0, field)[0]
         st["hist"][0] = hist_root
 
@@ -175,6 +249,12 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                 t.index_put_((i1,), v.to(t.dtype).reshape((1,) + t.shape[1:]))
             else:
                 t.index_fill_(0, i1, v)
+
+        def depth_gate(gains, child_depth):
+            if cfg.max_depth > 0:
+                return torch.where(child_depth < cfg.max_depth, gains,
+                                   torch.full_like(gains, K_MIN_SCORE))
+            return gains
 
         def do_split(s: int, bl: torch.Tensor) -> None:
             """Partition leaf `bl` (a [1] device index) into leaves bl and
@@ -220,13 +300,9 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
 
             res = find_split_batched(
                 torch.stack([new_left, new_right]), torch.stack([lg, rg]),
-                torch.stack([lh, rh]), torch.stack([lcnt, rcnt]),
-                feature_mask)
+                torch.stack([lh, rh]), torch.stack([lcnt, rcnt]))
             child_depth = leaf("leaf_depth") + 1
-            gains = res.gain
-            if cfg.max_depth > 0:
-                gains = torch.where(child_depth < cfg.max_depth, gains,
-                                    torch.full_like(gains, K_MIN_SCORE))
+            gains = depth_gate(res.gain, child_depth)
 
             # the internal node (Tree::Split, tree.h:404-448), from the
             # pre-split records
@@ -265,26 +341,208 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             set2("leaf_parent", node, node)
             set2("hist", new_left, new_right)
             set2("bgain", gains[0], gains[1])
-            for key, field in (("bfeat", "feature"), ("bbin", "threshold_bin"),
-                               ("bdleft", "default_left"),
-                               ("blg", "left_sum_g"), ("blh", "left_sum_h"),
-                               ("blc", "left_count"), ("bcat", "is_cat"),
-                               ("bbitset", "cat_bitset"),
-                               ("blo", "left_output"),
-                               ("bro", "right_output")):
+            for key, field in _BEST_FIELDS[1:]:
                 v = getattr(res, field)
                 set2(key, v[0], v[1])
 
+        def frontier_round(num_leaves: int):
+            """One round of the frontier-batched grower (the JAX package's
+            round_body, grower2.py:840-1038).  Returns the number of
+            splits committed and the host copy of every leaf's best gain
+            after them.
+
+            Exactness: segments are disjoint and the partition stable, so
+            splitting one leaf changes no other frontier leaf's rows,
+            histogram or best split; an evaluation is the same bits
+            whenever it runs, and the replay below is the sequential
+            order.  The smaller children's histograms are read from the
+            STAGED aux rows, which hold each child's rows in the order the
+            commit will copy back, and the split search gives each child
+            the same bits at any batch size (ops/split.py), so the trees
+            are those of K = 1.  A candidate that does not commit leaves
+            its payload rows untouched."""
+            nonlocal payload, aux
+            # selection: the K best leaves; a stable sort keeps the lower
+            # index first on ties (lax.top_k's order), so slot 0 is the
+            # argmax the sequential grower pops next
+            top_gain, cand = torch.sort(st["bgain"], descending=True,
+                                        stable=True)
+            top_gain, cand = top_gain[:KB], cand[:KB]
+            active = top_gain > 0.0
+
+            def at(key):
+                return st[key][cand]
+
+            start_c = at("seg_start")
+            cnt_c = torch.where(active, at("seg_cnt"),
+                                torch.zeros_like(start_c))
+            feat_c, bbin_c, bdleft_c = at("bfeat"), at("bbin"), at("bdleft")
+            bcat_c, bbitset_c = at("bcat"), at("bbitset")
+            blo_c, bro_c = at("blo"), at("bro")
+            lval_c, depth_c, parent_c = (at("leaf_val"), at("leaf_depth"),
+                                         at("leaf_parent"))
+            fl_c = feat_c.long()
+            pred_c = SplitPredicate(
+                col=bmap.f_group[fl_c], threshold=bbin_c,
+                default_left=bdleft_c, is_cat=bcat_c, bitset=bbitset_c,
+                missing_type=meta.missing_type[fl_c],
+                num_bin=meta.num_bin[fl_c],
+                default_bin=meta.default_bin[fl_c],
+                offset=bmap.f_offset[fl_c], identity=bmap.f_identity[fl_c])
+
+            # stage every candidate's partition into aux; payload is only
+            # read (inactive slots stage count 0: a no-op)
+            nl_c = torch.zeros(KB, **i32)
+            for j in range(KB):
+                cuda_segment.partition_segment_stage(
+                    payload, aux, start_c[j], cnt_c[j],
+                    SplitPredicate(*[v[j] for v in pred_c]), nl_c, j)
+
+            # ONE batched histogram of the K smaller children from the
+            # staged rows; siblings by subtraction, with the sequential
+            # grower's masked-count choice of the smaller child
+            lg_c, lh_c, lc_c = at("blg"), at("blh"), at("blc")
+            pg_c, ph_c, pc_c = at("sum_g"), at("sum_h"), at("cnt")
+            rg_c, rh_c, rc_c = pg_c - lg_c, ph_c - lh_c, pc_c - lc_c
+            left_smaller = lc_c <= rc_c
+            h_start = torch.where(left_smaller, start_c, start_c + nl_c)
+            h_count = torch.where(left_smaller, nl_c, cnt_c - nl_c)
+            hist_small = hist_batched_fn(aux, h_start, h_count)
+            hist_big = at("hist") - hist_small
+            ls4 = left_smaller[:, None, None, None]
+            new_left = torch.where(ls4, hist_small, hist_big)
+            new_right = torch.where(ls4, hist_big, hist_small)
+
+            # ONE split search over the 2K children (lefts, then rights)
+            res = find_split_batched(
+                torch.cat([new_left, new_right]), torch.cat([lg_c, rg_c]),
+                torch.cat([lh_c, rh_c]), torch.cat([lc_c, rc_c]))
+            child_depth = depth_c + 1
+            gains = depth_gate(res.gain, torch.cat([child_depth,
+                                                    child_depth]))
+
+            # the round's one host read: every leaf's stored gain, the
+            # window and the children's gains
+            host = torch.cat([st["bgain"], cand.to(torch.float32),
+                              gains]).cpu().numpy()
+            bg = host[:L].copy()
+            cand_h = host[L:L + KB].astype(np.int64)
+            gain_l, gain_r = host[L + KB:L + 2 * KB], host[L + 2 * KB:]
+            # replay the sequential argmax order: a pop outside the window
+            # (a child made this round, an unevaluated or used leaf),
+            # exhausted gain or the leaf budget ends the round
+            active_h = bg[cand_h] > 0.0
+            used = np.zeros(KB, dtype=bool)
+            commits = []
+            s = num_leaves
+            while s < L:
+                best = int(np.argmax(bg))
+                if not bg[best] > 0.0:
+                    break
+                hit = np.flatnonzero((cand_h == best) & active_h & ~used)
+                if hit.size == 0:
+                    break
+                j = int(hit[0])
+                used[j] = True
+                commits.append((j, best, s))
+                bg[best], bg[s] = gain_l[j], gain_r[j]
+                s += 1
+            if not commits:
+                return 0, bg
+
+            # apply the commits: no leaf is written twice in a round (a
+            # used candidate is never popped again, and a new leaf is not
+            # in the window), so each update is one vectorized index_put_
+            idx = torch.tensor(commits, dtype=torch.int64).T.contiguous()
+            if dev.type == "cuda":
+                idx = idx.pin_memory().to(dev, non_blocking=True)
+            jj, bb, ss = idx[0], idx[1], idx[2]
+            nodes = ss - 1
+            K2 = jj + KB
+
+            def set2(key, vl, vr):
+                t = st[key]
+                t.index_put_((bb,), vl.to(t.dtype))
+                t.index_put_((ss,), vr.to(t.dtype))
+
+            def setn(key, v):
+                t = st[key]
+                t.index_put_((nodes,), v.to(t.dtype))
+
+            nl_j = nl_c[jj]
+            set2("seg_start", start_c[jj], start_c[jj] + nl_j)
+            set2("seg_cnt", nl_j, cnt_c[jj] - nl_j)
+            set2("sum_g", lg_c[jj], rg_c[jj])
+            set2("sum_h", lh_c[jj], rh_c[jj])
+            set2("cnt", lc_c[jj], rc_c[jj])
+            set2("bgain", gains[jj], gains[K2])
+            for key, field in _BEST_FIELDS[1:]:
+                v = getattr(res, field)
+                set2(key, v[jj], v[K2])
+            set2("leaf_val", blo_c[jj], bro_c[jj])
+            set2("leaf_depth", child_depth[jj], child_depth[jj])
+            set2("hist", new_left[jj], new_right[jj])
+
+            # the internal nodes, from the round-start records
+            setn("split_feature", feat_c[jj])
+            setn("split_bin", bbin_c[jj])
+            setn("split_gain", top_gain[jj])
+            setn("default_left", bdleft_c[jj])
+            setn("split_is_cat", bcat_c[jj])
+            setn("split_cat_bitset", bbitset_c[jj])
+            setn("internal_value", lval_c[jj])
+            setn("internal_count", pc_c[jj])
+            setn("left_child", ~bb)
+            setn("right_child", ~ss)
+            # the parent's pointer to the split leaf now names the new
+            # node.  Its other child may have split this round too, but
+            # that changes only the other pointer, so the round-start
+            # records decide which side; writes not to make go to the
+            # spare slot past the last node.
+            pn = parent_c[jj].long()
+            has_par = pn >= 0
+            pn = pn.clamp(min=0)
+            was_left = st["left_child"][pn] == (~bb).to(torch.int32)
+            spare = torch.full_like(pn, ni)
+            st["left_child"].index_put_(
+                (torch.where(has_par & was_left, pn, spare),),
+                nodes.to(torch.int32))
+            st["right_child"].index_put_(
+                (torch.where(has_par & ~was_left, pn, spare),),
+                nodes.to(torch.int32))
+            set2("leaf_parent", nodes, nodes)
+
+            # copy back the committed candidates only; the rest never
+            # touched the payload
+            for j, _, _ in commits:
+                payload = cuda_segment.partition_segment_commit(
+                    payload, aux, start_c[j], cnt_c[j], nl_c[j], blo_c[j],
+                    bro_c[j], cols.value)
+            return len(commits), bg
+
         num_leaves = 1
         host_syncs = 0
-        while num_leaves < L:
-            # first maximum, like jnp.argmax; the one host read per split
-            bl = torch.argmax(st["bgain"]).reshape(1)
-            host_syncs += 1
-            if not bool(take(st["bgain"], bl) > 0.0):
-                break
-            do_split(num_leaves, bl)
-            num_leaves += 1
+        if KB > 1:
+            rounds = 0
+            gains_host = None
+            while num_leaves < L and (gains_host is None
+                                      or gains_host.max() > 0.0):
+                committed, gains_host = frontier_round(num_leaves)
+                host_syncs += 1
+                if not committed:
+                    break
+                rounds += 1
+                num_leaves += committed
+        else:
+            while num_leaves < L:
+                # first maximum, like jnp.argmax; the one host read per split
+                bl = torch.argmax(st["bgain"]).reshape(1)
+                host_syncs += 1
+                if not bool(take(st["bgain"], bl) > 0.0):
+                    break
+                do_split(num_leaves, bl)
+                num_leaves += 1
+            rounds = num_leaves - 1
 
         leaf_value = st["leaf_val"]
         if num_leaves == 1:
@@ -292,7 +550,7 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             leaf_value[0] = out_fn(st["sum_g"], st["sum_h"])[0]
         tree = {
             "num_leaves": num_leaves,
-            "split_rounds": num_leaves - 1,
+            "split_rounds": rounds,
             "host_syncs": host_syncs,
             "leaf_value": leaf_value,
             "leaf_count": st["cnt"],
@@ -301,11 +559,8 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             "seg_start": st["seg_start"],
             "seg_cnt": st["seg_cnt"],
         }
-        for key in ("split_feature", "split_bin", "split_gain",
-                    "default_left", "split_is_cat", "split_cat_bitset",
-                    "left_child", "right_child", "internal_value",
-                    "internal_count"):
-            tree[key] = st[key]
+        for key in _NODE_FIELDS:
+            tree[key] = st[key][:ni]
         return tree, payload, aux
 
     return grow

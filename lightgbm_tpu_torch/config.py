@@ -90,6 +90,22 @@ class Config:
             if isinstance(default, tuple):
                 default = list(default)
             setattr(self, name, default)
+        # the JAX package's non-registry knobs, with its defaults
+        # (lightgbm_tpu/config.py).  Honoured here: tpu_frontier_batch and
+        # gradient_quantization / gradient_quant_dtype.  No-ops of this
+        # package, because by contract they leave the model unchanged:
+        # tpu_histogram_impl (engine selection; the port has one engine),
+        # tpu_profile_phases (phase timers), pipeline_depth and
+        # boost_window (dispatch shape).  sentinel_nonfinite other than
+        # "off" is refused by GBDT._check_supported.
+        self.tpu_histogram_impl = "auto"  # auto | pallas | lax
+        self.tpu_profile_phases = False
+        self.tpu_frontier_batch = 1
+        self.gradient_quantization = False
+        self.gradient_quant_dtype = "int16"  # int16 | int8
+        self.sentinel_nonfinite = "off"  # off | abort | rollback
+        self.pipeline_depth = 1
+        self.boost_window = 1
         self._user_keys: set = set()
         self.raw_params: Dict[str, Any] = {}
         if params:
@@ -122,6 +138,15 @@ class Config:
                 continue
             if name in PARAMS:
                 setattr(self, name, _coerce(name, value, PARAMS[name]["type"]))
+            elif isinstance(getattr(self, name, None), bool):
+                # non-registry bool knob: a CLI string must not be truthy
+                # by being non-empty ("false" -> False)
+                setattr(self, name, str(value).lower() in
+                        ("1", "true", "yes", "on")
+                        if isinstance(value, str) else bool(value))
+            elif isinstance(getattr(self, name, None), int):
+                # non-registry int knob: CLI strings reach the engine as ints
+                setattr(self, name, int(value))
             else:
                 setattr(self, name, value)
         self._check_ranges()

@@ -5,8 +5,9 @@ The JAX package keeps a GBDT's training state in the fast-path payload
 FeatureMeta and SplitPredicate tuples; this package keeps the same
 layouts.  These helpers take the numpy form of that state (np.asarray of
 each JAX array, or any tuple with the same field names) and return the
-tensors this package uses, and back.  They import nothing of the JAX
-package.  A GBDT's "weights" are its model text, which both packages read
+tensors this package uses, and back.  A quantized payload (integer-valued
+grad/hess columns) crosses like any other, with its [2] scales beside it
+(`qscale_from_numpy`).  They import nothing of the JAX package.  A GBDT's "weights" are its model text, which both packages read
 and write: `Booster(model_str=...)` loads a model written by either.
 """
 from __future__ import annotations
@@ -43,6 +44,16 @@ def payload_from_numpy(payload, device="cpu") -> torch.Tensor:
 def payload_to_numpy(payload: torch.Tensor) -> np.ndarray:
     """The payload back as a host f32 array."""
     return payload.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def qscale_from_numpy(qscale, device="cpu") -> torch.Tensor:
+    """The quantized mode's [2] f32 (gradient, hessian) scales, as
+    quantize_pair returns them, as a tensor for the grower."""
+    arr = np.array(qscale, dtype=np.float32).reshape(-1)
+    if arr.shape != (2,):
+        raise ValueError("qscale must hold 2 values, got shape %s"
+                         % (arr.shape,))
+    return torch.from_numpy(arr).to(device)
 
 
 def _fields(obj, name):

@@ -15,7 +15,13 @@
 // each way, against HBM at 3.35 TB/s.  There is no arithmetic to speak of.
 //
 // Design: a stable partition on a parallel machine needs a scan, so this
-// is four launches of simple code rather than one clever kernel:
+// is four launches of simple code rather than one clever kernel, exported
+// as two entry points: the stage (1-3), which only reads the payload, and
+// the commit (4).  The frontier-batched grower stages several candidate
+// splits and commits only those its replay accepts; partition_segment is
+// the stage and the commit, one after the other (the JAX package's
+// ops/segment.py partition_segment_stage / _commit, which are plain JAX
+// there, are these two here):
 //   1. part_count: one block per 1024-row tile counts its left rows;
 //   2. part_scan: one block turns those counts into exclusive offsets and
 //      num_left;
@@ -212,26 +218,41 @@ extern "C" {
 
 int segment_partition_tile_rows() { return kTile; }
 
-// scalars: int32[11] on the device (start, count, col, threshold,
-// default_left, is_cat, missing_type, num_bin, default_bin, offset,
-// identity); bitset: uint8[B], the bytes of a bool tensor; fvals: f32[2]
-// (left, right value).  tile_left / tile_off: int32[n_tiles] scratch with
-// n_tiles * 1024 >= the largest count; num_left: int32[1] output.  Returns
-// cudaGetLastError().
-int segment_partition_launch(float* payload, float* aux, int P,
-                             const int* scalars, const unsigned char* bitset,
-                             int B, const float* fvals, int value_col,
-                             int n_tiles,
-                             int* tile_left, int* tile_off, int* num_left,
-                             int copy_blocks, void* stream) {
+// The stage (kernels 1-3): the rows of [start, start + count), left rows
+// first, into aux over the same range; payload is only read.  scalars:
+// int32[11] on the device (start, count, col, threshold, default_left,
+// is_cat, missing_type, num_bin, default_bin, offset, identity); bitset:
+// uint8[B], the bytes of a bool tensor.  tile_left / tile_off: int32
+// [n_tiles] scratch with n_tiles * 1024 >= the largest count; num_left: one
+// int32 on the device (any slot of a caller's vector) that receives the
+// left count.  Returns cudaGetLastError().
+int segment_partition_stage_launch(const float* payload, float* aux, int P,
+                                   const int* scalars,
+                                   const unsigned char* bitset, int B,
+                                   int n_tiles, int* tile_left,
+                                   int* tile_off, int* num_left,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   part_count<<<n_tiles, kTile, 0, s>>>(payload, P, scalars, bitset, B,
                                        tile_left);
   part_scan<<<1, kTile, 0, s>>>(scalars, tile_left, tile_off, num_left);
   part_scatter<<<n_tiles, kTile, 0, s>>>(payload, aux, P, scalars, bitset, B,
                                          tile_off, num_left);
-  part_copyback<<<copy_blocks, kCopyThreads, 0, s>>>(
-      payload, aux, P, scalars, num_left, fvals, value_col);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The commit (kernel 4): aux -> payload over [start, start + count) with
+// fvals[0] (left) / fvals[1] (right) written into value_col.  seg: int32[2]
+// (start, count) on the device, or the stage's int32[11] scalars; num_left:
+// one int32 on the device.  count 0 is a no-op.  Returns
+// cudaGetLastError().
+int segment_partition_commit_launch(float* payload, const float* aux, int P,
+                                    const int* seg, const int* num_left,
+                                    const float* fvals, int value_col,
+                                    int copy_blocks, void* stream) {
+  part_copyback<<<copy_blocks, kCopyThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      payload, aux, P, seg, num_left, fvals, value_col);
   return static_cast<int>(cudaGetLastError());
 }
 

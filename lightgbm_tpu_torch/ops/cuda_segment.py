@@ -1,10 +1,19 @@
 """Wrappers of the hand-written Hopper kernels for the segment engine.
 
-`segment_histogram` (csrc/segment_hist.cu) replaces the TPU kernel
-lightgbm_tpu/ops/pallas_segment.py segment_histogram (_hist_kernel);
-`partition_segment` (csrc/segment_partition.cu) replaces
-partition_segment_acc (_acc_kernel).  Both keep the signatures and
-returns of ops/segment.py.
+csrc/segment_hist.cu:
+- `segment_histogram` replaces the TPU kernel
+  lightgbm_tpu/ops/pallas_segment.py segment_histogram (_hist_kernel, B1);
+- `segment_histogram_quant` replaces segment_histogram_quant
+  (_hist_quant_kernel, B4): the int32 histogram of the quantized mode;
+- `segment_histogram_batched` replaces segment_histogram_batched
+  (_hist_batched_kernel, B5), in f32 and, for the quantized frontier
+  grower, in int32.
+csrc/segment_partition.cu:
+- `partition_segment` replaces partition_segment_acc (_acc_kernel, B2);
+- `partition_segment_stage` and `partition_segment_commit` are its two
+  halves, which the frontier-batched grower runs apart (plain JAX in the
+  JAX package, ops/segment.py; the same hand-written kernels here).
+All keep the signatures and returns of ops/segment.py.
 
 For a tensor on the CPU a wrapper runs the plain PyTorch version in
 ops/segment.py; for a CUDA tensor it launches its kernel on the current
@@ -74,53 +83,121 @@ def _check_payload(payload: torch.Tensor, name: str) -> None:
                          "int32 element indexing" % (name, payload.numel()))
 
 
+def _check_aux(payload: torch.Tensor, aux: torch.Tensor, name: str) -> None:
+    if aux.shape != payload.shape or aux.dtype != payload.dtype \
+            or aux.device != payload.device or not aux.is_contiguous():
+        raise ValueError("%s: aux must match the payload" % name)
+
+
+def _hist_launch(name: str, payload: torch.Tensor, segv: torch.Tensor,
+                 quantized: bool, *, num_features: int, num_bins: int,
+                 grad_col: int, hess_col: int,
+                 cnt_col: int) -> torch.Tensor:
+    """Launch csrc/segment_hist.cu over K segments (segv: int32 [K, 2]
+    start/count on the device); returns the filled [K, F, B, 3] output,
+    int32 when quantized, else f32."""
+    _check_payload(payload, name)
+    F, B, P = num_features, num_bins, payload.shape[1]
+    K = segv.shape[0]
+    if not 0 < F <= P or B * 3 * 4 > HIST_SMEM_BYTES:
+        raise ValueError("%s: F=%d, B=%d outside the kernel's range"
+                         % (name, F, B))
+    if not 0 < K < 65536:
+        raise ValueError("%s: %d segments outside [1, 65535]" % (name, K))
+    for c in (grad_col, hess_col, cnt_col):
+        if not 0 <= c < P:
+            raise ValueError("%s: value column %d outside [0, %d)"
+                             % (name, c, P))
+    dev = payload.device
+    out = torch.zeros((K, F, B, 3), device=dev,
+                      dtype=torch.int32 if quantized else torch.float32)
+    Ft = min(F, HIST_SMEM_BYTES // (B * 3 * 4))
+    grid_x = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
+    lib, fn = _lib("segment_hist", "segment_hist_launch",
+                   [_P, _I, _P, _P] + [_I] * 9 + [_P])
+    rc = fn(payload.data_ptr(), P, segv.data_ptr(), out.data_ptr(), K, F, B,
+            Ft, grad_col, hess_col, cnt_col, grid_x, int(quantized),
+            _stream(dev))
+    _check(lib, "segment_hist", rc)
+    return out
+
+
 def segment_histogram(payload: torch.Tensor, start, count, *,
                       num_features: int, num_bins: int, grad_col: int,
                       hess_col: int, cnt_col: int) -> torch.Tensor:
-    """hist[F, B, 3] over payload rows [start, start+count)."""
+    """f32 hist[F, B, 3] over payload rows [start, start+count) (B1)."""
     kwargs = dict(num_features=num_features, num_bins=num_bins,
                   grad_col=grad_col, hess_col=hess_col, cnt_col=cnt_col)
     if payload.device.type == "cpu":
         return seg.segment_histogram(payload, start, count, **kwargs)
-    _check_payload(payload, "segment_histogram")
-    F, B, P = num_features, num_bins, payload.shape[1]
-    if not 0 < F <= P or B * 3 * 4 > HIST_SMEM_BYTES:
-        raise ValueError("segment_histogram: F=%d, B=%d outside the kernel's "
-                         "range" % (F, B))
-    dev = payload.device
-    segv = _int_vec((start, count), dev)
-    out = torch.zeros((F, B, 3), dtype=torch.float32, device=dev)
-    Ft = min(F, HIST_SMEM_BYTES // (B * 3 * 4))
-    grid_x = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
-    lib, fn = _lib("segment_hist", "segment_hist_launch",
-                   [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P])
-    rc = fn(payload.data_ptr(), P, segv.data_ptr(), out.data_ptr(), F, B, Ft,
-            grad_col, hess_col, cnt_col, grid_x, _stream(dev))
-    _check(lib, "segment_hist", rc)
+    segv = _int_vec((start, count), payload.device).reshape(1, 2)
+    out = _hist_launch("segment_histogram", payload, segv, False, **kwargs)
     segment_histogram.launches += 1
-    return out
+    return out[0]
 
 
 segment_histogram.launches = 0
 
 
-def partition_segment(payload: torch.Tensor, aux: torch.Tensor, start, count,
-                      pred: SplitPredicate, left_value, right_value,
-                      value_col: int):
-    """Stable in-place partition of rows [start, start+count); returns
-    (payload, aux, num_left) with num_left a 0-d int32 tensor."""
+def segment_histogram_quant(payload: torch.Tensor, start, count, *,
+                            num_features: int, num_bins: int, grad_col: int,
+                            hess_col: int, cnt_col: int) -> torch.Tensor:
+    """int32 hist[F, B, 3] over payload rows [start, start+count) whose
+    grad/hess columns hold integer-valued quantized gradients (B4); the
+    plain version is segment_histogram(..., quantized=True)."""
+    kwargs = dict(num_features=num_features, num_bins=num_bins,
+                  grad_col=grad_col, hess_col=hess_col, cnt_col=cnt_col)
     if payload.device.type == "cpu":
-        return seg.partition_segment(payload, aux, start, count, pred,
-                                     left_value, right_value, value_col)
-    _check_payload(payload, "partition_segment")
-    if aux.shape != payload.shape or aux.dtype != payload.dtype \
-            or aux.device != payload.device or not aux.is_contiguous():
-        raise ValueError("partition_segment: aux must match the payload")
+        return seg.segment_histogram(payload, start, count, quantized=True,
+                                     **kwargs)
+    segv = _int_vec((start, count), payload.device).reshape(1, 2)
+    out = _hist_launch("segment_histogram_quant", payload, segv, True,
+                       **kwargs)
+    segment_histogram_quant.launches += 1
+    return out[0]
+
+
+segment_histogram_quant.launches = 0
+
+
+def segment_histogram_batched(payload: torch.Tensor, starts, counts, *,
+                              num_features: int, num_bins: int,
+                              grad_col: int, hess_col: int, cnt_col: int,
+                              quantized: bool = False) -> torch.Tensor:
+    """hist[K, F, B, 3] over K disjoint segments (B5): starts / counts are
+    [K] integer tensors; slice k equals the single-segment histogram of
+    segment k, a zero count gives zeros.  int32 when quantized."""
+    kwargs = dict(num_features=num_features, num_bins=num_bins,
+                  grad_col=grad_col, hess_col=hess_col, cnt_col=cnt_col)
+    if payload.device.type == "cpu":
+        return seg.segment_histogram_batched(payload, starts, counts,
+                                             quantized=quantized, **kwargs)
+    _check_payload(payload, "segment_histogram_batched")
+    dev = payload.device
+    starts = torch.as_tensor(starts, device=dev).reshape(-1)
+    counts = torch.as_tensor(counts, device=dev).reshape(-1)
+    if starts.shape != counts.shape:
+        raise ValueError("segment_histogram_batched: starts and counts "
+                         "differ in shape")
+    if starts.shape[0] == 0:
+        return torch.zeros((0, num_features, num_bins, 3), device=dev,
+                           dtype=torch.int32 if quantized else torch.float32)
+    segv = torch.stack([starts.to(torch.int32), counts.to(torch.int32)],
+                       dim=1)
+    out = _hist_launch("segment_histogram_batched", payload, segv,
+                       quantized, **kwargs)
+    segment_histogram_batched.launches += 1
+    return out
+
+
+segment_histogram_batched.launches = 0
+
+
+def _stage(payload, aux, start, count, pred: SplitPredicate, num_left,
+           slot: int) -> None:
+    """Launch the stage kernels, writing num_left into num_left[slot]."""
     dev = payload.device
     N, P = payload.shape
-    if not 0 <= value_col < P:
-        raise ValueError("partition_segment: value_col %d outside [0, %d)"
-                         % (value_col, P))
     scalars = _int_vec((start, count, pred.col, pred.threshold,
                         pred.default_left, pred.is_cat, pred.missing_type,
                         pred.num_bin, pred.default_bin, pred.offset,
@@ -128,24 +205,114 @@ def partition_segment(payload: torch.Tensor, aux: torch.Tensor, start, count,
     # a bool bitset is passed as its bytes, with no conversion launch
     bitset = torch.as_tensor(pred.bitset, device=dev).to(torch.bool) \
         .contiguous().view(torch.uint8)
-    fvals = torch.stack([torch.as_tensor(v, device=dev).reshape(())
-                         .to(torch.float32)
-                         for v in (left_value, right_value)])
-    lib, fn = _lib("segment_partition", "segment_partition_launch",
-                   [_P, _P, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _I, _P])
+    lib, fn = _lib("segment_partition", "segment_partition_stage_launch",
+                   [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P])
     n_tiles = -(-N // lib.segment_partition_tile_rows())
     tile_left = torch.empty(n_tiles, dtype=torch.int32, device=dev)
     tile_off = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-    num_left = torch.empty(1, dtype=torch.int32, device=dev)
+    rc = fn(payload.data_ptr(), aux.data_ptr(), P, scalars.data_ptr(),
+            bitset.data_ptr(), bitset.shape[0], n_tiles, tile_left.data_ptr(),
+            tile_off.data_ptr(), num_left.data_ptr() + 4 * slot, _stream(dev))
+    _check(lib, "segment_partition", rc)
+
+
+def _commit(payload, aux, start, count, num_left, left_value, right_value,
+            value_col: int) -> None:
+    """Launch the commit kernel; num_left is a 0-d int32 device tensor."""
+    dev = payload.device
+    P = payload.shape[1]
+    if not 0 <= value_col < P:
+        raise ValueError("partition commit: value_col %d outside [0, %d)"
+                         % (value_col, P))
+    segv = _int_vec((start, count), dev)
+    fvals = torch.stack([torch.as_tensor(v, device=dev).reshape(())
+                         .to(torch.float32)
+                         for v in (left_value, right_value)])
+    lib, fn = _lib("segment_partition", "segment_partition_commit_launch",
+                   [_P, _P, _I, _P, _P, _P, _I, _I, _P])
     copy_blocks = 8 * torch.cuda.get_device_properties(dev) \
         .multi_processor_count
-    rc = fn(payload.data_ptr(), aux.data_ptr(), P, scalars.data_ptr(),
-            bitset.data_ptr(), bitset.shape[0], fvals.data_ptr(), value_col,
-            n_tiles, tile_left.data_ptr(), tile_off.data_ptr(),
-            num_left.data_ptr(), copy_blocks, _stream(dev))
+    rc = fn(payload.data_ptr(), aux.data_ptr(), P, segv.data_ptr(),
+            num_left.data_ptr(), fvals.data_ptr(), value_col, copy_blocks,
+            _stream(dev))
     _check(lib, "segment_partition", rc)
+
+
+def partition_segment(payload: torch.Tensor, aux: torch.Tensor, start, count,
+                      pred: SplitPredicate, left_value, right_value,
+                      value_col: int):
+    """Stable in-place partition of rows [start, start+count); returns
+    (payload, aux, num_left) with num_left a 0-d int32 tensor (B2: the
+    stage and the commit kernels, one after the other)."""
+    if payload.device.type == "cpu":
+        return seg.partition_segment(payload, aux, start, count, pred,
+                                     left_value, right_value, value_col)
+    _check_payload(payload, "partition_segment")
+    _check_aux(payload, aux, "partition_segment")
+    num_left = torch.empty(1, dtype=torch.int32, device=payload.device)
+    _stage(payload, aux, start, count, pred, num_left, 0)
+    _commit(payload, aux, start, count, num_left[0], left_value, right_value,
+            value_col)
     partition_segment.launches += 1
     return payload, aux, num_left.reshape(())
 
 
 partition_segment.launches = 0
+
+
+def partition_segment_stage(payload: torch.Tensor, aux: torch.Tensor, start,
+                            count, pred: SplitPredicate, num_left=None,
+                            slot: int = 0):
+    """The rows of [start, start+count), left rows first, into aux over the
+    same range; payload is only read.  Returns (aux, num_left) with
+    num_left a 0-d int32 tensor: slot `slot` of the caller's int32 vector
+    `num_left` when one is given (the frontier grower stages K candidates
+    into one [K] vector), else a new one."""
+    if payload.device.type == "cpu":
+        aux, nl = seg.partition_segment_stage(payload, aux, start, count,
+                                              pred)
+        if num_left is None:
+            return aux, nl
+        num_left[slot] = nl
+        return aux, num_left[slot]
+    _check_payload(payload, "partition_segment_stage")
+    _check_aux(payload, aux, "partition_segment_stage")
+    if num_left is None:
+        num_left, slot = torch.empty(1, dtype=torch.int32,
+                                     device=payload.device), 0
+    elif num_left.dtype != torch.int32 or num_left.dim() != 1 \
+            or not num_left.is_contiguous() \
+            or num_left.device != payload.device \
+            or not 0 <= slot < num_left.shape[0]:
+        raise ValueError("partition_segment_stage: num_left must be a "
+                         "contiguous int32 vector on the payload's device "
+                         "holding slot %d" % slot)
+    _stage(payload, aux, start, count, pred, num_left, slot)
+    partition_segment_stage.launches += 1
+    return aux, num_left[slot]
+
+
+partition_segment_stage.launches = 0
+
+
+def partition_segment_commit(payload: torch.Tensor, aux: torch.Tensor, start,
+                             count, num_left, left_value, right_value,
+                             value_col: int) -> torch.Tensor:
+    """Copy the staged rows aux[start, start+count) back into payload with
+    the children's values in `value_col`; count 0 is a no-op.  start,
+    count and num_left are read from device memory.  Returns payload."""
+    if payload.device.type == "cpu":
+        return seg.partition_segment_commit(payload, aux, start, count,
+                                            num_left, left_value,
+                                            right_value, value_col)
+    _check_payload(payload, "partition_segment_commit")
+    _check_aux(payload, aux, "partition_segment_commit")
+    num_left = torch.as_tensor(num_left, device=payload.device) \
+        .reshape(()).to(torch.int32)
+    _commit(payload, aux, start, count, num_left, left_value, right_value,
+            value_col)
+    partition_segment_commit.launches += 1
+    return payload
+
+
+partition_segment_commit.launches = 0

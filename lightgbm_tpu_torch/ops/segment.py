@@ -9,7 +9,10 @@ leaf's histogram only touch the rows of one contiguous segment
 [start, start + count).
 
 These functions are the reference the hand-written kernels
-(ops/cuda_segment.py) are held against, and what a CPU tensor runs.
+(ops/cuda_segment.py) are held against, and what a CPU tensor runs:
+the f32 and int32 (quantized) histograms, the batched histogram of the
+frontier grower, and the stable partition, whole or as its stage and
+commit halves.
 They index with host integers, so on a card they would sync per call;
 the grower reaches them through ops/cuda_segment.py, which launches the
 kernels for CUDA tensors.
@@ -86,6 +89,42 @@ def go_left_chunk(chunk: torch.Tensor, pred: SplitPredicate) -> torch.Tensor:
     return inside & bitset[fbin.clamp(0, bitset.shape[0] - 1).long()]
 
 
+def partition_segment_stage(payload: torch.Tensor, aux: torch.Tensor, start,
+                            count, pred: SplitPredicate):
+    """The first half of the stable partition: the rows of
+    [start, start+count), left rows first, into aux over the same range.
+    payload is only read, so the frontier-batched grower can stage a
+    candidate split and copy it back (`partition_segment_commit`) only if
+    it commits.  Unlike the JAX version, nothing is written past the
+    segment, so segments may be staged in any order.  Returns
+    (aux, num_left), num_left a 0-d int32 tensor."""
+    s, c = int(start), int(count)
+    rows = payload[s:s + c]
+    gl = go_left_chunk(rows, pred)
+    order = torch.cat([torch.nonzero(gl)[:, 0], torch.nonzero(~gl)[:, 0]])
+    aux[s:s + c] = rows[order]
+    return aux, torch.tensor(int(gl.sum()), dtype=torch.int32,
+                             device=payload.device)
+
+
+def partition_segment_commit(payload: torch.Tensor, aux: torch.Tensor, start,
+                             count, num_left, left_value, right_value,
+                             value_col: int) -> torch.Tensor:
+    """The second half: copy aux[start, start+count) back into payload,
+    writing the children's creation values (left_value for the first
+    num_left rows, right_value after them) into `value_col`.  count = 0 is
+    a no-op (a staged candidate that did not commit).  Returns payload,
+    updated in place."""
+    s, c = int(start), int(count)
+    nl = min(int(num_left), c)
+    payload[s:s + c] = aux[s:s + c]
+    payload[s:s + nl, value_col] = torch.as_tensor(left_value,
+                                                   dtype=payload.dtype)
+    payload[s + nl:s + c, value_col] = torch.as_tensor(right_value,
+                                                       dtype=payload.dtype)
+    return payload
+
+
 def partition_segment(payload: torch.Tensor, aux: torch.Tensor, start, count,
                       pred: SplitPredicate, left_value, right_value,
                       value_col: int):
@@ -93,30 +132,28 @@ def partition_segment(payload: torch.Tensor, aux: torch.Tensor, start, count,
     left rows first.  aux[start, start+count) receives the partitioned
     rows, payload gets them back with the children's leaf outputs written
     into `value_col`.  Returns (payload, aux, num_left), num_left a 0-d
-    int32 tensor; payload and aux are updated in place."""
-    s, c = int(start), int(count)
-    rows = payload[s:s + c]
-    gl = go_left_chunk(rows, pred)
-    order = torch.cat([torch.nonzero(gl)[:, 0], torch.nonzero(~gl)[:, 0]])
-    aux[s:s + c] = rows[order]
-    nl = int(gl.sum())
-    payload[s:s + c] = aux[s:s + c]
-    payload[s:s + nl, value_col] = torch.as_tensor(left_value,
-                                                   dtype=payload.dtype)
-    payload[s + nl:s + c, value_col] = torch.as_tensor(right_value,
-                                                       dtype=payload.dtype)
-    return payload, aux, torch.tensor(nl, dtype=torch.int32,
-                                      device=payload.device)
+    int32 tensor; payload and aux are updated in place.  The stage and the
+    commit above, one after the other."""
+    aux, num_left = partition_segment_stage(payload, aux, start, count, pred)
+    payload = partition_segment_commit(payload, aux, start, count, num_left,
+                                       left_value, right_value, value_col)
+    return payload, aux, num_left
 
 
 def segment_histogram(payload: torch.Tensor, start, count, *,
                       num_features: int, num_bins: int, grad_col: int,
-                      hess_col: int, cnt_col: int) -> torch.Tensor:
+                      hess_col: int, cnt_col: int,
+                      quantized: bool = False) -> torch.Tensor:
     """hist[F, B, 3] over payload rows [start, start+count).
 
     Each (feature, bin, channel) cell is summed in row order — on the CPU
     a 1-D index_add_ runs serially — which is the order of the JAX CPU
-    engine's scatter-add, so the two agree bit for bit on equal inputs."""
+    engine's scatter-add, so the two agree bit for bit on equal inputs.
+
+    quantized=True (gradient_quantization, ops/quantize.py): the grad/hess
+    columns hold integer-valued quantized gradients, and the histogram is
+    int32, each value converted exactly; integer sums are order-free, so
+    every engine agrees bit for bit."""
     F, B = num_features, num_bins
     s, c = int(start), int(count)
     rows = payload[s:s + c]
@@ -128,6 +165,30 @@ def segment_histogram(payload: torch.Tensor, start, count, *,
     idx = (cell[:, :, None] * 3
            + torch.arange(3, dtype=torch.int64, device=dev)).reshape(-1)
     upd = vals[:, None, :].expand(c, F, 3).reshape(-1)
-    hist = torch.zeros(F * B * 3, dtype=torch.float32, device=dev)
-    hist.index_add_(0, idx, upd)
+    dtype = torch.int32 if quantized else torch.float32
+    hist = torch.zeros(F * B * 3, dtype=dtype, device=dev)
+    hist.index_add_(0, idx, upd.to(dtype))
     return hist.reshape(F, B, 3)
+
+
+def segment_histogram_batched(payload: torch.Tensor, starts, counts, *,
+                              num_features: int, num_bins: int,
+                              grad_col: int, hess_col: int, cnt_col: int,
+                              quantized: bool = False) -> torch.Tensor:
+    """hist[K, F, B, 3] over K disjoint segments: slice k is
+    `segment_histogram(payload, starts[k], counts[k])`, bit for bit; a
+    zero count gives zeros (an inactive slot of the frontier window)."""
+    kw = dict(num_features=num_features, num_bins=num_bins,
+              grad_col=grad_col, hess_col=hess_col, cnt_col=cnt_col,
+              quantized=quantized)
+    starts = torch.as_tensor(starts).reshape(-1).tolist()
+    counts = torch.as_tensor(counts).reshape(-1).tolist()
+    if len(starts) != len(counts):
+        raise ValueError("starts and counts differ in length: %d vs %d"
+                         % (len(starts), len(counts)))
+    if not starts:
+        return torch.zeros((0, num_features, num_bins, 3),
+                           dtype=torch.int32 if quantized else torch.float32,
+                           device=payload.device)
+    return torch.stack([segment_histogram(payload, s, c, **kw)
+                        for s, c in zip(starts, counts)])

@@ -9,7 +9,13 @@ search (`_categorical_best`) is not ported yet: asking for it raises.
 One routine serves every caller: `find_best_split_batched` searches a
 leading [Q] axis of histograms, and `find_best_split` is its Q = 1 case,
 so the root and the children of every split run the same arithmetic
-(the JAX grower keeps the same rule, grower2.py:326-332).
+(the JAX grower keeps the same rule, grower2.py:326-332).  Every
+operation in it is elementwise, a serial scan along the bin axis of one
+histogram, or an argmax (exact, first maximum), so a histogram's result
+does not depend on Q: the frontier-batched grower (Q = 2K) picks the
+same splits as the one-leaf loop (Q = 2), on the card too.
+`dequantize_hist` gives the f32 view of the quantized mode's int32
+histograms.
 """
 from __future__ import annotations
 
@@ -70,14 +76,14 @@ def _leaf_split_gain(sum_g, sum_h, l1, l2, max_delta_step):
     return -(2.0 * sg_l1 * out + (sum_h + l2) * out * out)
 
 
-def _numerical_gain_tensor(g, h, c, sum_g, total_h, num_data, feature_mask, *,
+def _numerical_gain_tensor(hist, sum_g, total_h, num_data, feature_mask, *,
                            meta, l1, l2, max_delta_step, min_data_in_leaf,
                            min_sum_hessian_in_leaf, min_gain_to_split):
     """Shifted and penalized gains [Q, F, 2, B] (direction -1 first) plus
-    the stacked left-side aggregates.  g/h/c are [Q, F, B]; sum_g,
+    the stacked left-side aggregates.  hist is [Q, F, B, 3]; sum_g,
     total_h and num_data are [Q]."""
-    B = g.shape[2]
-    dev = g.device
+    B = hist.shape[2]
+    dev = hist.device
     bins = torch.arange(B, dtype=torch.int32, device=dev)[None, :]   # [1, B]
     nb = meta.num_bin[:, None]                                        # [F, 1]
     valid_bin = bins < nb
@@ -92,10 +98,15 @@ def _numerical_gain_tensor(g, h, c, sum_g, total_h, num_data, feature_mask, *,
         (is_zero & (bins == meta.default_bin[:, None]))
     excl = excl & two_scan
     drop = excl | ~valid_bin
-    zero = torch.zeros((), dtype=g.dtype, device=dev)
-    pg = torch.cumsum(torch.where(drop, zero, g), dim=2)
-    ph = torch.cumsum(torch.where(drop, zero, h), dim=2)
-    pc = torch.cumsum(torch.where(drop, zero, c), dim=2)
+    zero = torch.zeros((), dtype=hist.dtype, device=dev)
+    # ONE scan along the bin axis of [Q, F, B, 3], which is not the
+    # innermost axis: each (leaf, feature, channel) column is then summed
+    # in bin order, serially (one thread per column on a card, a serial
+    # loop on the CPU), so a histogram's prefix sums are the same bits at
+    # any Q.  A scan along the innermost axis on a card picks its threads
+    # per row from the number of rows, and its sums then differ with Q.
+    p = torch.cumsum(torch.where(drop[None, :, :, None], zero, hist), dim=2)
+    pg, ph, pc = p[..., 0], p[..., 1], p[..., 2]
 
     eps = K_EPSILON
     sg = sum_g[:, None, None]
@@ -145,6 +156,28 @@ def _numerical_gain_tensor(g, h, c, sum_g, total_h, num_data, feature_mask, *,
     return gains, (lgs, lhs, lcs)
 
 
+def dequantize_hist(hist: torch.Tensor, gscale, hscale) -> torch.Tensor:
+    """f32 view of an integer quantized-gradient histogram
+    (lightgbm_tpu/ops/split.py dequantize_hist, bit for bit).
+
+    Histograms of the quantized mode accumulate int32 (exact and
+    order-free, so subtraction siblings are exact); the f32 view is taken
+    only here, just before the split search, so the gain arithmetic is
+    the f32 code unchanged.  `hist` is [..., 3] with channels (sum of
+    quantized grad, sum of quantized hess, count); gscale / hscale are the
+    scales of ops.quantize.quantize_pair (counts are never scaled)."""
+    dev = hist.device
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(())
+
+    # a filled device scalar: a host-to-device copy would wait for the
+    # stream
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    scale = torch.stack([f32(gscale), f32(hscale), one])
+    return hist.to(torch.float32) * scale
+
+
 def find_best_split_batched(hist, sum_g, sum_h, num_data, feature_mask, *,
                             meta: FeatureMeta, l1, l2, max_delta_step,
                             min_data_in_leaf, min_sum_hessian_in_leaf,
@@ -159,11 +192,10 @@ def find_best_split_batched(hist, sum_g, sum_h, num_data, feature_mask, *,
         raise NotImplementedError(
             "categorical split search is not ported yet")
     Q, F, B, _ = hist.shape
-    g, h, c = hist[..., 0], hist[..., 1], hist[..., 2]
     eps = K_EPSILON
     total_h = sum_h + 2 * eps
     gains, (lgs, lhs, lcs) = _numerical_gain_tensor(
-        g, h, c, sum_g, total_h, num_data, feature_mask, meta=meta,
+        hist, sum_g, total_h, num_data, feature_mask, meta=meta,
         l1=l1, l2=l2, max_delta_step=max_delta_step,
         min_data_in_leaf=min_data_in_leaf,
         min_sum_hessian_in_leaf=min_sum_hessian_in_leaf,

@@ -57,33 +57,43 @@ CASES = [
 ]
 
 
-@pytest.mark.parametrize("case", CASES)
-def test_tree_matches_jax_grower(case):
-    X, y = _problem(case["seed"], case["nan_frac"])
-    jcfg = JConfig(dict(max_bin=case["max_bin"], verbose=-1))
-    ds = JBinnedDataset.from_matrix(X, jcfg)
-    pay, cols = _payload(ds, y, case["seed"])
-    grower_kw = dict(
+def _grower_kw(case):
+    return dict(
         num_leaves=case["num_leaves"], max_depth=case["max_depth"],
         lambda_l1=0.0, lambda_l2=case.get("lambda_l2", 0.0),
         max_delta_step=0.0, min_data_in_leaf=case.get("min_data_in_leaf", 20),
         min_sum_hessian_in_leaf=1e-3, min_gain_to_split=0.0)
+
+
+def _grow_both(case, pay, cols, ds, jextra=None, textra=None, qscale=None):
+    """One tree from the same payload through the JAX grower and the
+    port's; returns (jtree, jpay, ttree, tpay)."""
     jmeta = _feature_meta_device(ds)
+    jextra, textra = dict(jextra or {}), dict(textra or {})
+    jquant = {k: jextra.pop(k) for k in ("quantized", "qmax") if k in jextra}
     jgrow = jgrower2.make_partitioned_grower(
-        jmeta, JGrowerConfig(**grower_kw), ds.max_num_bin,
-        jgrower2.PayloadCols(**cols), F)
+        jmeta, JGrowerConfig(**_grower_kw(case), **jextra), ds.max_num_bin,
+        jgrower2.PayloadCols(**cols), F, **jquant)
     fmask = np.ones(F, bool)
-    jtree, jpay, _ = jgrow(jnp.asarray(pay), jnp.zeros_like(jnp.asarray(pay)),
-                           jnp.asarray(fmask))
+    jargs = (jnp.asarray(pay), jnp.zeros_like(jnp.asarray(pay)),
+             jnp.asarray(fmask))
+    if qscale is not None:
+        jargs += (jnp.asarray(qscale),)
+    jtree, jpay, _ = jgrow(*jargs)
 
     tgrow = tgrower2.make_partitioned_grower(
         convert.feature_meta_from_numpy(jmeta),
-        tgrower2.GrowerConfig(**grower_kw), ds.max_num_bin,
+        tgrower2.GrowerConfig(**_grower_kw(case), **textra), ds.max_num_bin,
         tgrower2.PayloadCols(**cols), F)
     tpay = convert.payload_from_numpy(pay)
-    ttree, tpay, _ = tgrow(tpay, torch.zeros_like(tpay),
-                           torch.from_numpy(fmask))
+    targs = (tpay, torch.zeros_like(tpay), torch.from_numpy(fmask))
+    if qscale is not None:
+        targs += (convert.qscale_from_numpy(qscale),)
+    ttree, tpay, _ = tgrow(*targs)
+    return jtree, np.asarray(jpay), ttree, convert.payload_to_numpy(tpay)
 
+
+def _assert_trees_match(jtree, jpay, ttree, tpay, cols):
     nl = int(jtree["num_leaves"])
     assert ttree["num_leaves"] == nl > 2
     ni = nl - 1
@@ -114,12 +124,115 @@ def test_tree_matches_jax_grower(case):
         close(ttree[k][:ni].numpy(), np.asarray(jtree[k])[:ni], k)
     # the rows end in the same order; only the leaf-value column carries
     # the f32 arithmetic of the two searches
-    got, ref = convert.payload_to_numpy(tpay), np.asarray(jpay)
     v = cols["value"]
-    keep = np.arange(pay.shape[1]) != v
-    np.testing.assert_array_equal(got[:, keep], ref[:, keep])
-    close(got[:, v], ref[:, v], "value column")
+    keep = np.arange(jpay.shape[1]) != v
+    np.testing.assert_array_equal(tpay[:, keep], jpay[:, keep])
+    close(tpay[:, v], jpay[:, v], "value column")
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_tree_matches_jax_grower(case):
+    X, y = _problem(case["seed"], case["nan_frac"])
+    jcfg = JConfig(dict(max_bin=case["max_bin"], verbose=-1))
+    ds = JBinnedDataset.from_matrix(X, jcfg)
+    pay, cols = _payload(ds, y, case["seed"])
+    jtree, jpay, ttree, tpay = _grow_both(case, pay, cols, ds)
+    _assert_trees_match(jtree, jpay, ttree, tpay, cols)
+    nl = int(jtree["num_leaves"])
     assert ttree["host_syncs"] == min(nl, case["num_leaves"] - 1)
+    assert ttree["split_rounds"] == nl - 1
+
+
+def _quantize_columns(pay, cols, qmax, seed):
+    """Integer-valued grad/hess columns on the grid of half-range qmax
+    (numpy stochastic rounding) and their [2] f32 scales: the state the
+    quantized fill leaves, made once and handed to both packages."""
+    rng = np.random.default_rng(seed)
+    pay = pay.copy()
+    g, h = pay[:, cols["grad"]], pay[:, cols["hess"]]
+    scale = np.array([np.abs(g).max() / qmax, h.max() / qmax], np.float32)
+    for col, sc, lo in ((cols["grad"], scale[0], -qmax),
+                        (cols["hess"], scale[1], 0)):
+        x = pay[:, col] / sc
+        pay[:, col] = np.clip(np.floor(x + rng.random(len(x))), lo, qmax)
+    return pay, scale
+
+
+@pytest.mark.parametrize("qmax", [127, 2114])
+@pytest.mark.parametrize("case", CASES[:3])
+def test_quantized_tree_matches_jax_grower(case, qmax):
+    X, y = _problem(case["seed"], case["nan_frac"])
+    ds = JBinnedDataset.from_matrix(X, JConfig(dict(max_bin=case["max_bin"],
+                                                    verbose=-1)))
+    pay, cols = _payload(ds, y, case["seed"])
+    pay, qscale = _quantize_columns(pay, cols, qmax, case["seed"])
+    quant = dict(quantized=True, qmax=qmax)
+    jtree, jpay, ttree, tpay = _grow_both(case, pay, cols, ds, jextra=quant,
+                                          textra=quant, qscale=qscale)
+    _assert_trees_match(jtree, jpay, ttree, tpay, cols)
+
+
+def _grow_port(case, pay, cols, ds, qscale=None, **extra):
+    grow = tgrower2.make_partitioned_grower(
+        convert.feature_meta_from_numpy(_feature_meta_device(ds)),
+        tgrower2.GrowerConfig(**_grower_kw(case), **extra), ds.max_num_bin,
+        tgrower2.PayloadCols(**cols), F)
+    tpay = convert.payload_from_numpy(pay)
+    args = (tpay, torch.zeros_like(tpay), torch.ones(F, dtype=torch.bool))
+    if qscale is not None:
+        args += (convert.qscale_from_numpy(qscale),)
+    tree, tpay, _ = grow(*args)
+    return tree, convert.payload_to_numpy(tpay)
+
+
+FRONTIER_CASES = [(dict(CASES[0]), 4), (dict(CASES[1]), 4), (dict(CASES[1]), 8),
+                  (dict(CASES[2]), 8),
+                  (dict(CASES[0], num_leaves=15, nan_frac=0.1), 14)]
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("case,fb", FRONTIER_CASES)
+def test_frontier_grower_bit_identical_to_one_leaf_loop(case, fb, quantized):
+    """Every output array and the payload bytes of the frontier-batched
+    grower equal the one-leaf loop's (tests/test_frontier_batch.py:87-117
+    for the port); it takes fewer rounds and syncs."""
+    X, y = _problem(case["seed"], case["nan_frac"])
+    ds = JBinnedDataset.from_matrix(X, JConfig(dict(max_bin=case["max_bin"],
+                                                    verbose=-1)))
+    pay, cols = _payload(ds, y, case["seed"])
+    qscale, quant = None, {}
+    if quantized:
+        pay, qscale = _quantize_columns(pay, cols, 127, case["seed"])
+        quant = dict(quantized=True, qmax=127)
+    t1, p1 = _grow_port(case, pay, cols, ds, qscale, **quant)
+    tk, pk = _grow_port(case, pay, cols, ds, qscale, frontier_batch=fb,
+                        **quant)
+    assert t1["num_leaves"] > 4
+    for k, v in t1.items():
+        if k in ("split_rounds", "host_syncs"):
+            continue
+        got = tk[k].numpy() if isinstance(tk[k], torch.Tensor) else tk[k]
+        ref = v.numpy() if isinstance(v, torch.Tensor) else v
+        np.testing.assert_array_equal(got, ref, err_msg=k)
+    # row order feeds every later tree's sums: an uncommitted staged
+    # candidate must leave its rows as they were
+    assert pk.tobytes() == p1.tobytes()
+    assert tk["split_rounds"] < t1["split_rounds"] == t1["num_leaves"] - 1
+    assert tk["host_syncs"] <= tk["split_rounds"] + 1
+    assert tk["host_syncs"] < t1["host_syncs"]
+
+
+def test_frontier_tree_matches_jax_frontier_grower():
+    case = CASES[1]
+    X, y = _problem(case["seed"], case["nan_frac"])
+    ds = JBinnedDataset.from_matrix(X, JConfig(dict(max_bin=case["max_bin"],
+                                                    verbose=-1)))
+    pay, cols = _payload(ds, y, case["seed"])
+    fb = dict(frontier_batch=4)
+    jtree, jpay, ttree, tpay = _grow_both(case, pay, cols, ds, jextra=fb,
+                                          textra=fb)
+    _assert_trees_match(jtree, jpay, ttree, tpay, cols)
+    assert ttree["split_rounds"] == int(jtree["split_rounds"])
 
 
 def test_stump_when_nothing_splits():

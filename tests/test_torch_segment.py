@@ -220,3 +220,168 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         cuda_segment.partition_segment(pay, pay, 0, 10, pred, 0.0, 1.0,
                                        VALUE_COL)
+
+
+# -- quantized, batched, stage/commit ------------------------------------
+
+def _qpayload(n_pad, qmax, seed=0):
+    """A payload whose grad/hess columns hold quantized (integer-valued)
+    gradients on the grid of half-range qmax, with a 0/1 count mask."""
+    pay = _payload(n_pad, seed)
+    rng = np.random.default_rng(seed + 50)
+    mask = (rng.random(n_pad) < 0.9).astype(np.float32)
+    pay[:n_pad, F] = rng.integers(-qmax, qmax + 1, size=n_pad) * mask
+    pay[:n_pad, F + 1] = rng.integers(0, qmax + 1, size=n_pad) * mask
+    pay[:n_pad, F + 2] = mask
+    return pay
+
+
+@pytest.mark.parametrize("qmax", [127, 2114])
+@pytest.mark.parametrize("start,count", HIST_SEGMENTS)
+def test_quant_histogram_matches_portable(start, count, qmax):
+    pay = _qpayload(1024, qmax, seed=start)
+    ref = np.asarray(jseg.segment_histogram(
+        jnp.asarray(pay), jnp.int32(start), jnp.int32(count),
+        num_features=F, num_bins=B, quantized=True, **COLS))
+    got = cuda_segment.segment_histogram_quant(
+        convert.payload_from_numpy(pay), torch.tensor(start),
+        torch.tensor(count), num_features=F, num_bins=B, **COLS)
+    assert got.dtype == torch.int32 and ref.dtype == np.int32
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("start,count", [(0, 1000), (100, 37), (0, 0),
+                                         (9, 1015)])
+def test_quant_histogram_matches_pallas_interpret(start, count):
+    pay = _qpayload(1024, 127, seed=7)
+    ref = np.asarray(pseg.segment_histogram_quant(
+        jnp.asarray(pay), jnp.int32(start), jnp.int32(count),
+        num_features=F, num_bins=B, interpret=True, **COLS))
+    got = tseg.segment_histogram(convert.payload_from_numpy(pay), start,
+                                 count, num_features=F, num_bins=B,
+                                 quantized=True, **COLS)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+# K disjoint segments of uneven sizes, one empty and one of a single row
+BATCH_STARTS = np.array([0, 300, 301, 520, 900, 640, 1000], np.int32)
+BATCH_COUNTS = np.array([300, 1, 0, 120, 124, 260, 23], np.int32)
+
+
+def test_batched_histogram_matches_portable_and_pallas():
+    pay = _payload(1024, seed=9)
+    args = (jnp.asarray(pay), jnp.asarray(BATCH_STARTS),
+            jnp.asarray(BATCH_COUNTS))
+    ref = np.asarray(jseg.segment_histogram_batched(
+        *args, num_features=F, num_bins=B, **COLS))
+    ref_pl = np.asarray(pseg.segment_histogram_batched(
+        *args, num_features=F, num_bins=B, interpret=True, **COLS))
+    got = cuda_segment.segment_histogram_batched(
+        convert.payload_from_numpy(pay), torch.from_numpy(BATCH_STARTS),
+        torch.from_numpy(BATCH_COUNTS), num_features=F, num_bins=B,
+        **COLS).numpy()
+    assert got.shape == (len(BATCH_STARTS), F, B, 3)
+    for r in (ref, ref_pl):
+        np.testing.assert_array_equal(got[..., 2], r[..., 2])
+        np.testing.assert_allclose(got, r, rtol=1e-5, atol=1e-5)
+    assert not got[2].any()
+    # each slice is the single-segment histogram, bit for bit
+    for k, (s, c) in enumerate(zip(BATCH_STARTS, BATCH_COUNTS)):
+        one = tseg.segment_histogram(convert.payload_from_numpy(pay), s, c,
+                                     num_features=F, num_bins=B, **COLS)
+        np.testing.assert_array_equal(got[k], one.numpy())
+
+
+def test_batched_quant_histogram_matches_portable():
+    pay = _qpayload(1024, 2114, seed=10)
+    ref = np.asarray(jseg.segment_histogram_batched(
+        jnp.asarray(pay), jnp.asarray(BATCH_STARTS),
+        jnp.asarray(BATCH_COUNTS), num_features=F, num_bins=B,
+        quantized=True, **COLS))
+    got = cuda_segment.segment_histogram_batched(
+        convert.payload_from_numpy(pay), torch.from_numpy(BATCH_STARTS),
+        torch.from_numpy(BATCH_COUNTS), num_features=F, num_bins=B,
+        quantized=True, **COLS)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("start,count,predkw", PARTITION_CASES)
+def test_stage_commit_match_jax(start, count, predkw):
+    pay = _payload(1024, seed=start + count + 1)
+    fields = _pred_fields(**predkw)
+    jaux, jnl = jseg.partition_segment_stage(
+        jnp.asarray(pay), jnp.zeros_like(jnp.asarray(pay)), jnp.int32(start),
+        jnp.int32(count), _jax_pred(fields))
+    jpay = jseg.partition_segment_commit(
+        jnp.asarray(pay), jaux, jnp.int32(start), jnp.int32(count), jnl,
+        jnp.float32(-0.25), jnp.float32(0.75), VALUE_COL)
+    tpay = convert.payload_from_numpy(pay)
+    nl_vec = torch.full((3,), -1, dtype=torch.int32)
+    taux, tnl = cuda_segment.partition_segment_stage(
+        tpay, torch.zeros(pay.shape), start, count,
+        convert.split_predicate_from_numpy(fields), nl_vec, 1)
+    # the stage only reads the payload, and fills only its own slot
+    assert tpay.numpy().tobytes() == pay.tobytes()
+    assert int(tnl) == int(jnl) and nl_vec.tolist() == [-1, int(jnl), -1]
+    # aux is compared inside the segment: the JAX stage overruns past it
+    np.testing.assert_array_equal(taux.numpy()[start:start + count],
+                                  np.asarray(jaux)[start:start + count])
+    tpay = cuda_segment.partition_segment_commit(
+        tpay, taux, start, count, tnl, torch.tensor(-0.25),
+        torch.tensor(0.75), VALUE_COL)
+    assert tpay.numpy().tobytes() == np.asarray(jpay).tobytes()
+    # and stage + commit is the whole partition
+    whole, _, nl = tseg.partition_segment(
+        convert.payload_from_numpy(pay), torch.zeros(pay.shape), start,
+        count, convert.split_predicate_from_numpy(fields),
+        torch.tensor(-0.25), torch.tensor(0.75), VALUE_COL)
+    assert int(nl) == int(jnl)
+    assert torch.equal(whole, tpay)
+
+
+def test_commit_count_zero_is_noop():
+    pay = _payload(1024, seed=12)
+    aux = torch.from_numpy(_payload(1024, seed=13))
+    got = cuda_segment.partition_segment_commit(
+        convert.payload_from_numpy(pay), aux, 100, 0, 37, 1.0, 2.0,
+        VALUE_COL)
+    assert got.numpy().tobytes() == pay.tobytes()
+    ref = jseg.partition_segment_commit(
+        jnp.asarray(pay), jnp.asarray(aux.numpy()), jnp.int32(100),
+        jnp.int32(0), jnp.int32(37), jnp.float32(1.0), jnp.float32(2.0),
+        VALUE_COL)
+    assert np.asarray(ref).tobytes() == pay.tobytes()
+
+
+def test_new_wrappers_run_plain_versions_on_cpu_and_refuse_meta():
+    pay = convert.payload_from_numpy(_qpayload(1024, 127, seed=14))
+    counters = [cuda_segment.segment_histogram_quant,
+                cuda_segment.segment_histogram_batched,
+                cuda_segment.partition_segment_stage,
+                cuda_segment.partition_segment_commit]
+    before = [c.launches for c in counters]
+    pred = convert.split_predicate_from_numpy(_pred_fields())
+    cuda_segment.segment_histogram_quant(pay, 0, 500, num_features=F,
+                                         num_bins=B, **COLS)
+    cuda_segment.segment_histogram_batched(pay, [0, 600], [500, 10],
+                                           num_features=F, num_bins=B,
+                                           quantized=True, **COLS)
+    aux, nl = cuda_segment.partition_segment_stage(
+        pay, torch.zeros_like(pay), 0, 500, pred)
+    cuda_segment.partition_segment_commit(pay, aux, 0, 500, nl, 0.0, 1.0,
+                                          VALUE_COL)
+    assert [c.launches for c in counters] == before
+    meta = torch.zeros((300, P), device="meta")
+    with pytest.raises(ValueError):
+        cuda_segment.segment_histogram_quant(meta, 0, 10, num_features=F,
+                                             num_bins=B, **COLS)
+    with pytest.raises(ValueError):
+        cuda_segment.segment_histogram_batched(meta, [0], [10],
+                                               num_features=F, num_bins=B,
+                                               **COLS)
+    with pytest.raises(ValueError):
+        cuda_segment.partition_segment_stage(meta, meta, 0, 10, pred)
+    with pytest.raises(ValueError):
+        cuda_segment.partition_segment_commit(meta, meta, 0, 10, 5, 0.0, 1.0,
+                                              VALUE_COL)

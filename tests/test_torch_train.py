@@ -246,3 +246,137 @@ def test_chip_smoke_fails_without_card_or_checkout(alone, tmp_path):
     out = _run_chip_smoke(cwd)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+# -- quantized gradients and frontier batching ---------------------------
+
+def _auc(y, p):
+    order = np.argsort(p)
+    ranks = np.empty(len(p))
+    ranks[order] = np.arange(1, len(p) + 1)
+    npos = y.sum()
+    return (ranks[y > 0].sum() - npos * (npos + 1) / 2) / max(
+        npos * (len(y) - npos), 1)
+
+
+def _binary_problem(n, f=20, seed=7):
+    """tests/test_quantized.py's problem."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, f)).astype(np.float32)
+    w = rng.standard_normal(f)
+    logit = (X @ w) * 0.5 + 0.4 * X[:, 0] * X[:, 1] + 0.3 * np.abs(X[:, 2])
+    logit += rng.standard_normal(n).astype(np.float32) * 0.8
+    return X, (logit > 0).astype(np.float64)
+
+
+QBASE = dict(objective="binary", verbose=-1, seed=11, device_type="cpu")
+
+
+def _text(X, y, rounds=5, **params):
+    return lt.train(dict(QBASE, num_leaves=15, **params),
+                    lt.Dataset(X, label=y), rounds,
+                    verbose_eval=False).model_to_string()
+
+
+@pytest.fixture(scope="module")
+def auc_parity_baseline():
+    """The port's f32 run that both quantized grids are held against."""
+    X, y = _binary_problem(24_000)
+    Xtr, ytr, Xte, yte = X[:20_000], y[:20_000], X[20_000:], y[20_000:]
+    params = dict(QBASE, num_leaves=31)
+    bf = lt.train(dict(params), lt.Dataset(Xtr, label=ytr), 11,
+                  verbose_eval=False)
+    return Xtr, ytr, Xte, yte, params, _auc(yte, bf.predict(Xte))
+
+
+@pytest.mark.parametrize("qdtype", ["int16", "int8"])
+def test_quant_training_auc_parity(qdtype, auc_parity_baseline):
+    """tests/test_quantized.py:215-250 for the port: 20k x 20, 31 leaves,
+    11 iterations, |dAUC| <= 0.002 against the port's f32 run."""
+    Xtr, ytr, Xte, yte, params, auc_f = auc_parity_baseline
+    bq = lt.train(dict(params, gradient_quantization=True,
+                       gradient_quant_dtype=qdtype),
+                  lt.Dataset(Xtr, label=ytr), 11, verbose_eval=False)
+    auc_q = _auc(yte, bq.predict(Xte))
+    assert auc_f > 0.75
+    assert abs(auc_q - auc_f) <= 0.002, (auc_q, auc_f)
+    rep = bq.quant_report
+    assert rep["qmax"] == (127 if qdtype == "int8" else 32767)
+    assert rep["hist_gh_bytes_per_row"] == (2 if qdtype == "int8" else 4)
+    assert rep["hist_bytes_reduction_vs_f32"] == \
+        (4.0 if qdtype == "int8" else 2.0)
+
+
+def test_quant_default_off_byte_identity():
+    """tests/test_quantized.py:272 for the port: unset and False give the
+    f32 model byte for byte, and True changes it (the knob engages)."""
+    X, y = _binary_problem(3_000, f=6)
+    m_unset = _text(X, y)
+    assert _text(X, y, gradient_quantization=False) == m_unset
+    assert _text(X, y, gradient_quantization="false") == m_unset
+    m_quant = _text(X, y, gradient_quantization=True,
+                    gradient_quant_dtype="int8")
+    assert m_quant != m_unset
+
+
+def test_quant_reruns_byte_identical():
+    X, y = _binary_problem(3_000, f=6)
+    kw = dict(gradient_quantization=True, gradient_quant_dtype="int8")
+    assert _text(X, y, **kw) == _text(X, y, **kw)
+    # another seed draws other roundings
+    assert _text(X, y, **kw) != _text(X, y, **dict(kw, seed=12))
+
+
+@pytest.mark.parametrize("quant", [{}, dict(gradient_quantization=True,
+                                            gradient_quant_dtype="int8")])
+def test_frontier_model_text_byte_identical(quant):
+    """tests/test_frontier_batch.py:130-148 for the port: the
+    frontier-batched grower writes the one-leaf loop's model byte for
+    byte, in f32 and composed with quantization, in fewer rounds."""
+    rng = np.random.default_rng(11)
+    X = rng.standard_normal((3000, 8)).astype(np.float32)
+    y = (X[:, 0] + 0.4 * X[:, 1] * X[:, 2] +
+         rng.standard_normal(3000) * 0.3 > 0).astype(np.float32)
+    params = dict(QBASE, num_leaves=31, **quant)
+    b1 = lt.train(dict(params), lt.Dataset(X, label=y), 10,
+                  verbose_eval=False)
+    b2 = lt.train(dict(params, tpu_frontier_batch="4"),
+                  lt.Dataset(X, label=y), 10, verbose_eval=False)
+    assert b1.model_to_string() == b2.model_to_string()
+    r1, r2 = b1.split_rounds_per_tree(), b2.split_rounds_per_tree()
+    assert r2 < r1 <= 30
+    assert sum(b2.host_syncs_per_tree()) < sum(b1.host_syncs_per_tree())
+
+
+def test_dispatch_knobs_are_accepted_no_ops():
+    """pipeline_depth, boost_window, tpu_histogram_impl and
+    tpu_profile_phases leave the model as it is."""
+    X, y = _binary_problem(3_000, f=6)
+    assert _text(X, y, pipeline_depth=0, boost_window="4",
+                 tpu_histogram_impl="lax",
+                 tpu_profile_phases="true") == _text(X, y)
+    with pytest.raises(ValueError, match="tpu_histogram_impl"):
+        _text(X, y, tpu_histogram_impl="xla")
+
+
+def test_jax_knobs_coerce_cli_strings():
+    """tests/test_frontier_batch.py:156 for the port's Config."""
+    c = lt.Config({"tpu_frontier_batch": "4", "gradient_quantization": "false",
+                   "tpu_profile_phases": "1", "boost_window": "2"})
+    assert c.tpu_frontier_batch == 4 and isinstance(c.tpu_frontier_batch, int)
+    assert c.gradient_quantization is False
+    assert c.tpu_profile_phases is True and c.boost_window == 2
+    d = lt.Config({})
+    assert (d.tpu_histogram_impl, d.tpu_profile_phases, d.tpu_frontier_batch,
+            d.gradient_quantization, d.gradient_quant_dtype,
+            d.sentinel_nonfinite, d.pipeline_depth, d.boost_window) == \
+        ("auto", False, 1, False, "int16", "off", 1, 1)
+
+
+@pytest.mark.parametrize("policy", ["abort", "rollback"])
+def test_sentinel_nonfinite_raises(policy):
+    X, y = _binary_problem(1_000, f=4)
+    with pytest.raises(NotImplementedError, match="sentinel_nonfinite"):
+        _text(X, y, rounds=1, sentinel_nonfinite=policy)
+    # "off" is the default and trains
+    assert _text(X, y, rounds=1, sentinel_nonfinite="off")
