@@ -6,22 +6,32 @@ Builds the hand-written kernels from lightgbm_tpu_torch/csrc with nvcc,
 holds each against its plain PyTorch version at main-path shapes (the f32
 histogram B1, the int32 histogram B4 at the int8 and int16 grids, the
 batched histogram B5 in f32 and int32, and the partition B2 whole and as
-its stage and commit halves), times each beside its bound and a PyTorch
-yardstick, checks that CUDA and CPU training agree on a small problem,
-then trains through lightgbm_tpu_torch.train on the card, at full width
-(binary objective, 28 dense features, max_bin 255, 255 leaves, lr 0.1):
-the f32 main path, then quantized gradients (int8, int16), the
-frontier-batched grower (tpu_frontier_batch=8) and the two together.
+its stage and commit halves) and at the wide shapes (Bosch: 968 features,
+Epsilon: 2,000; the column-block histogram B7, the RMW partition B3 and
+the column-block partition B8, and B1, B2, B4, B5 and the stage and
+commit there too), times each beside its bound and a PyTorch yardstick
+(B1 and B2 at the wide shapes too), checks that CUDA
+and CPU training agree on small problems at 28, 968 and 2,000 features,
+then trains through lightgbm_tpu_torch.train on the card (binary
+objective, max_bin 255, 255 leaves, lr 0.1): on 28 dense features the f32
+main path, then quantized gradients (int8, int16), the frontier-batched
+grower (tpu_frontier_batch=8) and the two together; then the wide paths,
+1M x 968 (a fifth of every other feature NaN) and 400k x 2,000, each with
+a 100k-row validation set scored every iteration (metric auc).
 Each training path resets the kernels' launch counts before it and reads
 them after it; the quantized paths must not launch the f32 histogram, the
-frontier paths must take fewer rounds than splits, and the quantized
+frontier paths must take fewer rounds than splits, the quantized
 frontier path must write the quantized one-leaf loop's model byte for
-byte.  Held-out AUC is checked on every path (within 0.002 of the f32
-main path for the new ones).  After the main path, the quantized int8
-path and the frontier path, two more iterations are timed, the second
-under torch.profiler.  Every phase always runs and
-prints one line; any failed check exits non-zero.  The last line is the
-device record {"ok": true, "device": {...}}.  Imports nothing of JAX or
+byte, no path on 28 features may launch B3, B7 or B8, and the wide paths
+must launch B7 with B3 (968) or B8 (2,000) and never B1 or the whole B2.
+Held-out AUC is checked on every path (within 0.002 of the f32 main path
+for its variants; on the wide paths the device's valid scores must equal
+predict(raw_score=True) and the last valid AUC the AUC of that
+prediction).  After the main, quantized int8, frontier and wide paths, two
+more iterations are timed, the second under torch.profiler.  Every phase
+always runs and prints one line, prefixed with the seconds since start;
+any failed check exits non-zero.  The last line is the device record
+{"ok": true, "device": {...}}.  Imports nothing of JAX or
 lightgbm_tpu.
 """
 from __future__ import annotations
@@ -40,6 +50,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # the port, from this checkout only: alone in a directory this script fails
 import lightgbm_tpu_torch as lt  # noqa: E402
 import torch  # noqa: E402
+from lightgbm_tpu_torch.metric import create_metrics  # noqa: E402
 from lightgbm_tpu_torch.ops import build, cuda_segment, quantize  # noqa: E402
 from lightgbm_tpu_torch.ops import segment as seg  # noqa: E402
 from lightgbm_tpu_torch.ops.segment import SplitPredicate  # noqa: E402
@@ -53,10 +64,22 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
 F, B = 28, 256
-G = F
-COLS = dict(label=G, weight=G + 1, cnt=G + 2, idx=G + 3, score=G + 4,
-            grad=G + 5, hess=G + 6, value=G + 7)
-P = G + 10
+
+
+def cols_of(f: int) -> dict:
+    """The fast path's value columns after f bin columns (P = f + 10)."""
+    return dict(label=f, weight=f + 1, cnt=f + 2, idx=f + 3, score=f + 4,
+                grad=f + 5, hess=f + 6, value=f + 7)
+
+
+COLS = cols_of(F)
+P = F + 10
+#: the wide shapes: Bosch (968 features) and Epsilon (2,000), with the
+#: rows of their training paths
+WIDE = ((968, 1_000_000), (2000, 400_000))
+#: rows on which the wide kernels are held against the plain versions
+#: (the plain histogram's index tensor is rows * F * 3 int64)
+WIDE_CMP_ROWS = 65_536
 
 
 class SmokeFailure(RuntimeError):
@@ -104,6 +127,14 @@ def time_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+T_START = time.perf_counter()
+
+
+def say(line: str) -> None:
+    """Print one phase's line, prefixed with the seconds since start."""
+    print("[%.1f s] %s" % (time.perf_counter() - T_START, line), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -181,21 +212,21 @@ def hist_errors(pay, start, count, f, got) -> float:
     return float(err.max()) if err.numel() else 0.0
 
 
-def quantize_columns(pay: torch.Tensor, n: int, qmax: int,
-                     seed: int) -> torch.Tensor:
+def quantize_columns(pay: torch.Tensor, n: int, qmax: int, seed: int,
+                     cols: dict = COLS) -> torch.Tensor:
     """A copy of `pay` whose grad/hess columns hold quantized gradients:
     integers on the grid of half-range qmax (hessians in [0, qmax]), zero
     where the count mask is 0."""
     out = pay.clone()
     gen = torch.Generator(device=pay.device)
     gen.manual_seed(seed)
-    mask = out[:n, COLS["cnt"]]
+    mask = out[:n, cols["cnt"]]
     g = torch.randint(-qmax, qmax + 1, (n,), generator=gen,
                       device=pay.device).to(torch.float32)
     h = torch.randint(0, qmax + 1, (n,), generator=gen,
                       device=pay.device).to(torch.float32)
-    out[:n, COLS["grad"]] = g * mask
-    out[:n, COLS["hess"]] = h * mask
+    out[:n, cols["grad"]] = g * mask
+    out[:n, cols["hess"]] = h * mask
     return out
 
 
@@ -484,12 +515,247 @@ def kernels_phase(n: int, seed: int, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase: the wide kernels
+# ---------------------------------------------------------------------------
+
+def device_payload(n: int, f: int, p: int, seed: int, dev) -> torch.Tensor:
+    """make_payload's layout drawn on the device (the wide payloads are
+    gigabytes): integer bins < B in [0, f), normal value columns, a 0/1
+    count mask, guard rows zero."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    pay = torch.zeros((n + seg.GUARD, p), device=dev)
+    pay[:n, :f].random_(0, B, generator=gen)
+    pay[:n, f:].normal_(generator=gen)
+    pay[:n, f + 2] = (torch.rand(n, generator=gen, device=dev) < 0.9).float()
+    return pay
+
+
+def stage_commit(pay, aux, start, count, pred, left_value, right_value,
+                 value_col: int):
+    """B2 as the frontier grower runs it: the stage, then the commit."""
+    aux, nl = cuda_segment.partition_segment_stage(pay, aux, start, count,
+                                                   pred)
+    pay = cuda_segment.partition_segment_commit(pay, aux, start, count, nl,
+                                                left_value, right_value,
+                                                value_col)
+    return pay, aux, nl
+
+
+def partition_equal(fns, pay, pred, s: int, c: int, vcol: int) -> None:
+    """Run each partition wrapper in `fns` and the plain version on copies
+    of `pay`; raises unless payload, aux over the segment and num_left are
+    byte-identical."""
+    i32 = dict(dtype=torch.int32, device=pay.device)
+    lv = torch.tensor(-0.25, device=pay.device)
+    rv = torch.tensor(0.75, device=pay.device)
+    b_pay, b_aux = pay.clone(), torch.zeros_like(pay)
+    b_pay, b_aux, b_nl = seg.partition_segment(b_pay, b_aux, s, c, pred, lv,
+                                               rv, vcol)
+    for fn in fns:
+        a_pay, a_aux = pay.clone(), torch.zeros_like(pay)
+        a_pay, a_aux, a_nl = fn(a_pay, a_aux, torch.tensor(s, **i32),
+                                torch.tensor(c, **i32), pred, lv, rv, vcol)
+        torch.cuda.synchronize()
+        what = "%s (%d, %d)" % (fn.__name__, s, c)
+        check(int(a_nl) == int(b_nl), "%s: num_left %d vs %d"
+              % (what, int(a_nl), int(b_nl)))
+        check(torch.equal(a_pay.view(torch.int32), b_pay.view(torch.int32)),
+              "%s: payload not byte-identical" % what)
+        check(torch.equal(a_aux[s:s + c].view(torch.int32),
+                          b_aux[s:s + c].view(torch.int32)),
+              "%s: aux not byte-identical" % what)
+        del a_pay, a_aux
+
+
+def plain_hist_chunked(pay, n: int, hk: dict, chunk: int = WIDE_CMP_ROWS):
+    """The plain histogram of rows [0, n), summed over row chunks that fit
+    its rows * F * 3 index tensor on the card."""
+    out = seg.segment_histogram(pay, 0, min(chunk, n), **hk)
+    for s in range(chunk, n, chunk):
+        out += seg.segment_histogram(pay, s, min(chunk, n - s), **hk)
+    return out
+
+
+#: the kernels timed at the wide shapes: B7, B3, B8, and B1 / B2 beside
+#: them for the crossover
+WIDE_TIMED = ("segment_histogram_colblock", "partition_segment_rmw",
+              "partition_segment_blocks", "segment_histogram",
+              "partition_segment")
+#: a segment size between the root and the small leaves at which the wide
+#: phase times them again (CUDA events on smaller segments time the
+#: wrapper's host cost, not the kernel)
+WIDE_SEGMENT_ROWS = 131_072
+
+
+def wide_kernels_phase(seed: int, dev) -> dict:
+    """At the Bosch (F = 968, P = 978) and Epsilon (F = 2000, P = 2010)
+    shapes, every kernel a training path can launch there is held against
+    its plain version on segments of the first 65,536 rows: B7 and B1 to
+    B1's bound with an exact count channel, B4 at the int8 and int16 grids
+    and B5 in int32 bit for bit, B5 in f32 to B1's bound, and B3, B8, B2
+    and B2's stage + commit byte for byte on every predicate.  Then the
+    kernels of WIDE_TIMED are timed on the full root segment of the wide
+    path's padded rows, with bound, plain and library times, and on a
+    segment of WIDE_SEGMENT_ROWS rows.  Returns {kernel: {F: record}}."""
+    preds = predicates(dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    out = {}
+    reps = 10
+    for f, rows in WIDE:
+        n = -(-rows // 16384) * 16384      # the Dataset's padded rows
+        p = f + 10
+        cols = cols_of(f)
+        hk = dict(num_features=f, num_bins=B, grad_col=cols["grad"],
+                  hess_col=cols["hess"], cnt_col=cols["cnt"])
+        pay = device_payload(n, f, p, seed + f, dev)
+        m = WIDE_CMP_ROWS
+        small = pay[:m + 4096 + seg.GUARD].clone()
+        small[m + 4096:] = 0.0
+        segments = ((0, m), (100, 37), (500, 0), (12345, m // 3))
+        rec = {}
+
+        for name in ("segment_histogram_colblock", "segment_histogram"):
+            fn, err = getattr(cuda_segment, name), 0.0
+            for s, c in segments:
+                got = fn(small, torch.tensor(s, **i32), torch.tensor(c, **i32),
+                         **hk)
+                torch.cuda.synchronize()
+                plain = seg.segment_histogram(small, s, c, **hk)
+                check(torch.equal(got[..., 2], plain[..., 2]),
+                      "%s count channel vs plain at F=%d (%d, %d)"
+                      % (name, f, s, c))
+                err = max(err, hist_errors(small, s, c, f, got))
+                del got, plain
+            rec[name] = dict(max_abs_err=err)
+
+        # the quantized and frontier paths keep B4, B5 and B2's stage /
+        # commit at every width
+        qpays = {qmax: quantize_columns(small, m + 4096, qmax, seed + qmax,
+                                        cols)
+                 for qmax in (127, quantize.derive_qmax(n, "int16"))}
+        for qmax, qpay in qpays.items():
+            for s, c in segments:
+                got = cuda_segment.segment_histogram_quant(
+                    qpay, torch.tensor(s, **i32), torch.tensor(c, **i32), **hk)
+                torch.cuda.synchronize()
+                plain = seg.segment_histogram(qpay, s, c, quantized=True, **hk)
+                check(got.dtype == torch.int32 and torch.equal(got, plain),
+                      "int32 histogram differs from plain at F=%d, qmax %d "
+                      "(%d, %d)" % (f, qmax, s, c))
+                del got, plain
+        rec["segment_histogram_quant"] = dict(max_abs_err=0.0)
+        starts, counts = batch_segments(m, (m // 5, 1, 0, 37, m // 9,
+                                            m // 16 + 3, m // 3, m // 10 + 3))
+        st_t, ct_t = torch.tensor(starts, **i32), torch.tensor(counts, **i32)
+        got = cuda_segment.segment_histogram_batched(small, st_t, ct_t, **hk)
+        torch.cuda.synchronize()
+        plain = seg.segment_histogram_batched(small, starts, counts, **hk)
+        check(torch.equal(got[..., 2], plain[..., 2]),
+              "batched histogram count channel differs from plain at F=%d"
+              % f)
+        del plain
+        err = max(hist_errors(small, s, c, f, got[k])
+                  for k, (s, c) in enumerate(zip(starts, counts)))
+        del got
+        for qmax, qpay in qpays.items():
+            got = cuda_segment.segment_histogram_batched(
+                qpay, st_t, ct_t, quantized=True, **hk)
+            torch.cuda.synchronize()
+            plain = seg.segment_histogram_batched(qpay, starts, counts,
+                                                  quantized=True, **hk)
+            check(got.dtype == torch.int32 and torch.equal(got, plain),
+                  "int32 batched histogram differs from plain at F=%d, "
+                  "qmax %d" % (f, qmax))
+            del got, plain
+        rec["segment_histogram_batched"] = dict(max_abs_err=err,
+                                                max_abs_err_int32=0.0)
+        del qpays
+
+        cases = [(name, 0, m) for name in preds] + [
+            ("numerical", 100, 37), ("nan_missing_default_left", 500, 0),
+            ("categorical", 777, m // 2), ("efb_offset", 12345, m // 3)]
+        for name, s, c in cases:
+            partition_equal((cuda_segment.partition_segment_rmw,
+                             cuda_segment.partition_segment_blocks,
+                             cuda_segment.partition_segment, stage_commit),
+                            small, preds[name], s, c, cols["value"])
+        for name in ("partition_segment_rmw", "partition_segment_blocks",
+                     "partition_segment"):
+            rec[name] = dict(max_abs_err=0.0)
+        rec["partition_segment"]["stage_commit_max_abs_err"] = 0.0
+        del small
+        for r in rec.values():
+            r["checked_rows"] = m
+
+        start0, count = torch.zeros((), **i32), torch.tensor(n, **i32)
+        part_ct = torch.tensor(WIDE_SEGMENT_ROWS, **i32)
+        pred = preds["numerical"]
+        lv = torch.tensor(-0.25, device=dev)
+        rv = torch.tensor(0.75, device=dev)
+        aux = torch.zeros_like(pay)
+        for name in WIDE_TIMED:
+            fn = getattr(cuda_segment, name)
+            for key, ct in (("ms", count), ("ms_%d_rows" % WIDE_SEGMENT_ROWS,
+                                            part_ct)):
+                if name.startswith("segment_histogram"):
+                    rec[name][key] = time_ms(
+                        lambda: fn(pay, start0, ct, **hk), reps)
+                else:
+                    rec[name][key] = time_ms(lambda: fn(
+                        pay, aux, start0, ct, pred, lv, rv, cols["value"]),
+                        reps)
+            rec[name].update(n=n, P=p)
+        hist_plain_ms = time_ms(lambda: plain_hist_chunked(pay, n, hk), 1)
+        flat = (pay[:n, :f].long()
+                + torch.arange(f, device=dev)[None, :] * B).reshape(-1)
+        vals = torch.stack([pay[:n, cols["grad"]], pay[:n, cols["hess"]],
+                            pay[:n, cols["cnt"]]], 1)[:, None, :] \
+            .expand(n, f, 3).reshape(-1, 3).contiguous()
+        lib_out = torch.zeros(f * B, 3, device=dev)
+        hist_lib_ms = time_ms(lambda: lib_out.index_add_(0, flat, vals), reps)
+        del flat, vals, lib_out
+        hist_bound = bound(n * (f + 3) * 4 + f * B * 3 * 4, n * f * 3)
+        for name in ("segment_histogram_colblock", "segment_histogram"):
+            rec[name].update(plain_ms=hist_plain_ms, library_ms=hist_lib_ms,
+                             bound_ms=hist_bound[0], bound_by=hist_bound[1])
+        part_plain_ms = time_ms(lambda: seg.partition_segment(
+            pay, aux, 0, n, pred, lv, rv, cols["value"]), 1)
+        right = (~seg.go_left_chunk(pay[:n], pred)).to(torch.uint8)
+        part_lib_ms = time_ms(lambda: torch.index_select(
+            pay[:n], 0, torch.argsort(right, stable=True), out=aux[:n]), reps)
+        del right, aux, pay
+        part_bound = bound(2 * n * p * 4, 0)
+        for name in ("partition_segment_rmw", "partition_segment_blocks",
+                     "partition_segment"):
+            rec[name].update(plain_ms=part_plain_ms, library_ms=part_lib_ms,
+                             bound_ms=part_bound[0], bound_by=part_bound[1])
+        for name, r in rec.items():
+            out.setdefault(name, {})[f] = r
+        torch.cuda.empty_cache()
+    return out
+
+
+WIDE_SOURCES = {
+    "segment_histogram_colblock": (
+        "lightgbm_tpu_torch/csrc/segment_hist_colblock.cu",
+        "lightgbm_tpu/ops/pallas_segment.py:1005"),
+    "partition_segment_rmw": (
+        "lightgbm_tpu_torch/csrc/segment_partition_wide.cu",
+        "lightgbm_tpu/ops/pallas_segment.py:1210"),
+    "partition_segment_blocks": (
+        "lightgbm_tpu_torch/csrc/segment_partition_wide.cu",
+        "lightgbm_tpu/ops/pallas_segment.py:2062"),
+}
+
+
+# ---------------------------------------------------------------------------
 # phases: parity and main path
 # ---------------------------------------------------------------------------
 
 def train_params(num_leaves: int, **extra) -> dict:
-    return dict(objective="binary", num_leaves=num_leaves, max_bin=255,
-                learning_rate=0.1, verbose=-1, **extra)
+    return dict(dict(objective="binary", num_leaves=num_leaves, max_bin=255,
+                     learning_rate=0.1, verbose=-1), **extra)
 
 
 def parity_phase(seed: int) -> str:
@@ -518,7 +784,12 @@ def parity_phase(seed: int) -> str:
 #: the wrappers whose launch counts each training path reads
 COUNTED = ("segment_histogram", "segment_histogram_quant",
            "segment_histogram_batched", "partition_segment",
-           "partition_segment_stage", "partition_segment_commit")
+           "partition_segment_stage", "partition_segment_commit",
+           "segment_histogram_colblock", "partition_segment_rmw",
+           "partition_segment_blocks")
+#: the kernels of the wide paths, which no narrow path may launch
+WIDE_ONLY = ("segment_histogram_colblock", "partition_segment_rmw",
+             "partition_segment_blocks")
 
 
 def reset_counts() -> None:
@@ -557,6 +828,9 @@ def train_path(name: str, ds, Xv, yv, params: dict, iters: int) -> dict:
     check(bst.device.type == "cuda", "%s ran on %s" % (name, bst.device))
     check(bst.current_iteration() == iters, "%s trained %d of %d iterations"
           % (name, bst.current_iteration(), iters))
+    check(not any(launches[k] for k in WIDE_ONLY),
+          "%s launched a wide kernel: %s"
+          % (name, {k: launches[k] for k in WIDE_ONLY}))
     t0 = time.perf_counter()
     pred = bst.predict(Xv)
     t_pred = time.perf_counter() - t0
@@ -648,11 +922,180 @@ def quantized_phases(data, f32: dict, rows: int, iters: int) -> dict:
             check(same, "quantized frontier trees differ from the one-leaf "
                   "loop's, first at tree %s" % first)
             note += ", model text identical to quantized int8: %s" % same
-        print(path_line(r, rows, iters, note), flush=True)
+        say(path_line(r, rows, iters, note))
         if name in ("quantized int8", "frontier 8"):
-            print(profile_phase(r["bst"], name), flush=True)
+            say(profile_phase(r["bst"], name))
         del r["bst"]
     return runs
+
+
+# ---------------------------------------------------------------------------
+# phases: the wide paths
+# ---------------------------------------------------------------------------
+
+def wide_synth(n_rows: int, n_feat: int, seed: int, dev, nan_frac: float):
+    """Bosch- / Epsilon-shaped binary data, drawn on `dev` from `seed`:
+    n_feat standard normal features on a grid of 1/64 (a few hundred
+    distinct values each), with a nan_frac share of the values of every
+    other feature NaN.  The label's signal sits on 32 features spread
+    evenly over all n_feat, so every column block matters: a linear term,
+    one interaction, one absolute value, one step, and noise.  Returns the
+    host float64 [n_rows, n_feat] matrix (column-major, so the binner
+    reads each feature contiguously) and the 0/1 labels."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    f64 = dict(dtype=torch.float64, device=dev)
+    xt = torch.randn((n_feat, n_rows), generator=gen, **f64)
+    xt.mul_(64).round_().div_(64)
+    xs = xt[torch.linspace(0, n_feat - 1, 32, device=dev).round().long()]
+    w = torch.randn(32, generator=gen, **f64)
+    logit = (w @ xs) * 0.5 + 0.4 * xs[0] * xs[1] + 0.3 * xs[2].abs() \
+        - 0.2 * (xs[3] > 0.5) + 0.8 * torch.randn(n_rows, generator=gen,
+                                                  **f64)
+    del xs
+    if nan_frac > 0:
+        xt[1::2].masked_fill_(torch.rand((n_feat // 2, n_rows), generator=gen,
+                                         device=dev) < nan_frac, np.nan)
+    X = xt.cpu().numpy().T
+    y = (logit > 0).double().cpu().numpy()
+    del xt, logit
+    torch.cuda.empty_cache()
+    return X, y
+
+
+#: NaN share of every other feature on the Bosch-shaped path
+WIDE_NAN = {968: 0.2, 2000: 0.0}
+#: the wide engines each wide path must take: (histogram, partition)
+WIDE_ENGINES = {968: ("segment_histogram_colblock", "partition_segment_rmw"),
+                2000: ("segment_histogram_colblock",
+                       "partition_segment_blocks")}
+
+
+def wide_parity_phase(seed: int, dev) -> str:
+    """CUDA against CPU training at both wide widths: 10,000 rows, max_bin
+    63, 31 leaves, 5 iterations; the first split must agree and the AUC on
+    2,000 held-out rows within 0.002; the CUDA run must take the wide
+    engines."""
+    parts = []
+    for f, _ in WIDE:
+        X, y = wide_synth(12_000, f, seed + 31 + f, dev, WIDE_NAN[f])
+        Xt, yt, Xv, yv = X[:10_000], y[:10_000], X[10_000:], y[10_000:]
+        runs = {}
+        for d in ("cuda", "cpu"):
+            # max_bin 63 keeps the CPU run's split search (plain PyTorch
+            # over [2, F, B, 3]) to a quarter of its 255-bin time
+            params = train_params(31, max_bin=63) if d == "cuda" \
+                else train_params(31, max_bin=63, device_type="cpu")
+            bst = lt.train(params, lt.Dataset(Xt, label=yt), 5,
+                           verbose_eval=False)
+            check(bst.device.type == d, "wide parity run on %s" % bst.device)
+            g = bst._engine.grower
+            t0 = bst._model.trees[0]
+            runs[d] = (int(t0.split_feature[0]), int(t0.threshold_in_bin[0]),
+                       auc_score(yv, bst.predict(Xv)),
+                       (g.hist_engine, g.part_engine))
+        check(runs["cuda"][3] == WIDE_ENGINES[f],
+              "wide parity F=%d took %s" % (f, runs["cuda"][3]))
+        check(runs["cuda"][:2] == runs["cpu"][:2],
+              "wide parity F=%d: first split cuda %s vs cpu %s"
+              % (f, runs["cuda"][:2], runs["cpu"][:2]))
+        d_auc = abs(runs["cuda"][2] - runs["cpu"][2])
+        check(d_auc <= 0.002, "wide parity F=%d: |dAUC| %.6f > 0.002"
+              % (f, d_auc))
+        parts.append("F=%d first split %s on both, AUC cuda %.6f cpu %.6f "
+                     "|dAUC| %.6f" % (f, runs["cuda"][:2], runs["cuda"][2],
+                                      runs["cpu"][2], d_auc))
+    return ("wide parity: 10000 rows (+2000 held out), max_bin 63, 31 "
+            "leaves, 5 iters: "
+            + "; ".join(parts))
+
+
+#: held-out AUC the last iteration of each wide path must pass.  A CPU
+#: rehearsal of the same generator read 0.8481 after 10 iterations at
+#: 100,000 x 968 (255 leaves) and 0.8200 after 3 at 20,000 x 2,000 (63
+#: leaves); the full paths have more rows and iterations.
+WIDE_AUC_FLOOR = 0.8
+
+
+def wide_path_phase(f: int, rows: int, iters: int, seed: int, dev) -> tuple:
+    """One wide path through lightgbm_tpu_torch.train at full size, with a
+    100,000-row validation set scored every iteration (metric auc).  The
+    launch counts are set to 0 just before and read just after.  Returns
+    its line and its result."""
+    name = "wide %d" % f
+    n_valid = 100_000
+    t0 = time.perf_counter()
+    X, y = wide_synth(rows + n_valid, f, seed + f, dev, WIDE_NAN[f])
+    t_gen = time.perf_counter() - t0
+    params = train_params(255, metric="auc")
+    t0 = time.perf_counter()
+    ds = lt.Dataset(X[:rows], label=y[:rows])
+    ds.construct(lt.Config(params))
+    dv = lt.Dataset(X[rows:], label=y[rows:], reference=ds)
+    dv.construct(lt.Config(params))
+    t_bin = time.perf_counter() - t0
+    Xv, yv = X[rows:], y[rows:]
+    del X
+    evals = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst = lt.train(params, ds, iters, valid_sets=[dv], valid_names=["valid"],
+                   evals_result=evals, verbose_eval=False)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(bst.device.type == "cuda", "%s ran on %s" % (name, bst.device))
+    check(bst.current_iteration() == iters, "%s trained %d of %d iterations"
+          % (name, bst.current_iteration(), iters))
+    g = bst._engine.grower
+    check((g.hist_engine, g.part_engine) == WIDE_ENGINES[f],
+          "%s took %s" % (name, (g.hist_engine, g.part_engine)))
+    hist_name, part_name = WIDE_ENGINES[f]
+    check(launches[hist_name] >= iters and launches[part_name] > 0,
+          "%s: %s %d, %s %d launches" % (name, hist_name,
+                                         launches[hist_name], part_name,
+                                         launches[part_name]))
+    check(launches["segment_histogram"] == 0
+          and launches["partition_segment"] == 0,
+          "%s launched B1 %d and B2 %d times" % (
+              name, launches["segment_histogram"],
+              launches["partition_segment"]))
+    # the valid scores kept on the card against the host model's prediction
+    score_dev = bst._engine.raw_valid_score(0)[0]
+    t0 = time.perf_counter()
+    raw = bst.predict(Xv, raw_score=True)
+    t_pred = time.perf_counter() - t0
+    check(raw.shape == (len(yv),) and bool(np.isfinite(raw).all()),
+          "%s: held-out predictions malformed" % name)
+    score_err = float(np.max(np.abs(score_dev - raw)
+                             / np.maximum(np.abs(raw), 1.0)))
+    check(score_err <= 1e-5, "%s: valid score vs predict %.3g > 1e-5"
+          % (name, score_err))
+    aucs = evals["valid"]["auc"]
+    check(len(aucs) == iters, "%s: %d AUCs for %d iterations"
+          % (name, len(aucs), iters))
+    auc_metric = create_metrics(["auc"], bst.config)[0]
+    auc_metric.init(yv, None, None)
+    auc_pred = auc_metric.eval(raw, bst._objective)
+    check(abs(aucs[-1] - auc_pred) <= 1e-6,
+          "%s: last valid AUC %.8f vs AUC of predict %.8f"
+          % (name, aucs[-1], auc_pred))
+    check(aucs[-1] > WIDE_AUC_FLOOR, "%s: held-out AUC %.4f not above %.2f"
+          % (name, aucs[-1], WIDE_AUC_FLOOR))
+    syncs = bst.host_syncs_per_tree()
+    line = ("%s: %dx%d (+%d valid), NaN share %.2f on every other feature, "
+            "max_bin 255, 255 leaves, lr 0.1, %d iters: %.4f s/iter (train "
+            "%.3f s), syncs/tree %s, max_memory_allocated %d B, data %.3f s, "
+            "binning %.3f s, predict %.3f s, valid score vs predict max rel "
+            "%.3g, valid AUC per iteration %s, AUC of predict %.8f, launches "
+            "%s" % (name, rows, f, n_valid, WIDE_NAN[f], iters,
+                    t_train / iters, t_train, syncs, peak, t_gen, t_bin,
+                    t_pred, score_err, json.dumps(aucs), auc_pred,
+                    json.dumps(launches)))
+    return line, dict(bst=bst, launches=launches, ds=ds, dv=dv)
 
 
 def profile_phase(bst, label: str) -> str:
@@ -661,15 +1104,15 @@ def profile_phase(bst, label: str) -> str:
     walls, the profiled iteration's summed kernel time, the device's idle
     share against each wall (the unprofiled one is the reading; the
     profiler slows the host) and the kernels that take the most device
-    time."""
+    time.  Only device activity is recorded: with the ~90k host ops of an
+    iteration recorded too, reading the profile took over a minute."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     bst.update()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         bst.update()
         torch.cuda.synchronize()
@@ -679,12 +1122,17 @@ def profile_phase(bst, label: str) -> str:
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     check(busy > 0, "the profiler saw no device time")
     # the histogram kernels share one template: <float> serves B1 and the
-    # f32 B5, <int> B4 and the int32 B5
+    # f32 B5, <int> B4 and the int32 B5; B3 and B8 share their routing and
+    # copy-back
     ported = {}
-    for prefix, name in (("segment_hist_kernel<float>", "histogram f32"),
-                         ("segment_hist_kernel<int>", "histogram int32"),
-                         ("part_", "partition")):
-        hits = [e for e in kernels if prefix in e.key]
+    for prefixes, name in (
+            (("segment_hist_kernel<float>",), "histogram f32"),
+            (("segment_hist_kernel<int>",), "histogram int32"),
+            (("hist_colblock",), "histogram colblock"),
+            (("part_",), "partition"),
+            (("route_", "rmw_scatter", "block_scatter", "flat_copyback",
+              "write_values"), "partition wide")):
+        hits = [e for e in kernels if any(p in e.key for p in prefixes)]
         ported[name] = [sum(e.count for e in hits),
                         round(sum(e.self_device_time_total
                                   for e in hits) / 1e3, 4)]
@@ -724,39 +1172,66 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
     build_s, build_logs = build.build_all()
-    print("device: %s | %s | torch %s CUDA %s | kernel build %.2f s"
-          % (torch.cuda.get_device_name(0), smi, torch.__version__,
-             torch.version.cuda, build_s), flush=True)
+    say("device: %s | %s | torch %s CUDA %s | kernel build %.2f s"
+        % (torch.cuda.get_device_name(0), smi, torch.__version__,
+           torch.version.cuda, build_s))
     for name, log in build_logs.items():
         info = [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "smem" in ln]
         print("ptxas %s: %s" % (name, " / ".join(info)), flush=True)
 
     kernels = kernels_phase(1_015_808, args.seed, dev)
-    print("kernels: checked against the plain versions at n=1015808, "
-          "F=28, P=38, B=256 (+ F=137): %s"
-          % json.dumps({k: {kk: v[kk] for kk in ("ms", "plain_ms",
-                                                 "library_ms", "bound_ms",
-                                                 "max_abs_err")}
-                        for k, v in kernels.items()}), flush=True)
-    print(parity_phase(args.seed), flush=True)
+    say("kernels: checked against the plain versions at n=1015808, "
+        "F=28, P=38, B=256 (+ F=137): %s"
+        % json.dumps({k: {kk: v[kk] for kk in ("ms", "plain_ms",
+                                               "library_ms", "bound_ms",
+                                               "max_abs_err")}
+                      for k, v in kernels.items()}))
+    wide = wide_kernels_phase(args.seed, dev)
+    say("wide kernels: B7, B3, B8 (and B1, B2, stage + commit, B4, B5) "
+        "checked against the plain versions on %d rows, timed with B1 and "
+        "B2 on the root segment and on %d rows (Bosch F=968 P=978, Epsilon "
+        "F=2000 P=2010, B=256): %s"
+        % (WIDE_CMP_ROWS, WIDE_SEGMENT_ROWS, json.dumps(wide)))
+    say(parity_phase(args.seed))
+    say(wide_parity_phase(args.seed, dev))
     line, main_run, data = main_path_phase(args.rows, args.iters, args.seed)
-    print(line, flush=True)
-    print(profile_phase(main_run["bst"], "main path"), flush=True)
+    say(line)
+    say(profile_phase(main_run["bst"], "main path"))
     del main_run["bst"]
     runs = quantized_phases(data, main_run, args.rows, args.iters)
+    del data
     # each kernel's launches are read from the path it serves; every
     # path's counts stand beside them
     paths = {"main path": main_run["launches"]}
     paths.update({k: v["launches"] for k, v in runs.items()})
+    for f, rows in WIDE:
+        line, r = wide_path_phase(f, rows, args.iters, args.seed, dev)
+        say(line)
+        say(profile_phase(r["bst"], "wide %d" % f))
+        paths["wide %d" % f] = r["launches"]
+        del r
+        torch.cuda.empty_cache()
     serves = {"segment_histogram": "main path",
               "partition_segment": "main path",
               "segment_histogram_quant": "quantized int8",
-              "segment_histogram_batched": "frontier 8"}
+              "segment_histogram_batched": "frontier 8",
+              "segment_histogram_colblock": "wide 968",
+              "partition_segment_rmw": "wide 968",
+              "partition_segment_blocks": "wide 2000"}
+    for key, (source, replaces) in WIDE_SOURCES.items():
+        at = wide[key][int(serves[key].split()[1])]
+        kernels[key] = dict(
+            {k: at[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
+                                "bound_ms", "bound_by")},
+            name=key, route="cuda", source=source, replaces=replaces)
     record = []
     for key, rec in kernels.items():
         rec = dict(rec, launches=paths[serves[key]][key], path=serves[key],
                    launches_by_path={p: c[key] for p, c in paths.items()})
+        if key in wide:
+            # its checks at both wide shapes (B1 and B2 timed there too)
+            rec["wide_by_shape"] = wide[key]
         if key == "partition_segment":
             for half in ("stage", "commit"):
                 name = "partition_segment_" + half

@@ -1,11 +1,13 @@
 """User-facing Dataset and Booster (counterpart of lightgbm_tpu/basic.py).
 
 Role parity with the reference Python binding python-package/lightgbm/basic.py.
-This slice keeps the surface the main path uses: a Dataset over a dense
-matrix, and a Booster that trains (update), evaluates on the training
-set, predicts through the host f64 model, and reads and writes the model
-text that both packages share.  Training runs on the device that
-config.resolve_device picks: the card unless device_type='cpu'.
+This slice keeps the surface the training paths use: a Dataset over a
+dense matrix (a validation set binned with its reference's mappers), and
+a Booster that trains (update), evaluates on the training set and on
+validation sets, predicts through the host f64 model, and reads and
+writes the model text that both packages share.  Training runs on the
+device that config.resolve_device picks: the card unless
+device_type='cpu'.
 """
 from __future__ import annotations
 
@@ -36,10 +38,12 @@ def _to_2d_float(data) -> np.ndarray:
 class Dataset:
     """Raw data + lazily-constructed binned form (basic.py Dataset semantics)."""
 
-    def __init__(self, data, label=None, weight=None, feature_name="auto",
-                 categorical_feature="auto", params: Optional[Dict] = None):
+    def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
+                 weight=None, feature_name="auto", categorical_feature="auto",
+                 params: Optional[Dict] = None):
         self.data = data
         self.label = label
+        self.reference = reference
         self.weight = weight
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
@@ -55,9 +59,16 @@ class Dataset:
         cats = ()
         if self.categorical_feature != "auto" and self.categorical_feature:
             cats = [int(c) for c in self.categorical_feature]
+        # a validation set reuses its reference's mappers and bundling
+        # (Dataset::CreateValid)
+        ref = None
+        if self.reference is not None:
+            ref = self.reference.construct(config).binned
         self._binned = BinnedDataset.from_matrix(
             _to_2d_float(self.data), config, feature_names=fn,
-            categorical_feature=cats)
+            categorical_feature=cats,
+            bin_mappers=ref.bin_mappers if ref is not None else None,
+            reference_bundle=ref.bundle_info if ref is not None else None)
         md = self._binned.metadata
         if self.label is not None:
             md.set_label(np.asarray(self.label))
@@ -83,6 +94,7 @@ class Booster:
         self.best_iteration = -1
         self.best_score: Dict = {}
         self._engine: Optional[GBDT] = None
+        self._valid_data: List = []
         self.config = Config(self.params)
         if train_set is not None:
             self.config.warn_unimplemented()
@@ -146,12 +158,39 @@ class Booster:
         training in f32."""
         return self._engine.quant_report if self._engine else None
 
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        """Score `data` after every tree from now on, with the existing
+        trees replayed onto it.  It is binned with the training set's
+        mappers: a set made without reference=train_set is (re)binned so."""
+        if self._engine is None:
+            raise LightGBMError("Cannot add validation data to a loaded "
+                                "Booster")
+        if data is not self.train_set and data.reference is not self.train_set:
+            Log.warning("Validation set was not created with "
+                        "reference=train_set; binning it with the training "
+                        "mappers")
+            data.reference = self.train_set
+            data._binned = None
+        data.construct(self.config)
+        metrics = create_metrics(self.config.metric, self.config)
+        self._engine.add_valid(name, data.binned, metrics)
+        self._valid_data.append((name, data))
+        return self
+
     # -- evaluation ----------------------------------------------------------
     def eval_train(self, feval=None) -> List:
         if feval is not None:
             raise NotImplementedError(
                 "custom metrics are not ported to the PyTorch package yet")
         return self._engine.eval_train()
+
+    def eval_valid(self, feval=None) -> List:
+        """(name, metric, value, is_higher_better) for every metric of
+        every validation set, in the order they were added."""
+        if feval is not None:
+            raise NotImplementedError(
+                "custom metrics are not ported to the PyTorch package yet")
+        return self._engine.eval_valid()
 
     # -- prediction ----------------------------------------------------------
     def predict(self, data, num_iteration: int = -1, raw_score: bool = False,

@@ -7,11 +7,12 @@ partition-ordered fast path for one tree per iteration (K = 1): the
 add), `_boost_from_average` and `_finish_tree_host`, in f32 or with
 quantized gradients (gradient_quantization: the grad/hess columns hold
 integers, histograms are int32), growing one leaf per round or
-frontier-batched (tpu_frontier_batch).  Bagging, GOSS, DART, RF, the
-non-finite sentinel, validation sets and the parallel learners are not
-ported; asking for one raises.  boost_window and pipeline_depth change
-only how the JAX package dispatches its work, never the model, and are
-accepted as no-ops.
+frontier-batched (tpu_frontier_batch), and validation sets, scored on
+the device after every tree by bin-level traversal (`add_valid`).
+Bagging, GOSS, DART, RF, the non-finite sentinel and the parallel
+learners are not ported; asking for one raises.  boost_window and
+pipeline_depth change only how the JAX package dispatches its work, never
+the model, and are accepted as no-ops.
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ from ..models.tree import Tree
 from ..ops import segment as seg
 from ..ops.quantize import (F32_GH_BYTES, QUANT_GH_BYTES, derive_qmax,
                             quant_seed, quantize_pair)
-from ..ops.split import FeatureMeta
+from ..ops.bundle import BundleMap, decode_bin, identity_bundle_map
+from ..ops.split import MISSING_NAN, MISSING_ZERO, FeatureMeta
 from ..utils.log import Log
 from ..utils.random import Random, partition_seed
 from .grower2 import GrowerConfig, PayloadCols, make_partitioned_grower
@@ -153,6 +155,57 @@ class _FastState:
         return out
 
 
+def _traverse_add(bins_v: torch.Tensor, score_v: torch.Tensor,
+                  leaf_out: torch.Tensor, tree_dev: Dict[str, torch.Tensor],
+                  meta: FeatureMeta, bmap: BundleMap,
+                  depth_iters: int) -> None:
+    """score_v[0] += leaf_out[leaf of each row], in place: one tree's
+    bin-level traversal over a [G, M] binned matrix, `depth_iters` steps of
+    Tree::DecisionInner (tree.h:234-249 / 288-295).  The JAX package's
+    _make_decision_body and _traverse_update (gbdt.py:858-911), eager."""
+    M = bins_v.shape[1]
+    rows = torch.arange(M, device=bins_v.device)
+    sf, sb, dl = (tree_dev["split_feature"], tree_dev["split_bin"],
+                  tree_dev["default_left"])
+    lc, rc = tree_dev["left_child"], tree_dev["right_child"]
+    is_cat, cat_bitset = tree_dev["split_is_cat"], tree_dev["split_cat_bitset"]
+    nd = torch.zeros(M, dtype=torch.int64, device=bins_v.device)
+    for _ in range(depth_iters):
+        is_leaf = nd < 0
+        ndc = nd.clamp(min=0)
+        f = sf[ndc]
+        raw = bins_v[bmap.f_group[f].long(), rows]
+        num_bin, default_bin = meta.num_bin[f], meta.default_bin[f]
+        fbin = decode_bin(raw, bmap.f_identity[f], bmap.f_offset[f], num_bin,
+                          default_bin)
+        mt = meta.missing_type[f]
+        is_missing = ((mt == MISSING_NAN) & (fbin == num_bin - 1)) | \
+                     ((mt == MISSING_ZERO) & (fbin == default_bin))
+        go_left = torch.where(is_missing, dl[ndc], fbin <= sb[ndc])
+        go_left = torch.where(
+            is_cat[ndc],
+            cat_bitset[ndc, fbin.clamp(0, cat_bitset.shape[1] - 1).long()],
+            go_left)
+        child = torch.where(go_left, lc[ndc], rc[ndc]).long()
+        nd = torch.where(is_leaf, nd, child)
+    score_v[0] += leaf_out[~nd]
+
+
+def _depth_iters(tree: Tree) -> int:
+    """Traversal steps that take every row to its leaf: the tree's depth.
+    The JAX package runs num_leaves - 1 steps (a static trip count for
+    jit); the steps past the depth leave every row where it is."""
+    depth, stack = 0, [(0, 1)]
+    while stack:
+        node, d = stack.pop()
+        for child in (int(tree.left_child[node]), int(tree.right_child[node])):
+            if child < 0:
+                depth = max(depth, d)
+            else:
+                stack.append((child, d + 1))
+    return depth
+
+
 def _fetch_packed(out: Dict) -> Dict[str, np.ndarray]:
     """The grower's small outputs in ONE device-to-host transfer: every
     tensor field is exact in f32 (counts and ids < 2^24, flags 0/1), so
@@ -193,6 +246,8 @@ class GBDT:
         #: unless the frontier-batched grower committed several per round)
         self.split_rounds_total = 0
         self.trees_finished = 0
+        #: [name, dataset, bins on the device, [1, n_pad] scores, metrics]
+        self.valid_sets: List[list] = []
 
         # quantized-gradient training (the JAX package's gate,
         # gbdt.py:994-1026): the grid is capped by the int32 overflow
@@ -220,6 +275,7 @@ class GBDT:
         self.model.objective_str = objective.to_string()
 
         self.meta = feature_meta(train_set, device)
+        self._bmap = identity_bundle_map(train_set.num_features, device)
         self.grower_cfg = GrowerConfig(
             num_leaves=int(config.num_leaves),
             max_depth=int(config.max_depth),
@@ -276,9 +332,71 @@ class GBDT:
                 raise NotImplementedError(
                     "%s is not ported to the PyTorch package yet" % what)
 
+    # -- validation (the JAX package's gbdt.py:1299-1319, 2076-2122) ----------
     def add_valid(self, name: str, valid: BinnedDataset, metrics: List) -> None:
-        raise NotImplementedError(
-            "validation sets are not ported to the PyTorch package yet")
+        """Score `valid` (binned with the training mappers) after every
+        tree: its bins go to the device, every existing tree is replayed
+        onto its scores, and the metrics are initialised on its labels."""
+        bins = valid.bins if valid.bins.dtype == np.uint8 \
+            else valid.bins.astype(np.int32)
+        bins_v = torch.as_tensor(bins, device=self.device)
+        score_v = torch.zeros((1, valid.num_data_padded), dtype=torch.float32,
+                              device=self.device)
+        if valid.metadata.init_score is not None:
+            score_v += torch.as_tensor(valid.padded(
+                valid.metadata.init_score.astype(np.float32)),
+                device=self.device)
+        for tree in self.model.trees:
+            self._add_tree_to_score(bins_v, score_v, tree)
+        for m in metrics:
+            m.init(valid.metadata.label, valid.metadata.weight,
+                   valid.metadata.query_boundaries)
+        self.valid_sets.append([name, valid, bins_v, score_v, metrics])
+
+    def _add_tree_to_score(self, bins_v: torch.Tensor, score_v: torch.Tensor,
+                           tree: Tree) -> None:
+        if tree.num_leaves <= 1:
+            score_v += np.float32(tree.leaf_value[0])
+            return
+        tree_dev, leaf_out = self._tree_to_device(tree)
+        _traverse_add(bins_v, score_v, leaf_out, tree_dev, self.meta,
+                      self._bmap, _depth_iters(tree))
+
+    def _tree_to_device(self, tree: Tree):
+        """Device arrays for the bin-level traversal of a host tree (the
+        JAX package's _tree_to_device): bin thresholds and the inner
+        categorical bitsets."""
+        ni = max(tree.num_leaves - 1, 1)
+        B = self.train_set.max_num_bin
+        is_cat = (tree.decision_type[:ni] & 1) != 0
+        bitset = np.zeros((ni, B), dtype=bool)
+        for node in np.nonzero(is_cat)[0]:
+            ci = int(tree.threshold_in_bin[node])
+            lo = tree.cat_boundaries_inner[ci]
+            hi = tree.cat_boundaries_inner[ci + 1]
+            for wi in range(lo, hi):
+                word = tree.cat_threshold_inner[wi]
+                for bit in range(32):
+                    b = (wi - lo) * 32 + bit
+                    if b < B and (word >> bit) & 1:
+                        bitset[node, b] = True
+
+        def t(a, dtype):
+            return torch.as_tensor(np.asarray(a), dtype=dtype,
+                                   device=self.device)
+
+        tree_dev = {
+            "split_feature": t(tree.split_feature[:ni], torch.int64),
+            "split_bin": t(np.where(is_cat, 0, tree.threshold_in_bin[:ni]),
+                           torch.int32),
+            "default_left": t((tree.decision_type[:ni] & 2) != 0, torch.bool),
+            "split_is_cat": t(is_cat, torch.bool),
+            "split_cat_bitset": t(bitset, torch.bool),
+            "left_child": t(tree.left_child[:ni], torch.int64),
+            "right_child": t(tree.right_child[:ni], torch.int64),
+        }
+        leaf_out = t(tree.leaf_value[:max(tree.num_leaves, 1)], torch.float32)
+        return tree_dev, leaf_out
 
     # -- one boosting iteration (gbdt.cpp:387-482) ---------------------------
     def train_one_iter(self, grad=None, hess=None) -> bool:
@@ -318,6 +436,8 @@ class GBDT:
         self.trees_finished += 1
         tree = self._finish_tree_host(host, init_score, lr)
         self.model.trees.append(tree)
+        for vs in self.valid_sets:
+            self._add_tree_to_score(vs[2], vs[3], tree)
         self.iter += 1
         if tree.num_leaves <= 1:
             Log.warning("Stopped training because there are no more leaves "
@@ -414,3 +534,16 @@ class GBDT:
         raw = self.raw_train_score()
         return [("training", m.name, m.eval(raw[0], self.objective),
                  m.is_higher_better) for m in self.train_metrics]
+
+    def raw_valid_score(self, i: int) -> np.ndarray:
+        """[1, num_data] scores of validation set i (host)."""
+        _, valid, _, score_v, _ = self.valid_sets[i]
+        return score_v[:, : valid.num_data].cpu().numpy()
+
+    def eval_valid(self) -> List[Tuple[str, str, float, bool]]:
+        out = []
+        for i, (name, _, _, _, metrics) in enumerate(self.valid_sets):
+            raw = self.raw_valid_score(i)
+            out.extend((name, m.name, m.eval(raw[0], self.objective),
+                        m.is_higher_better) for m in metrics)
+        return out

@@ -8,6 +8,16 @@ is built from rows, and the sibling comes from subtraction
 ops/cuda_segment.py: hand-written kernels for CUDA tensors, the plain
 PyTorch versions for CPU tensors.
 
+Wide payloads: the f32 histogram and the one-leaf loop's partition go
+by width through `cuda_segment.histogram_route` (B1, or the
+column-block B7 from 889 features) and `partition_route` (B2, the RMW
+B3 from a payload width of 513, the column-block B8 from 1665), the
+kernels the JAX grower picks at those widths.  The quantized histogram
+(B4) and the frontier rounds (B5, B2's stage and commit) serve every
+width, as in the JAX package, whose column-block engine has no int32 or
+batched sibling.  `grow.hist_engine` / `grow.part_engine` name the
+wrappers chosen.
+
 The port covers the serial, unforced, unpooled, non-monotone path, in
 f32 or quantized (int32 histograms, dequantized at the split search), one
 leaf per round or frontier-batched.  The JAX grower is one on-device
@@ -134,14 +144,13 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
         return leaf_output(sum_g, sum_h, cfg.lambda_l1, cfg.lambda_l2,
                            cfg.max_delta_step)
 
-    if quantized:
-        def hist_fn(payload, start, count):
-            return cuda_segment.segment_histogram_quant(payload, start, count,
-                                                        **hist_kwargs)
-    else:
-        def hist_fn(payload, start, count):
-            return cuda_segment.segment_histogram(payload, start, count,
-                                                  **hist_kwargs)
+    # the f32 histogram of a segment follows the route by width (B1 or
+    # B7); the int32 histogram (B4) serves every width
+    hist_wrapper = cuda_segment.segment_histogram_quant if quantized \
+        else cuda_segment.histogram_route(F)
+
+    def hist_fn(payload, start, count):
+        return hist_wrapper(payload, start, count, **hist_kwargs)
 
     def hist_batched_fn(payload, starts, counts):
         return cuda_segment.segment_histogram_batched(
@@ -150,6 +159,11 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
     def grow(payload: torch.Tensor, aux: torch.Tensor,
              feature_mask: torch.Tensor, qscale: torch.Tensor = None):
         dev = payload.device
+        # the one-leaf loop's partition follows the route by payload width
+        # (B2, B3 or B8); the frontier rounds stage and commit through B2
+        part_fn = cuda_segment.partition_route(payload.shape[1])
+        grow.part_engine = part_fn.__name__ if KB == 1 \
+            else "partition_segment_stage"
         bmap = identity_bundle_map(F, dev)
         n_rows = payload.shape[0] - GUARD
         i32 = dict(dtype=torch.int32, device=dev)
@@ -284,8 +298,8 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             lo, ro = leaf("blo"), leaf("bro")
             hist_parent = leaf("hist")
 
-            payload, aux, nl_raw = cuda_segment.partition_segment(
-                payload, aux, start, count, pred, lo, ro, cols.value)
+            payload, aux, nl_raw = part_fn(payload, aux, start, count, pred,
+                                           lo, ro, cols.value)
             nr_raw = count - nl_raw
 
             # build only the smaller child (by masked counts, as the JAX
@@ -563,4 +577,8 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             tree[key] = st[key][:ni]
         return tree, payload, aux
 
+    # the engines this grower chose, by wrapper name (the JAX grower's
+    # hist_engine); part_engine is set by each call, from the payload width
+    grow.hist_engine = hist_wrapper.__name__
+    grow.part_engine = None
     return grow

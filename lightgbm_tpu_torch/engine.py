@@ -2,9 +2,8 @@
 
 Role parity with the reference python-package/lightgbm/engine.py train:
 callback environment, early stopping via exception, evaluation-result
-bookkeeping.  This slice evaluates the training set only (pass it in
-valid_sets); other validation sets, cv() and continued training are not
-ported yet.
+bookkeeping and best_iteration, over the training set and any validation
+sets.  cv() and continued training are not ported yet.
 """
 from __future__ import annotations
 
@@ -12,7 +11,8 @@ import collections
 from typing import Dict, List, Optional
 
 from .basic import Booster, Dataset
-from .callback import CallbackEnv, EarlyStopException, log_evaluation
+from .callback import (CallbackEnv, EarlyStopException, early_stopping,
+                       log_evaluation, record_evaluation)
 from .utils.log import Log
 
 
@@ -20,11 +20,16 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
           valid_sets: Optional[List[Dataset]] = None,
           valid_names: Optional[List[str]] = None,
           callbacks: Optional[List] = None,
+          early_stopping_rounds: Optional[int] = None,
+          evals_result: Optional[Dict] = None,
           verbose_eval=True) -> Booster:
     """Train a model on `train_set`.  Runs on the card unless params set
-    device_type='cpu'; with no CUDA device and no such request it raises."""
+    device_type='cpu'; with no CUDA device and no such request it raises.
+    Every validation set is scored after every iteration; `evals_result`,
+    when given, receives {name: {metric: [value per iteration]}}."""
     params = dict(params)
-    num_boost_round = _rounds_from_params(params, num_boost_round)
+    num_boost_round, early_stopping_rounds = _rounds_from_params(
+        params, num_boost_round, early_stopping_rounds)
     booster = Booster(params=params, train_set=train_set)
     is_valid_contain_train = False
     train_data_name = "training"
@@ -33,14 +38,22 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
     if isinstance(valid_names, str):
         valid_names = [valid_names]
     for i, valid in enumerate(valid_sets or []):
-        if valid is not train_set:
-            raise NotImplementedError(
-                "validation sets other than the training set are not ported "
-                "to the PyTorch package yet")
-        is_valid_contain_train = True
-        train_data_name = valid_names[i] if valid_names else "training"
+        # the reference's names: the training set stays "training" unless
+        # named, another set is "valid_<i>"
+        if valid is train_set:
+            is_valid_contain_train = True
+            train_data_name = valid_names[i] if valid_names else "training"
+            continue
+        booster.add_valid(valid, valid_names[i] if valid_names
+                          else "valid_%d" % i)
 
     callbacks = list(callbacks) if callbacks else []
+    # recorded before early stopping looks, so the stopping round counts
+    if evals_result is not None:
+        callbacks.append(record_evaluation(evals_result))
+    if early_stopping_rounds is not None and early_stopping_rounds > 0:
+        callbacks.append(early_stopping(early_stopping_rounds,
+                                        verbose=bool(verbose_eval)))
     if verbose_eval is True:
         callbacks.append(log_evaluation(1))
     elif isinstance(verbose_eval, int) and verbose_eval > 0:
@@ -62,6 +75,7 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
         if is_valid_contain_train:
             evaluation_result_list = [(train_data_name, m, v, h) for
                                       (_, m, v, h) in booster.eval_train()]
+        evaluation_result_list.extend(booster.eval_valid())
         env = CallbackEnv(model=booster, params=params, iteration=i,
                           begin_iteration=0, end_iteration=num_boost_round,
                           evaluation_result_list=evaluation_result_list)
@@ -82,13 +96,17 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
     return booster
 
 
-def _rounds_from_params(params: Dict, num_boost_round: int) -> int:
-    """Honor num_iterations given as a param or an alias of it (the
-    reference engine pops the aliases and they override the argument)."""
+def _rounds_from_params(params: Dict, num_boost_round: int,
+                        early_stopping_rounds: Optional[int]):
+    """Honor num_iterations / early_stopping_round given as params or
+    aliases of them (the reference engine pops the aliases and they
+    override the arguments; the canonical key wins over an alias)."""
     from ._params import ALIASES
-    hits = {key: params.pop(key) for key in list(params)
-            if ALIASES.get(key, key) == "num_iterations"}
-    if not hits:
-        return num_boost_round
-    value = hits.get("num_iterations", next(iter(hits.values())))
-    return int(value)
+    out = {"num_iterations": num_boost_round,
+           "early_stopping_round": early_stopping_rounds}
+    for canon in out:
+        hits = {key: params.pop(key) for key in list(params)
+                if ALIASES.get(key, key) == canon}
+        if hits:
+            out[canon] = int(hits.get(canon, next(iter(hits.values()))))
+    return out["num_iterations"], out["early_stopping_round"]

@@ -27,6 +27,21 @@ def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
 
+def _map_features(fn, num_features: int, config) -> list:
+    """[fn(j) for j in range(num_features)], on worker threads when
+    is_parallel_find_bin holds and there are more than 8 features
+    (num_threads workers, else up to 16)."""
+    if bool(getattr(config, "is_parallel_find_bin", True)) \
+            and num_features > 8:
+        import concurrent.futures as cf
+        import os
+        nt = int(getattr(config, "num_threads", 0) or 0)
+        workers = nt if nt > 0 else min(16, os.cpu_count() or 1)
+        with cf.ThreadPoolExecutor(workers) as pool:
+            return list(pool.map(fn, range(num_features)))
+    return [fn(j) for j in range(num_features)]
+
+
 class Metadata:
     """Labels / weights / query boundaries / init scores (src/io/metadata.cpp)."""
 
@@ -112,10 +127,16 @@ class BinnedDataset:
         n_pad = _round_up(n, row_chunk) if n > row_chunk else _round_up(max(n, 1), 128)
         dtype = np.uint8 if ds.max_num_bin <= 256 else np.uint16
         bins = np.zeros((f, n_pad), dtype=dtype)
-        for j, mapper in enumerate(bin_mappers):
-            if mapper.is_trivial:
-                continue
-            bins[j, :n] = mapper.values_to_bins(X[:, j].astype(np.float64))
+
+        def bin_one(j: int) -> None:
+            if not bin_mappers[j].is_trivial:
+                bins[j, :n] = bin_mappers[j].values_to_bins(
+                    X[:, j].astype(np.float64))
+
+        # one feature per task on worker threads (numpy's searchsorted and
+        # elementwise passes release the GIL): wide data bins in a fraction
+        # of the serial time
+        _map_features(bin_one, f, config)
 
         # Exclusive Feature Bundling (reference dataset.cpp:66-210): pack
         # mutually-exclusive sparse features into shared storage columns.
@@ -195,15 +216,7 @@ class BinnedDataset:
         # bins a feature slice and the mappers are allgathered; here the
         # shards are host worker threads, and the "allgather" is the shared
         # result list — one process owns all device shards)
-        if bool(getattr(config, "is_parallel_find_bin", True)) and f > 8:
-            import concurrent.futures as cf
-            import os as _os
-            nt = int(getattr(config, "num_threads", 0) or 0)
-            workers = nt if nt > 0 else min(16, _os.cpu_count() or 1)
-            with cf.ThreadPoolExecutor(workers) as pool:
-                mappers = list(pool.map(find_one, range(f)))
-        else:
-            mappers = [find_one(j) for j in range(f)]
+        mappers = _map_features(find_one, f, config)
         num_trivial = sum(1 for m in mappers if m.is_trivial)
         if num_trivial:
             Log.info("%d features are ignored (constant value)", num_trivial)

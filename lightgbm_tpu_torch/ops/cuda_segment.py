@@ -13,7 +13,21 @@ csrc/segment_partition.cu:
 - `partition_segment_stage` and `partition_segment_commit` are its two
   halves, which the frontier-batched grower runs apart (plain JAX in the
   JAX package, ops/segment.py; the same hand-written kernels here).
+csrc/segment_hist_colblock.cu:
+- `segment_histogram_colblock` replaces segment_histogram_colblock
+  (_hist_colblock_kernel, B7): B1's contract for wide payloads.
+csrc/segment_partition_wide.cu:
+- `partition_segment_rmw` replaces partition_segment (_partition_kernel,
+  B3) and `partition_segment_blocks` replaces partition_segment_acc_blocks
+  (_snap_window_kernel + _acc_blocks_kernel, B8): B2's contract for wide
+  payloads.
 All keep the signatures and returns of ops/segment.py.
+
+The route (`histogram_route`, `partition_route`) picks the wrapper by
+width, with the crossovers the JAX package's VMEM gates give at max_bin
+255 on its lane-padded width, restated on the port's unpadded width
+(P = F + 10).  The card's own crossovers are not these; one set of
+constants serves every bin count.
 
 For a tensor on the CPU a wrapper runs the plain PyTorch version in
 ops/segment.py; for a CUDA tensor it launches its kernel on the current
@@ -25,6 +39,7 @@ packed on the device, so a launch never waits for the host.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -37,6 +52,13 @@ _I = ctypes.c_int
 
 #: shared memory one histogram block may use: two blocks fit on an SM
 HIST_SMEM_BYTES = 110 * 1024
+
+#: features from which the column-block histogram (B7) replaces B1
+COLBLOCK_MIN_FEATURES = 889
+#: payload widths from which the RMW partition (B3) replaces B2
+PARTITION_RMW_MIN_WIDTH = 513
+#: payload widths from which the column-block partition (B8) replaces B3
+PARTITION_BLOCKS_MIN_WIDTH = 1665
 
 
 def _lib(name: str, fn: str, argtypes):
@@ -59,6 +81,12 @@ def _check(lib, name: str, rc: int) -> None:
 
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index) \
+        .multi_processor_count
 
 
 def _int_vec(values, device) -> torch.Tensor:
@@ -112,7 +140,7 @@ def _hist_launch(name: str, payload: torch.Tensor, segv: torch.Tensor,
     out = torch.zeros((K, F, B, 3), device=dev,
                       dtype=torch.int32 if quantized else torch.float32)
     Ft = min(F, HIST_SMEM_BYTES // (B * 3 * 4))
-    grid_x = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
+    grid_x = 2 * _sm_count(dev.index)
     lib, fn = _lib("segment_hist", "segment_hist_launch",
                    [_P, _I, _P, _P] + [_I] * 9 + [_P])
     rc = fn(payload.data_ptr(), P, segv.data_ptr(), out.data_ptr(), K, F, B,
@@ -230,8 +258,7 @@ def _commit(payload, aux, start, count, num_left, left_value, right_value,
                          for v in (left_value, right_value)])
     lib, fn = _lib("segment_partition", "segment_partition_commit_launch",
                    [_P, _P, _I, _P, _P, _P, _I, _I, _P])
-    copy_blocks = 8 * torch.cuda.get_device_properties(dev) \
-        .multi_processor_count
+    copy_blocks = 8 * _sm_count(dev.index)
     rc = fn(payload.data_ptr(), aux.data_ptr(), P, segv.data_ptr(),
             num_left.data_ptr(), fvals.data_ptr(), value_col, copy_blocks,
             _stream(dev))
@@ -316,3 +343,166 @@ def partition_segment_commit(payload: torch.Tensor, aux: torch.Tensor, start,
 
 
 partition_segment_commit.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _colblock_features(num_features: int, num_bins: int) -> int:
+    """Columns per block of B7: all F when they fit the shared-memory
+    budget, else the most that fit, rounded down to a multiple of 32 (one
+    warp's lanes) where that leaves any; 0 when not one column fits."""
+    smem = build.load("segment_hist_colblock").segment_hist_colblock_smem_bytes
+    smem.argtypes = [_I, _I]
+    fixed = smem(0, num_bins)
+    fb_max = max(0, (HIST_SMEM_BYTES - fixed)
+                 // (smem(1, num_bins) - fixed))
+    if num_features <= fb_max:
+        return num_features
+    return fb_max - fb_max % 32 if fb_max >= 32 else fb_max
+
+
+def segment_histogram_colblock(payload: torch.Tensor, start, count, *,
+                               num_features: int, num_bins: int,
+                               grad_col: int, hess_col: int,
+                               cnt_col: int) -> torch.Tensor:
+    """f32 hist[F, B, 3] over payload rows [start, start+count) of a wide
+    payload (B7: replaces lightgbm_tpu/ops/pallas_segment.py
+    segment_histogram_colblock).  Its contract is B1's, so a CPU tensor
+    runs the same plain version, `seg.segment_histogram`."""
+    kwargs = dict(num_features=num_features, num_bins=num_bins,
+                  grad_col=grad_col, hess_col=hess_col, cnt_col=cnt_col)
+    if payload.device.type == "cpu":
+        return seg.segment_histogram(payload, start, count, **kwargs)
+    _check_payload(payload, "segment_histogram_colblock")
+    F, B, P = num_features, num_bins, payload.shape[1]
+    lib, fn = _lib("segment_hist_colblock", "segment_hist_colblock_launch",
+                   [_P, _I, _P, _P] + [_I] * 7 + [_P])
+    fb = _colblock_features(F, B) if 0 < B < 0xFFFF else 0
+    if not 0 < F <= P or fb == 0:
+        raise ValueError("segment_histogram_colblock: F=%d, B=%d outside "
+                         "the kernel's range" % (F, B))
+    for c in (grad_col, hess_col, cnt_col):
+        if not 0 <= c < P:
+            raise ValueError("segment_histogram_colblock: value column %d "
+                             "outside [0, %d)" % (c, P))
+    dev = payload.device
+    segv = _int_vec((start, count), dev)
+    out = torch.zeros((F, B, 3), device=dev, dtype=torch.float32)
+    n_cb = -(-F // fb)
+    grid_x = max(1, -(-4 * _sm_count(dev.index) // n_cb))
+    rc = fn(payload.data_ptr(), P, segv.data_ptr(), out.data_ptr(), F, B, fb,
+            grad_col, hess_col, cnt_col, grid_x, _stream(dev))
+    _check(lib, "segment_hist_colblock", rc)
+    segment_histogram_colblock.launches += 1
+    return out
+
+
+segment_histogram_colblock.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_tile_rows() -> int:
+    return build.load("segment_partition_wide") \
+        .segment_partition_wide_tile_rows()
+
+
+def _partition_wide(payload, aux, start, count, pred: SplitPredicate,
+                    left_value, right_value, value_col: int, blocks: bool,
+                    name: str):
+    """Launch csrc/segment_partition_wide.cu: the routing, B3's warp-per-row
+    scatter (blocks False) or B8's column-block scatter, and the
+    column-block copy-back.  Returns num_left, a 0-d int32 device tensor."""
+    _check_payload(payload, name)
+    _check_aux(payload, aux, name)
+    dev = payload.device
+    N, P = payload.shape
+    if not 0 <= value_col < P:
+        raise ValueError("%s: value_col %d outside [0, %d)"
+                         % (name, value_col, P))
+    scalars = _int_vec((start, count, pred.col, pred.threshold,
+                        pred.default_left, pred.is_cat, pred.missing_type,
+                        pred.num_bin, pred.default_bin, pred.offset,
+                        pred.identity), dev)
+    bitset = torch.as_tensor(pred.bitset, device=dev).to(torch.bool) \
+        .contiguous().view(torch.uint8)
+    fvals = torch.stack([torch.as_tensor(v, device=dev).reshape(())
+                         .to(torch.float32)
+                         for v in (left_value, right_value)])
+    lib, fn = _lib("segment_partition_wide", "segment_partition_wide_launch",
+                   [_P, _P, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P,
+                    _I, _I, _P])
+    n_tiles = -(-N // _wide_tile_rows())
+    side = torch.empty(N, dtype=torch.uint8, device=dev)
+    # each row's destination, then each tile's left count and offset
+    scratch = torch.empty(N + 2 * n_tiles, dtype=torch.int32, device=dev)
+    dest, tile_left, tile_off = scratch.split((N, n_tiles, n_tiles))
+    num_left = torch.empty(1, dtype=torch.int32, device=dev)
+    # 16 blocks of 256 threads per SM in all, over the column blocks of 512
+    grid_x = max(1, 16 * _sm_count(dev.index) // -(-P // 512))
+    rc = fn(payload.data_ptr(), aux.data_ptr(), P, scalars.data_ptr(),
+            bitset.data_ptr(), bitset.shape[0], fvals.data_ptr(), value_col,
+            n_tiles, side.data_ptr(), dest.data_ptr(), tile_left.data_ptr(),
+            tile_off.data_ptr(), num_left.data_ptr(), int(blocks), grid_x,
+            _stream(dev))
+    _check(lib, "segment_partition_wide", rc)
+    return num_left.reshape(())
+
+
+def partition_segment_rmw(payload: torch.Tensor, aux: torch.Tensor, start,
+                          count, pred: SplitPredicate, left_value,
+                          right_value, value_col: int):
+    """Stable in-place partition of rows [start, start+count) of a wide
+    payload; returns (payload, aux, num_left) (B3: replaces
+    lightgbm_tpu/ops/pallas_segment.py partition_segment, the RMW kernel).
+    Its contract is B2's, so a CPU tensor runs the same plain version,
+    `seg.partition_segment`."""
+    if payload.device.type == "cpu":
+        return seg.partition_segment(payload, aux, start, count, pred,
+                                     left_value, right_value, value_col)
+    num_left = _partition_wide(payload, aux, start, count, pred, left_value,
+                               right_value, value_col, False,
+                               "partition_segment_rmw")
+    partition_segment_rmw.launches += 1
+    return payload, aux, num_left
+
+
+partition_segment_rmw.launches = 0
+
+
+def partition_segment_blocks(payload: torch.Tensor, aux: torch.Tensor, start,
+                             count, pred: SplitPredicate, left_value,
+                             right_value, value_col: int):
+    """Stable in-place partition of rows [start, start+count) of the widest
+    payloads, moved in column blocks; returns (payload, aux, num_left) (B8:
+    replaces lightgbm_tpu/ops/pallas_segment.py
+    partition_segment_acc_blocks).  Its contract is B2's, so a CPU tensor
+    runs the same plain version, `seg.partition_segment`."""
+    if payload.device.type == "cpu":
+        return seg.partition_segment(payload, aux, start, count, pred,
+                                     left_value, right_value, value_col)
+    num_left = _partition_wide(payload, aux, start, count, pred, left_value,
+                               right_value, value_col, True,
+                               "partition_segment_blocks")
+    partition_segment_blocks.launches += 1
+    return payload, aux, num_left
+
+
+partition_segment_blocks.launches = 0
+
+
+def histogram_route(num_features: int):
+    """The f32 histogram wrapper for F features: B7 from
+    COLBLOCK_MIN_FEATURES on, else B1."""
+    if num_features >= COLBLOCK_MIN_FEATURES:
+        return segment_histogram_colblock
+    return segment_histogram
+
+
+def partition_route(payload_width: int):
+    """The whole-partition wrapper for a payload of P columns: B8 from
+    PARTITION_BLOCKS_MIN_WIDTH on, B3 from PARTITION_RMW_MIN_WIDTH on,
+    else B2."""
+    if payload_width >= PARTITION_BLOCKS_MIN_WIDTH:
+        return partition_segment_blocks
+    if payload_width >= PARTITION_RMW_MIN_WIDTH:
+        return partition_segment_rmw
+    return partition_segment
