@@ -5,8 +5,9 @@
 Builds the hand-written kernels from lightgbm_tpu_torch/csrc with nvcc,
 holds each against its plain PyTorch version at main-path shapes (the f32
 histogram B1, the int32 histogram B4 at the int8 and int16 grids, the
-batched histogram B5 in f32 and int32, and the partition B2 whole and as
-its stage and commit halves) and at the wide shapes (Bosch: 968 features,
+batched histogram B5 in f32 and int32, the partition B2 whole and as its
+stage and commit halves, and the merged partition + histogram B6, also
+at 137 features and 64 bins) and at the wide shapes (Bosch: 968 features,
 Epsilon: 2,000; the column-block histogram B7, the RMW partition B3 and
 the column-block partition B8, and B1, B2, B4, B5 and the stage and
 commit there too), times each beside its bound and a PyTorch yardstick
@@ -14,7 +15,10 @@ commit there too), times each beside its bound and a PyTorch yardstick
 and CPU training agree on small problems at 28, 968 and 2,000 features,
 then trains through lightgbm_tpu_torch.train on the card (binary
 objective, max_bin 255, 255 leaves, lr 0.1): on 28 dense features the f32
-main path, then quantized gradients (int8, int16), the frontier-batched
+main path, the grower's merged mode (B6 on every split, with
+lightgbm_tpu_torch.ops.cuda_segment.PARTITION_HIST_VALIDATED set once B6
+has been held) and its histogram pool (histogram_pool_size=2, parents
+rebuilt), then quantized gradients (int8, int16), the frontier-batched
 grower (tpu_frontier_batch=8) and the two together; then the wide paths,
 1M x 968 (a fifth of every other feature NaN) and 400k x 2,000, each with
 a 100k-row validation set scored every iteration (metric auc).
@@ -22,16 +26,18 @@ Each training path resets the kernels' launch counts before it and reads
 them after it; the quantized paths must not launch the f32 histogram, the
 frontier paths must take fewer rounds than splits, the quantized
 frontier path must write the quantized one-leaf loop's model byte for
-byte, no path on 28 features may launch B3, B7 or B8, and the wide paths
-must launch B7 with B3 (968) or B8 (2,000) and never B1 or the whole B2.
+byte, no path on 28 features may launch B3, B7 or B8, the merged path
+must launch B6 once per split, B1 once per tree and no other partition,
+the pooled path must rebuild parents, and the wide paths must launch B7
+with B3 (968) or B8 (2,000) and never B1 or the whole B2.
 Held-out AUC is checked on every path (within 0.002 of the f32 main path
 for its variants; on the wide paths the device's valid scores must equal
 predict(raw_score=True) and the last valid AUC the AUC of that
-prediction).  After the main, quantized int8, frontier and wide paths, two
-more iterations are timed, the second under torch.profiler.  Every phase
-always runs and prints one line, prefixed with the seconds since start;
-any failed check exits non-zero.  The last line is the device record
-{"ok": true, "device": {...}}.  Imports nothing of JAX or
+prediction).  After the main, merged, quantized int8, frontier and wide
+paths, two more iterations are timed, the second under torch.profiler.
+Every phase always runs and prints one line, prefixed with the seconds
+since start; any failed check exits non-zero.  The last line is the
+device record {"ok": true, "device": {...}}.  Imports nothing of JAX or
 lightgbm_tpu.
 """
 from __future__ import annotations
@@ -148,22 +154,24 @@ def nvidia_smi() -> str:
 # phase: kernels
 # ---------------------------------------------------------------------------
 
-def make_payload(n: int, f: int, p: int, seed: int, dev) -> torch.Tensor:
-    """A main-path-shaped payload: integer bins < B in [0, f), random
-    value columns, 0/1 count mask, guard rows zero."""
+def make_payload(n: int, f: int, p: int, seed: int, dev,
+                 num_bins: int = B) -> torch.Tensor:
+    """A main-path-shaped payload: integer bins < num_bins in [0, f),
+    random value columns, 0/1 count mask, guard rows zero."""
     rng = np.random.default_rng(seed)
     pay = np.zeros((n + seg.GUARD, p), np.float32)
-    pay[:n, :f] = rng.integers(0, B, size=(n, f))
+    pay[:n, :f] = rng.integers(0, num_bins, size=(n, f))
     pay[:n, f:] = rng.standard_normal((n, p - f))
     pay[:n, f + 2] = (rng.random(n) < 0.9).astype(np.float32)
     return torch.from_numpy(pay).to(dev)
 
 
-def predicates(dev):
-    """The routing cases of the partition: numerical, NaN-missing with
-    default_left, zero-missing, categorical bitset, EFB offset decode."""
+def predicates(dev, nb: int = B):
+    """The routing cases of the partition at nb bins: numerical,
+    NaN-missing with default_left, zero-missing, categorical bitset, EFB
+    offset decode, all rows left, all rows right."""
     def pred(col, threshold, default_left=False, is_cat=False, bitset=None,
-             missing_type=0, num_bin=B, default_bin=0, offset=0,
+             missing_type=0, num_bin=nb, default_bin=0, offset=0,
              identity=True):
         i32 = dict(dtype=torch.int32, device=dev)
         return SplitPredicate(
@@ -172,38 +180,41 @@ def predicates(dev):
             default_left=torch.tensor(default_left, device=dev),
             is_cat=torch.tensor(is_cat, device=dev),
             bitset=torch.as_tensor(bitset if bitset is not None
-                                   else np.zeros(B, bool), device=dev),
+                                   else np.zeros(nb, bool), device=dev),
             missing_type=torch.tensor(missing_type, **i32),
             num_bin=torch.tensor(num_bin, **i32),
             default_bin=torch.tensor(default_bin, **i32),
             offset=torch.tensor(offset, **i32),
             identity=torch.tensor(identity, device=dev))
 
-    cat = np.random.default_rng(5).random(B) < 0.4
+    cat = np.random.default_rng(5).random(nb) < 0.4
     return {
-        "numerical": pred(3, 100),
-        "nan_missing_default_left": pred(5, 50, default_left=True,
+        "numerical": pred(3, 100 * nb // B),
+        "nan_missing_default_left": pred(5, 50 * nb // B, default_left=True,
                                          missing_type=2),
-        "zero_missing": pred(7, 120, missing_type=1, default_bin=30),
+        "zero_missing": pred(7, 120 * nb // B, missing_type=1,
+                             default_bin=30 * nb // B),
         "categorical": pred(9, 0, is_cat=True, bitset=cat),
-        "efb_offset": pred(11, 20, identity=False, offset=40, num_bin=64),
-        "all_left": pred(3, B),
+        "efb_offset": pred(11, 20 * nb // B, identity=False,
+                           offset=40 * nb // B, num_bin=nb // 4),
+        "all_left": pred(3, nb),
         "all_right": pred(3, -1),
     }
 
 
-def hist_errors(pay, start, count, f, got) -> float:
-    """Max |kernel - f64 sum| per cell; raises past the stated bound."""
+def hist_errors(pay, start, count, f, got, nb: int = B) -> float:
+    """Max |kernel - f64 sum| per cell of an nb-bin histogram; raises past
+    the stated bound."""
     s, c = int(start), int(count)
     rows = pay[s:s + c].double()
     cell = (rows[:, :f].long()
-            + torch.arange(f, device=pay.device)[None, :] * B).reshape(-1)
+            + torch.arange(f, device=pay.device)[None, :] * nb).reshape(-1)
     vals = torch.stack([rows[:, f + 5], rows[:, f + 6], rows[:, f + 2]], 1)
     upd = vals[:, None, :].expand(c, f, 3).reshape(-1, 3)
-    ref = torch.zeros(f * B, 3, dtype=torch.float64, device=pay.device)
+    ref = torch.zeros(f * nb, 3, dtype=torch.float64, device=pay.device)
     ref.index_add_(0, cell, upd)
     mag = torch.zeros_like(ref).index_add_(0, cell, upd.abs())
-    got = got.reshape(f * B, 3).double()
+    got = got.reshape(f * nb, 3).double()
     err = (got - ref).abs()
     check(torch.equal(got[:, 2], ref[:, 2]),
           "histogram count channel differs at (%d, %d)" % (s, c))
@@ -515,6 +526,128 @@ def kernels_phase(n: int, seed: int, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase: the merged partition + histogram kernel (B6)
+# ---------------------------------------------------------------------------
+
+#: the shapes B6 is held at: the main path's root, and 137 features at 64
+#: bins (MSLR-WEB30K's width, which its gate admits), on 200,000 rows
+MERGED_SHAPES = ((None, F, B), (200_000, 137, 64))
+
+
+def merged_kernel_phase(n: int, seed: int, dev) -> dict:
+    """B6 against its plain version (ops/segment.partition_segment_hist)
+    on every predicate kind of `predicates()` over the whole segment, and
+    on unaligned, empty, one-row and mid segments, at MERGED_SHAPES:
+    payload, aux over the segment and num_left byte for byte, both
+    children's count channels exact, grad / hess within B1's bound.  Then
+    B6 is timed on the main path's root and on WIDE_SEGMENT_ROWS rows,
+    beside what it replaces per split (B2, then B1 on the smaller child),
+    its plain version and a library composition.  Returns its record."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    lv, rv = torch.tensor(-0.25, device=dev), torch.tensor(0.75, device=dev)
+    err = 0.0
+    for rows, f, nb in MERGED_SHAPES:
+        rows = rows or n
+        cols = cols_of(f)
+        hk = dict(num_features=f, grad_col=cols["grad"],
+                  hess_col=cols["hess"], cnt_col=cols["cnt"])
+        pay = make_payload(rows, f, f + 10, seed + f, dev, num_bins=nb)
+        preds = predicates(dev, nb)
+        cases = [(name, 0, rows) for name in preds] + [
+            ("numerical", 100, 37), ("nan_missing_default_left", 500, 0),
+            ("zero_missing", 777, 1), ("efb_offset", 12345, rows // 3)]
+        for name, s, c in cases:
+            what = "B6 %s at F=%d, B=%d (%d, %d)" % (name, f, nb, s, c)
+            a_pay, a_aux = pay.clone(), torch.zeros_like(pay)
+            a_pay, a_aux, a_nl, a_hl, a_hr = \
+                cuda_segment.partition_segment_hist(
+                    a_pay, a_aux, torch.tensor(s, **i32),
+                    torch.tensor(c, **i32), preds[name], lv, rv,
+                    cols["value"], nb, **hk)
+            torch.cuda.synchronize()
+            b_pay, b_aux = pay.clone(), torch.zeros_like(pay)
+            b_pay, b_aux, b_nl, b_hl, b_hr = seg.partition_segment_hist(
+                b_pay, b_aux, s, c, preds[name], lv, rv, cols["value"], nb,
+                **hk)
+            same_partition(what, (a_pay, a_aux, a_nl), (b_pay, b_aux, b_nl),
+                           s, c)
+            nl = int(b_nl)
+            for got, plain, hs, hc in ((a_hl, b_hl, s, nl),
+                                       (a_hr, b_hr, s + nl, c - nl)):
+                check(torch.equal(got[..., 2], plain[..., 2]),
+                      "%s: count channel vs plain" % what)
+                err = max(err, hist_errors(b_pay, hs, hc, f, got, nb))
+            del a_pay, a_aux, b_pay, b_aux, a_hl, a_hr, b_hl, b_hr
+        del pay
+
+    # times at the main path's root (n rows, F = 28, P = 38), numerical
+    # split
+    pay = make_payload(n, F, P, seed, dev)
+    aux = torch.zeros_like(pay)
+    hk = dict(num_features=F, grad_col=COLS["grad"], hess_col=COLS["hess"],
+              cnt_col=COLS["cnt"])
+    pred = predicates(dev)["numerical"]
+    start0 = torch.zeros((), **i32)
+    reps = 20
+    rec = {}
+    for suffix, rows in (("", n), ("_%d_rows" % WIDE_SEGMENT_ROWS,
+                                   WIDE_SEGMENT_ROWS)):
+        ct = torch.tensor(rows, **i32)
+        rec["ms" + suffix] = time_ms(
+            lambda: cuda_segment.partition_segment_hist(
+                pay, aux, start0, ct, pred, lv, rv, COLS["value"], B, **hk),
+            reps)
+        # what B6 replaces per split: B2, then B1 on the smaller child
+        nl = int(seg.go_left_chunk(pay[:rows], pred).sum())
+        h_st, h_ct = (0, nl) if nl <= rows - nl else (nl, rows - nl)
+        h_st, h_ct = torch.tensor(h_st, **i32), torch.tensor(h_ct, **i32)
+
+        def b2_b1():
+            cuda_segment.partition_segment(pay, aux, start0, ct, pred, lv, rv,
+                                           COLS["value"])
+            cuda_segment.segment_histogram(pay, h_st, h_ct, num_bins=B, **hk)
+
+        rec["b2_b1_ms" + suffix] = time_ms(b2_b1, reps)
+    rec["plain_ms"] = time_ms(lambda: seg.partition_segment_hist(
+        pay, aux, 0, n, pred, lv, rv, COLS["value"], B, **hk), 3)
+    # yardstick, a composition (no one PyTorch call computes B6): a
+    # stable argsort of the routing (computed beforehand), an index_select
+    # of the rows into aux, and one index_add_ per child (its cells and
+    # values computed beforehand)
+    rows = pay[:n]
+    right = (~seg.go_left_chunk(rows, pred)).to(torch.uint8)
+    order = torch.argsort(right, stable=True)
+    nl = int((right == 0).sum())
+    lib = []
+    for part in (order[:nl], order[nl:]):
+        r = rows[part]
+        flat = (r[:, :F].long() + torch.arange(F, device=dev)[None, :] * B) \
+            .reshape(-1)
+        vals = torch.stack([r[:, COLS["grad"]], r[:, COLS["hess"]],
+                            r[:, COLS["cnt"]]], 1)[:, None, :] \
+            .expand(len(part), F, 3).reshape(-1, 3).contiguous()
+        lib.append((torch.zeros(F * B, 3, device=dev), flat, vals))
+    del order, r
+
+    def library():
+        torch.index_select(rows, 0, torch.argsort(right, stable=True),
+                           out=aux[:n])
+        for out, flat, vals in lib:
+            out.index_add_(0, flat, vals)
+
+    rec["library_ms"] = time_ms(library, reps)
+    del lib, right, aux, pay
+    rec["bound_ms"], rec["bound_by"] = bound(2 * n * P * 4 + 2 * F * B * 12,
+                                             n * F * 3)
+    rec.update(name="partition_segment_hist", route="cuda",
+               source="lightgbm_tpu_torch/csrc/segment_partition_hist.cu",
+               replaces="lightgbm_tpu/ops/pallas_segment.py:1682",
+               max_abs_err=err,
+               library="stable argsort + index_select + two index_add_")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # phase: the wide kernels
 # ---------------------------------------------------------------------------
 
@@ -557,15 +690,22 @@ def partition_equal(fns, pay, pred, s: int, c: int, vcol: int) -> None:
         a_pay, a_aux, a_nl = fn(a_pay, a_aux, torch.tensor(s, **i32),
                                 torch.tensor(c, **i32), pred, lv, rv, vcol)
         torch.cuda.synchronize()
-        what = "%s (%d, %d)" % (fn.__name__, s, c)
-        check(int(a_nl) == int(b_nl), "%s: num_left %d vs %d"
-              % (what, int(a_nl), int(b_nl)))
-        check(torch.equal(a_pay.view(torch.int32), b_pay.view(torch.int32)),
-              "%s: payload not byte-identical" % what)
-        check(torch.equal(a_aux[s:s + c].view(torch.int32),
-                          b_aux[s:s + c].view(torch.int32)),
-              "%s: aux not byte-identical" % what)
+        same_partition("%s (%d, %d)" % (fn.__name__, s, c),
+                       (a_pay, a_aux, a_nl), (b_pay, b_aux, b_nl), s, c)
         del a_pay, a_aux
+
+
+def same_partition(what: str, got, plain, s: int, c: int) -> None:
+    """Raises unless two (payload, aux, num_left) results agree byte for
+    byte: the whole payload, aux over the segment [s, s + c), num_left."""
+    (a_pay, a_aux, a_nl), (b_pay, b_aux, b_nl) = got, plain
+    check(int(a_nl) == int(b_nl), "%s: num_left %d vs %d"
+          % (what, int(a_nl), int(b_nl)))
+    check(torch.equal(a_pay.view(torch.int32), b_pay.view(torch.int32)),
+          "%s: payload not byte-identical" % what)
+    check(torch.equal(a_aux[s:s + c].view(torch.int32),
+                      b_aux[s:s + c].view(torch.int32)),
+          "%s: aux not byte-identical" % what)
 
 
 def plain_hist_chunked(pay, n: int, hk: dict, chunk: int = WIDE_CMP_ROWS):
@@ -786,7 +926,7 @@ COUNTED = ("segment_histogram", "segment_histogram_quant",
            "segment_histogram_batched", "partition_segment",
            "partition_segment_stage", "partition_segment_commit",
            "segment_histogram_colblock", "partition_segment_rmw",
-           "partition_segment_blocks")
+           "partition_segment_blocks", "partition_segment_hist")
 #: the kernels of the wide paths, which no narrow path may launch
 WIDE_ONLY = ("segment_histogram_colblock", "partition_segment_rmw",
              "partition_segment_blocks")
@@ -840,8 +980,11 @@ def train_path(name: str, ds, Xv, yv, params: dict, iters: int) -> dict:
     check(auc > 0.8, "%s: held-out AUC %.4f too low" % (name, auc))
     leaves = [t.num_leaves for t in bst._model.trees]
     syncs = bst.host_syncs_per_tree()
+    t0 = bst._model.trees[0]
     return dict(name=name, bst=bst, model_text=bst.model_to_string(),
-                launches=launches, auc=auc,
+                launches=launches, auc=auc, splits=sum(leaves) - len(leaves),
+                first_split=(int(t0.split_feature[0]),
+                             int(t0.threshold_in_bin[0])),
                 s_per_iter=t_train / iters, t_train=t_train, t_pred=t_pred,
                 peak=peak, syncs=syncs, leaves=leaves,
                 splits_per_tree=float(np.mean(leaves)) - 1.0,
@@ -867,8 +1010,80 @@ def main_path_phase(rows: int, iters: int, seed: int) -> tuple:
     check(launches["segment_histogram"] >= iters,
           "histogram kernel launched %d times" % launches["segment_histogram"])
     check(launches["partition_segment"] > 0, "partition kernel never ran")
+    check(launches["partition_segment_hist"] == 0,
+          "the main path launched the merged kernel")
     line = path_line(r, rows, iters, ", binning %.3f s" % t_bin)
     return line, r, (ds, Xv, yv)
+
+
+#: the partition wrappers the merged mode retires
+SPLIT_PARTITIONS = ("partition_segment", "partition_segment_stage",
+                    "partition_segment_commit", "partition_segment_rmw",
+                    "partition_segment_blocks")
+
+
+def histogram_mode_phases(data, f32: dict, rows: int, iters: int) -> dict:
+    """The grower's two other histogram modes at full width, on the main
+    path's params and data.  Merged: with
+    cuda_segment.PARTITION_HIST_VALIDATED set in-process once the kernels
+    phase has held B6 (as bench.py sets the JAX package's flag after its
+    probe), every split runs B6 and nothing else of the partition, B1
+    runs once per tree (the root), and the first split is the f32 main
+    path's; profiled like the main path.  Pooled: histogram_pool_size=2
+    (MB) leaves a few dozen slots for 255 leaves, so evicted parents are
+    rebuilt by B1 from their rows.  Both within 0.002 of the main path's
+    AUC.  Prints one line per path; returns the results by name."""
+    ds, Xv, yv = data
+    runs = {}
+    cuda_segment.PARTITION_HIST_VALIDATED = True
+    r = train_path("merged", ds, Xv, yv, train_params(255), iters)
+    n = r["launches"]
+    g = r["bst"]._engine.grower
+    check((g.hist_engine, g.part_engine) == ("partition_segment_hist",) * 2,
+          "merged path took %s" % ((g.hist_engine, g.part_engine),))
+    check(n["partition_segment_hist"] == r["splits"],
+          "merged path: B6 launched %d times for %d splits"
+          % (n["partition_segment_hist"], r["splits"]))
+    check(not any(n[k] for k in SPLIT_PARTITIONS),
+          "merged path launched a partition kernel: %s"
+          % {k: n[k] for k in SPLIT_PARTITIONS})
+    check(n["segment_histogram"] == iters,
+          "merged path: B1 launched %d times for %d trees"
+          % (n["segment_histogram"], iters))
+    check(r["first_split"] == f32["first_split"],
+          "merged path: first split %s vs %s on the f32 main path"
+          % (r["first_split"], f32["first_split"]))
+    note = ", first split %s as on the f32 main path" % (r["first_split"],)
+    say(path_line(r, rows, iters, note + auc_note(r, f32)))
+    say(profile_phase(r["bst"], "merged"))
+    cuda_segment.PARTITION_HIST_VALIDATED = False
+    runs["merged"] = r
+    del r["bst"]
+
+    r = train_path("pooled", ds, Xv, yv,
+                   train_params(255, histogram_pool_size=2), iters)
+    n = r["launches"]
+    slots = r["bst"]._engine.grower_cfg.hist_pool_slots
+    rebuilds = n["segment_histogram"] - iters - r["splits"]
+    check(0 < slots < 255, "pooled path: %d pool slots" % slots)
+    check(rebuilds > 0, "pooled path: no parent rebuilt (B1 %d, %d splits)"
+          % (n["segment_histogram"], r["splits"]))
+    check(n["partition_segment_hist"] == 0,
+          "pooled path launched the merged kernel")
+    say(path_line(r, rows, iters, ", %d pool slots, %d parent rebuilds"
+                  % (slots, rebuilds) + auc_note(r, f32)))
+    runs["pooled"] = r
+    del r["bst"]
+    return runs
+
+
+def auc_note(r: dict, f32: dict) -> str:
+    """Raises unless the path's AUC is within 0.002 of the f32 main
+    path's; returns the note its line carries."""
+    d_auc = abs(r["auc"] - f32["auc"])
+    check(d_auc <= 0.002, "%s: |dAUC| %.6f against f32 > 0.002"
+          % (r["name"], d_auc))
+    return ", |dAUC| vs f32 main path %.6f" % d_auc
 
 
 def quantized_phases(data, f32: dict, rows: int, iters: int) -> dict:
@@ -890,10 +1105,7 @@ def quantized_phases(data, f32: dict, rows: int, iters: int) -> dict:
         r = train_path(name, ds, Xv, yv, train_params(255, **extra), iters)
         runs[name] = r
         n = r["launches"]
-        d_auc = abs(r["auc"] - f32["auc"])
-        check(d_auc <= 0.002, "%s: |dAUC| %.6f against f32 > 0.002"
-              % (name, d_auc))
-        note = ", |dAUC| vs f32 main path %.6f" % d_auc
+        note = auc_note(r, f32)
         if "quantized" in name:
             check(n["segment_histogram"] == 0,
                   "%s launched the f32 histogram %d times"
@@ -1130,6 +1342,7 @@ def profile_phase(bst, label: str) -> str:
             (("segment_hist_kernel<int>",), "histogram int32"),
             (("hist_colblock",), "histogram colblock"),
             (("part_",), "partition"),
+            (("part_hist_scatter",), "partition + histogram scatter"),
             (("route_", "rmw_scatter", "block_scatter", "flat_copyback",
               "write_values"), "partition wide")):
         hits = [e for e in kernels if any(p in e.key for p in prefixes)]
@@ -1187,6 +1400,12 @@ def main() -> int:
                                                "library_ms", "bound_ms",
                                                "max_abs_err")}
                       for k, v in kernels.items()}))
+    merged = merged_kernel_phase(1_015_808, args.seed, dev)
+    kernels["partition_segment_hist"] = merged
+    say("merged kernel: B6 checked against its plain version on every "
+        "predicate kind at n=1015808, F=28, B=256 and n=200000, F=137, "
+        "B=64; timed on the root and on %d rows beside B2 + B1 on the "
+        "smaller child: %s" % (WIDE_SEGMENT_ROWS, json.dumps(merged)))
     wide = wide_kernels_phase(args.seed, dev)
     say("wide kernels: B7, B3, B8 (and B1, B2, stage + commit, B4, B5) "
         "checked against the plain versions on %d rows, timed with B1 and "
@@ -1199,7 +1418,8 @@ def main() -> int:
     say(line)
     say(profile_phase(main_run["bst"], "main path"))
     del main_run["bst"]
-    runs = quantized_phases(data, main_run, args.rows, args.iters)
+    runs = histogram_mode_phases(data, main_run, args.rows, args.iters)
+    runs.update(quantized_phases(data, main_run, args.rows, args.iters))
     del data
     # each kernel's launches are read from the path it serves; every
     # path's counts stand beside them
@@ -1218,7 +1438,8 @@ def main() -> int:
               "segment_histogram_batched": "frontier 8",
               "segment_histogram_colblock": "wide 968",
               "partition_segment_rmw": "wide 968",
-              "partition_segment_blocks": "wide 2000"}
+              "partition_segment_blocks": "wide 2000",
+              "partition_segment_hist": "merged"}
     for key, (source, replaces) in WIDE_SOURCES.items():
         at = wide[key][int(serves[key].split()[1])]
         kernels[key] = dict(

@@ -7,8 +7,11 @@ partition-ordered fast path for one tree per iteration (K = 1): the
 add), `_boost_from_average` and `_finish_tree_host`, in f32 or with
 quantized gradients (gradient_quantization: the grad/hess columns hold
 integers, histograms are int32), growing one leaf per round or
-frontier-batched (tpu_frontier_batch), and validation sets, scored on
-the device after every tree by bin-level traversal (`add_valid`).
+frontier-batched (tpu_frontier_batch), with the histogram pool
+(histogram_pool_size) or the grower's merged mode (its own rule; no
+config key reaches it, as in the JAX package), and validation sets,
+scored on the device after every tree by bin-level traversal
+(`add_valid`).
 Bagging, GOSS, DART, RF, the non-finite sentinel and the parallel
 learners are not ported; asking for one raises.  boost_window and
 pipeline_depth change only how the JAX package dispatches its work, never
@@ -286,7 +289,8 @@ class GBDT:
             min_sum_hessian_in_leaf=float(config.min_sum_hessian_in_leaf),
             min_gain_to_split=float(config.min_gain_to_split),
             frontier_batch=max(1, int(config.tpu_frontier_batch or 1)),
-            quantized=self._qmax > 0, qmax=self._qmax)
+            quantized=self._qmax > 0, qmax=self._qmax,
+            hist_pool_slots=self._hist_pool_slots(config, train_set))
 
         md = train_set.metadata
         n_pad = train_set.num_data_padded
@@ -302,6 +306,29 @@ class GBDT:
         self.feature_rng = Random(partition_seed(
             seed + int(config.feature_fraction_seed), 2))
         self._boosted_from_average = False
+
+    @staticmethod
+    def _hist_pool_slots(config, train_set: BinnedDataset) -> int:
+        """histogram_pool_size (MB, the reference's HistogramPool) -> pool
+        slots of the grower, at least 2 (the JAX package's
+        gbdt.py:1207-1227).  -1 keeps one histogram per leaf (0) unless
+        that alone would pass 4 GB of device memory, where the pool caps
+        itself with a warning."""
+        L = int(config.num_leaves)
+        slot_bytes = train_set.bins.shape[0] * train_set.max_num_bin * 3 * 4
+        pool_mb = float(getattr(config, "histogram_pool_size", -1.0) or -1.0)
+        if pool_mb > 0:
+            return max(2, min(L, int(pool_mb * 1024 * 1024
+                                     // max(slot_bytes, 1))))
+        budget = 4 << 30
+        if L * slot_bytes > budget:
+            slots = max(2, int(budget // max(slot_bytes, 1)))
+            Log.warning(
+                "histogram memory for %d leaves would be %.1f GB; capping "
+                "the histogram pool at %d slots (set histogram_pool_size "
+                "to control this)", L, L * slot_bytes / 2**30, slots)
+            return slots
+        return 0
 
     def _check_supported(self) -> None:
         cfg, ds = self.config, self.train_set

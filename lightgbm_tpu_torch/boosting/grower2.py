@@ -18,15 +18,33 @@ width, as in the JAX package, whose column-block engine has no int32 or
 batched sibling.  `grow.hist_engine` / `grow.part_engine` name the
 wrappers chosen.
 
-The port covers the serial, unforced, unpooled, non-monotone path, in
-f32 or quantized (int32 histograms, dequantized at the split search), one
-leaf per round or frontier-batched.  The JAX grower is one on-device
-`lax.while_loop`; this one is an eager Python loop.
+The port covers the serial, unforced, non-monotone path, in f32 or
+quantized (int32 histograms, dequantized at the split search), one leaf
+per round or frontier-batched, with the JAX grower's three histogram
+modes.  The JAX grower is one on-device `lax.while_loop`; this one is an
+eager Python loop.
 
-- One leaf per round (the default): the loop asks the device once per
-  split whether a positive-gain split remains (one host sync, counted in
-  the tree's `host_syncs`).  Everything else — segment bounds, num_left,
-  the split records — stays on the device.
+- One leaf per round (the default): the loop reads the argmax leaf and
+  its gain from the device once per split (one host sync, counted in the
+  tree's `host_syncs`) and stops when no positive-gain split remains.
+  Everything else — segment bounds, num_left, the split records — stays
+  on the device.
+- Histogram modes of the one-leaf loop:
+  - per-leaf state (the default): one `[F, B, 3]` histogram per leaf; a
+    split builds the smaller child from rows and the sibling by
+    subtraction from the parent's;
+  - the LRU pool (`GrowerConfig.hist_pool_slots`, from
+    histogram_pool_size; HistogramPool, feature_histogram.hpp:655-826):
+    fewer slots than leaves, the left child takes its parent's slot, the
+    right the least recently used one, and a split whose parent was
+    evicted rebuilds the parent's histogram from its contiguous rows.
+    The slot bookkeeping follows leaf ids only, so it lives on the host,
+    fed by the split's one read: the pool adds no sync;
+  - merged (`merged_hist`): each split partitions the leaf and takes
+    both children's histograms from one kernel (B6,
+    `cuda_segment.partition_segment_hist`), so no histogram state, parent
+    or subtraction is kept.  Past B6's gate the split partitions through
+    the route and walks both children (the JAX package's part_hist_fn).
 - Frontier-batched (`GrowerConfig.frontier_batch` = K > 1, the JAX
   package's `round_body`): each round stages the partitions of the K
   best frontier leaves, builds the K smaller children's histograms in ONE
@@ -70,6 +88,9 @@ class GrowerConfig(NamedTuple):
     # grad/hess columns on a grid of half-range qmax, int32 histograms
     quantized: bool = False
     qmax: int = 0
+    # histogram pool slots (gbdt's _hist_pool_slots): 0 < slots <
+    # num_leaves keeps that many histograms with LRU eviction
+    hist_pool_slots: int = 0
 
 
 class PayloadCols(NamedTuple):
@@ -104,7 +125,7 @@ _NODE_FIELDS = ("split_feature", "split_bin", "split_gain", "default_left",
 
 def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                             num_bins_max: int, cols: PayloadCols,
-                            num_features: int):
+                            num_features: int, merged_hist=None):
     """Returns grow(payload, aux, feature_mask[, qscale]) ->
     (tree dict, payload, aux).
 
@@ -120,7 +141,15 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
     subtraction are int32, and `grow` takes a fourth argument, the [2]
     f32 (gradient, hessian) scales, with which `dequantize_hist` turns a
     histogram into f32 exactly where the split search consumes it.
-    Every histogram goes through the int32 kernel, at either grid."""
+    Every histogram goes through the int32 kernel, at either grid.
+
+    merged_hist: None takes the merged mode by the JAX package's rule
+    (grower2.py:264-275), resolved per call from the payload:
+    cuda_segment.PARTITION_HIST_VALIDATED is set, the payload is on a CUDA
+    device, the grower is not quantized and `partition_hist_fits` admits
+    the width.  True forces the mode on any device; quantized turns it
+    off either way.  The merged mode and the pool keep the one-leaf loop
+    (the JAX gate, grower2.py:333-334)."""
     L = cfg.num_leaves
     B = num_bins_max
     F = num_features
@@ -135,8 +164,14 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
         min_gain_to_split=cfg.min_gain_to_split)
     hist_kwargs = dict(num_features=F, num_bins=B, grad_col=cols.grad,
                        hess_col=cols.hess, cnt_col=cols.cnt)
-    # the JAX gate (grower2.py:325-350): serial, unforced and unpooled hold
-    # by construction here
+    # the histogram pool (grower2.py:301-310 of the JAX package)
+    slots = int(cfg.hist_pool_slots or 0)
+    POOL = slots if 0 < slots < L else L
+    if POOL < 2:
+        raise ValueError("the histogram pool needs at least 2 slots, got %d"
+                         % POOL)
+    # the JAX gate (grower2.py:325-350): serial and unforced hold by
+    # construction here; unpooled and unmerged are read per call
     fb = max(int(cfg.frontier_batch or 1), 1)
     KB = min(fb, L - 1) if fb > 1 and L > 2 else 1
 
@@ -159,11 +194,29 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
     def grow(payload: torch.Tensor, aux: torch.Tensor,
              feature_mask: torch.Tensor, qscale: torch.Tensor = None):
         dev = payload.device
+        width = payload.shape[1]
+        fits = cuda_segment.partition_hist_fits(width, F, B)
+        if quantized:
+            merged = False
+        elif merged_hist is None:
+            merged = (cuda_segment.PARTITION_HIST_VALIDATED
+                      and payload.is_cuda and fits)
+        else:
+            merged = bool(merged_hist)
+        pooled = POOL < L and not merged
+        frontier = KB > 1 and not merged and not pooled
+        # B6 where its gate admits the width; past it the merged split
+        # partitions through the route and walks both children
+        fused = merged and fits
         # the one-leaf loop's partition follows the route by payload width
         # (B2, B3 or B8); the frontier rounds stage and commit through B2
-        part_fn = cuda_segment.partition_route(payload.shape[1])
-        grow.part_engine = part_fn.__name__ if KB == 1 \
-            else "partition_segment_stage"
+        part_fn = cuda_segment.partition_route(width)
+        if fused:
+            grow.hist_engine = grow.part_engine = "partition_segment_hist"
+        else:
+            grow.hist_engine = hist_wrapper.__name__
+            grow.part_engine = "partition_segment_stage" if frontier \
+                else part_fn.__name__
         bmap = identity_bundle_map(F, dev)
         n_rows = payload.shape[0] - GUARD
         i32 = dict(dtype=torch.int32, device=dev)
@@ -239,17 +292,25 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             "right_child": torch.zeros(ni + 1, **i32),
             "internal_value": torch.zeros(ni, **f32),
             "internal_count": torch.zeros(ni, **f32),
-            # int32 in the quantized mode: the subtraction stays exact
-            "hist": torch.zeros((L, F, B, 3), dtype=hist_root.dtype,
-                                device=dev),
         }
+        if not merged:
+            # one histogram per leaf, or per pool slot; int32 in the
+            # quantized mode, so the subtraction stays exact
+            st["hist"] = torch.zeros((POOL, F, B, 3), dtype=hist_root.dtype,
+                                     device=dev)
+            st["hist"][0] = hist_root
+        if pooled:
+            # the LRU bookkeeping, on the host (grower2.py:574-577)
+            slot_of_leaf = np.full(L, -1, np.int64)
+            leaf_of_slot = np.full(POOL, -1, np.int64)
+            slot_use = np.zeros(POOL, np.int64)
+            slot_of_leaf[0] = leaf_of_slot[0] = 0
         st["seg_cnt"][0] = n_rows
         st["sum_g"][0] = root_g
         st["sum_h"][0] = root_h
         st["cnt"][0] = root_c
         for key, field in _BEST_FIELDS:
             st[key][0] = getattr(res0, field)[0]
-        st["hist"][0] = hist_root
 
         # Indexing a CUDA tensor with a 0-d tensor reads the index back to
         # the host (a sync); index_select / index_put_ with a [1] index
@@ -270,9 +331,49 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                                    torch.full_like(gains, K_MIN_SCORE))
             return gains
 
-        def do_split(s: int, bl: torch.Tensor) -> None:
-            """Partition leaf `bl` (a [1] device index) into leaves bl and
-            s, and evaluate both children."""
+        def part_hist_fn(payload, aux, start, count, pred, lo, ro):
+            """The merged split: the partition and both children's
+            histograms."""
+            if fused:
+                return cuda_segment.partition_segment_hist(
+                    payload, aux, start, count, pred, lo, ro, cols.value, B,
+                    num_features=F, grad_col=cols.grad, hess_col=cols.hess,
+                    cnt_col=cols.cnt)
+            payload, aux, nl = part_fn(payload, aux, start, count, pred, lo,
+                                       ro, cols.value)
+            return (payload, aux, nl, hist_fn(payload, start, nl),
+                    hist_fn(payload, start + nl, count - nl))
+
+        def evict(slot: int) -> None:
+            old = leaf_of_slot[slot]
+            if old >= 0:
+                slot_of_leaf[old] = -1
+
+        def pool_store(b: int, s: int, new_left, new_right) -> None:
+            """The children's histograms into the pool (grower2.py:665-695
+            of the JAX package): the left child takes its parent's slot,
+            or the least recently used one if the parent's was evicted;
+            the right child the least recently used of the others."""
+            pslot = int(slot_of_leaf[b])
+            lslot = pslot
+            if pslot < 0:
+                lslot = int(np.argmin(slot_use))
+                evict(lslot)
+            leaf_of_slot[lslot] = b
+            slot_use[lslot] = s
+            prio = slot_use.copy()
+            prio[lslot] = 1 << 30
+            rslot = int(np.argmin(prio))
+            evict(rslot)
+            leaf_of_slot[rslot] = s
+            slot_use[rslot] = s
+            slot_of_leaf[b], slot_of_leaf[s] = lslot, rslot
+            st["hist"][lslot] = new_left
+            st["hist"][rslot] = new_right
+
+        def do_split(s: int, bl: torch.Tensor, b: int) -> None:
+            """Partition leaf `bl` (a [1] device index; `b` on the host)
+            into leaves bl and s, and evaluate both children."""
             nonlocal payload, aux
             node = s - 1
 
@@ -296,21 +397,33 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             pg, ph, pc = leaf("sum_g"), leaf("sum_h"), leaf("cnt")
             rg, rh, rcnt = pg - lg, ph - lh, pc - lcnt
             lo, ro = leaf("blo"), leaf("bro")
-            hist_parent = leaf("hist")
 
-            payload, aux, nl_raw = part_fn(payload, aux, start, count, pred,
-                                           lo, ro, cols.value)
-            nr_raw = count - nl_raw
+            if merged:
+                payload, aux, nl_raw, new_left, new_right = part_hist_fn(
+                    payload, aux, start, count, pred, lo, ro)
+                nr_raw = count - nl_raw
+            else:
+                slot = int(slot_of_leaf[b]) if pooled else b
+                if slot >= 0:
+                    hist_parent = st["hist"][slot]
+                else:
+                    # evicted: rebuild from the parent's contiguous rows,
+                    # before the partition reorders them
+                    hist_parent = hist_fn(payload, start, count)
 
-            # build only the smaller child (by masked counts, as the JAX
-            # grower does) and derive the sibling by subtraction
-            left_smaller = lcnt <= rcnt
-            h_start = torch.where(left_smaller, start, start + nl_raw)
-            h_count = torch.where(left_smaller, nl_raw, nr_raw)
-            hist_small = hist_fn(payload, h_start, h_count)
-            hist_big = hist_parent - hist_small
-            new_left = torch.where(left_smaller, hist_small, hist_big)
-            new_right = torch.where(left_smaller, hist_big, hist_small)
+                payload, aux, nl_raw = part_fn(payload, aux, start, count,
+                                               pred, lo, ro, cols.value)
+                nr_raw = count - nl_raw
+
+                # build only the smaller child (by masked counts, as the
+                # JAX grower does) and derive the sibling by subtraction
+                left_smaller = lcnt <= rcnt
+                h_start = torch.where(left_smaller, start, start + nl_raw)
+                h_count = torch.where(left_smaller, nl_raw, nr_raw)
+                hist_small = hist_fn(payload, h_start, h_count)
+                hist_big = hist_parent - hist_small
+                new_left = torch.where(left_smaller, hist_small, hist_big)
+                new_right = torch.where(left_smaller, hist_big, hist_small)
 
             res = find_split_batched(
                 torch.stack([new_left, new_right]), torch.stack([lg, rg]),
@@ -353,7 +466,10 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             set2("leaf_val", lo, ro)
             set2("leaf_depth", child_depth, child_depth)
             set2("leaf_parent", node, node)
-            set2("hist", new_left, new_right)
+            if pooled:
+                pool_store(b, s, new_left, new_right)
+            elif not merged:
+                set2("hist", new_left, new_right)
             set2("bgain", gains[0], gains[1])
             for key, field in _BEST_FIELDS[1:]:
                 v = getattr(res, field)
@@ -536,7 +652,7 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
 
         num_leaves = 1
         host_syncs = 0
-        if KB > 1:
+        if frontier:
             rounds = 0
             gains_host = None
             while num_leaves < L and (gains_host is None
@@ -549,12 +665,15 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                 num_leaves += committed
         else:
             while num_leaves < L:
-                # first maximum, like jnp.argmax; the one host read per split
+                # first maximum, like jnp.argmax; the one host read per
+                # split brings the leaf (exact in f32) and its gain
                 bl = torch.argmax(st["bgain"]).reshape(1)
+                pick = torch.cat([bl.to(torch.float32),
+                                  st["bgain"].index_select(0, bl)]).cpu()
                 host_syncs += 1
-                if not bool(take(st["bgain"], bl) > 0.0):
+                if not bool(pick[1] > 0.0):
                     break
-                do_split(num_leaves, bl)
+                do_split(num_leaves, bl, int(pick[0]))
                 num_leaves += 1
             rounds = num_leaves - 1
 
@@ -578,7 +697,7 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
         return tree, payload, aux
 
     # the engines this grower chose, by wrapper name (the JAX grower's
-    # hist_engine); part_engine is set by each call, from the payload width
+    # hist_engine); each call sets both, from the payload's device and width
     grow.hist_engine = hist_wrapper.__name__
     grow.part_engine = None
     return grow

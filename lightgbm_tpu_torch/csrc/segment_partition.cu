@@ -31,113 +31,20 @@
 //      cooperatively so reads are coalesced;
 //   4. part_copyback: aux -> payload over the segment, with the leaf value
 //      written into value_col.
-// start, count and every predicate scalar are read from device memory, and
-// num_left stays there, so the grower never syncs to launch this.  Grids
+// Kernels 1, 2 and 4 and the ranking of 3 live in segment_partition.cuh,
+// which the merged partition + histogram (segment_partition_hist.cu)
+// shares.  start, count and every predicate scalar are read from device
+// memory, and num_left stays there, so the grower never syncs to launch
+// this.  Grids
 // are sized for the largest possible segment (the whole payload); tiles
 // past the segment's end exit at once.  Rows move as raw 32-bit copies, so
 // the result is byte-identical to the plain PyTorch version.
 // None of the TPU kernel's machinery (8-row aligned windows, one-hot
 // permutation matmuls, the accumulator rings) carries over.
 
-#include <cuda_runtime.h>
+#include "segment_partition.cuh"
 
 namespace {
-
-constexpr int kTile = 1024;  // rows per tile, one per thread
-constexpr int kCopyThreads = 256;
-
-// predicate scalars, in the order of pallas_segment._partition_segment_acc
-enum {
-  kStart = 0, kCount, kCol, kThreshold, kDefaultLeft, kIsCat, kMissingType,
-  kNumBin, kDefaultBin, kOffset, kIdentity, kNumScalars
-};
-constexpr int kMissingZero = 1;
-constexpr int kMissingNan = 2;
-
-__device__ __forceinline__ int go_left(float stored, const int* sc,
-                                       const unsigned char* bitset, int B) {
-  const int raw = static_cast<int>(stored);  // f32 -> i32, like astype
-  int fbin = raw;
-  if (!sc[kIdentity]) {
-    const int e = raw - sc[kOffset];
-    const bool in_range = e >= 0 && e < sc[kNumBin] - 1;
-    fbin = in_range ? e + (e >= sc[kDefaultBin] ? 1 : 0) : sc[kDefaultBin];
-  }
-  if (sc[kIsCat]) return (fbin >= 0 && fbin < B) ? (bitset[fbin] != 0) : 0;
-  const bool miss =
-      (sc[kMissingType] == kMissingNan && fbin == sc[kNumBin] - 1) ||
-      (sc[kMissingType] == kMissingZero && fbin == sc[kDefaultBin]);
-  return miss ? (sc[kDefaultLeft] != 0) : (fbin <= sc[kThreshold]);
-}
-
-__device__ __forceinline__ int warp_inclusive_scan(int v) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int u = __shfl_up_sync(0xffffffffu, v, d);
-    if (lane >= d) v += u;
-  }
-  return v;
-}
-
-// inclusive scan over the block (blockDim.x a multiple of 32, <= 1024);
-// every thread of the block must call it
-__device__ int block_inclusive_scan(int v, int* warp_tot) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarp = blockDim.x >> 5;
-  v = warp_inclusive_scan(v);
-  if (lane == 31) warp_tot[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    const int t = lane < nwarp ? warp_tot[lane] : 0;
-    warp_tot[lane] = warp_inclusive_scan(t) - t;  // exclusive
-  }
-  __syncthreads();
-  const int out = v + warp_tot[warp];
-  __syncthreads();
-  return out;
-}
-
-__global__ void __launch_bounds__(kTile)
-part_count(const float* __restrict__ payload, int P,
-           const int* __restrict__ sc,
-           const unsigned char* __restrict__ bitset, int B,
-           int* __restrict__ tile_left) {
-  const int count = sc[kCount];
-  const int row0 = blockIdx.x * kTile;
-  if (row0 >= count) return;  // uniform per block
-  const int r = row0 + threadIdx.x;
-  int gl = 0;
-  if (r < count) {
-    gl = go_left(
-        payload[(static_cast<long long>(sc[kStart]) + r) * P + sc[kCol]], sc,
-        bitset, B);
-  }
-  const int n = __syncthreads_count(gl);
-  if (threadIdx.x == 0) tile_left[blockIdx.x] = n;
-}
-
-__global__ void __launch_bounds__(kTile)
-part_scan(const int* __restrict__ sc, const int* __restrict__ tile_left,
-          int* __restrict__ tile_off, int* __restrict__ num_left) {
-  __shared__ int warp_tot[32];
-  __shared__ int carry;
-  const int ntiles = (sc[kCount] + kTile - 1) / kTile;
-  if (threadIdx.x == 0) carry = 0;
-  __syncthreads();
-  for (int base = 0; base < ntiles; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const int v = i < ntiles ? tile_left[i] : 0;
-    const int incl = block_inclusive_scan(v, warp_tot);
-    const int c = carry;
-    if (i < ntiles) tile_off[i] = c + incl - v;
-    __syncthreads();
-    if (threadIdx.x == blockDim.x - 1) carry = c + incl;
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) *num_left = carry;
-}
 
 __global__ void __launch_bounds__(kTile)
 part_scatter(const float* __restrict__ payload, float* __restrict__ aux,
@@ -152,31 +59,9 @@ part_scatter(const float* __restrict__ payload, float* __restrict__ aux,
   const int row0 = blockIdx.x * kTile;
   if (row0 >= count) return;  // uniform per block
   const int nrows = min(kTile, count - row0);
-  const int r = threadIdx.x;
-  const int lane = r & 31;
-  const int warp = r >> 5;
-
-  int gl = 0;
-  if (r < nrows) {
-    gl = go_left(
-        payload[(static_cast<long long>(start) + row0 + r) * P + sc[kCol]],
-        sc, bitset, B);
-  }
-  // stable rank of this row among the tile's left rows
-  const unsigned ballot = __ballot_sync(0xffffffffu, gl);
-  if (lane == 0) warp_left[warp] = __popc(ballot);
-  __syncthreads();
-  if (warp == 0) {
-    const int t = warp_left[lane];
-    warp_left[lane] = warp_inclusive_scan(t) - t;
-  }
-  __syncthreads();
-  const int left_before = warp_left[warp] + __popc(ballot & ((1u << lane) - 1u));
-  if (r < nrows) {
-    const int off = tile_off[blockIdx.x];  // left rows of earlier tiles
-    dest[r] = gl ? start + off + left_before
-                 : start + *num_left + (row0 - off) + (r - left_before);
-  }
+  const int d = tile_dest(payload, P, sc, bitset, B, blockIdx.x,
+                          tile_off[blockIdx.x], *num_left, warp_left);
+  if (static_cast<int>(threadIdx.x) < nrows) dest[threadIdx.x] = d;
   __syncthreads();
 
   // whole-row copy: consecutive threads read consecutive payload floats
@@ -185,30 +70,6 @@ part_scatter(const float* __restrict__ payload, float* __restrict__ aux,
   for (int e = threadIdx.x; e < total; e += blockDim.x) {
     const int rr = e / P;
     aux[static_cast<long long>(dest[rr]) * P + (e - rr * P)] = src[e];
-  }
-}
-
-__global__ void __launch_bounds__(kCopyThreads)
-part_copyback(float* __restrict__ payload, const float* __restrict__ aux,
-              int P, const int* __restrict__ sc,
-              const int* __restrict__ num_left,
-              const float* __restrict__ fvals, int value_col) {
-  const long long total = static_cast<long long>(sc[kCount]) * P;
-  const long long per_block = static_cast<long long>(kCopyThreads) * 8;
-  const long long want = (total + per_block - 1) / per_block;
-  if (static_cast<long long>(blockIdx.x) >= want) return;
-  const long long nblk = want < gridDim.x ? want : gridDim.x;
-  const long long base = static_cast<long long>(sc[kStart]) * P;
-  const int nl = *num_left;
-  const float lv = fvals[0];
-  const float rv = fvals[1];
-  for (long long e = static_cast<long long>(blockIdx.x) * kCopyThreads +
-                     threadIdx.x;
-       e < total; e += nblk * kCopyThreads) {
-    const long long rr = e / P;
-    float v = aux[base + e];
-    if (e - rr * P == value_col) v = rr < nl ? lv : rv;
-    payload[base + e] = v;
   }
 }
 
@@ -234,7 +95,7 @@ int segment_partition_stage_launch(const float* payload, float* aux, int P,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   part_count<<<n_tiles, kTile, 0, s>>>(payload, P, scalars, bitset, B,
-                                       tile_left);
+                                       tile_left, nullptr, 0);
   part_scan<<<1, kTile, 0, s>>>(scalars, tile_left, tile_off, num_left);
   part_scatter<<<n_tiles, kTile, 0, s>>>(payload, aux, P, scalars, bitset, B,
                                          tile_off, num_left);

@@ -3,9 +3,10 @@
 Each source in lightgbm_tpu_torch/csrc/ is compiled by its own `nvcc` into
 a shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds) and loaded with ctypes.  Builds go into build/kernels/
-beside the package, keyed by a hash of the source, and happen at first
-use; `build_all` starts one nvcc per source at once, so the build takes
-as long as the slowest source.  Nothing here runs at import time.
+beside the package, keyed by a hash of the source and the csrc headers,
+and happen at first use; `build_all` starts one nvcc per source at once,
+so the build takes as long as the slowest source.  Nothing here runs at
+import time.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from typing import Dict, Sequence, Tuple
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 SOURCES = ("segment_hist", "segment_partition", "segment_hist_colblock",
-           "segment_partition_wide")
+           "segment_partition_wide", "segment_partition_hist")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,8 +40,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / (name + ".cu")).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # the headers count too: a source that includes one is rebuilt when
+    # it changes
+    text = b"".join(p.read_bytes() for p in [CSRC / (name + ".cu")]
+                    + sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()) \
+        .hexdigest()[:16]
     return BUILD_DIR / ("lib%s_%s.so" % (name, digest))
 
 

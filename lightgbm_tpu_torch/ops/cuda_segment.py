@@ -21,6 +21,12 @@ csrc/segment_partition_wide.cu:
   B3) and `partition_segment_blocks` replaces partition_segment_acc_blocks
   (_snap_window_kernel + _acc_blocks_kernel, B8): B2's contract for wide
   payloads.
+csrc/segment_partition_hist.cu:
+- `partition_segment_hist` replaces partition_segment_hist
+  (_acc_kernel(hist_cfg=...), B6): B2's partition plus both children's
+  f32 histograms from one read of the parent's rows, for the grower's
+  merged mode; `partition_hist_fits` is its gate and
+  PARTITION_HIST_VALIDATED the staged flag of its auto rule.
 All keep the signatures and returns of ops/segment.py.
 
 The route (`histogram_route`, `partition_route`) picks the wrapper by
@@ -59,6 +65,14 @@ COLBLOCK_MIN_FEATURES = 889
 PARTITION_RMW_MIN_WIDTH = 513
 #: payload widths from which the column-block partition (B8) replaces B3
 PARTITION_BLOCKS_MIN_WIDTH = 1665
+
+#: True once the merged partition + histogram kernel (B6) is to serve the
+#: grower's merged mode wherever the auto rule admits it (the JAX
+#: package's pallas_segment.PARTITION_HIST_VALIDATED, with its name and
+#: default).  Off: the default path keeps B1 + B2 and the subtraction.  A
+#: caller that has held B6 against its plain version on the card may set
+#: it in-process, as chip_smoke.py does.
+PARTITION_HIST_VALIDATED = False
 
 
 def _lib(name: str, fn: str, argtypes):
@@ -221,11 +235,10 @@ def segment_histogram_batched(payload: torch.Tensor, starts, counts, *,
 segment_histogram_batched.launches = 0
 
 
-def _stage(payload, aux, start, count, pred: SplitPredicate, num_left,
-           slot: int) -> None:
-    """Launch the stage kernels, writing num_left into num_left[slot]."""
-    dev = payload.device
-    N, P = payload.shape
+def _pred_args(start, count, pred: SplitPredicate, dev):
+    """The kernels' predicate: int32[11] scalars (start, count, col,
+    threshold, default_left, is_cat, missing_type, num_bin, default_bin,
+    offset, identity) and the bitset's bytes, both on `dev`."""
     scalars = _int_vec((start, count, pred.col, pred.threshold,
                         pred.default_left, pred.is_cat, pred.missing_type,
                         pred.num_bin, pred.default_bin, pred.offset,
@@ -233,6 +246,21 @@ def _stage(payload, aux, start, count, pred: SplitPredicate, num_left,
     # a bool bitset is passed as its bytes, with no conversion launch
     bitset = torch.as_tensor(pred.bitset, device=dev).to(torch.bool) \
         .contiguous().view(torch.uint8)
+    return scalars, bitset
+
+
+def _leaf_values(left_value, right_value, dev) -> torch.Tensor:
+    return torch.stack([torch.as_tensor(v, device=dev).reshape(())
+                        .to(torch.float32)
+                        for v in (left_value, right_value)])
+
+
+def _stage(payload, aux, start, count, pred: SplitPredicate, num_left,
+           slot: int) -> None:
+    """Launch the stage kernels, writing num_left into num_left[slot]."""
+    dev = payload.device
+    N, P = payload.shape
+    scalars, bitset = _pred_args(start, count, pred, dev)
     lib, fn = _lib("segment_partition", "segment_partition_stage_launch",
                    [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P])
     n_tiles = -(-N // lib.segment_partition_tile_rows())
@@ -253,9 +281,7 @@ def _commit(payload, aux, start, count, num_left, left_value, right_value,
         raise ValueError("partition commit: value_col %d outside [0, %d)"
                          % (value_col, P))
     segv = _int_vec((start, count), dev)
-    fvals = torch.stack([torch.as_tensor(v, device=dev).reshape(())
-                         .to(torch.float32)
-                         for v in (left_value, right_value)])
+    fvals = _leaf_values(left_value, right_value, dev)
     lib, fn = _lib("segment_partition", "segment_partition_commit_launch",
                    [_P, _P, _I, _P, _P, _P, _I, _I, _P])
     copy_blocks = 8 * _sm_count(dev.index)
@@ -418,15 +444,8 @@ def _partition_wide(payload, aux, start, count, pred: SplitPredicate,
     if not 0 <= value_col < P:
         raise ValueError("%s: value_col %d outside [0, %d)"
                          % (name, value_col, P))
-    scalars = _int_vec((start, count, pred.col, pred.threshold,
-                        pred.default_left, pred.is_cat, pred.missing_type,
-                        pred.num_bin, pred.default_bin, pred.offset,
-                        pred.identity), dev)
-    bitset = torch.as_tensor(pred.bitset, device=dev).to(torch.bool) \
-        .contiguous().view(torch.uint8)
-    fvals = torch.stack([torch.as_tensor(v, device=dev).reshape(())
-                         .to(torch.float32)
-                         for v in (left_value, right_value)])
+    scalars, bitset = _pred_args(start, count, pred, dev)
+    fvals = _leaf_values(left_value, right_value, dev)
     lib, fn = _lib("segment_partition_wide", "segment_partition_wide_launch",
                    [_P, _P, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P,
                     _I, _I, _P])
@@ -487,6 +506,96 @@ def partition_segment_blocks(payload: torch.Tensor, aux: torch.Tensor, start,
 
 
 partition_segment_blocks.launches = 0
+
+
+def partition_hist_fits(payload_width: int, num_features: int,
+                        num_bins: int) -> bool:
+    """The merged kernel's gate: the JAX package's
+    pallas_segment.partition_hist_fits_vmem (its VMEM plan at ring depth
+    2, 256-row chunks, a 13 MiB budget) on the lane-padded width of this
+    payload, so the auto rule takes the merged mode where the JAX grower
+    would.  At 255 or 256 bins it admits up to 136 features, at 128 or
+    fewer up to 246.  B6 itself tiles features and takes any width."""
+    if num_bins > 256:
+        return False
+    chunk = 256
+    ft = max(1, min(num_features, 2048 // num_bins))
+    n_tiles = -(-num_features // ft)
+    w = -(-ft * num_bins // 128) * 128
+    p = -(-payload_width // 128) * 128
+    est_acc = 4 * p * 18 * chunk + 4 * 8 * chunk * chunk + 4 * chunk * num_bins
+    est_hist = (2 * 4 * chunk * w + 2 * 4 * 8 * n_tiles * w + 4 * ft * w)
+    return est_acc + est_hist <= 13 * 2 ** 20
+
+
+@functools.lru_cache(maxsize=None)
+def _part_hist_features(num_features: int, num_bins: int) -> int:
+    """Features per block of B6: the two children's histograms of as many
+    features as fit the shared-memory budget, balanced over the tiles;
+    0 when not one feature fits."""
+    smem = build.load("segment_partition_hist") \
+        .segment_partition_hist_smem_bytes
+    smem.argtypes = [_I, _I]
+    fixed = smem(0, num_bins)
+    fb_max = max(0, (HIST_SMEM_BYTES - fixed)
+                 // (smem(1, num_bins) - fixed))
+    if fb_max == 0:
+        return 0
+    return -(-num_features // -(-num_features // fb_max))
+
+
+def partition_segment_hist(payload: torch.Tensor, aux: torch.Tensor, start,
+                           count, pred: SplitPredicate, left_value,
+                           right_value, value_col: int, num_bins: int, *,
+                           num_features: int, grad_col: int, hess_col: int,
+                           cnt_col: int):
+    """Stable in-place partition of rows [start, start+count) and both
+    children's f32 histograms [F, B, 3]; returns (payload, aux, num_left,
+    hist_left, hist_right) with num_left a 0-d int32 device tensor (B6:
+    replaces lightgbm_tpu/ops/pallas_segment.py partition_segment_hist).
+    The partition is B2's byte for byte."""
+    hk = dict(num_features=num_features, grad_col=grad_col,
+              hess_col=hess_col, cnt_col=cnt_col)
+    if payload.device.type == "cpu":
+        return seg.partition_segment_hist(payload, aux, start, count, pred,
+                                          left_value, right_value, value_col,
+                                          num_bins, **hk)
+    name = "partition_segment_hist"
+    _check_payload(payload, name)
+    _check_aux(payload, aux, name)
+    dev = payload.device
+    N, P = payload.shape
+    F, B = num_features, num_bins
+    ft = _part_hist_features(F, B) if B > 0 else 0
+    if not 0 < F <= P or ft == 0:
+        raise ValueError("%s: F=%d, B=%d outside the kernel's range"
+                         % (name, F, B))
+    for c in (grad_col, hess_col, cnt_col, value_col):
+        if not 0 <= c < P:
+            raise ValueError("%s: column %d outside [0, %d)" % (name, c, P))
+    scalars, bitset = _pred_args(start, count, pred, dev)
+    fvals = _leaf_values(left_value, right_value, dev)
+    lib, fn = _lib("segment_partition_hist", "segment_partition_hist_launch",
+                   [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P]
+                   + [_I] * 8 + [_P])
+    n_tiles = -(-N // lib.segment_partition_hist_tile_rows())
+    # each tile's left count and offset, then num_left
+    scratch = torch.empty(2 * n_tiles + 1, dtype=torch.int32, device=dev)
+    tile_left, tile_off, num_left = scratch.split((n_tiles, n_tiles, 1))
+    hist = torch.empty((2, F, B, 3), dtype=torch.float32, device=dev)
+    sms = _sm_count(dev.index)
+    grid_x = max(1, 2 * sms // -(-F // ft))
+    rc = fn(payload.data_ptr(), aux.data_ptr(), P, scalars.data_ptr(),
+            bitset.data_ptr(), bitset.shape[0], n_tiles, tile_left.data_ptr(),
+            tile_off.data_ptr(), num_left.data_ptr(), fvals.data_ptr(),
+            value_col, hist.data_ptr(), F, B, ft, grad_col, hess_col, cnt_col,
+            grid_x, 8 * sms, _stream(dev))
+    _check(lib, "segment_partition_hist", rc)
+    partition_segment_hist.launches += 1
+    return payload, aux, num_left.reshape(()), hist[0], hist[1]
+
+
+partition_segment_hist.launches = 0
 
 
 def histogram_route(num_features: int):

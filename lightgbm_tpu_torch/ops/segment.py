@@ -11,8 +11,8 @@ leaf's histogram only touch the rows of one contiguous segment
 These functions are the reference the hand-written kernels
 (ops/cuda_segment.py) are held against, and what a CPU tensor runs:
 the f32 and int32 (quantized) histograms, the batched histogram of the
-frontier grower, and the stable partition, whole or as its stage and
-commit halves.
+frontier grower, the stable partition, whole or as its stage and
+commit halves, and the merged partition + both children's histograms.
 They index with host integers, so on a card they would sync per call;
 the grower reaches them through ops/cuda_segment.py, which launches the
 kernels for CUDA tensors.
@@ -169,6 +169,29 @@ def segment_histogram(payload: torch.Tensor, start, count, *,
     hist = torch.zeros(F * B * 3, dtype=dtype, device=dev)
     hist.index_add_(0, idx, upd.to(dtype))
     return hist.reshape(F, B, 3)
+
+
+def partition_segment_hist(payload: torch.Tensor, aux: torch.Tensor, start,
+                           count, pred: SplitPredicate, left_value,
+                           right_value, value_col: int, num_bins: int, *,
+                           num_features: int, grad_col: int, hess_col: int,
+                           cnt_col: int):
+    """The merged partition + histogram: `partition_segment`, then both
+    children's f32 histograms from the partitioned rows, the left over
+    [start, start+num_left) and the right over the rest.  Returns
+    (payload, aux, num_left, hist_left, hist_right).  This is the JAX
+    grower's portable merged step (part_hist_fn), so on equal inputs the
+    two agree bit for bit."""
+    payload, aux, num_left = partition_segment(payload, aux, start, count,
+                                               pred, left_value, right_value,
+                                               value_col)
+    hk = dict(num_features=num_features, num_bins=num_bins,
+              grad_col=grad_col, hess_col=hess_col, cnt_col=cnt_col)
+    nl = int(num_left)
+    hist_left = segment_histogram(payload, start, nl, **hk)
+    hist_right = segment_histogram(payload, int(start) + nl,
+                                   int(count) - nl, **hk)
+    return payload, aux, num_left, hist_left, hist_right
 
 
 def segment_histogram_batched(payload: torch.Tensor, starts, counts, *,
