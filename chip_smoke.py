@@ -11,17 +11,23 @@ at 137 features and 64 bins) and at the wide shapes (Bosch: 968 features,
 Epsilon: 2,000; the column-block histogram B7, the RMW partition B3 and
 the column-block partition B8, and B1, B2, B4, B5 and the stage and
 commit there too), times each beside its bound and a PyTorch yardstick
-(B1 and B2 at the wide shapes too), checks that CUDA
+(B1 and B2 at the wide shapes too; the partitions on fresh rows, B2 and
+B8 also at 90/10 and 10/90 splits), checks that CUDA
 and CPU training agree on small problems at 28, 968 and 2,000 features,
 then trains through lightgbm_tpu_torch.train on the card (binary
 objective, max_bin 255, 255 leaves, lr 0.1): on 28 dense features the f32
-main path, the grower's merged mode (B6 on every split, with
+main path (then three iterations of it with every B2 call held against
+the plain partition), the grower's merged mode (B6 on every split, with
 lightgbm_tpu_torch.ops.cuda_segment.PARTITION_HIST_VALIDATED set once B6
 has been held) and its histogram pool (histogram_pool_size=2, parents
 rebuilt), then quantized gradients (int8, int16), the frontier-batched
 grower (tpu_frontier_batch=8) and the two together; then the wide paths,
 1M x 968 (a fifth of every other feature NaN) and 400k x 2,000, each with
 a 100k-row validation set scored every iteration (metric auc).
+The whole partitions B2 and B8 are held to the Pallas kernels' contract
+(payload and num_left byte for byte, aux untouched outside the segment,
+scratch inside it; ten runs on fresh copies of the root per predicate);
+the stage, stage + commit, B3 and B6 also to the plain version's aux.
 Each training path resets the kernels' launch counts before it and reads
 them after it; the quantized paths must not launch the f32 histogram, the
 frontier paths must take fewer rounds than splits, the quantized
@@ -135,6 +141,57 @@ def time_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def time_fresh_ms(fn, pay: torch.Tensor, s: int, c: int, reps: int) -> float:
+    """Mean device milliseconds of fn() on fresh rows.  An in-place
+    partition repeated on rows it has already partitioned finds its larger
+    side in place, so before each of reps calls (and two warm-up calls)
+    payload rows [s, s + c) are restored from a pristine copy, outside the
+    timed window; a pair of CUDA events around each call times its own
+    span, and the spans are summed.  A device sleep holds the card while
+    the host queues every rep, so no span waits on the host."""
+    rows = pay[s:s + c]
+    pristine = rows.clone()
+    for _ in range(2):
+        rows.copy_(pristine)
+        fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(50_000_000)
+    for e0, e1 in events:
+        rows.copy_(pristine)
+        e0.record()
+        fn()
+        e1.record()
+    torch.cuda.synchronize()
+    ms = sum(e0.elapsed_time(e1) for e0, e1 in events) / reps
+    rows.copy_(pristine)
+    return ms
+
+
+def kernel_breakdown(fn, pay: torch.Tensor, s: int, c: int,
+                     reps: int = 5) -> dict:
+    """Device microseconds per call of each of the port's kernels that
+    fn() launches (torch.profiler over reps calls on fresh rows, restored
+    as time_fresh_ms restores them; PyTorch's own kernels are left out)."""
+    from torch.profiler import ProfilerActivity, profile
+    rows = pay[s:s + c]
+    pristine = rows.clone()
+    fn()
+    rows.copy_(pristine)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+            rows.copy_(pristine)
+        torch.cuda.synchronize()
+    return {e.key.split("::")[1].split("(")[0]:
+            round(e.self_device_time_total / reps, 3)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key.startswith("(anonymous namespace)::")}
+
+
 T_START = time.perf_counter()
 
 
@@ -166,40 +223,49 @@ def make_payload(n: int, f: int, p: int, seed: int, dev,
     return torch.from_numpy(pay).to(dev)
 
 
+def make_pred(dev, nb: int, col: int, threshold: int, default_left=False,
+              is_cat=False, bitset=None, missing_type=0, num_bin=None,
+              default_bin=0, offset=0, identity=True) -> SplitPredicate:
+    """One split predicate at nb bins, its scalars on `dev`."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    return SplitPredicate(
+        col=torch.tensor(col, **i32),
+        threshold=torch.tensor(threshold, **i32),
+        default_left=torch.tensor(default_left, device=dev),
+        is_cat=torch.tensor(is_cat, device=dev),
+        bitset=torch.as_tensor(bitset if bitset is not None
+                               else np.zeros(nb, bool), device=dev),
+        missing_type=torch.tensor(missing_type, **i32),
+        num_bin=torch.tensor(nb if num_bin is None else num_bin, **i32),
+        default_bin=torch.tensor(default_bin, **i32),
+        offset=torch.tensor(offset, **i32),
+        identity=torch.tensor(identity, device=dev))
+
+
 def predicates(dev, nb: int = B):
     """The routing cases of the partition at nb bins: numerical,
     NaN-missing with default_left, zero-missing, categorical bitset, EFB
     offset decode, all rows left, all rows right."""
-    def pred(col, threshold, default_left=False, is_cat=False, bitset=None,
-             missing_type=0, num_bin=nb, default_bin=0, offset=0,
-             identity=True):
-        i32 = dict(dtype=torch.int32, device=dev)
-        return SplitPredicate(
-            col=torch.tensor(col, **i32),
-            threshold=torch.tensor(threshold, **i32),
-            default_left=torch.tensor(default_left, device=dev),
-            is_cat=torch.tensor(is_cat, device=dev),
-            bitset=torch.as_tensor(bitset if bitset is not None
-                                   else np.zeros(nb, bool), device=dev),
-            missing_type=torch.tensor(missing_type, **i32),
-            num_bin=torch.tensor(num_bin, **i32),
-            default_bin=torch.tensor(default_bin, **i32),
-            offset=torch.tensor(offset, **i32),
-            identity=torch.tensor(identity, device=dev))
-
     cat = np.random.default_rng(5).random(nb) < 0.4
     return {
-        "numerical": pred(3, 100 * nb // B),
-        "nan_missing_default_left": pred(5, 50 * nb // B, default_left=True,
-                                         missing_type=2),
-        "zero_missing": pred(7, 120 * nb // B, missing_type=1,
-                             default_bin=30 * nb // B),
-        "categorical": pred(9, 0, is_cat=True, bitset=cat),
-        "efb_offset": pred(11, 20 * nb // B, identity=False,
-                           offset=40 * nb // B, num_bin=nb // 4),
-        "all_left": pred(3, nb),
-        "all_right": pred(3, -1),
+        "numerical": make_pred(dev, nb, 3, 100 * nb // B),
+        "nan_missing_default_left": make_pred(dev, nb, 5, 50 * nb // B,
+                                              default_left=True,
+                                              missing_type=2),
+        "zero_missing": make_pred(dev, nb, 7, 120 * nb // B, missing_type=1,
+                                  default_bin=30 * nb // B),
+        "categorical": make_pred(dev, nb, 9, 0, is_cat=True, bitset=cat),
+        "efb_offset": make_pred(dev, nb, 11, 20 * nb // B, identity=False,
+                                offset=40 * nb // B, num_bin=nb // 4),
+        "all_left": make_pred(dev, nb, 3, nb),
+        "all_right": make_pred(dev, nb, 3, -1),
     }
+
+
+#: the splits the whole partitions (B2, B8) are timed at, as thresholds on
+#: column 3 of uniform bins in [0, 256): the numerical predicate (~40 %
+#: left), 90/10 and 10/90, so both walk directions are timed
+TIMED_SPLITS = {"": 100, "_90_10": 229, "_10_90": 25}
 
 
 def hist_errors(pay, start, count, f, got, nb: int = B) -> float:
@@ -357,22 +423,31 @@ def kernels_phase(n: int, seed: int, dev) -> dict:
     del qh, sums
 
     # partition: every predicate on the full segment, plus the unaligned,
-    # empty and mid segments; payload, aux segment and num_left must be
-    # byte-identical to the plain version, whole (B2) and as stage then
-    # commit, and the stage alone must leave the payload untouched
+    # empty, one-row and mid segments, each against one plain partition.
+    # B2 whole has the Pallas kernels' contract: payload and num_left byte
+    # for byte, aux outside the segment untouched, the root partitioned
+    # WHOLE_REPEATS times on fresh copies.  Stage then commit keeps the
+    # full contract (the frontier grower reads the staged aux): aux over
+    # the segment too, and the stage alone leaves the payload untouched.
     lv, rv = torch.tensor(-0.25, device=dev), torch.tensor(0.75, device=dev)
     preds = predicates(dev)
     cases = [(name, 0, n) for name in preds] + [
         ("numerical", 100, 37), ("nan_missing_default_left", 500, 0),
-        ("categorical", 777, n // 2), ("efb_offset", 12345, n // 3)]
+        ("zero_missing", 4097, 1), ("categorical", 777, n // 2),
+        ("efb_offset", 12345, n // 3)]
     pay_bytes = pay.view(torch.int32)
     for name, s, c in cases:
-        a_pay, a_aux = pay.clone(), torch.zeros_like(pay)
-        b_pay, b_aux = pay.clone(), torch.zeros_like(pay)
-        c_pay, c_aux = pay.clone(), torch.zeros_like(pay)
         st, ct = torch.tensor(s, **i32), torch.tensor(c, **i32)
-        a_pay, a_aux, a_nl = cuda_segment.partition_segment(
-            a_pay, a_aux, st, ct, preds[name], lv, rv, COLS["value"])
+        plain = seg.partition_segment(pay.clone(), aux_like(pay), s, c,
+                                      preds[name], lv, rv, COLS["value"])
+        for _ in range(WHOLE_REPEATS if (s, c) == (0, n) else 1):
+            got = cuda_segment.partition_segment(
+                pay.clone(), aux_like(pay), st, ct, preds[name], lv, rv,
+                COLS["value"])
+            torch.cuda.synchronize()
+            same_partition("B2 whole %s (%d, %d)" % (name, s, c), got, plain,
+                           s, c, full_aux=False)
+        c_pay, c_aux = pay.clone(), aux_like(pay)
         nl_vec = torch.full((4,), -1, **i32)
         c_aux, c_nl = cuda_segment.partition_segment_stage(
             c_pay, c_aux, st, ct, preds[name], nl_vec, 2)
@@ -384,26 +459,13 @@ def kernels_phase(n: int, seed: int, dev) -> dict:
         c_pay = cuda_segment.partition_segment_commit(
             c_pay, c_aux, st, ct, c_nl, lv, rv, COLS["value"])
         torch.cuda.synchronize()
-        b_pay, b_aux, b_nl = seg.partition_segment(
-            b_pay, b_aux, s, c, preds[name], lv, rv, COLS["value"])
-        for label, x_pay, x_aux, x_nl in (("whole", a_pay, a_aux, a_nl),
-                                          ("stage+commit", c_pay, c_aux,
-                                           c_nl)):
-            check(int(x_nl) == int(b_nl),
-                  "partition (%s) num_left %s (%d, %d): %d vs %d"
-                  % (label, name, s, c, int(x_nl), int(b_nl)))
-            check(torch.equal(x_pay.view(torch.int32),
-                              b_pay.view(torch.int32)),
-                  "partition (%s) payload not byte-identical: %s (%d, %d)"
-                  % (label, name, s, c))
-            check(torch.equal(x_aux[s:s + c].view(torch.int32),
-                              b_aux[s:s + c].view(torch.int32)),
-                  "partition (%s) aux not byte-identical: %s (%d, %d)"
-                  % (label, name, s, c))
+        same_partition("B2 stage+commit %s (%d, %d)" % (name, s, c),
+                       (c_pay, c_aux, c_nl), plain, s, c)
         if name == "all_left":
-            check(int(a_nl) == c, "all_left routed a row right")
+            check(int(got[2]) == c, "all_left routed a row right")
         if name == "all_right":
-            check(int(a_nl) == 0, "all_right routed a row left")
+            check(int(got[2]) == 0, "all_right routed a row left")
+        del plain, got, c_pay, c_aux
     # a commit of count 0 (a staged candidate that did not commit) is a
     # no-op
     z_pay = pay.clone()
@@ -414,7 +476,7 @@ def kernels_phase(n: int, seed: int, dev) -> dict:
     torch.cuda.synchronize()
     check(torch.equal(z_pay.view(torch.int32), pay_bytes),
           "a partition commit of count 0 wrote the payload")
-    del z_pay, a_pay, a_aux, b_pay, b_aux, c_pay, c_aux
+    del z_pay
 
     # times at the root segment of the main path (n rows, F = 28, P = 38)
     reps = 20
@@ -470,18 +532,41 @@ def kernels_phase(n: int, seed: int, dev) -> dict:
     bat_lib_ms = time_ms(lambda: lib_out.index_add_(0, flat, vals), reps)
     del seg_rows, seg_id, flat, vals, lib_out, qpays, qpay
 
-    pred = preds["numerical"]
+    # B2 whole on fresh rows: at the root at the TIMED_SPLITS, and on the
+    # first WIDE_SEGMENT_ROWS rows with the numerical split; each beside
+    # its plain version and its yardstick, a stable argsort of the routing
+    # (computed beforehand) and one index_select of the rows into aux.
+    # Then B2 as stage + commit at the root.
     aux = torch.zeros_like(pay)
-    part_ms = time_ms(lambda: cuda_segment.partition_segment(
-        pay, aux, start0, count, pred, lv, rv, COLS["value"]), reps)
-    part_plain_ms = time_ms(lambda: seg.partition_segment(
-        pay, aux, 0, n, pred, lv, rv, COLS["value"]), 3)
-    # yardstick: a stable argsort of the routing (computed beforehand)
-    # and one index_select of the rows into aux
-    right = (~seg.go_left_chunk(rows, pred)).to(torch.uint8)
-    part_lib_ms = time_ms(lambda: torch.index_select(
-        rows, 0, torch.argsort(right, stable=True), out=aux[:n]), reps)
-    del right, aux
+    part = {}
+    for suffix, thr, rows_t in [(k, v, n) for k, v in TIMED_SPLITS.items()] \
+            + [("_%d_rows" % WIDE_SEGMENT_ROWS, TIMED_SPLITS[""],
+                WIDE_SEGMENT_ROWS)]:
+        pred = make_pred(dev, B, 3, thr)
+        ct = torch.tensor(rows_t, **i32)
+        part["ms" + suffix] = time_fresh_ms(
+            lambda: cuda_segment.partition_segment(
+                pay, aux, start0, ct, pred, lv, rv, COLS["value"]),
+            pay, 0, rows_t, reps)
+        part["plain_ms" + suffix] = time_fresh_ms(
+            lambda: seg.partition_segment(pay, aux, 0, rows_t, pred, lv, rv,
+                                          COLS["value"]), pay, 0, rows_t, 3)
+        right = (~seg.go_left_chunk(pay[:rows_t], pred)).to(torch.uint8)
+        part["library_ms" + suffix] = time_ms(lambda: torch.index_select(
+            pay[:rows_t], 0, torch.argsort(right, stable=True),
+            out=aux[:rows_t]), reps)
+        part["left_share" + suffix] = 1.0 - float(right.float().mean())
+        part["bound_ms" + suffix] = bound(2 * rows_t * P * 4, 0)[0]
+        del right
+    pred = preds["numerical"]
+    part["breakdown_us"] = kernel_breakdown(
+        lambda: cuda_segment.partition_segment(pay, aux, start0, count, pred,
+                                               lv, rv, COLS["value"]),
+        pay, 0, n)
+    part["stage_commit_ms"] = time_fresh_ms(
+        lambda: stage_commit(pay, aux, start0, count, pred, lv, rv,
+                             COLS["value"]), pay, 0, n, reps)
+    del aux
 
     hist_bytes = n * (F + 3) * 4
     hist_ops = n * F * 3
@@ -497,11 +582,10 @@ def kernels_phase(n: int, seed: int, dev) -> dict:
             max_abs_err=hist_err, ms=hist_ms, plain_ms=hist_plain_ms,
             library_ms=hist_lib_ms),
         "partition_segment": dict(
-            name="partition_segment", route="cuda",
+            part, name="partition_segment", route="cuda",
             source="lightgbm_tpu_torch/csrc/segment_partition.cu",
             replaces="lightgbm_tpu/ops/pallas_segment.py:1616",
-            max_abs_err=0.0, ms=part_ms, plain_ms=part_plain_ms,
-            library_ms=part_lib_ms),
+            max_abs_err=0.0, repeats_identical=WHOLE_REPEATS),
         "segment_histogram_quant": dict(
             name="segment_histogram_quant", route="cuda",
             source="lightgbm_tpu_torch/csrc/segment_hist.cu",
@@ -558,14 +642,14 @@ def merged_kernel_phase(n: int, seed: int, dev) -> dict:
             ("zero_missing", 777, 1), ("efb_offset", 12345, rows // 3)]
         for name, s, c in cases:
             what = "B6 %s at F=%d, B=%d (%d, %d)" % (name, f, nb, s, c)
-            a_pay, a_aux = pay.clone(), torch.zeros_like(pay)
+            a_pay, a_aux = pay.clone(), aux_like(pay)
             a_pay, a_aux, a_nl, a_hl, a_hr = \
                 cuda_segment.partition_segment_hist(
                     a_pay, a_aux, torch.tensor(s, **i32),
                     torch.tensor(c, **i32), preds[name], lv, rv,
                     cols["value"], nb, **hk)
             torch.cuda.synchronize()
-            b_pay, b_aux = pay.clone(), torch.zeros_like(pay)
+            b_pay, b_aux = pay.clone(), aux_like(pay)
             b_pay, b_aux, b_nl, b_hl, b_hr = seg.partition_segment_hist(
                 b_pay, b_aux, s, c, preds[name], lv, rv, cols["value"], nb,
                 **hk)
@@ -580,8 +664,8 @@ def merged_kernel_phase(n: int, seed: int, dev) -> dict:
             del a_pay, a_aux, b_pay, b_aux, a_hl, a_hr, b_hl, b_hr
         del pay
 
-    # times at the main path's root (n rows, F = 28, P = 38), numerical
-    # split
+    # times on fresh rows at the main path's root (n rows, F = 28, P = 38),
+    # numerical split
     pay = make_payload(n, F, P, seed, dev)
     aux = torch.zeros_like(pay)
     hk = dict(num_features=F, grad_col=COLS["grad"], hess_col=COLS["hess"],
@@ -593,10 +677,10 @@ def merged_kernel_phase(n: int, seed: int, dev) -> dict:
     for suffix, rows in (("", n), ("_%d_rows" % WIDE_SEGMENT_ROWS,
                                    WIDE_SEGMENT_ROWS)):
         ct = torch.tensor(rows, **i32)
-        rec["ms" + suffix] = time_ms(
+        rec["ms" + suffix] = time_fresh_ms(
             lambda: cuda_segment.partition_segment_hist(
                 pay, aux, start0, ct, pred, lv, rv, COLS["value"], B, **hk),
-            reps)
+            pay, 0, rows, reps)
         # what B6 replaces per split: B2, then B1 on the smaller child
         nl = int(seg.go_left_chunk(pay[:rows], pred).sum())
         h_st, h_ct = (0, nl) if nl <= rows - nl else (nl, rows - nl)
@@ -607,9 +691,9 @@ def merged_kernel_phase(n: int, seed: int, dev) -> dict:
                                            COLS["value"])
             cuda_segment.segment_histogram(pay, h_st, h_ct, num_bins=B, **hk)
 
-        rec["b2_b1_ms" + suffix] = time_ms(b2_b1, reps)
-    rec["plain_ms"] = time_ms(lambda: seg.partition_segment_hist(
-        pay, aux, 0, n, pred, lv, rv, COLS["value"], B, **hk), 3)
+        rec["b2_b1_ms" + suffix] = time_fresh_ms(b2_b1, pay, 0, rows, reps)
+    rec["plain_ms"] = time_fresh_ms(lambda: seg.partition_segment_hist(
+        pay, aux, 0, n, pred, lv, rv, COLS["value"], B, **hk), pay, 0, n, 3)
     # yardstick, a composition (no one PyTorch call computes B6): a
     # stable argsort of the routing (computed beforehand), an index_select
     # of the rows into aux, and one index_add_ per child (its cells and
@@ -675,37 +759,64 @@ def stage_commit(pay, aux, start, count, pred, left_value, right_value,
     return pay, aux, nl
 
 
-def partition_equal(fns, pay, pred, s: int, c: int, vcol: int) -> None:
-    """Run each partition wrapper in `fns` and the plain version on copies
-    of `pay`; raises unless payload, aux over the segment and num_left are
-    byte-identical."""
+#: aux's fill before every checked partition, so a write outside the
+#: segment shows
+AUX_FILL = -7.5
+#: runs of B2 whole and B8 on fresh copies of the root segment per
+#: predicate, each held to the plain partition, so an ordering race shows
+WHOLE_REPEATS = 10
+
+
+def aux_like(pay: torch.Tensor) -> torch.Tensor:
+    return torch.full_like(pay, AUX_FILL)
+
+
+def whole_partition(fn) -> bool:
+    """True for the whole partitions with the Pallas kernels' contract
+    (B2 whole, B8): aux over the segment is scratch."""
+    return fn in (cuda_segment.partition_segment,
+                  cuda_segment.partition_segment_blocks)
+
+
+def partition_equal(fns, pay, pred, s: int, c: int, vcol: int,
+                    repeats: int = 1) -> None:
+    """Run each partition wrapper in `fns` (a whole partition `repeats`
+    times) and the plain version on copies of `pay`; raises unless they
+    agree as same_partition holds them."""
     i32 = dict(dtype=torch.int32, device=pay.device)
     lv = torch.tensor(-0.25, device=pay.device)
     rv = torch.tensor(0.75, device=pay.device)
-    b_pay, b_aux = pay.clone(), torch.zeros_like(pay)
-    b_pay, b_aux, b_nl = seg.partition_segment(b_pay, b_aux, s, c, pred, lv,
-                                               rv, vcol)
+    plain = seg.partition_segment(pay.clone(), aux_like(pay), s, c, pred, lv,
+                                  rv, vcol)
     for fn in fns:
-        a_pay, a_aux = pay.clone(), torch.zeros_like(pay)
-        a_pay, a_aux, a_nl = fn(a_pay, a_aux, torch.tensor(s, **i32),
-                                torch.tensor(c, **i32), pred, lv, rv, vcol)
-        torch.cuda.synchronize()
-        same_partition("%s (%d, %d)" % (fn.__name__, s, c),
-                       (a_pay, a_aux, a_nl), (b_pay, b_aux, b_nl), s, c)
-        del a_pay, a_aux
+        whole = whole_partition(fn)
+        for _ in range(repeats if whole else 1):
+            got = fn(pay.clone(), aux_like(pay), torch.tensor(s, **i32),
+                     torch.tensor(c, **i32), pred, lv, rv, vcol)
+            torch.cuda.synchronize()
+            same_partition("%s (%d, %d)" % (fn.__name__, s, c), got, plain,
+                           s, c, full_aux=not whole)
+            del got
 
 
-def same_partition(what: str, got, plain, s: int, c: int) -> None:
-    """Raises unless two (payload, aux, num_left) results agree byte for
-    byte: the whole payload, aux over the segment [s, s + c), num_left."""
+def same_partition(what: str, got, plain, s: int, c: int,
+                   full_aux: bool = True) -> None:
+    """Raises unless two (payload, aux, num_left) results, both from aux
+    filled alike, agree byte for byte: num_left, the whole payload, aux
+    outside the segment [s, s + c) and, with full_aux, aux over it."""
     (a_pay, a_aux, a_nl), (b_pay, b_aux, b_nl) = got, plain
     check(int(a_nl) == int(b_nl), "%s: num_left %d vs %d"
           % (what, int(a_nl), int(b_nl)))
     check(torch.equal(a_pay.view(torch.int32), b_pay.view(torch.int32)),
           "%s: payload not byte-identical" % what)
-    check(torch.equal(a_aux[s:s + c].view(torch.int32),
-                      b_aux[s:s + c].view(torch.int32)),
-          "%s: aux not byte-identical" % what)
+    check(torch.equal(a_aux[:s].view(torch.int32), b_aux[:s].view(torch.int32))
+          and torch.equal(a_aux[s + c:].view(torch.int32),
+                          b_aux[s + c:].view(torch.int32)),
+          "%s: aux written outside the segment" % what)
+    if full_aux:
+        check(torch.equal(a_aux[s:s + c].view(torch.int32),
+                          b_aux[s:s + c].view(torch.int32)),
+              "%s: aux not byte-identical" % what)
 
 
 def plain_hist_chunked(pay, n: int, hk: dict, chunk: int = WIDE_CMP_ROWS):
@@ -734,10 +845,13 @@ def wide_kernels_phase(seed: int, dev) -> dict:
     its plain version on segments of the first 65,536 rows: B7 and B1 to
     B1's bound with an exact count channel, B4 at the int8 and int16 grids
     and B5 in int32 bit for bit, B5 in f32 to B1's bound, and B3, B8, B2
-    and B2's stage + commit byte for byte on every predicate.  Then the
-    kernels of WIDE_TIMED are timed on the full root segment of the wide
-    path's padded rows, with bound, plain and library times, and on a
-    segment of WIDE_SEGMENT_ROWS rows.  Returns {kernel: {F: record}}."""
+    and B2's stage + commit on every predicate as same_partition holds
+    them; B8 also WHOLE_REPEATS times on the full root segment of the wide
+    path's padded rows under every predicate.  Then the kernels of
+    WIDE_TIMED are timed on that root, with bound, plain and library
+    times, and on a segment of WIDE_SEGMENT_ROWS rows (the partitions on
+    fresh rows), and B8 at the other TIMED_SPLITS.  Returns {kernel: {F:
+    record}}."""
     preds = predicates(dev)
     i32 = dict(dtype=torch.int32, device=dev)
     out = {}
@@ -828,23 +942,32 @@ def wide_kernels_phase(seed: int, dev) -> dict:
         for r in rec.values():
             r["checked_rows"] = m
 
+        # B8 partitioned WHOLE_REPEATS times on fresh copies of the root
+        # under every predicate kind
+        for name in preds:
+            partition_equal((cuda_segment.partition_segment_blocks,), pay,
+                            preds[name], 0, n, cols["value"],
+                            repeats=WHOLE_REPEATS)
+        rec["partition_segment_blocks"]["repeats_identical"] = WHOLE_REPEATS
+        torch.cuda.empty_cache()
+
         start0, count = torch.zeros((), **i32), torch.tensor(n, **i32)
         part_ct = torch.tensor(WIDE_SEGMENT_ROWS, **i32)
-        pred = preds["numerical"]
         lv = torch.tensor(-0.25, device=dev)
         rv = torch.tensor(0.75, device=dev)
         aux = torch.zeros_like(pay)
         for name in WIDE_TIMED:
             fn = getattr(cuda_segment, name)
-            for key, ct in (("ms", count), ("ms_%d_rows" % WIDE_SEGMENT_ROWS,
-                                            part_ct)):
+            for key, ct in (("ms", n), ("ms_%d_rows" % WIDE_SEGMENT_ROWS,
+                                        WIDE_SEGMENT_ROWS)):
+                ct_t = torch.tensor(ct, **i32)
                 if name.startswith("segment_histogram"):
                     rec[name][key] = time_ms(
-                        lambda: fn(pay, start0, ct, **hk), reps)
+                        lambda: fn(pay, start0, ct_t, **hk), reps)
                 else:
-                    rec[name][key] = time_ms(lambda: fn(
-                        pay, aux, start0, ct, pred, lv, rv, cols["value"]),
-                        reps)
+                    rec[name][key] = time_fresh_ms(lambda: fn(
+                        pay, aux, start0, ct_t, preds["numerical"], lv, rv,
+                        cols["value"]), pay, 0, ct, reps)
             rec[name].update(n=n, P=p)
         hist_plain_ms = time_ms(lambda: plain_hist_chunked(pay, n, hk), 1)
         flat = (pay[:n, :f].long()
@@ -859,17 +982,44 @@ def wide_kernels_phase(seed: int, dev) -> dict:
         for name in ("segment_histogram_colblock", "segment_histogram"):
             rec[name].update(plain_ms=hist_plain_ms, library_ms=hist_lib_ms,
                              bound_ms=hist_bound[0], bound_by=hist_bound[1])
-        part_plain_ms = time_ms(lambda: seg.partition_segment(
-            pay, aux, 0, n, pred, lv, rv, cols["value"]), 1)
-        right = (~seg.go_left_chunk(pay[:n], pred)).to(torch.uint8)
-        part_lib_ms = time_ms(lambda: torch.index_select(
-            pay[:n], 0, torch.argsort(right, stable=True), out=aux[:n]), reps)
-        del right, aux, pay
+        # the partitions' plain version and yardstick at the root, at each
+        # of the TIMED_SPLITS; B8 timed there too
         part_bound = bound(2 * n * p * 4, 0)
+        for suffix, thr in TIMED_SPLITS.items():
+            pred = make_pred(dev, B, 3, thr)
+            plain_ms = time_fresh_ms(lambda: seg.partition_segment(
+                pay, aux, 0, n, pred, lv, rv, cols["value"]), pay, 0, n, 1)
+            right = (~seg.go_left_chunk(pay[:n], pred)).to(torch.uint8)
+            lib_ms = time_ms(lambda: torch.index_select(
+                pay[:n], 0, torch.argsort(right, stable=True), out=aux[:n]),
+                reps)
+            left_share = 1.0 - float(right.float().mean())
+            del right
+            for name in ("partition_segment_rmw", "partition_segment_blocks",
+                         "partition_segment"):
+                rec[name].update({"plain_ms" + suffix: plain_ms,
+                                  "library_ms" + suffix: lib_ms,
+                                  "left_share" + suffix: left_share,
+                                  "bound_ms" + suffix: part_bound[0]})
+            if not suffix:
+                for name in ("partition_segment_rmw",
+                             "partition_segment_blocks"):
+                    fn = getattr(cuda_segment, name)
+                    rec[name]["breakdown_us"] = kernel_breakdown(
+                        lambda: fn(pay, aux, start0, count, pred, lv, rv,
+                                   cols["value"]), pay, 0, n)
+            else:
+                rec["partition_segment_blocks"]["ms" + suffix] = \
+                    time_fresh_ms(
+                        lambda: cuda_segment.partition_segment_blocks(
+                            pay, aux, start0, count, pred, lv, rv,
+                            cols["value"]), pay, 0, n, reps)
         for name in ("partition_segment_rmw", "partition_segment_blocks",
                      "partition_segment"):
-            rec[name].update(plain_ms=part_plain_ms, library_ms=part_lib_ms,
-                             bound_ms=part_bound[0], bound_by=part_bound[1])
+            rec[name]["bound_ms_%d_rows" % WIDE_SEGMENT_ROWS] = bound(
+                2 * WIDE_SEGMENT_ROWS * p * 4, 0)[0]
+            rec[name]["bound_by"] = part_bound[1]
+        del aux, pay
         for name, r in rec.items():
             out.setdefault(name, {})[f] = r
         torch.cuda.empty_cache()
@@ -1014,6 +1164,45 @@ def main_path_phase(rows: int, iters: int, seed: int) -> tuple:
           "the main path launched the merged kernel")
     line = path_line(r, rows, iters, ", binning %.3f s" % t_bin)
     return line, r, (ds, Xv, yv)
+
+
+def checked_partition_phase(data, rows: int, iters: int) -> str:
+    """The main path again for `iters` iterations, every B2 call held
+    against the plain partition on copies of its inputs: payload and
+    num_left byte for byte and aux untouched outside the segment, so an
+    ordering race in training shows.  Its launches are not counted
+    against any path."""
+    ds, Xv, yv = data
+    whole = cuda_segment.partition_segment
+    calls = []
+
+    def checked(payload, aux, start, count, pred, left_value, right_value,
+                value_col):
+        before, aux_before = payload.clone(), aux.clone()
+        out = whole(payload, aux, start, count, pred, left_value,
+                    right_value, value_col)
+        plain = seg.partition_segment(before, aux_before, int(start),
+                                      int(count), pred, left_value,
+                                      right_value, value_col)
+        same_partition("B2 in training (%d, %d)" % (int(start), int(count)),
+                       out, plain, int(start), int(count), full_aux=False)
+        calls.append(int(count))
+        return out
+
+    checked.launches = 0
+    cuda_segment.partition_segment = checked
+    try:
+        bst = lt.train(train_params(255), ds, iters, verbose_eval=False)
+    finally:
+        cuda_segment.partition_segment = whole
+    splits = sum(t.num_leaves - 1 for t in bst._model.trees)
+    check(len(calls) == splits, "checked %d B2 calls for %d splits"
+          % (len(calls), splits))
+    auc = auc_score(yv, bst.predict(Xv))
+    return ("B2 in training: %dx%d, %d iters, %d calls on segments of %d to "
+            "%d rows, each byte-identical to the plain partition; held-out "
+            "AUC %.6f" % (rows, F, iters, len(calls), min(calls), max(calls),
+                          auc))
 
 
 #: the partition wrappers the merged mode retires
@@ -1310,13 +1499,16 @@ def wide_path_phase(f: int, rows: int, iters: int, seed: int, dev) -> tuple:
     return line, dict(bst=bst, launches=launches, ds=ds, dv=dv)
 
 
-def profile_phase(bst, label: str) -> str:
+def profile_phase(bst, label: str, launched=(), retired=()) -> str:
     """Two more boosting iterations of a trained booster: one timed
     on the host clock alone, then one under torch.profiler.  Prints both
     walls, the profiled iteration's summed kernel time, the device's idle
     share against each wall (the unprofiled one is the reading; the
-    profiler slows the host) and the kernels that take the most device
-    time.  Only device activity is recorded: with the ~90k host ops of an
+    profiler slows the host), the ported kernels' launches and device
+    time, the wrappers' calls and each partition's device time per call,
+    and the kernels that take the most device time.  Raises unless a
+    kernel named by each of `launched` ran and none named by `retired`
+    did.  Only device activity is recorded: with the ~90k host ops of an
     iteration recorded too, reading the profile took over a minute."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1324,18 +1516,28 @@ def profile_phase(bst, label: str) -> str:
     bst.update()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    before = read_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         bst.update()
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
+    calls = {k: v - before[k] for k, v in read_counts().items()
+             if v != before[k]}
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     check(busy > 0, "the profiler saw no device time")
+    for name in launched:
+        check(any(name in e.key for e in kernels),
+              "profile (%s): no %s kernel ran" % (label, name))
+    for name in retired:
+        check(not any(name in e.key for e in kernels),
+              "profile (%s): a %s kernel ran" % (label, name))
     # the histogram kernels share one template: <float> serves B1 and the
-    # f32 B5, <int> B4 and the int32 B5; B3 and B8 share their routing and
-    # copy-back
+    # f32 B5, <int> B4 and the int32 B5; B3 and B8 share their routing.
+    # "partition" is B2's kernels (whole, or the stage and commit), and
+    # B6's on the merged path
     ported = {}
     for prefixes, name in (
             (("segment_hist_kernel<float>",), "histogram f32"),
@@ -1343,21 +1545,30 @@ def profile_phase(bst, label: str) -> str:
             (("hist_colblock",), "histogram colblock"),
             (("part_",), "partition"),
             (("part_hist_scatter",), "partition + histogram scatter"),
-            (("route_", "rmw_scatter", "block_scatter", "flat_copyback",
-              "write_values"), "partition wide")):
+            (("route_", "rmw_scatter", "flat_copyback", "write_values",
+              "block_move", "wide_copy_side"), "partition wide")):
         hits = [e for e in kernels if any(p in e.key for p in prefixes)]
         ported[name] = [sum(e.count for e in hits),
                         round(sum(e.self_device_time_total
                                   for e in hits) / 1e3, 4)]
+    # device microseconds per call of the whole partition wrappers
+    per_call = {}
+    for wrapper, group in (("partition_segment", "partition"),
+                           ("partition_segment_rmw", "partition wide"),
+                           ("partition_segment_blocks", "partition wide")):
+        if calls.get(wrapper):
+            per_call[wrapper] = round(ported[group][1] * 1e3
+                                      / calls[wrapper], 3)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     return ("profile (%s): one iteration %.4f s wall unprofiled, %.4f s "
             "wall profiled, %.4f s summed kernel time (profiled), device idle "
             "share %.4f against the unprofiled wall (%.4f against the "
             "profiled), %d kernel launches; ported kernels [launches, ms]: "
-            "%s; top [name, launches, ms]: %s"
+            "%s; wrapper calls %s; partition device us per call %s; top "
+            "[name, launches, ms]: %s"
             % (label, wall, wall_prof, busy, 1.0 - busy / wall,
                1.0 - busy / wall_prof, sum(e.count for e in kernels),
-               json.dumps(ported),
+               json.dumps(ported), json.dumps(calls), json.dumps(per_call),
                json.dumps([[e.key[:60], e.count,
                             round(e.self_device_time_total / 1e3, 4)]
                            for e in top])))
@@ -1416,8 +1627,13 @@ def main() -> int:
     say(wide_parity_phase(args.seed, dev))
     line, main_run, data = main_path_phase(args.rows, args.iters, args.seed)
     say(line)
-    say(profile_phase(main_run["bst"], "main path"))
+    # B2 whole runs its count, scan, move and smaller-side copy, never the
+    # stage's scatter or the full-segment copy-back
+    say(profile_phase(main_run["bst"], "main path",
+                      launched=("part_move", "part_copy_side"),
+                      retired=("part_scatter", "part_copyback")))
     del main_run["bst"]
+    say(checked_partition_phase(data, args.rows, 3))
     runs = histogram_mode_phases(data, main_run, args.rows, args.iters)
     runs.update(quantized_phases(data, main_run, args.rows, args.iters))
     del data
@@ -1428,7 +1644,14 @@ def main() -> int:
     for f, rows in WIDE:
         line, r = wide_path_phase(f, rows, args.iters, args.seed, dev)
         say(line)
-        say(profile_phase(r["bst"], "wide %d" % f))
+        # B8 moves in place and copies the smaller side back; B3 keeps its
+        # scatter, copy-back and value pass
+        say(profile_phase(r["bst"], "wide %d" % f, **(
+            dict(launched=("block_move", "wide_copy_side"),
+                 retired=("write_values", "flat_copyback"))
+            if f == 2000 else
+            dict(launched=("rmw_scatter", "flat_copyback", "write_values"),
+                 retired=("block_move",)))))
         paths["wide %d" % f] = r["launches"]
         del r
         torch.cuda.empty_cache()

@@ -97,13 +97,13 @@ part_count(const float* __restrict__ payload, int P,
   if (threadIdx.x == 0) tile_left[blockIdx.x] = n;
 }
 
-// One block turns the tile counts into exclusive offsets and num_left.
-__global__ void __launch_bounds__(kTile)
-part_scan(const int* __restrict__ sc, const int* __restrict__ tile_left,
-          int* __restrict__ tile_off, int* __restrict__ num_left) {
+// One block turns the counts of ntiles tiles into exclusive offsets and
+// num_left.
+__device__ void scan_tile_counts(int ntiles, const int* __restrict__ tile_left,
+                                 int* __restrict__ tile_off,
+                                 int* __restrict__ num_left) {
   __shared__ int warp_tot[32];
   __shared__ int carry;
-  const int ntiles = (sc[kCount] + kTile - 1) / kTile;
   if (threadIdx.x == 0) carry = 0;
   __syncthreads();
   for (int base = 0; base < ntiles; base += blockDim.x) {
@@ -117,6 +117,14 @@ part_scan(const int* __restrict__ sc, const int* __restrict__ tile_left,
     __syncthreads();
   }
   if (threadIdx.x == 0) *num_left = carry;
+}
+
+// One block scans the counts of the segment's kTile-row tiles.
+__global__ void __launch_bounds__(kTile)
+part_scan(const int* __restrict__ sc, const int* __restrict__ tile_left,
+          int* __restrict__ tile_off, int* __restrict__ num_left) {
+  scan_tile_counts((sc[kCount] + kTile - 1) / kTile, tile_left, tile_off,
+                   num_left);
 }
 
 // The destination row of row `tile * kTile + threadIdx.x` of the segment

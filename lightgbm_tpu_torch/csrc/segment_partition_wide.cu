@@ -1,105 +1,92 @@
 // Stable segment partition of wide payloads for Hopper (sm_90a).
 //
 // Replaces two TPU kernels of lightgbm_tpu/ops/pallas_segment.py, both
-// with the contract of B2 (csrc/segment_partition.cu), byte for byte:
-// stably partition payload rows [start, start + count) by the split
-// predicate (left rows first), leave the partitioned rows in aux over the
-// same range, copy them back into payload writing left_value / right_value
-// into value_col, and report num_left.
+// with the contract of B2 (csrc/segment_partition.cu): stably partition
+// payload rows [start, start + count) by the split predicate (left rows
+// first), write left_value / right_value into value_col, and report
+// num_left; payload and num_left are byte-identical to the plain PyTorch
+// version.
 //   - partition_segment -> _partition_kernel (B3, the "RMW" partition):
-//     payloads past B2's plan, rows of 2-6.5 KB (513 <= P < 1665);
+//     payloads past B2's plan, rows of 2-6.5 KB (513 <= P < 1665); it also
+//     leaves the whole partition in aux over the segment;
 //   - partition_segment_acc_blocks -> _snap_window_kernel +
 //     _acc_blocks_kernel (B8): the widest payloads (P >= 1665), over column
-//     windows with the routing read once.
-// The predicate follows _go_left_rows (pallas_segment.py:282-316) and
-// ops/bundle.decode_bin exactly, as B2's does.
+//     windows with the routing read once.  As in the Pallas kernel, aux
+//     over the segment is scratch; nothing outside the segment is written.
+// The predicate is B2's (segment_partition.cuh).
 //
-// What bounds it on this card: every row of the segment is read and
-// written twice (payload -> aux, aux -> payload), 2 * count * P * 4 bytes
-// each way, against HBM at 3.35 TB/s; there is no arithmetic to speak of.
-// At these widths a row is 2-8 KB, so the routing column (one 32-byte
-// sector per row) is a few percent of the traffic.
+// What bounds it on this card: HBM at 3.35 TB/s.  The least traffic is
+// each row read once and written once, 2 * count * P * 4 bytes; there is
+// no arithmetic to speak of.  At these widths a row is 2-8 KB, so the
+// routing column (one 32-byte sector per row) is a few percent of it.
 //
-// Design: six launches, all sized for the largest segment (the whole
-// payload), reading start, count and every predicate scalar from device
-// memory, so the grower never syncs to launch them.
+// Both start with one routing, three launches sized for the largest
+// segment (the whole payload) that read start, count and every predicate
+// scalar from device memory, so the grower never syncs to launch them:
 //   1. route_count: one block per 1024-row tile reads the routing column
 //      once, keeps each row's side as a byte and counts the tile's lefts
-//      (the TPU kernel's "snap" of the split column);
+//      (the TPU kernel's "snap" of the split column); for B8 it also
+//      clears the move's ticket and "read" flags;
 //   2. route_scan: one block turns the tile counts into exclusive offsets
 //      and num_left;
 //   3. route_rank: each tile ranks its rows from the stored bytes (warp
 //      ballot + popc, a scan over the warps) and writes every row's
-//      destination row;
-//   4. the scatter, payload -> aux at the destinations:
-//      B3 (rmw_scatter): one warp per row, with 16-byte moves over the
-//      part of the row whose source and destination share their offset
-//      within 16 bytes (8-byte moves where they share it within 8);
-//      B8 (block_scatter): a 2-D grid of row tiles by column blocks of
-//      kColBlock floats, so a segment of a few thousand rows still fills
-//      the card and every block moves contiguous 2 KB row slices;
+//      destination row.
+// B3 then moves every row twice, 4 * count * P * 4 bytes:
+//   4. rmw_scatter: payload -> aux, one warp per row, with 16-byte moves
+//      over the part of the row whose source and destination share their
+//      offset within 16 bytes (8-byte moves where they share it within 8);
 //   5. flat_copyback: the segment is one contiguous range of count * P
 //      floats in aux and in payload, so the copy-back is a flat 16-byte
-//      copy over the grid, whatever the width (B3 and B8 alike);
+//      copy over the grid;
 //   6. write_values: the leaf values into value_col, one thread per row.
-// Count, scan and rank stay three launches rather than one with a
-// decoupled look-back: they read one sector per row, which is a few
-// percent of the row moves at these widths.  Rows move as raw 4-, 8- or
-// 16-byte copies, so the result is byte-identical to the plain PyTorch
-// version.  None of the TPU kernels' machinery (8-row aligned RMW windows,
-// permutation matmuls, the 128-lane split-column snapshot) carries over.
+// B8 writes each row once to its final place, except the smaller side,
+// which goes through aux and back, 2 * count * P * 4 + 2 * min(L, R) * P * 4
+// bytes (the protocol is in segment_partition_inplace.cuh):
+//   4. block_move: a persistent grid takes (row tile of 8 rows, column
+//      block of 512 floats) tickets in walk order, each column block with
+//      its own flags, so column blocks never wait on each other.  A block
+//      streams the next tile's 8 row slices (16 KB) into one of two
+//      staging buffers by cp.async while it works on the current one:
+//      writes the leaf value into the staged value column, waits for the
+//      (at most two) row tiles its in-place rows land on, and stores each
+//      slice at its destination row with 16-byte stores, the larger
+//      side's into the payload, the smaller side's into aux.  Tiles of 8
+//      rows keep six blocks on an SM (32 rows, double buffered, leave one,
+//      and ran slower on the card);
+//   5. wide_copy_side: the smaller side's one contiguous range, aux ->
+//      payload, with 16-byte moves.
+// Rows move as raw 4-, 8- or 16-byte copies.  None of the TPU kernels'
+// machinery (8-row aligned RMW windows, permutation matmuls, the 128-lane
+// split-column snapshot) carries over.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "segment_partition_inplace.cuh"
 
 namespace {
 
-constexpr int kTile = 1024;       // rows per routing tile, one per thread
-constexpr int kCopyThreads = 256;
-constexpr int kRowTile = 32;      // rows per tile of B8's 2-D grid
-constexpr int kColBlock = 2 * kCopyThreads;  // floats per column block
+constexpr int kRowTile = 8;       // rows per tile of B8's move
+constexpr int kColBlock = 512;   // floats per column block
+constexpr int kSlab = kColBlock + 4;  // floats per staged row slice
 
-// predicate scalars, in the order of pallas_segment._partition_segment_acc
-enum {
-  kStart = 0, kCount, kCol, kThreshold, kDefaultLeft, kIsCat, kMissingType,
-  kNumBin, kDefaultBin, kOffset, kIdentity, kNumScalars
-};
-constexpr int kMissingZero = 1;
-constexpr int kMissingNan = 2;
-
-__device__ __forceinline__ int go_left(float stored, const int* sc,
-                                       const unsigned char* bitset, int B) {
-  const int raw = static_cast<int>(stored);  // f32 -> i32, like astype
-  int fbin = raw;
-  if (!sc[kIdentity]) {
-    const int e = raw - sc[kOffset];
-    const bool in_range = e >= 0 && e < sc[kNumBin] - 1;
-    fbin = in_range ? e + (e >= sc[kDefaultBin] ? 1 : 0) : sc[kDefaultBin];
-  }
-  if (sc[kIsCat]) return (fbin >= 0 && fbin < B) ? (bitset[fbin] != 0) : 0;
-  const bool miss =
-      (sc[kMissingType] == kMissingNan && fbin == sc[kNumBin] - 1) ||
-      (sc[kMissingType] == kMissingZero && fbin == sc[kDefaultBin]);
-  return miss ? (sc[kDefaultLeft] != 0) : (fbin <= sc[kThreshold]);
-}
-
-__device__ __forceinline__ int warp_inclusive_scan(int v) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int u = __shfl_up_sync(0xffffffffu, v, d);
-    if (lane >= d) v += u;
-  }
-  return v;
-}
-
+// One block per 1024-row tile; sync (B8, else null) gets its ticket and
+// the flags of the tile's row tiles (ncb column blocks each) cleared.
 __global__ void __launch_bounds__(kTile)
 route_count(const float* __restrict__ payload, int P,
             const int* __restrict__ sc,
             const unsigned char* __restrict__ bitset, int B,
-            unsigned char* __restrict__ side, int* __restrict__ tile_left) {
+            unsigned char* __restrict__ side, int* __restrict__ tile_left,
+            int* __restrict__ sync, int ncb) {
   const int count = sc[kCount];
   const int row0 = blockIdx.x * kTile;
+  if (sync != nullptr) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) sync[0] = 0;
+    const int ntiles = (count + kRowTile - 1) / kRowTile;
+    const int t0 = row0 / kRowTile;
+    const int nflags = (min(ntiles, t0 + kTile / kRowTile) - t0) * ncb;
+    for (int i = threadIdx.x; i < nflags; i += kTile) {
+      sync[1 + t0 * ncb + i] = 0;
+    }
+  }
   if (row0 >= count) return;  // uniform per block
   const int r = row0 + threadIdx.x;
   int gl = 0;
@@ -116,32 +103,8 @@ route_count(const float* __restrict__ payload, int P,
 __global__ void __launch_bounds__(kTile)
 route_scan(const int* __restrict__ sc, const int* __restrict__ tile_left,
            int* __restrict__ tile_off, int* __restrict__ num_left) {
-  __shared__ int warp_tot[32];
-  __shared__ int carry;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int ntiles = (sc[kCount] + kTile - 1) / kTile;
-  if (threadIdx.x == 0) carry = 0;
-  __syncthreads();
-  for (int base = 0; base < ntiles; base += kTile) {
-    const int i = base + threadIdx.x;
-    const int v = i < ntiles ? tile_left[i] : 0;
-    const int incl = warp_inclusive_scan(v);
-    if (lane == 31) warp_tot[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      const int t = warp_tot[lane];
-      warp_tot[lane] = warp_inclusive_scan(t) - t;  // exclusive
-    }
-    __syncthreads();
-    const int c = carry;
-    const int block_incl = incl + warp_tot[warp];
-    if (i < ntiles) tile_off[i] = c + block_incl - v;
-    __syncthreads();
-    if (threadIdx.x == kTile - 1) carry = c + block_incl;
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) *num_left = carry;
+  scan_tile_counts((sc[kCount] + kTile - 1) / kTile, tile_left, tile_off,
+                   num_left);
 }
 
 __global__ void __launch_bounds__(kTile)
@@ -176,42 +139,6 @@ route_rank(const int* __restrict__ sc, const unsigned char* __restrict__ side,
   }
 }
 
-// Moves of n floats, src -> dst, by the threads t = t0, t0 + step, ...:
-// 16-byte moves where src and dst share their offset within 16 bytes,
-// 8-byte moves where they share it within 8 (every row of an even-width
-// payload), else 4-byte moves.  The loops are unrolled so that several
-// loads of a thread are in flight at once.
-__device__ __forceinline__ void copy_span(const float* __restrict__ src,
-                                          float* __restrict__ dst,
-                                          long long n, long long t0,
-                                          long long step) {
-  // offsets in floats within 16 bytes
-  const int mis_s = static_cast<int>(reinterpret_cast<uintptr_t>(src) / 4 % 4);
-  const int mis_d = static_cast<int>(reinterpret_cast<uintptr_t>(dst) / 4 % 4);
-  if (mis_s == mis_d) {
-    const long long head = min(static_cast<long long>((4 - mis_s) & 3), n);
-    if (t0 < head) dst[t0] = src[t0];
-    const long long nvec = (n - head) >> 2;
-    const float4* s4 = reinterpret_cast<const float4*>(src + head);
-    float4* d4 = reinterpret_cast<float4*>(dst + head);
-#pragma unroll 4
-    for (long long i = t0; i < nvec; i += step) d4[i] = s4[i];
-    for (long long c = head + 4 * nvec + t0; c < n; c += step) dst[c] = src[c];
-  } else if (((mis_s ^ mis_d) & 1) == 0) {
-    const long long head = min(static_cast<long long>(mis_s & 1), n);
-    if (t0 < head) dst[t0] = src[t0];
-    const long long nvec = (n - head) >> 1;
-    const float2* s2 = reinterpret_cast<const float2*>(src + head);
-    float2* d2 = reinterpret_cast<float2*>(dst + head);
-#pragma unroll 4
-    for (long long i = t0; i < nvec; i += step) d2[i] = s2[i];
-    for (long long c = head + 2 * nvec + t0; c < n; c += step) dst[c] = src[c];
-  } else {
-#pragma unroll 4
-    for (long long c = t0; c < n; c += step) dst[c] = src[c];
-  }
-}
-
 __global__ void __launch_bounds__(kCopyThreads)
 rmw_scatter(const float* __restrict__ payload, float* __restrict__ aux, int P,
             const int* __restrict__ sc, const int* __restrict__ dest) {
@@ -223,42 +150,6 @@ rmw_scatter(const float* __restrict__ payload, float* __restrict__ aux, int P,
        r += gridDim.x * warps) {
     copy_span(payload + (static_cast<long long>(start) + r) * P,
               aux + static_cast<long long>(dest[r]) * P, P, lane, 32);
-  }
-}
-
-__global__ void __launch_bounds__(kCopyThreads)
-block_scatter(const float* __restrict__ payload, float* __restrict__ aux,
-              int P, const int* __restrict__ sc,
-              const int* __restrict__ dest) {
-  const long long start = sc[kStart];
-  const int count = sc[kCount];
-  const int ntiles = (count + kRowTile - 1) / kRowTile;
-  const int c0 = blockIdx.y * kColBlock;
-  const int cw = min(kColBlock, P - c0);
-  // an even width starts every row slice 8-byte aligned: one 8-byte move
-  // per thread and row, else two 4-byte moves; the rows are unrolled so
-  // that their loads are in flight together
-  const bool even = (P & 1) == 0;
-  const int ca = even ? 2 * threadIdx.x : threadIdx.x;
-  const int cb = threadIdx.x + kCopyThreads;
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int r0 = t * kRowTile;
-    const int nr = min(kRowTile, count - r0);
-#pragma unroll 8
-    for (int rr = 0; rr < kRowTile; ++rr) {
-      if (rr >= nr) continue;
-      const float* src = payload + (start + r0 + rr) * P + c0;
-      float* dst = aux + static_cast<long long>(dest[r0 + rr]) * P + c0;
-      if (even) {
-        if (ca < cw) {
-          *reinterpret_cast<float2*>(dst + ca) =
-              *reinterpret_cast<const float2*>(src + ca);
-        }
-      } else {
-        if (ca < cw) dst[ca] = src[ca];
-        if (cb < cw) dst[cb] = src[cb];
-      }
-    }
   }
 }
 
@@ -287,48 +178,302 @@ write_values(float* __restrict__ payload, int P, const int* __restrict__ sc,
   }
 }
 
+// The head (< 4 floats before the first 16-byte boundary) and the count
+// of float4 of a row slice of cw floats at `p`.
+__device__ __forceinline__ void slice_shape(const float* p, int cw, int* head,
+                                            int* nvec) {
+  *head = min((4 - phase16(p)) & 3, cw);
+  *nvec = (cw - *head) >> 2;
+}
+
+// One staging buffer of block_move: a tile's row slices, each at its
+// source's offset within 16 bytes, and its rows' destinations and sides.
+struct Slab {
+  float f[kRowTile * kSlab];
+  int dest[kRowTile];
+  int side[kRowTile];
+};
+
+// Starts staging nr row slices of cw floats at src (row stride P) into
+// `sl`: the aligned middles by cp.async (one committed group; the caller
+// waits for it), the at most three floats on either side of each, and
+// the rows' destinations and sides, by plain loads.
+__device__ __forceinline__ void stage_slices(Slab* sl, const float* src,
+                                             int P, int nr, int cw,
+                                             const int* __restrict__ dest,
+                                             const unsigned char* __restrict__
+                                                 side) {
+  constexpr int kVec = kColBlock / 4;  // float4 per slice, at most
+  for (int idx = threadIdx.x; idx < nr * kVec; idx += kCopyThreads) {
+    const int rr = idx / kVec;
+    const int q = idx % kVec;
+    const float* p = src + static_cast<long long>(rr) * P;
+    int head, nvec;
+    slice_shape(p, cw, &head, &nvec);
+    if (q < nvec) {
+      cp_async16(sl->f + rr * kSlab + phase16(p) + head + 4 * q,
+                 p + head + 4 * q);
+    }
+  }
+  cp_async_commit();
+  if (static_cast<int>(threadIdx.x) < nr) {
+    sl->dest[threadIdx.x] = dest[threadIdx.x];
+    sl->side[threadIdx.x] = side[threadIdx.x];
+  }
+  for (int idx = threadIdx.x; idx < nr * 8; idx += kCopyThreads) {
+    const int rr = idx >> 3;
+    const int j = idx & 7;
+    const float* p = src + static_cast<long long>(rr) * P;
+    int head, nvec;
+    slice_shape(p, cw, &head, &nvec);
+    const int c = j < 4 ? j : head + 4 * nvec + (j - 4);
+    if ((j < 4 && c < head) || (j >= 4 && c < cw)) {
+      sl->f[rr * kSlab + phase16(p) + c] = p[c];
+    }
+  }
+}
+
+// B8's move; see the note at the top of the file.  Two staging buffers:
+// the next tile's slices stream in by cp.async while the block writes the
+// current one's, and the ticket after that is claimed meanwhile.  The
+// next tile's flag is published only once its copies have landed, after
+// the current tile's writes, which wait only for tiles before the current
+// one in walk order; so the lowest ticket without a flag always makes
+// progress (segment_partition.cu's part_move says why).
+__global__ void __launch_bounds__(kCopyThreads)
+block_move(float* payload, float* aux, int P, const int* __restrict__ sc,
+           const unsigned char* __restrict__ side,
+           const int* __restrict__ dest, const int* __restrict__ num_left,
+           const float* __restrict__ fvals, int value_col, int* sync) {
+  extern __shared__ float4 smem4[];
+  Slab* slabs = reinterpret_cast<Slab*>(smem4);
+  __shared__ int s_ticket;
+  __shared__ int s_claim[2];
+  __shared__ int s_wait[2];
+  const long long start = sc[kStart];
+  const int count = sc[kCount];
+  const int nl = *num_left;
+  const bool fwd = left_in_place(nl, count);
+  const int ntiles = (count + kRowTile - 1) / kRowTile;
+  const int ncb = (P + kColBlock - 1) / kColBlock;
+  const int nticket = ntiles * ncb;
+  int* flags = sync + 1;  // flags[tile * ncb + column block]
+  const int lane = threadIdx.x & 31;
+  // a ticket's row tile (walk order within its column block) and column
+  // block; the tile's first row and rows, the block's first column and
+  // width
+  struct Job {
+    int t, cb, r0, nr, c0, cw;
+  };
+  auto job_of = [&](int tk) {
+    Job j;
+    const int i = tk / ncb;
+    j.cb = tk - i * ncb;
+    j.t = fwd ? i : ntiles - 1 - i;
+    j.r0 = j.t * kRowTile;
+    j.nr = min(kRowTile, count - j.r0);
+    j.c0 = j.cb * kColBlock;
+    j.cw = min(kColBlock, P - j.c0);
+    return j;
+  };
+  auto src_of = [&](const Job& j) {
+    return payload + (start + j.r0) * P + j.c0;
+  };
+
+  auto stage = [&](int tk, Slab* into) {
+    const Job j = job_of(tk);
+    stage_slices(into, src_of(j), P, j.nr, j.cw, dest + j.r0, side + j.r0);
+  };
+  auto publish = [&](int tk) {
+    const Job j = job_of(tk);
+    publish_read(flags + j.t * ncb + j.cb);
+  };
+
+  int tk = next_ticket(sync, &s_ticket);
+  if (tk >= nticket) return;  // uniform per block
+  Slab* sl = slabs;
+  stage(tk, sl);
+  cp_async_wait_all();
+  publish(tk);
+  int nk = next_ticket(sync, &s_ticket);
+  Slab* next = slabs + 1;
+  if (nk < nticket) stage(nk, next);
+  for (int it = 0;; ++it) {
+    // the ticket after next, claimed while this tile is worked on (two
+    // slots: a thread may still read the last one)
+    if (threadIdx.x == 0) s_claim[it & 1] = atomicAdd(sync, 1);
+
+    const Job j = job_of(tk);
+    const float* src = src_of(j);
+    // the leaf values into the staged value column
+    if (value_col >= j.c0 && value_col < j.c0 + j.cw &&
+        static_cast<int>(threadIdx.x) < j.nr) {
+      const float* p = src + static_cast<long long>(threadIdx.x) * P;
+      sl->f[threadIdx.x * kSlab + phase16(p) + (value_col - j.c0)] =
+          sl->side[threadIdx.x] ? fvals[0] : fvals[1];
+    }
+    // the in-place rows of a tile land on consecutive rows: wait for the
+    // row tiles that hold them (at most two, none after this one in walk
+    // order) in this column block
+    if (threadIdx.x < 32) {
+      const bool in_place = lane < j.nr && (sl->side[lane] != 0) == fwd;
+      const unsigned b = __ballot_sync(0xffffffffu, in_place);
+      if (lane == 0) {
+        s_wait[0] = 0;
+        s_wait[1] = -1;
+        if (b != 0) {
+          s_wait[0] = static_cast<int>(sl->dest[__ffs(b) - 1] - start) /
+                      kRowTile;
+          s_wait[1] = static_cast<int>(sl->dest[31 - __clz(b)] - start) /
+                      kRowTile;
+        }
+      }
+    }
+    __syncthreads();
+    wait_read(flags + j.cb, s_wait[0], s_wait[1], ncb);
+
+    // each slice to its destination row: 16-byte stores over the
+    // destination's aligned middle, then the at most three floats on
+    // either side
+    constexpr int kVec = kColBlock / 4;
+    for (int idx = threadIdx.x; idx < j.nr * kVec; idx += kCopyThreads) {
+      const int rr = idx / kVec;
+      const int q = idx % kVec;
+      float* d = ((sl->side[rr] != 0) == fwd ? payload : aux) +
+                 static_cast<long long>(sl->dest[rr]) * P + j.c0;
+      int head, nvec;
+      slice_shape(d, j.cw, &head, &nvec);
+      if (q < nvec) {
+        // the staged floats sit at the source's offset within 16 bytes:
+        // one 16-byte load where it is the destination's, two 8-byte
+        // loads where the two share it within 8 bytes
+        const int ps = phase16(src + static_cast<long long>(rr) * P);
+        const float* s = sl->f + rr * kSlab + ps + head + 4 * q;
+        float4 v;
+        if (ps == phase16(d)) {
+          v = *reinterpret_cast<const float4*>(s);
+        } else if (((ps ^ phase16(d)) & 1) == 0) {
+          const float2 a = reinterpret_cast<const float2*>(s)[0];
+          const float2 b = reinterpret_cast<const float2*>(s)[1];
+          v = make_float4(a.x, a.y, b.x, b.y);
+        } else {
+          v = make_float4(s[0], s[1], s[2], s[3]);
+        }
+        reinterpret_cast<float4*>(d + head)[q] = v;
+      }
+    }
+    for (int idx = threadIdx.x; idx < j.nr * 8; idx += kCopyThreads) {
+      const int rr = idx >> 3;
+      const int e = idx & 7;
+      float* d = ((sl->side[rr] != 0) == fwd ? payload : aux) +
+                 static_cast<long long>(sl->dest[rr]) * P + j.c0;
+      int head, nvec;
+      slice_shape(d, j.cw, &head, &nvec);
+      const int c = e < 4 ? e : head + 4 * nvec + (e - 4);
+      if ((e < 4 && c < head) || (e >= 4 && c < j.cw)) {
+        d[c] = sl->f[rr * kSlab +
+                     phase16(src + static_cast<long long>(rr) * P) + c];
+      }
+    }
+
+    if (nk >= nticket) break;  // uniform per block
+    cp_async_wait_all();
+    publish(nk);
+    tk = nk;
+    nk = s_claim[it & 1];
+    Slab* done = sl;
+    sl = next;
+    next = done;
+    if (nk < nticket) stage(nk, next);
+  }
+}
+
+__global__ void __launch_bounds__(kCopyThreads)
+wide_copy_side(float* __restrict__ payload, const float* __restrict__ aux,
+               int P, const int* __restrict__ sc,
+               const int* __restrict__ num_left) {
+  copy_smaller_side(payload, aux, P, sc, num_left);
+}
+
+// The routing (kernels 1-3); sync / ncb as route_count takes them.
+void route(const float* payload, int P, const int* scalars,
+           const unsigned char* bitset, int B, int n_tiles,
+           unsigned char* side, int* dest, int* tile_left, int* tile_off,
+           int* num_left, int* sync, int ncb, cudaStream_t s) {
+  route_count<<<n_tiles, kTile, 0, s>>>(payload, P, scalars, bitset, B, side,
+                                        tile_left, sync, ncb);
+  route_scan<<<1, kTile, 0, s>>>(scalars, tile_left, tile_off, num_left);
+  route_rank<<<n_tiles, kTile, 0, s>>>(scalars, side, tile_off, num_left,
+                                       dest);
+}
+
 }  // namespace
 
 extern "C" {
 
 int segment_partition_wide_tile_rows() { return kTile; }
 
-// The whole partition (kernels 1-6).  scalars: int32[11] on the device
-// (start, count, col, threshold, default_left, is_cat, missing_type,
-// num_bin, default_bin, offset, identity); bitset: uint8[B], the bytes of a
-// bool tensor; fvals: f32[2] (left, right value) on the device.  Scratch,
-// sized for the largest count (n_rows rows): side uint8[n_rows], dest
-// int32[n_rows], tile_left / tile_off int32[n_tiles] with n_tiles * 1024 >=
-// n_rows.  num_left: one int32 on the device.  blocks = 0 scatters one warp
-// per row (B3), else over the 2-D grid (B8); grid_x bounds the grid-stride
-// launches (blocks of the warp scatter and of the copy-back, row-tile
-// blocks of the 2-D grid).
+// Rows per tile of B8's move, whose sync scratch holds one flag per row
+// tile and column block.
+int segment_partition_blocks_row_tile() { return kRowTile; }
+int segment_partition_blocks_col_block() { return kColBlock; }
+
+// B3 (kernels 1-3, then rmw_scatter, flat_copyback, write_values).
+// scalars: int32[11] on the device (start, count, col, threshold,
+// default_left, is_cat, missing_type, num_bin, default_bin, offset,
+// identity); bitset: uint8[B], the bytes of a bool tensor; fvals: f32[2]
+// (left, right value) on the device.  Scratch, sized for the largest
+// count (n_rows rows): side uint8[n_rows], dest int32[n_rows], tile_left /
+// tile_off int32[n_tiles] with n_tiles * 1024 >= n_rows.  num_left: one
+// int32 on the device.  grid_x: blocks of the grid-stride launches.
 // Returns cudaGetLastError().
-int segment_partition_wide_launch(float* payload, float* aux, int P,
-                                  const int* scalars,
-                                  const unsigned char* bitset, int B,
-                                  const float* fvals, int value_col,
-                                  int n_tiles, unsigned char* side,
-                                  int* dest, int* tile_left, int* tile_off,
-                                  int* num_left, int blocks, int grid_x,
-                                  void* stream) {
+int segment_partition_rmw_launch(float* payload, float* aux, int P,
+                                 const int* scalars,
+                                 const unsigned char* bitset, int B,
+                                 const float* fvals, int value_col,
+                                 int n_tiles, unsigned char* side, int* dest,
+                                 int* tile_left, int* tile_off, int* num_left,
+                                 int grid_x, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  route_count<<<n_tiles, kTile, 0, s>>>(payload, P, scalars, bitset, B, side,
-                                        tile_left);
-  route_scan<<<1, kTile, 0, s>>>(scalars, tile_left, tile_off, num_left);
-  route_rank<<<n_tiles, kTile, 0, s>>>(scalars, side, tile_off, num_left,
-                                       dest);
-  if (blocks) {
-    const dim3 grid2(grid_x, (P + kColBlock - 1) / kColBlock);
-    block_scatter<<<grid2, kCopyThreads, 0, s>>>(payload, aux, P, scalars,
-                                                 dest);
-  } else {
-    rmw_scatter<<<grid_x, kCopyThreads, 0, s>>>(payload, aux, P, scalars,
-                                                dest);
-  }
+  route(payload, P, scalars, bitset, B, n_tiles, side, dest, tile_left,
+        tile_off, num_left, nullptr, 0, s);
+  rmw_scatter<<<grid_x, kCopyThreads, 0, s>>>(payload, aux, P, scalars, dest);
   flat_copyback<<<grid_x, kCopyThreads, 0, s>>>(payload, aux, P, scalars);
   write_values<<<grid_x, kCopyThreads, 0, s>>>(payload, P, scalars, num_left,
                                                fvals, value_col);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B8 (kernels 1-3, then block_move, wide_copy_side).  Arguments as B3's,
+// plus sync: int32[1 + ceil(n_rows / 32) * ceil(P / 512)] (cleared by
+// route_count); sms: the card's multiprocessors.  Returns
+// cudaGetLastError().
+int segment_partition_blocks_launch(float* payload, float* aux, int P,
+                                    const int* scalars,
+                                    const unsigned char* bitset, int B,
+                                    const float* fvals, int value_col,
+                                    int n_tiles, unsigned char* side,
+                                    int* dest, int* tile_left, int* tile_off,
+                                    int* num_left, int* sync, int sms,
+                                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = 2 * sizeof(Slab);
+  static int occ_blocks = 0;
+  if (occ_blocks == 0) {
+    cudaFuncSetAttribute(block_move,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ_blocks, block_move,
+                                                  kCopyThreads, smem);
+    occ_blocks = occ_blocks > 0 ? occ_blocks : 1;
+  }
+  const int ncb = (P + kColBlock - 1) / kColBlock;
+  route(payload, P, scalars, bitset, B, n_tiles, side, dest, tile_left,
+        tile_off, num_left, sync, ncb, s);
+  block_move<<<occ_blocks * sms, kCopyThreads, smem, s>>>(
+      payload, aux, P, scalars, side, dest, num_left, fvals, value_col, sync);
+  wide_copy_side<<<4 * sms, kCopyThreads, 0, s>>>(payload, aux, P, scalars,
+                                                  num_left);
   return static_cast<int>(cudaGetLastError());
 }
 

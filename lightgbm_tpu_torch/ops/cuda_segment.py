@@ -10,9 +10,10 @@ csrc/segment_hist.cu:
   grower, in int32.
 csrc/segment_partition.cu:
 - `partition_segment` replaces partition_segment_acc (_acc_kernel, B2);
-- `partition_segment_stage` and `partition_segment_commit` are its two
-  halves, which the frontier-batched grower runs apart (plain JAX in the
-  JAX package, ops/segment.py; the same hand-written kernels here).
+- `partition_segment_stage` and `partition_segment_commit` are a stage and
+  a commit of the same partition, which the frontier-batched grower runs
+  apart (plain JAX in the JAX package, ops/segment.py; hand-written
+  kernels here).
 csrc/segment_hist_colblock.cu:
 - `segment_histogram_colblock` replaces segment_histogram_colblock
   (_hist_colblock_kernel, B7): B1's contract for wide payloads.
@@ -27,7 +28,13 @@ csrc/segment_partition_hist.cu:
   f32 histograms from one read of the parent's rows, for the grower's
   merged mode; `partition_hist_fits` is its gate and
   PARTITION_HIST_VALIDATED the staged flag of its auto rule.
-All keep the signatures and returns of ops/segment.py.
+All keep the signatures and returns of ops/segment.py.  The whole
+partitions on the card (B2's `partition_segment`, B8's
+`partition_segment_blocks`) keep the Pallas kernels' contract, which is
+looser than the plain version's: payload and num_left are the plain
+version's byte for byte, aux over the segment is scratch (each passes
+only its smaller side through it), and neither writes outside the
+segment.  The stage, B3 and B6 leave the whole partition in aux too.
 
 The route (`histogram_route`, `partition_route`) picks the wrapper by
 width, with the crossovers the JAX package's VMEM gates give at max_bin
@@ -291,21 +298,49 @@ def _commit(payload, aux, start, count, num_left, left_value, right_value,
     _check(lib, "segment_partition", rc)
 
 
+@functools.lru_cache(maxsize=None)
+def _move_tile_rows(payload_width: int) -> int:
+    lib = build.load("segment_partition")
+    lib.segment_partition_move_tile_rows.argtypes = [_I]
+    return lib.segment_partition_move_tile_rows(payload_width)
+
+
 def partition_segment(payload: torch.Tensor, aux: torch.Tensor, start, count,
                       pred: SplitPredicate, left_value, right_value,
                       value_col: int):
     """Stable in-place partition of rows [start, start+count); returns
-    (payload, aux, num_left) with num_left a 0-d int32 tensor (B2: the
-    stage and the commit kernels, one after the other)."""
+    (payload, aux, num_left) with num_left a 0-d int32 tensor (B2).  On the
+    card payload and num_left are the plain version's byte for byte, aux
+    over the segment is scratch (the smaller side passes through it), and
+    nothing outside the segment is written: the count, the scan, the move
+    that writes the larger side in place, and the smaller side's
+    copy-back (csrc/segment_partition.cu)."""
     if payload.device.type == "cpu":
         return seg.partition_segment(payload, aux, start, count, pred,
                                      left_value, right_value, value_col)
     _check_payload(payload, "partition_segment")
     _check_aux(payload, aux, "partition_segment")
-    num_left = torch.empty(1, dtype=torch.int32, device=payload.device)
-    _stage(payload, aux, start, count, pred, num_left, 0)
-    _commit(payload, aux, start, count, num_left[0], left_value, right_value,
-            value_col)
+    dev = payload.device
+    N, P = payload.shape
+    T = _move_tile_rows(P)
+    if T == 0 or not 0 <= value_col < P:
+        raise ValueError("partition_segment: width %d or value_col %d "
+                         "outside the kernel's range" % (P, value_col))
+    scalars, bitset = _pred_args(start, count, pred, dev)
+    fvals = _leaf_values(left_value, right_value, dev)
+    lib, fn = _lib("segment_partition", "segment_partition_launch",
+                   [_P, _P, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P])
+    n_tiles = -(-N // T)
+    # each tile's left count and offset, num_left, then the move's ticket
+    # and the tiles' flags
+    scratch = torch.empty(3 * n_tiles + 2, dtype=torch.int32, device=dev)
+    tile_left, tile_off, num_left, sync = scratch.split(
+        (n_tiles, n_tiles, 1, n_tiles + 1))
+    rc = fn(payload.data_ptr(), aux.data_ptr(), P, scalars.data_ptr(),
+            bitset.data_ptr(), bitset.shape[0], fvals.data_ptr(), value_col,
+            tile_left.data_ptr(), tile_off.data_ptr(), num_left.data_ptr(),
+            sync.data_ptr(), _sm_count(dev.index), _stream(dev))
+    _check(lib, "segment_partition", rc)
     partition_segment.launches += 1
     return payload, aux, num_left.reshape(())
 
@@ -426,17 +461,22 @@ segment_histogram_colblock.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _wide_tile_rows() -> int:
-    return build.load("segment_partition_wide") \
-        .segment_partition_wide_tile_rows()
+def _wide_tiles() -> tuple:
+    """Rows per routing tile, and B8's rows per move tile and floats per
+    column block."""
+    lib = build.load("segment_partition_wide")
+    return (lib.segment_partition_wide_tile_rows(),
+            lib.segment_partition_blocks_row_tile(),
+            lib.segment_partition_blocks_col_block())
 
 
 def _partition_wide(payload, aux, start, count, pred: SplitPredicate,
                     left_value, right_value, value_col: int, blocks: bool,
                     name: str):
-    """Launch csrc/segment_partition_wide.cu: the routing, B3's warp-per-row
-    scatter (blocks False) or B8's column-block scatter, and the
-    column-block copy-back.  Returns num_left, a 0-d int32 device tensor."""
+    """Launch csrc/segment_partition_wide.cu: the routing, then B3's
+    warp-per-row scatter and flat copy-back (blocks False) or B8's in-place
+    column-block move and the smaller side's copy-back.  Returns num_left,
+    a 0-d int32 device tensor."""
     _check_payload(payload, name)
     _check_aux(payload, aux, name)
     dev = payload.device
@@ -446,22 +486,32 @@ def _partition_wide(payload, aux, start, count, pred: SplitPredicate,
                          % (name, value_col, P))
     scalars, bitset = _pred_args(start, count, pred, dev)
     fvals = _leaf_values(left_value, right_value, dev)
-    lib, fn = _lib("segment_partition_wide", "segment_partition_wide_launch",
-                   [_P, _P, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P,
-                    _I, _I, _P])
-    n_tiles = -(-N // _wide_tile_rows())
+    tile, row_tile, col_block = _wide_tiles()
+    n_tiles = -(-N // tile)
     side = torch.empty(N, dtype=torch.uint8, device=dev)
-    # each row's destination, then each tile's left count and offset
-    scratch = torch.empty(N + 2 * n_tiles, dtype=torch.int32, device=dev)
-    dest, tile_left, tile_off = scratch.split((N, n_tiles, n_tiles))
-    num_left = torch.empty(1, dtype=torch.int32, device=dev)
-    # 16 blocks of 256 threads per SM in all, over the column blocks of 512
-    grid_x = max(1, 16 * _sm_count(dev.index) // -(-P // 512))
-    rc = fn(payload.data_ptr(), aux.data_ptr(), P, scalars.data_ptr(),
+    # each row's destination, each tile's left count and offset, num_left,
+    # and B8's ticket and flags (one per row tile and column block)
+    n_sync = 1 + -(-N // row_tile) * -(-P // col_block) if blocks else 0
+    scratch = torch.empty(N + 2 * n_tiles + 1 + n_sync, dtype=torch.int32,
+                          device=dev)
+    dest, tile_left, tile_off, num_left, sync = scratch.split(
+        (N, n_tiles, n_tiles, 1, n_sync))
+    args = [payload.data_ptr(), aux.data_ptr(), P, scalars.data_ptr(),
             bitset.data_ptr(), bitset.shape[0], fvals.data_ptr(), value_col,
             n_tiles, side.data_ptr(), dest.data_ptr(), tile_left.data_ptr(),
-            tile_off.data_ptr(), num_left.data_ptr(), int(blocks), grid_x,
-            _stream(dev))
+            tile_off.data_ptr(), num_left.data_ptr()]
+    types = [_P, _P, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P]
+    if blocks:
+        lib, fn = _lib("segment_partition_wide",
+                       "segment_partition_blocks_launch",
+                       types + [_P, _I, _P])
+        args += [sync.data_ptr(), _sm_count(dev.index)]
+    else:
+        lib, fn = _lib("segment_partition_wide",
+                       "segment_partition_rmw_launch", types + [_I, _P])
+        # 16 blocks of 256 threads per SM over the column blocks of 512
+        args.append(max(1, 16 * _sm_count(dev.index) // -(-P // 512)))
+    rc = fn(*args, _stream(dev))
     _check(lib, "segment_partition_wide", rc)
     return num_left.reshape(())
 
@@ -494,7 +544,8 @@ def partition_segment_blocks(payload: torch.Tensor, aux: torch.Tensor, start,
     payloads, moved in column blocks; returns (payload, aux, num_left) (B8:
     replaces lightgbm_tpu/ops/pallas_segment.py
     partition_segment_acc_blocks).  Its contract is B2's, so a CPU tensor
-    runs the same plain version, `seg.partition_segment`."""
+    runs the same plain version, `seg.partition_segment`; on the card, as
+    B2's, aux over the segment is scratch."""
     if payload.device.type == "cpu":
         return seg.partition_segment(payload, aux, start, count, pred,
                                      left_value, right_value, value_col)
