@@ -11,8 +11,11 @@ at 137 features and 64 bins) and at the wide shapes (Bosch: 968 features,
 Epsilon: 2,000; the column-block histogram B7, the RMW partition B3 and
 the column-block partition B8, and B1, B2, B4, B5 and the stage and
 commit there too), times each beside its bound and a PyTorch yardstick
-(B1 and B2 at the wide shapes too; the partitions on fresh rows, B2 and
-B8 also at 90/10 and 10/90 splits), checks that CUDA
+(B1 and B2 at the wide shapes too; the partitions on fresh rows, B2, B3
+and B8 also at 90/10 and 10/90 splits; B7 also with wide 968's NaN
+share), sweeps the whole partitions over
+payload widths and the f32 histograms over feature counts for the card's
+crossovers, checks that CUDA
 and CPU training agree on small problems at 28, 968 and 2,000 features,
 then trains through lightgbm_tpu_torch.train on the card (binary
 objective, max_bin 255, 255 leaves, lr 0.1): on 28 dense features the f32
@@ -24,10 +27,11 @@ rebuilt), then quantized gradients (int8, int16), the frontier-batched
 grower (tpu_frontier_batch=8) and the two together; then the wide paths,
 1M x 968 (a fifth of every other feature NaN) and 400k x 2,000, each with
 a 100k-row validation set scored every iteration (metric auc).
-The whole partitions B2 and B8 are held to the Pallas kernels' contract
-(payload and num_left byte for byte, aux untouched outside the segment,
-scratch inside it; ten runs on fresh copies of the root per predicate);
-the stage, stage + commit, B3 and B6 also to the plain version's aux.
+The whole partitions B2, B3 and B8 are held to the Pallas kernels'
+contract (payload and num_left byte for byte, aux untouched outside the
+segment, scratch inside it; ten runs on fresh copies of the root per
+predicate, B3 on the Bosch root); the stage, stage + commit and B6 also
+to the plain version's aux.
 Each training path resets the kernels' launch counts before it and reads
 them after it; the quantized paths must not launch the f32 histogram, the
 frontier paths must take fewer rounds than splits, the quantized
@@ -185,11 +189,11 @@ def kernel_breakdown(fn, pay: torch.Tensor, s: int, c: int,
             fn()
             rows.copy_(pristine)
         torch.cuda.synchronize()
-    return {e.key.split("::")[1].split("(")[0]:
+    return {e.key.split("(anonymous namespace)::")[1].split("(")[0]:
             round(e.self_device_time_total / reps, 3)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.key.startswith("(anonymous namespace)::")}
+            and "(anonymous namespace)::" in e.key}
 
 
 T_START = time.perf_counter()
@@ -566,6 +570,13 @@ def kernels_phase(n: int, seed: int, dev) -> dict:
     part["stage_commit_ms"] = time_fresh_ms(
         lambda: stage_commit(pay, aux, start0, count, pred, lv, rv,
                              COLS["value"]), pay, 0, n, reps)
+    # the stage + commit contract moves every row twice (payload -> aux,
+    # aux -> payload): its bound is two passes, its yardstick the stage's
+    # one-pass library call plus one copy_ of the segment for the commit
+    part["stage_commit_bound_ms"] = bound(4 * n * P * 4, 0)[0]
+    part["commit_copy_ms"] = time_ms(lambda: aux[:n].copy_(pay[:n]), reps)
+    part["stage_commit_library_ms"] = part["library_ms"] \
+        + part["commit_copy_ms"]
     del aux
 
     hist_bytes = n * (F + 3) * 4
@@ -773,8 +784,9 @@ def aux_like(pay: torch.Tensor) -> torch.Tensor:
 
 def whole_partition(fn) -> bool:
     """True for the whole partitions with the Pallas kernels' contract
-    (B2 whole, B8): aux over the segment is scratch."""
+    (B2 whole, B3, B8): aux over the segment is scratch."""
     return fn in (cuda_segment.partition_segment,
+                  cuda_segment.partition_segment_rmw,
                   cuda_segment.partition_segment_blocks)
 
 
@@ -837,6 +849,11 @@ WIDE_TIMED = ("segment_histogram_colblock", "partition_segment_rmw",
 #: phase times them again (CUDA events on smaller segments time the
 #: wrapper's host cost, not the kernel)
 WIDE_SEGMENT_ROWS = 131_072
+#: the whole partitions held WHOLE_REPEATS times on each wide root: B8 at
+#: both, B3 at the Bosch shape, which it serves
+WIDE_WHOLE = {968: (cuda_segment.partition_segment_rmw,
+                    cuda_segment.partition_segment_blocks),
+              2000: (cuda_segment.partition_segment_blocks,)}
 
 
 def wide_kernels_phase(seed: int, dev) -> dict:
@@ -942,13 +959,15 @@ def wide_kernels_phase(seed: int, dev) -> dict:
         for r in rec.values():
             r["checked_rows"] = m
 
-        # B8 partitioned WHOLE_REPEATS times on fresh copies of the root
-        # under every predicate kind
+        # B8, and B3 at the Bosch shape it serves, partitioned
+        # WHOLE_REPEATS times on fresh copies of the root under every
+        # predicate kind
+        whole = WIDE_WHOLE[f]
         for name in preds:
-            partition_equal((cuda_segment.partition_segment_blocks,), pay,
-                            preds[name], 0, n, cols["value"],
+            partition_equal(whole, pay, preds[name], 0, n, cols["value"],
                             repeats=WHOLE_REPEATS)
-        rec["partition_segment_blocks"]["repeats_identical"] = WHOLE_REPEATS
+        for fn in whole:
+            rec[fn.__name__]["repeats_identical"] = WHOLE_REPEATS
         torch.cuda.empty_cache()
 
         start0, count = torch.zeros((), **i32), torch.tensor(n, **i32)
@@ -978,10 +997,26 @@ def wide_kernels_phase(seed: int, dev) -> dict:
         lib_out = torch.zeros(f * B, 3, device=dev)
         hist_lib_ms = time_ms(lambda: lib_out.index_add_(0, flat, vals), reps)
         del flat, vals, lib_out
+        # B7 again with wide 968's NaN share: a fifth of every other
+        # feature's rows in the last bin, the cells its warps contend on
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + f + 1)
+        nan_pay = pay.clone()
+        odd = nan_pay[:n, 1:f:2]
+        odd[torch.rand(odd.shape, generator=gen, device=dev)
+            < WIDE_NAN[968]] = B - 1
+        del odd
+        rec["segment_histogram_colblock"]["ms_nan_fifth"] = time_ms(
+            lambda: cuda_segment.segment_histogram_colblock(
+                nan_pay, start0, count, **hk), reps)
+        del nan_pay
         hist_bound = bound(n * (f + 3) * 4 + f * B * 3 * 4, n * f * 3)
         for name in ("segment_histogram_colblock", "segment_histogram"):
             rec[name].update(plain_ms=hist_plain_ms, library_ms=hist_lib_ms,
                              bound_ms=hist_bound[0], bound_by=hist_bound[1])
+        rec["segment_histogram_colblock"]["breakdown_us"] = kernel_breakdown(
+            lambda: cuda_segment.segment_histogram_colblock(
+                pay, start0, count, **hk), pay, 0, n)
         # the partitions' plain version and yardstick at the root, at each
         # of the TIMED_SPLITS; B8 timed there too
         part_bound = bound(2 * n * p * 4, 0)
@@ -1001,19 +1036,16 @@ def wide_kernels_phase(seed: int, dev) -> dict:
                                   "library_ms" + suffix: lib_ms,
                                   "left_share" + suffix: left_share,
                                   "bound_ms" + suffix: part_bound[0]})
-            if not suffix:
-                for name in ("partition_segment_rmw",
-                             "partition_segment_blocks"):
-                    fn = getattr(cuda_segment, name)
+            for name in ("partition_segment_rmw", "partition_segment_blocks"):
+                fn = getattr(cuda_segment, name)
+                if not suffix:
                     rec[name]["breakdown_us"] = kernel_breakdown(
                         lambda: fn(pay, aux, start0, count, pred, lv, rv,
                                    cols["value"]), pay, 0, n)
-            else:
-                rec["partition_segment_blocks"]["ms" + suffix] = \
-                    time_fresh_ms(
-                        lambda: cuda_segment.partition_segment_blocks(
-                            pay, aux, start0, count, pred, lv, rv,
-                            cols["value"]), pay, 0, n, reps)
+                else:
+                    rec[name]["ms" + suffix] = time_fresh_ms(
+                        lambda: fn(pay, aux, start0, count, pred, lv, rv,
+                                   cols["value"]), pay, 0, n, reps)
         for name in ("partition_segment_rmw", "partition_segment_blocks",
                      "partition_segment"):
             rec[name]["bound_ms_%d_rows" % WIDE_SEGMENT_ROWS] = bound(
@@ -1022,6 +1054,56 @@ def wide_kernels_phase(seed: int, dev) -> dict:
         del aux, pay
         for name, r in rec.items():
             out.setdefault(name, {})[f] = r
+        torch.cuda.empty_cache()
+    return out
+
+
+#: the card's crossovers: payload widths for the whole partitions B2, B3
+#: and B8, feature counts for the histograms B1 and B7, each timed on the
+#: root's rows and on WIDE_SEGMENT_ROWS
+SWEEP_WIDTHS = (128, 256, 513, 978, 1664, 2010)
+SWEEP_FEATURES = (256, 512, 889, 968, 2000)
+SWEEP_ROWS = 1_015_808
+
+
+def sweep_phase(seed: int, dev) -> dict:
+    """Each whole partition at every width of SWEEP_WIDTHS and each f32
+    histogram at every feature count of SWEEP_FEATURES, on SWEEP_ROWS
+    rows and on WIDE_SEGMENT_ROWS (the partitions on fresh rows, at the
+    numerical split).  The kernels are held elsewhere; this only times
+    them, whatever width the route would give them.  Returns {kernel:
+    {width or features: {rows: ms}}}."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    lv = torch.tensor(-0.25, device=dev)
+    rv = torch.tensor(0.75, device=dev)
+    pred = make_pred(dev, B, 3, TIMED_SPLITS[""])
+    start0 = torch.zeros((), **i32)
+    out = {}
+    for p in SWEEP_WIDTHS:
+        pay = device_payload(SWEEP_ROWS, p - 10, p, seed + p, dev)
+        aux = torch.zeros_like(pay)
+        for name in ("partition_segment", "partition_segment_rmw",
+                     "partition_segment_blocks"):
+            fn = getattr(cuda_segment, name)
+            for rows in (SWEEP_ROWS, WIDE_SEGMENT_ROWS):
+                ct = torch.tensor(rows, **i32)
+                out.setdefault(name, {}).setdefault(p, {})[rows] = \
+                    time_fresh_ms(lambda: fn(pay, aux, start0, ct, pred, lv,
+                                             rv, p - 3), pay, 0, rows, 5)
+        del pay, aux
+        torch.cuda.empty_cache()
+    for f in SWEEP_FEATURES:
+        cols = cols_of(f)
+        hk = dict(num_features=f, num_bins=B, grad_col=cols["grad"],
+                  hess_col=cols["hess"], cnt_col=cols["cnt"])
+        pay = device_payload(SWEEP_ROWS, f, f + 10, seed + f, dev)
+        for name in ("segment_histogram", "segment_histogram_colblock"):
+            fn = getattr(cuda_segment, name)
+            for rows in (SWEEP_ROWS, WIDE_SEGMENT_ROWS):
+                ct = torch.tensor(rows, **i32)
+                out.setdefault(name, {}).setdefault(f, {})[rows] = time_ms(
+                    lambda: fn(pay, start0, ct, **hk), 5)
+        del pay
         torch.cuda.empty_cache()
     return out
 
@@ -1205,6 +1287,8 @@ def checked_partition_phase(data, rows: int, iters: int) -> str:
                           auc))
 
 
+#: B3's kernels before its in-place redesign, which no path may launch
+RETIRED_WIDE = ("rmw_scatter", "flat_copyback", "write_values")
 #: the partition wrappers the merged mode retires
 SPLIT_PARTITIONS = ("partition_segment", "partition_segment_stage",
                     "partition_segment_commit", "partition_segment_rmw",
@@ -1545,8 +1629,8 @@ def profile_phase(bst, label: str, launched=(), retired=()) -> str:
             (("hist_colblock",), "histogram colblock"),
             (("part_",), "partition"),
             (("part_hist_scatter",), "partition + histogram scatter"),
-            (("route_", "rmw_scatter", "flat_copyback", "write_values",
-              "block_move", "wide_copy_side"), "partition wide")):
+            (("rmw_",), "partition rmw"),
+            (("route_", "block_move", "wide_copy_side"), "partition blocks")):
         hits = [e for e in kernels if any(p in e.key for p in prefixes)]
         ported[name] = [sum(e.count for e in hits),
                         round(sum(e.self_device_time_total
@@ -1554,8 +1638,8 @@ def profile_phase(bst, label: str, launched=(), retired=()) -> str:
     # device microseconds per call of the whole partition wrappers
     per_call = {}
     for wrapper, group in (("partition_segment", "partition"),
-                           ("partition_segment_rmw", "partition wide"),
-                           ("partition_segment_blocks", "partition wide")):
+                           ("partition_segment_rmw", "partition rmw"),
+                           ("partition_segment_blocks", "partition blocks")):
         if calls.get(wrapper):
             per_call[wrapper] = round(ported[group][1] * 1e3
                                       / calls[wrapper], 3)
@@ -1623,6 +1707,10 @@ def main() -> int:
         "B2 on the root segment and on %d rows (Bosch F=968 P=978, Epsilon "
         "F=2000 P=2010, B=256): %s"
         % (WIDE_CMP_ROWS, WIDE_SEGMENT_ROWS, json.dumps(wide)))
+    say("sweep: whole partitions over payload widths %s, f32 histograms "
+        "over %s features, ms on %d and %d rows (%s): %s"
+        % (SWEEP_WIDTHS, SWEEP_FEATURES, SWEEP_ROWS, WIDE_SEGMENT_ROWS, smi,
+           json.dumps(sweep_phase(args.seed, dev))))
     say(parity_phase(args.seed))
     say(wide_parity_phase(args.seed, dev))
     line, main_run, data = main_path_phase(args.rows, args.iters, args.seed)
@@ -1644,14 +1732,15 @@ def main() -> int:
     for f, rows in WIDE:
         line, r = wide_path_phase(f, rows, args.iters, args.seed, dev)
         say(line)
-        # B8 moves in place and copies the smaller side back; B3 keeps its
-        # scatter, copy-back and value pass
+        # B3 and B8 move in place and copy the smaller side back; B3's old
+        # scatter, full copy-back and value pass are retired
         say(profile_phase(r["bst"], "wide %d" % f, **(
-            dict(launched=("block_move", "wide_copy_side"),
-                 retired=("write_values", "flat_copyback"))
+            dict(launched=("hist_colblock", "block_move", "wide_copy_side"),
+                 retired=("rmw_",) + RETIRED_WIDE)
             if f == 2000 else
-            dict(launched=("rmw_scatter", "flat_copyback", "write_values"),
-                 retired=("block_move",)))))
+            dict(launched=("hist_colblock", "rmw_count", "rmw_move",
+                           "rmw_copy_side"),
+                 retired=("route_", "block_move") + RETIRED_WIDE))))
         paths["wide %d" % f] = r["launches"]
         del r
         torch.cuda.empty_cache()

@@ -27,8 +27,8 @@
 //      tile of T rows (T from the width: a tile fills 32 KB of shared
 //      memory, 192 rows at P = 38), and clears the ticket and the tiles'
 //      "read" flags;
-//   2. part_scan_tiles: one block turns the counts into offsets and
-//      num_left;
+//   2. part_scan_tiles: the counts become offsets and num_left (a block
+//      per 8,192 tiles, segment_partition.cuh's scan_tile_counts);
 //   3. part_move: a persistent grid takes tiles by ticket in walk order.
 //      A block streams the next tile's rows, one contiguous span, into one
 //      of two staging buffers by cp.async while it works on the current
@@ -57,8 +57,7 @@
 // kernels (the JAX package's ops/segment.py partition_segment_stage /
 // _commit, plain JAX there):
 //   1. part_count: one block per 1024-row tile counts its left rows;
-//   2. part_scan: one block turns those counts into exclusive offsets and
-//      num_left;
+//   2. part_scan: those counts become exclusive offsets and num_left;
 //   3. part_scatter: each tile ranks its rows and copies whole rows into
 //      aux: lefts to start + offset, rights to start + num_left + offset;
 //   4. part_copyback: aux -> payload over the segment, with the leaf value
@@ -105,66 +104,17 @@ part_scatter(const float* __restrict__ payload, float* __restrict__ aux,
 constexpr int kCountThreads = 256;
 constexpr int kMoveThreads = 512;
 constexpr int kStageBytes = 32 * 1024;  // one tile's rows, one of two buffers
-constexpr int kMaxSmemBytes = 227 * 1024;  // a block's, on sm_90
 
-// Rows per tile of the whole partition at width P: as many as fill
-// kStageBytes, a multiple of 32 where that leaves any; one row where a
-// row is wider, while two of them fit a block's shared memory; else 0.
-int move_tile_rows(int P) {
-  const int t = kStageBytes / (4 * P);
-  if (t == 0) return 8 * (P + 8) <= kMaxSmemBytes ? 1 : 0;
-  return t >= 32 ? t - t % 32 : t;
-}
+// Rows per tile of the whole partition at width P (0: the width is past
+// the kernel).
+int tile_rows(int P) { return move_tile_rows(P, kStageBytes); }
 
-// Floats per staging buffer: a tile's span with up to three floats before
-// it (to keep its offset within 16 bytes), rounded to 16 bytes.
-__host__ __device__ inline int move_buffer_floats(int T, int P) {
-  return (T * P + 4 + 3) & ~3;
-}
-
-// part_move's dynamic shared memory: two staging buffers and the tile's
-// rows in destination order.
-size_t move_smem_bytes(int P) {
-  const int T = move_tile_rows(P);
-  return static_cast<size_t>(2 * move_buffer_floats(T, P)) * 4 + (T + 1) * 4;
-}
-
-// A persistent grid counts the left rows of every T-row tile of the
-// segment and clears its "read" flag (sync[1 + tile]); block 0 clears the
-// ticket counter (sync[0]).  A thread's loads of a tile are unrolled so
-// that they are in flight together.
 __global__ void __launch_bounds__(kCountThreads)
 part_count_tiles(const float* __restrict__ payload, int P,
                  const int* __restrict__ sc,
                  const unsigned char* __restrict__ bitset, int B, int T,
                  int* __restrict__ tile_left, int* __restrict__ sync) {
-  __shared__ int s_left;
-  if (blockIdx.x == 0 && threadIdx.x == 0) sync[0] = 0;
-  if (threadIdx.x == 0) s_left = 0;
-  __syncthreads();
-  const long long start = sc[kStart];
-  const int count = sc[kCount];
-  const int col = sc[kCol];
-  const int ntiles = (count + T - 1) / T;
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int row0 = t * T;
-    const int nr = min(T, count - row0);
-    const float* c0 = payload + (start + row0) * P + col;
-    int n = 0;
-#pragma unroll 4
-    for (int r = threadIdx.x; r < nr; r += kCountThreads) {
-      n += go_left(c0[static_cast<long long>(r) * P], sc, bitset, B);
-    }
-    n = __reduce_add_sync(0xffffffffu, n);
-    if ((threadIdx.x & 31) == 0 && n) atomicAdd(&s_left, n);
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      tile_left[t] = s_left;
-      s_left = 0;
-      sync[1 + t] = 0;
-    }
-    __syncthreads();
-  }
+  count_tiles(payload, P, sc, bitset, B, T, tile_left, sync);
 }
 
 __global__ void __launch_bounds__(kTile)
@@ -174,174 +124,14 @@ part_scan_tiles(const int* __restrict__ sc, int T,
   scan_tile_counts((sc[kCount] + T - 1) / T, tile_left, tile_off, num_left);
 }
 
-// Starts copying n floats from global `src` into shared `dst`, where dst
-// sits at src's offset within 16 bytes: the aligned middle by cp.async
-// (committed as one group; the caller waits for it), the at most three
-// floats on either side by plain loads.
-__device__ __forceinline__ void load_span_async(float* dst, const float* src,
-                                                int n) {
-  const int head = min((4 - phase16(src)) & 3, n);
-  const int nvec = (n - head) >> 2;
-  const int tail0 = head + 4 * nvec;
-  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
-    cp_async16(dst + head + 4 * i, src + head + 4 * i);
-  }
-  cp_async_commit();
-  const int edge = threadIdx.x < 3 ? static_cast<int>(threadIdx.x)
-                                   : tail0 + threadIdx.x - 3;
-  if ((threadIdx.x < 3 && edge < head) ||
-      (threadIdx.x >= 3 && threadIdx.x < 6 && edge < n)) {
-    dst[edge] = src[edge];
-  }
-}
-
-// Writes m staged rows, rows[0..m) (indices into the staged span at
-// buf[ph + row * P]), as one contiguous span of m * P floats at dst, with
-// 16-byte stores over its aligned middle.  Each thread walks its elements
-// with a running (row, column) pair.
-__device__ __forceinline__ void write_span(float* dst, const float* buf,
-                                           int ph, const int* rows, int m,
-                                           int P) {
-  const int n = m * P;
-  const int head = min((4 - phase16(dst)) & 3, n);
-  const int nvec = (n - head) >> 2;
-  const int tail0 = head + 4 * nvec;
-  // the at most three floats before the aligned middle and after it
-  const int edge = threadIdx.x < 3 ? static_cast<int>(threadIdx.x)
-                                   : tail0 + threadIdx.x - 3;
-  if ((threadIdx.x < 3 && edge < head) ||
-      (threadIdx.x >= 3 && threadIdx.x < 6 && edge < n)) {
-    const int k = edge / P;
-    dst[edge] = buf[ph + rows[k] * P + (edge - k * P)];
-  }
-  const int e0 = head + 4 * threadIdx.x;
-  int k = e0 / P;  // once per thread
-  int c = e0 - k * P;
-  const int step = 4 * blockDim.x;
-  const int dk = step / P;
-  const int dc = step - dk * P;
-  float4* d4 = reinterpret_cast<float4*>(dst + head);
-  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
-    float v[4];
-    int kk = k, cc = c;
-    int s = ph + rows[kk] * P;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      v[q] = buf[s + cc];
-      if (++cc == P && q < 3) {
-        cc = 0;
-        s = ph + rows[++kk] * P;
-      }
-    }
-    d4[i] = make_float4(v[0], v[1], v[2], v[3]);
-    k += dk;
-    c += dc;
-    if (c >= P) {
-      c -= P;
-      ++k;
-    }
-  }
-}
-
-// The move: tiles by ticket in walk order (forward when the left side is
-// compacted in place, backward when the right side is); see the note at
-// the top of the file and segment_partition_inplace.cuh.  Two staging
-// buffers: the next tile's rows stream in by cp.async while the block
-// ranks and writes the current one, and the ticket after that is claimed
-// meanwhile.  The next tile's flag is published only once its copies
-// have landed, after the current tile's writes, which wait only for
-// tiles before the current one in walk order; a claimed ticket without a
-// flag is a block's next tile only once all before it have flags, so the
-// lowest ticket without a flag always makes progress.
 __global__ void __launch_bounds__(kMoveThreads)
 part_move(float* payload, float* aux, int P, const int* __restrict__ sc,
           const unsigned char* __restrict__ bitset, int B, int T,
           const int* __restrict__ tile_left, const int* __restrict__ tile_off,
           const int* __restrict__ num_left, const float* __restrict__ fvals,
           int value_col, int* sync) {
-  extern __shared__ float4 smem4[];
-  const int nbuf = move_buffer_floats(T, P);
-  float* bufs = reinterpret_cast<float*>(smem4);
-  int* order = reinterpret_cast<int*>(bufs + 2 * nbuf);
-  __shared__ int warp_left[32];
-  __shared__ int s_ticket;
-  __shared__ int s_claim[2];
-  const long long start = sc[kStart];
-  const int count = sc[kCount];
-  const int col = sc[kCol];
-  const int nl = *num_left;
-  const bool fwd = left_in_place(nl, count);
-  const int ntiles = (count + T - 1) / T;
-  const float lv = fvals[0];
-  const float rv = fvals[1];
-  int* flags = sync + 1;
-  auto tile_of = [&](int tk) { return fwd ? tk : ntiles - 1 - tk; };
-  auto span_of = [&](int t) { return payload + (start + t * T) * P; };
-  auto rows_of = [&](int t) { return min(T, count - t * T); };
-  auto load = [&](int t, float* into) {
-    load_span_async(into + phase16(span_of(t)), span_of(t), rows_of(t) * P);
-  };
-
-  int tk = next_ticket(sync, &s_ticket);
-  if (tk >= ntiles) return;  // uniform per block
-  float* buf = bufs;
-  load(tile_of(tk), buf);
-  cp_async_wait_all();
-  publish_read(flags + tile_of(tk));
-  int nk = next_ticket(sync, &s_ticket);
-  float* next = bufs + nbuf;
-  if (nk < ntiles) load(tile_of(nk), next);
-  for (int it = 0;; ++it) {
-    // the ticket after next, claimed while this tile is worked on (two
-    // slots: a thread may still read the last one)
-    if (threadIdx.x == 0) s_claim[it & 1] = atomicAdd(sync, 1);
-
-    const int t = tile_of(tk);
-    const int row0 = t * T;
-    const int nr = rows_of(t);
-    const int ph = phase16(span_of(t));
-    // rank: order[] lists the tile's rows left rows first, each side in
-    // row order; the leaf value goes into the staged value column
-    const int lt = tile_left[t];
-    int carry = 0;
-    for (int r0 = 0; r0 < nr; r0 += blockDim.x) {  // uniform per block
-      const int r = r0 + threadIdx.x;
-      const int gl =
-          r < nr ? go_left(buf[ph + r * P + col], sc, bitset, B) : 0;
-      const int incl = block_inclusive_scan(gl, warp_left);
-      const int tot = __syncthreads_count(gl);
-      if (r < nr) {
-        const int lb = carry + incl - gl;  // left rows before r
-        order[gl ? lb : lt + (r - lb)] = r;
-        buf[ph + r * P + value_col] = gl ? lv : rv;
-      }
-      carry += tot;
-    }
-
-    // the in-place side's rows land on consecutive rows: wait for the
-    // tiles that hold them (at most two, none after this one in walk
-    // order)
-    const int off = tile_off[t];
-    const int left0 = off;                 // segment row of the first left
-    const int right0 = nl + row0 - off;    // ... and of the first right
-    const int in0 = fwd ? left0 : right0;
-    const int n_in = fwd ? lt : nr - lt;
-    wait_read(flags, in0 / T, n_in > 0 ? (in0 + n_in - 1) / T : -1, 1);
-    write_span((fwd ? payload : aux) + (start + left0) * P, buf, ph, order,
-               lt, P);
-    write_span((fwd ? aux : payload) + (start + right0) * P, buf, ph,
-               order + lt, nr - lt, P);
-
-    if (nk >= ntiles) break;  // uniform per block
-    cp_async_wait_all();
-    publish_read(flags + tile_of(nk));
-    tk = nk;
-    nk = s_claim[it & 1];
-    float* done = buf;
-    buf = next;
-    next = done;
-    if (nk < ntiles) load(tile_of(nk), next);
-  }
+  move_tiles(payload, aux, P, sc, bitset, B, T, tile_left, tile_off,
+             num_left, fvals, value_col, sync);
 }
 
 __global__ void __launch_bounds__(kCopyThreads)
@@ -360,7 +150,7 @@ int segment_partition_tile_rows() { return kTile; }
 // Rows per tile of the whole partition at width P; 0 when the kernel
 // cannot take the width.
 int segment_partition_move_tile_rows(int P) {
-  return P > 0 ? move_tile_rows(P) : 0;
+  return P > 0 ? tile_rows(P) : 0;
 }
 
 // The whole partition (kernels part_count_tiles, part_scan_tiles,
@@ -373,11 +163,12 @@ int segment_partition_move_tile_rows(int P) {
 int segment_partition_launch(float* payload, float* aux, int P,
                              const int* scalars, const unsigned char* bitset,
                              int B, const float* fvals, int value_col,
-                             int* tile_left, int* tile_off, int* num_left,
-                             int* sync, int sms, void* stream) {
+                             int n_tiles, int* tile_left, int* tile_off,
+                             int* num_left, int* sync, int sms,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int T = move_tile_rows(P);
-  const size_t smem = move_smem_bytes(P);
+  const int T = tile_rows(P);
+  const size_t smem = move_smem_bytes(T, P);
   // the grid that stays resident: blocks of a persistent grid never wait
   // for a slot while others spin
   static int occ_P = -1, occ_blocks = 1;
@@ -392,8 +183,8 @@ int segment_partition_launch(float* payload, float* aux, int P,
   }
   part_count_tiles<<<4 * sms, kCountThreads, 0, s>>>(
       payload, P, scalars, bitset, B, T, tile_left, sync);
-  part_scan_tiles<<<1, kTile, 0, s>>>(scalars, T, tile_left, tile_off,
-                                      num_left);
+  part_scan_tiles<<<scan_blocks(n_tiles), kTile, 0, s>>>(
+      scalars, T, tile_left, tile_off, num_left);
   part_move<<<occ_blocks * sms, kMoveThreads, smem, s>>>(
       payload, aux, P, scalars, bitset, B, T, tile_left, tile_off, num_left,
       fvals, value_col, sync);
@@ -419,7 +210,8 @@ int segment_partition_stage_launch(const float* payload, float* aux, int P,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   part_count<<<n_tiles, kTile, 0, s>>>(payload, P, scalars, bitset, B,
                                        tile_left, nullptr, 0);
-  part_scan<<<1, kTile, 0, s>>>(scalars, tile_left, tile_off, num_left);
+  part_scan<<<scan_blocks(n_tiles), kTile, 0, s>>>(scalars, tile_left,
+                                                   tile_off, num_left);
   part_scatter<<<n_tiles, kTile, 0, s>>>(payload, aux, P, scalars, bitset, B,
                                          tile_off, num_left);
   return static_cast<int>(cudaGetLastError());

@@ -97,29 +97,61 @@ part_count(const float* __restrict__ payload, int P,
   if (threadIdx.x == 0) tile_left[blockIdx.x] = n;
 }
 
-// One block turns the counts of ntiles tiles into exclusive offsets and
-// num_left.
+// Exclusive offsets of ntiles tile counts, and num_left, over a grid of
+// scan_blocks(ntiles) blocks of kTile threads.  Up to kTile counts, block 0
+// scans one count per thread (a small segment's scan, most calls).  Past
+// that, block c takes the kScanChunk counts of chunk c, sums every earlier
+// count itself (so no block waits on another), and scans its chunk, each
+// thread kScanItems consecutive counts; the block holding the last tile
+// writes num_left.
+constexpr int kScanItems = 8;
+constexpr int kScanChunk = kTile * kScanItems;
+
+inline int scan_blocks(int ntiles) {
+  return ntiles > kScanChunk ? (ntiles + kScanChunk - 1) / kScanChunk : 1;
+}
+
 __device__ void scan_tile_counts(int ntiles, const int* __restrict__ tile_left,
                                  int* __restrict__ tile_off,
                                  int* __restrict__ num_left) {
   __shared__ int warp_tot[32];
-  __shared__ int carry;
-  if (threadIdx.x == 0) carry = 0;
-  __syncthreads();
-  for (int base = 0; base < ntiles; base += blockDim.x) {
-    const int i = base + threadIdx.x;
+  __shared__ int s_pre;
+  const int base = blockIdx.x * kScanChunk;
+  if (base >= max(ntiles, 1)) return;  // uniform per block
+  if (ntiles <= static_cast<int>(blockDim.x)) {  // one count per thread
+    const int i = threadIdx.x;
     const int v = i < ntiles ? tile_left[i] : 0;
     const int incl = block_inclusive_scan(v, warp_tot);
-    const int c = carry;
-    if (i < ntiles) tile_off[i] = c + incl - v;
-    __syncthreads();
-    if (threadIdx.x == blockDim.x - 1) carry = c + incl;
-    __syncthreads();
+    if (i < ntiles) tile_off[i] = incl - v;
+    if (i == blockDim.x - 1) *num_left = incl;
+    return;
   }
-  if (threadIdx.x == 0) *num_left = carry;
+  int pre = 0;
+  for (int i = threadIdx.x; i < base; i += blockDim.x) pre += tile_left[i];
+  pre = block_inclusive_scan(pre, warp_tot);
+  if (threadIdx.x == blockDim.x - 1) s_pre = pre;
+  // this thread's kScanItems consecutive counts (a warp's are contiguous)
+  const int i0 = base + threadIdx.x * kScanItems;
+  int v[kScanItems];
+  int sum = 0;
+#pragma unroll
+  for (int k = 0; k < kScanItems; ++k) {
+    v[k] = i0 + k < ntiles ? tile_left[i0 + k] : 0;
+    sum += v[k];
+  }
+  const int incl = block_inclusive_scan(sum, warp_tot);
+  int off = s_pre + incl - sum;
+#pragma unroll
+  for (int k = 0; k < kScanItems; ++k) {
+    if (i0 + k < ntiles) tile_off[i0 + k] = off;
+    off += v[k];
+  }
+  if (threadIdx.x == blockDim.x - 1 && base + kScanChunk >= ntiles) {
+    *num_left = s_pre + incl;
+  }
 }
 
-// One block scans the counts of the segment's kTile-row tiles.
+// The scan of the segment's kTile-row tiles' counts.
 __global__ void __launch_bounds__(kTile)
 part_scan(const int* __restrict__ sc, const int* __restrict__ tile_left,
           int* __restrict__ tile_off, int* __restrict__ num_left) {

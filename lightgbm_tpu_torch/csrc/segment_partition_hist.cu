@@ -196,7 +196,8 @@ int segment_partition_hist_launch(float* payload, float* aux, int P,
   if (err != cudaSuccess) return static_cast<int>(err);
   part_count<<<n_tiles, kTile, 0, s>>>(payload, P, scalars, bitset, B,
                                        tile_left, hist, 2 * F * Bh * 3);
-  part_scan<<<1, kTile, 0, s>>>(scalars, tile_left, tile_off, num_left);
+  part_scan<<<scan_blocks(n_tiles), kTile, 0, s>>>(scalars, tile_left,
+                                                   tile_off, num_left);
   const dim3 grid(grid_x, (F + Ft - 1) / Ft);
   part_hist_scatter<<<grid, kTile, smem, s>>>(
       payload, aux, P, scalars, bitset, B, tile_off, num_left, hist, F, Bh,

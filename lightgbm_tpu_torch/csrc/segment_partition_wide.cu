@@ -5,44 +5,56 @@
 // payload rows [start, start + count) by the split predicate (left rows
 // first), write left_value / right_value into value_col, and report
 // num_left; payload and num_left are byte-identical to the plain PyTorch
-// version.
+// version.  As in the Pallas kernels, aux over the segment is scratch
+// (only the smaller side passes through it) and nothing outside the
+// segment is written.
 //   - partition_segment -> _partition_kernel (B3, the "RMW" partition):
-//     payloads past B2's plan, rows of 2-6.5 KB (513 <= P < 1665); it also
-//     leaves the whole partition in aux over the segment;
+//     payloads past B2's plan, rows of 2-6.5 KB (513 <= P < 1665);
 //   - partition_segment_acc_blocks -> _snap_window_kernel +
 //     _acc_blocks_kernel (B8): the widest payloads (P >= 1665), over column
-//     windows with the routing read once.  As in the Pallas kernel, aux
-//     over the segment is scratch; nothing outside the segment is written.
+//     windows with the routing read once.
 // The predicate is B2's (segment_partition.cuh).
 //
 // What bounds it on this card: HBM at 3.35 TB/s.  The least traffic is
 // each row read once and written once, 2 * count * P * 4 bytes; there is
 // no arithmetic to speak of.  At these widths a row is 2-8 KB, so the
 // routing column (one 32-byte sector per row) is a few percent of it.
+// Both write each row once to its final place, except the smaller side,
+// which goes through aux and back: 2 * count * P * 4 + 2 * min(L, R) * P *
+// 4 bytes (the protocol is in segment_partition_inplace.cuh).
 //
-// Both start with one routing, three launches sized for the largest
-// segment (the whole payload) that read start, count and every predicate
-// scalar from device memory, so the grower never syncs to launch them:
+// B3 runs B2's whole-row tiles (count_tiles / move_tiles in the header)
+// under its own names and tile geometry, four launches:
+//   1. rmw_count: a grid of warps reads the routing column once, one
+//      sector per row, counts each tile's left rows (a warp per tile of
+//      at most 32 rows), and clears the move's ticket and the tiles'
+//      "read" flags;
+//   2. rmw_scan: the counts become offsets and num_left;
+//   3. rmw_move: a persistent grid takes tiles of whole rows by ticket in
+//      walk order, streams the next tile into the second of two staging
+//      buffers by cp.async while it ranks the current one, writes the
+//      leaf value into the staged value column, waits for the (at most
+//      two) tiles its in-place rows land on, and writes each side of the
+//      tile as one contiguous span with 16-byte stores: the larger side's
+//      into the payload, the smaller side's into aux;
+//   4. rmw_copy_side: the smaller side's one contiguous range, aux ->
+//      payload, with 16-byte moves.
+// Tiles fill kRmwStageBytes per staging buffer (8 rows at P = 978), and
+// kRmwMoveThreads threads move them; both were chosen from readings on
+// the card at P = 513, 978 and 1664 (PERF.md).
+//
+// B8 routes first, three launches sized for the largest segment (the
+// whole payload) that read start, count and every predicate scalar from
+// device memory, so the grower never syncs to launch them:
 //   1. route_count: one block per 1024-row tile reads the routing column
 //      once, keeps each row's side as a byte and counts the tile's lefts
-//      (the TPU kernel's "snap" of the split column); for B8 it also
-//      clears the move's ticket and "read" flags;
-//   2. route_scan: one block turns the tile counts into exclusive offsets
-//      and num_left;
+//      (the TPU kernel's "snap" of the split column), and clears the
+//      move's ticket and "read" flags;
+//   2. route_scan: the tile counts become exclusive offsets and num_left;
 //   3. route_rank: each tile ranks its rows from the stored bytes (warp
 //      ballot + popc, a scan over the warps) and writes every row's
 //      destination row.
-// B3 then moves every row twice, 4 * count * P * 4 bytes:
-//   4. rmw_scatter: payload -> aux, one warp per row, with 16-byte moves
-//      over the part of the row whose source and destination share their
-//      offset within 16 bytes (8-byte moves where they share it within 8);
-//   5. flat_copyback: the segment is one contiguous range of count * P
-//      floats in aux and in payload, so the copy-back is a flat 16-byte
-//      copy over the grid;
-//   6. write_values: the leaf values into value_col, one thread per row.
-// B8 writes each row once to its final place, except the smaller side,
-// which goes through aux and back, 2 * count * P * 4 + 2 * min(L, R) * P * 4
-// bytes (the protocol is in segment_partition_inplace.cuh):
+// Then:
 //   4. block_move: a persistent grid takes (row tile of 8 rows, column
 //      block of 512 floats) tickets in walk order, each column block with
 //      its own flags, so column blocks never wait on each other.  A block
@@ -68,8 +80,8 @@ constexpr int kRowTile = 8;       // rows per tile of B8's move
 constexpr int kColBlock = 512;   // floats per column block
 constexpr int kSlab = kColBlock + 4;  // floats per staged row slice
 
-// One block per 1024-row tile; sync (B8, else null) gets its ticket and
-// the flags of the tile's row tiles (ncb column blocks each) cleared.
+// One block per 1024-row tile; sync gets its ticket and the flags of the
+// tile's row tiles (ncb column blocks each) cleared.
 __global__ void __launch_bounds__(kTile)
 route_count(const float* __restrict__ payload, int P,
             const int* __restrict__ sc,
@@ -78,14 +90,12 @@ route_count(const float* __restrict__ payload, int P,
             int* __restrict__ sync, int ncb) {
   const int count = sc[kCount];
   const int row0 = blockIdx.x * kTile;
-  if (sync != nullptr) {
-    if (blockIdx.x == 0 && threadIdx.x == 0) sync[0] = 0;
-    const int ntiles = (count + kRowTile - 1) / kRowTile;
-    const int t0 = row0 / kRowTile;
-    const int nflags = (min(ntiles, t0 + kTile / kRowTile) - t0) * ncb;
-    for (int i = threadIdx.x; i < nflags; i += kTile) {
-      sync[1 + t0 * ncb + i] = 0;
-    }
+  if (blockIdx.x == 0 && threadIdx.x == 0) sync[0] = 0;
+  const int ntiles = (count + kRowTile - 1) / kRowTile;
+  const int t0 = row0 / kRowTile;
+  const int nflags = (min(ntiles, t0 + kTile / kRowTile) - t0) * ncb;
+  for (int i = threadIdx.x; i < nflags; i += kTile) {
+    sync[1 + t0 * ncb + i] = 0;
   }
   if (row0 >= count) return;  // uniform per block
   const int r = row0 + threadIdx.x;
@@ -139,44 +149,46 @@ route_rank(const int* __restrict__ sc, const unsigned char* __restrict__ side,
   }
 }
 
-__global__ void __launch_bounds__(kCopyThreads)
-rmw_scatter(const float* __restrict__ payload, float* __restrict__ aux, int P,
-            const int* __restrict__ sc, const int* __restrict__ dest) {
-  const int start = sc[kStart];
-  const int count = sc[kCount];
-  const int warps = kCopyThreads / 32;
-  const int lane = threadIdx.x & 31;
-  for (int r = blockIdx.x * warps + (threadIdx.x >> 5); r < count;
-       r += gridDim.x * warps) {
-    copy_span(payload + (static_cast<long long>(start) + r) * P,
-              aux + static_cast<long long>(dest[r]) * P, P, lane, 32);
-  }
+// ---- B3 ------------------------------------------------------------------
+
+constexpr int kRmwCountThreads = 256;
+constexpr int kRmwMoveThreads = 512;
+constexpr int kRmwStageBytes = 32 * 1024;  // one tile, one of two buffers
+
+// Rows per tile of B3 at width P (0: the width is past the kernel).
+int rmw_tile_rows(int P) { return move_tile_rows(P, kRmwStageBytes); }
+
+__global__ void __launch_bounds__(kRmwCountThreads)
+rmw_count(const float* __restrict__ payload, int P, const int* __restrict__ sc,
+          const unsigned char* __restrict__ bitset, int B, int T,
+          int* __restrict__ tile_left, int* __restrict__ sync) {
+  count_tiles(payload, P, sc, bitset, B, T, tile_left, sync);
 }
 
-// The segment's rows are one contiguous range in aux and in payload, so
-// the copy-back is a flat copy of count * P floats over the grid ...
-__global__ void __launch_bounds__(kCopyThreads)
-flat_copyback(float* __restrict__ payload, const float* __restrict__ aux,
-              int P, const int* __restrict__ sc) {
-  const long long base = static_cast<long long>(sc[kStart]) * P;
-  copy_span(aux + base, payload + base, static_cast<long long>(sc[kCount]) * P,
-            static_cast<long long>(blockIdx.x) * kCopyThreads + threadIdx.x,
-            static_cast<long long>(gridDim.x) * kCopyThreads);
+__global__ void __launch_bounds__(kTile)
+rmw_scan(const int* __restrict__ sc, int T, const int* __restrict__ tile_left,
+         int* __restrict__ tile_off, int* __restrict__ num_left) {
+  scan_tile_counts((sc[kCount] + T - 1) / T, tile_left, tile_off, num_left);
 }
 
-// ... and then the leaf values go into value_col, one thread per row
-__global__ void __launch_bounds__(kCopyThreads)
-write_values(float* __restrict__ payload, int P, const int* __restrict__ sc,
-             const int* __restrict__ num_left,
-             const float* __restrict__ fvals, int value_col) {
-  const long long start = sc[kStart];
-  const int count = sc[kCount];
-  const int nl = *num_left;
-  for (int r = blockIdx.x * kCopyThreads + threadIdx.x; r < count;
-       r += gridDim.x * kCopyThreads) {
-    payload[(start + r) * P + value_col] = r < nl ? fvals[0] : fvals[1];
-  }
+__global__ void __launch_bounds__(kRmwMoveThreads)
+rmw_move(float* payload, float* aux, int P, const int* __restrict__ sc,
+         const unsigned char* __restrict__ bitset, int B, int T,
+         const int* __restrict__ tile_left, const int* __restrict__ tile_off,
+         const int* __restrict__ num_left, const float* __restrict__ fvals,
+         int value_col, int* sync) {
+  move_tiles(payload, aux, P, sc, bitset, B, T, tile_left, tile_off,
+             num_left, fvals, value_col, sync);
 }
+
+__global__ void __launch_bounds__(kCopyThreads)
+rmw_copy_side(float* __restrict__ payload, const float* __restrict__ aux,
+              int P, const int* __restrict__ sc,
+              const int* __restrict__ num_left) {
+  copy_smaller_side(payload, aux, P, sc, num_left);
+}
+
+// ---- B8 ------------------------------------------------------------------
 
 // The head (< 4 floats before the first 16-byte boundary) and the count
 // of float4 of a row slice of cw floats at `p`.
@@ -239,7 +251,7 @@ __device__ __forceinline__ void stage_slices(Slab* sl, const float* src,
 // next tile's flag is published only once its copies have landed, after
 // the current tile's writes, which wait only for tiles before the current
 // one in walk order; so the lowest ticket without a flag always makes
-// progress (segment_partition.cu's part_move says why).
+// progress (segment_partition_inplace.cuh's move_tiles says why).
 __global__ void __launch_bounds__(kCopyThreads)
 block_move(float* payload, float* aux, int P, const int* __restrict__ sc,
            const unsigned char* __restrict__ side,
@@ -395,18 +407,6 @@ wide_copy_side(float* __restrict__ payload, const float* __restrict__ aux,
   copy_smaller_side(payload, aux, P, sc, num_left);
 }
 
-// The routing (kernels 1-3); sync / ncb as route_count takes them.
-void route(const float* payload, int P, const int* scalars,
-           const unsigned char* bitset, int B, int n_tiles,
-           unsigned char* side, int* dest, int* tile_left, int* tile_off,
-           int* num_left, int* sync, int ncb, cudaStream_t s) {
-  route_count<<<n_tiles, kTile, 0, s>>>(payload, P, scalars, bitset, B, side,
-                                        tile_left, sync, ncb);
-  route_scan<<<1, kTile, 0, s>>>(scalars, tile_left, tile_off, num_left);
-  route_rank<<<n_tiles, kTile, 0, s>>>(scalars, side, tile_off, num_left,
-                                       dest);
-}
-
 }  // namespace
 
 extern "C" {
@@ -418,36 +418,63 @@ int segment_partition_wide_tile_rows() { return kTile; }
 int segment_partition_blocks_row_tile() { return kRowTile; }
 int segment_partition_blocks_col_block() { return kColBlock; }
 
-// B3 (kernels 1-3, then rmw_scatter, flat_copyback, write_values).
-// scalars: int32[11] on the device (start, count, col, threshold,
-// default_left, is_cat, missing_type, num_bin, default_bin, offset,
-// identity); bitset: uint8[B], the bytes of a bool tensor; fvals: f32[2]
-// (left, right value) on the device.  Scratch, sized for the largest
-// count (n_rows rows): side uint8[n_rows], dest int32[n_rows], tile_left /
-// tile_off int32[n_tiles] with n_tiles * 1024 >= n_rows.  num_left: one
-// int32 on the device.  grid_x: blocks of the grid-stride launches.
-// Returns cudaGetLastError().
+// Rows per tile of B3 at width P; 0 when the kernel cannot take the width.
+int segment_partition_rmw_tile_rows(int P) {
+  return P > 0 ? rmw_tile_rows(P) : 0;
+}
+
+// B3 (kernels rmw_count, rmw_scan, rmw_move, rmw_copy_side).  scalars:
+// int32[11] on the device (start, count, col, threshold, default_left,
+// is_cat, missing_type, num_bin, default_bin, offset, identity); bitset:
+// uint8[B], the bytes of a bool tensor; fvals: f32[2] (left, right value)
+// on the device.  Scratch, for n_tiles tiles of
+// segment_partition_rmw_tile_rows(P) rows covering the largest count:
+// tile_left / tile_off int32[n_tiles], sync int32[1 + n_tiles] (cleared by
+// the count kernel).  num_left: one int32 on the device.  sms: the card's
+// multiprocessors.  Returns cudaGetLastError().
 int segment_partition_rmw_launch(float* payload, float* aux, int P,
                                  const int* scalars,
                                  const unsigned char* bitset, int B,
                                  const float* fvals, int value_col,
-                                 int n_tiles, unsigned char* side, int* dest,
-                                 int* tile_left, int* tile_off, int* num_left,
-                                 int grid_x, void* stream) {
+                                 int n_tiles, int* tile_left, int* tile_off,
+                                 int* num_left, int* sync, int sms,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  route(payload, P, scalars, bitset, B, n_tiles, side, dest, tile_left,
-        tile_off, num_left, nullptr, 0, s);
-  rmw_scatter<<<grid_x, kCopyThreads, 0, s>>>(payload, aux, P, scalars, dest);
-  flat_copyback<<<grid_x, kCopyThreads, 0, s>>>(payload, aux, P, scalars);
-  write_values<<<grid_x, kCopyThreads, 0, s>>>(payload, P, scalars, num_left,
-                                               fvals, value_col);
+  const int T = rmw_tile_rows(P);
+  const size_t smem = move_smem_bytes(T, P);
+  // the grid that stays resident: blocks of a persistent grid never wait
+  // for a slot while others spin
+  static int occ_P = -1, occ_blocks = 1;
+  if (occ_P != P) {
+    cudaFuncSetAttribute(rmw_move,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ_blocks, rmw_move,
+                                                  kRmwMoveThreads, smem);
+    occ_blocks = occ_blocks > 0 ? occ_blocks : 1;
+    occ_P = P;
+  }
+  // a warp per tile at a time: enough warps that each takes a few of the
+  // root's tiles of a few rows
+  rmw_count<<<16 * sms, kRmwCountThreads, 0, s>>>(payload, P, scalars,
+                                                  bitset, B, T, tile_left,
+                                                  sync);
+  rmw_scan<<<scan_blocks(n_tiles), kTile, 0, s>>>(scalars, T, tile_left,
+                                                  tile_off, num_left);
+  rmw_move<<<occ_blocks * sms, kRmwMoveThreads, smem, s>>>(
+      payload, aux, P, scalars, bitset, B, T, tile_left, tile_off, num_left,
+      fvals, value_col, sync);
+  rmw_copy_side<<<4 * sms, kCopyThreads, 0, s>>>(payload, aux, P, scalars,
+                                                 num_left);
   return static_cast<int>(cudaGetLastError());
 }
 
-// B8 (kernels 1-3, then block_move, wide_copy_side).  Arguments as B3's,
-// plus sync: int32[1 + ceil(n_rows / 32) * ceil(P / 512)] (cleared by
-// route_count); sms: the card's multiprocessors.  Returns
-// cudaGetLastError().
+// B8 (kernels 1-3, then block_move, wide_copy_side).  scalars, bitset,
+// fvals, num_left: as B3's.  Scratch, sized for the largest count (n_rows
+// rows): side uint8[n_rows], dest int32[n_rows], tile_left / tile_off
+// int32[n_tiles] with n_tiles * 1024 >= n_rows, sync int32[1 +
+// ceil(n_rows / 8) * ceil(P / 512)] (cleared by route_count).  sms: the
+// card's multiprocessors.  Returns cudaGetLastError().
 int segment_partition_blocks_launch(float* payload, float* aux, int P,
                                     const int* scalars,
                                     const unsigned char* bitset, int B,
@@ -468,8 +495,12 @@ int segment_partition_blocks_launch(float* payload, float* aux, int P,
     occ_blocks = occ_blocks > 0 ? occ_blocks : 1;
   }
   const int ncb = (P + kColBlock - 1) / kColBlock;
-  route(payload, P, scalars, bitset, B, n_tiles, side, dest, tile_left,
-        tile_off, num_left, sync, ncb, s);
+  route_count<<<n_tiles, kTile, 0, s>>>(payload, P, scalars, bitset, B, side,
+                                        tile_left, sync, ncb);
+  route_scan<<<scan_blocks(n_tiles), kTile, 0, s>>>(scalars, tile_left,
+                                                    tile_off, num_left);
+  route_rank<<<n_tiles, kTile, 0, s>>>(scalars, side, tile_off, num_left,
+                                       dest);
   block_move<<<occ_blocks * sms, kCopyThreads, smem, s>>>(
       payload, aux, P, scalars, side, dest, num_left, fvals, value_col, sync);
   wide_copy_side<<<4 * sms, kCopyThreads, 0, s>>>(payload, aux, P, scalars,

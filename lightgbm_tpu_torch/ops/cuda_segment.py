@@ -29,12 +29,13 @@ csrc/segment_partition_hist.cu:
   merged mode; `partition_hist_fits` is its gate and
   PARTITION_HIST_VALIDATED the staged flag of its auto rule.
 All keep the signatures and returns of ops/segment.py.  The whole
-partitions on the card (B2's `partition_segment`, B8's
-`partition_segment_blocks`) keep the Pallas kernels' contract, which is
-looser than the plain version's: payload and num_left are the plain
-version's byte for byte, aux over the segment is scratch (each passes
-only its smaller side through it), and neither writes outside the
-segment.  The stage, B3 and B6 leave the whole partition in aux too.
+partitions on the card (B2's `partition_segment`, B3's
+`partition_segment_rmw`, B8's `partition_segment_blocks`) keep the Pallas
+kernels' contract, which is looser than the plain version's: payload and
+num_left are the plain version's byte for byte, aux over the segment is
+scratch (each passes only its smaller side through it), and none writes
+outside the segment.  The stage and B6 leave the whole partition in aux
+too.
 
 The route (`histogram_route`, `partition_route`) picks the wrapper by
 width, with the crossovers the JAX package's VMEM gates give at max_bin
@@ -299,10 +300,47 @@ def _commit(payload, aux, start, count, num_left, left_value, right_value,
 
 
 @functools.lru_cache(maxsize=None)
-def _move_tile_rows(payload_width: int) -> int:
-    lib = build.load("segment_partition")
-    lib.segment_partition_move_tile_rows.argtypes = [_I]
-    return lib.segment_partition_move_tile_rows(payload_width)
+def _tile_rows(lib_name: str, entry: str, payload_width: int) -> int:
+    f = getattr(build.load(lib_name), entry)
+    f.argtypes = [_I]
+    return f(payload_width)
+
+
+def _whole_row_partition(payload, aux, start, count, pred: SplitPredicate,
+                         left_value, right_value, value_col: int,
+                         lib_name: str, entry: str, rows_entry: str,
+                         name: str):
+    """Launch a whole partition of whole-row tiles (B2 from
+    csrc/segment_partition.cu, B3 from csrc/segment_partition_wide.cu):
+    the count, the scan, the move that writes the larger side in place,
+    and the smaller side's copy-back.  Returns num_left, a 0-d int32
+    device tensor."""
+    _check_payload(payload, name)
+    _check_aux(payload, aux, name)
+    dev = payload.device
+    N, P = payload.shape
+    T = _tile_rows(lib_name, rows_entry, P)
+    if T == 0 or not 0 <= value_col < P:
+        raise ValueError("%s: width %d or value_col %d outside the kernel's "
+                         "range" % (name, P, value_col))
+    scalars, bitset = _pred_args(start, count, pred, dev)
+    fvals = _leaf_values(left_value, right_value, dev)
+    lib, fn = _lib(lib_name, entry,
+                   [_P, _P, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I,
+                    _P])
+    n_tiles = -(-N // T)
+    # each tile's left count and offset, num_left, then the move's ticket
+    # and the tiles' flags
+    scratch = torch.empty(3 * n_tiles + 2, dtype=torch.int32, device=dev)
+    tile_left, tile_off, num_left, sync = scratch.split(
+        (n_tiles, n_tiles, 1, n_tiles + 1))
+    rc = fn(payload.data_ptr(), aux.data_ptr(), P, scalars.data_ptr(),
+            bitset.data_ptr(), bitset.shape[0], fvals.data_ptr(), value_col,
+            n_tiles, tile_left.data_ptr(), tile_off.data_ptr(),
+            num_left.data_ptr(), sync.data_ptr(), _sm_count(dev.index),
+            _stream(dev))
+    _check(lib, lib_name, rc)
+    return num_left.reshape(())
 
 
 def partition_segment(payload: torch.Tensor, aux: torch.Tensor, start, count,
@@ -318,31 +356,12 @@ def partition_segment(payload: torch.Tensor, aux: torch.Tensor, start, count,
     if payload.device.type == "cpu":
         return seg.partition_segment(payload, aux, start, count, pred,
                                      left_value, right_value, value_col)
-    _check_payload(payload, "partition_segment")
-    _check_aux(payload, aux, "partition_segment")
-    dev = payload.device
-    N, P = payload.shape
-    T = _move_tile_rows(P)
-    if T == 0 or not 0 <= value_col < P:
-        raise ValueError("partition_segment: width %d or value_col %d "
-                         "outside the kernel's range" % (P, value_col))
-    scalars, bitset = _pred_args(start, count, pred, dev)
-    fvals = _leaf_values(left_value, right_value, dev)
-    lib, fn = _lib("segment_partition", "segment_partition_launch",
-                   [_P, _P, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P])
-    n_tiles = -(-N // T)
-    # each tile's left count and offset, num_left, then the move's ticket
-    # and the tiles' flags
-    scratch = torch.empty(3 * n_tiles + 2, dtype=torch.int32, device=dev)
-    tile_left, tile_off, num_left, sync = scratch.split(
-        (n_tiles, n_tiles, 1, n_tiles + 1))
-    rc = fn(payload.data_ptr(), aux.data_ptr(), P, scalars.data_ptr(),
-            bitset.data_ptr(), bitset.shape[0], fvals.data_ptr(), value_col,
-            tile_left.data_ptr(), tile_off.data_ptr(), num_left.data_ptr(),
-            sync.data_ptr(), _sm_count(dev.index), _stream(dev))
-    _check(lib, "segment_partition", rc)
+    num_left = _whole_row_partition(
+        payload, aux, start, count, pred, left_value, right_value, value_col,
+        "segment_partition", "segment_partition_launch",
+        "segment_partition_move_tile_rows", "partition_segment")
     partition_segment.launches += 1
-    return payload, aux, num_left.reshape(())
+    return payload, aux, num_left
 
 
 partition_segment.launches = 0
@@ -408,17 +427,11 @@ partition_segment_commit.launches = 0
 
 @functools.lru_cache(maxsize=None)
 def _colblock_features(num_features: int, num_bins: int) -> int:
-    """Columns per block of B7: all F when they fit the shared-memory
-    budget, else the most that fit, rounded down to a multiple of 32 (one
-    warp's lanes) where that leaves any; 0 when not one column fits."""
-    smem = build.load("segment_hist_colblock").segment_hist_colblock_smem_bytes
-    smem.argtypes = [_I, _I]
-    fixed = smem(0, num_bins)
-    fb_max = max(0, (HIST_SMEM_BYTES - fixed)
-                 // (smem(1, num_bins) - fixed))
-    if num_features <= fb_max:
-        return num_features
-    return fb_max - fb_max % 32 if fb_max >= 32 else fb_max
+    """Columns per block of B7 (as many as its shared memory holds at this
+    bin count), at most F; 0 when not one fits."""
+    f = build.load("segment_hist_colblock").segment_hist_colblock_cols
+    f.argtypes = [_I, _I]
+    return f(num_features, num_bins)
 
 
 def segment_histogram_colblock(payload: torch.Tensor, start, count, *,
@@ -436,7 +449,7 @@ def segment_histogram_colblock(payload: torch.Tensor, start, count, *,
     _check_payload(payload, "segment_histogram_colblock")
     F, B, P = num_features, num_bins, payload.shape[1]
     lib, fn = _lib("segment_hist_colblock", "segment_hist_colblock_launch",
-                   [_P, _I, _P, _P] + [_I] * 7 + [_P])
+                   [_P, _I, _P, _P] + [_I] * 6 + [_P])
     fb = _colblock_features(F, B) if 0 < B < 0xFFFF else 0
     if not 0 < F <= P or fb == 0:
         raise ValueError("segment_histogram_colblock: F=%d, B=%d outside "
@@ -448,10 +461,8 @@ def segment_histogram_colblock(payload: torch.Tensor, start, count, *,
     dev = payload.device
     segv = _int_vec((start, count), dev)
     out = torch.zeros((F, B, 3), device=dev, dtype=torch.float32)
-    n_cb = -(-F // fb)
-    grid_x = max(1, -(-4 * _sm_count(dev.index) // n_cb))
-    rc = fn(payload.data_ptr(), P, segv.data_ptr(), out.data_ptr(), F, B, fb,
-            grad_col, hess_col, cnt_col, grid_x, _stream(dev))
+    rc = fn(payload.data_ptr(), P, segv.data_ptr(), out.data_ptr(), F, B,
+            _sm_count(dev.index), grad_col, hess_col, cnt_col, _stream(dev))
     _check(lib, "segment_hist_colblock", rc)
     segment_histogram_colblock.launches += 1
     return out
@@ -461,22 +472,21 @@ segment_histogram_colblock.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _wide_tiles() -> tuple:
-    """Rows per routing tile, and B8's rows per move tile and floats per
-    column block."""
+def _blocks_tiles() -> tuple:
+    """B8's rows per routing tile, rows per move tile and floats per column
+    block."""
     lib = build.load("segment_partition_wide")
     return (lib.segment_partition_wide_tile_rows(),
             lib.segment_partition_blocks_row_tile(),
             lib.segment_partition_blocks_col_block())
 
 
-def _partition_wide(payload, aux, start, count, pred: SplitPredicate,
-                    left_value, right_value, value_col: int, blocks: bool,
-                    name: str):
-    """Launch csrc/segment_partition_wide.cu: the routing, then B3's
-    warp-per-row scatter and flat copy-back (blocks False) or B8's in-place
+def _partition_blocks(payload, aux, start, count, pred: SplitPredicate,
+                      left_value, right_value, value_col: int):
+    """Launch B8 (csrc/segment_partition_wide.cu): the routing, the in-place
     column-block move and the smaller side's copy-back.  Returns num_left,
     a 0-d int32 device tensor."""
+    name = "partition_segment_blocks"
     _check_payload(payload, name)
     _check_aux(payload, aux, name)
     dev = payload.device
@@ -486,32 +496,24 @@ def _partition_wide(payload, aux, start, count, pred: SplitPredicate,
                          % (name, value_col, P))
     scalars, bitset = _pred_args(start, count, pred, dev)
     fvals = _leaf_values(left_value, right_value, dev)
-    tile, row_tile, col_block = _wide_tiles()
+    tile, row_tile, col_block = _blocks_tiles()
     n_tiles = -(-N // tile)
     side = torch.empty(N, dtype=torch.uint8, device=dev)
     # each row's destination, each tile's left count and offset, num_left,
-    # and B8's ticket and flags (one per row tile and column block)
-    n_sync = 1 + -(-N // row_tile) * -(-P // col_block) if blocks else 0
+    # and the move's ticket and flags (one per row tile and column block)
+    n_sync = 1 + -(-N // row_tile) * -(-P // col_block)
     scratch = torch.empty(N + 2 * n_tiles + 1 + n_sync, dtype=torch.int32,
                           device=dev)
     dest, tile_left, tile_off, num_left, sync = scratch.split(
         (N, n_tiles, n_tiles, 1, n_sync))
-    args = [payload.data_ptr(), aux.data_ptr(), P, scalars.data_ptr(),
+    lib, fn = _lib("segment_partition_wide", "segment_partition_blocks_launch",
+                   [_P, _P, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P,
+                    _P, _I, _P])
+    rc = fn(payload.data_ptr(), aux.data_ptr(), P, scalars.data_ptr(),
             bitset.data_ptr(), bitset.shape[0], fvals.data_ptr(), value_col,
             n_tiles, side.data_ptr(), dest.data_ptr(), tile_left.data_ptr(),
-            tile_off.data_ptr(), num_left.data_ptr()]
-    types = [_P, _P, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P]
-    if blocks:
-        lib, fn = _lib("segment_partition_wide",
-                       "segment_partition_blocks_launch",
-                       types + [_P, _I, _P])
-        args += [sync.data_ptr(), _sm_count(dev.index)]
-    else:
-        lib, fn = _lib("segment_partition_wide",
-                       "segment_partition_rmw_launch", types + [_I, _P])
-        # 16 blocks of 256 threads per SM over the column blocks of 512
-        args.append(max(1, 16 * _sm_count(dev.index) // -(-P // 512)))
-    rc = fn(*args, _stream(dev))
+            tile_off.data_ptr(), num_left.data_ptr(), sync.data_ptr(),
+            _sm_count(dev.index), _stream(dev))
     _check(lib, "segment_partition_wide", rc)
     return num_left.reshape(())
 
@@ -523,13 +525,16 @@ def partition_segment_rmw(payload: torch.Tensor, aux: torch.Tensor, start,
     payload; returns (payload, aux, num_left) (B3: replaces
     lightgbm_tpu/ops/pallas_segment.py partition_segment, the RMW kernel).
     Its contract is B2's, so a CPU tensor runs the same plain version,
-    `seg.partition_segment`."""
+    `seg.partition_segment`; on the card, as B2's, aux over the segment is
+    scratch.  B2's whole-row tiles, sized for rows of 2-6.5 KB
+    (csrc/segment_partition_wide.cu)."""
     if payload.device.type == "cpu":
         return seg.partition_segment(payload, aux, start, count, pred,
                                      left_value, right_value, value_col)
-    num_left = _partition_wide(payload, aux, start, count, pred, left_value,
-                               right_value, value_col, False,
-                               "partition_segment_rmw")
+    num_left = _whole_row_partition(
+        payload, aux, start, count, pred, left_value, right_value, value_col,
+        "segment_partition_wide", "segment_partition_rmw_launch",
+        "segment_partition_rmw_tile_rows", "partition_segment_rmw")
     partition_segment_rmw.launches += 1
     return payload, aux, num_left
 
@@ -549,9 +554,8 @@ def partition_segment_blocks(payload: torch.Tensor, aux: torch.Tensor, start,
     if payload.device.type == "cpu":
         return seg.partition_segment(payload, aux, start, count, pred,
                                      left_value, right_value, value_col)
-    num_left = _partition_wide(payload, aux, start, count, pred, left_value,
-                               right_value, value_col, True,
-                               "partition_segment_blocks")
+    num_left = _partition_blocks(payload, aux, start, count, pred,
+                                 left_value, right_value, value_col)
     partition_segment_blocks.launches += 1
     return payload, aux, num_left
 

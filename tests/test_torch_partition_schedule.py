@@ -1,15 +1,16 @@
 """The in-place schedule of the card's whole partitions, emulated on the CPU.
 
-On the card, B2 (lightgbm_tpu_torch/csrc/segment_partition.cu) and B8
+On the card, B2 (lightgbm_tpu_torch/csrc/segment_partition.cu), B3 and B8
 (csrc/segment_partition_wide.cu) compact the larger side of a split in
 place in the payload and send the smaller side through aux; tiles take
 tickets in walk order (forward when the left side is in place, backward
 when the right side is), publish a "read" flag once their rows are staged,
 and write in place only after the flags of the tiles their in-place rows
-land on.  B2 stages whole rows in tiles of T rows; B8 stages tiles of rows
-by column blocks, each column block with its own flags.  Both keep two
-staging buffers, publishing a block's next tile after its current tile's
-writes, and claim a ticket one tile ahead.  A CUDA kernel cannot run
+land on.  B2 and B3 stage whole rows in tiles of T rows, B3 at its own
+geometry (rows of 2-6.5 KB, so a few rows per tile); B8 stages tiles of
+rows by column blocks, each column block with its own flags.  All keep
+two staging buffers, publishing a block's next tile after its current
+tile's writes, and claim a ticket one tile ahead.  A CUDA kernel cannot run
 here, so this file emulates that schedule in plain Python, with the
 kernels' own wait sets and destinations, on resident blocks stepped by an
 adversarial scheduler (every tile reads as late and writes as early as its
@@ -19,6 +20,8 @@ A variant that writes before the flags must corrupt the payload, so the
 check is seen to have teeth.
 """
 import random
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -53,6 +56,25 @@ PREDICATES = {
 }
 
 _JAX_PARTITION = jax.jit(jseg.partition_segment, static_argnums=(7,))
+
+_CSRC = Path(__file__).resolve().parent.parent / "lightgbm_tpu_torch" / "csrc"
+
+
+def _b3_tile_rows(width: int) -> int:
+    """B3's rows per tile at payload width `width`: move_tile_rows of
+    csrc/segment_partition_inplace.cuh at B3's staging bytes
+    (kRmwStageBytes of csrc/segment_partition_wide.cu)."""
+    text = (_CSRC / "segment_partition_wide.cu").read_text()
+    stage = int(re.search(r"kRmwStageBytes = (\d+) \* 1024;",
+                          text).group(1)) * 1024
+    t = stage // (4 * width)
+    if t == 0:
+        return 1
+    return t - t % 32 if t >= 32 else t
+
+
+#: B3's tile rows at the payload widths it serves (513 <= P < 1665)
+B3_TILE_ROWS = sorted({_b3_tile_rows(w) for w in (513, 978, 1664)})
 
 
 def _payload(seed=0):
@@ -103,11 +125,12 @@ class Deadlock(AssertionError):
 
 class Schedule:
     """One whole partition of payload rows [start, start + count) on
-    `blocks` resident blocks.  kernel "b2": tiles of tile_rows whole rows,
-    each side of a tile written as one span from the tile's left offset
-    (part_move); kernel "b8": tiles of tile_rows rows by column blocks of
-    col_block floats, each row to the destination the routing ranked
-    (block_move).  honour_flags=False writes without waiting."""
+    `blocks` resident blocks.  kernel "b2" or "b3": tiles of tile_rows
+    whole rows, each side of a tile written as one span from the tile's
+    left offset (move_tiles, which B2's part_move and B3's rmw_move run);
+    kernel "b8": tiles of tile_rows rows by column blocks of col_block
+    floats, each row to the destination the routing ranked (block_move).
+    honour_flags=False writes without waiting."""
 
     def __init__(self, pay, start, count, gl, kernel, tile_rows, col_block,
                  blocks, honour_flags=True):
@@ -120,7 +143,8 @@ class Schedule:
         # left_in_place: the larger side (the left on a tie) stays
         self.fwd = self.nl >= count - self.nl
         self.ntiles = -(-count // tile_rows)
-        self.cb = P if kernel == "b2" else col_block
+        self.whole_rows = kernel in ("b2", "b3")
+        self.cb = P if self.whole_rows else col_block
         self.ncb = -(-P // self.cb)
         self.nticket = self.ntiles * self.ncb
         # the count and scan launches: each tile's left rows and offset
@@ -160,7 +184,7 @@ class Schedule:
         """The (tile, column block) flags the kernel waits for before its
         in-place writes."""
         t, cb, r0, nr, _, _ = self._job(tk)
-        if self.kernel == "b2":
+        if self.whole_rows:
             lt, off = self.tile_left[t], int(self.tile_off[t])
             in0 = off if self.fwd else self.nl + r0 - off
             n_in = lt if self.fwd else nr - lt
@@ -182,7 +206,7 @@ class Schedule:
         if c0 <= VALUE_COL < c0 + cw:
             vals[:, VALUE_COL - c0] = np.where(self.gl[r0:r0 + nr],
                                                LEFT_VALUE, RIGHT_VALUE)
-        if self.kernel == "b2":
+        if self.whole_rows:
             # the tile's lefts as one span from its left offset, its
             # rights as one span after the earlier tiles' rights
             off = int(self.tile_off[t])
@@ -302,6 +326,23 @@ def test_b2_schedule_matches_jax(segment, name, tile_rows, blocks, policy,
 @settings(max_examples=150, deadline=None, derandomize=True, database=None,
           suppress_health_check=[HealthCheck.too_slow])
 @given(segment=SEGMENTS, name=st.sampled_from(sorted(PREDICATES)),
+       tile_rows=st.sampled_from([1] + B3_TILE_ROWS),
+       blocks=st.sampled_from([1, 2, 3, 7, 16]),
+       policy=st.sampled_from(["adversarial", "random"]),
+       seed=st.integers(0, 2 ** 16))
+def test_b3_schedule_matches_jax(segment, name, tile_rows, blocks, policy,
+                                 seed):
+    """B3's whole-row tiles at its own geometry: the rows per tile it takes
+    at P = 513, 978 and 1664 (and one row), on up to 16 resident
+    blocks."""
+    start, count = segment
+    _check(_payload(seed % 3), start, count, name, "b3", tile_rows, P,
+           blocks, policy, seed)
+
+
+@settings(max_examples=150, deadline=None, derandomize=True, database=None,
+          suppress_health_check=[HealthCheck.too_slow])
+@given(segment=SEGMENTS, name=st.sampled_from(sorted(PREDICATES)),
        tile_rows=st.sampled_from([1, 2, 3, 8, 16]),
        col_block=st.sampled_from([1, 2, 3, 4, 5, 9, 16]),
        blocks=st.sampled_from([1, 2, 3, 7]),
@@ -314,32 +355,39 @@ def test_b8_schedule_matches_jax(segment, name, tile_rows, col_block, blocks,
            col_block, blocks, policy, seed)
 
 
-@pytest.mark.parametrize("kernel", ["b2", "b8"])
+#: each kernel's rows per tile in the fixed cases: 8 for B2 and B8, B3's
+#: at the Bosch width (P = 978)
+KERNEL_TILE_ROWS = {"b2": 8, "b3": _b3_tile_rows(978), "b8": 8}
+
+
+@pytest.mark.parametrize("kernel", ["b2", "b3", "b8"])
 @pytest.mark.parametrize("name", sorted(PREDICATES))
 def test_every_predicate_both_walks(kernel, name):
     """Every predicate kind on an unaligned mid segment; all_left and
     all_right take the forward and the backward walk."""
     for policy in ("adversarial", "random"):
-        _check(_payload(1), 13, 211, name, kernel, 8, 4, 5, policy, 7)
+        _check(_payload(1), 13, 211, name, kernel, KERNEL_TILE_ROWS[kernel],
+               4, 5, policy, 7)
 
 
-@pytest.mark.parametrize("kernel", ["b2", "b8"])
+@pytest.mark.parametrize("kernel", ["b2", "b3", "b8"])
 @pytest.mark.parametrize("start,count", [(0, N_PAD), (17, 0), (40, 1),
                                          (3, 97)])
 def test_edge_segments(kernel, start, count):
-    _check(_payload(2), start, count, "numerical", kernel, 8, 4, 3,
-           "adversarial", 1)
+    _check(_payload(2), start, count, "numerical", kernel,
+           KERNEL_TILE_ROWS[kernel], 4, 3, "adversarial", 1)
 
 
-@pytest.mark.parametrize("kernel", ["b2", "b8"])
+@pytest.mark.parametrize("kernel", ["b2", "b3", "b8"])
 def test_walk_direction_follows_the_larger_side(kernel):
     pay = _payload(0)
     for name, fwd in (("all_left", True), ("all_right", False)):
         gl = _routing(pay, 0, 100, name)
-        assert Schedule(pay, 0, 100, gl, kernel, 8, 4, 2).fwd is fwd
+        assert Schedule(pay, 0, 100, gl, kernel, KERNEL_TILE_ROWS[kernel],
+                        4, 2).fwd is fwd
 
 
-@pytest.mark.parametrize("kernel", ["b2", "b8"])
+@pytest.mark.parametrize("kernel", ["b2", "b3", "b8"])
 @pytest.mark.parametrize("name", ["numerical", "zero_missing"])
 def test_writes_before_the_flags_corrupt_the_payload(kernel, name):
     """Without the waits, the adversarial schedule writes in place over
@@ -347,11 +395,12 @@ def test_writes_before_the_flags_corrupt_the_payload(kernel, name):
     pay = _payload(0)
     gl = _routing(pay, 0, N_PAD, name)
     ref_pay, _ = _reference(pay, 0, N_PAD, name)
-    got_pay, _, _ = Schedule(pay, 0, N_PAD, gl, kernel, 8, 4, 4,
+    T = KERNEL_TILE_ROWS[kernel]
+    got_pay, _, _ = Schedule(pay, 0, N_PAD, gl, kernel, T, 4, 4,
                              honour_flags=False).run("adversarial", 0)
     assert not np.array_equal(got_pay.view(np.int32), ref_pay.view(np.int32))
     # with the waits, the same schedule is right
-    got_pay, _, _ = Schedule(pay, 0, N_PAD, gl, kernel, 8, 4, 4).run(
+    got_pay, _, _ = Schedule(pay, 0, N_PAD, gl, kernel, T, 4, 4).run(
         "adversarial", 0)
     np.testing.assert_array_equal(got_pay.view(np.int32),
                                   ref_pay.view(np.int32))
