@@ -13,25 +13,32 @@ the column-block partition B8, and B1, B2, B4, B5 and the stage and
 commit there too), times each beside its bound and a PyTorch yardstick
 (B1 and B2 at the wide shapes too; the partitions on fresh rows, B2, B3
 and B8 also at 90/10 and 10/90 splits; B7 also with wide 968's NaN
-share), sweeps the whole partitions over
-payload widths and the f32 histograms over feature counts for the card's
-crossovers, checks that CUDA
+share), holds the kernels' work split to its Python form and B1, B4 and
+B6 to their plain versions at the segment sizes the grower passes and at
+those that give each of the histogram's row layouts, times B1, B6 and
+B1's index_add_ yardstick at the segment sizes the grower passes (1,024
+to 131,072 rows; device us per call), sweeps the
+whole partitions over payload widths and the f32 histograms over feature
+counts for the card's crossovers, checks that CUDA
 and CPU training agree on small problems at 28, 968 and 2,000 features,
 then trains through lightgbm_tpu_torch.train on the card (binary
 objective, max_bin 255, 255 leaves, lr 0.1): on 28 dense features the f32
 main path (then three iterations of it with every B2 call held against
-the plain partition), the grower's merged mode (B6 on every split, with
+the plain partition; the census of its trees' B1 and B6 segment sizes
+with their byte bound per iteration; and two more runs from the same
+seed whose model texts and B1 histograms are compared, a record that
+fails nothing), the grower's merged mode (B6 on every split, with
 lightgbm_tpu_torch.ops.cuda_segment.PARTITION_HIST_VALIDATED set once B6
 has been held) and its histogram pool (histogram_pool_size=2, parents
 rebuilt), then quantized gradients (int8, int16), the frontier-batched
 grower (tpu_frontier_batch=8) and the two together; then the wide paths,
 1M x 968 (a fifth of every other feature NaN) and 400k x 2,000, each with
 a 100k-row validation set scored every iteration (metric auc).
-The whole partitions B2, B3 and B8 are held to the Pallas kernels'
-contract (payload and num_left byte for byte, aux untouched outside the
-segment, scratch inside it; ten runs on fresh copies of the root per
-predicate, B3 on the Bosch root); the stage, stage + commit and B6 also
-to the plain version's aux.
+The whole partitions B2, B3, B8 and B6's partition are held to the
+Pallas kernels' contract (payload and num_left byte for byte, aux
+untouched outside the segment, scratch inside it; ten runs on fresh
+copies of the root per predicate, B3 on the Bosch root); the stage and
+stage + commit also to the plain version's aux.
 Each training path resets the kernels' launch counts before it and reads
 them after it; the quantized paths must not launch the f32 histogram, the
 frontier paths must take fewer rounds than splits, the quantized
@@ -43,8 +50,11 @@ with B3 (968) or B8 (2,000) and never B1 or the whole B2.
 Held-out AUC is checked on every path (within 0.002 of the f32 main path
 for its variants; on the wide paths the device's valid scores must equal
 predict(raw_score=True) and the last valid AUC the AUC of that
-prediction).  After the main, merged, quantized int8, frontier and wide
-paths, two more iterations are timed, the second under torch.profiler.
+prediction).  After the main, merged, quantized int8, frontier, int8 +
+frontier and wide paths, two more iterations are timed, the second under
+torch.profiler (each histogram's and partition's device us per call; after the merged
+path, whether its B6 takes less device time per iteration than the main
+path's B1 + B2).
 Every phase always runs and prints one line, prefixed with the seconds
 since start; any failed check exits non-zero.  The last line is the
 device record {"ok": true, "device": {...}}.  Imports nothing of JAX or
@@ -53,6 +63,7 @@ lightgbm_tpu.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -194,6 +205,21 @@ def kernel_breakdown(fn, pay: torch.Tensor, s: int, c: int,
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and "(anonymous namespace)::" in e.key}
+
+
+def all_kernels_us(fn, reps: int = 20) -> float:
+    """Device microseconds per call of every kernel fn() launches, the
+    port's and PyTorch's (torch.profiler over reps calls, after one
+    warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / reps
 
 
 T_START = time.perf_counter()
@@ -497,6 +523,8 @@ def kernels_phase(n: int, seed: int, dev) -> dict:
 
     hist_ms = time_ms(lambda: cuda_segment.segment_histogram(
         pay, start0, count, **hk), reps)
+    hist_breakdown = kernel_breakdown(lambda: cuda_segment.segment_histogram(
+        pay, start0, count, **hk), pay, 0, n)
     hist_plain_ms = time_ms(lambda: seg.segment_histogram(
         pay, 0, n, **hk), 3)
     vals = lib_vals(pay, torch.float32)
@@ -591,7 +619,7 @@ def kernels_phase(n: int, seed: int, dev) -> dict:
             source="lightgbm_tpu_torch/csrc/segment_hist.cu",
             replaces="lightgbm_tpu/ops/pallas_segment.py:473",
             max_abs_err=hist_err, ms=hist_ms, plain_ms=hist_plain_ms,
-            library_ms=hist_lib_ms),
+            library_ms=hist_lib_ms, breakdown_us=hist_breakdown),
         "partition_segment": dict(
             part, name="partition_segment", route="cuda",
             source="lightgbm_tpu_torch/csrc/segment_partition.cu",
@@ -631,10 +659,12 @@ MERGED_SHAPES = ((None, F, B), (200_000, 137, 64))
 
 def merged_kernel_phase(n: int, seed: int, dev) -> dict:
     """B6 against its plain version (ops/segment.partition_segment_hist)
-    on every predicate kind of `predicates()` over the whole segment, and
-    on unaligned, empty, one-row and mid segments, at MERGED_SHAPES:
-    payload, aux over the segment and num_left byte for byte, both
-    children's count channels exact, grad / hess within B1's bound.  Then
+    on every predicate kind of `predicates()` over the whole segment
+    (WHOLE_REPEATS times on fresh copies), and on unaligned, empty,
+    one-row and mid segments, at MERGED_SHAPES: payload and num_left byte
+    for byte, aux untouched outside the segment (it is scratch over it,
+    as for the whole partitions), both children's count channels exact,
+    grad / hess within B1's bound.  Then
     B6 is timed on the main path's root and on WIDE_SEGMENT_ROWS rows,
     beside what it replaces per split (B2, then B1 on the smaller child),
     its plain version and a library composition.  Returns its record."""
@@ -653,26 +683,28 @@ def merged_kernel_phase(n: int, seed: int, dev) -> dict:
             ("zero_missing", 777, 1), ("efb_offset", 12345, rows // 3)]
         for name, s, c in cases:
             what = "B6 %s at F=%d, B=%d (%d, %d)" % (name, f, nb, s, c)
-            a_pay, a_aux = pay.clone(), aux_like(pay)
-            a_pay, a_aux, a_nl, a_hl, a_hr = \
-                cuda_segment.partition_segment_hist(
-                    a_pay, a_aux, torch.tensor(s, **i32),
-                    torch.tensor(c, **i32), preds[name], lv, rv,
-                    cols["value"], nb, **hk)
-            torch.cuda.synchronize()
             b_pay, b_aux = pay.clone(), aux_like(pay)
             b_pay, b_aux, b_nl, b_hl, b_hr = seg.partition_segment_hist(
                 b_pay, b_aux, s, c, preds[name], lv, rv, cols["value"], nb,
                 **hk)
-            same_partition(what, (a_pay, a_aux, a_nl), (b_pay, b_aux, b_nl),
-                           s, c)
             nl = int(b_nl)
-            for got, plain, hs, hc in ((a_hl, b_hl, s, nl),
-                                       (a_hr, b_hr, s + nl, c - nl)):
-                check(torch.equal(got[..., 2], plain[..., 2]),
-                      "%s: count channel vs plain" % what)
-                err = max(err, hist_errors(b_pay, hs, hc, f, got, nb))
-            del a_pay, a_aux, b_pay, b_aux, a_hl, a_hr, b_hl, b_hr
+            for _ in range(WHOLE_REPEATS if (s, c) == (0, rows) else 1):
+                a_pay, a_aux = pay.clone(), aux_like(pay)
+                a_pay, a_aux, a_nl, a_hl, a_hr = \
+                    cuda_segment.partition_segment_hist(
+                        a_pay, a_aux, torch.tensor(s, **i32),
+                        torch.tensor(c, **i32), preds[name], lv, rv,
+                        cols["value"], nb, **hk)
+                torch.cuda.synchronize()
+                same_partition(what, (a_pay, a_aux, a_nl),
+                               (b_pay, b_aux, b_nl), s, c, full_aux=False)
+                for got, plain, hs, hc in ((a_hl, b_hl, s, nl),
+                                           (a_hr, b_hr, s + nl, c - nl)):
+                    check(torch.equal(got[..., 2], plain[..., 2]),
+                          "%s: count channel vs plain" % what)
+                    err = max(err, hist_errors(b_pay, hs, hc, f, got, nb))
+                del a_pay, a_aux, a_hl, a_hr
+            del b_pay, b_aux, b_hl, b_hr
         del pay
 
     # times on fresh rows at the main path's root (n rows, F = 28, P = 38),
@@ -703,6 +735,10 @@ def merged_kernel_phase(n: int, seed: int, dev) -> dict:
             cuda_segment.segment_histogram(pay, h_st, h_ct, num_bins=B, **hk)
 
         rec["b2_b1_ms" + suffix] = time_fresh_ms(b2_b1, pay, 0, rows, reps)
+    rec["breakdown_us"] = kernel_breakdown(
+        lambda: cuda_segment.partition_segment_hist(
+            pay, aux, start0, torch.tensor(n, **i32), pred, lv, rv,
+            COLS["value"], B, **hk), pay, 0, n)
     rec["plain_ms"] = time_fresh_ms(lambda: seg.partition_segment_hist(
         pay, aux, 0, n, pred, lv, rv, COLS["value"], B, **hk), pay, 0, n, 3)
     # yardstick, a composition (no one PyTorch call computes B6): a
@@ -740,6 +776,225 @@ def merged_kernel_phase(n: int, seed: int, dev) -> dict:
                max_abs_err=err,
                library="stable argsort + index_select + two index_add_")
     return rec
+
+
+# ---------------------------------------------------------------------------
+# phase: the segment sizes the grower really passes (B1, B6)
+# ---------------------------------------------------------------------------
+
+#: segment sizes at which B1, B6 and B1's yardstick are timed beside the
+#: root: the smaller children and the parents the main path's trees have
+#: (the census below) mostly hold a few thousand rows
+CENSUS_SIZES = (1024, 4096, 16384, 131072)
+
+
+def row_lanes(group_cols: int) -> int:
+    """Lanes a row takes in one warp-wide load of the histogram body
+    (csrc/segment_hist.cuh): its three values and its group's bins, in the
+    smallest power of two from 4."""
+    return next(w for w in (4, 8, 16, 32) if group_cols + 3 <= w or w == 32)
+
+
+def layout_sizes(grid: int, f: int, nb: int = B) -> list:
+    """Segment sizes that give each row layout of the histogram body at f
+    features on `grid` blocks, by cuda_segment.hist_work_split: for each
+    count of lanes a row takes, the fewest and the most chunks that give
+    it, the first size with a last chunk of 5 rows, the second 3 rows
+    short of whole chunks."""
+    cap = cuda_segment.hist_group_cap(nb)
+    r = cuda_segment.HIST_CHUNK_ROWS
+    first, last = {}, {}
+    for chunks in range(1, 2 * grid + 2):
+        lanes = row_lanes(cuda_segment.hist_work_split(
+            chunks * r, 0, grid, f, cap).group_cols)
+        first.setdefault(lanes, chunks)
+        last[lanes] = chunks
+    return sorted({(c - 1) * r + 5 for c in first.values()}
+                  | {c * r - 3 for c in last.values()})
+
+
+#: the counts, feature counts and grids at which the CUDA split is held to
+#: its Python form (those of tests/test_torch_hist_split.py and more)
+SPLIT_COUNTS = (0, 1, 37, 255, 256, 4095, 4096, 4097, 11_261, 131_072,
+                1_015_808)
+
+
+def census_check_phase(n: int, seed: int, dev) -> dict:
+    """The histogram split and kernels at the sizes the grower passes.
+    First the kernel's work split (`segment_hist_split` of the library,
+    hist_split of csrc/segment_hist.cuh) against cuda_segment's
+    hist_work_split at SPLIT_COUNTS, alone and as B6's two children, at
+    1, 28, 137 and 2,000 features on the card's grid and on a grid of 7.
+    Then, at every census size and at the sizes that give each row layout
+    at F = 28 on the card's grid (layout_sizes), each at row 0 and at row
+    777 of the main path's payload: B1 within hist_errors' bound with an
+    exact count, B4 bit for bit at the int8 grid, and B6 at the numerical
+    split held as merged_kernel_phase holds it (payload and num_left byte
+    for byte, aux untouched outside the segment, both children's counts
+    exact and grad / hess within B1's bound).  Raises at the first
+    failure; returns the sizes, the layouts and the largest error."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    lib = build.load("segment_hist")
+    split_c = lib.segment_hist_split
+    split_c.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    split_c.restype = ctypes.c_int
+    got = (ctypes.c_int * 4)()
+    sms = cuda_segment._sm_count(dev.index)
+    n_split = 0
+    for f in (1, F, 137, 2000):
+        cap = cuda_segment.hist_group_cap(B)
+        for grid in (cuda_segment.hist_grid(sms, f, cap),
+                     max(7, -(-f // cap))):
+            for c0 in SPLIT_COUNTS:
+                for c1 in (0, c0 // 3, 4097):
+                    split_c(c0, c1, grid, f, cap, ctypes.addressof(got))
+                    want = cuda_segment.hist_work_split(c0, c1, grid, f, cap)
+                    check(tuple(got) == tuple(want),
+                          "hist_split (%d, %d, grid %d, F %d): CUDA %s, "
+                          "Python %s" % (c0, c1, grid, f, tuple(got),
+                                         tuple(want)))
+                    n_split += 1
+
+    grid = cuda_segment.hist_grid(sms, F, cuda_segment.hist_group_cap(B))
+    sizes = sorted(set(CENSUS_SIZES) | set(layout_sizes(grid, F)))
+    pay = make_payload(n, F, P, seed, dev)
+    qpay = quantize_columns(pay, n, 127, seed + 127)
+    hk = dict(num_features=F, grad_col=COLS["grad"], hess_col=COLS["hess"],
+              cnt_col=COLS["cnt"])
+    pred = predicates(dev)["numerical"]
+    lv, rv = torch.tensor(-0.25, device=dev), torch.tensor(0.75, device=dev)
+    err = 0.0
+    layouts = {}
+    for rows in sizes:
+        layouts[rows] = row_lanes(cuda_segment.hist_work_split(
+            rows, 0, grid, F, cuda_segment.hist_group_cap(B)).group_cols)
+        for s in (0, 777):
+            st, ct = torch.tensor(s, **i32), torch.tensor(rows, **i32)
+            got = cuda_segment.segment_histogram(pay, st, ct, num_bins=B,
+                                                 **hk)
+            torch.cuda.synchronize()
+            err = max(err, hist_errors(pay, s, rows, F, got))
+            got = cuda_segment.segment_histogram_quant(qpay, st, ct,
+                                                       num_bins=B, **hk)
+            check(torch.equal(got, seg.segment_histogram(
+                qpay, s, rows, quantized=True, num_bins=B, **hk)),
+                "B4 differs from plain at (%d, %d)" % (s, rows))
+            what = "B6 at (%d, %d)" % (s, rows)
+            a = cuda_segment.partition_segment_hist(
+                pay.clone(), aux_like(pay), st, ct, pred, lv, rv,
+                COLS["value"], B, **hk)
+            torch.cuda.synchronize()
+            b = seg.partition_segment_hist(pay.clone(), aux_like(pay), s,
+                                           rows, pred, lv, rv, COLS["value"],
+                                           B, **hk)
+            same_partition(what, a[:3], b[:3], s, rows, full_aux=False)
+            nl = int(b[2])
+            for k, hs, hc in ((3, s, nl), (4, s + nl, rows - nl)):
+                check(torch.equal(a[k][..., 2], b[k][..., 2]),
+                      "%s: count channel vs plain" % what)
+                err = max(err, hist_errors(b[0], hs, hc, F, a[k]))
+            del a, b, got
+    return dict(split_cases=n_split, grid=grid, sizes=sizes,
+                lanes_by_size=layouts, max_abs_err=err)
+
+
+def sizes_phase(n: int, seed: int, dev, sizes=CENSUS_SIZES) -> dict:
+    """B1, B6 and B1's yardstick (one index_add_ of the segment's cells,
+    computed beforehand) on the first `rows` rows of the main path's
+    payload, for each of `sizes` and the root (n): device microseconds
+    per call from torch.profiler.  B1: its kernel alone (`b1_us`) and
+    every launch of its wrapper (`b1_call_us`: the segment's packing and
+    the zeroed output too); B6: its kernels on fresh rows at the numerical
+    split (~40 % left); each beside its byte bound.  It drives only the
+    wrappers, so it times a parent tree's kernels as well.  Returns
+    {rows: record}."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    pay = make_payload(n, F, P, seed, dev)
+    aux = torch.zeros_like(pay)
+    hk = dict(num_features=F, grad_col=COLS["grad"], hess_col=COLS["hess"],
+              cnt_col=COLS["cnt"])
+    pred = predicates(dev)["numerical"]
+    lv, rv = torch.tensor(-0.25, device=dev), torch.tensor(0.75, device=dev)
+    start0 = torch.zeros((), **i32)
+    out = {}
+    for rows in tuple(sizes) + (n,):
+        ct = torch.tensor(rows, **i32)
+
+        def b1():
+            cuda_segment.segment_histogram(pay, start0, ct, num_bins=B, **hk)
+
+        def b6():
+            cuda_segment.partition_segment_hist(pay, aux, start0, ct, pred,
+                                                lv, rv, COLS["value"], B,
+                                                **hk)
+
+        rec = dict(b1_us=sum(kernel_breakdown(b1, pay, 0, rows, 20)
+                             .values()),
+                   b1_call_us=all_kernels_us(b1))
+        b6_kernels = kernel_breakdown(b6, pay, 0, rows, 20)
+        rec.update(b6_us=sum(b6_kernels.values()), b6_breakdown_us=b6_kernels)
+        r = pay[:rows]
+        flat = (r[:, :F].long() + torch.arange(F, device=dev)[None, :] * B) \
+            .reshape(-1)
+        vals = torch.stack([r[:, COLS["grad"]], r[:, COLS["hess"]],
+                            r[:, COLS["cnt"]]], 1)[:, None, :] \
+            .expand(rows, F, 3).reshape(-1, 3).contiguous()
+        lib_out = torch.zeros(F * B, 3, device=dev)
+        rec["library_us"] = all_kernels_us(
+            lambda: lib_out.index_add_(0, flat, vals))
+        rec["b1_bound_us"] = bound(rows * (F + 3) * 4 + F * B * 12, 0)[0] * 1e3
+        rec["b6_bound_us"] = bound(2 * rows * P * 4 + 2 * F * B * 12,
+                                   0)[0] * 1e3
+        rec["b1_loses_to_library"] = rec["b1_us"] > rec["library_us"]
+        out[rows] = rec
+        del flat, vals, lib_out
+    return out
+
+
+def census(trees) -> tuple:
+    """The segment sizes of B1's and B6's calls in a one-leaf model (no
+    bagging, so a node's count is its rows): B1 on each tree's root and on
+    each split's smaller child (the main path), B6 on each split's parent
+    (the merged path).  Returns (b1 sizes, b6 sizes)."""
+    b1, b6 = [], []
+    for t in trees:
+        ni = t.num_leaves - 1
+        b1.append(int(t.internal_count[0] if ni else t.leaf_count[0]))
+        for node in range(ni):
+            kids = [int(t.internal_count[ch]) if ch >= 0
+                    else int(t.leaf_count[~ch])
+                    for ch in (t.left_child[node], t.right_child[node])]
+            b1.append(min(kids))
+            b6.append(int(t.internal_count[node]))
+    return b1, b6
+
+
+def census_line(trees) -> tuple:
+    """The census of the main path's final model: per kernel the calls,
+    rows, the distribution over sizes (calls with at most 1k, 4k, 16k,
+    128k rows and more) and the byte bound per iteration (one tree) at
+    3.35 TB/s (B1: rows * (F + 3) * 4 + F * B * 12 bytes a call; B6:
+    2 * rows * P * 4 + 2 * F * B * 12).  Returns (line, {kernel: bound ms
+    per iteration})."""
+    b1, b6 = census(trees)
+    out, bounds = {}, {}
+    for name, sizes, per_row, per_call in (
+            ("segment_histogram", b1, (F + 3) * 4, F * B * 12),
+            ("partition_segment_hist", b6, 2 * P * 4, 2 * F * B * 12)):
+        a = np.asarray(sizes)
+        edges = (1024, 4096, 16384, 131072)
+        buckets = np.searchsorted(np.asarray(edges), a, side="left")
+        bounds[name] = bound(float((a * per_row + per_call).sum())
+                             / len(trees), 0)[0]
+        out[name] = dict(
+            calls=int(a.size), rows=int(a.sum()), median=float(np.median(a)),
+            max=int(a.max()), calls_by_size={
+                lbl: int((buckets == k).sum()) for k, lbl in enumerate(
+                    ("<=1k", "<=4k", "<=16k", "<=128k", ">128k"))},
+            bound_ms_per_iter=bounds[name])
+    return ("census: segment sizes of B1 (root + each split's smaller "
+            "child) and B6 (each split's parent) in the main path's %d "
+            "trees: %s" % (len(trees), json.dumps(out))), bounds
 
 
 # ---------------------------------------------------------------------------
@@ -784,10 +1039,12 @@ def aux_like(pay: torch.Tensor) -> torch.Tensor:
 
 def whole_partition(fn) -> bool:
     """True for the whole partitions with the Pallas kernels' contract
-    (B2 whole, B3, B8): aux over the segment is scratch."""
+    (B2 whole, B3, B8, and B6's partition): aux over the segment is
+    scratch."""
     return fn in (cuda_segment.partition_segment,
                   cuda_segment.partition_segment_rmw,
-                  cuda_segment.partition_segment_blocks)
+                  cuda_segment.partition_segment_blocks,
+                  cuda_segment.partition_segment_hist)
 
 
 def partition_equal(fns, pay, pred, s: int, c: int, vcol: int,
@@ -1287,6 +1544,82 @@ def checked_partition_phase(data, rows: int, iters: int) -> str:
                           auc))
 
 
+def first_difference(a: str, b: str) -> str:
+    """Where two model texts first differ: the tree, the key of the line
+    and the node (the first differing entry of that line's array); the
+    header's tree_sizes differ whenever a tree does, so trees come
+    first."""
+    parts_a, parts_b = a.split("Tree="), b.split("Tree=")
+    for k, (ta, tb) in enumerate(zip(parts_a[1:] + parts_a[:1],
+                                     parts_b[1:] + parts_b[:1])):
+        if ta == tb:
+            continue
+        where = "tree %d" % k if k < len(parts_a) - 1 else "the header"
+        for la, lb in zip(ta.splitlines(), tb.splitlines()):
+            if la != lb:
+                key, va = la.split("=", 1) if "=" in la else (la, "")
+                vb = lb.split("=", 1)[1] if "=" in lb else ""
+                node = next((i for i, (x, y) in enumerate(zip(
+                    va.split(), vb.split())) if x != y), None)
+                return "%s, %s, entry %s" % (where, key, node)
+        return where
+    return "the text lengths"
+
+
+def repeat_phase(data, rows: int, iters: int) -> str:
+    """Queue C's first step: the main path trained twice more in this
+    call, from the same binned data and parameters, every B1 histogram
+    recorded; the two model texts compared.  Where they differ, the line
+    names the first tree and node that differ and the first B1 call whose
+    histogram differs, with its segment and a few differing cells from
+    both runs.  It records; it fails nothing.  Its launches are not
+    counted against any path."""
+    ds, Xv, yv = data
+    whole = cuda_segment.segment_histogram
+    runs = []
+    for _ in range(2):
+        calls = []
+
+        def recorded(payload, start, count, **kw):
+            out = whole(payload, start, count, **kw)
+            calls.append((torch.as_tensor(start).clone(),
+                          torch.as_tensor(count).clone(), out.clone()))
+            return out
+
+        recorded.launches = 0
+        cuda_segment.segment_histogram = recorded
+        try:
+            bst = lt.train(train_params(255), ds, iters, verbose_eval=False)
+        finally:
+            cuda_segment.segment_histogram = whole
+        runs.append((bst.model_to_string(), calls,
+                     auc_score(yv, bst.predict(Xv))))
+    (text_a, calls_a, auc_a), (text_b, calls_b, auc_b) = runs
+    same = text_a == text_b
+    line = ("repeat: the main path trained twice more (%dx%d, %d iters): "
+            "model text identical %s, AUC %.6f / %.6f, %d / %d B1 calls"
+            % (rows, F, iters, same, auc_a, auc_b, len(calls_a),
+               len(calls_b)))
+    diff = next((i for i, (a, b) in enumerate(zip(calls_a, calls_b))
+                 if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                         and torch.equal(a[2].view(torch.int32),
+                                         b[2].view(torch.int32)))), None)
+    if diff is None:
+        return line + "; every recorded B1 histogram bit-identical"
+    (sa, ca, ha), (sb, cb, hb) = calls_a[diff], calls_b[diff]
+    cells = torch.nonzero(ha.view(torch.int32) != hb.view(torch.int32))
+    shown = [[int(f), int(b), int(ch), float(ha[f, b, ch]),
+              float(hb[f, b, ch])] for f, b, ch in cells[:6].tolist()]
+    return line + ("; models first differ at %s; the first B1 histogram "
+                   "that differs is call %d (segment (%d, %d) / (%d, %d)), "
+                   "%d cells differ, max |diff| %.3g; [feature, bin, "
+                   "channel, run 1, run 2]: %s"
+                   % (first_difference(text_a, text_b) if not same
+                      else "nowhere", diff, int(sa), int(ca), int(sb),
+                      int(cb), cells.shape[0],
+                      float((ha - hb).abs().max()), json.dumps(shown)))
+
+
 #: B3's kernels before its in-place redesign, which no path may launch
 RETIRED_WIDE = ("rmw_scatter", "flat_copyback", "write_values")
 #: the partition wrappers the merged mode retires
@@ -1295,44 +1628,54 @@ SPLIT_PARTITIONS = ("partition_segment", "partition_segment_stage",
                     "partition_segment_blocks")
 
 
+def merged_path_phase(data, f32: dict, rows: int, iters: int) -> dict:
+    """The grower's merged mode at full width, on the main path's params
+    and data: with cuda_segment.PARTITION_HIST_VALIDATED set in-process
+    (as bench.py sets the JAX package's flag after its probe), every split
+    runs B6 and nothing else of the partition, B1 runs once per tree (the
+    root), and the first split is the f32 main path's, within 0.002 of
+    its AUC; profiled like the main path.  Prints its lines; returns its
+    result."""
+    ds, Xv, yv = data
+    cuda_segment.PARTITION_HIST_VALIDATED = True
+    try:
+        r = train_path("merged", ds, Xv, yv, train_params(255), iters)
+        n = r["launches"]
+        g = r["bst"]._engine.grower
+        engines = (g.hist_engine, g.part_engine)
+        check(engines == ("partition_segment_hist",) * 2,
+              "merged path took %s" % (engines,))
+        check(n["partition_segment_hist"] == r["splits"],
+              "merged path: B6 launched %d times for %d splits"
+              % (n["partition_segment_hist"], r["splits"]))
+        check(not any(n[k] for k in SPLIT_PARTITIONS),
+              "merged path launched a partition kernel: %s"
+              % {k: n[k] for k in SPLIT_PARTITIONS})
+        check(n["segment_histogram"] == iters,
+              "merged path: B1 launched %d times for %d trees"
+              % (n["segment_histogram"], iters))
+        check(r["first_split"] == f32["first_split"],
+              "merged path: first split %s vs %s on the f32 main path"
+              % (r["first_split"], f32["first_split"]))
+        note = (", first split %s as on the f32 main path"
+                % (r["first_split"],))
+        say(path_line(r, rows, iters, note + auc_note(r, f32)))
+        say(profile_phase(r["bst"], "merged"))
+    finally:
+        cuda_segment.PARTITION_HIST_VALIDATED = False
+    del r["bst"]
+    return r
+
+
 def histogram_mode_phases(data, f32: dict, rows: int, iters: int) -> dict:
     """The grower's two other histogram modes at full width, on the main
-    path's params and data.  Merged: with
-    cuda_segment.PARTITION_HIST_VALIDATED set in-process once the kernels
-    phase has held B6 (as bench.py sets the JAX package's flag after its
-    probe), every split runs B6 and nothing else of the partition, B1
-    runs once per tree (the root), and the first split is the f32 main
-    path's; profiled like the main path.  Pooled: histogram_pool_size=2
-    (MB) leaves a few dozen slots for 255 leaves, so evicted parents are
-    rebuilt by B1 from their rows.  Both within 0.002 of the main path's
-    AUC.  Prints one line per path; returns the results by name."""
+    path's params and data: merged_path_phase, then pooled:
+    histogram_pool_size=2 (MB) leaves a few dozen slots for 255 leaves, so
+    evicted parents are rebuilt by B1 from their rows, within 0.002 of the
+    main path's AUC.  Prints one line per path; returns the results by
+    name."""
     ds, Xv, yv = data
-    runs = {}
-    cuda_segment.PARTITION_HIST_VALIDATED = True
-    r = train_path("merged", ds, Xv, yv, train_params(255), iters)
-    n = r["launches"]
-    g = r["bst"]._engine.grower
-    check((g.hist_engine, g.part_engine) == ("partition_segment_hist",) * 2,
-          "merged path took %s" % ((g.hist_engine, g.part_engine),))
-    check(n["partition_segment_hist"] == r["splits"],
-          "merged path: B6 launched %d times for %d splits"
-          % (n["partition_segment_hist"], r["splits"]))
-    check(not any(n[k] for k in SPLIT_PARTITIONS),
-          "merged path launched a partition kernel: %s"
-          % {k: n[k] for k in SPLIT_PARTITIONS})
-    check(n["segment_histogram"] == iters,
-          "merged path: B1 launched %d times for %d trees"
-          % (n["segment_histogram"], iters))
-    check(r["first_split"] == f32["first_split"],
-          "merged path: first split %s vs %s on the f32 main path"
-          % (r["first_split"], f32["first_split"]))
-    note = ", first split %s as on the f32 main path" % (r["first_split"],)
-    say(path_line(r, rows, iters, note + auc_note(r, f32)))
-    say(profile_phase(r["bst"], "merged"))
-    cuda_segment.PARTITION_HIST_VALIDATED = False
-    runs["merged"] = r
-    del r["bst"]
-
+    runs = {"merged": merged_path_phase(data, f32, rows, iters)}
     r = train_path("pooled", ds, Xv, yv,
                    train_params(255, histogram_pool_size=2), iters)
     n = r["launches"]
@@ -1359,22 +1702,32 @@ def auc_note(r: dict, f32: dict) -> str:
     return ", |dAUC| vs f32 main path %.6f" % d_auc
 
 
-def quantized_phases(data, f32: dict, rows: int, iters: int) -> dict:
-    """The new paths at full width: int8 and int16 quantized gradients,
-    f32 with tpu_frontier_batch=8, and int8 with tpu_frontier_batch=8.
-    Prints one line per path (and a profile of the int8 and frontier
-    paths) as it goes; returns the results by name."""
+#: the quantized and frontier paths, by name
+QUANT_PATHS = {
+    "quantized int8": dict(gradient_quantization=True,
+                           gradient_quant_dtype="int8"),
+    "quantized int16": dict(gradient_quantization=True,
+                            gradient_quant_dtype="int16"),
+    "frontier 8": dict(tpu_frontier_batch=8),
+    "quantized int8 + frontier 8": dict(
+        gradient_quantization=True, gradient_quant_dtype="int8",
+        tpu_frontier_batch=8)}
+#: the quantized and frontier paths that are profiled
+QUANT_PROFILED = ("quantized int8", "frontier 8",
+                  "quantized int8 + frontier 8")
+
+
+def quantized_phases(data, f32: dict, rows: int, iters: int,
+                     names=tuple(QUANT_PATHS)) -> dict:
+    """The paths of QUANT_PATHS named in `names`, at full width: int8 and
+    int16 quantized gradients, f32 with tpu_frontier_batch=8, and int8
+    with tpu_frontier_batch=8 (whose model text must be the int8 path's,
+    when that ran too).  Prints one line per path (and a profile of those
+    in QUANT_PROFILED) as it goes; returns the results by name."""
     ds, Xv, yv = data
     runs = {}
-    for name, extra in (
-            ("quantized int8", dict(gradient_quantization=True,
-                                    gradient_quant_dtype="int8")),
-            ("quantized int16", dict(gradient_quantization=True,
-                                     gradient_quant_dtype="int16")),
-            ("frontier 8", dict(tpu_frontier_batch=8)),
-            ("quantized int8 + frontier 8", dict(
-                gradient_quantization=True, gradient_quant_dtype="int8",
-                tpu_frontier_batch=8))):
+    for name in names:
+        extra = QUANT_PATHS[name]
         r = train_path(name, ds, Xv, yv, train_params(255, **extra), iters)
         runs[name] = r
         n = r["launches"]
@@ -1396,7 +1749,7 @@ def quantized_phases(data, f32: dict, rows: int, iters: int) -> dict:
             check(r["rounds_per_tree"] < r["splits_per_tree"],
                   "%s: %.2f rounds/tree not below %.2f splits/tree"
                   % (name, r["rounds_per_tree"], r["splits_per_tree"]))
-        if name == "quantized int8 + frontier 8":
+        if name == "quantized int8 + frontier 8" and "quantized int8" in runs:
             # integer histograms: the trees must be those of the one-leaf
             # loop, node for node
             ref = runs["quantized int8"]
@@ -1408,7 +1761,7 @@ def quantized_phases(data, f32: dict, rows: int, iters: int) -> dict:
                   "loop's, first at tree %s" % first)
             note += ", model text identical to quantized int8: %s" % same
         say(path_line(r, rows, iters, note))
-        if name in ("quantized int8", "frontier 8"):
+        if name in QUANT_PROFILED:
             say(profile_phase(r["bst"], name))
         del r["bst"]
     return runs
@@ -1583,14 +1936,19 @@ def wide_path_phase(f: int, rows: int, iters: int, seed: int, dev) -> tuple:
     return line, dict(bst=bst, launches=launches, ds=ds, dv=dv)
 
 
+#: each profiled path's ported kernels, {label: {group: [launches, ms]}}
+PROFILED = {}
+
+
 def profile_phase(bst, label: str, launched=(), retired=()) -> str:
     """Two more boosting iterations of a trained booster: one timed
     on the host clock alone, then one under torch.profiler.  Prints both
     walls, the profiled iteration's summed kernel time, the device's idle
     share against each wall (the unprofiled one is the reading; the
     profiler slows the host), the ported kernels' launches and device
-    time, the wrappers' calls and each partition's device time per call,
-    and the kernels that take the most device time.  Raises unless a
+    time (kept in PROFILED), the wrappers' calls and each histogram's and
+    partition's device time per call, and the kernels that take the most
+    device time.  Raises unless a
     kernel named by each of `launched` ran and none named by `retired`
     did.  Only device activity is recorded: with the ~90k host ops of an
     iteration recorded too, reading the profile took over a minute."""
@@ -1620,35 +1978,44 @@ def profile_phase(bst, label: str, launched=(), retired=()) -> str:
               "profile (%s): a %s kernel ran" % (label, name))
     # the histogram kernels share one template: <float> serves B1 and the
     # f32 B5, <int> B4 and the int32 B5; B3 and B8 share their routing.
-    # "partition" is B2's kernels (whole, or the stage and commit), and
-    # B6's on the merged path
+    # "partition" is B2's kernels (whole, or the stage and commit)
     ported = {}
     for prefixes, name in (
             (("segment_hist_kernel<float>",), "histogram f32"),
             (("segment_hist_kernel<int>",), "histogram int32"),
             (("hist_colblock",), "histogram colblock"),
             (("part_",), "partition"),
-            (("part_hist_scatter",), "partition + histogram scatter"),
+            (("phist_",), "partition + histogram"),
             (("rmw_",), "partition rmw"),
             (("route_", "block_move", "wide_copy_side"), "partition blocks")):
         hits = [e for e in kernels if any(p in e.key for p in prefixes)]
         ported[name] = [sum(e.count for e in hits),
                         round(sum(e.self_device_time_total
                                   for e in hits) / 1e3, 4)]
-    # device microseconds per call of the whole partition wrappers
+    PROFILED[label] = ported
+    # device microseconds per call: where one wrapper of a family (the
+    # histograms, the partitions) ran, the family's kernels are its, by
+    # whatever names they have
     per_call = {}
-    for wrapper, group in (("partition_segment", "partition"),
-                           ("partition_segment_rmw", "partition rmw"),
-                           ("partition_segment_blocks", "partition blocks")):
-        if calls.get(wrapper):
-            per_call[wrapper] = round(ported[group][1] * 1e3
-                                      / calls[wrapper], 3)
+    for family, groups in (
+            (("segment_histogram", "segment_histogram_quant",
+              "segment_histogram_colblock", "segment_histogram_batched"),
+             ("histogram f32", "histogram int32", "histogram colblock")),
+            (("partition_segment", "partition_segment_stage",
+              "partition_segment_commit", "partition_segment_hist",
+              "partition_segment_rmw", "partition_segment_blocks"),
+             ("partition", "partition + histogram", "partition rmw",
+              "partition blocks"))):
+        ran = [w for w in family if calls.get(w)]
+        if len(ran) == 1:
+            per_call[ran[0]] = round(sum(ported[g][1] for g in groups)
+                                     * 1e3 / calls[ran[0]], 3)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     return ("profile (%s): one iteration %.4f s wall unprofiled, %.4f s "
             "wall profiled, %.4f s summed kernel time (profiled), device idle "
             "share %.4f against the unprofiled wall (%.4f against the "
             "profiled), %d kernel launches; ported kernels [launches, ms]: "
-            "%s; wrapper calls %s; partition device us per call %s; top "
+            "%s; wrapper calls %s; device us per call %s; top "
             "[name, launches, ms]: %s"
             % (label, wall, wall_prof, busy, 1.0 - busy / wall,
                1.0 - busy / wall_prof, sum(e.count for e in kernels),
@@ -1656,6 +2023,43 @@ def profile_phase(bst, label: str, launched=(), retired=()) -> str:
                json.dumps([[e.key[:60], e.count,
                             round(e.self_device_time_total / 1e3, 4)]
                            for e in top])))
+
+
+def merged_pays_line(census_bounds: dict) -> str:
+    """From the main and merged paths' profiles: B1's and B6's device ms
+    per iteration beside the census's byte bounds per iteration, and
+    whether the merged path's B6 takes less device time per iteration
+    than the main path's B1 + B2 (which it replaces, with the
+    subtraction)."""
+    main, merged = PROFILED["main path"], PROFILED["merged"]
+    b1_b2 = main["histogram f32"][1] + main["partition"][1]
+    b6 = merged["partition + histogram"][1]
+    return ("merged vs main: B6 %.4f ms/iter on the merged path (census "
+            "bound %.4f), B1 %.4f + B2 %.4f = %.4f ms/iter on the main path "
+            "(B1's census bound %.4f); B6 below B1 + B2: %s"
+            % (b6, census_bounds["partition_segment_hist"],
+               main["histogram f32"][1], main["partition"][1], b1_b2,
+               census_bounds["segment_histogram"], b6 < b1_b2))
+
+
+def compare_phase(rows: int, iters: int, seed: int) -> None:
+    """The readings that compare two trees in one call, main()'s own
+    phases: sizes_phase, then the main path, the merged path and the int8
+    + frontier path trained and profiled (B1, B2; B6; B4 and B5's int32
+    instance).  It drives only the port's public wrappers and entry
+    points, so this file run beside a parent tree's package times the
+    parent's kernels; chip_compare.py runs it in each tree in turn."""
+    dev = torch.device("cuda", 0)
+    build.build_all()
+    say("compare: %s" % nvidia_smi())
+    say("sizes: %s" % json.dumps(sizes_phase(1_015_808, seed, dev)))
+    line, f32, data = main_path_phase(rows, iters, seed)
+    say(line)
+    say(profile_phase(f32["bst"], "main path"))
+    del f32["bst"]
+    merged_path_phase(data, f32, rows, iters)
+    quantized_phases(data, f32, rows, iters,
+                     names=("quantized int8 + frontier 8",))
 
 
 def main() -> int:
@@ -1701,6 +2105,19 @@ def main() -> int:
         "predicate kind at n=1015808, F=28, B=256 and n=200000, F=137, "
         "B=64; timed on the root and on %d rows beside B2 + B1 on the "
         "smaller child: %s" % (WIDE_SEGMENT_ROWS, json.dumps(merged)))
+    say("census sizes: the kernel's work split held to "
+        "cuda_segment.hist_work_split, and B1, B4 and B6 held to their "
+        "plain versions at the census sizes and at each row layout's: %s"
+        % json.dumps(census_check_phase(1_015_808, args.seed, dev)))
+    sizes = sizes_phase(1_015_808, args.seed, dev)
+    say("sizes: B1, B6 and B1's index_add_ yardstick, device us per call "
+        "at %s rows and the root (%s): %s"
+        % (CENSUS_SIZES, smi, json.dumps(sizes)))
+    for key, fields in (("segment_histogram", ("b1_us", "b1_call_us",
+                                               "library_us", "b1_bound_us")),
+                        ("partition_segment_hist", ("b6_us", "b6_bound_us"))):
+        kernels[key]["by_size_us"] = {rows: {k: rec[k] for k in fields}
+                                      for rows, rec in sizes.items()}
     wide = wide_kernels_phase(args.seed, dev)
     say("wide kernels: B7, B3, B8 (and B1, B2, stage + commit, B4, B5) "
         "checked against the plain versions on %d rows, timed with B1 and "
@@ -1720,9 +2137,19 @@ def main() -> int:
     say(profile_phase(main_run["bst"], "main path",
                       launched=("part_move", "part_copy_side"),
                       retired=("part_scatter", "part_copyback")))
+    line, census_bounds = census_line(main_run["bst"]._model.trees)
+    say(line)
     del main_run["bst"]
     say(checked_partition_phase(data, args.rows, 3))
+    say(repeat_phase(data, args.rows, args.iters))
     runs = histogram_mode_phases(data, main_run, args.rows, args.iters)
+    say(merged_pays_line(census_bounds))
+    for key, path, group in (
+            ("segment_histogram", "main path", "histogram f32"),
+            ("partition_segment_hist", "merged", "partition + histogram")):
+        kernels[key].update(
+            census_bound_ms_per_iter=census_bounds[key],
+            profile_ms_per_iter=PROFILED[path][group][1])
     runs.update(quantized_phases(data, main_run, args.rows, args.iters))
     del data
     # each kernel's launches are read from the path it serves; every

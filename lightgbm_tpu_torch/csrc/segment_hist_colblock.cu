@@ -53,6 +53,8 @@
 #include <cuda_runtime.h>
 #include <string.h>
 
+#include "segment_hist.cuh"  // add_pair
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -64,7 +66,7 @@ constexpr int kBlocksPerSm = 2;
 constexpr int kMaxSmemBytes = 110 * 1024;        // a block's, two per SM
 // rows a block should have before one more block joins a segment: tiles
 // of one block run one after another, so a small segment is spread over
-// more blocks than in B1 (4096)
+// several blocks
 constexpr int kMinRowsPerBlock = 1024;
 constexpr unsigned short kNoBin = 0xFFFF;
 
@@ -87,23 +89,6 @@ __device__ __forceinline__ bool try_add_pair(float2* cell, float g, float h) {
   unsigned long long next;
   memcpy(&next, &v, sizeof(next));
   return atomicCAS(p, old, next) == old;
-}
-
-// *cell += (g, h) with one 64-bit compare-and-swap loop
-__device__ __forceinline__ void add_pair(float2* cell, float g, float h) {
-  unsigned long long* p = reinterpret_cast<unsigned long long*>(cell);
-  unsigned long long old = *p;
-  unsigned long long assumed;
-  do {
-    assumed = old;
-    float2 v;
-    memcpy(&v, &assumed, sizeof(v));
-    v.x += g;
-    v.y += h;
-    unsigned long long next;
-    memcpy(&next, &v, sizeof(next));
-    old = atomicCAS(p, assumed, next);
-  } while (old != assumed);
 }
 
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)

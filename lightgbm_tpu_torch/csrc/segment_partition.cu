@@ -62,9 +62,8 @@
 //      aux: lefts to start + offset, rights to start + num_left + offset;
 //   4. part_copyback: aux -> payload over the segment, with the leaf value
 //      written into value_col.
-// Kernels 1, 2 and 4 and the ranking of 3 live in segment_partition.cuh,
-// which the merged partition + histogram (segment_partition_hist.cu)
-// shares; their grids are sized for the largest possible segment.
+// Kernels 1, 2 and 4 and the ranking of 3 live in segment_partition.cuh;
+// their grids are sized for the largest possible segment.
 // None of the TPU kernel's machinery (8-row aligned windows, one-hot
 // permutation matmuls, the accumulator rings) carries over.
 

@@ -1,7 +1,8 @@
-// The pieces of the stable segment partition that B2
-// (segment_partition.cu) and the merged partition + histogram B6
-// (segment_partition_hist.cu) share: the predicate, the per-tile left
-// counts, their scan, each row's stable destination, and the copy-back.
+// The pieces of the stable segment partition that B2's stage and commit
+// (segment_partition.cu) run: the predicate, the per-tile left counts,
+// their scan, each row's stable destination, and the copy-back; the
+// predicate, the block scan and the tile scan serve the in-place
+// partitions too (segment_partition_inplace.cuh: B2, B3, B6, B8).
 // The predicate follows _go_left_rows (lightgbm_tpu/ops/pallas_segment.py
 // :282-316) and ops/bundle.decode_bin exactly: numerical threshold, NaN-
 // and zero-missing with default_left, categorical bitset, EFB offset /

@@ -4,206 +4,193 @@
 // Replaces the TPU kernel lightgbm_tpu/ops/pallas_segment.py
 // partition_segment_hist -> _acc_kernel(hist_cfg=...) (B6), with its
 // contract: B2's stable partition of payload rows [start, start + count)
-// by the split predicate (left rows first, the partitioned rows left in
-// aux over the same range, copied back into payload with left_value /
-// right_value in value_col, num_left reported on the device), plus the
+// by the split predicate (left rows first, left_value / right_value
+// written into value_col, num_left reported on the device; aux over the
+// segment is scratch and nothing outside the segment is written), plus the
 // two children's [F, B, 3] f32 histograms of (grad, hess, count mask),
-// taken from the same read of the parent's rows.  The grower's merged
-// mode calls it once per split in place of B2 + B1 on the smaller child
-// + the subtraction, so no parent histogram or pool is kept.
+// the mask holding small integers (0 or 1 in the grower), summed exactly.
+// The grower's merged mode calls it once per split in place of B2 + B1 on
+// the smaller child + the subtraction, so no parent histogram or pool is
+// kept.
 //
 // What bounds it on this card: every row of the segment is read once and
 // written once (2 * count * P * 4 bytes) and the two histograms are
 // written once (2 * F * B * 12 bytes), against HBM at 3.35 TB/s.  The F
-// shared-memory updates per row come next: sm_90 has no native f32 add on
-// shared memory, so, as in B7, (grad, hess) is one 64-bit compare-and-swap
-// and the count an int32 with the native atomic add (exact; converted
-// to f32 when the block flushes).
+// shared-memory updates per row come next.
 //
-// Design: B2's stage and commit (segment_partition.cuh) with the scatter
-// widened into the histogram pass.
-//   1. part_count: the tile counts, after the blocks have zeroed the two
-//      output histograms (no separate launch clears them);
-//   2. part_scan: the tile offsets and num_left;
-//   3. part_hist_scatter: a 2-D grid of row blocks (x) by feature tiles
-//      of Ft columns (y).  Both children's histograms at the main path's
-//      shape are 2 * 28 * 255 * 12 B = 171 KB, past the shared memory of a
-//      block that leaves room for two per SM, so the features are tiled:
-//      each block keeps the left and right histograms of its Ft features
-//      in shared memory.  It walks its 1024-row tiles (grid-stride over
-//      x), ranks each tile's rows as B2 does, and moves its own columns of
-//      those rows into aux (the last feature tile also moves the value
-//      columns, so every column moves once); each bin value it moves is
-//      added into the left or the right histogram by the side of its row
-//      (its destination against start + num_left).  After its tiles it
-//      adds its non-zero cells into the zeroed output with global atomics;
-//   4. part_copyback: B2's commit, aux -> payload with the leaf values.
-// Rows move as raw 32-bit copies, so payload, aux and num_left are
-// byte-identical to B2's (and the plain version's); the count channel is
-// exact, grad / hess agree with the plain sums to f32 summation order
-// (atomics make that order vary from run to run).  Like B1, a block of x
-// whose share of a small segment would be empty exits at once.
+// Design: B2's in-place partition (segment_partition_inplace.cuh), then
+// both histograms, in four launches:
+//   1. phist_count: the left rows of each T-row tile (T as B2's, 192 rows
+//      at P = 38), after the blocks have zeroed the two output histograms;
+//      it also clears the move's ticket and flags;
+//   2. phist_scan: the tile offsets and num_left;
+//   3. phist_move: B2's move: the larger side compacted in place, the
+//      smaller side into aux at the rows it will hold, leaf values
+//      written on the way;
+//   4. phist_side_hist: the first blocks copy the smaller side's one
+//      contiguous range aux -> payload; the others build both children's
+//      histograms with B1's body (segment_hist.cuh) over two segments, the
+//      left child's rows then the right's, each read where the move left
+//      it (the larger side in the payload, the smaller side in aux, which
+//      the copy only reads).
+// Why the histograms are not taken from the move's staged tiles: both
+// children's histograms at the main path's shape take 2 * 28 * 257 * 12 B
+// = 172 KB of shared memory, which leaves no room for the move's two
+// staging buffers in one block, and at 137 features they would not fit
+// at all; splitting features across blocks, as B8 splits columns, makes
+// every group rank its tiles and move its columns in strided spans under
+// its own flags (B8 reads 1.9x its bound that way).  Reading the
+// histograms' F + 3 columns once more after the move costs count * (F + 3)
+// * 4 bytes, and in exchange the histogram spreads a small split over the
+// whole card as B1 does.
+// Rows move as raw 32-bit copies, so payload and num_left are
+// byte-identical to the plain version; the count channels are exact,
+// grad / hess agree with the plain sums to f32 summation order (atomics
+// make that order vary from run to run).
 // None of the TPU kernel's machinery (one-hot matmuls, the bf16 part
 // split, the VMEM accumulator rings) carries over.
 
-#include <string.h>
-
-#include "segment_partition.cuh"
+#include "segment_hist.cuh"
+#include "segment_partition_inplace.cuh"
 
 namespace {
 
-// rows a block of x should have before one more joins a segment (B1's)
-constexpr int kMinRowsPerBlock = 4096;
+constexpr int kCountThreads = 256;
+constexpr int kMoveThreads = 512;
+constexpr int kStageBytes = 32 * 1024;  // B2's: one tile, one of two buffers
 
-// *cell += (g, h) with one 64-bit compare-and-swap loop
-__device__ __forceinline__ void add_pair(float2* cell, float g, float h) {
-  unsigned long long* p = reinterpret_cast<unsigned long long*>(cell);
-  unsigned long long old = *p;
-  unsigned long long assumed;
-  do {
-    assumed = old;
-    float2 v;
-    memcpy(&v, &assumed, sizeof(v));
-    v.x += g;
-    v.y += h;
-    unsigned long long next;
-    memcpy(&next, &v, sizeof(next));
-    old = atomicCAS(p, assumed, next);
-  } while (old != assumed);
+int tile_rows(int P) { return move_tile_rows(P, kStageBytes); }
+
+// B2's count, after zeroing zero[0, n_zero) (both histograms)
+__global__ void __launch_bounds__(kCountThreads)
+phist_count(const float* __restrict__ payload, int P,
+            const int* __restrict__ sc,
+            const unsigned char* __restrict__ bitset, int B, int T,
+            int* __restrict__ tile_left, int* __restrict__ sync,
+            float* __restrict__ zero, int n_zero) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_zero;
+       i += gridDim.x * blockDim.x) {
+    zero[i] = 0.f;
+  }
+  count_tiles(payload, P, sc, bitset, B, T, tile_left, sync);
 }
 
-// hist: [2, F, Bh, 3] f32 (left, then right), zeroed by part_count
 __global__ void __launch_bounds__(kTile)
-part_hist_scatter(const float* __restrict__ payload, float* __restrict__ aux,
-                  int P, const int* __restrict__ sc,
-                  const unsigned char* __restrict__ bitset, int B,
-                  const int* __restrict__ tile_off,
-                  const int* __restrict__ num_left, float* __restrict__ hist,
-                  int F, int Bh, int Ft, int grad_col, int hess_col,
-                  int cnt_col) {
+phist_scan(const int* __restrict__ sc, int T,
+           const int* __restrict__ tile_left, int* __restrict__ tile_off,
+           int* __restrict__ num_left) {
+  scan_tile_counts((sc[kCount] + T - 1) / T, tile_left, tile_off, num_left);
+}
+
+__global__ void __launch_bounds__(kMoveThreads)
+phist_move(float* payload, float* aux, int P, const int* __restrict__ sc,
+           const unsigned char* __restrict__ bitset, int B, int T,
+           const int* __restrict__ tile_left,
+           const int* __restrict__ tile_off,
+           const int* __restrict__ num_left, const float* __restrict__ fvals,
+           int value_col, int* sync) {
+  move_tiles(payload, aux, P, sc, bitset, B, T, tile_left, tile_off,
+             num_left, fvals, value_col, sync);
+}
+
+// Blocks [0, copy_blocks) copy the smaller side aux -> payload; the rest
+// build the histograms: hist = [2, F, Bh, 3] (left, then right).  The
+// payload is written here (the smaller side's rows) while the larger
+// side's rows are read, so neither pointer is restricted.
+__global__ void __launch_bounds__(kHistThreads, 2)
+phist_side_hist(float* payload, const float* aux, int P,
+                const int* __restrict__ sc, const int* __restrict__ num_left,
+                float* __restrict__ hist, int F, int Bh, int cap,
+                int grad_col, int hess_col, int cnt_col, int copy_blocks) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int warp_left[32];
-  // the feature stride of Bh + 1 cells keeps the lanes of a warp, which
-  // add one row's consecutive features, in different banks
-  const int fstride = Bh + 1;
-  const int ncell = 2 * Ft * fstride;
-  float2* gh = reinterpret_cast<float2*>(smem);           // [2, Ft, fstride]
-  int* cnt = reinterpret_cast<int*>(gh + ncell);          // [2, Ft, fstride]
-  float* vals = reinterpret_cast<float*>(cnt + ncell);    // [kTile, 3]
-  int* dest = reinterpret_cast<int*>(vals + 3 * kTile);   // [kTile]
-
-  const int start = sc[kStart];
   const int count = sc[kCount];
-  const int want = (count + kMinRowsPerBlock - 1) / kMinRowsPerBlock;
-  if (static_cast<int>(blockIdx.x) >= want) return;  // uniform per block
-  const int nblk = min(want, static_cast<int>(gridDim.x));
-  const int ntiles = (count + kTile - 1) / kTile;
-  const int f0 = blockIdx.y * Ft;
-  const int fn = min(Ft, F - f0);
-  // the columns this block moves: its features, and on the last feature
-  // tile every column after them
-  const int cw = (blockIdx.y == gridDim.y - 1 ? P : f0 + fn) - f0;
-  const int split = start + *num_left;  // first row of the right child
-  const int t = threadIdx.x;
-
-  for (int i = t; i < ncell; i += kTile) {
-    gh[i] = make_float2(0.f, 0.f);
-    cnt[i] = 0;
+  const int nl = *num_left;
+  const bool fwd = left_in_place(nl, count);
+  const long long start = sc[kStart];
+  if (static_cast<int>(blockIdx.x) < copy_blocks) {  // uniform per block
+    const long long base = (start + (fwd ? nl : 0)) * P;
+    const long long rows = fwd ? count - nl : nl;
+    copy_span(aux + base, payload + base, rows * P,
+              static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x,
+              static_cast<long long>(copy_blocks) * blockDim.x);
+    return;
   }
-
-  for (int tile = blockIdx.x; tile < ntiles; tile += nblk) {
-    const int row0 = tile * kTile;
-    const int nrows = min(kTile, count - row0);
-    __syncthreads();  // the previous tile's dest / vals are done with
-    const int d = tile_dest(payload, P, sc, bitset, B, tile, tile_off[tile],
-                            split - start, warp_left);
-    const float* rows = payload + (static_cast<long long>(start) + row0) * P;
-    if (t < nrows) {
-      dest[t] = d;
-      const float* row = rows + static_cast<long long>(t) * P;
-      vals[3 * t] = row[grad_col];
-      vals[3 * t + 1] = row[hess_col];
-      vals[3 * t + 2] = row[cnt_col];
-    }
-    __syncthreads();
-    // consecutive threads take consecutive columns of a row
-    const int total = nrows * cw;
-    for (int e = t; e < total; e += kTile) {
-      const int rr = e / cw;
-      const int c = e - rr * cw;
-      const float v = rows[static_cast<long long>(rr) * P + f0 + c];
-      const int dr = dest[rr];
-      aux[static_cast<long long>(dr) * P + f0 + c] = v;
-      if (c >= fn) continue;  // a value column: moved, not counted
-      const int b = static_cast<int>(v);
-      if (b < 0 || b >= Bh) continue;  // outside the contract; never written
-      const int k = ((dr >= split ? Ft : 0) + c) * fstride + b;
-      add_pair(gh + k, vals[3 * rr], vals[3 * rr + 1]);
-      atomicAdd(cnt + k, static_cast<int>(vals[3 * rr + 2]));
-    }
-  }
-  __syncthreads();
-
-  for (int i = t; i < 2 * fn * Bh; i += kTile) {
-    const int side = i / (fn * Bh);
-    const int j = (i - side * fn * Bh) / Bh;
-    const int b = i - side * fn * Bh - j * Bh;
-    const int k = (side * Ft + j) * fstride + b;
-    float* dst =
-        hist + ((static_cast<long long>(side) * F + f0 + j) * Bh + b) * 3;
-    const float2 p = gh[k];
-    const float c = static_cast<float>(cnt[k]);
-    if (p.x != 0.f) atomicAdd(dst, p.x);
-    if (p.y != 0.f) atomicAdd(dst + 1, p.y);
-    if (c != 0.f) atomicAdd(dst + 2, c);
-  }
+  hist_block<float>(fwd ? payload : aux, fwd ? aux : payload, P, start, nl,
+                    start + nl, count - nl, hist,
+                    hist + static_cast<long long>(F) * Bh * 3, F, Bh, cap,
+                    grad_col, hess_col, cnt_col, blockIdx.x - copy_blocks,
+                    gridDim.x - copy_blocks, smem);
 }
 
 }  // namespace
 
 extern "C" {
 
-int segment_partition_hist_tile_rows() { return kTile; }
-
-// Dynamic shared memory one block of Ft features needs at Bh bins.
-int segment_partition_hist_smem_bytes(int Ft, int Bh) {
-  return 2 * Ft * (Bh + 1) * 12 + kTile * 4 * 4;
+// Rows per tile of the partition at width P (B2's); 0 when the kernel
+// cannot take the width.
+int segment_partition_hist_tile_rows(int P) {
+  return P > 0 ? tile_rows(P) : 0;
 }
 
 // The merged partition (kernels 1-4).  scalars: int32[11] on the device
 // (start, count, col, threshold, default_left, is_cat, missing_type,
 // num_bin, default_bin, offset, identity); bitset: uint8[B], the bytes of a
-// bool tensor; fvals: f32[2] (left, right value) on the device.
-// tile_left / tile_off: int32[n_tiles] scratch with n_tiles * 1024 >= the
-// largest count; num_left: one int32 on the device.  hist: f32
-// [2, F, Bh, 3] (left, then right), zeroed here.  grid of the scatter =
-// (grid_x, ceil(F / Ft)), each block's shared memory as
-// segment_partition_hist_smem_bytes says; copy_blocks bounds the
-// copy-back's grid.  Returns cudaGetLastError().
+// bool tensor; fvals: f32[2] (left, right value) on the device.  Scratch,
+// for n_tiles tiles of segment_partition_hist_tile_rows(P) rows covering
+// the largest count: tile_left / tile_off int32[n_tiles], sync
+// int32[1 + n_tiles] (cleared by the count kernel).  num_left: one int32
+// on the device.  hist: f32 [2, F, Bh, 3] (left, then right), zeroed here.
+// cap: features per histogram group at most (<= kHistGroupCols of
+// segment_hist.cuh, cap * (Bh + 1) * 12 bytes of shared memory);
+// hist_grid: the histogram blocks, at least ceil(F / cap); sms: the card's
+// multiprocessors.  Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for a cap or hist_grid outside those bounds.
 int segment_partition_hist_launch(float* payload, float* aux, int P,
                                   const int* scalars,
                                   const unsigned char* bitset, int B,
+                                  const float* fvals, int value_col,
                                   int n_tiles, int* tile_left, int* tile_off,
-                                  int* num_left, const float* fvals,
-                                  int value_col, float* hist, int F, int Bh,
-                                  int Ft, int grad_col, int hess_col,
-                                  int cnt_col, int grid_x, int copy_blocks,
-                                  void* stream) {
+                                  int* num_left, int* sync, float* hist,
+                                  int F, int Bh, int cap, int grad_col,
+                                  int hess_col, int cnt_col, int hist_grid,
+                                  int sms, void* stream) {
+  if (cap < 1 || cap > kHistGroupCols || hist_grid < (F + cap - 1) / cap) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int smem = segment_partition_hist_smem_bytes(Ft, Bh);
-  cudaError_t err = cudaFuncSetAttribute(
-      part_hist_scatter, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  part_count<<<n_tiles, kTile, 0, s>>>(payload, P, scalars, bitset, B,
-                                       tile_left, hist, 2 * F * Bh * 3);
-  part_scan<<<scan_blocks(n_tiles), kTile, 0, s>>>(scalars, tile_left,
-                                                   tile_off, num_left);
-  const dim3 grid(grid_x, (F + Ft - 1) / Ft);
-  part_hist_scatter<<<grid, kTile, smem, s>>>(
-      payload, aux, P, scalars, bitset, B, tile_off, num_left, hist, F, Bh,
-      Ft, grad_col, hess_col, cnt_col);
-  part_copyback<<<copy_blocks, kCopyThreads, 0, s>>>(
-      payload, aux, P, scalars, num_left, fvals, value_col);
+  const int T = tile_rows(P);
+  const size_t move_smem = move_smem_bytes(T, P);
+  const int hist_smem = hist_smem_bytes(cap, Bh);
+  // the move's grid stays resident (B2's rule); both opt-ins are set once
+  // per width and shared-memory size
+  static int occ_P = -1, occ_blocks = 1, smem_set = -1;
+  if (occ_P != P) {
+    cudaFuncSetAttribute(phist_move,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(move_smem));
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ_blocks, phist_move,
+                                                  kMoveThreads, move_smem);
+    occ_blocks = occ_blocks > 0 ? occ_blocks : 1;
+    occ_P = P;
+  }
+  if (hist_smem != smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        phist_side_hist, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        hist_smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = hist_smem;
+  }
+  phist_count<<<4 * sms, kCountThreads, 0, s>>>(
+      payload, P, scalars, bitset, B, T, tile_left, sync, hist,
+      2 * F * Bh * 3);
+  phist_scan<<<scan_blocks(n_tiles), kTile, 0, s>>>(scalars, T, tile_left,
+                                                    tile_off, num_left);
+  phist_move<<<occ_blocks * sms, kMoveThreads, move_smem, s>>>(
+      payload, aux, P, scalars, bitset, B, T, tile_left, tile_off, num_left,
+      fvals, value_col, sync);
+  phist_side_hist<<<sms + hist_grid, kHistThreads, hist_smem, s>>>(
+      payload, aux, P, scalars, num_left, hist, F, Bh, cap, grad_col,
+      hess_col, cnt_col, sms);
   return static_cast<int>(cudaGetLastError());
 }
 

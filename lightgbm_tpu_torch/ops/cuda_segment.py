@@ -25,17 +25,25 @@ csrc/segment_partition_wide.cu:
 csrc/segment_partition_hist.cu:
 - `partition_segment_hist` replaces partition_segment_hist
   (_acc_kernel(hist_cfg=...), B6): B2's partition plus both children's
-  f32 histograms from one read of the parent's rows, for the grower's
-  merged mode; `partition_hist_fits` is its gate and
-  PARTITION_HIST_VALIDATED the staged flag of its auto rule.
+  f32 histograms, for the grower's merged mode; `partition_hist_fits` is
+  its gate and PARTITION_HIST_VALIDATED the staged flag of its auto rule.
 All keep the signatures and returns of ops/segment.py.  The whole
 partitions on the card (B2's `partition_segment`, B3's
-`partition_segment_rmw`, B8's `partition_segment_blocks`) keep the Pallas
-kernels' contract, which is looser than the plain version's: payload and
-num_left are the plain version's byte for byte, aux over the segment is
-scratch (each passes only its smaller side through it), and none writes
-outside the segment.  The stage and B6 leave the whole partition in aux
-too.
+`partition_segment_rmw`, B8's `partition_segment_blocks`, and B6's
+partition) keep the Pallas kernels' contract, which is looser than the
+plain version's: payload and num_left are the plain version's byte for
+byte, aux over the segment is scratch (each passes only its smaller side
+through it), and none writes outside the segment.  The stage leaves the
+whole partition in aux, as the frontier grower needs.
+
+The histograms of B1, B4, B5 and B6 split their work on the device from
+the segment's count (csrc/segment_hist.cuh): the host sizes a fixed grid
+from the card alone (`hist_grid`), and each block takes a feature group
+and row chunks by `hist_work_split`: its Python form here is the one the
+CPU tests hold to cover every (row, feature) once, and chip_smoke.py
+holds it to the kernel's own (the library's `segment_hist_split`).  Their
+count mask holds small integers (0 or 1 in the grower): each is summed
+exactly as an int32, where the plain version sums floats.
 
 The route (`histogram_route`, `partition_route`) picks the wrapper by
 width, with the crossovers the JAX package's VMEM gates give at max_bin
@@ -54,6 +62,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -66,6 +75,12 @@ _I = ctypes.c_int
 
 #: shared memory one histogram block may use: two blocks fit on an SM
 HIST_SMEM_BYTES = 110 * 1024
+#: rows per work item of the histograms (kHistChunkRows of
+#: csrc/segment_hist.cuh)
+HIST_CHUNK_ROWS = 128
+#: features per group at most (kHistGroupCols): with the three value
+#: columns, a row fits one warp-wide load
+HIST_GROUP_COLS = 29
 
 #: features from which the column-block histogram (B7) replaces B1
 COLBLOCK_MIN_FEATURES = 889
@@ -139,6 +154,57 @@ def _check_aux(payload: torch.Tensor, aux: torch.Tensor, name: str) -> None:
         raise ValueError("%s: aux must match the payload" % name)
 
 
+def hist_group_cap(num_bins: int) -> int:
+    """Features per histogram group at most at `num_bins` bins: as many as
+    HIST_SMEM_BYTES holds at 12 bytes a cell (B + 1 cells a feature), at
+    most HIST_GROUP_COLS; 0 when not one fits."""
+    return min(HIST_GROUP_COLS, HIST_SMEM_BYTES // ((num_bins + 1) * 12))
+
+
+def hist_grid(sms: int, num_features: int, cap: int) -> int:
+    """Histogram blocks per segment: two per SM, and at least one per
+    feature group the shared memory forces."""
+    return max(2 * sms, -(-num_features // cap))
+
+
+class HistSplit(NamedTuple):
+    """How the histogram kernels split two segments' rows (segment 0's
+    chunks first) and F features over a grid (hist_split of
+    csrc/segment_hist.cuh)."""
+    groups: int      # feature groups
+    group_cols: int  # features per group; the last may have fewer
+    chunks0: int     # row chunks of segment 0
+    chunks: int      # row chunks of both segments
+
+
+def hist_work_split(count0: int, count1: int, grid: int, num_features: int,
+                    cap: int) -> HistSplit:
+    """The split of segments of count0 and count1 rows (B1's one segment
+    has count1 = 0; B6's children are the left then the right) over
+    `grid` blocks: chunks of HIST_CHUNK_ROWS rows; as many feature groups
+    (of at most `cap` features) as fill the grid when there are fewer
+    chunks than blocks, else as few as `cap` allows."""
+    F = num_features
+    chunks0 = -(-count0 // HIST_CHUNK_ROWS)
+    chunks = chunks0 + -(-count1 // HIST_CHUNK_ROWS)
+    g = grid // chunks if chunks > 0 else grid
+    g = max(min(g, F), -(-F // cap))
+    group_cols = -(-F // g)
+    return HistSplit(-(-F // group_cols), group_cols, chunks0, chunks)
+
+
+def hist_block_work(split: HistSplit, block: int, grid: int,
+                    num_features: int) -> tuple:
+    """Block `block`'s work under `split`: (first feature, features,
+    [chunks in the order it takes them]); no chunks for a block past the
+    work."""
+    group = block % split.groups
+    nbg = (grid - group + split.groups - 1) // split.groups
+    f0 = group * split.group_cols
+    fn = min(split.group_cols, num_features - f0)
+    return f0, fn, list(range(block // split.groups, split.chunks, nbg))
+
+
 def _hist_launch(name: str, payload: torch.Tensor, segv: torch.Tensor,
                  quantized: bool, *, num_features: int, num_bins: int,
                  grad_col: int, hess_col: int,
@@ -149,7 +215,8 @@ def _hist_launch(name: str, payload: torch.Tensor, segv: torch.Tensor,
     _check_payload(payload, name)
     F, B, P = num_features, num_bins, payload.shape[1]
     K = segv.shape[0]
-    if not 0 < F <= P or B * 3 * 4 > HIST_SMEM_BYTES:
+    cap = hist_group_cap(B) if B > 0 else 0
+    if not 0 < F <= P or cap == 0:
         raise ValueError("%s: F=%d, B=%d outside the kernel's range"
                          % (name, F, B))
     if not 0 < K < 65536:
@@ -161,12 +228,11 @@ def _hist_launch(name: str, payload: torch.Tensor, segv: torch.Tensor,
     dev = payload.device
     out = torch.zeros((K, F, B, 3), device=dev,
                       dtype=torch.int32 if quantized else torch.float32)
-    Ft = min(F, HIST_SMEM_BYTES // (B * 3 * 4))
-    grid_x = 2 * _sm_count(dev.index)
     lib, fn = _lib("segment_hist", "segment_hist_launch",
                    [_P, _I, _P, _P] + [_I] * 9 + [_P])
     rc = fn(payload.data_ptr(), P, segv.data_ptr(), out.data_ptr(), K, F, B,
-            Ft, grad_col, hess_col, cnt_col, grid_x, int(quantized),
+            cap, grad_col, hess_col, cnt_col,
+            hist_grid(_sm_count(dev.index), F, cap), int(quantized),
             _stream(dev))
     _check(lib, "segment_hist", rc)
     return out
@@ -175,7 +241,9 @@ def _hist_launch(name: str, payload: torch.Tensor, segv: torch.Tensor,
 def segment_histogram(payload: torch.Tensor, start, count, *,
                       num_features: int, num_bins: int, grad_col: int,
                       hess_col: int, cnt_col: int) -> torch.Tensor:
-    """f32 hist[F, B, 3] over payload rows [start, start+count) (B1)."""
+    """f32 hist[F, B, 3] over payload rows [start, start+count) (B1).
+    The count mask column must hold small integers (0 or 1): the kernel
+    rounds each to int32 before its exact sum."""
     kwargs = dict(num_features=num_features, num_bins=num_bins,
                   grad_col=grad_col, hess_col=hess_col, cnt_col=cnt_col)
     if payload.device.type == "cpu":
@@ -570,7 +638,7 @@ def partition_hist_fits(payload_width: int, num_features: int,
     2, 256-row chunks, a 13 MiB budget) on the lane-padded width of this
     payload, so the auto rule takes the merged mode where the JAX grower
     would.  At 255 or 256 bins it admits up to 136 features, at 128 or
-    fewer up to 246.  B6 itself tiles features and takes any width."""
+    fewer up to 246.  B6 itself groups features and takes any F."""
     if num_bins > 256:
         return False
     chunk = 256
@@ -583,22 +651,6 @@ def partition_hist_fits(payload_width: int, num_features: int,
     return est_acc + est_hist <= 13 * 2 ** 20
 
 
-@functools.lru_cache(maxsize=None)
-def _part_hist_features(num_features: int, num_bins: int) -> int:
-    """Features per block of B6: the two children's histograms of as many
-    features as fit the shared-memory budget, balanced over the tiles;
-    0 when not one feature fits."""
-    smem = build.load("segment_partition_hist") \
-        .segment_partition_hist_smem_bytes
-    smem.argtypes = [_I, _I]
-    fixed = smem(0, num_bins)
-    fb_max = max(0, (HIST_SMEM_BYTES - fixed)
-                 // (smem(1, num_bins) - fixed))
-    if fb_max == 0:
-        return 0
-    return -(-num_features // -(-num_features // fb_max))
-
-
 def partition_segment_hist(payload: torch.Tensor, aux: torch.Tensor, start,
                            count, pred: SplitPredicate, left_value,
                            right_value, value_col: int, num_bins: int, *,
@@ -608,7 +660,10 @@ def partition_segment_hist(payload: torch.Tensor, aux: torch.Tensor, start,
     children's f32 histograms [F, B, 3]; returns (payload, aux, num_left,
     hist_left, hist_right) with num_left a 0-d int32 device tensor (B6:
     replaces lightgbm_tpu/ops/pallas_segment.py partition_segment_hist).
-    The partition is B2's byte for byte."""
+    On the card the partition is B2's in-place one: payload and num_left
+    byte for byte, aux over the segment scratch; then both histograms,
+    split over the card as B1's (csrc/segment_partition_hist.cu), with
+    B1's rule for the count mask (small integers, summed exactly)."""
     hk = dict(num_features=num_features, grad_col=grad_col,
               hess_col=hess_col, cnt_col=cnt_col)
     if payload.device.type == "cpu":
@@ -621,30 +676,34 @@ def partition_segment_hist(payload: torch.Tensor, aux: torch.Tensor, start,
     dev = payload.device
     N, P = payload.shape
     F, B = num_features, num_bins
-    ft = _part_hist_features(F, B) if B > 0 else 0
-    if not 0 < F <= P or ft == 0:
-        raise ValueError("%s: F=%d, B=%d outside the kernel's range"
-                         % (name, F, B))
+    cap = hist_group_cap(B) if B > 0 else 0
+    T = _tile_rows("segment_partition_hist",
+                   "segment_partition_hist_tile_rows", P)
+    if not 0 < F <= P or cap == 0 or T == 0:
+        raise ValueError("%s: F=%d, B=%d, width %d outside the kernel's "
+                         "range" % (name, F, B, P))
     for c in (grad_col, hess_col, cnt_col, value_col):
         if not 0 <= c < P:
             raise ValueError("%s: column %d outside [0, %d)" % (name, c, P))
     scalars, bitset = _pred_args(start, count, pred, dev)
     fvals = _leaf_values(left_value, right_value, dev)
     lib, fn = _lib("segment_partition_hist", "segment_partition_hist_launch",
-                   [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P]
+                   [_P, _P, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P]
                    + [_I] * 8 + [_P])
-    n_tiles = -(-N // lib.segment_partition_hist_tile_rows())
-    # each tile's left count and offset, then num_left
-    scratch = torch.empty(2 * n_tiles + 1, dtype=torch.int32, device=dev)
-    tile_left, tile_off, num_left = scratch.split((n_tiles, n_tiles, 1))
+    n_tiles = -(-N // T)
+    # each tile's left count and offset, num_left, then the move's ticket
+    # and the tiles' flags
+    scratch = torch.empty(3 * n_tiles + 2, dtype=torch.int32, device=dev)
+    tile_left, tile_off, num_left, sync = scratch.split(
+        (n_tiles, n_tiles, 1, n_tiles + 1))
     hist = torch.empty((2, F, B, 3), dtype=torch.float32, device=dev)
     sms = _sm_count(dev.index)
-    grid_x = max(1, 2 * sms // -(-F // ft))
     rc = fn(payload.data_ptr(), aux.data_ptr(), P, scalars.data_ptr(),
-            bitset.data_ptr(), bitset.shape[0], n_tiles, tile_left.data_ptr(),
-            tile_off.data_ptr(), num_left.data_ptr(), fvals.data_ptr(),
-            value_col, hist.data_ptr(), F, B, ft, grad_col, hess_col, cnt_col,
-            grid_x, 8 * sms, _stream(dev))
+            bitset.data_ptr(), bitset.shape[0], fvals.data_ptr(), value_col,
+            n_tiles, tile_left.data_ptr(), tile_off.data_ptr(),
+            num_left.data_ptr(), sync.data_ptr(), hist.data_ptr(), F, B, cap,
+            grad_col, hess_col, cnt_col, hist_grid(sms, F, cap), sms,
+            _stream(dev))
     _check(lib, "segment_partition_hist", rc)
     partition_segment_hist.launches += 1
     return payload, aux, num_left.reshape(()), hist[0], hist[1]

@@ -10,14 +10,20 @@ land on.  B2 and B3 stage whole rows in tiles of T rows, B3 at its own
 geometry (rows of 2-6.5 KB, so a few rows per tile); B8 stages tiles of
 rows by column blocks, each column block with its own flags.  All keep
 two staging buffers, publishing a block's next tile after its current
-tile's writes, and claim a ticket one tile ahead.  A CUDA kernel cannot run
-here, so this file emulates that schedule in plain Python, with the
-kernels' own wait sets and destinations, on resident blocks stepped by an
-adversarial scheduler (every tile reads as late and writes as early as its
-flags allow) or at random, and holds the payload and num_left against the
-JAX package's plain partition (lightgbm_tpu.ops.segment.partition_segment).
-A variant that writes before the flags must corrupt the payload, so the
-check is seen to have teeth.
+tile's writes, and claim a ticket one tile ahead.  B6
+(csrc/segment_partition_hist.cu) runs B2's schedule and then, in the
+launch that copies the smaller side back, both children's histograms
+from the rows where the move left them: the larger side in the payload,
+the smaller side in aux.  A CUDA kernel cannot run here, so this file
+emulates that schedule in plain Python, with the kernels' own wait sets
+and destinations, on resident blocks stepped by an adversarial scheduler
+(every tile reads as late and writes as early as its flags allow) or at
+random, and holds the payload and num_left against the JAX package's
+plain partition (lightgbm_tpu.ops.segment.partition_segment), and B6's
+histograms against the JAX package's histogram of each child
+(lightgbm_tpu.ops.segment.segment_histogram).  A variant that writes
+before the flags must corrupt the payload, so the check is seen to have
+teeth.
 """
 import random
 import re
@@ -36,6 +42,8 @@ from lightgbm_tpu_torch.ops import segment as tseg
 F, B = 5, 16
 P = F + 4
 VALUE_COL = F + 3
+#: B6's histogram columns; its count mask is made 0 / 1 for its cases
+GRAD_COL, HESS_COL, CNT_COL = F, F + 1, F + 2
 N_PAD = 256
 LEFT_VALUE, RIGHT_VALUE = -0.25, 0.75
 AUX_FILL = -7.5
@@ -125,12 +133,13 @@ class Deadlock(AssertionError):
 
 class Schedule:
     """One whole partition of payload rows [start, start + count) on
-    `blocks` resident blocks.  kernel "b2" or "b3": tiles of tile_rows
-    whole rows, each side of a tile written as one span from the tile's
-    left offset (move_tiles, which B2's part_move and B3's rmw_move run);
-    kernel "b8": tiles of tile_rows rows by column blocks of col_block
-    floats, each row to the destination the routing ranked (block_move).
-    honour_flags=False writes without waiting."""
+    `blocks` resident blocks.  kernel "b2", "b3" or "b6": tiles of
+    tile_rows whole rows, each side of a tile written as one span from the
+    tile's left offset (move_tiles, which B2's part_move, B3's rmw_move
+    and B6's phist_move run); kernel "b8": tiles of tile_rows rows by
+    column blocks of col_block floats, each row to the destination the
+    routing ranked (block_move).  honour_flags=False writes without
+    waiting."""
 
     def __init__(self, pay, start, count, gl, kernel, tile_rows, col_block,
                  blocks, honour_flags=True):
@@ -143,7 +152,7 @@ class Schedule:
         # left_in_place: the larger side (the left on a tie) stays
         self.fwd = self.nl >= count - self.nl
         self.ntiles = -(-count // tile_rows)
-        self.whole_rows = kernel in ("b2", "b3")
+        self.whole_rows = kernel in ("b2", "b3", "b6")
         self.cb = P if self.whole_rows else col_block
         self.ncb = -(-P // self.cb)
         self.nticket = self.ntiles * self.ncb
@@ -256,10 +265,11 @@ class Schedule:
         return all(self.flags[j] for j in step[1])
 
     def run(self, policy, seed):
-        """Steps the blocks until all are done; then the smaller side's
-        copy-back.  "adversarial": a ready write first, then a claim, a
-        read last; "random": any ready step.  Returns (payload, aux,
-        num_left)."""
+        """Steps the blocks until all are done; then, for B6, both
+        children's histograms (self.hists) from the rows where the move
+        left them, and the smaller side's copy-back.  "adversarial": a
+        ready write first, then a claim, a read last; "random": any ready
+        step.  Returns (payload, aux, num_left)."""
         rng = random.Random(seed)
         rank = {"write": 0, "claim": 1, "read": 2}
         live = {}
@@ -280,23 +290,60 @@ class Schedule:
                 live[b] = (gen, next(gen))
             except StopIteration:
                 del live[b]
-        # the smaller side's one contiguous range, aux -> payload
         lo, hi = (self.s + self.nl, self.s + self.c) if self.fwd \
             else (self.s, self.s + self.nl)
+        if self.kernel == "b6":
+            rows = np.where(((np.arange(self.pay.shape[0]) >= lo)
+                             & (np.arange(self.pay.shape[0]) < hi))[:, None],
+                            self.aux, self.pay)
+            self.hists = [_row_order_hist(rows, self.s, self.nl),
+                          _row_order_hist(rows, self.s + self.nl,
+                                          self.c - self.nl)]
+        # the smaller side's one contiguous range, aux -> payload
         self.pay[lo:hi] = self.aux[lo:hi]
         return self.pay, self.aux, self.nl
 
 
+def _row_order_hist(rows, start, count):
+    """[F, B, 3] f32 sums of (grad, hess, count mask) over rows
+    [start, start + count), added in row order."""
+    out = np.zeros((F, B, 3), np.float32)
+    seg_rows = rows[start:start + count]
+    for j in range(F):
+        b = seg_rows[:, j].astype(np.int64)
+        for ch, col in enumerate((GRAD_COL, HESS_COL, CNT_COL)):
+            np.add.at(out[j, :, ch], b, seg_rows[:, col])
+    return out
+
+
+def _jax_hist(pay, start, count):
+    return np.asarray(jseg.segment_histogram(
+        jnp.asarray(pay), jnp.int32(start), jnp.int32(count),
+        num_features=F, num_bins=B, grad_col=GRAD_COL, hess_col=HESS_COL,
+        cnt_col=CNT_COL))
+
+
 def _check(pay, start, count, name, kernel, tile_rows, col_block, blocks,
            policy, seed):
+    if kernel == "b6":
+        pay = pay.copy()
+        pay[:, CNT_COL] = (pay[:, CNT_COL] > 0).astype(np.float32)
     gl = _routing(pay, start, count, name)
-    got_pay, got_aux, got_nl = Schedule(
-        pay, start, count, gl, kernel, tile_rows, col_block, blocks).run(
-            policy, seed)
+    sched = Schedule(pay, start, count, gl, kernel, tile_rows, col_block,
+                     blocks)
+    got_pay, got_aux, got_nl = sched.run(policy, seed)
     ref_pay, ref_nl = _reference(pay, start, count, name)
     assert got_nl == ref_nl
     np.testing.assert_array_equal(got_pay.view(np.int32),
                                   ref_pay.view(np.int32))
+    if kernel == "b6":
+        for got, (s, c) in zip(sched.hists, ((start, ref_nl),
+                                             (start + ref_nl,
+                                              count - ref_nl))):
+            ref = _jax_hist(ref_pay, s, c)
+            np.testing.assert_array_equal(got[..., 2], ref[..., 2])
+            np.testing.assert_allclose(got[..., :2], ref[..., :2],
+                                       rtol=1e-5, atol=1e-5)
     # aux is scratch over the segment and untouched outside it
     outside = np.ones(pay.shape[0], bool)
     outside[start:start + count] = False
@@ -355,12 +402,28 @@ def test_b8_schedule_matches_jax(segment, name, tile_rows, col_block, blocks,
            col_block, blocks, policy, seed)
 
 
-#: each kernel's rows per tile in the fixed cases: 8 for B2 and B8, B3's
-#: at the Bosch width (P = 978)
-KERNEL_TILE_ROWS = {"b2": 8, "b3": _b3_tile_rows(978), "b8": 8}
+@settings(max_examples=60, deadline=None, derandomize=True, database=None,
+          suppress_health_check=[HealthCheck.too_slow])
+@given(segment=SEGMENTS, name=st.sampled_from(sorted(PREDICATES)),
+       tile_rows=st.sampled_from([1, 2, 3, 5, 8, 32, 64]),
+       blocks=st.sampled_from([1, 2, 3, 7]),
+       policy=st.sampled_from(["adversarial", "random"]),
+       seed=st.integers(0, 2 ** 16))
+def test_b6_schedule_matches_jax(segment, name, tile_rows, blocks, policy,
+                                 seed):
+    """B6: B2's schedule, then both children's histograms read where the
+    move left the rows."""
+    start, count = segment
+    _check(_payload(seed % 3), start, count, name, "b6", tile_rows, P,
+           blocks, policy, seed)
 
 
-@pytest.mark.parametrize("kernel", ["b2", "b3", "b8"])
+#: each kernel's rows per tile in the fixed cases: 8 for B2, B6 and B8,
+#: B3's at the Bosch width (P = 978)
+KERNEL_TILE_ROWS = {"b2": 8, "b3": _b3_tile_rows(978), "b6": 8, "b8": 8}
+
+
+@pytest.mark.parametrize("kernel", ["b2", "b3", "b6", "b8"])
 @pytest.mark.parametrize("name", sorted(PREDICATES))
 def test_every_predicate_both_walks(kernel, name):
     """Every predicate kind on an unaligned mid segment; all_left and
@@ -370,7 +433,7 @@ def test_every_predicate_both_walks(kernel, name):
                4, 5, policy, 7)
 
 
-@pytest.mark.parametrize("kernel", ["b2", "b3", "b8"])
+@pytest.mark.parametrize("kernel", ["b2", "b3", "b6", "b8"])
 @pytest.mark.parametrize("start,count", [(0, N_PAD), (17, 0), (40, 1),
                                          (3, 97)])
 def test_edge_segments(kernel, start, count):
@@ -378,7 +441,7 @@ def test_edge_segments(kernel, start, count):
            KERNEL_TILE_ROWS[kernel], 4, 3, "adversarial", 1)
 
 
-@pytest.mark.parametrize("kernel", ["b2", "b3", "b8"])
+@pytest.mark.parametrize("kernel", ["b2", "b3", "b6", "b8"])
 def test_walk_direction_follows_the_larger_side(kernel):
     pay = _payload(0)
     for name, fwd in (("all_left", True), ("all_right", False)):
@@ -387,7 +450,7 @@ def test_walk_direction_follows_the_larger_side(kernel):
                         4, 2).fwd is fwd
 
 
-@pytest.mark.parametrize("kernel", ["b2", "b3", "b8"])
+@pytest.mark.parametrize("kernel", ["b2", "b3", "b6", "b8"])
 @pytest.mark.parametrize("name", ["numerical", "zero_missing"])
 def test_writes_before_the_flags_corrupt_the_payload(kernel, name):
     """Without the waits, the adversarial schedule writes in place over
