@@ -14,8 +14,9 @@ parent, in that order, each in its own process in its own tree (each
 builds its own kernels under its build/kernels/), so a drift of the card's
 clocks over the call shows in both.  compare_phase drives only the port's
 public wrappers and entry points: the B1 / B6 / index_add_ readings at the
-census sizes, then the main, merged and int8 + frontier paths trained and
-profiled.  Every line is printed prefixed with its run, and with --log
+census sizes, B5 (f32 and int32, with B1 on the same rows), the stage +
+commit and B7's two wide roots, then the main, merged, frontier 8 and
+int8 + frontier paths trained and profiled.  Every line is printed prefixed with its run, and with --log
 also written to FILE.  Exits non-zero if a run fails.
 Needs one CUDA device; imports nothing of JAX or lightgbm_tpu.
 """

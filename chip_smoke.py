@@ -3,37 +3,47 @@
     python3 chip_smoke.py [--rows N] [--iters N] [--seed N]
 
 Builds the hand-written kernels from lightgbm_tpu_torch/csrc with nvcc,
-holds each against its plain PyTorch version at main-path shapes (the f32
-histogram B1, the int32 histogram B4 at the int8 and int16 grids, the
-batched histogram B5 in f32 and int32, the partition B2 whole and as its
-stage and commit halves, and the merged partition + histogram B6, also
-at 137 features and 64 bins) and at the wide shapes (Bosch: 968 features,
-Epsilon: 2,000; the column-block histogram B7, the RMW partition B3 and
-the column-block partition B8, and B1, B2, B4, B5 and the stage and
-commit there too), times each beside its bound and a PyTorch yardstick
-(B1 and B2 at the wide shapes too; the partitions on fresh rows, B2, B3
-and B8 also at 90/10 and 10/90 splits; B7 also with wide 968's NaN
-share), holds the kernels' work split to its Python form and B1, B4 and
-B6 to their plain versions at the segment sizes the grower passes and at
-those that give each of the histogram's row layouts, times B1, B6 and
-B1's index_add_ yardstick at the segment sizes the grower passes (1,024
-to 131,072 rows; device us per call), sweeps the
-whole partitions over payload widths and the f32 histograms over feature
-counts for the card's crossovers, checks that CUDA
-and CPU training agree on small problems at 28, 968 and 2,000 features,
-then trains through lightgbm_tpu_torch.train on the card (binary
-objective, max_bin 255, 255 leaves, lr 0.1): on 28 dense features the f32
-main path (then three iterations of it with every B2 call held against
-the plain partition; the census of its trees' B1 and B6 segment sizes
-with their byte bound per iteration; and two more runs from the same
-seed whose model texts and B1 histograms are compared, a record that
-fails nothing), the grower's merged mode (B6 on every split, with
+holds each against its plain PyTorch version at main-path shapes: the f32
+histograms B1, B5 f32 and B6's bit for bit to the fixed-point plain
+version (ops/segment.segment_histogram_fixed; they sum in fixed point, so
+no order of the adds shows), the int32 histogram B4 at the int8 and int16
+grids and B5 int32 bit for bit to the int32 plain version, B5 at K = 1, 3
+and 8 segments with empty and one-row ones, the partition B2 whole and as
+its stage and commit halves, and the merged partition + histogram B6 (also
+at 137 features and 64 bins); and at the wide shapes
+(Bosch: 968 features, Epsilon: 2,000; the column-block histogram B7,
+bit for bit also on both full roots, the RMW partition B3 and the
+column-block partition B8, and B1, B2, B4, B5 and the stage and commit
+there too).  It times each beside its bound and a PyTorch yardstick (B1
+and B2 at the wide shapes too; the partitions on fresh rows, B2, B3 and
+B8 also at 90/10 and 10/90 splits; B7 also with wide 968's NaN share;
+B4, B5 and the stage + commit with a per-kernel breakdown), holds the
+kernels' work split to its Python form and B1, B4, B5, B6 and B7 to their
+plain versions at the segment sizes the grower passes and at those that
+give each of the histogram's row layouts, times B1, B6 and B1's
+index_add_ yardstick at the segment sizes the grower passes (1,024 to
+131,072 rows; device us per call), sweeps the whole partitions over
+payload widths and the f32 histograms over feature counts for the card's
+crossovers, checks that CUDA and CPU training agree on small problems at
+28, 968 and 2,000 features, then trains through lightgbm_tpu_torch.train
+on the card (binary objective, max_bin 255, 255 leaves, lr 0.1): on 28
+dense features the f32 main path (then three iterations of it with every
+B2 call held against the plain partition, and the census of its trees'
+B1 and B6 segment sizes with their byte bound per iteration), the
+grower's merged mode (B6 on every split, with
 lightgbm_tpu_torch.ops.cuda_segment.PARTITION_HIST_VALIDATED set once B6
 has been held) and its histogram pool (histogram_pool_size=2, parents
 rebuilt), then quantized gradients (int8, int16), the frontier-batched
 grower (tpu_frontier_batch=8) and the two together; then the wide paths,
 1M x 968 (a fifth of every other feature NaN) and 400k x 2,000, each with
 a 100k-row validation set scored every iteration (metric auc).
+The repeat check trains the main, merged and frontier 8 paths, and wide
+968 for 3 iterations, twice more from the same binned data, the first
+run under torch.use_deterministic_algorithms(True, warn_only=True) (its
+warnings are printed): the model texts must be byte-identical (and the
+path's own run's), every f32 histogram, every split search's outputs and
+the final scores bit-identical; the model text's sha256 is printed so
+that calls can be compared.
 The whole partitions B2, B3, B8 and B6's partition are held to the
 Pallas kernels' contract (payload and num_left byte for byte, aux
 untouched outside the segment, scratch inside it; ten runs on fresh
@@ -64,11 +74,14 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
+import inspect
 import json
 import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -77,6 +90,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # the port, from this checkout only: alone in a directory this script fails
 import lightgbm_tpu_torch as lt  # noqa: E402
 import torch  # noqa: E402
+from lightgbm_tpu_torch.boosting import grower2  # noqa: E402
 from lightgbm_tpu_torch.metric import create_metrics  # noqa: E402
 from lightgbm_tpu_torch.ops import build, cuda_segment, quantize  # noqa: E402
 from lightgbm_tpu_torch.ops import segment as seg  # noqa: E402
@@ -319,6 +333,35 @@ def hist_errors(pay, start, count, f, got, nb: int = B) -> float:
     return float(err.max()) if err.numel() else 0.0
 
 
+def hist_exact(pay, start, count, f, got, nb: int = B, scale=None) -> float:
+    """Raises unless an f32 kernel histogram of rows [start, start + count)
+    is the plain fixed-point version's bit for bit
+    (seg.segment_histogram_fixed at `scale`, by default the segment's own,
+    as a wrapper called without one derives it) and within hist_errors'
+    bound of the f64 sum; returns hist_errors' largest error."""
+    want = seg.segment_histogram_fixed(
+        pay, int(start), int(count), num_features=f, num_bins=nb,
+        grad_col=f + 5, hess_col=f + 6, cnt_col=f + 2, scale=scale)
+    check(torch.equal(got.reshape(want.shape).view(torch.int32),
+                      want.view(torch.int32)),
+          "f32 histogram not bit-identical to the fixed-point plain version "
+          "at (%d, %d), F=%d: %d cells differ"
+          % (int(start), int(count), f,
+             int((got.reshape(want.shape) != want).sum())))
+    del want
+    return hist_errors(pay, start, count, f, got, nb)
+
+
+def scale_kw(fn, pay, starts, counts, f: int) -> dict:
+    """{"scale": the fixed-point exponents of the segments} when the f32
+    wrapper `fn` takes them (this tree's), else {} (a parent tree's
+    wrapper, which compare_phase drives too): computed here, outside the
+    timed window, as the grower computes them once per tree."""
+    if "scale" not in inspect.signature(fn).parameters:
+        return {}
+    return dict(scale=seg.fixed_scale(pay, starts, counts, f + 5, f + 6))
+
+
 def quantize_columns(pay: torch.Tensor, n: int, qmax: int, seed: int,
                      cols: dict = COLS) -> torch.Tensor:
     """A copy of `pay` whose grad/hess columns hold quantized gradients:
@@ -367,17 +410,14 @@ def kernels_phase(n: int, seed: int, dev) -> dict:
         got = cuda_segment.segment_histogram(
             pay, torch.tensor(s, **i32), torch.tensor(c, **i32), **hk)
         torch.cuda.synchronize()
-        plain = seg.segment_histogram(pay, s, c, **hk)
-        check(torch.equal(got[..., 2], plain[..., 2]),
-              "histogram count channel vs plain at (%d, %d)" % (s, c))
-        hist_err = max(hist_err, hist_errors(pay, s, c, F, got))
+        hist_err = max(hist_err, hist_exact(pay, s, c, F, got))
     f_wide, n_wide = 137, 200_000
     pay_w = make_payload(n_wide, f_wide, f_wide + 10, seed + 1, dev)
     got = cuda_segment.segment_histogram(
         pay_w, 0, n_wide, num_features=f_wide, num_bins=B,
         grad_col=f_wide + 5, hess_col=f_wide + 6, cnt_col=f_wide + 2)
     torch.cuda.synchronize()
-    hist_err = max(hist_err, hist_errors(pay_w, 0, n_wide, f_wide, got))
+    hist_err = max(hist_err, hist_exact(pay_w, 0, n_wide, f_wide, got))
     del pay_w
 
     # B4 int32 histogram at the int8 grid and at the int16 grid's qmax
@@ -396,28 +436,31 @@ def kernels_phase(n: int, seed: int, dev) -> dict:
                   "int32 histogram differs from plain at qmax %d (%d, %d)"
                   % (qmax, s, c))
 
-    # B5 batched histogram: K = 8 disjoint segments of uneven sizes, one
-    # empty and one of a single row; f32 held to B1's bound per slice with
-    # an exact count channel, int32 bit for bit
-    starts, counts = batch_segments(n, (n // 5, 1, 0, 37, n // 9, 4099,
-                                        n // 3, n // 10 + 3))
-    st_t, ct_t = torch.tensor(starts, **i32), torch.tensor(counts, **i32)
-    got = cuda_segment.segment_histogram_batched(pay, st_t, ct_t, **hk)
-    torch.cuda.synchronize()
-    plain = seg.segment_histogram_batched(pay, starts, counts, **hk)
-    check(torch.equal(got[..., 2], plain[..., 2]),
-          "batched histogram count channel differs from plain")
+    # B5 batched histogram: K = 1, 3 and 8 disjoint segments of uneven
+    # sizes, empty and one-row ones among them, over one grid; f32 bit for
+    # bit to the fixed-point plain version of each slice at the exponents
+    # of all K segments (the wrapper's default), int32 bit for bit
     batched_err = 0.0
-    for k, (s, c) in enumerate(zip(starts, counts)):
-        batched_err = max(batched_err, hist_errors(pay, s, c, F, got[k]))
-    for qmax, qpay in qpays.items():
-        got = cuda_segment.segment_histogram_batched(qpay, st_t, ct_t,
-                                                     quantized=True, **hk)
+    for sizes in ((n // 3,), (0, 1, n // 7),
+                  (n // 5, 1, 0, 37, n // 9, 4099, n // 3, n // 10 + 3)):
+        starts, counts = batch_segments(n, sizes)
+        st_t, ct_t = torch.tensor(starts, **i32), torch.tensor(counts, **i32)
+        got = cuda_segment.segment_histogram_batched(pay, st_t, ct_t, **hk)
         torch.cuda.synchronize()
-        plain = seg.segment_histogram_batched(qpay, starts, counts,
-                                              quantized=True, **hk)
-        check(got.dtype == torch.int32 and torch.equal(got, plain),
-              "int32 batched histogram differs from plain at qmax %d" % qmax)
+        sc = seg.fixed_scale(pay, starts, counts, COLS["grad"], COLS["hess"])
+        for k, (s, c) in enumerate(zip(starts, counts)):
+            batched_err = max(batched_err, hist_exact(pay, s, c, F, got[k],
+                                                      scale=sc))
+        for qmax, qpay in qpays.items():
+            got = cuda_segment.segment_histogram_batched(
+                qpay, st_t, ct_t, quantized=True, **hk)
+            torch.cuda.synchronize()
+            plain = seg.segment_histogram_batched(qpay, starts, counts,
+                                                  quantized=True, **hk)
+            check(got.dtype == torch.int32 and torch.equal(got, plain),
+                  "int32 batched histogram differs from plain at qmax %d, "
+                  "K = %d" % (qmax, len(sizes)))
+        del got
 
     # the split search gives each histogram the same bits at any batch
     # size (the frontier grower searches 2K children at once, the one-leaf
@@ -521,10 +564,11 @@ def kernels_phase(n: int, seed: int, dev) -> dict:
                             r[:, COLS["cnt"]]], 1)[:, None, :] \
             .expand(n, F, 3).reshape(-1, 3).to(dtype).contiguous()
 
+    hsc = scale_kw(cuda_segment.segment_histogram, pay, 0, n, F)
     hist_ms = time_ms(lambda: cuda_segment.segment_histogram(
-        pay, start0, count, **hk), reps)
+        pay, start0, count, **hk, **hsc), reps)
     hist_breakdown = kernel_breakdown(lambda: cuda_segment.segment_histogram(
-        pay, start0, count, **hk), pay, 0, n)
+        pay, start0, count, **hk, **hsc), pay, 0, n)
     hist_plain_ms = time_ms(lambda: seg.segment_histogram(
         pay, 0, n, **hk), 3)
     vals = lib_vals(pay, torch.float32)
@@ -534,6 +578,9 @@ def kernels_phase(n: int, seed: int, dev) -> dict:
     qpay = qpays[127]
     quant_ms = time_ms(lambda: cuda_segment.segment_histogram_quant(
         qpay, start0, count, **hk), reps)
+    quant_breakdown = kernel_breakdown(
+        lambda: cuda_segment.segment_histogram_quant(qpay, start0, count,
+                                                     **hk), pay, 0, n)
     quant_plain_ms = time_ms(lambda: seg.segment_histogram(
         qpay, 0, n, quantized=True, **hk), 3)
     vals = lib_vals(qpay, torch.int32)
@@ -545,10 +592,23 @@ def kernels_phase(n: int, seed: int, dev) -> dict:
     tstarts, tcounts = batch_segments(n, [n // d for d in (4, 5, 8, 10, 16,
                                                            20, 32, 64)])
     ts_t, tc_t = torch.tensor(tstarts, **i32), torch.tensor(tcounts, **i32)
+    bsc = scale_kw(cuda_segment.segment_histogram_batched, pay, tstarts,
+                   tcounts, F)
     bat_ms = time_ms(lambda: cuda_segment.segment_histogram_batched(
-        pay, ts_t, tc_t, **hk), reps)
+        pay, ts_t, tc_t, **hk, **bsc), reps)
     bat_q_ms = time_ms(lambda: cuda_segment.segment_histogram_batched(
         qpay, ts_t, tc_t, quantized=True, **hk), reps)
+    bat_breakdown = kernel_breakdown(
+        lambda: cuda_segment.segment_histogram_batched(pay, ts_t, tc_t,
+                                                       **hk, **bsc),
+        pay, 0, 1)
+    # B1 on as many rows in one segment, B5 f32's target
+    b1_rows = torch.tensor(sum(tcounts), **i32)
+    bat_b1_ms = time_ms(lambda: cuda_segment.segment_histogram(
+        pay, start0, b1_rows, **hk, **bsc), reps)
+    bat_q_breakdown = kernel_breakdown(
+        lambda: cuda_segment.segment_histogram_batched(
+            qpay, ts_t, tc_t, quantized=True, **hk), pay, 0, 1)
     bat_plain_ms = time_ms(lambda: seg.segment_histogram_batched(
         pay, tstarts, tcounts, **hk), 3)
     seg_rows = torch.cat([pay[s:s + c] for s, c in zip(tstarts, tcounts)])
@@ -562,7 +622,15 @@ def kernels_phase(n: int, seed: int, dev) -> dict:
         .expand(m, F, 3).reshape(-1, 3).contiguous()
     lib_out = torch.zeros(len(tcounts) * F * B, 3, device=dev)
     bat_lib_ms = time_ms(lambda: lib_out.index_add_(0, flat, vals), reps)
-    del seg_rows, seg_id, flat, vals, lib_out, qpays, qpay
+    # the int32 instance's yardstick: the same index_add_ in int32 on the
+    # quantized rows
+    qrows = torch.cat([qpay[s:s + c] for s, c in zip(tstarts, tcounts)])
+    vals = torch.stack([qrows[:, COLS["grad"]], qrows[:, COLS["hess"]],
+                        qrows[:, COLS["cnt"]]], 1)[:, None, :] \
+        .expand(m, F, 3).reshape(-1, 3).to(torch.int32).contiguous()
+    lib_out = torch.zeros(len(tcounts) * F * B, 3, **i32)
+    bat_q_lib_ms = time_ms(lambda: lib_out.index_add_(0, flat, vals), reps)
+    del seg_rows, seg_id, flat, vals, lib_out, qpays, qpay, qrows
 
     # B2 whole on fresh rows: at the root at the TIMED_SPLITS, and on the
     # first WIDE_SEGMENT_ROWS rows with the numerical split; each beside
@@ -595,16 +663,28 @@ def kernels_phase(n: int, seed: int, dev) -> dict:
         lambda: cuda_segment.partition_segment(pay, aux, start0, count, pred,
                                                lv, rv, COLS["value"]),
         pay, 0, n)
-    part["stage_commit_ms"] = time_fresh_ms(
-        lambda: stage_commit(pay, aux, start0, count, pred, lv, rv,
-                             COLS["value"]), pay, 0, n, reps)
-    # the stage + commit contract moves every row twice (payload -> aux,
-    # aux -> payload): its bound is two passes, its yardstick the stage's
-    # one-pass library call plus one copy_ of the segment for the commit
-    part["stage_commit_bound_ms"] = bound(4 * n * P * 4, 0)[0]
-    part["commit_copy_ms"] = time_ms(lambda: aux[:n].copy_(pay[:n]), reps)
-    part["stage_commit_library_ms"] = part["library_ms"] \
-        + part["commit_copy_ms"]
+    # the stage + commit (the frontier grower's): at the root and on
+    # WIDE_SEGMENT_ROWS rows, with its kernels' breakdown.  Its contract
+    # moves every row twice (payload -> aux, aux -> payload): its bound is
+    # two passes, its yardstick the stage's one-pass library call plus one
+    # copy_ of the segment for the commit
+    sc_rec = dict(
+        ms=time_fresh_ms(lambda: stage_commit(
+            pay, aux, start0, count, pred, lv, rv, COLS["value"]),
+            pay, 0, n, reps),
+        breakdown_us=kernel_breakdown(lambda: stage_commit(
+            pay, aux, start0, count, pred, lv, rv, COLS["value"]), pay, 0, n))
+    ct = torch.tensor(WIDE_SEGMENT_ROWS, **i32)
+    sc_rec["ms_%d_rows" % WIDE_SEGMENT_ROWS] = time_fresh_ms(
+        lambda: stage_commit(pay, aux, start0, ct, pred, lv, rv,
+                             COLS["value"]), pay, 0, WIDE_SEGMENT_ROWS, reps)
+    sc_rec["plain_ms"] = time_fresh_ms(lambda: seg.partition_segment(
+        pay, aux, 0, n, pred, lv, rv, COLS["value"]), pay, 0, n, 3)
+    sc_rec["commit_copy_ms"] = time_ms(lambda: aux[:n].copy_(pay[:n]), reps)
+    sc_rec["library_ms"] = part["library_ms"] + sc_rec["commit_copy_ms"]
+    sc_rec["bound_ms"], sc_rec["bound_by"] = bound(4 * n * P * 4, 0)
+    sc_rec["bound_ms_%d_rows" % WIDE_SEGMENT_ROWS] = bound(
+        4 * WIDE_SEGMENT_ROWS * P * 4, 0)[0]
     del aux
 
     hist_bytes = n * (F + 3) * 4
@@ -630,13 +710,22 @@ def kernels_phase(n: int, seed: int, dev) -> dict:
             source="lightgbm_tpu_torch/csrc/segment_hist.cu",
             replaces="lightgbm_tpu/ops/pallas_segment.py:786",
             max_abs_err=0.0, ms=quant_ms, plain_ms=quant_plain_ms,
-            library_ms=quant_lib_ms),
+            library_ms=quant_lib_ms, breakdown_us=quant_breakdown),
         "segment_histogram_batched": dict(
             name="segment_histogram_batched", route="cuda",
             source="lightgbm_tpu_torch/csrc/segment_hist.cu",
             replaces="lightgbm_tpu/ops/pallas_segment.py:649",
             max_abs_err=batched_err, ms=bat_ms, ms_int32=bat_q_ms,
-            plain_ms=bat_plain_ms, library_ms=bat_lib_ms),
+            plain_ms=bat_plain_ms, library_ms=bat_lib_ms,
+            library_ms_int32=bat_q_lib_ms, b1_same_rows_ms=bat_b1_ms,
+            breakdown_us=bat_breakdown,
+            breakdown_us_int32=bat_q_breakdown),
+        "partition_segment_stage_commit": dict(
+            sc_rec, name="partition_segment_stage_commit", route="cuda",
+            source="lightgbm_tpu_torch/csrc/segment_partition.cu",
+            replaces="lightgbm_tpu/ops/pallas_segment.py:1616",
+            max_abs_err=0.0,
+            library="stable argsort + index_select, then copy_"),
     }
     for key, (nb, no) in {
             "segment_histogram": (hist_bytes, hist_ops),
@@ -688,6 +777,8 @@ def merged_kernel_phase(n: int, seed: int, dev) -> dict:
                 b_pay, b_aux, s, c, preds[name], lv, rv, cols["value"], nb,
                 **hk)
             nl = int(b_nl)
+            # both children round at the parent segment's exponents
+            psc = seg.fixed_scale(pay, s, c, cols["grad"], cols["hess"])
             for _ in range(WHOLE_REPEATS if (s, c) == (0, rows) else 1):
                 a_pay, a_aux = pay.clone(), aux_like(pay)
                 a_pay, a_aux, a_nl, a_hl, a_hr = \
@@ -698,11 +789,9 @@ def merged_kernel_phase(n: int, seed: int, dev) -> dict:
                 torch.cuda.synchronize()
                 same_partition(what, (a_pay, a_aux, a_nl),
                                (b_pay, b_aux, b_nl), s, c, full_aux=False)
-                for got, plain, hs, hc in ((a_hl, b_hl, s, nl),
-                                           (a_hr, b_hr, s + nl, c - nl)):
-                    check(torch.equal(got[..., 2], plain[..., 2]),
-                          "%s: count channel vs plain" % what)
-                    err = max(err, hist_errors(b_pay, hs, hc, f, got, nb))
+                for got, hs, hc in ((a_hl, s, nl), (a_hr, s + nl, c - nl)):
+                    err = max(err, hist_exact(b_pay, hs, hc, f, got, nb,
+                                              scale=psc))
                 del a_pay, a_aux, a_hl, a_hr
             del b_pay, b_aux, b_hl, b_hr
         del pay
@@ -720,10 +809,11 @@ def merged_kernel_phase(n: int, seed: int, dev) -> dict:
     for suffix, rows in (("", n), ("_%d_rows" % WIDE_SEGMENT_ROWS,
                                    WIDE_SEGMENT_ROWS)):
         ct = torch.tensor(rows, **i32)
+        msc = scale_kw(cuda_segment.partition_segment_hist, pay, 0, rows, F)
         rec["ms" + suffix] = time_fresh_ms(
             lambda: cuda_segment.partition_segment_hist(
-                pay, aux, start0, ct, pred, lv, rv, COLS["value"], B, **hk),
-            pay, 0, rows, reps)
+                pay, aux, start0, ct, pred, lv, rv, COLS["value"], B, **hk,
+                **msc), pay, 0, rows, reps)
         # what B6 replaces per split: B2, then B1 on the smaller child
         nl = int(seg.go_left_chunk(pay[:rows], pred).sum())
         h_st, h_ct = (0, nl) if nl <= rows - nl else (nl, rows - nl)
@@ -732,13 +822,15 @@ def merged_kernel_phase(n: int, seed: int, dev) -> dict:
         def b2_b1():
             cuda_segment.partition_segment(pay, aux, start0, ct, pred, lv, rv,
                                            COLS["value"])
-            cuda_segment.segment_histogram(pay, h_st, h_ct, num_bins=B, **hk)
+            cuda_segment.segment_histogram(pay, h_st, h_ct, num_bins=B, **hk,
+                                           **msc)
 
         rec["b2_b1_ms" + suffix] = time_fresh_ms(b2_b1, pay, 0, rows, reps)
+    msc = scale_kw(cuda_segment.partition_segment_hist, pay, 0, n, F)
     rec["breakdown_us"] = kernel_breakdown(
         lambda: cuda_segment.partition_segment_hist(
             pay, aux, start0, torch.tensor(n, **i32), pred, lv, rv,
-            COLS["value"], B, **hk), pay, 0, n)
+            COLS["value"], B, **hk, **msc), pay, 0, n)
     rec["plain_ms"] = time_fresh_ms(lambda: seg.partition_segment_hist(
         pay, aux, 0, n, pred, lv, rv, COLS["value"], B, **hk), pay, 0, n, 3)
     # yardstick, a composition (no one PyTorch call computes B6): a
@@ -806,7 +898,7 @@ def layout_sizes(grid: int, f: int, nb: int = B) -> list:
     first, last = {}, {}
     for chunks in range(1, 2 * grid + 2):
         lanes = row_lanes(cuda_segment.hist_work_split(
-            chunks * r, 0, grid, f, cap).group_cols)
+            [chunks * r], grid, f, cap).group_cols)
         first.setdefault(lanes, chunks)
         last[lanes] = chunks
     return sorted({(c - 1) * r + 5 for c in first.values()}
@@ -814,45 +906,66 @@ def layout_sizes(grid: int, f: int, nb: int = B) -> list:
 
 
 #: the counts, feature counts and grids at which the CUDA split is held to
-#: its Python form (those of tests/test_torch_hist_split.py and more)
+#: its Python form (those of tests/test_torch_hist_split.py and more), as
+#: one segment, as B6's two children and as B5's K = 3 and 8
 SPLIT_COUNTS = (0, 1, 37, 255, 256, 4095, 4096, 4097, 11_261, 131_072,
                 1_015_808)
 
 
+def split_cases():
+    for c0 in SPLIT_COUNTS:
+        yield [c0]
+        yield [c0, c0 // 3]
+        yield [c0, 4097]
+        yield [0, c0, 1]
+        yield [c0 // 8, 0, 37, 1, c0 // 3, 0, 4099, c0 // 5]
+
+
 def census_check_phase(n: int, seed: int, dev) -> dict:
     """The histogram split and kernels at the sizes the grower passes.
-    First the kernel's work split (`segment_hist_split` of the library,
-    hist_split of csrc/segment_hist.cuh) against cuda_segment's
-    hist_work_split at SPLIT_COUNTS, alone and as B6's two children, at
-    1, 28, 137 and 2,000 features on the card's grid and on a grid of 7.
-    Then, at every census size and at the sizes that give each row layout
-    at F = 28 on the card's grid (layout_sizes), each at row 0 and at row
-    777 of the main path's payload: B1 within hist_errors' bound with an
-    exact count, B4 bit for bit at the int8 grid, and B6 at the numerical
-    split held as merged_kernel_phase holds it (payload and num_left byte
-    for byte, aux untouched outside the segment, both children's counts
-    exact and grad / hess within B1's bound).  Raises at the first
-    failure; returns the sizes, the layouts and the largest error."""
+    First the kernel's work split (`segment_hist_split` of the library:
+    hist_split and each block's hist_run in csrc/segment_hist.cuh) against
+    cuda_segment's hist_work_split / hist_run at SPLIT_COUNTS, alone, as
+    B6's two children and as B5's K = 3 and 8 segments, at 1, 28, 137 and
+    2,000 features, at the f32 and int32 cells' group caps, on the card's
+    grid and on a grid of 7.  Then, at every census size and at the sizes
+    that give each row layout at F = 28 on the card's grid
+    (layout_sizes), each at row 0 and at row 777 of the main path's
+    payload: B1, B7 and B5 (three segments of that size, the middle one
+    empty) bit for bit to the fixed-point plain version, B4 bit for bit
+    at the int8 grid, and B6 at the numerical split held as
+    merged_kernel_phase holds it (payload and num_left byte for byte, aux
+    untouched outside the segment, both children bit for bit at the
+    parent's exponents).  Raises at the first failure; returns the sizes,
+    the layouts and the largest error against the f64 sums."""
     i32 = dict(dtype=torch.int32, device=dev)
     lib = build.load("segment_hist")
     split_c = lib.segment_hist_split
-    split_c.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    split_c.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
     split_c.restype = ctypes.c_int
-    got = (ctypes.c_int * 4)()
     sms = cuda_segment._sm_count(dev.index)
     n_split = 0
     for f in (1, F, 137, 2000):
-        cap = cuda_segment.hist_group_cap(B)
-        for grid in (cuda_segment.hist_grid(sms, f, cap),
-                     max(7, -(-f // cap))):
-            for c0 in SPLIT_COUNTS:
-                for c1 in (0, c0 // 3, 4097):
-                    split_c(c0, c1, grid, f, cap, ctypes.addressof(got))
-                    want = cuda_segment.hist_work_split(c0, c1, grid, f, cap)
-                    check(tuple(got) == tuple(want),
-                          "hist_split (%d, %d, grid %d, F %d): CUDA %s, "
-                          "Python %s" % (c0, c1, grid, f, tuple(got),
-                                         tuple(want)))
+        for cap in (cuda_segment.hist_group_cap(B),
+                    cuda_segment.hist_group_cap(B, quantized=True)):
+            for grid in (cuda_segment.hist_grid(sms, f, cap),
+                         max(7, -(-f // cap))):
+                got = (ctypes.c_int * (3 + 5 * grid))()
+                for counts in split_cases():
+                    arr = (ctypes.c_int * len(counts))(*counts)
+                    split_c(ctypes.addressof(arr), len(counts), grid, f, cap,
+                            ctypes.addressof(got))
+                    want = cuda_segment.hist_work_split(counts, grid, f, cap)
+                    flat = [want.groups, want.group_cols, want.chunks]
+                    for b in range(grid):
+                        r = cuda_segment.hist_run(want, b, grid)
+                        flat += [r.group, r.first, r.last, r.workers,
+                                 int(r.works)]
+                    check(list(got) == flat,
+                          "hist_split (%s, grid %d, F %d, cap %d): CUDA %s, "
+                          "Python %s" % (counts, grid, f, cap, list(got)[:3],
+                                         flat[:3]))
                     n_split += 1
 
     grid = cuda_segment.hist_grid(sms, F, cuda_segment.hist_group_cap(B))
@@ -867,19 +980,32 @@ def census_check_phase(n: int, seed: int, dev) -> dict:
     layouts = {}
     for rows in sizes:
         layouts[rows] = row_lanes(cuda_segment.hist_work_split(
-            rows, 0, grid, F, cuda_segment.hist_group_cap(B)).group_cols)
+            [rows], grid, F, cuda_segment.hist_group_cap(B)).group_cols)
         for s in (0, 777):
             st, ct = torch.tensor(s, **i32), torch.tensor(rows, **i32)
-            got = cuda_segment.segment_histogram(pay, st, ct, num_bins=B,
-                                                 **hk)
+            for fn in (cuda_segment.segment_histogram,
+                       cuda_segment.segment_histogram_colblock):
+                got = fn(pay, st, ct, num_bins=B, **hk)
+                torch.cuda.synchronize()
+                err = max(err, hist_exact(pay, s, rows, F, got))
+            starts = [s, s + rows + 5, s + rows + 10]
+            counts = [rows, 0, rows]
+            got = cuda_segment.segment_histogram_batched(
+                pay, torch.tensor(starts, **i32), torch.tensor(counts, **i32),
+                num_bins=B, **hk)
             torch.cuda.synchronize()
-            err = max(err, hist_errors(pay, s, rows, F, got))
+            bsc = seg.fixed_scale(pay, starts, counts, COLS["grad"],
+                                  COLS["hess"])
+            for k in range(3):
+                err = max(err, hist_exact(pay, starts[k], counts[k], F,
+                                          got[k], scale=bsc))
             got = cuda_segment.segment_histogram_quant(qpay, st, ct,
                                                        num_bins=B, **hk)
             check(torch.equal(got, seg.segment_histogram(
                 qpay, s, rows, quantized=True, num_bins=B, **hk)),
                 "B4 differs from plain at (%d, %d)" % (s, rows))
             what = "B6 at (%d, %d)" % (s, rows)
+            psc = seg.fixed_scale(pay, s, rows, COLS["grad"], COLS["hess"])
             a = cuda_segment.partition_segment_hist(
                 pay.clone(), aux_like(pay), st, ct, pred, lv, rv,
                 COLS["value"], B, **hk)
@@ -890,9 +1016,7 @@ def census_check_phase(n: int, seed: int, dev) -> dict:
             same_partition(what, a[:3], b[:3], s, rows, full_aux=False)
             nl = int(b[2])
             for k, hs, hc in ((3, s, nl), (4, s + nl, rows - nl)):
-                check(torch.equal(a[k][..., 2], b[k][..., 2]),
-                      "%s: count channel vs plain" % what)
-                err = max(err, hist_errors(b[0], hs, hc, F, a[k]))
+                err = max(err, hist_exact(b[0], hs, hc, F, a[k], scale=psc))
             del a, b, got
     return dict(split_cases=n_split, grid=grid, sizes=sizes,
                 lanes_by_size=layouts, max_abs_err=err)
@@ -904,8 +1028,9 @@ def sizes_phase(n: int, seed: int, dev, sizes=CENSUS_SIZES) -> dict:
     payload, for each of `sizes` and the root (n): device microseconds
     per call from torch.profiler.  B1: its kernel alone (`b1_us`) and
     every launch of its wrapper (`b1_call_us`: the segment's packing and
-    the zeroed output too); B6: its kernels on fresh rows at the numerical
-    split (~40 % left); each beside its byte bound.  It drives only the
+    the output's allocation too; the fixed-point exponents are passed, as
+    the grower passes them once per tree); B6: its kernels on fresh rows at
+    the numerical split (~40 % left); each beside its byte bound.  It drives only the
     wrappers, so it times a parent tree's kernels as well.  Returns
     {rows: record}."""
     i32 = dict(dtype=torch.int32, device=dev)
@@ -919,14 +1044,18 @@ def sizes_phase(n: int, seed: int, dev, sizes=CENSUS_SIZES) -> dict:
     out = {}
     for rows in tuple(sizes) + (n,):
         ct = torch.tensor(rows, **i32)
+        # the tree's exponents, as the grower passes them (none to a
+        # parent tree's wrappers)
+        ssc = scale_kw(cuda_segment.segment_histogram, pay, 0, rows, F)
 
         def b1():
-            cuda_segment.segment_histogram(pay, start0, ct, num_bins=B, **hk)
+            cuda_segment.segment_histogram(pay, start0, ct, num_bins=B, **hk,
+                                           **ssc)
 
         def b6():
             cuda_segment.partition_segment_hist(pay, aux, start0, ct, pred,
                                                 lv, rv, COLS["value"], B,
-                                                **hk)
+                                                **hk, **ssc)
 
         rec = dict(b1_us=sum(kernel_breakdown(b1, pay, 0, rows, 20)
                              .values()),
@@ -1088,6 +1217,20 @@ def same_partition(what: str, got, plain, s: int, c: int,
               "%s: aux not byte-identical" % what)
 
 
+def fixed_hist_chunked(pay, n: int, f: int, scale,
+                       chunk: int = WIDE_CMP_ROWS) -> torch.Tensor:
+    """seg.segment_histogram_fixed of rows [0, n) at `scale`, its exact
+    integer sums taken over row chunks that fit the card."""
+    hk = dict(num_features=f, num_bins=B, grad_col=f + 5, hess_col=f + 6,
+              cnt_col=f + 2, scale=scale)
+    gh, cnt = seg.fixed_sums(pay, 0, min(chunk, n), **hk)
+    for s in range(chunk, n, chunk):
+        g2, c2 = seg.fixed_sums(pay, s, min(chunk, n - s), **hk)
+        gh += g2
+        cnt += c2
+    return seg.fixed_hist(gh, cnt, scale, f, B)
+
+
 def plain_hist_chunked(pay, n: int, hk: dict, chunk: int = WIDE_CMP_ROWS):
     """The plain histogram of rows [0, n), summed over row chunks that fit
     its rows * F * 3 index tensor on the card."""
@@ -1149,13 +1292,21 @@ def wide_kernels_phase(seed: int, dev) -> dict:
                 got = fn(small, torch.tensor(s, **i32), torch.tensor(c, **i32),
                          **hk)
                 torch.cuda.synchronize()
-                plain = seg.segment_histogram(small, s, c, **hk)
-                check(torch.equal(got[..., 2], plain[..., 2]),
-                      "%s count channel vs plain at F=%d (%d, %d)"
-                      % (name, f, s, c))
-                err = max(err, hist_errors(small, s, c, f, got))
-                del got, plain
+                err = max(err, hist_exact(small, s, c, f, got))
+                del got
             rec[name] = dict(max_abs_err=err)
+        # B7 on the whole root, bit for bit
+        root_sc = seg.fixed_scale(pay, 0, n, cols["grad"], cols["hess"])
+        got = cuda_segment.segment_histogram_colblock(
+            pay, torch.zeros((), **i32), torch.tensor(n, **i32), **hk,
+            scale=root_sc)
+        torch.cuda.synchronize()
+        want = fixed_hist_chunked(pay, n, f, root_sc)
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              "B7 at the root F=%d: %d cells differ from the fixed-point "
+              "plain version" % (f, int((got != want).sum())))
+        rec["segment_histogram_colblock"]["root_bit_identical"] = True
+        del got, want
 
         # the quantized and frontier paths keep B4, B5 and B2's stage /
         # commit at every width
@@ -1178,12 +1329,9 @@ def wide_kernels_phase(seed: int, dev) -> dict:
         st_t, ct_t = torch.tensor(starts, **i32), torch.tensor(counts, **i32)
         got = cuda_segment.segment_histogram_batched(small, st_t, ct_t, **hk)
         torch.cuda.synchronize()
-        plain = seg.segment_histogram_batched(small, starts, counts, **hk)
-        check(torch.equal(got[..., 2], plain[..., 2]),
-              "batched histogram count channel differs from plain at F=%d"
-              % f)
-        del plain
-        err = max(hist_errors(small, s, c, f, got[k])
+        bsc = seg.fixed_scale(small, starts, counts, cols["grad"],
+                              cols["hess"])
+        err = max(hist_exact(small, s, c, f, got[k], scale=bsc)
                   for k, (s, c) in enumerate(zip(starts, counts)))
         del got
         for qmax, qpay in qpays.items():
@@ -1238,8 +1386,9 @@ def wide_kernels_phase(seed: int, dev) -> dict:
                                         WIDE_SEGMENT_ROWS)):
                 ct_t = torch.tensor(ct, **i32)
                 if name.startswith("segment_histogram"):
+                    wsc = scale_kw(fn, pay, 0, ct, f)
                     rec[name][key] = time_ms(
-                        lambda: fn(pay, start0, ct_t, **hk), reps)
+                        lambda: fn(pay, start0, ct_t, **hk, **wsc), reps)
                 else:
                     rec[name][key] = time_fresh_ms(lambda: fn(
                         pay, aux, start0, ct_t, preds["numerical"], lv, rv,
@@ -1265,7 +1414,7 @@ def wide_kernels_phase(seed: int, dev) -> dict:
         del odd
         rec["segment_histogram_colblock"]["ms_nan_fifth"] = time_ms(
             lambda: cuda_segment.segment_histogram_colblock(
-                nan_pay, start0, count, **hk), reps)
+                nan_pay, start0, count, **hk, scale=root_sc), reps)
         del nan_pay
         hist_bound = bound(n * (f + 3) * 4 + f * B * 3 * 4, n * f * 3)
         for name in ("segment_histogram_colblock", "segment_histogram"):
@@ -1273,7 +1422,7 @@ def wide_kernels_phase(seed: int, dev) -> dict:
                              bound_ms=hist_bound[0], bound_by=hist_bound[1])
         rec["segment_histogram_colblock"]["breakdown_us"] = kernel_breakdown(
             lambda: cuda_segment.segment_histogram_colblock(
-                pay, start0, count, **hk), pay, 0, n)
+                pay, start0, count, **hk, scale=root_sc), pay, 0, 1)
         # the partitions' plain version and yardstick at the root, at each
         # of the TIMED_SPLITS; B8 timed there too
         part_bound = bound(2 * n * p * 4, 0)
@@ -1358,8 +1507,9 @@ def sweep_phase(seed: int, dev) -> dict:
             fn = getattr(cuda_segment, name)
             for rows in (SWEEP_ROWS, WIDE_SEGMENT_ROWS):
                 ct = torch.tensor(rows, **i32)
+                wsc = scale_kw(fn, pay, 0, rows, f)
                 out.setdefault(name, {}).setdefault(f, {})[rows] = time_ms(
-                    lambda: fn(pay, start0, ct, **hk), 5)
+                    lambda: fn(pay, start0, ct, **hk, **wsc), 5)
         del pay
         torch.cuda.empty_cache()
     return out
@@ -1423,11 +1573,13 @@ WIDE_ONLY = ("segment_histogram_colblock", "partition_segment_rmw",
 
 def reset_counts() -> None:
     for name in COUNTED:
-        getattr(cuda_segment, name).launches = 0
+        if hasattr(cuda_segment, name):  # a parent tree may lack one
+            getattr(cuda_segment, name).launches = 0
 
 
 def read_counts() -> dict:
-    return {name: getattr(cuda_segment, name).launches for name in COUNTED}
+    return {name: getattr(cuda_segment, name).launches
+            if hasattr(cuda_segment, name) else 0 for name in COUNTED}
 
 
 def make_main_data(rows: int, seed: int, params: dict) -> tuple:
@@ -1566,58 +1718,142 @@ def first_difference(a: str, b: str) -> str:
     return "the text lengths"
 
 
-def repeat_phase(data, rows: int, iters: int) -> str:
-    """Queue C's first step: the main path trained twice more in this
-    call, from the same binned data and parameters, every B1 histogram
-    recorded; the two model texts compared.  Where they differ, the line
-    names the first tree and node that differ and the first B1 call whose
-    histogram differs, with its segment and a few differing cells from
-    both runs.  It records; it fails nothing.  Its launches are not
-    counted against any path."""
-    ds, Xv, yv = data
-    whole = cuda_segment.segment_histogram
-    runs = []
-    for _ in range(2):
-        calls = []
+#: the f32 histogram wrappers whose every output the repeat check records
+RECORDED_HISTS = ("segment_histogram", "segment_histogram_batched",
+                  "segment_histogram_colblock", "partition_segment_hist")
 
-        def recorded(payload, start, count, **kw):
-            out = whole(payload, start, count, **kw)
-            calls.append((torch.as_tensor(start).clone(),
-                          torch.as_tensor(count).clone(), out.clone()))
+
+def recorded_train(train, deterministic: bool) -> dict:
+    """Run train() (which returns a booster) with the output of every f32
+    histogram wrapper and every split search recorded, cloned on the card,
+    and the final scores; under torch.use_deterministic_algorithms(True,
+    warn_only=True) when `deterministic`, whose warnings are returned.
+    The wrappers' launch counts are left as they were."""
+    hists, searches = [], []
+    real = {name: getattr(cuda_segment, name) for name in RECORDED_HISTS}
+    counts = read_counts()
+
+    def recorder(name, fn):
+        def rec(*args, **kw):
+            out = fn(*args, **kw)
+            if name == "partition_segment_hist":
+                hists.append((name, torch.stack([out[3], out[4]]).clone()))
+            elif out.dtype == torch.float32:
+                hists.append((name, out.clone()))
             return out
+        rec.__name__ = fn.__name__
+        rec.launches = 0
+        return rec
 
-        recorded.launches = 0
-        cuda_segment.segment_histogram = recorded
+    real_find = grower2.find_best_split_batched
+
+    def find(*args, **kw):
+        res = real_find(*args, **kw)
+        searches.append(tuple(t.clone() for t in res))
+        return res
+
+    for name, fn in real.items():
+        setattr(cuda_segment, name, recorder(name, fn))
+    grower2.find_best_split_batched = find
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(deterministic, warn_only=True)
+            try:
+                bst = train()
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+    finally:
+        for name, fn in real.items():
+            setattr(cuda_segment, name, fn)
+        grower2.find_best_split_batched = real_find
+        for name, v in counts.items():
+            if hasattr(cuda_segment, name):
+                getattr(cuda_segment, name).launches = v
+    text = bst.model_to_string()
+    return dict(text=text, sha=hashlib.sha256(text.encode()).hexdigest(),
+                hists=hists, searches=searches,
+                scores=bst._engine._fast.raw_scores(),
+                warnings=sorted({"%s:%s %s" % (w.filename.split("/")[-1],
+                                               w.lineno, str(w.message)[:160])
+                                 for w in caught}))
+
+
+def deterministic_probe() -> list:
+    """The warnings that recorded_train's capture sees from one op that
+    PyTorch's deterministic mode flags (torch.histc on the card), so an
+    empty list from a training run is seen to mean no flagged op ran."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
         try:
-            bst = lt.train(train_params(255), ds, iters, verbose_eval=False)
+            torch.histc(torch.zeros(4, device="cuda"))
+            torch.cuda.synchronize()
         finally:
-            cuda_segment.segment_histogram = whole
-        runs.append((bst.model_to_string(), calls,
-                     auc_score(yv, bst.predict(Xv))))
-    (text_a, calls_a, auc_a), (text_b, calls_b, auc_b) = runs
-    same = text_a == text_b
-    line = ("repeat: the main path trained twice more (%dx%d, %d iters): "
-            "model text identical %s, AUC %.6f / %.6f, %d / %d B1 calls"
-            % (rows, F, iters, same, auc_a, auc_b, len(calls_a),
-               len(calls_b)))
-    diff = next((i for i, (a, b) in enumerate(zip(calls_a, calls_b))
-                 if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-                         and torch.equal(a[2].view(torch.int32),
-                                         b[2].view(torch.int32)))), None)
-    if diff is None:
-        return line + "; every recorded B1 histogram bit-identical"
-    (sa, ca, ha), (sb, cb, hb) = calls_a[diff], calls_b[diff]
-    cells = torch.nonzero(ha.view(torch.int32) != hb.view(torch.int32))
-    shown = [[int(f), int(b), int(ch), float(ha[f, b, ch]),
-              float(hb[f, b, ch])] for f, b, ch in cells[:6].tolist()]
-    return line + ("; models first differ at %s; the first B1 histogram "
-                   "that differs is call %d (segment (%d, %d) / (%d, %d)), "
-                   "%d cells differ, max |diff| %.3g; [feature, bin, "
-                   "channel, run 1, run 2]: %s"
-                   % (first_difference(text_a, text_b) if not same
-                      else "nowhere", diff, int(sa), int(ca), int(sb),
-                      int(cb), cells.shape[0],
-                      float((ha - hb).abs().max()), json.dumps(shown)))
+            torch.use_deterministic_algorithms(False)
+    return [str(w.message)[:80] for w in caught]
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        return torch.equal(a.contiguous().view(torch.int32 if a.element_size()
+                                               == 4 else torch.int64),
+                           b.contiguous().view(torch.int32 if b.element_size()
+                                               == 4 else torch.int64))
+    return torch.equal(a, b)
+
+
+def repeat_check(label: str, train, reference_text: str = None) -> str:
+    """Queue C's check: a path trained twice more in this call from the
+    same binned data, the first run under PyTorch's deterministic mode
+    (warn_only, its warnings printed), the second without.  Raises unless
+    the two model texts are byte-identical (and the path's own run's,
+    when given), every recorded f32 histogram bit-identical, every split
+    search's outputs and the final scores too; the failure names the first
+    array that differs, histograms first.  Returns its line, with the model
+    text's sha256 so that calls can be compared."""
+    a = recorded_train(train, True)
+    b = recorded_train(train, False)
+    where = None
+    if len(a["hists"]) != len(b["hists"]):
+        where = "histogram calls: %d vs %d" % (len(a["hists"]),
+                                                len(b["hists"]))
+    for k, ((na, ha), (nb, hb)) in enumerate(zip(a["hists"], b["hists"])):
+        if where is None and (na != nb or not bits_equal(ha, hb)):
+            diff = (ha != hb) if ha.shape == hb.shape else ha.new_ones(1)
+            where = ("histogram call %d (%s): %d cells differ, max |diff| "
+                     "%.3g" % (k, na, int(diff.sum()),
+                               float((ha - hb).abs().max())
+                               if ha.shape == hb.shape else float("nan")))
+    for k, (ra, rb) in enumerate(zip(a["searches"], b["searches"])):
+        if where is None and not all(bits_equal(x, y)
+                                     for x, y in zip(ra, rb)):
+            field = next(i for i, (x, y) in enumerate(zip(ra, rb))
+                         if not bits_equal(x, y))
+            where = "split search %d, output field %d" % (k, field)
+    if where is None and not np.array_equal(a["scores"].view(np.int32),
+                                            b["scores"].view(np.int32)):
+        where = "the final scores"
+    same = a["text"] == b["text"]
+    if where is None and not same:
+        where = "the model text at %s" % first_difference(a["text"],
+                                                          b["text"])
+    check(where is None, "repeat %s: the runs differ, first at %s"
+          % (label, where))
+    check(reference_text is None or reference_text == a["text"],
+          "repeat %s: the model text differs from the path's own run at %s"
+          % (label, first_difference(a["text"], reference_text or "")))
+    return ("repeat %s: trained twice more, the first run in PyTorch's "
+            "deterministic mode: model text byte-identical%s, sha256 %s; "
+            "%d f32 histograms, %d split searches and the final scores "
+            "bit-identical; deterministic-mode warnings %s"
+            % (label, " (and to the path's own run)"
+               if reference_text is not None else "", a["sha"],
+               len(a["hists"]), len(a["searches"]),
+               json.dumps(a["warnings"])))
 
 
 #: B3's kernels before its in-place redesign, which no path may launch
@@ -1665,6 +1901,16 @@ def merged_path_phase(data, f32: dict, rows: int, iters: int) -> dict:
         cuda_segment.PARTITION_HIST_VALIDATED = False
     del r["bst"]
     return r
+
+
+def merged_train(ds, iters: int):
+    """The merged path's training: the main path's params with
+    cuda_segment.PARTITION_HIST_VALIDATED set in-process."""
+    cuda_segment.PARTITION_HIST_VALIDATED = True
+    try:
+        return lt.train(train_params(255), ds, iters, verbose_eval=False)
+    finally:
+        cuda_segment.PARTITION_HIST_VALIDATED = False
 
 
 def histogram_mode_phases(data, f32: dict, rows: int, iters: int) -> dict:
@@ -1976,13 +2222,20 @@ def profile_phase(bst, label: str, launched=(), retired=()) -> str:
     for name in retired:
         check(not any(name in e.key for e in kernels),
               "profile (%s): a %s kernel ran" % (label, name))
-    # the histogram kernels share one template: <float> serves B1 and the
-    # f32 B5, <int> B4 and the int32 B5; B3 and B8 share their routing.
-    # "partition" is B2's kernels (whole, or the stage and commit)
+    # the histogram kernels share one body: segment_hist_kernel<true>
+    # serves B1, <false> B4, and segment_hist_batched_kernel B5 in f32 and
+    # int32 (a parent tree's <float> / <int> served B5 too); B3 and B8
+    # share their routing.  "partition" is B2's kernels (whole, or the
+    # stage and commit)
     ported = {}
     for prefixes, name in (
-            (("segment_hist_kernel<float>",), "histogram f32"),
-            (("segment_hist_kernel<int>",), "histogram int32"),
+            (("segment_hist_kernel<float>", "segment_hist_kernel<true>"),
+             "histogram f32"),
+            (("segment_hist_kernel<int>", "segment_hist_kernel<false>"),
+             "histogram int32"),
+            (("segment_hist_batched_kernel<true>",), "histogram batched f32"),
+            (("segment_hist_batched_kernel<false>",),
+             "histogram batched int32"),
             (("hist_colblock",), "histogram colblock"),
             (("part_",), "partition"),
             (("phist_",), "partition + histogram"),
@@ -1997,10 +2250,20 @@ def profile_phase(bst, label: str, launched=(), retired=()) -> str:
     # histograms, the partitions) ran, the family's kernels are its, by
     # whatever names they have
     per_call = {}
+    for wrapper, group in (("segment_histogram_batched",
+                            ("histogram batched f32",
+                             "histogram batched int32")),
+                           ("segment_histogram_quant", ("histogram int32",))):
+        # B5 under its own name, and B4 beside it on the int8 + frontier
+        # path (this tree's names only)
+        if calls.get(wrapper) and sum(ported[g][0] for g in group):
+            per_call[wrapper] = round(sum(ported[g][1] for g in group)
+                                      * 1e3 / calls[wrapper], 3)
     for family, groups in (
             (("segment_histogram", "segment_histogram_quant",
               "segment_histogram_colblock", "segment_histogram_batched"),
-             ("histogram f32", "histogram int32", "histogram colblock")),
+             ("histogram f32", "histogram int32", "histogram colblock",
+              "histogram batched f32", "histogram batched int32")),
             (("partition_segment", "partition_segment_stage",
               "partition_segment_commit", "partition_segment_hist",
               "partition_segment_rmw", "partition_segment_blocks"),
@@ -2042,24 +2305,93 @@ def merged_pays_line(census_bounds: dict) -> str:
                census_bounds["segment_histogram"], b6 < b1_b2))
 
 
+def compare_kernels_phase(seed: int, dev) -> dict:
+    """The kernels this tree changed, timed through their wrappers so that
+    a parent tree's are timed alike: B5 in f32 and int32 at the 8-segment
+    shape of kernels_phase; B2's stage + commit on fresh rows at the
+    numerical split, at the root and at CENSUS_SIZES; B7 at the Bosch and
+    Epsilon roots.  Each: ms per call (CUDA events) and the device us of
+    its kernels per call (torch.profiler).  Returns the readings."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    n = 1_015_808
+    out = {}
+    pay = make_payload(n, F, P, seed, dev)
+    hk = dict(num_features=F, num_bins=B, grad_col=COLS["grad"],
+              hess_col=COLS["hess"], cnt_col=COLS["cnt"])
+    qpay = quantize_columns(pay, n, 127, seed + 127)
+    tstarts, tcounts = batch_segments(n, [n // d for d in (4, 5, 8, 10, 16,
+                                                           20, 32, 64)])
+    ts_t, tc_t = torch.tensor(tstarts, **i32), torch.tensor(tcounts, **i32)
+    bsc = scale_kw(cuda_segment.segment_histogram_batched, pay, tstarts,
+                   tcounts, F)
+    b1_rows = torch.tensor(sum(tcounts), **i32)
+    start0 = torch.zeros((), **i32)
+    for key, fn in (
+            ("b1_same_rows", lambda: cuda_segment.segment_histogram(
+                pay, start0, b1_rows, **hk, **bsc)),
+            ("b5_f32", lambda: cuda_segment.segment_histogram_batched(
+                pay, ts_t, tc_t, **hk, **bsc)),
+            ("b5_int32", lambda: cuda_segment.segment_histogram_batched(
+                qpay, ts_t, tc_t, quantized=True, **hk))):
+        out[key] = dict(ms=time_ms(fn, 20), kernel_us=sum(
+            kernel_breakdown(fn, pay, 0, 1, 20).values()))
+    del qpay
+    aux = torch.zeros_like(pay)
+    pred = predicates(dev)["numerical"]
+    lv, rv = torch.tensor(-0.25, device=dev), torch.tensor(0.75, device=dev)
+    sc = {}
+    for rows in CENSUS_SIZES + (n,):
+        ct = torch.tensor(rows, **i32)
+
+        def fn():
+            stage_commit(pay, aux, start0, ct, pred, lv, rv, COLS["value"])
+
+        sc[rows] = dict(ms=time_fresh_ms(fn, pay, 0, rows, 20),
+                        kernel_us=kernel_breakdown(fn, pay, 0, rows, 20))
+    out["stage_commit"] = sc
+    del pay, aux
+    torch.cuda.empty_cache()
+    for f, rows in WIDE:
+        n = -(-rows // 16384) * 16384
+        cols = cols_of(f)
+        wk = dict(num_features=f, num_bins=B, grad_col=cols["grad"],
+                  hess_col=cols["hess"], cnt_col=cols["cnt"])
+        pay = device_payload(n, f, f + 10, seed + f, dev)
+        ct = torch.tensor(n, **i32)
+        wsc = scale_kw(cuda_segment.segment_histogram_colblock, pay, 0, n, f)
+
+        def fn():
+            cuda_segment.segment_histogram_colblock(pay, start0, ct, **wk,
+                                                    **wsc)
+
+        out["b7_root_%d" % f] = dict(ms=time_ms(fn, 10), kernel_us=sum(
+            kernel_breakdown(fn, pay, 0, 1, 10).values()))
+        del pay
+        torch.cuda.empty_cache()
+    return out
+
+
 def compare_phase(rows: int, iters: int, seed: int) -> None:
     """The readings that compare two trees in one call, main()'s own
-    phases: sizes_phase, then the main path, the merged path and the int8
-    + frontier path trained and profiled (B1, B2; B6; B4 and B5's int32
-    instance).  It drives only the port's public wrappers and entry
-    points, so this file run beside a parent tree's package times the
-    parent's kernels; chip_compare.py runs it in each tree in turn."""
+    phases: sizes_phase (B1, B6), compare_kernels_phase (B5, the stage +
+    commit, B7's roots), then the main path, the merged path, the frontier
+    8 path and the int8 + frontier path trained and profiled (B1, B2; B6;
+    B5 and the stage + commit; B4 and B5's int32 instance).  It drives
+    only the port's public wrappers and entry points, so this file run
+    beside a parent tree's package times the parent's kernels;
+    chip_compare.py runs it in each tree in turn."""
     dev = torch.device("cuda", 0)
     build.build_all()
     say("compare: %s" % nvidia_smi())
     say("sizes: %s" % json.dumps(sizes_phase(1_015_808, seed, dev)))
+    say("kernels: %s" % json.dumps(compare_kernels_phase(seed, dev)))
     line, f32, data = main_path_phase(rows, iters, seed)
     say(line)
     say(profile_phase(f32["bst"], "main path"))
     del f32["bst"]
     merged_path_phase(data, f32, rows, iters)
     quantized_phases(data, f32, rows, iters,
-                     names=("quantized int8 + frontier 8",))
+                     names=("frontier 8", "quantized int8 + frontier 8"))
 
 
 def main() -> int:
@@ -2136,13 +2468,20 @@ def main() -> int:
     # stage's scatter or the full-segment copy-back
     say(profile_phase(main_run["bst"], "main path",
                       launched=("part_move", "part_copy_side"),
-                      retired=("part_scatter", "part_copyback")))
+                      retired=("part_stage_move", "part_commit")))
     line, census_bounds = census_line(main_run["bst"]._model.trees)
     say(line)
     del main_run["bst"]
     say(checked_partition_phase(data, args.rows, 3))
-    say(repeat_phase(data, args.rows, args.iters))
+    ds = data[0]
+    say("deterministic mode: the capture's probe (torch.histc on the card) "
+        "warned %s" % json.dumps(deterministic_probe()))
+    say(repeat_check("main path", lambda: lt.train(
+        train_params(255), ds, args.iters, verbose_eval=False),
+        main_run["model_text"]))
     runs = histogram_mode_phases(data, main_run, args.rows, args.iters)
+    say(repeat_check("merged", lambda: merged_train(ds, args.iters),
+                     runs["merged"]["model_text"]))
     say(merged_pays_line(census_bounds))
     for key, path, group in (
             ("segment_histogram", "main path", "histogram f32"),
@@ -2151,7 +2490,10 @@ def main() -> int:
             census_bound_ms_per_iter=census_bounds[key],
             profile_ms_per_iter=PROFILED[path][group][1])
     runs.update(quantized_phases(data, main_run, args.rows, args.iters))
-    del data
+    say(repeat_check("frontier 8", lambda: lt.train(
+        train_params(255, **QUANT_PATHS["frontier 8"]), ds, args.iters,
+        verbose_eval=False), runs["frontier 8"]["model_text"]))
+    del data, ds
     # each kernel's launches are read from the path it serves; every
     # path's counts stand beside them
     paths = {"main path": main_run["launches"]}
@@ -2169,6 +2511,11 @@ def main() -> int:
                            "rmw_copy_side"),
                  retired=("route_", "block_move") + RETIRED_WIDE))))
         paths["wide %d" % f] = r["launches"]
+        if f == 968:
+            # three iterations keep the repeat inside the time limit
+            say(repeat_check("wide 968 (3 iters)", lambda: lt.train(
+                train_params(255, metric="auc"), r["ds"], 3,
+                valid_sets=[r["dv"]], verbose_eval=False)))
         del r
         torch.cuda.empty_cache()
     serves = {"segment_histogram": "main path",
@@ -2187,17 +2534,22 @@ def main() -> int:
             name=key, route="cuda", source=source, replaces=replaces)
     record = []
     for key, rec in kernels.items():
-        rec = dict(rec, launches=paths[serves[key]][key], path=serves[key],
-                   launches_by_path={p: c[key] for p, c in paths.items()})
-        if key in wide:
-            # its checks at both wide shapes (B1 and B2 timed there too)
-            rec["wide_by_shape"] = wide[key]
-        if key == "partition_segment":
+        if key == "partition_segment_stage_commit":
+            # the stage's launches, the commit's beside them
+            rec = dict(rec, path="frontier 8", launches=paths["frontier 8"][
+                "partition_segment_stage"])
             for half in ("stage", "commit"):
                 name = "partition_segment_" + half
                 rec[half + "_launches"] = paths["frontier 8"][name]
                 rec[half + "_launches_by_path"] = {
                     p: c[name] for p, c in paths.items()}
+            record.append(rec)
+            continue
+        rec = dict(rec, launches=paths[serves[key]][key], path=serves[key],
+                   launches_by_path={p: c[key] for p, c in paths.items()})
+        if key in wide:
+            # its checks at both wide shapes (B1 and B2 timed there too)
+            rec["wide_by_shape"] = wide[key]
         record.append(rec)
     print(json.dumps({"kernels": record}))
     print(smi)

@@ -10,34 +10,30 @@ reported and left out), loaded in place of the tree's library and driven
 through the port's wrapper (lightgbm_tpu_torch.ops.cuda_segment), so the
 launch is the one training makes.
   - B1 (segment_histogram) and B4 (segment_histogram_quant), the body of
-    csrc/segment_hist.cuh: rows per chunk (64, 128, 256), the flush with
-    one scalar atomic per element instead of 16-byte ones, no feature
-    groups (chunks alone split a small segment), and probes that are not
-    right and are not checked: no count atomic, and the loads and flush
-    alone (no cell updates).  At the main path's root (1,015,808 x 28)
-    and at segments of 1,024, 4,096, 16,384 and 131,072 rows (device us
-    per call of the kernel, torch.profiler); B4 at the root.  Every
-    checked variant is first held to the plain histogram.
-  - B5 (segment_histogram_batched) and B4, the body's int32 instance:
-    the flush one element a thread against one cell a thread; B5 int32
-    and f32 over 8 segments (a quarter of the rows down to 1/64), B4 at
-    the root and per call at the same sizes, each first held bit for bit.
+    csrc/segment_hist.cuh: rows per chunk (128, 256), no feature groups
+    (chunks alone split a small segment), the fixed-point cell as one
+    16-byte int64 pair under a 128-bit compare-and-swap, and probes that
+    are not right and are not checked: no count add, and the loads and
+    flush alone (no cell updates).  At the main path's root (1,015,808 x
+    28) and at segments of 1,024, 4,096, 16,384 and 131,072 rows (device
+    us per call of the kernel, torch.profiler); B4 at the root.  Every
+    checked variant is first held bit for bit to the plain fixed-point
+    histogram.
+  - B5 (segment_histogram_batched) and B4: the chunk and group variants;
+    B5 int32 and f32 over 8 segments (a quarter of the rows down to
+    1/64), B4 at the root and per call at the same sizes, each first held
+    bit for bit.
   - B6 (partition_segment_hist), whose histogram launch runs the same
-    body: the chunk and group variants, at the root on fresh rows and at
-    the same segment sizes, each first held to the plain version.
+    body: the chunk, group and cell variants, at the root on fresh rows
+    and at the same segment sizes, each first held to the plain version.
   - B3 (partition_segment_rmw): threads per move block x staging bytes
     per buffer, at P = 513, 978 and 1664 on 1,015,808 rows (fresh rows, the
     numerical split of chip_smoke.py, ~40 % left), with each kernel's
     device time; every variant is first held to the plain partition.
-  - B7 (segment_histogram_colblock): the tree's kernel, whose lanes find
-    equal bins by one ballot per bit of the bin; the same with
-    __match_any_sync, and with __match_any_sync for one of a warp's two
-    features; for reference, the cells added with shared-memory atomics
-    (a compare-and-swap loop for grad and hess, a native add for the
-    count) and no groups (all held to the plain histogram); and timing
-    probes that are not right and are not checked: staging alone (no
-    accumulation) and the accumulation without the equal-bin groups
-    (every lane its own group).
+  - B7 (segment_histogram_colblock): the tree's kernel (one 1024-thread
+    block an SM, 32 columns), two 512-thread blocks an SM (19 columns at
+    255 bins), the 128-bit compare-and-swap cell, and a timing probe that
+    is not right and is not checked: staging alone (no accumulation).
     At the Bosch root (968 features, 1,015,808 rows) and the Epsilon root
     (2,000 features, 409,600 rows), with uniform bins and with a fifth of
     every other feature's rows in the last bin (wide 968's NaN share).
@@ -67,101 +63,67 @@ VARIANT_DIR = build.BUILD_DIR.parent / "variants"
 B = c.B
 
 B1_CHUNK = "constexpr int kHistChunkRows = 128;"
-B1_VARIANTS = {
-    "tree": [],
-    "chunk64": [(B1_CHUNK, "constexpr int kHistChunkRows = 64;")],
-    "chunk256": [(B1_CHUNK, "constexpr int kHistChunkRows = 256;")],
-    "scalar_flush": [(
-        "      atomicAdd(reinterpret_cast<float4*>(dst + k), v);",
-        "      atomicAdd(dst + k, v.x);\n      atomicAdd(dst + k + 1, v.y);\n"
-        "      atomicAdd(dst + k + 2, v.z);\n      atomicAdd(dst + k + 3, v.w);")],
-    "no_groups": [("  int g = s.chunks > 0 ? grid / s.chunks : grid;",
-                   "  int g = 1;")],
-    # (grad, hess, count) in one 16-byte cell, one 128-bit compare-and-swap
-    # a row and feature; B + 0 cells a feature so 28 features fit two
-    # blocks an SM (right for F <= 28 only)
-    "cell128": [
-        ("""  float2* gh;
+#: the fixed-point cell as one 16-byte (grad, hess) int64 pair updated by
+#: one 128-bit compare-and-swap loop (integer sums: any order of retries
+#: gives the same bits), and the count by a native add
+CAS128 = [(("struct FixedCells {",
+            "return fixed_value(h_lo[k], h_hi[k]); }\n};"), """struct FixedCells {
+  unsigned long long* gh;
   int* cnt;
-  __device__ HistCells(unsigned char* smem, int ncell)
-      : gh(reinterpret_cast<float2*>(smem)),
-        cnt(reinterpret_cast<int*>(gh + ncell)) {}
+  float mg, mh;
+  __device__ FixedCells(unsigned char* smem, int ncell, float mg_, float mh_)
+      : gh(reinterpret_cast<unsigned long long*>(smem)),
+        cnt(reinterpret_cast<int*>(gh + 2 * ncell)),
+        mg(mg_),
+        mh(mh_) {}
   __device__ void clear(int ncell) {
-    for (int i = threadIdx.x; i < ncell; i += blockDim.x) {
-      gh[i] = make_float2(0.f, 0.f);
-      cnt[i] = 0;
-    }
+    unsigned* w = reinterpret_cast<unsigned*>(gh);
+    for (int i = threadIdx.x; i < 5 * ncell; i += blockDim.x) w[i] = 0u;
   }
-  __device__ void add(int k, float g, float h, float c) {
-    add_pair(gh + k, g, h);
-    atomicAdd(cnt + k, __float2int_rn(c));
-  }
-  __device__ float get(int k, int ch) const {
-    return ch == 0 ? gh[k].x
-                   : (ch == 1 ? gh[k].y : static_cast<float>(cnt[k]));
-  }""", """  float4* cell;
-  __device__ HistCells(unsigned char* smem, int ncell)
-      : cell(reinterpret_cast<float4*>(smem)) {}
-  __device__ void clear(int ncell) {
-    for (int i = threadIdx.x; i < ncell; i += blockDim.x) {
-      cell[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
-  __device__ void add(int k, float g, float h, float c) {
-    unsigned __int128* p = reinterpret_cast<unsigned __int128*>(cell + k);
+  __device__ void add_q(int k, long long qg, long long qh, int c) {
+    unsigned __int128* p = reinterpret_cast<unsigned __int128*>(gh + 2 * k);
     unsigned __int128 old = *p;
     unsigned __int128 assumed;
     do {
       assumed = old;
-      float4 v;
-      memcpy(&v, &assumed, sizeof(v));
-      v.x += g;
-      v.y += h;
-      v.z += c;
-      unsigned __int128 next;
-      memcpy(&next, &v, sizeof(next));
-      old = atomicCAS(p, assumed, next);
+      const unsigned long long lo =
+          static_cast<unsigned long long>(assumed) + qg;
+      const unsigned long long hi =
+          static_cast<unsigned long long>(assumed >> 64) + qh;
+      old = atomicCAS(p, assumed,
+                      (static_cast<unsigned __int128>(hi) << 64) | lo);
     } while (old != assumed);
+    if (c) atomicAdd(cnt + k, c);
   }
-  __device__ float get(int k, int ch) const {
-    return ch == 0 ? cell[k].x : (ch == 1 ? cell[k].y : cell[k].z);
-  }"""),
-        ("  return cap * (B + 1) * 12;", "  return (cap < 28 ? cap : 28) * B * 16;"),
-        ("  const int stride = B + 1;\n  HistCells<T> cells",
-         "  const int stride = B;\n  HistCells<T> cells"),
-        ("  return cells.get(j * (B + 1) + b, rem - 3 * b);",
-         "  return cells.get(j * B + b, rem - 3 * b);")],
-    "probe_no_count": [("    add_pair(gh + k, g, h);\n"
-                        "    atomicAdd(cnt + k, __float2int_rn(c));",
-                        "    add_pair(gh + k, g, h);")],
+  __device__ void add(int k, float g, float h, float c) {
+    add_q(k, to_fixed(g, mg), to_fixed(h, mh), __float2int_rn(c));
+  }
+  __device__ long long grad(int k) const {
+    return static_cast<long long>(gh[2 * k]);
+  }
+  __device__ long long hess(int k) const {
+    return static_cast<long long>(gh[2 * k + 1]);
+  }
+};""")]
+B1_VARIANTS = {
+    "tree": [],
+    "chunk256": [(B1_CHUNK, "constexpr int kHistChunkRows = 256;")],
+    # chunks alone split a small segment (one feature group)
+    "no_groups": [("  int g = chunks > 0 ? grid / chunks : grid;",
+                   "  int g = 1;")],
+    "cas128": CAS128,
+    # probes, not right: no count add; the loads and flush alone
+    "probe_no_count": [("    if (c) atomicAdd(cnt + k, c);\n  }\n  __device__ "
+                        "void add(", "  }\n  __device__ void add(")],
     "probe_loads_only": [("          if (b >= 0 && b < B) cells.add(",
                           "          if (b < -1) cells.add(")],
 }
-B1_CHECKED = ("tree", "chunk64", "chunk256", "scalar_flush", "no_groups",
-              "cell128")
+B1_CHECKED = ("tree", "chunk256", "no_groups", "cas128")
 
-#: the int32 instance's flush (B4, B5 int32): the tree's, one element a
-#: thread with two divisions each, against one cell a thread (one
-#: division) adding its three channels
-B5_VARIANTS = {
-    "tree": [],
-    "int_flush_cells": [("""  const int n = fn * B * 3;
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    const int v = cell_value(cells, k, B);
-    if (v != 0) atomicAdd(dst + k, v);
-  }""", """  const int n = fn * B;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int j = i / B;
-    const int k = j * (B + 1) + i - j * B;
-    const int2 gh = cells.gh[k];
-    const int c = cells.cnt[k];
-    int* d = dst + 3 * i;
-    if (gh.x != 0) atomicAdd(d, gh.x);
-    if (gh.y != 0) atomicAdd(d + 1, gh.y);
-    if (c != 0) atomicAdd(d + 2, c);
-  }""")],
-}
-B6_VARIANTS = ("tree", "chunk256", "no_groups", "cell128")
+#: B5's variants: the tree's chunks and groups against 256-row chunks and
+#: no feature groups, in f32 and int32
+B5_VARIANTS = {k: B1_VARIANTS[k] for k in ("tree", "chunk256", "no_groups")}
+B6_VARIANTS = ("tree", "chunk256", "no_groups", "cas128")
 B1_SIZES = (1024, 4096, 16384, 131072)
 
 B3_THREADS = "constexpr int kRmwMoveThreads = 512;"
@@ -172,12 +134,17 @@ ROOT_ROWS = 1_015_808
 
 B7_VARIANTS = {
     "tree": [],
-    "no_hot_bin": [("if (hot == kNoBin) {  // the first contended bin becomes "
-                    "hot", "if (false) {")],
+    # two 512-thread blocks per SM, 19 columns a block at 255 bins
+    "two_blocks_512": [
+        ("constexpr int kThreads = 1024;", "constexpr int kThreads = 512;"),
+        ("constexpr int kBlocksPerSm = 1;", "constexpr int kBlocksPerSm = 2;"),
+        ("constexpr int kMaxSmemBytes = 220 * 1024;",
+         "constexpr int kMaxSmemBytes = 110 * 1024;")],
+    "cas128": CAS128,
     "probe_staging_only": [("    if (lane < fn) {\n      for (int rr = warp",
                             "    if (false) {\n      for (int rr = warp")],
 }
-B7_CHECKED = ("tree", "no_hot_bin")
+B7_CHECKED = ("tree", "two_blocks_512", "cas128")
 
 PROBE = r"""
 extern "C" __global__ void probe(int* o32, unsigned long long* o64,
@@ -284,32 +251,33 @@ def b1_phase(paths: dict, seed: int, dev) -> dict:
             for rows in (n, 4096, 37):
                 got = f32(pay, 0, rows, **hk)
                 torch.cuda.synchronize()
-                c.hist_errors(pay, 0, rows, c.F, got)
+                c.hist_exact(pay, 0, rows, c.F, got)
             got = cuda_segment.segment_histogram_quant(qpay, 0, n, **hk)
             c.check(torch.equal(got, seg.segment_histogram(
                 qpay, 0, n, quantized=True, **hk)),
                 "B4 variant %s differs from plain" % tag)
             del got
         count = torch.tensor(n, **i32)
-        rec = dict(root_ms=c.time_ms(lambda: f32(pay, start0, count, **hk),
-                                     20),
+        sc = c.scale_kw(f32, pay, 0, n, c.F)
+        rec = dict(root_ms=c.time_ms(lambda: f32(pay, start0, count, **hk,
+                                                 **sc), 20),
                    b4_root_ms=c.time_ms(
                        lambda: cuda_segment.segment_histogram_quant(
                            qpay, start0, count, **hk), 20))
         for rows in B1_SIZES:
             ct = torch.tensor(rows, **i32)
             rec["us_%d" % rows] = sum(c.kernel_breakdown(
-                lambda: f32(pay, start0, ct, **hk), pay, 0, rows,
+                lambda: f32(pay, start0, ct, **hk, **sc), pay, 0, rows,
                 20).values())
         out[tag] = rec
     return out
 
 
 def b5_phase(paths: dict, seed: int, dev) -> dict:
-    """The int32 instance's variants: B5 int32 and f32 at the 8-segment
-    shape chip_smoke.py times (a quarter of the rows down to 1/64), B4 at
-    the main path's root and per call at B1_SIZES; every variant first
-    held bit for bit to the plain int32 histograms."""
+    """B5's variants: B5 int32 and f32 at the 8-segment shape
+    chip_smoke.py times (a quarter of the rows down to 1/64), B4 at the
+    main path's root and per call at B1_SIZES; every variant first held
+    bit for bit to the plain int32 and fixed-point histograms."""
     i32 = dict(dtype=torch.int32, device=dev)
     n = ROOT_ROWS
     pay = c.make_payload(n, c.F, c.P, seed, dev)
@@ -329,6 +297,12 @@ def b5_phase(paths: dict, seed: int, dev) -> dict:
                             seg.segment_histogram_batched(
                                 qpay, starts, counts, quantized=True, **hk)),
                 "B5 int32 variant %s differs from plain" % tag)
+        got = bat(pay, st, ct, **hk)
+        sc = seg.fixed_scale(pay, starts, counts, c.COLS["grad"],
+                             c.COLS["hess"])
+        for k, (s0, c0) in enumerate(zip(starts, counts)):
+            c.hist_exact(pay, s0, c0, c.F, got[k], scale=sc)
+        del got
         for rows in (n, 4096, 37):
             c.check(torch.equal(quant(qpay, 0, rows, **hk),
                                 seg.segment_histogram(qpay, 0, rows,
@@ -338,7 +312,8 @@ def b5_phase(paths: dict, seed: int, dev) -> dict:
         rec = dict(
             b5_int32_ms=c.time_ms(lambda: bat(qpay, st, ct, quantized=True,
                                               **hk), 20),
-            b5_f32_ms=c.time_ms(lambda: bat(pay, st, ct, **hk), 20),
+            b5_f32_ms=c.time_ms(lambda: bat(pay, st, ct, **hk, scale=sc),
+                                20),
             b4_root_ms=c.time_ms(lambda: quant(qpay, start0, count, **hk),
                                  20))
         for rows in B1_SIZES:
@@ -373,20 +348,22 @@ def b6_phase(paths: dict, seed: int, dev) -> dict:
         c.same_partition("B6 variant " + tag, a[:3], b[:3], 0, n,
                          full_aux=False)
         nl = int(b[2])
-        c.hist_errors(b[0], 0, nl, c.F, a[3])
-        c.hist_errors(b[0], nl, n - nl, c.F, a[4])
+        psc = seg.fixed_scale(pay, 0, n, c.COLS["grad"], c.COLS["hess"])
+        c.hist_exact(b[0], 0, nl, c.F, a[3], scale=psc)
+        c.hist_exact(b[0], nl, n - nl, c.F, a[4], scale=psc)
         del a, b
         rec = {}
         for rows in B1_SIZES + (n,):
             ct = torch.tensor(rows, **i32)
+            sc = c.scale_kw(fn, pay, 0, rows, c.F)
             run = (lambda: fn(pay, aux, start0, ct, pred, lv, rv,
-                              c.COLS["value"], B, **hk))
+                              c.COLS["value"], B, **hk, **sc))
             key = "root" if rows == n else str(rows)
             rec["us_" + key] = c.kernel_breakdown(run, pay, 0, rows, 20)
         count = torch.tensor(n, **i32)
         rec["root_ms"] = c.time_fresh_ms(
             lambda: fn(pay, aux, start0, count, pred, lv, rv,
-                       c.COLS["value"], B, **hk), pay, 0, n, 20)
+                       c.COLS["value"], B, **hk, scale=psc), pay, 0, n, 20)
         out[tag] = rec
     return out
 
@@ -439,16 +416,17 @@ def b7_phase(paths: dict, seed: int, dev) -> dict:
             count = torch.tensor(n, **i32)
             start0 = torch.zeros((), **i32)
             fn = cuda_segment.segment_histogram_colblock
+            sc = seg.fixed_scale(pay, 0, n, cols["grad"], cols["hess"])
             for tag, path in paths.items():
                 use("segment_hist_colblock", path)
                 if tag in B7_CHECKED:
                     m = c.WIDE_CMP_ROWS
                     got = fn(pay, 0, m, **hk)
                     torch.cuda.synchronize()
-                    c.hist_errors(pay, 0, m, f, got)
+                    c.hist_exact(pay, 0, m, f, got)
                     del got
                 out.setdefault(tag, {})["%d_%s" % (f, kind)] = c.time_ms(
-                    lambda: fn(pay, start0, count, **hk), 10)
+                    lambda: fn(pay, start0, count, **hk, scale=sc), 10)
         del pay
         torch.cuda.empty_cache()
     return out

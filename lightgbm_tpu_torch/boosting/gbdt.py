@@ -134,19 +134,24 @@ class _FastState:
         grad/hess columns, in the payload's current row order.  With
         qmax > 0 (the quantized mode, gbdt.py:500-511 of the JAX package)
         they are quantized first, after the count mask, with `generator`'s
-        draws, and the [2] scales are returned; else None."""
+        draws, and the [2] f32 scales are returned.  Else the int32 [2]
+        fixed-point exponents of the tree's f32 histograms are returned
+        (`seg.fixed_exponents` of the largest |grad|, |hess| over every
+        payload row), computed on the device with no host read."""
         pay = self.payload
         g, h = objective.get_gradients_multi(pay[:, self.score0][None],
                                              pay[:, self.label_col],
                                              pay[:, self.weight_col])
         valid = pay[:, self.cnt_col]
         g, h = g[0] * valid, h[0] * valid
-        qscale = None
         if qmax:
-            g, h, qscale = quantize_pair(g, h, generator, float(qmax))
+            g, h, scale = quantize_pair(g, h, generator, float(qmax))
+        else:
+            scale = seg.fixed_exponents(
+                torch.stack([g.abs().amax(), h.abs().amax()]), pay.shape[0])
         seg.payload_col_write(pay, self.grad_col, g)
         seg.payload_col_write(pay, self.hess_col, h)
-        return qscale
+        return scale
 
     def raw_scores(self) -> np.ndarray:
         """[1, n_pad] scores in ORIGINAL row order (host)."""
@@ -452,8 +457,9 @@ class GBDT:
             out, fs.payload, fs.aux = self.grower(fs.payload, fs.aux, fmask,
                                                   qscale)
         else:
-            fs.fill_gradients(self.objective)
-            out, fs.payload, fs.aux = self.grower(fs.payload, fs.aux, fmask)
+            hist_scale = fs.fill_gradients(self.objective)
+            out, fs.payload, fs.aux = self.grower(fs.payload, fs.aux, fmask,
+                                                  hist_scale=hist_scale)
         if out["num_leaves"] > 1:
             seg.payload_col_write(fs.payload, fs.score0,
                                   fs.payload[:, fs.value_col] * lr, "add")

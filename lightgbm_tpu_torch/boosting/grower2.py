@@ -126,7 +126,7 @@ _NODE_FIELDS = ("split_feature", "split_bin", "split_gain", "default_left",
 def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                             num_bins_max: int, cols: PayloadCols,
                             num_features: int, merged_hist=None):
-    """Returns grow(payload, aux, feature_mask[, qscale]) ->
+    """Returns grow(payload, aux, feature_mask[, qscale][, hist_scale]) ->
     (tree dict, payload, aux).
 
     payload/aux: [N_pad + GUARD, P] f32 with a GUARD-row tail whose
@@ -142,6 +142,12 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
     f32 (gradient, hessian) scales, with which `dequantize_hist` turns a
     histogram into f32 exactly where the split search consumes it.
     Every histogram goes through the int32 kernel, at either grid.
+
+    hist_scale: the int32 [2] fixed-point exponents of the f32 histograms
+    on the card (`segment.fixed_scale` over the payload; `gbdt` passes one
+    per tree), so every histogram of the tree rounds alike and the trees
+    are a function of their input; without it each call derives its own.
+    A CPU payload sums in row order and does not read it.
 
     merged_hist: None takes the merged mode by the JAX package's rule
     (grower2.py:264-275), resolved per call from the payload:
@@ -184,16 +190,22 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
     hist_wrapper = cuda_segment.segment_histogram_quant if quantized \
         else cuda_segment.histogram_route(F)
 
-    def hist_fn(payload, start, count):
-        return hist_wrapper(payload, start, count, **hist_kwargs)
-
-    def hist_batched_fn(payload, starts, counts):
-        return cuda_segment.segment_histogram_batched(
-            payload, starts, counts, quantized=quantized, **hist_kwargs)
-
     def grow(payload: torch.Tensor, aux: torch.Tensor,
-             feature_mask: torch.Tensor, qscale: torch.Tensor = None):
+             feature_mask: torch.Tensor, qscale: torch.Tensor = None,
+             hist_scale: torch.Tensor = None):
         dev = payload.device
+        # the f32 histograms' fixed-point exponents on the card: the
+        # caller's for the tree, else each wrapper derives its own
+        fixed = {} if quantized else dict(scale=hist_scale)
+
+        def hist_fn(payload, start, count):
+            return hist_wrapper(payload, start, count, **hist_kwargs, **fixed)
+
+        def hist_batched_fn(payload, starts, counts):
+            return cuda_segment.segment_histogram_batched(
+                payload, starts, counts, quantized=quantized, **hist_kwargs,
+                **fixed)
+
         width = payload.shape[1]
         fits = cuda_segment.partition_hist_fits(width, F, B)
         if quantized:
@@ -338,7 +350,7 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                 return cuda_segment.partition_segment_hist(
                     payload, aux, start, count, pred, lo, ro, cols.value, B,
                     num_features=F, grad_col=cols.grad, hess_col=cols.hess,
-                    cnt_col=cols.cnt)
+                    cnt_col=cols.cnt, **fixed)
             payload, aux, nl = part_fn(payload, aux, start, count, pred, lo,
                                        ro, cols.value)
             return (payload, aux, nl, hist_fn(payload, start, nl),

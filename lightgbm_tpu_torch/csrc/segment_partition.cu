@@ -53,50 +53,28 @@
 // The stage and the commit (segment_partition_stage_launch, _commit_launch),
 // which the frontier-batched grower runs apart, keep the full contract:
 // the stage leaves the payload untouched and the whole partition in aux,
-// and the grower reads it there; the commit copies aux back.  Their
-// kernels (the JAX package's ops/segment.py partition_segment_stage /
-// _commit, plain JAX there):
-//   1. part_count: one block per 1024-row tile counts its left rows;
-//   2. part_scan: those counts become exclusive offsets and num_left;
-//   3. part_scatter: each tile ranks its rows and copies whole rows into
-//      aux: lefts to start + offset, rights to start + num_left + offset;
-//   4. part_copyback: aux -> payload over the segment, with the leaf value
-//      written into value_col.
-// Kernels 1, 2 and 4 and the ranking of 3 live in segment_partition.cuh;
-// their grids are sized for the largest possible segment.
+// and the grower reads it there; the commit copies aux back with the leaf
+// values.  (The JAX package's ops/segment.py partition_segment_stage /
+// _commit, plain JAX there.)  Traffic: each row read and written once by
+// each, 4 * count * P * 4 bytes in all.
+//   1-2. part_count_tiles and part_scan_tiles, as for the whole partition;
+//   3. part_stage_move: the whole partition's move (persistent grid, tiles
+//      by ticket, cp.async staging, ranking by ballot, each side of a tile
+//      written as one contiguous span with 16-byte stores), out of place:
+//      every row goes to aux at its final row, so no tile waits for
+//      another;
+//   4. part_commit (the commit): aux -> payload over the segment with
+//      16-byte moves on a grid sized from the card, the leaf value written
+//      into value_col on the way; each thread walks its elements with a
+//      running (row, column) pair, so no element costs a division.
+// Every launch reads the count on the device, so an inactive candidate of
+// a frontier round (count 0) costs its launches and nothing else.
 // None of the TPU kernel's machinery (8-row aligned windows, one-hot
 // permutation matmuls, the accumulator rings) carries over.
 
 #include "segment_partition_inplace.cuh"
 
 namespace {
-
-__global__ void __launch_bounds__(kTile)
-part_scatter(const float* __restrict__ payload, float* __restrict__ aux,
-             int P, const int* __restrict__ sc,
-             const unsigned char* __restrict__ bitset, int B,
-             const int* __restrict__ tile_off,
-             const int* __restrict__ num_left) {
-  __shared__ int warp_left[32];
-  __shared__ int dest[kTile];
-  const int start = sc[kStart];
-  const int count = sc[kCount];
-  const int row0 = blockIdx.x * kTile;
-  if (row0 >= count) return;  // uniform per block
-  const int nrows = min(kTile, count - row0);
-  const int d = tile_dest(payload, P, sc, bitset, B, blockIdx.x,
-                          tile_off[blockIdx.x], *num_left, warp_left);
-  if (static_cast<int>(threadIdx.x) < nrows) dest[threadIdx.x] = d;
-  __syncthreads();
-
-  // whole-row copy: consecutive threads read consecutive payload floats
-  const float* src = payload + (static_cast<long long>(start) + row0) * P;
-  const int total = nrows * P;
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const int rr = e / P;
-    aux[static_cast<long long>(dest[rr]) * P + (e - rr * P)] = src[e];
-  }
-}
 
 // ---- the whole partition ------------------------------------------------
 
@@ -140,11 +118,88 @@ part_copy_side(float* __restrict__ payload, const float* __restrict__ aux,
   copy_smaller_side(payload, aux, P, sc, num_left);
 }
 
+// ---- the stage + commit -------------------------------------------------
+
+// The stage's move: out of place, so the payload is only read (the shared
+// body takes a writable pointer; in its Stage form it never writes it).
+__global__ void __launch_bounds__(kMoveThreads)
+part_stage_move(const float* payload, float* __restrict__ aux, int P,
+                const int* __restrict__ sc,
+                const unsigned char* __restrict__ bitset, int B, int T,
+                const int* __restrict__ tile_left,
+                const int* __restrict__ tile_off,
+                const int* __restrict__ num_left, int* sync) {
+  move_tiles<true>(const_cast<float*>(payload), aux, P, sc, bitset, B, T,
+                   tile_left, tile_off, num_left, nullptr, 0, sync);
+}
+
+// aux -> payload over the segment, with the leaf value written into
+// value_col: fvals[0] for the first num_left rows, fvals[1] after them.
+// 16-byte moves where aux and payload share their offset within 16 bytes
+// (always, for two buffers of one shape from the allocator), else 4-byte
+// ones; element e of the segment is row e / P, column e % P, tracked by a
+// running pair.
+__global__ void __launch_bounds__(kCopyThreads)
+part_commit(float* __restrict__ payload, const float* __restrict__ aux, int P,
+            const int* __restrict__ sc, const int* __restrict__ num_left,
+            const float* __restrict__ fvals, int value_col) {
+  const long long base = static_cast<long long>(sc[kStart]) * P;
+  const int n = sc[kCount] * P;  // the payload's elements fit an int
+  const int nl = *num_left;
+  const float lv = fvals[0];
+  const float rv = fvals[1];
+  const float* src = aux + base;
+  float* dst = payload + base;
+  const int t0 = blockIdx.x * blockDim.x + threadIdx.x;
+  const int step = gridDim.x * blockDim.x;
+  auto value = [&](int e, float v) {
+    const int r = e / P;
+    return e - r * P == value_col ? (r < nl ? lv : rv) : v;
+  };
+  if (phase16(src) != phase16(dst)) {
+    for (int e = t0; e < n; e += step) dst[e] = value(e, src[e]);
+    return;
+  }
+  const int head = min((4 - phase16(dst)) & 3, n);
+  const int nvec = (n - head) >> 2;
+  // the at most three elements before the aligned middle and after it
+  const int edge = t0 < 3 ? t0 : head + 4 * nvec + t0 - 3;
+  if ((t0 < 3 && edge < head) || (t0 >= 3 && t0 < 6 && edge < n)) {
+    dst[edge] = value(edge, src[edge]);
+  }
+  const float4* s4 = reinterpret_cast<const float4*>(src + head);
+  float4* d4 = reinterpret_cast<float4*>(dst + head);
+  const int e0 = head + 4 * t0;
+  int row = e0 / P;  // once per thread
+  int col = e0 - row * P;
+  const int drow = (4 * step) / P;
+  const int dcol = 4 * step - drow * P;
+#pragma unroll 4
+  for (int i = t0; i < nvec; i += step) {
+    float4 v = s4[i];
+    float* f = reinterpret_cast<float*>(&v);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      int c = col + q, r = row;
+      if (c >= P) {
+        c -= P;
+        ++r;
+      }
+      if (c == value_col) f[q] = r < nl ? lv : rv;
+    }
+    d4[i] = v;
+    row += drow;
+    col += dcol;
+    if (col >= P) {
+      col -= P;
+      ++row;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
-
-int segment_partition_tile_rows() { return kTile; }
 
 // Rows per tile of the whole partition at width P; 0 when the kernel
 // cannot take the width.
@@ -192,41 +247,57 @@ int segment_partition_launch(float* payload, float* aux, int P,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The stage (kernels 1-3): the rows of [start, start + count), left rows
-// first, into aux over the same range; payload is only read.  scalars:
-// int32[11] on the device (start, count, col, threshold, default_left,
-// is_cat, missing_type, num_bin, default_bin, offset, identity); bitset:
-// uint8[B], the bytes of a bool tensor.  tile_left / tile_off: int32
-// [n_tiles] scratch with n_tiles * 1024 >= the largest count; num_left: one
-// int32 on the device (any slot of a caller's vector) that receives the
-// left count.  Returns cudaGetLastError().
+// The stage (part_count_tiles, part_scan_tiles, part_stage_move): the rows
+// of [start, start + count), left rows first, into aux over the same range;
+// payload is only read.  scalars: int32[11] on the device (start, count,
+// col, threshold, default_left, is_cat, missing_type, num_bin,
+// default_bin, offset, identity); bitset: uint8[B], the bytes of a bool
+// tensor.  Scratch, for n_tiles tiles of
+// segment_partition_move_tile_rows(P) rows covering the largest count:
+// tile_left / tile_off int32[n_tiles], sync int32[1 + n_tiles] (cleared by
+// the count kernel).  num_left: one int32 on the device (any slot of a
+// caller's vector) that receives the left count.  sms: the card's
+// multiprocessors.  Returns cudaGetLastError().
 int segment_partition_stage_launch(const float* payload, float* aux, int P,
                                    const int* scalars,
                                    const unsigned char* bitset, int B,
                                    int n_tiles, int* tile_left,
-                                   int* tile_off, int* num_left,
-                                   void* stream) {
+                                   int* tile_off, int* num_left, int* sync,
+                                   int sms, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  part_count<<<n_tiles, kTile, 0, s>>>(payload, P, scalars, bitset, B,
-                                       tile_left, nullptr, 0);
-  part_scan<<<scan_blocks(n_tiles), kTile, 0, s>>>(scalars, tile_left,
-                                                   tile_off, num_left);
-  part_scatter<<<n_tiles, kTile, 0, s>>>(payload, aux, P, scalars, bitset, B,
-                                         tile_off, num_left);
+  const int T = tile_rows(P);
+  const size_t smem = move_smem_bytes(T, P);
+  static int occ_P = -1, occ_blocks = 1;
+  if (occ_P != P) {
+    cudaFuncSetAttribute(part_stage_move,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ_blocks, part_stage_move, kMoveThreads, smem);
+    occ_blocks = occ_blocks > 0 ? occ_blocks : 1;
+    occ_P = P;
+  }
+  part_count_tiles<<<4 * sms, kCountThreads, 0, s>>>(
+      payload, P, scalars, bitset, B, T, tile_left, sync);
+  part_scan_tiles<<<scan_blocks(n_tiles), kTile, 0, s>>>(
+      scalars, T, tile_left, tile_off, num_left);
+  part_stage_move<<<occ_blocks * sms, kMoveThreads, smem, s>>>(
+      payload, aux, P, scalars, bitset, B, T, tile_left, tile_off, num_left,
+      sync);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The commit (kernel 4): aux -> payload over [start, start + count) with
+// The commit (part_commit): aux -> payload over [start, start + count) with
 // fvals[0] (left) / fvals[1] (right) written into value_col.  seg: int32[2]
-// (start, count) on the device, or the stage's int32[11] scalars; num_left:
-// one int32 on the device.  count 0 is a no-op.  Returns
-// cudaGetLastError().
+// (start, count) on the device, or the stage's int32[11] scalars;
+// num_left: one int32 on the device.  count 0 is a no-op.  copy_blocks:
+// the grid.  Returns cudaGetLastError().
 int segment_partition_commit_launch(float* payload, const float* aux, int P,
                                     const int* seg, const int* num_left,
                                     const float* fvals, int value_col,
                                     int copy_blocks, void* stream) {
-  part_copyback<<<copy_blocks, kCopyThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
+  part_commit<<<copy_blocks, kCopyThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(
       payload, aux, P, seg, num_left, fvals, value_col);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,7 +8,9 @@
 // written into value_col, num_left reported on the device; aux over the
 // segment is scratch and nothing outside the segment is written), plus the
 // two children's [F, B, 3] f32 histograms of (grad, hess, count mask),
-// the mask holding small integers (0 or 1 in the grower), summed exactly.
+// the mask holding small integers (0 or 1 in the grower), summed exactly,
+// grad and hess as B1's fixed-point sums (segment_hist.cuh), so each
+// histogram is ops/segment.segment_histogram_fixed's bit for bit.
 // The grower's merged mode calls it once per split in place of B2 + B1 on
 // the smaller child + the subtraction, so no parent histogram or pool is
 // kept.
@@ -16,13 +18,13 @@
 // What bounds it on this card: every row of the segment is read once and
 // written once (2 * count * P * 4 bytes) and the two histograms are
 // written once (2 * F * B * 12 bytes), against HBM at 3.35 TB/s.  The F
-// shared-memory updates per row come next.
+// shared-memory updates per row come next (five native 32-bit adds a
+// cell at most).
 //
 // Design: B2's in-place partition (segment_partition_inplace.cuh), then
 // both histograms, in four launches:
 //   1. phist_count: the left rows of each T-row tile (T as B2's, 192 rows
-//      at P = 38), after the blocks have zeroed the two output histograms;
-//      it also clears the move's ticket and flags;
+//      at P = 38); it also clears the move's ticket and flags;
 //   2. phist_scan: the tile offsets and num_left;
 //   3. phist_move: B2's move: the larger side compacted in place, the
 //      smaller side into aux at the rows it will hold, leaf values
@@ -32,21 +34,20 @@
 //      histograms with B1's body (segment_hist.cuh) over two segments, the
 //      left child's rows then the right's, each read where the move left
 //      it (the larger side in the payload, the smaller side in aux, which
-//      the copy only reads).
+//      the copy only reads); a block holds one child's cells at a time and
+//      flushes where its run of chunks passes to the right child, and the
+//      last block of each feature group writes both children's f32 cells.
 // Why the histograms are not taken from the move's staged tiles: both
-// children's histograms at the main path's shape take 2 * 28 * 257 * 12 B
-// = 172 KB of shared memory, which leaves no room for the move's two
-// staging buffers in one block, and at 137 features they would not fit
-// at all; splitting features across blocks, as B8 splits columns, makes
+// children's fixed-point histograms at the main path's shape take 2 * 28
+// * 257 * 20 B = 288 KB of shared memory, more than a block has, let
+// alone beside the move's two staging buffers; splitting features across blocks, as B8 splits columns, makes
 // every group rank its tiles and move its columns in strided spans under
 // its own flags (B8 reads 1.9x its bound that way).  Reading the
 // histograms' F + 3 columns once more after the move costs count * (F + 3)
 // * 4 bytes, and in exchange the histogram spreads a small split over the
 // whole card as B1 does.
 // Rows move as raw 32-bit copies, so payload and num_left are
-// byte-identical to the plain version; the count channels are exact,
-// grad / hess agree with the plain sums to f32 summation order (atomics
-// make that order vary from run to run).
+// byte-identical to the plain version, and the histograms are order-free.
 // None of the TPU kernel's machinery (one-hot matmuls, the bf16 part
 // split, the VMEM accumulator rings) carries over.
 
@@ -61,17 +62,12 @@ constexpr int kStageBytes = 32 * 1024;  // B2's: one tile, one of two buffers
 
 int tile_rows(int P) { return move_tile_rows(P, kStageBytes); }
 
-// B2's count, after zeroing zero[0, n_zero) (both histograms)
+// B2's count
 __global__ void __launch_bounds__(kCountThreads)
 phist_count(const float* __restrict__ payload, int P,
             const int* __restrict__ sc,
             const unsigned char* __restrict__ bitset, int B, int T,
-            int* __restrict__ tile_left, int* __restrict__ sync,
-            float* __restrict__ zero, int n_zero) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_zero;
-       i += gridDim.x * blockDim.x) {
-    zero[i] = 0.f;
-  }
+            int* __restrict__ tile_left, int* __restrict__ sync) {
   count_tiles(payload, P, sc, bitset, B, T, tile_left, sync);
 }
 
@@ -94,14 +90,14 @@ phist_move(float* payload, float* aux, int P, const int* __restrict__ sc,
 }
 
 // Blocks [0, copy_blocks) copy the smaller side aux -> payload; the rest
-// build the histograms: hist = [2, F, Bh, 3] (left, then right).  The
-// payload is written here (the smaller side's rows) while the larger
-// side's rows are read, so neither pointer is restricted.
+// build the histograms into fo (fo.out = [2, F, Bh, 3]: left, then
+// right).  The payload is written here (the smaller side's rows) while the
+// larger side's rows are read, so neither pointer is restricted.
 __global__ void __launch_bounds__(kHistThreads, 2)
 phist_side_hist(float* payload, const float* aux, int P,
                 const int* __restrict__ sc, const int* __restrict__ num_left,
-                float* __restrict__ hist, int F, int Bh, int cap,
-                int grad_col, int hess_col, int cnt_col, int copy_blocks) {
+                FixedOut fo, int F, int Bh, int cap, int grad_col,
+                int hess_col, int cnt_col, int copy_blocks) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int count = sc[kCount];
   const int nl = *num_left;
@@ -115,11 +111,11 @@ phist_side_hist(float* payload, const float* aux, int P,
               static_cast<long long>(copy_blocks) * blockDim.x);
     return;
   }
-  hist_block<float>(fwd ? payload : aux, fwd ? aux : payload, P, start, nl,
-                    start + nl, count - nl, hist,
-                    hist + static_cast<long long>(F) * Bh * 3, F, Bh, cap,
-                    grad_col, hess_col, cnt_col, blockIdx.x - copy_blocks,
-                    gridDim.x - copy_blocks, smem);
+  const SegPair kids{(fwd ? payload : aux) + start * P, nl,
+                     (fwd ? aux : payload) + (start + nl) * P, count - nl};
+  hist_block<true>(kids, 2, P, nullptr, fo, F, Bh, cap, grad_col, hess_col,
+                   cnt_col, blockIdx.x - copy_blocks, gridDim.x - copy_blocks,
+                   smem);
 }
 
 }  // namespace
@@ -139,9 +135,11 @@ int segment_partition_hist_tile_rows(int P) {
 // for n_tiles tiles of segment_partition_hist_tile_rows(P) rows covering
 // the largest count: tile_left / tile_off int32[n_tiles], sync
 // int32[1 + n_tiles] (cleared by the count kernel).  num_left: one int32
-// on the device.  hist: f32 [2, F, Bh, 3] (left, then right), zeroed here.
+// on the device.  hist: f32 [2, F, Bh, 3] (left, then right), every cell
+// written here; scale, scratch_gh ([2, F, Bh, 2]), scratch_cnt ([2, F,
+// Bh]) and tickets ([F]): as for segment_hist_launch's f32 instance.
 // cap: features per histogram group at most (<= kHistGroupCols of
-// segment_hist.cuh, cap * (Bh + 1) * 12 bytes of shared memory);
+// segment_hist.cuh, hist_smem_bytes(cap, Bh, true) of shared memory);
 // hist_grid: the histogram blocks, at least ceil(F / cap); sms: the card's
 // multiprocessors.  Returns cudaGetLastError(), or cudaErrorInvalidValue
 // for a cap or hist_grid outside those bounds.
@@ -153,14 +151,17 @@ int segment_partition_hist_launch(float* payload, float* aux, int P,
                                   int* num_left, int* sync, float* hist,
                                   int F, int Bh, int cap, int grad_col,
                                   int hess_col, int cnt_col, int hist_grid,
-                                  int sms, void* stream) {
+                                  const int* scale,
+                                  unsigned long long* scratch_gh,
+                                  int* scratch_cnt, int* tickets, int sms,
+                                  void* stream) {
   if (cap < 1 || cap > kHistGroupCols || hist_grid < (F + cap - 1) / cap) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int T = tile_rows(P);
   const size_t move_smem = move_smem_bytes(T, P);
-  const int hist_smem = hist_smem_bytes(cap, Bh);
+  const int hist_smem = hist_smem_bytes(cap, Bh, true);
   // the move's grid stays resident (B2's rule); both opt-ins are set once
   // per width and shared-memory size
   static int occ_P = -1, occ_blocks = 1, smem_set = -1;
@@ -181,16 +182,16 @@ int segment_partition_hist_launch(float* payload, float* aux, int P,
     smem_set = hist_smem;
   }
   phist_count<<<4 * sms, kCountThreads, 0, s>>>(
-      payload, P, scalars, bitset, B, T, tile_left, sync, hist,
-      2 * F * Bh * 3);
+      payload, P, scalars, bitset, B, T, tile_left, sync);
   phist_scan<<<scan_blocks(n_tiles), kTile, 0, s>>>(scalars, T, tile_left,
                                                     tile_off, num_left);
   phist_move<<<occ_blocks * sms, kMoveThreads, move_smem, s>>>(
       payload, aux, P, scalars, bitset, B, T, tile_left, tile_off, num_left,
       fvals, value_col, sync);
   phist_side_hist<<<sms + hist_grid, kHistThreads, hist_smem, s>>>(
-      payload, aux, P, scalars, num_left, hist, F, Bh, cap, grad_col,
-      hess_col, cnt_col, sms);
+      payload, aux, P, scalars, num_left,
+      FixedOut{scratch_gh, scratch_cnt, hist, tickets, scale}, F, Bh, cap,
+      grad_col, hess_col, cnt_col, sms);
   return static_cast<int>(cudaGetLastError());
 }
 

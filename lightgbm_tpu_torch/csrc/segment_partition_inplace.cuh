@@ -330,6 +330,12 @@ __device__ __forceinline__ void write_span(float* dst, const float* buf,
 // in walk order; a claimed ticket without a flag is a block's next tile
 // only once all before it have flags, so the lowest ticket without a flag
 // always makes progress.
+// Stage: the out-of-place stage of B2's stage + commit instead.  Every row
+// goes to aux, the tile's left rows and right rows as two contiguous spans
+// at their final rows, so no tile waits for another and no flag is
+// published; payload is only read and no leaf value is written (fvals and
+// value_col are not read).
+template <bool Stage = false>
 __device__ __forceinline__ void move_tiles(
     float* payload, float* aux, int P, const int* __restrict__ sc,
     const unsigned char* __restrict__ bitset, int B, int T,
@@ -349,8 +355,8 @@ __device__ __forceinline__ void move_tiles(
   const int nl = *num_left;
   const bool fwd = left_in_place(nl, count);
   const int ntiles = (count + T - 1) / T;
-  const float lv = fvals[0];
-  const float rv = fvals[1];
+  const float lv = Stage ? 0.f : fvals[0];
+  const float rv = Stage ? 0.f : fvals[1];
   int* flags = sync + 1;
   auto tile_of = [&](int tk) { return fwd ? tk : ntiles - 1 - tk; };
   auto span_of = [&](int t) { return payload + (start + t * T) * P; };
@@ -364,7 +370,11 @@ __device__ __forceinline__ void move_tiles(
   float* buf = bufs;
   load(tile_of(tk), buf);
   cp_async_wait_all();
-  publish_read(flags + tile_of(tk));
+  if constexpr (Stage) {
+    __syncthreads();
+  } else {
+    publish_read(flags + tile_of(tk));
+  }
   int nk = next_ticket(sync, &s_ticket);
   float* next = bufs + nbuf;
   if (nk < ntiles) load(tile_of(nk), next);
@@ -390,7 +400,7 @@ __device__ __forceinline__ void move_tiles(
       if (r < nr) {
         const int lb = carry + incl - gl;  // left rows before r
         order[gl ? lb : lt + (r - lb)] = r;
-        buf[ph + r * P + value_col] = gl ? lv : rv;
+        if constexpr (!Stage) buf[ph + r * P + value_col] = gl ? lv : rv;
       }
       carry += tot;
     }
@@ -401,17 +411,27 @@ __device__ __forceinline__ void move_tiles(
     const int off = tile_off[t];
     const int left0 = off;                 // segment row of the first left
     const int right0 = nl + row0 - off;    // ... and of the first right
-    const int in0 = fwd ? left0 : right0;
-    const int n_in = fwd ? lt : nr - lt;
-    wait_read(flags, in0 / T, n_in > 0 ? (in0 + n_in - 1) / T : -1, 1);
-    write_span((fwd ? payload : aux) + (start + left0) * P, buf, ph, order,
-               lt, P);
-    write_span((fwd ? aux : payload) + (start + right0) * P, buf, ph,
-               order + lt, nr - lt, P);
+    if constexpr (Stage) {
+      __syncthreads();
+      write_span(aux + (start + left0) * P, buf, ph, order, lt, P);
+      write_span(aux + (start + right0) * P, buf, ph, order + lt, nr - lt, P);
+    } else {
+      const int in0 = fwd ? left0 : right0;
+      const int n_in = fwd ? lt : nr - lt;
+      wait_read(flags, in0 / T, n_in > 0 ? (in0 + n_in - 1) / T : -1, 1);
+      write_span((fwd ? payload : aux) + (start + left0) * P, buf, ph, order,
+                 lt, P);
+      write_span((fwd ? aux : payload) + (start + right0) * P, buf, ph,
+                 order + lt, nr - lt, P);
+    }
 
     if (nk >= ntiles) break;  // uniform per block
     cp_async_wait_all();
-    publish_read(flags + tile_of(nk));
+    if constexpr (Stage) {
+      __syncthreads();
+    } else {
+      publish_read(flags + tile_of(nk));
+    }
     tk = nk;
     nk = s_claim[it & 1];
     float* done = buf;

@@ -37,13 +37,25 @@ through it), and none writes outside the segment.  The stage leaves the
 whole partition in aux, as the frontier grower needs.
 
 The histograms of B1, B4, B5 and B6 split their work on the device from
-the segment's count (csrc/segment_hist.cuh): the host sizes a fixed grid
+the segments' counts (csrc/segment_hist.cuh): the host sizes a fixed grid
 from the card alone (`hist_grid`), and each block takes a feature group
-and row chunks by `hist_work_split`: its Python form here is the one the
-CPU tests hold to cover every (row, feature) once, and chip_smoke.py
-holds it to the kernel's own (the library's `segment_hist_split`).  Their
-count mask holds small integers (0 or 1 in the grower): each is summed
-exactly as an int32, where the plain version sums floats.
+and a run of row chunks of the K segments by `hist_work_split` and
+`hist_block_work`: their Python form here is the one the CPU tests hold
+to cover every (segment, row, feature) once, and chip_smoke.py holds it
+to the kernel's own (the library's `segment_hist_split`).  Their count
+mask holds small integers (0 or 1 in the grower): each is summed exactly
+as an int32, where the plain version sums floats.
+
+The f32 histograms on the card (B1, B5 f32, B6, B7) sum in fixed point,
+so their result does not depend on the order of the adds: each is
+`segment.segment_histogram_fixed` bit for bit, at the int32 [2]
+exponents `scale` (the grower passes one per tree, from
+`segment.fixed_scale` over the payload; without one a wrapper derives it
+from its own segments on the device).  Their int64 scratch and tickets
+are kept per device (`_fixed_scratch`), zeroed once and left zero by
+every launch, so the wrappers launch on one stream per device.  A CPU
+tensor keeps the plain row-order f32 sum (`segment.segment_histogram`),
+the JAX CPU engine's order.
 
 The route (`histogram_route`, `partition_route`) picks the wrapper by
 width, with the crossovers the JAX package's VMEM gates give at max_bin
@@ -75,6 +87,11 @@ _I = ctypes.c_int
 
 #: shared memory one histogram block may use: two blocks fit on an SM
 HIST_SMEM_BYTES = 110 * 1024
+#: shared memory a histogram cell takes: int32 (grad, hess, count), and
+#: fixed point (two 32-bit words for grad and for hess, and the count)
+#: (kHistCellBytesInt / kHistCellBytesFixed of csrc/segment_hist.cuh)
+HIST_CELL_BYTES_INT = 12
+HIST_CELL_BYTES_FIXED = 20
 #: rows per work item of the histograms (kHistChunkRows of
 #: csrc/segment_hist.cuh)
 HIST_CHUNK_ROWS = 128
@@ -154,68 +171,155 @@ def _check_aux(payload: torch.Tensor, aux: torch.Tensor, name: str) -> None:
         raise ValueError("%s: aux must match the payload" % name)
 
 
-def hist_group_cap(num_bins: int) -> int:
+def hist_stride(num_bins: int) -> int:
+    """Cells a feature takes in a histogram block's shared memory: B + 1,
+    made odd (hist_stride of csrc/segment_hist.cuh)."""
+    return (num_bins + 1) | 1
+
+
+def hist_group_cap(num_bins: int, quantized: bool = False) -> int:
     """Features per histogram group at most at `num_bins` bins: as many as
-    HIST_SMEM_BYTES holds at 12 bytes a cell (B + 1 cells a feature), at
-    most HIST_GROUP_COLS; 0 when not one fits."""
-    return min(HIST_GROUP_COLS, HIST_SMEM_BYTES // ((num_bins + 1) * 12))
+    HIST_SMEM_BYTES holds at hist_stride cells a feature of 20 bytes (f32,
+    fixed point) or 12 (int32), at most HIST_GROUP_COLS; 0 when not one
+    fits."""
+    cell = HIST_CELL_BYTES_INT if quantized else HIST_CELL_BYTES_FIXED
+    return min(HIST_GROUP_COLS,
+               HIST_SMEM_BYTES // (hist_stride(num_bins) * cell))
 
 
 def hist_grid(sms: int, num_features: int, cap: int) -> int:
-    """Histogram blocks per segment: two per SM, and at least one per
-    feature group the shared memory forces."""
+    """Histogram blocks: two per SM, and at least one per feature group
+    the shared memory forces."""
     return max(2 * sms, -(-num_features // cap))
 
 
 class HistSplit(NamedTuple):
-    """How the histogram kernels split two segments' rows (segment 0's
-    chunks first) and F features over a grid (hist_split of
-    csrc/segment_hist.cuh)."""
+    """How the histogram kernels split K segments' rows (their chunks
+    numbered one after another, segment 0's first) and F features over a
+    grid (hist_split of csrc/segment_hist.cuh)."""
     groups: int      # feature groups
     group_cols: int  # features per group; the last may have fewer
-    chunks0: int     # row chunks of segment 0
-    chunks: int      # row chunks of both segments
+    chunks: int      # row chunks of all segments
+    offsets: tuple   # each segment's first chunk, and `chunks` last
 
 
-def hist_work_split(count0: int, count1: int, grid: int, num_features: int,
+def hist_work_split(counts, grid: int, num_features: int,
                     cap: int) -> HistSplit:
-    """The split of segments of count0 and count1 rows (B1's one segment
-    has count1 = 0; B6's children are the left then the right) over
-    `grid` blocks: chunks of HIST_CHUNK_ROWS rows; as many feature groups
-    (of at most `cap` features) as fill the grid when there are fewer
-    chunks than blocks, else as few as `cap` allows."""
+    """The split of segments of counts[k] rows (B1's one segment; B5's K;
+    B6's children, the left then the right) over `grid` blocks: chunks of
+    HIST_CHUNK_ROWS rows; as many feature groups (of at most `cap`
+    features) as fill the grid when there are fewer chunks than blocks,
+    else as few as `cap` allows."""
     F = num_features
-    chunks0 = -(-count0 // HIST_CHUNK_ROWS)
-    chunks = chunks0 + -(-count1 // HIST_CHUNK_ROWS)
+    offsets = [0]
+    for c in counts:
+        offsets.append(offsets[-1] + -(-int(c) // HIST_CHUNK_ROWS))
+    chunks = offsets[-1]
     g = grid // chunks if chunks > 0 else grid
     g = max(min(g, F), -(-F // cap))
     group_cols = -(-F // g)
-    return HistSplit(-(-F // group_cols), group_cols, chunks0, chunks)
+    return HistSplit(-(-F // group_cols), group_cols, chunks, tuple(offsets))
+
+
+class HistRun(NamedTuple):
+    """One block's share of a split (hist_run of csrc/segment_hist.cuh)."""
+    group: int
+    first: int     # its run of chunks [first, last)
+    last: int
+    workers: int   # the blocks of its group with a run
+    works: bool    # whether it has one (with no chunks at all, the
+    #                group's first block takes the empty run)
+    q: int         # the run's index in its group
+    per: int       # chunks a full run takes
+
+
+def hist_run(split: HistSplit, block: int, grid: int) -> HistRun:
+    group = block % split.groups
+    q = block // split.groups
+    nbg = (grid - group + split.groups - 1) // split.groups
+    per = -(-split.chunks // nbg) if split.chunks > 0 else 0
+    workers = -(-split.chunks // per) if split.chunks > 0 else 1
+    first = q * per
+    return HistRun(group, first, min(first + per, split.chunks), workers,
+                   q < workers, q, per)
+
+
+def hist_owners(split: HistSplit, run: HistRun, k: int) -> range:
+    """The runs of `run`'s group that convert segment k's cells (hist_owners
+    of csrc/segment_hist.cuh): those holding one of its chunks, and for an
+    empty segment the run at its place; the last of them to flush writes
+    the f32 cells."""
+    off = split.offsets[k]
+    nck = split.offsets[k + 1] - off
+    if nck:
+        return range(off // run.per, (off + nck - 1) // run.per + 1)
+    qa = min(off // run.per, run.workers - 1) if run.per else 0
+    return range(qa, qa + 1)
 
 
 def hist_block_work(split: HistSplit, block: int, grid: int,
                     num_features: int) -> tuple:
     """Block `block`'s work under `split`: (first feature, features,
-    [chunks in the order it takes them]); no chunks for a block past the
-    work."""
-    group = block % split.groups
-    nbg = (grid - group + split.groups - 1) // split.groups
-    f0 = group * split.group_cols
+    [(segment, chunk of that segment) in the order it takes them]); no
+    chunks for a block past the work."""
+    r = hist_run(split, block, grid)
+    f0 = r.group * split.group_cols
     fn = min(split.group_cols, num_features - f0)
-    return f0, fn, list(range(block // split.groups, split.chunks, nbg))
+    work = []
+    if r.works:
+        k = 0
+        for j in range(r.first, r.last):
+            while j >= split.offsets[k + 1]:
+                k += 1
+            work.append((k, j - split.offsets[k]))
+    return f0, fn, work
+
+
+#: the fixed-point histograms' scratch per device index: int64 [cells, 2],
+#: int32 [cells] and int32 tickets, zero between launches
+_FIXED_SCRATCH = {}
+
+
+def _fixed_scratch(dev, n_cells: int, n_tickets: int) -> tuple:
+    """Pointers to the device's fixed-point scratch, at least n_cells cells
+    and n_tickets tickets.  The kernels leave it zero, so it is zeroed only
+    when it is made; a larger need replaces it (the allocator orders the
+    old one's reuse after the launches on the stream)."""
+    have = _FIXED_SCRATCH.get(dev.index)
+    if have is None or have[1].numel() < n_cells \
+            or have[2].numel() < n_tickets:
+        cells = max(n_cells, have[1].numel() if have else 0)
+        tickets = max(n_tickets, have[2].numel() if have else 0)
+        have = (torch.zeros((cells, 2), dtype=torch.int64, device=dev),
+                torch.zeros(cells, dtype=torch.int32, device=dev),
+                torch.zeros(tickets, dtype=torch.int32, device=dev))
+        _FIXED_SCRATCH[dev.index] = have
+    return tuple(t.data_ptr() for t in have)
+
+
+def _scale_of(payload: torch.Tensor, scale, starts, counts, grad_col: int,
+              hess_col: int) -> torch.Tensor:
+    """The int32 [2] fixed-point exponents on the payload's device: the
+    caller's, or `segment.fixed_scale` of the segments."""
+    if scale is None:
+        scale = seg.fixed_scale(payload, starts, counts, grad_col, hess_col)
+    scale = torch.as_tensor(scale, device=payload.device).to(torch.int32) \
+        .reshape(2).contiguous()
+    return scale
 
 
 def _hist_launch(name: str, payload: torch.Tensor, segv: torch.Tensor,
-                 quantized: bool, *, num_features: int, num_bins: int,
-                 grad_col: int, hess_col: int,
+                 quantized: bool, scale=None, *, num_features: int,
+                 num_bins: int, grad_col: int, hess_col: int,
                  cnt_col: int) -> torch.Tensor:
     """Launch csrc/segment_hist.cu over K segments (segv: int32 [K, 2]
-    start/count on the device); returns the filled [K, F, B, 3] output,
-    int32 when quantized, else f32."""
+    start/count on the device); returns the filled [K, F, B, 3] output:
+    int32 when quantized, else f32 at the fixed-point exponents `scale`
+    (derived from the segments when None)."""
     _check_payload(payload, name)
     F, B, P = num_features, num_bins, payload.shape[1]
     K = segv.shape[0]
-    cap = hist_group_cap(B) if B > 0 else 0
+    cap = hist_group_cap(B, quantized) if B > 0 else 0
     if not 0 < F <= P or cap == 0:
         raise ValueError("%s: F=%d, B=%d outside the kernel's range"
                          % (name, F, B))
@@ -226,13 +330,21 @@ def _hist_launch(name: str, payload: torch.Tensor, segv: torch.Tensor,
             raise ValueError("%s: value column %d outside [0, %d)"
                              % (name, c, P))
     dev = payload.device
-    out = torch.zeros((K, F, B, 3), device=dev,
-                      dtype=torch.int32 if quantized else torch.float32)
     lib, fn = _lib("segment_hist", "segment_hist_launch",
-                   [_P, _I, _P, _P] + [_I] * 9 + [_P])
+                   [_P, _I, _P, _P] + [_I] * 10 + [_P] * 5)
+    if quantized:
+        out = torch.zeros((K, F, B, 3), device=dev, dtype=torch.int32)
+        sc, gh, cnt, tk = None, None, None, None
+    else:
+        out = torch.empty((K, F, B, 3), device=dev, dtype=torch.float32)
+        sc = _scale_of(payload, scale, segv[:, 0], segv[:, 1], grad_col,
+                       hess_col)
+        gh, cnt, tk = _fixed_scratch(dev, K * F * B, K * F)
     rc = fn(payload.data_ptr(), P, segv.data_ptr(), out.data_ptr(), K, F, B,
             cap, grad_col, hess_col, cnt_col,
             hist_grid(_sm_count(dev.index), F, cap), int(quantized),
+            int(name == "segment_histogram_batched"),
+            None if sc is None else sc.data_ptr(), gh, cnt, tk,
             _stream(dev))
     _check(lib, "segment_hist", rc)
     return out
@@ -240,16 +352,21 @@ def _hist_launch(name: str, payload: torch.Tensor, segv: torch.Tensor,
 
 def segment_histogram(payload: torch.Tensor, start, count, *,
                       num_features: int, num_bins: int, grad_col: int,
-                      hess_col: int, cnt_col: int) -> torch.Tensor:
-    """f32 hist[F, B, 3] over payload rows [start, start+count) (B1).
-    The count mask column must hold small integers (0 or 1): the kernel
-    rounds each to int32 before its exact sum."""
+                      hess_col: int, cnt_col: int,
+                      scale=None) -> torch.Tensor:
+    """f32 hist[F, B, 3] over payload rows [start, start+count) (B1).  On
+    the card: `segment.segment_histogram_fixed` at the int32 [2]
+    exponents `scale` (by default those of this segment), bit for bit; on
+    the CPU the plain row-order sum, `scale` unused.  The count mask
+    column must hold small integers (0 or 1): the kernel rounds each to
+    int32 before its exact sum."""
     kwargs = dict(num_features=num_features, num_bins=num_bins,
                   grad_col=grad_col, hess_col=hess_col, cnt_col=cnt_col)
     if payload.device.type == "cpu":
         return seg.segment_histogram(payload, start, count, **kwargs)
     segv = _int_vec((start, count), payload.device).reshape(1, 2)
-    out = _hist_launch("segment_histogram", payload, segv, False, **kwargs)
+    out = _hist_launch("segment_histogram", payload, segv, False, scale,
+                       **kwargs)
     segment_histogram.launches += 1
     return out[0]
 
@@ -281,10 +398,13 @@ segment_histogram_quant.launches = 0
 def segment_histogram_batched(payload: torch.Tensor, starts, counts, *,
                               num_features: int, num_bins: int,
                               grad_col: int, hess_col: int, cnt_col: int,
-                              quantized: bool = False) -> torch.Tensor:
+                              quantized: bool = False,
+                              scale=None) -> torch.Tensor:
     """hist[K, F, B, 3] over K disjoint segments (B5): starts / counts are
     [K] integer tensors; slice k equals the single-segment histogram of
-    segment k, a zero count gives zeros.  int32 when quantized."""
+    segment k, a zero count gives zeros.  int32 when quantized; else, on
+    the card, `segment.segment_histogram_fixed` of each segment at the
+    exponents `scale` (by default those of all K segments' rows)."""
     kwargs = dict(num_features=num_features, num_bins=num_bins,
                   grad_col=grad_col, hess_col=hess_col, cnt_col=cnt_col)
     if payload.device.type == "cpu":
@@ -303,7 +423,7 @@ def segment_histogram_batched(payload: torch.Tensor, starts, counts, *,
     segv = torch.stack([starts.to(torch.int32), counts.to(torch.int32)],
                        dim=1)
     out = _hist_launch("segment_histogram_batched", payload, segv,
-                       quantized, **kwargs)
+                       quantized, scale, **kwargs)
     segment_histogram_batched.launches += 1
     return out
 
@@ -336,15 +456,21 @@ def _stage(payload, aux, start, count, pred: SplitPredicate, num_left,
     """Launch the stage kernels, writing num_left into num_left[slot]."""
     dev = payload.device
     N, P = payload.shape
+    T = _tile_rows("segment_partition", "segment_partition_move_tile_rows", P)
+    if T == 0:
+        raise ValueError("partition stage: width %d past the kernel" % P)
     scalars, bitset = _pred_args(start, count, pred, dev)
     lib, fn = _lib("segment_partition", "segment_partition_stage_launch",
-                   [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P])
-    n_tiles = -(-N // lib.segment_partition_tile_rows())
-    tile_left = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-    tile_off = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+                   [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P])
+    n_tiles = -(-N // T)
+    # each tile's left count and offset, then the move's ticket and the
+    # tiles' flags (cleared by the count; the stage reads no flag)
+    scratch = torch.empty(3 * n_tiles + 1, dtype=torch.int32, device=dev)
+    tile_left, tile_off, sync = scratch.split((n_tiles, n_tiles, n_tiles + 1))
     rc = fn(payload.data_ptr(), aux.data_ptr(), P, scalars.data_ptr(),
             bitset.data_ptr(), bitset.shape[0], n_tiles, tile_left.data_ptr(),
-            tile_off.data_ptr(), num_left.data_ptr() + 4 * slot, _stream(dev))
+            tile_off.data_ptr(), num_left.data_ptr() + 4 * slot,
+            sync.data_ptr(), _sm_count(dev.index), _stream(dev))
     _check(lib, "segment_partition", rc)
 
 
@@ -360,10 +486,9 @@ def _commit(payload, aux, start, count, num_left, left_value, right_value,
     fvals = _leaf_values(left_value, right_value, dev)
     lib, fn = _lib("segment_partition", "segment_partition_commit_launch",
                    [_P, _P, _I, _P, _P, _P, _I, _I, _P])
-    copy_blocks = 8 * _sm_count(dev.index)
     rc = fn(payload.data_ptr(), aux.data_ptr(), P, segv.data_ptr(),
-            num_left.data_ptr(), fvals.data_ptr(), value_col, copy_blocks,
-            _stream(dev))
+            num_left.data_ptr(), fvals.data_ptr(), value_col,
+            4 * _sm_count(dev.index), _stream(dev))
     _check(lib, "segment_partition", rc)
 
 
@@ -504,12 +629,13 @@ def _colblock_features(num_features: int, num_bins: int) -> int:
 
 def segment_histogram_colblock(payload: torch.Tensor, start, count, *,
                                num_features: int, num_bins: int,
-                               grad_col: int, hess_col: int,
-                               cnt_col: int) -> torch.Tensor:
+                               grad_col: int, hess_col: int, cnt_col: int,
+                               scale=None) -> torch.Tensor:
     """f32 hist[F, B, 3] over payload rows [start, start+count) of a wide
     payload (B7: replaces lightgbm_tpu/ops/pallas_segment.py
-    segment_histogram_colblock).  Its contract is B1's, so a CPU tensor
-    runs the same plain version, `seg.segment_histogram`."""
+    segment_histogram_colblock).  Its contract is B1's, fixed-point sums
+    and `scale` included, so a CPU tensor runs the same plain version,
+    `seg.segment_histogram`."""
     kwargs = dict(num_features=num_features, num_bins=num_bins,
                   grad_col=grad_col, hess_col=hess_col, cnt_col=cnt_col)
     if payload.device.type == "cpu":
@@ -517,7 +643,7 @@ def segment_histogram_colblock(payload: torch.Tensor, start, count, *,
     _check_payload(payload, "segment_histogram_colblock")
     F, B, P = num_features, num_bins, payload.shape[1]
     lib, fn = _lib("segment_hist_colblock", "segment_hist_colblock_launch",
-                   [_P, _I, _P, _P] + [_I] * 6 + [_P])
+                   [_P, _I, _P, _P] + [_I] * 6 + [_P] * 5)
     fb = _colblock_features(F, B) if 0 < B < 0xFFFF else 0
     if not 0 < F <= P or fb == 0:
         raise ValueError("segment_histogram_colblock: F=%d, B=%d outside "
@@ -528,9 +654,12 @@ def segment_histogram_colblock(payload: torch.Tensor, start, count, *,
                              "outside [0, %d)" % (c, P))
     dev = payload.device
     segv = _int_vec((start, count), dev)
-    out = torch.zeros((F, B, 3), device=dev, dtype=torch.float32)
+    sc = _scale_of(payload, scale, segv[0], segv[1], grad_col, hess_col)
+    gh, cnt, tk = _fixed_scratch(dev, F * B, F)
+    out = torch.empty((F, B, 3), device=dev, dtype=torch.float32)
     rc = fn(payload.data_ptr(), P, segv.data_ptr(), out.data_ptr(), F, B,
-            _sm_count(dev.index), grad_col, hess_col, cnt_col, _stream(dev))
+            _sm_count(dev.index), grad_col, hess_col, cnt_col, sc.data_ptr(),
+            gh, cnt, tk, _stream(dev))
     _check(lib, "segment_hist_colblock", rc)
     segment_histogram_colblock.launches += 1
     return out
@@ -655,7 +784,7 @@ def partition_segment_hist(payload: torch.Tensor, aux: torch.Tensor, start,
                            count, pred: SplitPredicate, left_value,
                            right_value, value_col: int, num_bins: int, *,
                            num_features: int, grad_col: int, hess_col: int,
-                           cnt_col: int):
+                           cnt_col: int, scale=None):
     """Stable in-place partition of rows [start, start+count) and both
     children's f32 histograms [F, B, 3]; returns (payload, aux, num_left,
     hist_left, hist_right) with num_left a 0-d int32 device tensor (B6:
@@ -663,7 +792,9 @@ def partition_segment_hist(payload: torch.Tensor, aux: torch.Tensor, start,
     On the card the partition is B2's in-place one: payload and num_left
     byte for byte, aux over the segment scratch; then both histograms,
     split over the card as B1's (csrc/segment_partition_hist.cu), with
-    B1's rule for the count mask (small integers, summed exactly)."""
+    B1's rules: the count mask small integers summed exactly, grad / hess
+    `segment.segment_histogram_fixed`'s at the exponents `scale` (by
+    default those of the parent segment)."""
     hk = dict(num_features=num_features, grad_col=grad_col,
               hess_col=hess_col, cnt_col=cnt_col)
     if payload.device.type == "cpu":
@@ -689,7 +820,7 @@ def partition_segment_hist(payload: torch.Tensor, aux: torch.Tensor, start,
     fvals = _leaf_values(left_value, right_value, dev)
     lib, fn = _lib("segment_partition_hist", "segment_partition_hist_launch",
                    [_P, _P, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P]
-                   + [_I] * 8 + [_P])
+                   + [_I] * 7 + [_P] * 4 + [_I, _P])
     n_tiles = -(-N // T)
     # each tile's left count and offset, num_left, then the move's ticket
     # and the tiles' flags
@@ -697,13 +828,16 @@ def partition_segment_hist(payload: torch.Tensor, aux: torch.Tensor, start,
     tile_left, tile_off, num_left, sync = scratch.split(
         (n_tiles, n_tiles, 1, n_tiles + 1))
     hist = torch.empty((2, F, B, 3), dtype=torch.float32, device=dev)
+    sc = _scale_of(payload, scale, scalars[0], scalars[1], grad_col,
+                   hess_col)
+    gh, cnt, tk = _fixed_scratch(dev, 2 * F * B, 2 * F)
     sms = _sm_count(dev.index)
     rc = fn(payload.data_ptr(), aux.data_ptr(), P, scalars.data_ptr(),
             bitset.data_ptr(), bitset.shape[0], fvals.data_ptr(), value_col,
             n_tiles, tile_left.data_ptr(), tile_off.data_ptr(),
             num_left.data_ptr(), sync.data_ptr(), hist.data_ptr(), F, B, cap,
-            grad_col, hess_col, cnt_col, hist_grid(sms, F, cap), sms,
-            _stream(dev))
+            grad_col, hess_col, cnt_col, hist_grid(sms, F, cap),
+            sc.data_ptr(), gh, cnt, tk, sms, _stream(dev))
     _check(lib, "segment_partition_hist", rc)
     partition_segment_hist.launches += 1
     return payload, aux, num_left.reshape(()), hist[0], hist[1]

@@ -13,6 +13,9 @@ These functions are the reference the hand-written kernels
 the f32 and int32 (quantized) histograms, the batched histogram of the
 frontier grower, the stable partition, whole or as its stage and
 commit halves, and the merged partition + both children's histograms.
+The card's f32 histograms sum in fixed point, so they are held bit for
+bit to `segment_histogram_fixed`; a CPU tensor keeps the row-order f32
+sum of `segment_histogram`, the JAX CPU engine's order.
 They index with host integers, so on a card they would sync per call;
 the grower reaches them through ops/cuda_segment.py, which launches the
 kernels for CUDA tensors.
@@ -169,6 +172,114 @@ def segment_histogram(payload: torch.Tensor, start, count, *,
     hist = torch.zeros(F * B * 3, dtype=dtype, device=dev)
     hist.index_add_(0, idx, upd.to(dtype))
     return hist.reshape(F, B, 3)
+
+
+#: the fixed-point sums of the card's f32 histograms stay below 2^62 in
+#: magnitude (int64 cells, with room for the rounding of each value)
+FIXED_SUM_BITS = 62
+#: the fixed-point exponents are clamped to [-FIXED_MAX_EXP, FIXED_MAX_EXP],
+#: so 2^s and 2^-s are normal f32 (kFixedMaxExp of csrc/segment_hist.cuh)
+FIXED_MAX_EXP = 126
+
+
+def fixed_exponents(amax: torch.Tensor, rows) -> torch.Tensor:
+    """int32 [2] fixed-point exponents s (grad, hess) for values of
+    magnitude at most amax ([2] f32) summed over at most `rows` rows (a
+    host integer or a 0-d tensor): as large as keeps rows * amax * 2^s
+    below 2^FIXED_SUM_BITS, so no sum of rint(v * 2^s) overflows an int64.
+    Computed on amax's device with no host read."""
+    dev = amax.device
+    # amax < 2^e and rows < 2^r (frexp's mantissa lies in [0.5, 1))
+    e = torch.frexp(amax.to(torch.float64)).exponent
+    r = torch.frexp(torch.as_tensor(rows, dtype=torch.float64,
+                                    device=dev)).exponent
+    return (FIXED_SUM_BITS - r - e).clamp(-FIXED_MAX_EXP, FIXED_MAX_EXP) \
+        .to(torch.int32)
+
+
+def fixed_scale(payload: torch.Tensor, starts, counts, grad_col: int,
+                hess_col: int) -> torch.Tensor:
+    """The fixed-point exponents (`fixed_exponents`) for the rows of the
+    segments [starts[k], starts[k] + counts[k]): their largest |grad| and
+    |hess|, and their total count as the row bound.  starts / counts are
+    scalars or 1-D, host values or device tensors; no host read."""
+    dev = payload.device
+    n = payload.shape[0]
+    st = torch.as_tensor(starts, device=dev).reshape(-1, 1).to(torch.int64)
+    ct = torch.as_tensor(counts, device=dev).reshape(-1, 1).to(torch.int64)
+    idx = torch.arange(n, device=dev)[None, :]
+    inside = ((idx >= st) & (idx < st + ct)).any(dim=0)
+    vals = payload[:, [grad_col, hess_col]].abs()
+    amax = torch.where(inside[:, None], vals, torch.zeros_like(vals)) \
+        .amax(dim=0)
+    return fixed_exponents(amax, ct.sum())
+
+
+def to_fixed(v: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """rint(v * 2^s) as int64, for f32 v and int32 exponents s: the f32
+    product (exact, a power of two) rounded half to even, as the card's
+    __float2ll_rn(__fmul_rn(v, 2^s))."""
+    scale = torch.ldexp(torch.ones_like(s, dtype=torch.float32), s)
+    return torch.round(v.to(torch.float32) * scale).to(torch.int64)
+
+
+def fixed_sums(payload: torch.Tensor, start, count, *, num_features: int,
+               num_bins: int, grad_col: int, hess_col: int, cnt_col: int,
+               scale) -> tuple:
+    """The exact integer sums behind `segment_histogram_fixed`: int64
+    [F * B, 2] of rint(v * 2^s) per (feature, bin) for grad and hess, and
+    int32 [F * B] of the rounded count mask.  Sums over disjoint row
+    ranges add up exactly, so a large segment may be summed in parts."""
+    F, B = num_features, num_bins
+    s, c = int(start), int(count)
+    dev = payload.device
+    scale = torch.as_tensor(scale, device=dev).to(torch.int32).reshape(2)
+    rows = payload[s:s + c]
+    cell = (rows[:, :F].to(torch.int64)
+            + torch.arange(F, dtype=torch.int64, device=dev)[None, :] * B) \
+        .reshape(-1)
+    q = to_fixed(rows[:, [grad_col, hess_col]], scale[None, :])    # [c, 2]
+    n = torch.round(rows[:, cnt_col]).to(torch.int32)              # [c]
+    gh = torch.zeros(F * B, 2, dtype=torch.int64, device=dev)
+    gh.index_add_(0, cell, q[:, None, :].expand(c, F, 2).reshape(-1, 2))
+    cnt = torch.zeros(F * B, dtype=torch.int32, device=dev)
+    cnt.index_add_(0, cell, n[:, None].expand(c, F).reshape(-1))
+    return gh, cnt
+
+
+def fixed_hist(gh: torch.Tensor, cnt: torch.Tensor, scale, num_features: int,
+               num_bins: int) -> torch.Tensor:
+    """f32 hist[F, B, 3] from `fixed_sums`' integers: each sum times 2^-s
+    rounded once to f32 (int64 -> f32 rounds to nearest, and the power of
+    two is exact), the count converted."""
+    scale = torch.as_tensor(scale, device=gh.device).to(torch.int32) \
+        .reshape(2)
+    inv = torch.ldexp(torch.ones(2, dtype=torch.float32, device=gh.device),
+                      -scale)
+    out = torch.stack([gh[:, 0].to(torch.float32) * inv[0],
+                       gh[:, 1].to(torch.float32) * inv[1],
+                       cnt.to(torch.float32)], dim=1)
+    return out.reshape(num_features, num_bins, 3)
+
+
+def segment_histogram_fixed(payload: torch.Tensor, start, count, *,
+                            num_features: int, num_bins: int, grad_col: int,
+                            hess_col: int, cnt_col: int,
+                            scale=None) -> torch.Tensor:
+    """The f32 hist[F, B, 3] of the card's order-free kernels (B1, B5 f32,
+    B6 and B7, csrc/segment_hist.cuh): each grad / hess value rounded to a
+    multiple of 2^-s (`to_fixed`), the rows' integers summed exactly in
+    int64 and the sum times 2^-s rounded once to f32; each count-mask value
+    rounded to int32 and summed exactly.  scale: the int32 [2] exponents
+    (grad, hess), by default `fixed_scale` of this segment.  Integer sums do
+    not depend on order, so the kernels agree with this bit for bit."""
+    if scale is None:
+        scale = fixed_scale(payload, int(start), int(count), grad_col,
+                            hess_col)
+    gh, cnt = fixed_sums(payload, start, count, num_features=num_features,
+                         num_bins=num_bins, grad_col=grad_col,
+                         hess_col=hess_col, cnt_col=cnt_col, scale=scale)
+    return fixed_hist(gh, cnt, scale, num_features, num_bins)
 
 
 def partition_segment_hist(payload: torch.Tensor, aux: torch.Tensor, start,

@@ -1,24 +1,26 @@
-"""The column-block histogram's (B7) order of summation, emulated on the CPU.
+"""The column-block histogram's (B7) sums, emulated on the CPU.
 
 On the card, B7 (lightgbm_tpu_torch/csrc/segment_hist_colblock.cu) keeps
 one shared-memory histogram per block of bin columns and row chunk; its
-16 warps take the rows of a staged tile in turn (warp w rows w, w + 16,
+warps take the rows of a staged tile in turn (warp w rows w, w + warps,
 ...), the lanes of a warp one row's consecutive features, and add each
-row into its cells.  A lane sums the rows of one hot bin in registers (in
-the kernel, the first bin whose compare-and-swap met another warp's) and
-adds that sum once, after the block's rows.  The blocks' partial
-histograms go into the output with global atomics.  A CUDA kernel cannot
-run here, and the atomics admit many orders, so this file emulates one of
-them in f32 with numpy: rows one at a time in row order, each warp's hot
-bin per feature the one that holds most of its rows.  The kernel's tile,
-warp and chunk sizes are read from its source.  The emulation is held
-against the JAX package's Pallas kernel in interpret mode
+row into its cells.  The sums are fixed point: each grad / hess value
+rounded to a multiple of 2^-s (the segment's exponents,
+ops/segment.fixed_scale), summed as int64, the blocks' partials added
+into an int64 total and rounded once to f32.  A CUDA kernel cannot run
+here, so this file emulates those sums with numpy in one order the
+atomics admit (rows one at a time in row order, each block's partial
+added in chunk order), and, as the f32 design before it did, with each
+warp's rows in one hot bin per feature summed apart and added late.  The
+kernel's tile, warp and chunk sizes are read from its source.  The
+emulation is held bit for bit to the port's fixed-point plain version
+(ops/segment.segment_histogram_fixed), and against the JAX package's
+Pallas kernel in interpret mode
 (lightgbm_tpu.ops.pallas_segment.segment_histogram_colblock) and the
-port's plain version (ops/segment.segment_histogram): the count channel
-exactly, grad and hess within f32 summation-order tolerance.  A
-concentrated case puts every row of a feature in one bin and a fifth in
-the missing bin, so the hot bins carry most of the rows.  The emulation
-is not used by the port.
+port's row-order plain version (ops/segment.segment_histogram): the
+count channel exactly, grad and hess within f32 summation-order
+tolerance.  A concentrated case puts every row of a feature in one bin
+and a fifth in the missing bin.  The emulation is not used by the port.
 """
 import re
 from pathlib import Path
@@ -63,15 +65,21 @@ def _hot_bins(bins, warp, num_bins):
 
 def emulate_colblock(pay, start, count, num_features, num_bins, grad_col,
                      hess_col, cnt_col, grid_x, hot=True):
-    """B7's sums in one order its atomics admit: row chunk x of the nblk
-    active ones takes tiles x, x + nblk, ...; its rows are added one at a
-    time in row order, except that each warp's rows in its hot bin of a
-    feature are summed apart, in row order, and added after the chunk's
-    rows, warp by warp; the chunks' partials are added into the zeroed
-    output in chunk order.  hot=False adds every row in row order."""
+    """B7's fixed-point sums in one order its atomics admit: row chunk x of
+    the nblk active ones takes tiles x, x + nblk, ...; its rows are added
+    one at a time in row order into int64 partials, except that with
+    `hot` each warp's rows in its hot bin of a feature are summed apart, in
+    row order, and added after the chunk's rows, warp by warp; the
+    chunks' partials are added into the int64 total in chunk order, which
+    is rounded once to f32 at the segment's exponents."""
     F, B = num_features, num_bins
-    out = np.zeros((F, B, 3), np.float32)
-    want = -(-count // MIN_ROWS_PER_BLOCK)
+    scale = tseg.fixed_scale(torch.from_numpy(pay), start, count, grad_col,
+                             hess_col)
+    q = tseg.to_fixed(torch.from_numpy(pay[:, [grad_col, hess_col]]),
+                      scale[None, :]).numpy()
+    total = np.zeros((2, F, B), np.int64)
+    counts = np.zeros((F, B), np.int64)
+    want = max(1, -(-count // MIN_ROWS_PER_BLOCK))
     nblk = min(want, grid_x)
     ntiles = -(-count // ROW_TILE)
     feats = np.arange(F)
@@ -79,34 +87,36 @@ def emulate_colblock(pay, start, count, num_features, num_bins, grad_col,
         tiles = range(x, ntiles, nblk)
         idx = np.concatenate([np.arange(t * ROW_TILE,
                                         min((t + 1) * ROW_TILE, count))
-                              for t in tiles]).astype(int)
+                              for t in tiles] + [np.zeros(0)]).astype(int)
         rows = pay[start + idx]
+        rq = q[start + idx]
         bins = rows[:, :F].astype(np.int64)
         warp = idx % ROW_TILE % WARPS
         hots = _hot_bins(bins, warp, B) if hot else \
             np.full((WARPS, F), -1)
-        part = np.zeros((2, F, B), np.float32)
-        counts = np.zeros((F, B), np.int64)
-        hot_sum = np.zeros((2, WARPS, F), np.float32)
+        part = np.zeros((2, F, B), np.int64)
+        hot_sum = np.zeros((2, WARPS, F), np.int64)
         for k in range(rows.shape[0]):
             b, w = bins[k], warp[k]
             ok = (b >= 0) & (b < B)
-            counts[feats[ok], b[ok]] += int(rows[k, cnt_col] != 0)
+            counts[feats[ok], b[ok]] += int(round(rows[k, cnt_col]))
             in_hot = ok & (b == hots[w])
-            hot_sum[0, w, in_hot] += rows[k, grad_col]
-            hot_sum[1, w, in_hot] += rows[k, hess_col]
+            hot_sum[:, w, in_hot] += rq[k][:, None]
             cold = ok & ~in_hot
-            part[0, feats[cold], b[cold]] += rows[k, grad_col]
-            part[1, feats[cold], b[cold]] += rows[k, hess_col]
+            part[:, feats[cold], b[cold]] += rq[k][:, None]
         for w in range(WARPS):
             has = hots[w] >= 0
-            part[0, feats[has], hots[w, has]] += hot_sum[0, w, has]
-            part[1, feats[has], hots[w, has]] += hot_sum[1, w, has]
-        # the flush: each block's non-zero cells into the output
-        out[..., 0] += part[0]
-        out[..., 1] += part[1]
-        out[..., 2] += counts.astype(np.float32)
-    return out
+            part[:, feats[has], hots[w, has]] += hot_sum[:, w, has]
+        total += part  # the flush: the block's partial into the total
+    gh = torch.from_numpy(total.reshape(2, F * B).T.copy())
+    cnt = torch.from_numpy(counts.reshape(-1).astype(np.int32))
+    return tseg.fixed_hist(gh, cnt, scale, F, B).numpy()
+
+
+def _fixed(pay, start, count, cols):
+    return tseg.segment_histogram_fixed(
+        torch.from_numpy(pay), start, count, num_features=FW, num_bins=BW,
+        **cols).numpy()
 
 
 def _wide_payload(n_pad, f, num_bins, seed, concentrated=False):
@@ -163,13 +173,15 @@ def _check(got, ref, mag=None):
 @pytest.mark.parametrize("start,count", [(0, 300), (100, 37), (0, 0),
                                          (7, 1), (9, 515)])
 def test_emulated_order_matches_jax(start, count, concentrated):
-    """The concentrated cells sum hundreds of rows, and the hot bins'
-    late sums round otherwise than JAX's order: there grad and hess are
-    held to B1's bound (1e-5 of the cell's sum of magnitudes, plus
-    1e-6), elsewhere to rtol 1e-5, atol 1e-5."""
+    """Bit for bit the fixed-point plain version; against JAX's f32 order
+    the concentrated cells, which sum hundreds of rows, are held to B1's
+    bound (1e-5 of the cell's sum of magnitudes, plus 1e-6), elsewhere
+    to rtol 1e-5, atol 1e-5."""
     pay, cols = _wide_payload(1024, FW, BW, seed=start + count,
                               concentrated=concentrated)
     got = emulate_colblock(pay, start, count, FW, BW, grid_x=4, **cols)
+    assert np.array_equal(got.view(np.int32),
+                          _fixed(pay, start, count, cols).view(np.int32))
     ref = pseg.segment_histogram_colblock(
         jnp.asarray(pay), jnp.int32(start), jnp.int32(count),
         num_features=FW, num_bins=BW, interpret=True, **cols)
@@ -190,6 +202,8 @@ def test_emulated_order_over_row_chunks(grid_x, concentrated):
     pay, cols = _wide_payload(count + 16, FW, BW, seed=grid_x,
                               concentrated=concentrated)
     got = emulate_colblock(pay, start, count, FW, BW, grid_x=grid_x, **cols)
+    assert np.array_equal(got.view(np.int32),
+                          _fixed(pay, start, count, cols).view(np.int32))
     np.testing.assert_array_equal(got[..., 2],
                                   _plain(pay, start, count, cols)[..., 2])
     _check_bound(got, pay, start, count, cols)
@@ -209,16 +223,17 @@ def _check_bound(got, pay, start, count, cols):
 
 
 def test_hot_bins_change_the_order():
-    """In the concentrated case the hot bins' late sums give other bits
-    than adding every row in row order, and both stay within B1's bound
-    against f64 sums: the order is seen to matter, and to stay within
-    the tolerance."""
+    """In the concentrated case the hot bins' late sums change the order
+    of the adds, which in f32 gave other bits than row order; in fixed
+    point the bits are the same, at one block or several, and within B1's
+    bound against f64 sums: the sums are seen to be order-free."""
     start, count = 0, 2 * MIN_ROWS_PER_BLOCK
     pay, cols = _wide_payload(count + 16, FW, BW, seed=11, concentrated=True)
     hot = emulate_colblock(pay, start, count, FW, BW, grid_x=2, **cols)
     flat = emulate_colblock(pay, start, count, FW, BW, grid_x=2, hot=False,
                             **cols)
-    assert not np.array_equal(hot[..., :2], flat[..., :2])
-    np.testing.assert_array_equal(hot[..., 2], flat[..., 2])
-    for got in (hot, flat):
-        _check_bound(got, pay, start, count, cols)
+    one = emulate_colblock(pay, start, count, FW, BW, grid_x=1, hot=False,
+                           **cols)
+    assert np.array_equal(hot.view(np.int32), flat.view(np.int32))
+    assert np.array_equal(hot.view(np.int32), one.view(np.int32))
+    _check_bound(hot, pay, start, count, cols)

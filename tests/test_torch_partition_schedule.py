@@ -21,7 +21,12 @@ and destinations, on resident blocks stepped by an adversarial scheduler
 random, and holds the payload and num_left against the JAX package's
 plain partition (lightgbm_tpu.ops.segment.partition_segment), and B6's
 histograms against the JAX package's histogram of each child
-(lightgbm_tpu.ops.segment.segment_histogram).  A variant that writes
+(lightgbm_tpu.ops.segment.segment_histogram).  B2's stage
+(csrc/segment_partition.cu's part_stage_move) runs the same ticketed
+tiles out of place: both sides of every tile go to aux at their final
+rows, with no flag and no wait; it is held against the JAX package's
+stage (aux over the segment and num_left), and the commit's copy-back
+after it against the JAX package's commit.  A variant that writes
 before the flags must corrupt the payload, so the check is seen to have
 teeth.
 """
@@ -64,6 +69,8 @@ PREDICATES = {
 }
 
 _JAX_PARTITION = jax.jit(jseg.partition_segment, static_argnums=(7,))
+_JAX_STAGE = jax.jit(jseg.partition_segment_stage)
+_JAX_COMMIT = jax.jit(jseg.partition_segment_commit, static_argnums=(7,))
 
 _CSRC = Path(__file__).resolve().parent.parent / "lightgbm_tpu_torch" / "csrc"
 
@@ -136,7 +143,9 @@ class Schedule:
     `blocks` resident blocks.  kernel "b2", "b3" or "b6": tiles of
     tile_rows whole rows, each side of a tile written as one span from the
     tile's left offset (move_tiles, which B2's part_move, B3's rmw_move
-    and B6's phist_move run); kernel "b8": tiles of tile_rows rows by
+    and B6's phist_move run); kernel "stage": the same tiles out of place
+    (move_tiles<true>, B2's part_stage_move: both spans into aux, no leaf
+    value, no wait, no copy-back); kernel "b8": tiles of tile_rows rows by
     column blocks of col_block floats, each row to the destination the
     routing ranked (block_move).  honour_flags=False writes without
     waiting."""
@@ -152,7 +161,8 @@ class Schedule:
         # left_in_place: the larger side (the left on a tie) stays
         self.fwd = self.nl >= count - self.nl
         self.ntiles = -(-count // tile_rows)
-        self.whole_rows = kernel in ("b2", "b3", "b6")
+        self.stage = kernel == "stage"
+        self.whole_rows = kernel in ("b2", "b3", "b6", "stage")
         self.cb = P if self.whole_rows else col_block
         self.ncb = -(-P // self.cb)
         self.nticket = self.ntiles * self.ncb
@@ -193,6 +203,8 @@ class Schedule:
         """The (tile, column block) flags the kernel waits for before its
         in-place writes."""
         t, cb, r0, nr, _, _ = self._job(tk)
+        if self.stage:
+            return []
         if self.whole_rows:
             lt, off = self.tile_left[t], int(self.tile_off[t])
             in0 = off if self.fwd else self.nl + r0 - off
@@ -212,7 +224,7 @@ class Schedule:
     def _write(self, tk, rows):
         t, cb, r0, nr, c0, cw = self._job(tk)
         vals = rows.copy()
-        if c0 <= VALUE_COL < c0 + cw:
+        if c0 <= VALUE_COL < c0 + cw and not self.stage:
             vals[:, VALUE_COL - c0] = np.where(self.gl[r0:r0 + nr],
                                                LEFT_VALUE, RIGHT_VALUE)
         if self.whole_rows:
@@ -223,7 +235,7 @@ class Schedule:
             spans = ((side, self.s + off, self.fwd),
                      (~side, self.s + self.nl + r0 - off, not self.fwd))
             for mask, first, in_place in spans:
-                dst = self.pay if in_place else self.aux
+                dst = self.pay if in_place and not self.stage else self.aux
                 m = int(mask.sum())
                 dst[first:first + m, c0:c0 + cw] = vals[mask]
             return
@@ -290,6 +302,8 @@ class Schedule:
                 live[b] = (gen, next(gen))
             except StopIteration:
                 del live[b]
+        if self.stage:
+            return self.pay, self.aux, self.nl
         lo, hi = (self.s + self.nl, self.s + self.c) if self.fwd \
             else (self.s, self.s + self.nl)
         if self.kernel == "b6":
@@ -323,8 +337,46 @@ def _jax_hist(pay, start, count):
         cnt_col=CNT_COL))
 
 
+def _check_stage(pay, start, count, name, tile_rows, blocks, policy, seed):
+    """The stage against the JAX package's stage, then the commit's
+    copy-back (aux -> payload, leaf values in VALUE_COL) against the JAX
+    package's commit."""
+    gl = _routing(pay, start, count, name)
+    got_pay, got_aux, got_nl = Schedule(pay, start, count, gl, "stage",
+                                        tile_rows, P, blocks).run(policy,
+                                                                  seed)
+    fields = _pred_fields(**PREDICATES[name])
+    pred = jseg.SplitPredicate(**{k: jnp.asarray(v)
+                                  for k, v in fields.items()})
+    ref_aux, ref_nl = _JAX_STAGE(
+        jnp.asarray(pay), jnp.zeros(pay.shape, jnp.float32),
+        jnp.int32(start), jnp.int32(count), pred)
+    assert got_nl == int(ref_nl)
+    np.testing.assert_array_equal(got_pay.view(np.int32), pay.view(np.int32))
+    seg_rows = slice(start, start + count)
+    np.testing.assert_array_equal(
+        got_aux[seg_rows].view(np.int32),
+        np.asarray(ref_aux)[seg_rows].view(np.int32))
+    outside = np.ones(pay.shape[0], bool)
+    outside[seg_rows] = False
+    assert (got_aux[outside] == AUX_FILL).all()
+    # the commit: the segment's rows back, left rows' value first
+    committed = got_pay.copy()
+    committed[seg_rows] = got_aux[seg_rows]
+    committed[start:start + got_nl, VALUE_COL] = LEFT_VALUE
+    committed[start + got_nl:start + count, VALUE_COL] = RIGHT_VALUE
+    ref_pay = _JAX_COMMIT(
+        jnp.asarray(pay), ref_aux, jnp.int32(start), jnp.int32(count),
+        ref_nl, jnp.float32(LEFT_VALUE), jnp.float32(RIGHT_VALUE), VALUE_COL)
+    np.testing.assert_array_equal(committed.view(np.int32),
+                                  np.asarray(ref_pay).view(np.int32))
+
+
 def _check(pay, start, count, name, kernel, tile_rows, col_block, blocks,
            policy, seed):
+    if kernel == "stage":
+        return _check_stage(pay, start, count, name, tile_rows, blocks,
+                            policy, seed)
     if kernel == "b6":
         pay = pay.copy()
         pay[:, CNT_COL] = (pay[:, CNT_COL] > 0).astype(np.float32)
@@ -418,12 +470,28 @@ def test_b6_schedule_matches_jax(segment, name, tile_rows, blocks, policy,
            blocks, policy, seed)
 
 
-#: each kernel's rows per tile in the fixed cases: 8 for B2, B6 and B8,
-#: B3's at the Bosch width (P = 978)
-KERNEL_TILE_ROWS = {"b2": 8, "b3": _b3_tile_rows(978), "b6": 8, "b8": 8}
+@settings(max_examples=150, deadline=None, derandomize=True, database=None,
+          suppress_health_check=[HealthCheck.too_slow])
+@given(segment=SEGMENTS, name=st.sampled_from(sorted(PREDICATES)),
+       tile_rows=st.sampled_from([1, 2, 3, 5, 8, 32, 64]),
+       blocks=st.sampled_from([1, 2, 3, 7]),
+       policy=st.sampled_from(["adversarial", "random"]),
+       seed=st.integers(0, 2 ** 16))
+def test_stage_schedule_matches_jax(segment, name, tile_rows, blocks, policy,
+                                    seed):
+    """B2's stage: the whole partition's tiles by ticket, out of place."""
+    start, count = segment
+    _check(_payload(seed % 3), start, count, name, "stage", tile_rows, P,
+           blocks, policy, seed)
 
 
-@pytest.mark.parametrize("kernel", ["b2", "b3", "b6", "b8"])
+#: each kernel's rows per tile in the fixed cases: 8 for B2, B6, B8 and
+#: the stage, B3's at the Bosch width (P = 978)
+KERNEL_TILE_ROWS = {"b2": 8, "b3": _b3_tile_rows(978), "b6": 8, "b8": 8,
+                    "stage": 8}
+
+
+@pytest.mark.parametrize("kernel", ["b2", "b3", "b6", "b8", "stage"])
 @pytest.mark.parametrize("name", sorted(PREDICATES))
 def test_every_predicate_both_walks(kernel, name):
     """Every predicate kind on an unaligned mid segment; all_left and
@@ -433,7 +501,7 @@ def test_every_predicate_both_walks(kernel, name):
                4, 5, policy, 7)
 
 
-@pytest.mark.parametrize("kernel", ["b2", "b3", "b6", "b8"])
+@pytest.mark.parametrize("kernel", ["b2", "b3", "b6", "b8", "stage"])
 @pytest.mark.parametrize("start,count", [(0, N_PAD), (17, 0), (40, 1),
                                          (3, 97)])
 def test_edge_segments(kernel, start, count):
