@@ -15,8 +15,11 @@ builds its own kernels under its build/kernels/), so a drift of the card's
 clocks over the call shows in both.  compare_phase drives only the port's
 public wrappers and entry points: the B1 / B6 / index_add_ readings at the
 census sizes, B5 (f32 and int32, with B1 on the same rows), the stage +
-commit and B7's two wide roots, then the main, merged, frontier 8 and
-int8 + frontier paths trained and profiled.  Every line is printed prefixed with its run, and with --log
+commit and B7's two wide roots, then every training path of
+chip_smoke.py (main, merged, pooled, quantized int8 and int16, frontier
+8, int8 + frontier 8, wide 968 and wide 2000) trained and profiled, each
+with its s/iter, blocking syncs per tree, host enqueue calls (kernel and
+graph launches), device kernels, idle share and peak memory.  Every line is printed prefixed with its run, and with --log
 also written to FILE.  Exits non-zero if a run fails.
 Needs one CUDA device; imports nothing of JAX or lightgbm_tpu.
 """

@@ -65,6 +65,18 @@ frontier and wide paths, two more iterations are timed, the second under
 torch.profiler (each histogram's and partition's device us per call; after the merged
 path, whether its B6 takes less device time per iteration than the main
 path's B1 + B2).
+Each tree is one device program (lightgbm_tpu_torch/runtime/graphs.py):
+every training path's grow() runs under
+torch.cuda.set_sync_debug_mode("error") and must show one blocking sync
+per tree; each kernel is held on a count-0 segment (payload and aux bit
+for bit, num_left 0, histograms zero); one captured split step is
+replayed twice on the same input, bit for bit; the main path's model
+text with jit=False (the same steps eagerly) must be the graphs'; an
+early-stopping path (min_data_in_leaf=50000, trees near 16 leaves) is
+held to jit=False too and prints the steps it enqueued and the device
+and host cost of a no-op step.  Each path line gives its graph replays,
+each profile line its host enqueue calls (kernel and graph launches,
+copies and fills) beside the device kernels and the idle share.
 Every phase always runs and prints one line, prefixed with the seconds
 since start; any failed check exits non-zero.  The last line is the
 device record {"ok": true, "device": {...}}.  Imports nothing of JAX or
@@ -73,6 +85,7 @@ lightgbm_tpu.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import hashlib
 import inspect
@@ -90,6 +103,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # the port, from this checkout only: alone in a directory this script fails
 import lightgbm_tpu_torch as lt  # noqa: E402
 import torch  # noqa: E402
+from lightgbm_tpu_torch.boosting import gbdt as tgbdt  # noqa: E402
 from lightgbm_tpu_torch.boosting import grower2  # noqa: E402
 from lightgbm_tpu_torch.metric import create_metrics  # noqa: E402
 from lightgbm_tpu_torch.ops import build, cuda_segment, quantize  # noqa: E402
@@ -98,6 +112,10 @@ from lightgbm_tpu_torch.ops.segment import SplitPredicate  # noqa: E402
 from lightgbm_tpu_torch.ops.split import (FeatureMeta,  # noqa: E402
                                           dequantize_hist,
                                           find_best_split_batched)
+try:  # a parent tree (chip_compare.py) may predate the device loop
+    from lightgbm_tpu_torch.runtime import graphs  # noqa: E402
+except ImportError:
+    graphs = None
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and
 # f32 (non-tensor-core) operations/s
@@ -1532,6 +1550,84 @@ WIDE_SOURCES = {
 # phases: parity and main path
 # ---------------------------------------------------------------------------
 
+#: whether this tree grows each tree as one device program (a parent
+#: tree, run by chip_compare.py, may read the device inside its trees)
+DEVICE_LOOP = graphs is not None
+
+
+class StrictGrow:
+    """A grower each call of which runs under
+    torch.cuda.set_sync_debug_mode("error"): a sync inside a tree (an
+    .item(), a blocking copy, a nonzero) raises.  Each tree must also end
+    at its loop condition: the stop flag its last step wrote (pinned host
+    memory, final once the iteration's tree_fetch has waited for the
+    tree) is clear, so a driver that stops a tree too soon fails the run.
+    The next call checks the tree before, `stopped()` the last one.  Its
+    attributes are the grower's."""
+
+    def __init__(self, grow):
+        self._grow = grow
+        self._unchecked = False
+        self.trees_stopped = 0
+
+    def __call__(self, *args, **kwargs):
+        self.stopped()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return self._grow(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            self._unchecked = True
+
+    def stopped(self) -> int:
+        """Checks the last tree grown, if not yet checked; returns the
+        trees checked so far."""
+        if self._unchecked:
+            self._unchecked = False
+            check(not int(self._grow.program.flag[0]),
+                  "tree %d stopped before its loop condition did"
+                  % self.trees_stopped)
+            self.trees_stopped += 1
+        return self.trees_stopped
+
+    def __getattr__(self, name):
+        return getattr(self._grow, name)
+
+
+@contextlib.contextmanager
+def grower_mode(jit: bool = True, strict: bool = True):
+    """Training inside the block makes its growers with `jit` (graphs, or
+    the same steps eagerly), each call under sync debug mode "error" when
+    `strict`.  A parent tree's growers, which read the device per split,
+    are left as they are."""
+    real = tgbdt.make_partitioned_grower
+
+    def make(*args, **kwargs):
+        grow = real(*args, jit=jit, **kwargs)
+        return StrictGrow(grow) if strict else grow
+
+    if DEVICE_LOOP:
+        tgbdt.make_partitioned_grower = make
+    try:
+        yield
+    finally:
+        tgbdt.make_partitioned_grower = real
+
+
+def check_trees_stopped(label: str, bst) -> None:
+    """Raises unless each tree `bst` grew under StrictGrow ended at its
+    loop condition (after training, the last tree's fetch has passed)."""
+    if not DEVICE_LOOP:
+        return
+    n = bst._engine.grower.stopped()
+    check(n == bst.current_iteration(), "%s: %d of %d trees checked at "
+          "their loop condition" % (label, n, bst.current_iteration()))
+
+
+def graph_counts() -> dict:
+    return graphs.counts() if DEVICE_LOOP else {}
+
+
 def train_params(num_leaves: int, **extra) -> dict:
     return dict(dict(objective="binary", num_leaves=num_leaves, max_bin=255,
                      learning_rate=0.1, verbose=-1), **extra)
@@ -1593,19 +1689,26 @@ def make_main_data(rows: int, seed: int, params: dict) -> tuple:
     return ds, X[rows:], y[rows:], time.perf_counter() - t0
 
 
-def train_path(name: str, ds, Xv, yv, params: dict, iters: int) -> dict:
+def train_path(name: str, ds, Xv, yv, params: dict, iters: int,
+               auc_floor: float = 0.8) -> dict:
     """Train one configuration of the main path through
     lightgbm_tpu_torch.train on the card, with every launch count set to
     0 just before and read just after; predict the held-out rows."""
     torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.max_memory_allocated()
+    graphs_before = graph_counts()
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    bst = lt.train(params, ds, iters, verbose_eval=False)
+    with grower_mode():
+        bst = lt.train(params, ds, iters, verbose_eval=False)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
+    replays = {k: v["replays"] - graphs_before.get(k, {}).get("replays", 0)
+               for k, v in graph_counts().items()}
+    check_trees_stopped(name, bst)
     check(bst.device.type == "cuda", "%s ran on %s" % (name, bst.device))
     check(bst.current_iteration() == iters, "%s trained %d of %d iterations"
           % (name, bst.current_iteration(), iters))
@@ -1618,16 +1721,19 @@ def train_path(name: str, ds, Xv, yv, params: dict, iters: int) -> dict:
     check(pred.shape == (len(yv),) and bool(np.isfinite(pred).all()),
           "%s: held-out predictions malformed" % name)
     auc = auc_score(yv, pred)
-    check(auc > 0.8, "%s: held-out AUC %.4f too low" % (name, auc))
+    check(auc > auc_floor, "%s: held-out AUC %.4f too low" % (name, auc))
     leaves = [t.num_leaves for t in bst._model.trees]
     syncs = bst.host_syncs_per_tree()
+    check(not DEVICE_LOOP or syncs == [1] * iters,
+          "%s: blocking syncs per tree %s, not one" % (name, syncs))
     t0 = bst._model.trees[0]
     return dict(name=name, bst=bst, model_text=bst.model_to_string(),
                 launches=launches, auc=auc, splits=sum(leaves) - len(leaves),
                 first_split=(int(t0.split_feature[0]),
                              int(t0.threshold_in_bin[0])),
                 s_per_iter=t_train / iters, t_train=t_train, t_pred=t_pred,
-                peak=peak, syncs=syncs, leaves=leaves,
+                peak=peak, peak_before=mem0, syncs=syncs, leaves=leaves,
+                replays=replays,
                 splits_per_tree=float(np.mean(leaves)) - 1.0,
                 rounds_per_tree=bst.split_rounds_per_tree())
 
@@ -1635,12 +1741,14 @@ def train_path(name: str, ds, Xv, yv, params: dict, iters: int) -> dict:
 def path_line(r: dict, rows: int, iters: int, extra: str = "") -> str:
     return ("%s: %dx%d, max_bin 255, 255 leaves, lr 0.1, %d iters: "
             "%.4f s/iter (train %.3f s), syncs/tree %s (mean %.2f), split "
-            "rounds/tree %.2f, splits/tree %.2f, max_memory_allocated %d B, "
-            "held-out AUC %.6f on %d rows (predict %.3f s)%s, launches %s"
+            "rounds/tree %.2f, splits/tree %.2f, max_memory_allocated %d B "
+            "(%d B before), held-out AUC %.6f on %d rows (predict %.3f s)%s, "
+            "graph replays %s, launches %s"
             % (r["name"], rows, F, iters, r["s_per_iter"], r["t_train"],
                r["syncs"], float(np.mean(r["syncs"])), r["rounds_per_tree"],
-               r["splits_per_tree"], r["peak"], r["auc"], 100_000,
-               r["t_pred"], extra, json.dumps(r["launches"])))
+               r["splits_per_tree"], r["peak"], r["peak_before"], r["auc"],
+               100_000, r["t_pred"], extra, json.dumps(r["replays"]),
+               json.dumps(r["launches"])))
 
 
 def main_path_phase(rows: int, iters: int, seed: int) -> tuple:
@@ -1668,10 +1776,10 @@ def checked_partition_phase(data, rows: int, iters: int) -> str:
     calls = []
 
     def checked(payload, aux, start, count, pred, left_value, right_value,
-                value_col):
+                value_col, **kw):
         before, aux_before = payload.clone(), aux.clone()
         out = whole(payload, aux, start, count, pred, left_value,
-                    right_value, value_col)
+                    right_value, value_col, **kw)
         plain = seg.partition_segment(before, aux_before, int(start),
                                       int(count), pred, left_value,
                                       right_value, value_col)
@@ -1680,14 +1788,18 @@ def checked_partition_phase(data, rows: int, iters: int) -> str:
         calls.append(int(count))
         return out
 
+    checked.__name__ = whole.__name__
     checked.launches = 0
     cuda_segment.partition_segment = checked
     try:
-        bst = lt.train(train_params(255), ds, iters, verbose_eval=False)
+        # eager steps (the checks read the device), B2 on every split
+        with grower_mode(jit=False, strict=False):
+            bst = lt.train(train_params(255), ds, iters, verbose_eval=False)
     finally:
         cuda_segment.partition_segment = whole
     splits = sum(t.num_leaves - 1 for t in bst._model.trees)
-    check(len(calls) == splits, "checked %d B2 calls for %d splits"
+    calls = [c for c in calls if c]
+    check(len(calls) == splits, "checked %d B2 calls on rows for %d splits"
           % (len(calls), splits))
     auc = auc_score(yv, bst.predict(Xv))
     return ("B2 in training: %dx%d, %d iters, %d calls on segments of %d to "
@@ -1733,13 +1845,23 @@ def recorded_train(train, deterministic: bool) -> dict:
     real = {name: getattr(cuda_segment, name) for name in RECORDED_HISTS}
     counts = read_counts()
 
+    def keep(into, name, tensors):
+        """Record clones of `tensors`; inside a capture, a captured clone
+        that each replay refills, cloned again after every replay."""
+        if DEVICE_LOOP and torch.cuda.is_current_stream_capturing():
+            bufs = tuple(t.clone() for t in tensors)
+            graphs.after_replay(lambda: into.append(
+                (name, tuple(b.clone() for b in bufs))))
+        else:
+            into.append((name, tuple(t.clone() for t in tensors)))
+
     def recorder(name, fn):
         def rec(*args, **kw):
             out = fn(*args, **kw)
             if name == "partition_segment_hist":
-                hists.append((name, torch.stack([out[3], out[4]]).clone()))
+                keep(hists, name, (torch.stack([out[3], out[4]]),))
             elif out.dtype == torch.float32:
-                hists.append((name, out.clone()))
+                keep(hists, name, (out,))
             return out
         rec.__name__ = fn.__name__
         rec.launches = 0
@@ -1749,7 +1871,7 @@ def recorded_train(train, deterministic: bool) -> dict:
 
     def find(*args, **kw):
         res = real_find(*args, **kw)
-        searches.append(tuple(t.clone() for t in res))
+        keep(searches, "search", tuple(res))
         return res
 
     for name, fn in real.items():
@@ -1760,8 +1882,10 @@ def recorded_train(train, deterministic: bool) -> dict:
             warnings.simplefilter("always")
             torch.use_deterministic_algorithms(deterministic, warn_only=True)
             try:
-                bst = train()
+                with grower_mode():
+                    bst = train()
                 torch.cuda.synchronize()
+                check_trees_stopped("repeat check", bst)
             finally:
                 torch.use_deterministic_algorithms(False)
     finally:
@@ -1773,7 +1897,8 @@ def recorded_train(train, deterministic: bool) -> dict:
                 getattr(cuda_segment, name).launches = v
     text = bst.model_to_string()
     return dict(text=text, sha=hashlib.sha256(text.encode()).hexdigest(),
-                hists=hists, searches=searches,
+                hists=[(n, t[0]) for n, t in hists],
+                searches=[t for _, t in searches],
                 scores=bst._engine._fast.raw_scores(),
                 warnings=sorted({"%s:%s %s" % (w.filename.split("/")[-1],
                                                w.lineno, str(w.message)[:160])
@@ -1856,6 +1981,228 @@ def repeat_check(label: str, train, reference_text: str = None) -> str:
                json.dumps(a["warnings"])))
 
 
+# ---------------------------------------------------------------------------
+# phases: the tree as one device program
+# ---------------------------------------------------------------------------
+
+#: the early-stopping path's min_data_in_leaf: on the main data its trees
+#: stop near 16 of their 255 leaves
+EARLY_MIN_DATA = 50_000
+#: the rows of the count-0 checks' payloads
+EMPTY_ROWS = 65_536
+
+
+def empty_segment_phase(seed: int, dev) -> dict:
+    """Each of B1-B8 on a count-0 segment in the middle of a payload, as
+    the no-op steps of a tree pass them: the payload and aux bit for bit
+    as they were, num_left 0 and every histogram zero (B5 over three
+    empty segments, in f32 and int32; the stage and the commit apart and
+    B2 whole; B3, B7 and B8 at their wide shapes).  Raises on the first
+    that differs; returns, per kernel, the fields checked."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    n = EMPTY_ROWS
+    out = {}
+
+    def checked(name, pay, aux, fn):
+        pay0, aux0 = pay.clone(), aux.clone()
+        res = fn()
+        torch.cuda.synchronize()
+        res = res if isinstance(res, tuple) else (res,)
+        fields = []
+        for k, r in enumerate(res):
+            if r is pay or r is aux:
+                continue
+            if r.dim() == 0:
+                check(int(r) == 0, "%s on 0 rows: num_left %d"
+                      % (name, int(r)))
+                fields.append("num_left 0")
+            else:
+                check(not bool(r.ne(0).any()), "%s on 0 rows: histogram %d "
+                      "not zero (%d cells)" % (name, k, int(r.ne(0).sum())))
+                fields.append("histogram %s zero" % list(r.shape))
+        check(bits_equal(pay, pay0) and bits_equal(aux, aux0),
+              "%s on 0 rows wrote the payload or aux" % name)
+        out[name] = fields + ["payload and aux unchanged"]
+
+    for f, p in ((F, P), (968, 978), (2000, 2010)):
+        cols = cols_of(f)
+        pay = make_payload(n, f, p, seed + f, dev)
+        aux = aux_like(pay)
+        start, zero = torch.tensor(n // 2, **i32), torch.zeros((), **i32)
+        hk = dict(num_features=f, num_bins=B, grad_col=cols["grad"],
+                  hess_col=cols["hess"], cnt_col=cols["cnt"])
+        pred = predicates(dev)["numerical"]
+        lv, rv = torch.tensor(-0.25, device=dev), torch.tensor(0.75,
+                                                               device=dev)
+        part = (pay, aux, start, zero, pred, lv, rv, cols["value"])
+        if f == F:
+            qpay = quantize_columns(pay, n, 127, seed)
+            starts = torch.tensor([7, n // 2, n - 1], **i32)
+            zeros = torch.zeros(3, **i32)
+            for name, q, fn in (
+                    ("segment_histogram", pay, lambda: cuda_segment
+                     .segment_histogram(pay, start, zero, **hk)),
+                    ("segment_histogram_quant", qpay, lambda: cuda_segment
+                     .segment_histogram_quant(qpay, start, zero, **hk)),
+                    ("segment_histogram_batched f32", pay, lambda:
+                     cuda_segment.segment_histogram_batched(
+                         pay, starts, zeros, **hk)),
+                    ("segment_histogram_batched int32", qpay, lambda:
+                     cuda_segment.segment_histogram_batched(
+                         qpay, starts, zeros, quantized=True, **hk)),
+                    ("partition_segment", pay, lambda: cuda_segment
+                     .partition_segment(*part)[2]),
+                    ("partition_segment_stage", pay, lambda: cuda_segment
+                     .partition_segment_stage(pay, aux, start, zero,
+                                              pred)[1]),
+                    ("partition_segment_commit", pay, lambda: (
+                        cuda_segment.partition_segment_commit(
+                            pay, aux, start, zero, zero, lv, rv,
+                            cols["value"]), zero)[1]),
+                    ("partition_segment_hist", pay, lambda: cuda_segment
+                     .partition_segment_hist(*part, B, **{
+                         k: v for k, v in hk.items()
+                         if k != "num_bins"})[2:])):
+                checked(name, q, aux, fn)
+            del qpay
+        else:
+            checked("segment_histogram_colblock %d" % f, pay, aux,
+                    lambda: cuda_segment.segment_histogram_colblock(
+                        pay, start, zero, **hk))
+            wide = cuda_segment.partition_route(p)
+            checked("%s %d" % (wide.__name__, p), pay, aux,
+                    lambda: wide(*part)[2])
+        del pay, aux
+        torch.cuda.empty_cache()
+    return out
+
+
+def device_state(bst) -> dict:
+    """The grower's device state (the histogram pool without its spare
+    slot, which a no-op step writes) and the payload, by name."""
+    prog = bst._engine.grower.program
+    state = dict(R=prog.R, NODE=prog.NODE, BITS=prog.BITS, NBITS=prog.NBITS,
+                 nleaves=prog.nleaves, payload=bst._engine._fast.payload)
+    if prog.HIST is not None:
+        state["HIST"] = prog.HIST[:-1]
+    return state
+
+
+def replay_check(bst) -> str:
+    """One captured split step replayed twice on the same input: a fresh
+    tree on the booster's payload is grown five steps by the captured
+    root and split step, the state is kept, the step replayed and its
+    result kept, the state restored and the step replayed again.  Raises
+    unless both replays leave the state and the payload bit for bit
+    alike, and the step split a leaf.  The booster is not trained
+    further."""
+    eng = bst._engine
+    prog = eng.grower.program
+    check(prog.step.graph is not None and prog.root.graph is not None,
+          "replay: the root or the split step was never captured")
+    fs = eng._fast
+    hs = fs.fill_gradients(eng.objective)
+    prog.load(torch.ones(eng.train_set.num_features, dtype=torch.bool,
+                         device=fs.payload.device), None, hs)
+    prog.root()
+    for _ in range(5):
+        prog.step()
+    state = device_state(bst)
+    snap = {k: t.clone() for k, t in state.items()}
+    prog.step()
+    first = {k: t.clone() for k, t in state.items()}
+    for k, t in state.items():
+        t.copy_(snap[k])
+    prog.step()
+    torch.cuda.synchronize()
+    differ = [k for k in state if not bits_equal(first[k], state[k])]
+    check(not differ, "replay: two replays of the split step on the same "
+          "input differ in %s" % differ)
+    check(int(first["nleaves"]) == int(snap["nleaves"]) + 1 == 7,
+          "replay: the step did not split (%d -> %d leaves)"
+          % (int(snap["nleaves"]), int(first["nleaves"])))
+    return ("replay: the captured split step replayed twice on the same "
+            "input (a tree's sixth split, %d payload rows): state %s and "
+            "payload bit-identical" % (fs.payload.shape[0],
+                                       sorted(k for k in state
+                                              if k != "payload")))
+
+
+def inactive_step_cost(bst, reps: int = 50) -> tuple:
+    """Device and host microseconds per replay of the captured split step
+    on a finished tree (its loop condition false, so a no-op step), over
+    `reps` replays timed with CUDA events; raises unless the state and
+    payload are left bit for bit as they were."""
+    prog = bst._engine.grower.program
+    torch.cuda.synchronize()
+    check(not int(prog.flag[0]), "the grower's state is not at a finished "
+          "tree")
+    state = device_state(bst)
+    before = {k: t.clone() for k, t in state.items()}
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    prog.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e0.record()
+    for _ in range(reps):
+        prog.step()
+    e1.record()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    differ = [k for k in state if not bits_equal(before[k], state[k])]
+    check(not differ, "a no-op step changed %s" % differ)
+    return e0.elapsed_time(e1) * 1e3 / reps, host * 1e6 / reps
+
+
+def jit_off_check(label: str, train, reference_text: str) -> str:
+    """The path trained again with jit=False (the same steps eagerly, no
+    capture, still under sync debug mode "error"): raises unless its
+    model text is the graph run's byte for byte."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with grower_mode(jit=False):
+        bst = train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_trees_stopped("%s, jit=False" % label, bst)
+    text = bst.model_to_string()
+    check(text == reference_text, "%s: jit=False writes another model "
+          "than the graphs, first at %s"
+          % (label, first_difference(text, reference_text)))
+    return ("jit=False (%s): model text byte-identical to the graph run's, "
+            "sha256 %s; %d iterations %.3f s eager"
+            % (label, hashlib.sha256(text.encode()).hexdigest(),
+               bst.current_iteration(), wall))
+
+
+def early_stop_phase(data, rows: int, iters: int = 3) -> dict:
+    """The main data with min_data_in_leaf=EARLY_MIN_DATA, whose trees stop
+    near 16 of their 255 leaves, for `iters` iterations: trained with
+    graphs (sync debug mode "error"), held to jit=False by its model text,
+    with the split steps enqueued per tree (the lagged stop flag lets at
+    most grower2.STEPS_AHEAD no-op steps through) and the cost of a no-op
+    step.  Prints its lines; returns its result."""
+    ds, Xv, yv = data
+    params = train_params(255, min_data_in_leaf=EARLY_MIN_DATA)
+    r = train_path("early stop", ds, Xv, yv, params, iters, auc_floor=0.6)
+    check(max(r["leaves"]) < 64, "early stop: trees of %s leaves"
+          % r["leaves"])
+    # the first tree's first step ran eagerly before its capture
+    steps = r["replays"].get("grower2.split", 0) + 1
+    dev_us, host_us = inactive_step_cost(r["bst"])
+    r["inactive_step_us"] = (dev_us, host_us)
+    say(path_line(r, rows, iters, ", leaves per tree %s, split steps "
+                  "enqueued %d for %d splits (STEPS_AHEAD %d), no-op step "
+                  "%.2f us on the device and %.2f us on the host per replay"
+                  % (r["leaves"], steps, r["splits"], grower2.STEPS_AHEAD,
+                     dev_us, host_us)))
+    say(jit_off_check("early stop", lambda: lt.train(
+        params, ds, iters, verbose_eval=False), r["model_text"]))
+    del r["bst"]
+    return r
+
+
 #: B3's kernels before its in-place redesign, which no path may launch
 RETIRED_WIDE = ("rmw_scatter", "flat_copyback", "write_values")
 #: the partition wrappers the merged mode retires
@@ -1913,6 +2260,30 @@ def merged_train(ds, iters: int):
         cuda_segment.PARTITION_HIST_VALIDATED = False
 
 
+@contextlib.contextmanager
+def calls_on_rows(name: str):
+    """Within the block, wrapper `name` adds each of its calls whose count
+    is non-zero to a device counter (inside a captured graph too, so every
+    replay adds); yields the 0-d int64 counter."""
+    real = getattr(cuda_segment, name)
+    counter = torch.zeros((), dtype=torch.int64, device="cuda")
+
+    def spy(payload, start, count, **kw):
+        counter.add_((torch.as_tensor(count, device=payload.device)
+                      > 0).to(torch.int64))
+        return real(payload, start, count, **kw)
+
+    spy.__name__ = real.__name__
+    spy.launches = real.launches
+    setattr(cuda_segment, name, spy)
+    try:
+        yield counter
+    finally:
+        # the wrapper counts its launches under its module name: the spy's
+        real.launches = spy.launches
+        setattr(cuda_segment, name, real)
+
+
 def histogram_mode_phases(data, f32: dict, rows: int, iters: int) -> dict:
     """The grower's two other histogram modes at full width, on the main
     path's params and data: merged_path_phase, then pooled:
@@ -1922,11 +2293,19 @@ def histogram_mode_phases(data, f32: dict, rows: int, iters: int) -> dict:
     name."""
     ds, Xv, yv = data
     runs = {"merged": merged_path_phase(data, f32, rows, iters)}
-    r = train_path("pooled", ds, Xv, yv,
-                   train_params(255, histogram_pool_size=2), iters)
+    # the profile inside the block too: the captured steps count their
+    # launches to the spy
+    with calls_on_rows("segment_histogram") as on_rows:
+        r = train_path("pooled", ds, Xv, yv,
+                       train_params(255, histogram_pool_size=2), iters)
+        on_rows = int(on_rows)
+        pooled_profile = profile_phase(r["bst"], "pooled")
     n = r["launches"]
     slots = r["bst"]._engine.grower_cfg.hist_pool_slots
-    rebuilds = n["segment_histogram"] - iters - r["splits"]
+    # B1 on rows: the roots, the smaller children and the rebuilds (the
+    # rebuild launches on every split, with count 0 where the parent's
+    # slot is live)
+    rebuilds = on_rows - iters - r["splits"]
     check(0 < slots < 255, "pooled path: %d pool slots" % slots)
     check(rebuilds > 0, "pooled path: no parent rebuilt (B1 %d, %d splits)"
           % (n["segment_histogram"], r["splits"]))
@@ -1934,6 +2313,7 @@ def histogram_mode_phases(data, f32: dict, rows: int, iters: int) -> dict:
           "pooled path launched the merged kernel")
     say(path_line(r, rows, iters, ", %d pool slots, %d parent rebuilds"
                   % (slots, rebuilds) + auc_note(r, f32)))
+    say(pooled_profile)
     runs["pooled"] = r
     del r["bst"]
     return runs
@@ -1959,8 +2339,7 @@ QUANT_PATHS = {
         gradient_quantization=True, gradient_quant_dtype="int8",
         tpu_frontier_batch=8)}
 #: the quantized and frontier paths that are profiled
-QUANT_PROFILED = ("quantized int8", "frontier 8",
-                  "quantized int8 + frontier 8")
+QUANT_PROFILED = tuple(QUANT_PATHS)
 
 
 def quantized_phases(data, f32: dict, rows: int, iters: int,
@@ -2122,13 +2501,17 @@ def wide_path_phase(f: int, rows: int, iters: int, seed: int, dev) -> tuple:
     del X
     evals = {}
     torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.max_memory_allocated()
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    bst = lt.train(params, ds, iters, valid_sets=[dv], valid_names=["valid"],
-                   evals_result=evals, verbose_eval=False)
+    with grower_mode():
+        bst = lt.train(params, ds, iters, valid_sets=[dv],
+                       valid_names=["valid"], evals_result=evals,
+                       verbose_eval=False)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
+    check_trees_stopped(name, bst)
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     check(bst.device.type == "cuda", "%s ran on %s" % (name, bst.device))
@@ -2170,13 +2553,16 @@ def wide_path_phase(f: int, rows: int, iters: int, seed: int, dev) -> tuple:
     check(aucs[-1] > WIDE_AUC_FLOOR, "%s: held-out AUC %.4f not above %.2f"
           % (name, aucs[-1], WIDE_AUC_FLOOR))
     syncs = bst.host_syncs_per_tree()
+    check(not DEVICE_LOOP or syncs == [1] * iters,
+          "%s: blocking syncs per tree %s, not one" % (name, syncs))
     line = ("%s: %dx%d (+%d valid), NaN share %.2f on every other feature, "
             "max_bin 255, 255 leaves, lr 0.1, %d iters: %.4f s/iter (train "
-            "%.3f s), syncs/tree %s, max_memory_allocated %d B, data %.3f s, "
+            "%.3f s), syncs/tree %s, max_memory_allocated %d B (%d B "
+            "before), data %.3f s, "
             "binning %.3f s, predict %.3f s, valid score vs predict max rel "
             "%.3g, valid AUC per iteration %s, AUC of predict %.8f, launches "
             "%s" % (name, rows, f, n_valid, WIDE_NAN[f], iters,
-                    t_train / iters, t_train, syncs, peak, t_gen, t_bin,
+                    t_train / iters, t_train, syncs, peak, mem0, t_gen, t_bin,
                     t_pred, score_err, json.dumps(aucs), auc_pred,
                     json.dumps(launches)))
     return line, dict(bst=bst, launches=launches, ds=ds, dv=dv)
@@ -2184,6 +2570,9 @@ def wide_path_phase(f: int, rows: int, iters: int, seed: int, dev) -> tuple:
 
 #: each profiled path's ported kernels, {label: {group: [launches, ms]}}
 PROFILED = {}
+#: the host's enqueue calls, by kind: the runtime / driver API names
+ENQUEUE_CALLS = {"kernel": ("LaunchKernel",), "graph": ("GraphLaunch",),
+                 "copy or fill": ("MemcpyAsync", "MemsetAsync")}
 
 
 def profile_phase(bst, label: str, launched=(), retired=()) -> str:
@@ -2212,8 +2601,16 @@ def profile_phase(bst, label: str, launched=(), retired=()) -> str:
         wall_prof = time.perf_counter() - t0
     calls = {k: v - before[k] for k, v in read_counts().items()
              if v != before[k]}
-    kernels = [e for e in prof.key_averages()
+    averages = prof.key_averages()
+    kernels = [e for e in averages
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the host's enqueue calls, from the runtime / driver API records
+    api = {}
+    for e in averages:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            for kind, words in ENQUEUE_CALLS.items():
+                if any(w in e.key for w in words):
+                    api[kind] = api.get(kind, 0) + e.count
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     check(busy > 0, "the profiler saw no device time")
     for name in launched:
@@ -2277,11 +2674,12 @@ def profile_phase(bst, label: str, launched=(), retired=()) -> str:
     return ("profile (%s): one iteration %.4f s wall unprofiled, %.4f s "
             "wall profiled, %.4f s summed kernel time (profiled), device idle "
             "share %.4f against the unprofiled wall (%.4f against the "
-            "profiled), %d kernel launches; ported kernels [launches, ms]: "
-            "%s; wrapper calls %s; device us per call %s; top "
-            "[name, launches, ms]: %s"
+            "profiled), %d device kernels, host enqueue calls %d %s; ported "
+            "kernels [launches, ms]: %s; wrapper calls %s; device us per "
+            "call %s; top [name, launches, ms]: %s"
             % (label, wall, wall_prof, busy, 1.0 - busy / wall,
                1.0 - busy / wall_prof, sum(e.count for e in kernels),
+               sum(api.values()), json.dumps(api),
                json.dumps(ported), json.dumps(calls), json.dumps(per_call),
                json.dumps([[e.key[:60], e.count,
                             round(e.self_device_time_total / 1e3, 4)]
@@ -2374,12 +2772,12 @@ def compare_kernels_phase(seed: int, dev) -> dict:
 def compare_phase(rows: int, iters: int, seed: int) -> None:
     """The readings that compare two trees in one call, main()'s own
     phases: sizes_phase (B1, B6), compare_kernels_phase (B5, the stage +
-    commit, B7's roots), then the main path, the merged path, the frontier
-    8 path and the int8 + frontier path trained and profiled (B1, B2; B6;
-    B5 and the stage + commit; B4 and B5's int32 instance).  It drives
-    only the port's public wrappers and entry points, so this file run
-    beside a parent tree's package times the parent's kernels;
-    chip_compare.py runs it in each tree in turn."""
+    commit, B7's roots), then every training path of main() trained and
+    profiled (s/iter, blocking syncs per tree, host enqueue calls, device
+    kernels, idle share, peak memory): the main, merged and pooled paths,
+    the quantized and frontier paths, then both wide paths.  It drives only the port's public wrappers and
+    entry points, so this file run beside a parent tree's package times
+    the parent's; chip_compare.py runs it in each tree in turn."""
     dev = torch.device("cuda", 0)
     build.build_all()
     say("compare: %s" % nvidia_smi())
@@ -2389,9 +2787,15 @@ def compare_phase(rows: int, iters: int, seed: int) -> None:
     say(line)
     say(profile_phase(f32["bst"], "main path"))
     del f32["bst"]
-    merged_path_phase(data, f32, rows, iters)
-    quantized_phases(data, f32, rows, iters,
-                     names=("frontier 8", "quantized int8 + frontier 8"))
+    histogram_mode_phases(data, f32, rows, iters)
+    quantized_phases(data, f32, rows, iters)
+    del data
+    for f, wide_rows in WIDE:
+        line, r = wide_path_phase(f, wide_rows, iters, seed, dev)
+        say(line)
+        say(profile_phase(r["bst"], "wide %d" % f))
+        del r
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2460,6 +2864,9 @@ def main() -> int:
         "over %s features, ms on %d and %d rows (%s): %s"
         % (SWEEP_WIDTHS, SWEEP_FEATURES, SWEEP_ROWS, WIDE_SEGMENT_ROWS, smi,
            json.dumps(sweep_phase(args.seed, dev))))
+    say("count-0 segments: every kernel on 0 rows at n=%d, F=28, 968 and "
+        "2000: %s" % (EMPTY_ROWS, json.dumps(empty_segment_phase(args.seed,
+                                                                 dev))))
     say(parity_phase(args.seed))
     say(wide_parity_phase(args.seed, dev))
     line, main_run, data = main_path_phase(args.rows, args.iters, args.seed)
@@ -2471,14 +2878,23 @@ def main() -> int:
                       retired=("part_stage_move", "part_commit")))
     line, census_bounds = census_line(main_run["bst"]._model.trees)
     say(line)
+    dev_us, host_us = inactive_step_cost(main_run["bst"])
+    say("no-op step (main path): the captured split step on a finished "
+        "tree, %.2f us on the device and %.2f us on the host per replay (%s)"
+        % (dev_us, host_us, smi))
+    say(replay_check(main_run["bst"]))
     del main_run["bst"]
-    say(checked_partition_phase(data, args.rows, 3))
     ds = data[0]
+    say(jit_off_check("main path", lambda: lt.train(
+        train_params(255), ds, args.iters, verbose_eval=False),
+        main_run["model_text"]))
+    say(checked_partition_phase(data, args.rows, 3))
     say("deterministic mode: the capture's probe (torch.histc on the card) "
         "warned %s" % json.dumps(deterministic_probe()))
     say(repeat_check("main path", lambda: lt.train(
         train_params(255), ds, args.iters, verbose_eval=False),
         main_run["model_text"]))
+    early_stop_phase(data, args.rows)
     runs = histogram_mode_phases(data, main_run, args.rows, args.iters)
     say(repeat_check("merged", lambda: merged_train(ds, args.iters),
                      runs["merged"]["model_text"]))

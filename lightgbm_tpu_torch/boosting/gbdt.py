@@ -33,6 +33,7 @@ from ..ops.quantize import (F32_GH_BYTES, QUANT_GH_BYTES, derive_qmax,
                             quant_seed, quantize_pair)
 from ..ops.bundle import BundleMap, decode_bin, identity_bundle_map
 from ..ops.split import MISSING_NAN, MISSING_ZERO, FeatureMeta
+from ..runtime import syncs
 from ..utils.log import Log
 from ..utils.random import Random, partition_seed
 from .grower2 import GrowerConfig, PayloadCols, make_partitioned_grower
@@ -154,8 +155,9 @@ class _FastState:
         return scale
 
     def raw_scores(self) -> np.ndarray:
-        """[1, n_pad] scores in ORIGINAL row order (host)."""
-        h = self.payload[:, self.idx_col:self.score0 + 1].cpu().numpy()
+        """[1, n_pad] scores in ORIGINAL row order (host; one eval_fetch)."""
+        h = syncs.device_get(self.payload[:, self.idx_col:self.score0 + 1],
+                             label="eval_fetch")
         idx = h[:, 0].astype(np.int64)
         keep = idx < self.n_pad
         out = np.zeros((1, self.n_pad), np.float32)
@@ -215,13 +217,13 @@ def _depth_iters(tree: Tree) -> int:
 
 
 def _fetch_packed(out: Dict) -> Dict[str, np.ndarray]:
-    """The grower's small outputs in ONE device-to-host transfer: every
-    tensor field is exact in f32 (counts and ids < 2^24, flags 0/1), so
-    they are flattened and concatenated on the device, fetched once and
-    split on the host."""
+    """The grower's small outputs in ONE device-to-host transfer through
+    the sync seam (`tree_fetch`): every tensor field is exact in f32
+    (counts and ids < 2^24, flags 0/1), so they are flattened and
+    concatenated on the device, fetched once and split on the host."""
     keys = sorted(k for k, v in out.items() if isinstance(v, torch.Tensor))
     flat = torch.cat([out[k].to(torch.float32).reshape(-1) for k in keys])
-    flat = flat.cpu().numpy()
+    flat = syncs.device_get(flat, label="tree_fetch")
     host = {k: v for k, v in out.items() if not isinstance(v, torch.Tensor)}
     off = 0
     for k in keys:
@@ -248,7 +250,8 @@ class GBDT:
         self.shrinkage_rate = float(config.learning_rate)
         self.num_class = int(config.num_class)
         self.num_tree_per_iteration = 1
-        #: host syncs of every finished tree (grower loop tests + the fetch)
+        #: blocking host syncs of every finished tree (the sync seam's
+        #: count over its iteration: the tree_fetch alone)
         self.host_syncs: List[int] = []
         #: sequential grower rounds paid by the finished trees (== splits
         #: unless the frontier-batched grower committed several per round)
@@ -442,11 +445,12 @@ class GBDT:
                 self.meta, self.grower_cfg, self.train_set.max_num_bin,
                 self._fast.cols, self.train_set.num_features)
         fs = self._fast
+        before = syncs.snapshot()
         fmask = self._feature_sample()
         lr = self.shrinkage_rate
 
-        # the fused step: gradients -> grow -> score add (stumps must not
-        # move the scores; gbdt.cpp stops instead)
+        # the fused step: gradients -> grow -> score add, with no host
+        # read until the tree's one fetch
         if self._qmax:
             # one generator per (iteration, class), seeded on the JAX
             # schedule, so reruns on one device quantize identically
@@ -460,12 +464,18 @@ class GBDT:
             hist_scale = fs.fill_gradients(self.objective)
             out, fs.payload, fs.aux = self.grower(fs.payload, fs.aux, fmask,
                                                   hist_scale=hist_scale)
-        if out["num_leaves"] > 1:
-            seg.payload_col_write(fs.payload, fs.score0,
-                                  fs.payload[:, fs.value_col] * lr, "add")
-        host = _fetch_packed(out)
-        self.host_syncs.append(out["host_syncs"] + 1)
-        self.split_rounds_total += out["split_rounds"]
+        # stumps must not move the scores (gbdt.cpp stops instead): the
+        # add is predicated on the device's leaf count
+        score = fs.payload[:, fs.score0]
+        seg.payload_col_write(fs.payload, fs.score0, torch.where(
+            out["num_leaves"] > 1, score + fs.payload[:, fs.value_col] * lr,
+            score))
+        # the tree-to-tree critical path: the next tree waits for this
+        # fetch (the JAX package's pipeline_depth=0 dispatch)
+        with syncs.critical_path():
+            host = _fetch_packed(out)
+        self.host_syncs.append(syncs.delta(before)["total"])
+        self.split_rounds_total += int(host["split_rounds"])
         self.trees_finished += 1
         tree = self._finish_tree_host(host, init_score, lr)
         self.model.trees.append(tree)
@@ -501,7 +511,11 @@ class GBDT:
             mask[self.feature_rng.sample(f, used)] = True
         else:
             mask[:] = True
-        return torch.as_tensor(mask, device=self.device)
+        mask = torch.from_numpy(mask)
+        if self.device.type == "cuda":
+            # from pinned memory, so the copy does not wait for the stream
+            return mask.pin_memory().to(self.device, non_blocking=True)
+        return mask
 
     def _finish_tree_host(self, host: Dict[str, np.ndarray],
                           init_score: float, lr: float) -> Tree:
@@ -558,7 +572,7 @@ class GBDT:
     # -- evaluation ----------------------------------------------------------
     def raw_train_score(self) -> np.ndarray:
         if self._fast is None:
-            raw = self.score.cpu().numpy()
+            raw = syncs.device_get(self.score, label="eval_fetch")
         else:
             raw = self._fast.raw_scores()
         return raw[:, : self.train_set.num_data]
@@ -571,7 +585,8 @@ class GBDT:
     def raw_valid_score(self, i: int) -> np.ndarray:
         """[1, num_data] scores of validation set i (host)."""
         _, valid, _, score_v, _ = self.valid_sets[i]
-        return score_v[:, : valid.num_data].cpu().numpy()
+        return syncs.device_get(score_v[:, : valid.num_data],
+                                label="eval_fetch")
 
     def eval_valid(self) -> List[Tuple[str, str, float, bool]]:
         out = []

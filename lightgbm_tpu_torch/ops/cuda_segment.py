@@ -52,8 +52,9 @@ so their result does not depend on the order of the adds: each is
 exponents `scale` (the grower passes one per tree, from
 `segment.fixed_scale` over the payload; without one a wrapper derives it
 from its own segments on the device).  Their int64 scratch and tickets
-are kept per device (`_fixed_scratch`), zeroed once and left zero by
-every launch, so the wrappers launch on one stream per device.  A CPU
+are a `Workspace`'s (the grower's own, else the device's default),
+zeroed once and left zero by every launch, so the wrappers launch on one
+stream per device.  A CPU
 tensor keeps the plain row-order f32 sum (`segment.segment_histogram`),
 the JAX CPU engine's order.
 
@@ -68,7 +69,12 @@ ops/segment.py; for a CUDA tensor it launches its kernel on the current
 stream or raises — there is no fallback.  Each wrapper counts its kernel
 launches in a plain integer attribute, `<wrapper>.launches`.  start,
 count and the predicate scalars may be 0-d device tensors: they are
-packed on the device, so a launch never waits for the host.
+packed on the device, so a launch never waits for the host, and a
+Python scalar is filled on the device, never copied from the host, so
+every launch can be captured in a CUDA graph.  A count-0 segment is a
+no-op: nothing is written, num_left is 0 and a histogram is zero.  Each
+wrapper takes an optional `workspace=` (`Workspace`) for its kernels'
+scratch.
 """
 from __future__ import annotations
 
@@ -145,11 +151,10 @@ def _sm_count(device_index: int) -> int:
 
 def _int_vec(values, device) -> torch.Tensor:
     """int32 [len(values)] on `device` from 0-d tensors and Python scalars,
-    without a host round trip for device tensors.  Each value is cast
-    first: a stack of mixed dtypes copies its inputs one launch each, a
-    stack of one dtype takes one launch for all."""
-    return torch.stack([torch.as_tensor(v, device=device).reshape(())
-                        .to(torch.int32) for v in values])
+    without a host round trip.  Each value is cast first: a stack of mixed
+    dtypes copies its inputs one launch each, a stack of one dtype takes
+    one launch for all."""
+    return torch.stack([seg.scalar(v, torch.int32, device) for v in values])
 
 
 def _check_payload(payload: torch.Tensor, name: str) -> None:
@@ -275,26 +280,86 @@ def hist_block_work(split: HistSplit, block: int, grid: int,
     return f0, fn, work
 
 
-#: the fixed-point histograms' scratch per device index: int64 [cells, 2],
-#: int32 [cells] and int32 tickets, zero between launches
-_FIXED_SCRATCH = {}
+class Workspace:
+    """The scratch of the wrappers' kernels on one device: int32 words (the
+    partitions' tile counts, offsets, tickets and flags, B8's row
+    destinations), bytes (B8's row sides), and the fixed-point histograms'
+    int64 cells, int32 counts and tickets, which are zeroed once and which
+    every launch leaves zero.  Launches on one stream run in order, so
+    each call takes its scratch from the start of each buffer; outputs
+    (histograms, num_left) are new tensors.
 
+    A grower makes one before its first tree, sized for the largest call
+    of its route (`sized`), and frozen: a CUDA graph holds its addresses,
+    so a call that needs more raises instead of replacing a buffer.  A
+    wrapper called without one takes the device's default workspace, which
+    grows to the largest call it has seen (the allocator orders an old
+    buffer's reuse after the launches on the stream)."""
 
-def _fixed_scratch(dev, n_cells: int, n_tickets: int) -> tuple:
-    """Pointers to the device's fixed-point scratch, at least n_cells cells
-    and n_tickets tickets.  The kernels leave it zero, so it is zeroed only
-    when it is made; a larger need replaces it (the allocator orders the
-    old one's reuse after the launches on the stream)."""
-    have = _FIXED_SCRATCH.get(dev.index)
-    if have is None or have[1].numel() < n_cells \
-            or have[2].numel() < n_tickets:
-        cells = max(n_cells, have[1].numel() if have else 0)
-        tickets = max(n_tickets, have[2].numel() if have else 0)
-        have = (torch.zeros((cells, 2), dtype=torch.int64, device=dev),
+    def __init__(self, device, ints: int = 0, nbytes: int = 0,
+                 cells: int = 0, tickets: int = 0, frozen: bool = False):
+        self.device = torch.device(device)
+        self.frozen = frozen
+        self._i32 = torch.empty(ints, dtype=torch.int32, device=self.device)
+        self._u8 = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+        self._fixed = self._zeroed(cells, tickets)
+
+    def _zeroed(self, cells: int, tickets: int) -> tuple:
+        dev = self.device
+        return (torch.zeros((cells, 2), dtype=torch.int64, device=dev),
                 torch.zeros(cells, dtype=torch.int32, device=dev),
                 torch.zeros(tickets, dtype=torch.int32, device=dev))
-        _FIXED_SCRATCH[dev.index] = have
-    return tuple(t.data_ptr() for t in have)
+
+    def _refuse(self, what: str, need: int, have: int) -> None:
+        if self.frozen:
+            raise ValueError("workspace: a call needs %d %s, the grower's "
+                             "workspace holds %d" % (need, what, have))
+
+    def ints(self, n: int) -> torch.Tensor:
+        if self._i32.numel() < n:
+            self._refuse("int32 words", n, self._i32.numel())
+            self._i32 = torch.empty(n, dtype=torch.int32, device=self.device)
+        return self._i32[:n]
+
+    def bytes(self, n: int) -> torch.Tensor:
+        if self._u8.numel() < n:
+            self._refuse("bytes", n, self._u8.numel())
+            self._u8 = torch.empty(n, dtype=torch.uint8, device=self.device)
+        return self._u8[:n]
+
+    def fixed(self, cells: int, tickets: int) -> tuple:
+        """Pointers to the fixed-point scratch: at least `cells` cells and
+        `tickets` tickets, all zero."""
+        gh, cnt, tk = self._fixed
+        if cnt.numel() < cells or tk.numel() < tickets:
+            self._refuse("fixed-point cells / tickets",
+                         max(cells, tickets), min(cnt.numel(), tk.numel()))
+            self._fixed = self._zeroed(max(cells, cnt.numel()),
+                                       max(tickets, tk.numel()))
+        return tuple(t.data_ptr() for t in self._fixed)
+
+    @classmethod
+    def sized(cls, device, needs) -> "Workspace":
+        """A frozen workspace holding the largest of `needs`, each an
+        (ints, nbytes, cells, tickets) tuple of `scratch_need`."""
+        top = [max([n[k] for n in needs] + [0]) for k in range(4)]
+        return cls(device, *top, frozen=True)
+
+
+#: the default workspace per device index
+_DEFAULT_WORKSPACE = {}
+
+
+def _workspace(ws, dev) -> Workspace:
+    if ws is not None:
+        if ws.device != dev:
+            raise ValueError("workspace on %s, payload on %s"
+                             % (ws.device, dev))
+        return ws
+    have = _DEFAULT_WORKSPACE.get(dev.index)
+    if have is None:
+        have = _DEFAULT_WORKSPACE[dev.index] = Workspace(dev)
+    return have
 
 
 def _scale_of(payload: torch.Tensor, scale, starts, counts, grad_col: int,
@@ -309,9 +374,9 @@ def _scale_of(payload: torch.Tensor, scale, starts, counts, grad_col: int,
 
 
 def _hist_launch(name: str, payload: torch.Tensor, segv: torch.Tensor,
-                 quantized: bool, scale=None, *, num_features: int,
-                 num_bins: int, grad_col: int, hess_col: int,
-                 cnt_col: int) -> torch.Tensor:
+                 quantized: bool, scale=None, workspace=None, *,
+                 num_features: int, num_bins: int, grad_col: int,
+                 hess_col: int, cnt_col: int) -> torch.Tensor:
     """Launch csrc/segment_hist.cu over K segments (segv: int32 [K, 2]
     start/count on the device); returns the filled [K, F, B, 3] output:
     int32 when quantized, else f32 at the fixed-point exponents `scale`
@@ -339,7 +404,7 @@ def _hist_launch(name: str, payload: torch.Tensor, segv: torch.Tensor,
         out = torch.empty((K, F, B, 3), device=dev, dtype=torch.float32)
         sc = _scale_of(payload, scale, segv[:, 0], segv[:, 1], grad_col,
                        hess_col)
-        gh, cnt, tk = _fixed_scratch(dev, K * F * B, K * F)
+        gh, cnt, tk = _workspace(workspace, dev).fixed(K * F * B, K * F)
     rc = fn(payload.data_ptr(), P, segv.data_ptr(), out.data_ptr(), K, F, B,
             cap, grad_col, hess_col, cnt_col,
             hist_grid(_sm_count(dev.index), F, cap), int(quantized),
@@ -352,8 +417,8 @@ def _hist_launch(name: str, payload: torch.Tensor, segv: torch.Tensor,
 
 def segment_histogram(payload: torch.Tensor, start, count, *,
                       num_features: int, num_bins: int, grad_col: int,
-                      hess_col: int, cnt_col: int,
-                      scale=None) -> torch.Tensor:
+                      hess_col: int, cnt_col: int, scale=None,
+                      workspace=None) -> torch.Tensor:
     """f32 hist[F, B, 3] over payload rows [start, start+count) (B1).  On
     the card: `segment.segment_histogram_fixed` at the int32 [2]
     exponents `scale` (by default those of this segment), bit for bit; on
@@ -366,7 +431,7 @@ def segment_histogram(payload: torch.Tensor, start, count, *,
         return seg.segment_histogram(payload, start, count, **kwargs)
     segv = _int_vec((start, count), payload.device).reshape(1, 2)
     out = _hist_launch("segment_histogram", payload, segv, False, scale,
-                       **kwargs)
+                       workspace, **kwargs)
     segment_histogram.launches += 1
     return out[0]
 
@@ -376,7 +441,8 @@ segment_histogram.launches = 0
 
 def segment_histogram_quant(payload: torch.Tensor, start, count, *,
                             num_features: int, num_bins: int, grad_col: int,
-                            hess_col: int, cnt_col: int) -> torch.Tensor:
+                            hess_col: int, cnt_col: int,
+                            workspace=None) -> torch.Tensor:
     """int32 hist[F, B, 3] over payload rows [start, start+count) whose
     grad/hess columns hold integer-valued quantized gradients (B4); the
     plain version is segment_histogram(..., quantized=True)."""
@@ -398,8 +464,8 @@ segment_histogram_quant.launches = 0
 def segment_histogram_batched(payload: torch.Tensor, starts, counts, *,
                               num_features: int, num_bins: int,
                               grad_col: int, hess_col: int, cnt_col: int,
-                              quantized: bool = False,
-                              scale=None) -> torch.Tensor:
+                              quantized: bool = False, scale=None,
+                              workspace=None) -> torch.Tensor:
     """hist[K, F, B, 3] over K disjoint segments (B5): starts / counts are
     [K] integer tensors; slice k equals the single-segment histogram of
     segment k, a zero count gives zeros.  int32 when quantized; else, on
@@ -423,7 +489,7 @@ def segment_histogram_batched(payload: torch.Tensor, starts, counts, *,
     segv = torch.stack([starts.to(torch.int32), counts.to(torch.int32)],
                        dim=1)
     out = _hist_launch("segment_histogram_batched", payload, segv,
-                       quantized, scale, **kwargs)
+                       quantized, scale, workspace, **kwargs)
     segment_histogram_batched.launches += 1
     return out
 
@@ -446,13 +512,12 @@ def _pred_args(start, count, pred: SplitPredicate, dev):
 
 
 def _leaf_values(left_value, right_value, dev) -> torch.Tensor:
-    return torch.stack([torch.as_tensor(v, device=dev).reshape(())
-                        .to(torch.float32)
+    return torch.stack([seg.scalar(v, torch.float32, dev)
                         for v in (left_value, right_value)])
 
 
 def _stage(payload, aux, start, count, pred: SplitPredicate, num_left,
-           slot: int) -> None:
+           slot: int, workspace=None) -> None:
     """Launch the stage kernels, writing num_left into num_left[slot]."""
     dev = payload.device
     N, P = payload.shape
@@ -465,7 +530,7 @@ def _stage(payload, aux, start, count, pred: SplitPredicate, num_left,
     n_tiles = -(-N // T)
     # each tile's left count and offset, then the move's ticket and the
     # tiles' flags (cleared by the count; the stage reads no flag)
-    scratch = torch.empty(3 * n_tiles + 1, dtype=torch.int32, device=dev)
+    scratch = _workspace(workspace, dev).ints(_whole_row_ints(n_tiles))
     tile_left, tile_off, sync = scratch.split((n_tiles, n_tiles, n_tiles + 1))
     rc = fn(payload.data_ptr(), aux.data_ptr(), P, scalars.data_ptr(),
             bitset.data_ptr(), bitset.shape[0], n_tiles, tile_left.data_ptr(),
@@ -499,10 +564,52 @@ def _tile_rows(lib_name: str, entry: str, payload_width: int) -> int:
     return f(payload_width)
 
 
+def _whole_row_ints(n_tiles: int) -> int:
+    """int32 scratch of a whole-row partition or stage of n_tiles tiles:
+    each tile's left count and offset, then the move's ticket and the
+    tiles' flags."""
+    return 3 * n_tiles + 1
+
+
+#: the whole-row partitions: library and tile-rows entry, by wrapper
+_WHOLE_ROW = {
+    "partition_segment": ("segment_partition",
+                          "segment_partition_move_tile_rows"),
+    "partition_segment_stage": ("segment_partition",
+                                "segment_partition_move_tile_rows"),
+    "partition_segment_rmw": ("segment_partition_wide",
+                              "segment_partition_rmw_tile_rows"),
+    "partition_segment_hist": ("segment_partition_hist",
+                               "segment_partition_hist_tile_rows"),
+}
+
+
+def scratch_need(wrapper, n_rows: int, width: int, num_features: int,
+                 num_bins: int, segments: int = 1) -> tuple:
+    """(int32 words, bytes, fixed-point cells, tickets) of one call of
+    `wrapper` on an [n_rows, width] payload: what `Workspace.sized` takes
+    for a grower's route.  `segments`: the batched histogram's K."""
+    name = wrapper.__name__
+    F, B, N = num_features, num_bins, n_rows
+    ints = nbytes = cells = tickets = 0
+    if name in _WHOLE_ROW:
+        T = _tile_rows(*_WHOLE_ROW[name], width)
+        ints = _whole_row_ints(-(-N // T)) if T else 0
+    if name == "partition_segment_blocks":
+        ints, nbytes = _blocks_ints(N, width), N
+    if name in ("segment_histogram", "segment_histogram_colblock"):
+        cells, tickets = F * B, F
+    if name == "partition_segment_hist":
+        cells, tickets = 2 * F * B, 2 * F
+    if name == "segment_histogram_batched":
+        cells, tickets = segments * F * B, segments * F
+    return ints, nbytes, cells, tickets
+
+
 def _whole_row_partition(payload, aux, start, count, pred: SplitPredicate,
                          left_value, right_value, value_col: int,
                          lib_name: str, entry: str, rows_entry: str,
-                         name: str):
+                         name: str, workspace=None):
     """Launch a whole partition of whole-row tiles (B2 from
     csrc/segment_partition.cu, B3 from csrc/segment_partition_wide.cu):
     the count, the scan, the move that writes the larger side in place,
@@ -522,11 +629,9 @@ def _whole_row_partition(payload, aux, start, count, pred: SplitPredicate,
                    [_P, _P, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I,
                     _P])
     n_tiles = -(-N // T)
-    # each tile's left count and offset, num_left, then the move's ticket
-    # and the tiles' flags
-    scratch = torch.empty(3 * n_tiles + 2, dtype=torch.int32, device=dev)
-    tile_left, tile_off, num_left, sync = scratch.split(
-        (n_tiles, n_tiles, 1, n_tiles + 1))
+    scratch = _workspace(workspace, dev).ints(_whole_row_ints(n_tiles))
+    tile_left, tile_off, sync = scratch.split((n_tiles, n_tiles, n_tiles + 1))
+    num_left = torch.empty(1, dtype=torch.int32, device=dev)
     rc = fn(payload.data_ptr(), aux.data_ptr(), P, scalars.data_ptr(),
             bitset.data_ptr(), bitset.shape[0], fvals.data_ptr(), value_col,
             n_tiles, tile_left.data_ptr(), tile_off.data_ptr(),
@@ -538,7 +643,7 @@ def _whole_row_partition(payload, aux, start, count, pred: SplitPredicate,
 
 def partition_segment(payload: torch.Tensor, aux: torch.Tensor, start, count,
                       pred: SplitPredicate, left_value, right_value,
-                      value_col: int):
+                      value_col: int, workspace=None):
     """Stable in-place partition of rows [start, start+count); returns
     (payload, aux, num_left) with num_left a 0-d int32 tensor (B2).  On the
     card payload and num_left are the plain version's byte for byte, aux
@@ -552,7 +657,7 @@ def partition_segment(payload: torch.Tensor, aux: torch.Tensor, start, count,
     num_left = _whole_row_partition(
         payload, aux, start, count, pred, left_value, right_value, value_col,
         "segment_partition", "segment_partition_launch",
-        "segment_partition_move_tile_rows", "partition_segment")
+        "segment_partition_move_tile_rows", "partition_segment", workspace)
     partition_segment.launches += 1
     return payload, aux, num_left
 
@@ -562,7 +667,7 @@ partition_segment.launches = 0
 
 def partition_segment_stage(payload: torch.Tensor, aux: torch.Tensor, start,
                             count, pred: SplitPredicate, num_left=None,
-                            slot: int = 0):
+                            slot: int = 0, workspace=None):
     """The rows of [start, start+count), left rows first, into aux over the
     same range; payload is only read.  Returns (aux, num_left) with
     num_left a 0-d int32 tensor: slot `slot` of the caller's int32 vector
@@ -587,7 +692,7 @@ def partition_segment_stage(payload: torch.Tensor, aux: torch.Tensor, start,
         raise ValueError("partition_segment_stage: num_left must be a "
                          "contiguous int32 vector on the payload's device "
                          "holding slot %d" % slot)
-    _stage(payload, aux, start, count, pred, num_left, slot)
+    _stage(payload, aux, start, count, pred, num_left, slot, workspace)
     partition_segment_stage.launches += 1
     return aux, num_left[slot]
 
@@ -630,7 +735,7 @@ def _colblock_features(num_features: int, num_bins: int) -> int:
 def segment_histogram_colblock(payload: torch.Tensor, start, count, *,
                                num_features: int, num_bins: int,
                                grad_col: int, hess_col: int, cnt_col: int,
-                               scale=None) -> torch.Tensor:
+                               scale=None, workspace=None) -> torch.Tensor:
     """f32 hist[F, B, 3] over payload rows [start, start+count) of a wide
     payload (B7: replaces lightgbm_tpu/ops/pallas_segment.py
     segment_histogram_colblock).  Its contract is B1's, fixed-point sums
@@ -655,7 +760,7 @@ def segment_histogram_colblock(payload: torch.Tensor, start, count, *,
     dev = payload.device
     segv = _int_vec((start, count), dev)
     sc = _scale_of(payload, scale, segv[0], segv[1], grad_col, hess_col)
-    gh, cnt, tk = _fixed_scratch(dev, F * B, F)
+    gh, cnt, tk = _workspace(workspace, dev).fixed(F * B, F)
     out = torch.empty((F, B, 3), device=dev, dtype=torch.float32)
     rc = fn(payload.data_ptr(), P, segv.data_ptr(), out.data_ptr(), F, B,
             _sm_count(dev.index), grad_col, hess_col, cnt_col, sc.data_ptr(),
@@ -678,8 +783,18 @@ def _blocks_tiles() -> tuple:
             lib.segment_partition_blocks_col_block())
 
 
+def _blocks_ints(n_rows: int, width: int) -> int:
+    """B8's int32 scratch: each row's destination, each tile's left count
+    and offset, and the move's ticket and flags (one per row tile and
+    column block)."""
+    tile, row_tile, col_block = _blocks_tiles()
+    return (n_rows + 2 * -(-n_rows // tile)
+            + 1 + -(-n_rows // row_tile) * -(-width // col_block))
+
+
 def _partition_blocks(payload, aux, start, count, pred: SplitPredicate,
-                      left_value, right_value, value_col: int):
+                      left_value, right_value, value_col: int,
+                      workspace=None):
     """Launch B8 (csrc/segment_partition_wide.cu): the routing, the in-place
     column-block move and the smaller side's copy-back.  Returns num_left,
     a 0-d int32 device tensor."""
@@ -693,16 +808,13 @@ def _partition_blocks(payload, aux, start, count, pred: SplitPredicate,
                          % (name, value_col, P))
     scalars, bitset = _pred_args(start, count, pred, dev)
     fvals = _leaf_values(left_value, right_value, dev)
-    tile, row_tile, col_block = _blocks_tiles()
-    n_tiles = -(-N // tile)
-    side = torch.empty(N, dtype=torch.uint8, device=dev)
-    # each row's destination, each tile's left count and offset, num_left,
-    # and the move's ticket and flags (one per row tile and column block)
-    n_sync = 1 + -(-N // row_tile) * -(-P // col_block)
-    scratch = torch.empty(N + 2 * n_tiles + 1 + n_sync, dtype=torch.int32,
-                          device=dev)
-    dest, tile_left, tile_off, num_left, sync = scratch.split(
-        (N, n_tiles, n_tiles, 1, n_sync))
+    n_tiles = -(-N // _blocks_tiles()[0])
+    ws = _workspace(workspace, dev)
+    side = ws.bytes(N)
+    n_ints = _blocks_ints(N, P)
+    dest, tile_left, tile_off, sync = ws.ints(n_ints).split(
+        (N, n_tiles, n_tiles, n_ints - N - 2 * n_tiles))
+    num_left = torch.empty(1, dtype=torch.int32, device=dev)
     lib, fn = _lib("segment_partition_wide", "segment_partition_blocks_launch",
                    [_P, _P, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P,
                     _P, _I, _P])
@@ -717,7 +829,7 @@ def _partition_blocks(payload, aux, start, count, pred: SplitPredicate,
 
 def partition_segment_rmw(payload: torch.Tensor, aux: torch.Tensor, start,
                           count, pred: SplitPredicate, left_value,
-                          right_value, value_col: int):
+                          right_value, value_col: int, workspace=None):
     """Stable in-place partition of rows [start, start+count) of a wide
     payload; returns (payload, aux, num_left) (B3: replaces
     lightgbm_tpu/ops/pallas_segment.py partition_segment, the RMW kernel).
@@ -731,7 +843,8 @@ def partition_segment_rmw(payload: torch.Tensor, aux: torch.Tensor, start,
     num_left = _whole_row_partition(
         payload, aux, start, count, pred, left_value, right_value, value_col,
         "segment_partition_wide", "segment_partition_rmw_launch",
-        "segment_partition_rmw_tile_rows", "partition_segment_rmw")
+        "segment_partition_rmw_tile_rows", "partition_segment_rmw",
+        workspace)
     partition_segment_rmw.launches += 1
     return payload, aux, num_left
 
@@ -741,7 +854,7 @@ partition_segment_rmw.launches = 0
 
 def partition_segment_blocks(payload: torch.Tensor, aux: torch.Tensor, start,
                              count, pred: SplitPredicate, left_value,
-                             right_value, value_col: int):
+                             right_value, value_col: int, workspace=None):
     """Stable in-place partition of rows [start, start+count) of the widest
     payloads, moved in column blocks; returns (payload, aux, num_left) (B8:
     replaces lightgbm_tpu/ops/pallas_segment.py
@@ -752,7 +865,8 @@ def partition_segment_blocks(payload: torch.Tensor, aux: torch.Tensor, start,
         return seg.partition_segment(payload, aux, start, count, pred,
                                      left_value, right_value, value_col)
     num_left = _partition_blocks(payload, aux, start, count, pred,
-                                 left_value, right_value, value_col)
+                                 left_value, right_value, value_col,
+                                 workspace)
     partition_segment_blocks.launches += 1
     return payload, aux, num_left
 
@@ -784,7 +898,7 @@ def partition_segment_hist(payload: torch.Tensor, aux: torch.Tensor, start,
                            count, pred: SplitPredicate, left_value,
                            right_value, value_col: int, num_bins: int, *,
                            num_features: int, grad_col: int, hess_col: int,
-                           cnt_col: int, scale=None):
+                           cnt_col: int, scale=None, workspace=None):
     """Stable in-place partition of rows [start, start+count) and both
     children's f32 histograms [F, B, 3]; returns (payload, aux, num_left,
     hist_left, hist_right) with num_left a 0-d int32 device tensor (B6:
@@ -822,15 +936,14 @@ def partition_segment_hist(payload: torch.Tensor, aux: torch.Tensor, start,
                    [_P, _P, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P]
                    + [_I] * 7 + [_P] * 4 + [_I, _P])
     n_tiles = -(-N // T)
-    # each tile's left count and offset, num_left, then the move's ticket
-    # and the tiles' flags
-    scratch = torch.empty(3 * n_tiles + 2, dtype=torch.int32, device=dev)
-    tile_left, tile_off, num_left, sync = scratch.split(
-        (n_tiles, n_tiles, 1, n_tiles + 1))
+    ws = _workspace(workspace, dev)
+    tile_left, tile_off, sync = ws.ints(_whole_row_ints(n_tiles)).split(
+        (n_tiles, n_tiles, n_tiles + 1))
+    num_left = torch.empty(1, dtype=torch.int32, device=dev)
     hist = torch.empty((2, F, B, 3), dtype=torch.float32, device=dev)
     sc = _scale_of(payload, scale, scalars[0], scalars[1], grad_col,
                    hess_col)
-    gh, cnt, tk = _fixed_scratch(dev, 2 * F * B, 2 * F)
+    gh, cnt, tk = ws.fixed(2 * F * B, 2 * F)
     sms = _sm_count(dev.index)
     rc = fn(payload.data_ptr(), aux.data_ptr(), P, scalars.data_ptr(),
             bitset.data_ptr(), bitset.shape[0], fvals.data_ptr(), value_col,
@@ -844,6 +957,14 @@ def partition_segment_hist(payload: torch.Tensor, aux: torch.Tensor, start,
 
 
 partition_segment_hist.launches = 0
+
+
+#: the wrappers that count their launches, by name
+WRAPPERS = ("segment_histogram", "segment_histogram_quant",
+            "segment_histogram_batched", "partition_segment",
+            "partition_segment_stage", "partition_segment_commit",
+            "segment_histogram_colblock", "partition_segment_rmw",
+            "partition_segment_blocks", "partition_segment_hist")
 
 
 def histogram_route(num_features: int):

@@ -16,12 +16,16 @@ commit halves, and the merged partition + both children's histograms.
 The card's f32 histograms sum in fixed point, so they are held bit for
 bit to `segment_histogram_fixed`; a CPU tensor keeps the row-order f32
 sum of `segment_histogram`, the JAX CPU engine's order.
-They index with host integers, so on a card they would sync per call;
-the grower reaches them through ops/cuda_segment.py, which launches the
-kernels for CUDA tensors.
+They never read a tensor's value on the host: start, count and the
+predicate may be 0-d tensors, a segment's rows are picked by a mask over
+the payload's rows, and the results stay tensors, so the grower's tree
+runs on the CPU with no host read (on a card the mask's selection waits
+for the device; the grower reaches these through ops/cuda_segment.py,
+which launches the kernels for CUDA tensors).
 """
 from __future__ import annotations
 
+import numbers
 from typing import NamedTuple
 
 import torch
@@ -72,24 +76,46 @@ class SplitPredicate(NamedTuple):
     identity: torch.Tensor      # bool — raw-bin passthrough (no bundle)
 
 
+def scalar(v, dtype, device) -> torch.Tensor:
+    """v, a number or a one-element array, as a 0-d `dtype` tensor on
+    `device`: a tensor is cast there, a number filled there (a fill is a
+    launch that a CUDA graph can hold; a host-to-device copy from pageable
+    memory is not)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device).reshape(()).to(dtype)
+    if isinstance(v, numbers.Number):
+        return torch.full((), v, dtype=dtype, device=device)
+    return torch.as_tensor(v, device=device).reshape(()).to(dtype)
+
+
+def segment_rows(n: int, start, count, device) -> torch.Tensor:
+    """[n] bool mask of the rows [start, start+count)."""
+    idx = torch.arange(n, device=device)
+    s = scalar(start, torch.int64, device)
+    return (idx >= s) & (idx < s + scalar(count, torch.int64, device))
+
+
 def go_left_chunk(chunk: torch.Tensor, pred: SplitPredicate) -> torch.Tensor:
     """[C] bool routing for payload rows (bin cols at [:, :G])."""
     dev = chunk.device
-    fcol = chunk[:, int(pred.col)]
-    num_bin = int(pred.num_bin)
-    default_bin = int(pred.default_bin)
-    fbin = decode_bin(fcol, bool(pred.identity), int(pred.offset), num_bin,
-                      default_bin)
-    mt = int(pred.missing_type)
+    i32 = torch.int32
+
+    def sc(v, dtype=i32):
+        return scalar(v, dtype, dev)
+
+    fcol = chunk.index_select(1, sc(pred.col, torch.int64).reshape(1))[:, 0]
+    num_bin, default_bin = sc(pred.num_bin), sc(pred.default_bin)
+    fbin = decode_bin(fcol, sc(pred.identity, torch.bool), sc(pred.offset),
+                      num_bin, default_bin)
+    mt = sc(pred.missing_type)
     miss = ((mt == MISSING_NAN) & (fbin == num_bin - 1)) | \
            ((mt == MISSING_ZERO) & (fbin == default_bin))
-    gl_num = torch.where(miss, bool(pred.default_left),
-                         fbin <= int(pred.threshold))
-    if not bool(pred.is_cat):
-        return gl_num
-    bitset = torch.as_tensor(pred.bitset, dtype=torch.bool, device=dev)
+    gl_num = torch.where(miss, sc(pred.default_left, torch.bool),
+                         fbin <= sc(pred.threshold))
+    bitset = torch.as_tensor(pred.bitset, device=dev).to(torch.bool)
     inside = (fbin >= 0) & (fbin < bitset.shape[0])
-    return inside & bitset[fbin.clamp(0, bitset.shape[0] - 1).long()]
+    gl_cat = inside & bitset[fbin.clamp(0, bitset.shape[0] - 1).long()]
+    return torch.where(sc(pred.is_cat, torch.bool), gl_cat, gl_num)
 
 
 def partition_segment_stage(payload: torch.Tensor, aux: torch.Tensor, start,
@@ -101,13 +127,14 @@ def partition_segment_stage(payload: torch.Tensor, aux: torch.Tensor, start,
     it commits.  Unlike the JAX version, nothing is written past the
     segment, so segments may be staged in any order.  Returns
     (aux, num_left), num_left a 0-d int32 tensor."""
-    s, c = int(start), int(count)
-    rows = payload[s:s + c]
+    inside = segment_rows(payload.shape[0], start, count, payload.device)
+    rows = payload[inside]
     gl = go_left_chunk(rows, pred)
-    order = torch.cat([torch.nonzero(gl)[:, 0], torch.nonzero(~gl)[:, 0]])
-    aux[s:s + c] = rows[order]
-    return aux, torch.tensor(int(gl.sum()), dtype=torch.int32,
-                             device=payload.device)
+    # a stable sort of the right-side flags: left rows first, each side in
+    # row order
+    order = torch.sort((~gl).to(torch.uint8), stable=True).indices
+    aux[inside] = rows[order]
+    return aux, gl.sum(dtype=torch.int32)
 
 
 def partition_segment_commit(payload: torch.Tensor, aux: torch.Tensor, start,
@@ -118,13 +145,18 @@ def partition_segment_commit(payload: torch.Tensor, aux: torch.Tensor, start,
     num_left rows, right_value after them) into `value_col`.  count = 0 is
     a no-op (a staged candidate that did not commit).  Returns payload,
     updated in place."""
-    s, c = int(start), int(count)
-    nl = min(int(num_left), c)
-    payload[s:s + c] = aux[s:s + c]
-    payload[s:s + nl, value_col] = torch.as_tensor(left_value,
-                                                   dtype=payload.dtype)
-    payload[s + nl:s + c, value_col] = torch.as_tensor(right_value,
-                                                       dtype=payload.dtype)
+    dev = payload.device
+    n = payload.shape[0]
+    inside = segment_rows(n, start, count, dev)
+    nl = torch.minimum(scalar(num_left, torch.int64, dev),
+                       scalar(count, torch.int64, dev))
+    left = segment_rows(n, start, nl, dev)
+    payload[inside] = aux[inside]
+    col = payload[:, value_col]
+    col.copy_(torch.where(left, scalar(left_value, payload.dtype, dev),
+                          torch.where(inside & ~left,
+                                      scalar(right_value, payload.dtype,
+                                              dev), col)))
     return payload
 
 
@@ -158,9 +190,9 @@ def segment_histogram(payload: torch.Tensor, start, count, *,
     int32, each value converted exactly; integer sums are order-free, so
     every engine agrees bit for bit."""
     F, B = num_features, num_bins
-    s, c = int(start), int(count)
-    rows = payload[s:s + c]
     dev = payload.device
+    rows = payload[segment_rows(payload.shape[0], start, count, dev)]
+    c = rows.shape[0]
     bins = rows[:, :F].to(torch.int64)                             # [c, F]
     cell = bins + torch.arange(F, dtype=torch.int64, device=dev)[None, :] * B
     vals = torch.stack([rows[:, grad_col], rows[:, hess_col],
@@ -231,10 +263,10 @@ def fixed_sums(payload: torch.Tensor, start, count, *, num_features: int,
     int32 [F * B] of the rounded count mask.  Sums over disjoint row
     ranges add up exactly, so a large segment may be summed in parts."""
     F, B = num_features, num_bins
-    s, c = int(start), int(count)
     dev = payload.device
     scale = torch.as_tensor(scale, device=dev).to(torch.int32).reshape(2)
-    rows = payload[s:s + c]
+    rows = payload[segment_rows(payload.shape[0], start, count, dev)]
+    c = rows.shape[0]
     cell = (rows[:, :F].to(torch.int64)
             + torch.arange(F, dtype=torch.int64, device=dev)[None, :] * B) \
         .reshape(-1)
@@ -274,8 +306,7 @@ def segment_histogram_fixed(payload: torch.Tensor, start, count, *,
     (grad, hess), by default `fixed_scale` of this segment.  Integer sums do
     not depend on order, so the kernels agree with this bit for bit."""
     if scale is None:
-        scale = fixed_scale(payload, int(start), int(count), grad_col,
-                            hess_col)
+        scale = fixed_scale(payload, start, count, grad_col, hess_col)
     gh, cnt = fixed_sums(payload, start, count, num_features=num_features,
                          num_bins=num_bins, grad_col=grad_col,
                          hess_col=hess_col, cnt_col=cnt_col, scale=scale)
@@ -298,10 +329,9 @@ def partition_segment_hist(payload: torch.Tensor, aux: torch.Tensor, start,
                                                value_col)
     hk = dict(num_features=num_features, num_bins=num_bins,
               grad_col=grad_col, hess_col=hess_col, cnt_col=cnt_col)
-    nl = int(num_left)
-    hist_left = segment_histogram(payload, start, nl, **hk)
-    hist_right = segment_histogram(payload, int(start) + nl,
-                                   int(count) - nl, **hk)
+    hist_left = segment_histogram(payload, start, num_left, **hk)
+    hist_right = segment_histogram(payload, num_left + start,
+                                   count - num_left, **hk)
     return payload, aux, num_left, hist_left, hist_right
 
 
@@ -315,12 +345,12 @@ def segment_histogram_batched(payload: torch.Tensor, starts, counts, *,
     kw = dict(num_features=num_features, num_bins=num_bins,
               grad_col=grad_col, hess_col=hess_col, cnt_col=cnt_col,
               quantized=quantized)
-    starts = torch.as_tensor(starts).reshape(-1).tolist()
-    counts = torch.as_tensor(counts).reshape(-1).tolist()
+    starts = torch.as_tensor(starts).reshape(-1)
+    counts = torch.as_tensor(counts).reshape(-1)
     if len(starts) != len(counts):
         raise ValueError("starts and counts differ in length: %d vs %d"
                          % (len(starts), len(counts)))
-    if not starts:
+    if not len(starts):
         return torch.zeros((0, num_features, num_bins, 3),
                            dtype=torch.int32 if quantized else torch.float32,
                            device=payload.device)

@@ -1,0 +1,110 @@
+"""Blocking host-sync seam (counterpart of lightgbm_tpu/runtime/syncs.py).
+
+Every *blocking* device-to-host read the port's training makes goes
+through this module, so one counter answers "how many times per
+iteration does the host wait for the card, and where?":
+
+* `tree_fetch`: the grower's small outputs of one tree, one packed
+  transfer (`gbdt._fetch_packed`);
+* `eval_fetch`: scores fetched for the metrics (`raw_train_score`,
+  `raw_valid_score`).
+
+Each event is recorded under its label and under whether the calling
+thread sits on the tree-to-tree critical path (marked with
+`critical_path`, as the JAX package's dispatch loop is).  The counters
+are process-global and only grow; a consumer takes a `snapshot` before a
+region and diffs with `delta` after it.  The JAX package also feeds a
+metrics registry from `record`; the port has none, so that bridge is not
+ported.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict, Optional
+
+import torch
+
+_lock = threading.Lock()
+_counts: Dict[str, int] = {}
+_critical_counts: Dict[str, int] = {}
+_total = 0
+_critical_total = 0
+
+_tls = threading.local()
+
+
+def _on_critical_path() -> bool:
+    return getattr(_tls, "depth", 0) > 0
+
+
+class critical_path:
+    """Context manager marking the current thread as the device critical
+    path: blocking syncs recorded while inside count as critical.  The
+    marker is thread-local."""
+
+    def __enter__(self) -> "critical_path":
+        _tls.depth = getattr(_tls, "depth", 0) + 1
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _tls.depth = getattr(_tls, "depth", 1) - 1
+
+
+def record(label: str) -> None:
+    """Count one blocking host sync under `label` (seam-internal; call
+    sites use `device_get`)."""
+    global _total, _critical_total
+    crit = _on_critical_path()
+    with _lock:
+        _counts[label] = _counts.get(label, 0) + 1
+        _total += 1
+        if crit:
+            _critical_counts[label] = _critical_counts.get(label, 0) + 1
+            _critical_total += 1
+
+
+def device_get(x: torch.Tensor, label: str = "host_fetch") -> Any:
+    """Audited fetch: ONE recorded blocking `.cpu()` of one tensor, as a
+    numpy array (callers pack what they need into one tensor first)."""
+    record(label)
+    return x.cpu().numpy()
+
+
+def snapshot() -> Dict[str, Any]:
+    """A copyable view of the counters."""
+    with _lock:
+        return {
+            "total": _total,
+            "critical_path": _critical_total,
+            "by_label": dict(_counts),
+            "critical_by_label": dict(_critical_counts),
+        }
+
+
+def delta(before: Dict[str, Any],
+          after: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """Counter movement since `before` (to `after`, default: now)."""
+    if after is None:
+        after = snapshot()
+    by_label = {k: v - before["by_label"].get(k, 0)
+                for k, v in after["by_label"].items()
+                if v - before["by_label"].get(k, 0)}
+    crit = {k: v - before["critical_by_label"].get(k, 0)
+            for k, v in after["critical_by_label"].items()
+            if v - before["critical_by_label"].get(k, 0)}
+    return {
+        "total": after["total"] - before["total"],
+        "critical_path": after["critical_path"] - before["critical_path"],
+        "by_label": by_label,
+        "critical_by_label": crit,
+    }
+
+
+def reset() -> None:
+    """Zero the counters (tests and measured sections)."""
+    global _total, _critical_total
+    with _lock:
+        _counts.clear()
+        _critical_counts.clear()
+        _total = 0
+        _critical_total = 0
