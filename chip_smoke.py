@@ -77,6 +77,27 @@ held to jit=False too and prints the steps it enqueued and the device
 and host cost of a no-op step.  Each path line gives its graph replays,
 each profile line its host enqueue calls (kernel and graph launches,
 copies and fills) beside the device kernels and the idle share.
+Prediction on the card (lightgbm_tpu_torch/models/device_predictor.py):
+the main path's model predicts the held-out rows with device=True against
+the host's f64 predict (rtol 1e-5 / atol 1e-6, AUC within 1e-6, binary
+early stop, out_dtype=float32 the exact downcast); at bench.py's serving
+shape (1,000,000 x 28 rows, a 500-tree x 255-leaf synthetic model) the
+steady rows/s, the host's on 20,000 rows (max |diff| within 1e-5), depth
+iterations, captures per bucket, micro-batches, peak memory and the bound
+per depth level are printed, every bucket from 16 to 2^15 rows and
+batch_rows=128 must equal the full call bit for bit and int8 leaves stay
+within their grid bound; the predict calls run under
+torch.cuda.set_sync_debug_mode("error") but for one output fetch per
+micro-batch.  Categorical training: airline-shaped data (the ASA Data
+Expo 2009 flights as szilard/benchm-ml uses them: six categorical columns
+of 12 to 300 levels, DepTime, Distance; 1,000,000 rows, 100,000 held out)
+must make categorical splits, launch B1 and B2 and no wide kernel, beat
+the same columns treated as numeric on held-out AUC, keep valid scores
+equal to predict(raw_score=True) and predict(device=True) equal to the
+host's, pass the repeat check, write the same model text at frontier 8,
+hold every B2 call of three iterations (bitset predicates among them) to
+the plain partition and agree with the CPU on a 20,000-row cut; its
+device kernels per split step are printed beside the main path's.
 Every phase always runs and prints one line, prefixed with the seconds
 since start; any failed check exits non-zero.  The last line is the
 device record {"ok": true, "device": {...}}.  Imports nothing of JAX or
@@ -116,6 +137,11 @@ try:  # a parent tree (chip_compare.py) may predate the device loop
     from lightgbm_tpu_torch.runtime import graphs  # noqa: E402
 except ImportError:
     graphs = None
+try:  # ... or the device predictor
+    from lightgbm_tpu_torch.models import device_predictor  # noqa: E402
+    from lightgbm_tpu_torch.runtime import syncs  # noqa: E402
+except ImportError:
+    device_predictor = syncs = None
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and
 # f32 (non-tensor-core) operations/s
@@ -1690,10 +1716,11 @@ def make_main_data(rows: int, seed: int, params: dict) -> tuple:
 
 
 def train_path(name: str, ds, Xv, yv, params: dict, iters: int,
-               auc_floor: float = 0.8) -> dict:
+               auc_floor: float = 0.8, valid_sets=None) -> dict:
     """Train one configuration of the main path through
-    lightgbm_tpu_torch.train on the card, with every launch count set to
-    0 just before and read just after; predict the held-out rows."""
+    lightgbm_tpu_torch.train on the card (with `valid_sets` scored every
+    iteration, when given), with every launch count set to 0 just before
+    and read just after; predict the held-out rows."""
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.max_memory_allocated()
     graphs_before = graph_counts()
@@ -1701,7 +1728,8 @@ def train_path(name: str, ds, Xv, yv, params: dict, iters: int,
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with grower_mode():
-        bst = lt.train(params, ds, iters, verbose_eval=False)
+        bst = lt.train(params, ds, iters, valid_sets=valid_sets,
+                       verbose_eval=False)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
     launches = read_counts()
@@ -1716,7 +1744,9 @@ def train_path(name: str, ds, Xv, yv, params: dict, iters: int,
           "%s launched a wide kernel: %s"
           % (name, {k: launches[k] for k in WIDE_ONLY}))
     t0 = time.perf_counter()
-    pred = bst.predict(Xv)
+    # predict(Xv) is convert_output of these raw scores
+    raw = bst.predict(Xv, raw_score=True)
+    pred = bst._objective.convert_output(raw)
     t_pred = time.perf_counter() - t0
     check(pred.shape == (len(yv),) and bool(np.isfinite(pred).all()),
           "%s: held-out predictions malformed" % name)
@@ -1728,7 +1758,7 @@ def train_path(name: str, ds, Xv, yv, params: dict, iters: int,
           "%s: blocking syncs per tree %s, not one" % (name, syncs))
     t0 = bst._model.trees[0]
     return dict(name=name, bst=bst, model_text=bst.model_to_string(),
-                launches=launches, auc=auc, splits=sum(leaves) - len(leaves),
+                launches=launches, auc=auc, raw=raw, pred=pred, splits=sum(leaves) - len(leaves),
                 first_split=(int(t0.split_feature[0]),
                              int(t0.threshold_in_bin[0])),
                 s_per_iter=t_train / iters, t_train=t_train, t_pred=t_pred,
@@ -1738,13 +1768,14 @@ def train_path(name: str, ds, Xv, yv, params: dict, iters: int,
                 rounds_per_tree=bst.split_rounds_per_tree())
 
 
-def path_line(r: dict, rows: int, iters: int, extra: str = "") -> str:
+def path_line(r: dict, rows: int, iters: int, extra: str = "",
+              n_feat: int = F) -> str:
     return ("%s: %dx%d, max_bin 255, 255 leaves, lr 0.1, %d iters: "
             "%.4f s/iter (train %.3f s), syncs/tree %s (mean %.2f), split "
             "rounds/tree %.2f, splits/tree %.2f, max_memory_allocated %d B "
             "(%d B before), held-out AUC %.6f on %d rows (predict %.3f s)%s, "
             "graph replays %s, launches %s"
-            % (r["name"], rows, F, iters, r["s_per_iter"], r["t_train"],
+            % (r["name"], rows, n_feat, iters, r["s_per_iter"], r["t_train"],
                r["syncs"], float(np.mean(r["syncs"])), r["rounds_per_tree"],
                r["splits_per_tree"], r["peak"], r["peak_before"], r["auc"],
                100_000, r["t_pred"], extra, json.dumps(r["replays"]),
@@ -1765,15 +1796,19 @@ def main_path_phase(rows: int, iters: int, seed: int) -> tuple:
     return line, r, (ds, Xv, yv)
 
 
-def checked_partition_phase(data, rows: int, iters: int) -> str:
-    """The main path again for `iters` iterations, every B2 call held
-    against the plain partition on copies of its inputs: payload and
-    num_left byte for byte and aux untouched outside the segment, so an
-    ordering race in training shows.  Its launches are not counted
-    against any path."""
+def checked_partition_phase(data, rows: int, iters: int,
+                            params: dict = None,
+                            label: str = "B2 in training") -> str:
+    """A path (the main path unless `params` say otherwise) again for
+    `iters` iterations, every B2 call held against the plain partition on
+    copies of its inputs (its predicate, categorical bitset included):
+    payload and num_left byte for byte and aux untouched outside the
+    segment, so an ordering race in training shows.  Its launches are not
+    counted against any path."""
     ds, Xv, yv = data
+    params = params or train_params(255)
     whole = cuda_segment.partition_segment
-    calls = []
+    calls, cat_calls = [], []
 
     def checked(payload, aux, start, count, pred, left_value, right_value,
                 value_col, **kw):
@@ -1783,8 +1818,10 @@ def checked_partition_phase(data, rows: int, iters: int) -> str:
         plain = seg.partition_segment(before, aux_before, int(start),
                                       int(count), pred, left_value,
                                       right_value, value_col)
-        same_partition("B2 in training (%d, %d)" % (int(start), int(count)),
+        same_partition("%s (%d, %d)" % (label, int(start), int(count)),
                        out, plain, int(start), int(count), full_aux=False)
+        if bool(pred.is_cat):
+            cat_calls.append(int(count))
         calls.append(int(count))
         return out
 
@@ -1794,7 +1831,7 @@ def checked_partition_phase(data, rows: int, iters: int) -> str:
     try:
         # eager steps (the checks read the device), B2 on every split
         with grower_mode(jit=False, strict=False):
-            bst = lt.train(train_params(255), ds, iters, verbose_eval=False)
+            bst = lt.train(params, ds, iters, verbose_eval=False)
     finally:
         cuda_segment.partition_segment = whole
     splits = sum(t.num_leaves - 1 for t in bst._model.trees)
@@ -1802,10 +1839,12 @@ def checked_partition_phase(data, rows: int, iters: int) -> str:
     check(len(calls) == splits, "checked %d B2 calls on rows for %d splits"
           % (len(calls), splits))
     auc = auc_score(yv, bst.predict(Xv))
-    return ("B2 in training: %dx%d, %d iters, %d calls on segments of %d to "
-            "%d rows, each byte-identical to the plain partition; held-out "
-            "AUC %.6f" % (rows, F, iters, len(calls), min(calls), max(calls),
-                          auc))
+    return ("%s: %dx%d, %d iters, %d calls on segments of %d to %d rows "
+            "(%d with a categorical bitset), each byte-identical to the "
+            "plain partition; held-out AUC %.6f"
+            % (label, rows, ds.binned.num_features, iters, len(calls),
+               min(calls), max(calls), len([c for c in cat_calls if c]),
+               auc))
 
 
 def first_difference(a: str, b: str) -> str:
@@ -2153,6 +2192,29 @@ def inactive_step_cost(bst, reps: int = 50) -> tuple:
     differ = [k for k in state if not bits_equal(before[k], state[k])]
     check(not differ, "a no-op step changed %s" % differ)
     return e0.elapsed_time(e1) * 1e3 / reps, host * 1e6 / reps
+
+
+def step_kernels(bst) -> int:
+    """Device kernels of one replay of the captured split step on a
+    finished tree (a no-op step, whose kernels all launch), counted by
+    torch.profiler; raises unless the state and payload are left bit for
+    bit as they were."""
+    from torch.profiler import ProfilerActivity, profile
+    prog = bst._engine.grower.program
+    torch.cuda.synchronize()
+    check(not int(prog.flag[0]), "the grower's state is not at a finished "
+          "tree")
+    state = device_state(bst)
+    before = {k: t.clone() for k, t in state.items()}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prog.step()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    differ = [k for k in state if not bits_equal(before[k], state[k])]
+    check(not differ, "a no-op step changed %s" % differ)
+    check(n > 0, "the profiler saw no kernel of the split step")
+    return n
 
 
 def jit_off_check(label: str, train, reference_text: str) -> str:
@@ -2798,6 +2860,358 @@ def compare_phase(rows: int, iters: int, seed: int) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases: prediction on the card (models/device_predictor.py)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def sync_errors():
+    """torch.cuda.set_sync_debug_mode("error") inside the block: a sync the
+    code did not mean to make raises (the predictor lifts it for its one
+    output fetch per micro-batch, runtime/syncs.wait_event)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def fetches_since(before: dict) -> int:
+    return syncs.delta(before)["by_label"].get("predict_fetch", 0)
+
+
+def predict_main_phase(bst, Xv, yv) -> str:
+    """The main path's model predicts the held-out rows with device=True
+    (f32 thresholds, CUDA graphs) and on the host (f64): within rtol 1e-5
+    / atol 1e-6 and the same AUC within 1e-6; binary prediction early stop
+    truncates as the host's does, and out_dtype=float32 is the f64
+    answer's exact downcast.  The device calls run under sync debug mode
+    "error" but for their one output fetch per micro-batch."""
+    before = syncs.snapshot()
+    with sync_errors():
+        t0 = time.perf_counter()
+        dev = bst.predict(Xv, device=True)
+        t_first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = bst.predict(Xv, device=True)
+        t_dev = time.perf_counter() - t0
+    fetches = fetches_since(before)
+    t0 = time.perf_counter()
+    host = bst.predict(Xv)
+    t_host = time.perf_counter() - t0
+    check(np.array_equal(dev, again), "predict: two device calls differ")
+    check(np.allclose(dev, host, rtol=1e-5, atol=1e-6),
+          "predict: device vs host max |diff| %.3g"
+          % float(np.abs(dev - host).max()))
+    auc_d, auc_h = auc_score(yv, dev), auc_score(yv, host)
+    check(abs(auc_d - auc_h) <= 1e-6, "predict: AUC device %.8f host %.8f"
+          % (auc_d, auc_h))
+    kw = dict(pred_early_stop=True, pred_early_stop_freq=1,
+              pred_early_stop_margin=0.5, raw_score=True)
+    with sync_errors():
+        es_dev = bst.predict(Xv, device=True, **kw)
+        f32 = bst.predict(Xv, device=True, out_dtype=np.float32)
+    es_host = bst.predict(Xv, **kw)
+    check(np.allclose(es_dev, es_host, rtol=1e-5, atol=1e-6),
+          "predict: early stop device vs host max |diff| %.3g"
+          % float(np.abs(es_dev - es_host).max()))
+    truncated = int(np.sum(es_host != bst.predict(Xv, raw_score=True)))
+    check(truncated > 0, "predict: early stop truncated no row")
+    check(f32.dtype == np.float32 and np.array_equal(
+        f32, dev.astype(np.float32)), "predict: out_dtype=float32 is not "
+          "the f64 answer's downcast")
+    return ("predict (main path, %d trees): %d held-out rows, device %.4f s "
+            "(first call with its capture %.4f s, %d output fetches in 2 "
+            "calls), host f64 %.4f s; max |device - host| %.3g; AUC device "
+            "%.8f host %.8f; binary early stop (freq 1, margin 0.5) within "
+            "rtol 1e-5 of the host's, %d rows truncated; out_dtype=float32 "
+            "the exact downcast"
+            % (len(bst._model.trees), len(yv), t_dev, t_first, fetches,
+               t_host, float(np.abs(dev - host).max()), auc_d, auc_h,
+               truncated))
+
+
+#: bench.py's serving shape (bench_predict)
+SERVE_ROWS, SERVE_TREES, SERVE_LEAVES = 1_000_000, 500, 255
+#: rows of the host f64 reference and of the buckets' and batch_rows' checks
+SERVE_CHECK_ROWS = 20_000
+
+
+def synth_serving_model(n_trees: int, num_leaves: int, n_feat: int,
+                        seed: int):
+    """bench.py's synth_serving_model for the port's model classes: an
+    ensemble built directly (no training), random features and
+    thresholds, a random leaf split each time (leaf-wise depth profile)."""
+    from lightgbm_tpu_torch.models.gbdt_model import GBDTModel
+    from lightgbm_tpu_torch.models.tree import Tree
+    rng = np.random.default_rng(seed)
+    model = GBDTModel()
+    model.num_class = 1
+    model.num_tree_per_iteration = 1
+    model.max_feature_idx = n_feat - 1
+    model.objective_str = "binary sigmoid:1"
+    for _ in range(n_trees):
+        t = Tree(num_leaves)
+        while t.num_leaves < num_leaves:
+            leaf = int(rng.integers(0, t.num_leaves))
+            t.split(leaf, int(rng.integers(0, n_feat)), 0,
+                    float(rng.standard_normal()),
+                    float(rng.standard_normal() * 0.01),
+                    float(rng.standard_normal() * 0.01),
+                    10, 10, 1.0, 2, bool(rng.integers(0, 2)))
+        model.trees.append(t)
+    return model
+
+
+def serving_phase(seed: int, dev, smi: str) -> str:
+    """The device predictor at bench.py's serving shape: 1,000,000 x 28
+    f32 rows from the seed through a 500-tree x 255-leaf synthetic model.
+    Prints the steady rows/s (a second call, after the captures), the
+    first call's, the host f64 reference's rows/s on 20,000 rows and its
+    max |diff| (held to 1e-5), depth iterations, captures per bucket, the
+    micro-batches, peak device memory and the bound per depth level (the
+    [N, T] int64 frontier read and written once).  Holds a second ragged
+    call in one bucket to no new capture, every bucket from 16 to 2^15
+    rows and batch_rows=128 to the default's output bit for bit, and the
+    int8 leaf table to its grid bound.  Device calls run under sync debug
+    mode "error" but for their output fetches."""
+    DevicePredictor = device_predictor.DevicePredictor
+    t0 = time.perf_counter()
+    model = synth_serving_model(SERVE_TREES, SERVE_LEAVES, F, seed)
+    X = np.random.default_rng(seed + 17).standard_normal(
+        (SERVE_ROWS, F)).astype(np.float32)
+    t_make = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dp = DevicePredictor(model, device=dev)
+    site = "predictor.tree_parallel"
+    caps0 = graph_counts().get(site, {}).get("captures", 0)
+    before = syncs.snapshot()
+    with sync_errors():
+        t0 = time.perf_counter()
+        first = dp.predict_raw(X)
+        t_first = time.perf_counter() - t0
+        caps = dp.capture_count()
+        mb0, fetch0 = dp.micro_batches, fetches_since(before)
+        t0 = time.perf_counter()
+        out = dp.predict_raw(X)
+        t_steady = time.perf_counter() - t0
+    batches = dp.micro_batches - mb0
+    fetches = fetches_since(before) - fetch0
+    peak = torch.cuda.max_memory_allocated() - mem0
+    check(np.array_equal(out, first), "serving: two calls differ")
+    check(dp.capture_count() == caps, "serving: the steady call captured")
+    check(fetches == batches, "serving: %d output fetches for %d "
+          "micro-batches" % (fetches, batches))
+    check(bool(np.isfinite(out).all()) and out.shape == (SERVE_ROWS, 1),
+          "serving: output malformed")
+    with sync_errors():
+        a = dp.predict_raw(X[:1000])
+        caps_a = dp.capture_count()
+        b = dp.predict_raw(X[:900])
+    check(dp.capture_count() == caps_a, "serving: a second ragged call in "
+          "bucket 1024 captured")
+    check(np.array_equal(a, out[:1000]) and np.array_equal(b, out[:900]),
+          "serving: a ragged call differs from the full call's rows")
+    n = SERVE_CHECK_ROWS
+    t0 = time.perf_counter()
+    host = model.predict_raw(X[:n].astype(np.float64))
+    t_host = time.perf_counter() - t0
+    err = float(np.abs(out[:n] - host).max())
+    check(err <= 1e-5, "serving: max |device - host| %.3g > 1e-5" % err)
+    buckets = []
+    with sync_errors():
+        for k in range(4, 16):
+            for rows in (1 << k, (1 << k) - 3):
+                got = dp.predict_raw(X[:rows])
+                check(np.array_equal(got, out[:rows]), "serving: %d rows "
+                      "(bucket %d) differ from the full call" % (rows,
+                                                                 1 << k))
+            buckets.append(1 << k)
+        small = DevicePredictor(model, batch_rows=128, device=dev)
+        got = small.predict_raw(X[:n])
+        dq = DevicePredictor(model, leaf_quant="int8", device=dev)
+        q = dq.predict_raw(X[:n])[:, 0]
+    check(np.array_equal(got, out[:n]), "serving: batch_rows=128 differs "
+          "from the default micro-batches")
+    amax = np.abs(np.asarray(dq._packed["leaf"], np.float64)).max(axis=1)
+    bound = float(np.where(amax > 0, amax, 127.0).sum() / 127.0)
+    err_q = float(np.abs(q - host[:, 0]).max())
+    check(0.0 < err_q <= bound, "serving: int8 leaves max |diff| %.4g "
+          "outside (0, %.4g]" % (err_q, bound))
+    caps_site = graph_counts().get(site, {}).get("captures", 0) - caps0
+    # the bound per depth level: the [N, T] int64 frontier read and
+    # written once; the whole call's: that per level, X read and the
+    # output written once
+    level_bytes = SERVE_ROWS * SERVE_TREES * 16
+    level_ms = level_bytes / HBM_BYTES_PER_S * 1e3
+    call_ms = (dp.depth_iters * level_bytes + X.nbytes + SERVE_ROWS * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    return ("serving predict (%s): %d x %d f32 rows, %d trees x %d leaves "
+            "(model made in %.2f s): steady %.1f rows/s (%.4f s), first "
+            "call %.4f s with its captures; host f64 %.1f rows/s on %d rows "
+            "(%.3f s), max |device - host| %.3g; depth iterations %d; "
+            "batch_rows %d, %d micro-batches per call, %d programs (one "
+            "CUDA graph each; %d captures at the site in this phase, 0 in "
+            "the steady call or a second ragged call in one bucket); peak "
+            "device memory %d B over the phase; bound per depth level "
+            "%.4f ms (%d B of int64 frontier read and written), per call "
+            "%.4f ms; buckets %s and batch_rows=128 bit-identical to the "
+            "full call; int8 leaves max |diff| %.4g within the grid bound "
+            "%.4g"
+            % (smi, SERVE_ROWS, F, SERVE_TREES, SERVE_LEAVES, t_make,
+               SERVE_ROWS / t_steady, t_steady, t_first, n / t_host, n,
+               t_host, err, dp.depth_iters, dp.batch_rows, batches,
+               dp.capture_count(), caps_site, peak, level_ms, level_bytes,
+               call_ms, buckets, err_q, bound))
+
+
+# ---------------------------------------------------------------------------
+# phase: categorical features in training
+# ---------------------------------------------------------------------------
+
+#: the airline on-time data of the ASA Data Expo 2009 as szilard/benchm-ml
+#: uses it (its 1M-row training set): the categorical columns and their
+#: levels, then DepTime and Distance
+AIRLINE_LEVELS = (("Month", 12), ("DayofMonth", 31), ("DayOfWeek", 7),
+                  ("UniqueCarrier", 22), ("Origin", 300), ("Dest", 300))
+AIRLINE_ROWS, AIRLINE_VALID = 1_000_000, 100_000
+#: the CUDA vs CPU parity cut
+CAT_PARITY_ROWS = 20_000
+#: the held-out AUC floor of the airline-shaped data (the benchmark's GBDT
+#: results sit near 0.70-0.75)
+CAT_AUC_FLOOR = 0.65
+
+
+def airline_synth(n_rows: int, seed: int):
+    """Rows shaped after the airline data: six categorical columns with its
+    cardinalities (level ids drawn Zipf-like where there are more than 12
+    levels, a few carriers and airports carry most flights), DepTime
+    (hhmm-like, 1-2400) and Distance (log-normal miles), and a label drawn
+    from a logistic model of random per-level effects (not monotone in the
+    level id) plus the numeric terms."""
+    rng = np.random.default_rng(seed)
+    cols, logit = [], np.zeros(n_rows)
+    for _, k in AIRLINE_LEVELS:
+        w = 1.0 / np.arange(1, k + 1) ** 1.3 if k > 12 else np.ones(k)
+        ids = rng.permutation(k)[rng.choice(k, n_rows, p=w / w.sum())]
+        logit += (rng.standard_normal(k) * (0.6 if k > 12 else 0.3))[ids]
+        cols.append(ids.astype(np.float64))
+    dep = np.clip(rng.normal(1330, 470, n_rows), 1, 2400).round()
+    dist = np.exp(rng.normal(6.4, 0.6, n_rows)).round()
+    logit += 1.2 * (dep / 2400 - 0.5) + 0.15 * (np.log(dist) - 6.4)
+    y = rng.random(n_rows) < 1 / (1 + np.exp(-(logit - 1.5)))
+    return np.column_stack(cols + [dep, dist]), y.astype(np.float64)
+
+
+def categorical_phase(seed: int, iters: int, main_run: dict):
+    """Categorical training on the card: airline-shaped data from the
+    seed, 1,000,000 training rows and 100,000 held out, max_bin 255, 255
+    leaves, lr 0.1.  Checks that categorical splits occur, that B1 and B2
+    launch and B3 / B7 / B8 do not, that the held-out AUC beats the same
+    data with the columns treated as numeric, that the validation scores
+    kept on the card equal predict(raw_score=True) and predict(device=True)
+    the host predict, the repeat check, that frontier 8 writes the same
+    model text, CUDA vs CPU parity on a 20,000-row cut and every B2 call
+    of three iterations against the plain partition with its bitset.
+    Prints its lines; returns the path's launch counts."""
+    cats = list(range(len(AIRLINE_LEVELS)))
+    X, y = airline_synth(AIRLINE_ROWS + AIRLINE_VALID, seed + 23)
+    Xt, yt = X[:AIRLINE_ROWS], y[:AIRLINE_ROWS]
+    Xv, yv = X[AIRLINE_ROWS:], y[AIRLINE_ROWS:]
+    params = train_params(255, metric="auc")
+    t0 = time.perf_counter()
+    ds = lt.Dataset(Xt, label=yt, categorical_feature=cats)
+    ds.construct(lt.Config(params))
+    dv = lt.Dataset(Xv, label=yv, reference=ds)
+    dv.construct(lt.Config(params))
+    t_bin = time.perf_counter() - t0
+    nbins = [m.num_bin for m in ds.binned.bin_mappers]
+    check(ds.binned.max_num_bin <= B, "categorical: %d bins" %
+          ds.binned.max_num_bin)
+    r = train_path("categorical", ds, Xv, yv, params, iters,
+                   auc_floor=CAT_AUC_FLOOR, valid_sets=[dv])
+    bst, launches = r["bst"], r["launches"]
+    check(launches["segment_histogram"] > 0 and
+          launches["partition_segment"] > 0,
+          "categorical: B1 / B2 launched %d / %d times"
+          % (launches["segment_histogram"], launches["partition_segment"]))
+    cat_nodes = sum(int(np.sum(t.decision_type[:t.num_leaves - 1] & 1))
+                    for t in bst._model.trees)
+    check(cat_nodes > 0, "categorical: no categorical split")
+    valid = bst._engine.raw_valid_score(0)[0]
+    raw, host = r["raw"], r["pred"]
+    check(np.allclose(valid, raw, rtol=1e-5,
+                      atol=1e-5 * max(1.0, float(np.abs(raw).max()))),
+          "categorical: valid scores vs predict max |diff| %.3g"
+          % float(np.abs(valid - raw).max()))
+    with sync_errors():
+        dev_pred = bst.predict(Xv, device=True)
+    check(np.allclose(dev_pred, host, rtol=1e-5, atol=1e-6),
+          "categorical: predict(device=True) vs host max |diff| %.3g"
+          % float(np.abs(dev_pred - host).max()))
+    say(path_line(r, AIRLINE_ROWS, iters, ", binning %.3f s (%s "
+                           "bins), %d categorical of %d split nodes"
+                           % (t_bin, nbins, cat_nodes, r["splits"]),
+                  n_feat=X.shape[1]))
+    kernels = step_kernels(bst)
+    ds_num = lt.Dataset(Xt, label=yt)
+    ds_num.construct(lt.Config(params))
+    rn = train_path("categorical as numeric", ds_num, Xv, yv, params, iters,
+                    auc_floor=CAT_AUC_FLOOR)
+    check(r["auc"] > rn["auc"], "categorical: held-out AUC %.6f does not "
+          "beat the numeric treatment's %.6f" % (r["auc"], rn["auc"]))
+    say("categorical vs main: %.4f s/iter (main path %.4f); device kernels "
+        "per split step %d (one replay of the captured step; main path %d); "
+        "held-out AUC %.6f, the columns as numeric %.6f (%.4f s/iter); "
+        "valid scores equal predict(raw_score=True), predict(device=True) "
+        "equals host predict (max |diff| %.3g)"
+        % (r["s_per_iter"], main_run["s_per_iter"], kernels,
+           main_run["step_kernels"], r["auc"], rn["auc"], rn["s_per_iter"],
+           float(np.abs(dev_pred - host).max())))
+    text = r["model_text"]
+    del r, rn, bst, ds_num
+    say(repeat_check("categorical", lambda: lt.train(
+        params, ds, iters, verbose_eval=False), text))
+    with grower_mode():
+        front = lt.train(dict(params, tpu_frontier_batch=8), ds, iters,
+                         verbose_eval=False)
+    check(front.model_to_string() == text, "categorical: frontier 8's "
+          "model text differs at %s" % first_difference(
+              front.model_to_string(), text))
+    say("categorical frontier 8: model text byte-identical to the one-leaf "
+        "loop's, %.2f split rounds per tree" % front.split_rounds_per_tree())
+    del front
+    say(checked_partition_phase((ds, Xv, yv), AIRLINE_ROWS, 3, params=params,
+                                label="B2 in categorical training"))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        p = train_params(63) if device == "cuda" \
+            else train_params(63, device_type="cpu")
+        b = lt.train(p, lt.Dataset(Xt[:CAT_PARITY_ROWS],
+                                   label=yt[:CAT_PARITY_ROWS],
+                                   categorical_feature=cats), 10,
+                     verbose_eval=False)
+        check(b.device.type == device, "categorical parity on %s" % b.device)
+        t0 = b._model.trees[0]
+        runs[device] = (int(t0.split_feature[0]), int(t0.decision_type[0]),
+                        t0.cat_words_for_node(0).tolist(),
+                        auc_score(yv[:CAT_PARITY_ROWS],
+                                  b.predict(Xv[:CAT_PARITY_ROWS])))
+    check(runs["cuda"][:3] == runs["cpu"][:3], "categorical parity: the "
+          "root split differs: cuda %s vs cpu %s" % (runs["cuda"][:3],
+                                                     runs["cpu"][:3]))
+    d_auc = abs(runs["cuda"][3] - runs["cpu"][3])
+    check(d_auc <= 0.002, "categorical parity: |dAUC| %.6f > 0.002" % d_auc)
+    say("categorical parity: %dx%d, 63 leaves, 10 iters: the root split "
+        "(feature, decision_type, category bitset) %s on both, AUC on "
+        "%d held-out rows cuda %.6f cpu %.6f |dAUC| %.6f"
+        % (CAT_PARITY_ROWS, X.shape[1], runs["cuda"][:3], CAT_PARITY_ROWS,
+           runs["cuda"][3], runs["cpu"][3], d_auc))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1_000_000)
@@ -2879,10 +3293,13 @@ def main() -> int:
     line, census_bounds = census_line(main_run["bst"]._model.trees)
     say(line)
     dev_us, host_us = inactive_step_cost(main_run["bst"])
+    main_run["step_kernels"] = step_kernels(main_run["bst"])
     say("no-op step (main path): the captured split step on a finished "
-        "tree, %.2f us on the device and %.2f us on the host per replay (%s)"
-        % (dev_us, host_us, smi))
+        "tree, %.2f us on the device and %.2f us on the host per replay, "
+        "%d device kernels (%s)" % (dev_us, host_us,
+                                    main_run["step_kernels"], smi))
     say(replay_check(main_run["bst"]))
+    say(predict_main_phase(main_run["bst"], data[1], data[2]))
     del main_run["bst"]
     ds = data[0]
     say(jit_off_check("main path", lambda: lt.train(
@@ -2934,6 +3351,9 @@ def main() -> int:
                 valid_sets=[r["dv"]], verbose_eval=False)))
         del r
         torch.cuda.empty_cache()
+    say(serving_phase(args.seed, dev, smi))
+    paths["categorical"] = categorical_phase(args.seed, args.iters,
+                                             main_run)
     serves = {"segment_histogram": "main path",
               "partition_segment": "main path",
               "segment_histogram_quant": "quantized int8",

@@ -2,10 +2,12 @@
 
 Role parity with the reference Python binding python-package/lightgbm/basic.py.
 This slice keeps the surface the training paths use: a Dataset over a
-dense matrix (a validation set binned with its reference's mappers), and
-a Booster that trains (update), evaluates on the training set and on
-validation sets, predicts through the host f64 model, and reads and
-writes the model text that both packages share.  Training runs on the
+dense matrix (categorical features by column index; a validation set
+binned with its reference's mappers), and a Booster that trains (update),
+evaluates on the training set and on validation sets, predicts through
+the exact f64 host model or, with device=True, the tree-parallel device
+predictor (models/device_predictor.py), and reads and writes the model
+text that both packages share.  Training and device prediction run on the
 device that config.resolve_device picks: the card unless
 device_type='cpu'.
 """
@@ -14,11 +16,13 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from .boosting.gbdt import GBDT
 from .config import Config, resolve_device
 from .io.dataset import BinnedDataset
 from .metric import create_metrics
+from .models import device_predictor as dpr
 from .models.gbdt_model import GBDTModel
 from .objective import create_objective, create_objective_from_model_string
 from .utils.log import LightGBMError, Log
@@ -41,6 +45,8 @@ class Dataset:
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
                  weight=None, feature_name="auto", categorical_feature="auto",
                  params: Optional[Dict] = None):
+        """categorical_feature: "auto" (none) or a list of column indices;
+        names and pandas categories are not ported."""
         self.data = data
         self.label = label
         self.reference = reference
@@ -95,6 +101,8 @@ class Booster:
         self.best_score: Dict = {}
         self._engine: Optional[GBDT] = None
         self._valid_data: List = []
+        self._dev_predictor = None
+        self._dev_pred_key = None
         self.config = Config(self.params)
         if train_set is not None:
             self.config.warn_unimplemented()
@@ -128,6 +136,14 @@ class Booster:
     def device(self):
         """The training device (None for a loaded model)."""
         return self._engine.device if self._engine is not None else None
+
+    def predict_device(self) -> torch.device:
+        """Where predict(device=True) runs: the training device, or for a
+        loaded model the device its params ask for (the card unless
+        device_type='cpu'; raises without a CUDA device)."""
+        if self._engine is not None:
+            return self._engine.device
+        return resolve_device(self.config)
 
     # -- training ------------------------------------------------------------
     def update(self, train_set=None, fobj=None) -> bool:
@@ -194,17 +210,82 @@ class Booster:
 
     # -- prediction ----------------------------------------------------------
     def predict(self, data, num_iteration: int = -1, raw_score: bool = False,
-                start_iteration: int = 0) -> np.ndarray:
-        """Exact f64 host traversal of the model (models/gbdt_model.py);
-        the device predictor is not ported yet."""
+                pred_leaf: bool = False, pred_contrib: bool = False,
+                pred_early_stop: bool = False, pred_early_stop_freq: int = 10,
+                pred_early_stop_margin: float = 10.0,
+                device: bool = False, start_iteration: int = 0,
+                out_dtype=None, leaf_quant: Optional[str] = None
+                ) -> np.ndarray:
+        """The exact f64 host traversal of the model (models/gbdt_model.py)
+        by default; device=True runs the tree-parallel device predictor
+        (models/device_predictor.py: f32 thresholds, categorical bitsets,
+        power-of-two row buckets captured as CUDA graphs, micro-batched
+        transfers) on `predict_device()`.
+
+        Device path only: `out_dtype=np.float32` returns float32, exactly
+        the float64 answer `.astype(float32)` (output transforms run in
+        f64 on the exact upcast); `leaf_quant="int8"` takes the int8 leaf
+        table, the default once the staged
+        `device_predictor.LEAF_QUANT_VALIDATED` is set (leaf_quant="none"
+        opts out)."""
         X = _to_2d_float(data)
-        raw = self._model.predict_raw(X, start_iteration=start_iteration,
-                                      num_iteration=num_iteration)
+        if pred_leaf:
+            return self._model.predict_leaf_index(X, num_iteration)
+        if pred_contrib:
+            return self._model.predict_contrib(X, num_iteration)
+        # the host and device paths truncate sums alike
+        early = self._model.early_stop_mode(pred_early_stop)
+        if device:
+            lq = leaf_quant
+            if lq is None and dpr.LEAF_QUANT_VALIDATED:
+                lq = "int8"
+            if lq in ("none", "float32"):
+                lq = None
+            end = self._model.num_prediction_iterations(start_iteration,
+                                                        num_iteration)
+            key = (start_iteration, end, len(self._model.trees), lq)
+            if self._dev_pred_key != key:
+                self._dev_predictor = dpr.DevicePredictor(
+                    self._model, start_iteration, num_iteration,
+                    leaf_quant=lq, device=self.predict_device())
+                self._dev_pred_key = key
+            raw = self._dev_predictor.predict_raw(
+                X, early_stop=early, early_stop_freq=pred_early_stop_freq,
+                early_stop_margin=pred_early_stop_margin,
+                out_dtype=np.float32 if np.dtype(out_dtype or np.float64)
+                == np.float32 else np.float64)
+        else:
+            raw = self._model.predict_raw(
+                X, start_iteration=start_iteration,
+                num_iteration=num_iteration, early_stop=early,
+                early_stop_freq=pred_early_stop_freq,
+                early_stop_margin=pred_early_stop_margin)
+        return self._finish_predict(raw, raw_score, num_iteration,
+                                    start_iteration)
+
+    def _finish_predict(self, raw: np.ndarray, raw_score: bool,
+                        num_iteration: int = -1,
+                        start_iteration: int = 0) -> np.ndarray:
+        # f32 raw scores (the out_dtype path): the output transform runs
+        # in f64 on the exact upcast, then casts down, so the f32 surface
+        # is the f64 surface .astype(float32) bit for bit
+        f32 = raw.dtype == np.float32
+        if f32:
+            raw = raw.astype(np.float64)
         if raw.shape[1] == 1:
             raw = raw[:, 0]
-        if raw_score or self._objective is None:
-            return raw
-        return self._objective.convert_output(raw)
+        if raw_score:
+            out = raw
+        elif self._model.average_output:
+            # averaged pre-converted outputs; no ConvertOutput on top
+            # (gbdt_prediction.cpp Predict, average_output_ branch)
+            out = raw / self._model.num_prediction_iterations(
+                start_iteration, num_iteration)
+        elif self._objective is None:
+            out = raw
+        else:
+            out = self._objective.convert_output(raw)
+        return out.astype(np.float32) if f32 else out
 
     # -- model IO ------------------------------------------------------------
     def save_model(self, filename: str, num_iteration: int = -1,

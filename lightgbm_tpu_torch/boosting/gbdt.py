@@ -11,9 +11,10 @@ frontier-batched (tpu_frontier_batch), with the histogram pool
 (histogram_pool_size) or the grower's merged mode (its own rule; no
 config key reaches it, as in the JAX package), and validation sets,
 scored on the device after every tree by bin-level traversal
-(`add_valid`).
-Bagging, GOSS, DART, RF, the non-finite sentinel and the parallel
-learners are not ported; asking for one raises.  boost_window and
+(`add_valid`), on numerical and categorical features.
+Bagging, GOSS, DART, RF, the non-finite sentinel, the parallel learners
+and training with an objective other than binary are not ported; asking
+for one raises.  boost_window and
 pipeline_depth change only how the JAX package dispatches its work, never
 the model, and are accepted as no-ops.
 """
@@ -28,6 +29,7 @@ from ..io.binning import BIN_TYPE_CATEGORICAL
 from ..io.dataset import BinnedDataset
 from ..models.gbdt_model import GBDTModel
 from ..models.tree import Tree
+from ..objective import TRAINABLE
 from ..ops import segment as seg
 from ..ops.quantize import (F32_GH_BYTES, QUANT_GH_BYTES, derive_qmax,
                             quant_seed, quantize_pair)
@@ -287,6 +289,8 @@ class GBDT:
 
         self.meta = feature_meta(train_set, device)
         self._bmap = identity_bundle_map(train_set.num_features, device)
+        has_cat = any(m.bin_type == BIN_TYPE_CATEGORICAL and not m.is_trivial
+                      for m in train_set.bin_mappers)
         self.grower_cfg = GrowerConfig(
             num_leaves=int(config.num_leaves),
             max_depth=int(config.max_depth),
@@ -296,6 +300,12 @@ class GBDT:
             min_data_in_leaf=int(config.min_data_in_leaf),
             min_sum_hessian_in_leaf=float(config.min_sum_hessian_in_leaf),
             min_gain_to_split=float(config.min_gain_to_split),
+            with_categorical=has_cat,
+            max_cat_threshold=int(config.max_cat_threshold),
+            cat_l2=float(config.cat_l2),
+            cat_smooth=float(config.cat_smooth),
+            max_cat_to_onehot=int(config.max_cat_to_onehot),
+            min_data_per_group=int(config.min_data_per_group),
             frontier_batch=max(1, int(config.tpu_frontier_batch or 1)),
             quantized=self._qmax > 0, qmax=self._qmax,
             hist_pool_slots=self._hist_pool_slots(config, train_set))
@@ -347,9 +357,12 @@ class GBDT:
              "tree_learner=%s" % cfg.tree_learner),
             (cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0, "bagging"),
             (bool(cfg.forcedsplits_filename), "forced splits"),
+            (self.objective is not None
+             and self.objective.name not in TRAINABLE,
+             "training with objective=%s (its gradients come with the "
+             "slice that trains the other objectives)"
+             % getattr(self.objective, "name", None)),
             (ds.bundle_info is not None, "an EFB-bundled dataset"),
-            (any(m.bin_type == BIN_TYPE_CATEGORICAL for m in ds.bin_mappers),
-             "categorical features"),
             (bool(np.any(ds.monotone_constraints)), "monotone constraints"),
             (ds.metadata.init_score is not None, "init_score"),
             (ds.num_data_padded + 1 >= _IDX_EXACT_LIMIT,
@@ -520,7 +533,7 @@ class GBDT:
     def _finish_tree_host(self, host: Dict[str, np.ndarray],
                           init_score: float, lr: float) -> Tree:
         """Fetched grower outputs -> reference Tree (the JAX package's
-        _finish_tree_host for numerical splits)."""
+        _finish_tree_host)."""
         nl = int(host["num_leaves"])
         L = self.grower_cfg.num_leaves
         tree = Tree(max(L, 2))
@@ -529,8 +542,10 @@ class GBDT:
             ni = nl - 1
             ds = self.train_set
             tree.split_feature[:ni] = host["split_feature"][:ni]
+            is_cat_nodes = host["split_is_cat"][:ni].astype(bool)
             tree.split_gain[:ni] = host["split_gain"][:ni]
-            dt = (host["default_left"][:ni].astype(np.int8) << 1)
+            dt = np.where(is_cat_nodes, 1,
+                          host["default_left"][:ni].astype(np.int8) << 1)
             miss = np.asarray([ds.bin_mappers[int(f)].missing_type
                                for f in host["split_feature"][:ni]],
                               dtype=np.int8)
@@ -538,9 +553,30 @@ class GBDT:
             tree.decision_type[:ni] = dt
             for node in range(ni):
                 f = int(host["split_feature"][node])
-                b = int(host["split_bin"][node])
-                tree.threshold_in_bin[node] = b
-                tree.threshold[node] = ds.real_threshold(f, b)
+                if is_cat_nodes[node]:
+                    # the threshold slots hold the cat index; bitsets over
+                    # category values (model text, raw prediction) and over
+                    # bins (the validation traversal), tree.cpp
+                    # SplitCategorical
+                    chosen = np.nonzero(host["split_cat_bitset"][node])[0]
+                    cat_idx = tree.num_cat
+                    tree.threshold_in_bin[node] = cat_idx
+                    tree.threshold[node] = float(cat_idx)
+                    tree.num_cat += 1
+                    mapper = ds.bin_mappers[f]
+                    vals = [int(mapper.bin_2_categorical[int(b)])
+                            for b in chosen
+                            if int(b) < len(mapper.bin_2_categorical)]
+                    tree.cat_threshold.extend(_construct_bitset(vals))
+                    tree.cat_boundaries.append(len(tree.cat_threshold))
+                    tree.cat_threshold_inner.extend(
+                        _construct_bitset([int(b) for b in chosen]))
+                    tree.cat_boundaries_inner.append(
+                        len(tree.cat_threshold_inner))
+                else:
+                    b = int(host["split_bin"][node])
+                    tree.threshold_in_bin[node] = b
+                    tree.threshold[node] = ds.real_threshold(f, b)
             tree.left_child[:ni] = host["left_child"][:ni]
             tree.right_child[:ni] = host["right_child"][:ni]
             tree.internal_value[:ni] = host["internal_value"][:ni] * lr

@@ -18,7 +18,9 @@ width, as in the JAX package, whose column-block engine has no int32 or
 batched sibling.  `grow.hist_engine` / `grow.part_engine` name the
 wrappers chosen.
 
-The port covers the serial, unforced, non-monotone path, in f32 or
+The port covers the serial, unforced, non-monotone path, with
+numerical and categorical splits (the split's bitset rides the leaf
+records into every partition's predicate), in f32 or
 quantized (int32 histograms, dequantized at the split search), one leaf
 per round or frontier-batched, with the JAX grower's three histogram
 modes.
@@ -102,6 +104,14 @@ class GrowerConfig(NamedTuple):
     min_data_in_leaf: int
     min_sum_hessian_in_leaf: float
     min_gain_to_split: float
+    # categorical split knobs (feature_histogram.hpp:112-273); static, so
+    # a grower without categorical features runs the numerical search only
+    with_categorical: bool = False
+    max_cat_threshold: int = 32
+    cat_l2: float = 10.0
+    cat_smooth: float = 10.0
+    max_cat_to_onehot: int = 4
+    min_data_per_group: int = 100
     # frontier window (Config.tpu_frontier_batch): > 1 evaluates up to
     # that many frontier leaves per round; models stay byte-identical
     frontier_batch: int = 1
@@ -218,9 +228,8 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
     all of them whatever order previous trees left them in.  payload and
     aux are updated in place, and the grower keeps its state for them:
     calls with the same payload and aux reuse it (and, on the card, its
-    captured graphs).  Numerical splits only (the categorical search and
-    monotone constraints are not ported; gbdt refuses them).  Storage
-    columns are the features themselves (no EFB bundles).
+    captured graphs).  Monotone constraints are not ported (gbdt refuses
+    them).  Storage columns are the features themselves (no EFB bundles).
 
     The tree dict's fields are device tensors, num_leaves and
     split_rounds 0-d int32 among them; `host_syncs` is 0, since the
@@ -262,7 +271,11 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
         l1=cfg.lambda_l1, l2=cfg.lambda_l2, max_delta_step=cfg.max_delta_step,
         min_data_in_leaf=cfg.min_data_in_leaf,
         min_sum_hessian_in_leaf=cfg.min_sum_hessian_in_leaf,
-        min_gain_to_split=cfg.min_gain_to_split)
+        min_gain_to_split=cfg.min_gain_to_split,
+        with_categorical=cfg.with_categorical,
+        max_cat_threshold=cfg.max_cat_threshold, cat_l2=cfg.cat_l2,
+        cat_smooth=cfg.cat_smooth, max_cat_to_onehot=cfg.max_cat_to_onehot,
+        min_data_per_group=cfg.min_data_per_group)
     hist_kwargs = dict(num_features=F, num_bins=B, grad_col=cols.grad,
                        hess_col=cols.hess, cnt_col=cols.cnt)
     # the histogram pool (grower2.py:301-310 of the JAX package)
@@ -436,6 +449,7 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                 [rows_all.to(torch.float32), totals[0], totals[1],
                  totals[2]])
             R[0, lc["bgain"]:] = _best_cols(res0, res0.gain)[0]
+            BITS[0].copy_(res0.cat_bitset[0])
             if HIST is not None:
                 # zeros as in the JAX grower: a frontier round reads the
                 # slots of its inactive candidates too

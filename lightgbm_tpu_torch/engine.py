@@ -3,17 +3,19 @@
 Role parity with the reference python-package/lightgbm/engine.py train:
 callback environment, early stopping via exception, evaluation-result
 bookkeeping and best_iteration, over the training set and any validation
-sets.  cv() and continued training are not ported yet.
+sets; and predict(), the one-shot serving entry.  cv() and continued
+training are not ported yet.
 """
 from __future__ import annotations
 
 import collections
+import os
 from typing import Dict, List, Optional
 
 from .basic import Booster, Dataset
 from .callback import (CallbackEnv, EarlyStopException, early_stopping,
                        log_evaluation, record_evaluation)
-from .utils.log import Log
+from .utils.log import LightGBMError, Log
 
 
 def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
@@ -110,3 +112,24 @@ def _rounds_from_params(params: Dict, num_boost_round: int,
         if hits:
             out[canon] = int(hits.get(canon, next(iter(hits.values()))))
     return out["num_iterations"], out["early_stopping_round"]
+
+
+def predict(model, data, device: bool = True, **kwargs):
+    """One-shot serving entry (the JAX package's engine.predict): run
+    `data` through the tree-parallel device predictor without managing a
+    Booster.  `model` is a Booster, a model file path or a model string;
+    device=False takes the exact f64 host traversal instead.  A loaded
+    model predicts on the card unless `params={'device_type': 'cpu'}`
+    is passed; other kwargs flow to Booster.predict (num_iteration,
+    start_iteration, raw_score, pred_early_stop, ...)."""
+    params = kwargs.pop("params", None)
+    if isinstance(model, Booster):
+        bst = model
+    elif isinstance(model, str) and "\n" in model:
+        bst = Booster(params=params, model_str=model)
+    elif isinstance(model, (str, bytes, os.PathLike)):
+        bst = Booster(params=params, model_file=os.fsdecode(model))
+    else:
+        raise LightGBMError("predict() needs a Booster, a model file "
+                            "path, or a model string")
+    return bst.predict(data, device=device, **kwargs)

@@ -1,14 +1,41 @@
 """Objective factory — reference src/objective/objective_function.cpp:10-47.
 
-This slice ports the binary objective; the others raise until ported."""
+Every name of the JAX package's registry is registered, so every model
+text it writes loads and predicts.  Training takes the objectives whose
+gradients are ported (`TRAINABLE`); gbdt refuses the others."""
 from __future__ import annotations
 
+from ..utils.log import Log
 from .base import ObjectiveFunction
 from .binary import BinaryLogloss
+from .multiclass import MulticlassOVA, MulticlassSoftmax
+from .rank import LambdarankNDCG
+from .regression import (RegressionFair, RegressionGamma, RegressionHuber,
+                         RegressionL1, RegressionL2, RegressionMAPE,
+                         RegressionPoisson, RegressionQuantile,
+                         RegressionTweedie)
+from .xentropy import CrossEntropy, CrossEntropyLambda
 
 _REGISTRY = {
+    "regression": RegressionL2,
+    "regression_l1": RegressionL1,
+    "huber": RegressionHuber,
+    "fair": RegressionFair,
+    "poisson": RegressionPoisson,
+    "quantile": RegressionQuantile,
+    "mape": RegressionMAPE,
+    "gamma": RegressionGamma,
+    "tweedie": RegressionTweedie,
     "binary": BinaryLogloss,
+    "multiclass": MulticlassSoftmax,
+    "multiclassova": MulticlassOVA,
+    "lambdarank": LambdarankNDCG,
+    "xentropy": CrossEntropy,
+    "xentlambda": CrossEntropyLambda,
 }
+
+#: the objectives whose gradients are ported
+TRAINABLE = ("binary",)
 
 
 def create_objective(name: str, config) -> ObjectiveFunction:
@@ -16,9 +43,7 @@ def create_objective(name: str, config) -> ObjectiveFunction:
         return _REGISTRY[name](config)
     if name == "none":
         return None
-    raise NotImplementedError(
-        "objective %s is not ported to the PyTorch package yet (ported: %s)"
-        % (name, ", ".join(sorted(_REGISTRY))))
+    Log.fatal("Unknown objective type name: %s", name)
 
 
 def create_objective_from_model_string(objective_str: str, config):

@@ -1,10 +1,11 @@
 """Best-split search over histograms as vectorized prefix scans.
 
-Counterpart of lightgbm_tpu/ops/split.py, numerical splits only: the same
-two scan directions, missing-value routing, kEpsilon hessian seeding, gain
-and leaf-output formulas, in the same order of operations so the CPU
-results agree with the JAX package to the last few ulps.  Categorical
-search (`_categorical_best`) is not ported yet: asking for it raises.
+Counterpart of lightgbm_tpu/ops/split.py: the same two scan directions,
+missing-value routing, kEpsilon hessian seeding, gain and leaf-output
+formulas, in the same order of operations so the CPU results agree with
+the JAX package to the last few ulps; and, with `with_categorical`, its
+categorical search (`_categorical_best`: one-hot and sorted-subset
+modes, feature_histogram.hpp:112-273).
 
 One routine serves every caller: `find_best_split_batched` searches a
 leading [Q] axis of histograms, and `find_best_split` is its Q = 1 case,
@@ -51,8 +52,8 @@ class SplitResult(NamedTuple):
     left_sum_g: torch.Tensor
     left_sum_h: torch.Tensor
     left_count: torch.Tensor     # f32
-    is_cat: torch.Tensor         # bool (always False in this slice)
-    cat_bitset: torch.Tensor     # [..., B] bool
+    is_cat: torch.Tensor         # bool: a categorical subset split
+    cat_bitset: torch.Tensor     # [..., B] bool: bins routed left
     left_output: torch.Tensor
     right_output: torch.Tensor
 
@@ -79,9 +80,9 @@ def _leaf_split_gain(sum_g, sum_h, l1, l2, max_delta_step):
 def _numerical_gain_tensor(hist, sum_g, total_h, num_data, feature_mask, *,
                            meta, l1, l2, max_delta_step, min_data_in_leaf,
                            min_sum_hessian_in_leaf, min_gain_to_split):
-    """Shifted and penalized gains [Q, F, 2, B] (direction -1 first) plus
-    the stacked left-side aggregates.  hist is [Q, F, B, 3]; sum_g,
-    total_h and num_data are [Q]."""
+    """Shifted and penalized gains [Q, F, 2, B] (direction -1 first), the
+    stacked left-side aggregates and min_gain_shift [Q].  hist is
+    [Q, F, B, 3]; sum_g, total_h and num_data are [Q]."""
     B = hist.shape[2]
     dev = hist.device
     bins = torch.arange(B, dtype=torch.int32, device=dev)[None, :]   # [1, B]
@@ -139,21 +140,149 @@ def _numerical_gain_tensor(hist, sum_g, total_h, num_data, feature_mask, *,
         return torch.where(ok, gain, torch.full_like(gain, K_MIN_SCORE))
 
     gain_shift = _leaf_split_gain(sum_g, total_h, l1, l2, max_delta_step)
-    min_gain_shift = (gain_shift + min_gain_to_split)[:, None, None, None]
+    min_gain_shift = gain_shift + min_gain_to_split
+    mgs = min_gain_shift[:, None, None, None]
 
     gain2 = direction(lg2, lh2, lc2, rg2, rh2, rc2,
                       torch.ones_like(tmask))             # dir -1 always runs
     gain1 = direction(lg1, lh1, lc1, rg1, rh1, rc1, two_scan)
     gains = torch.stack([gain2, gain1], dim=2)            # [Q, F, 2, B]
     # shift by the no-split gain, then penalize (reference order)
-    gains = torch.where(gains > min_gain_shift,
-                        (gains - min_gain_shift)
-                        * meta.penalty[None, :, None, None],
+    gains = torch.where(gains > mgs,
+                        (gains - mgs) * meta.penalty[None, :, None, None],
                         torch.full_like(gains, K_MIN_SCORE))
     lgs = torch.stack([lg2, lg1], dim=2)
     lhs = torch.stack([lh2, lh1], dim=2)
     lcs = torch.stack([lc2, lc1], dim=2)
-    return gains, (lgs, lhs, lcs)
+    return gains, (lgs, lhs, lcs), min_gain_shift
+
+
+def _categorical_best(g, h, c, sum_g, sum_h, num_data, cat_mask, *, meta,
+                      l1, l2, max_delta_step, min_data_in_leaf,
+                      min_sum_hessian_in_leaf, max_cat_threshold, cat_l2,
+                      cat_smooth, max_cat_to_onehot, min_data_per_group):
+    """Best categorical split per leaf and feature
+    (FindBestThresholdCategorical, feature_histogram.hpp:112-273; the JAX
+    package's _categorical_best over a leading [Q] axis).
+
+    g, h, c: [Q, F, B]; sum_g, sum_h (with its 2 kEpsilon), num_data: [Q];
+    cat_mask: [F].  One-hot mode (num_bin <= max_cat_to_onehot) scans
+    single-bin lefts.  Sorted-subset mode sorts the bins by
+    g / (h + cat_smooth), stably (equal ratios keep bin order, as
+    jnp.argsort does), and walks prefixes from both ends at once (the two
+    directions stacked on a leading axis) with the reference's
+    min_data_per_group grouping and its break on a starved right side.
+    The walk runs min(B, max_cat_threshold) steps: the JAX scan runs B,
+    but a step at i >= max_cat <= max_cat_threshold changes nothing.
+
+    Returns raw_gain [Q, F], bitset [Q, F, B], the left side's g,
+    h (+ kEpsilon) and count [Q, F], and used_sorted [F]."""
+    Q, F, B = g.shape
+    dev = g.device
+    eps = K_EPSILON
+    bins = torch.arange(B, dtype=torch.int64, device=dev)
+    sg = sum_g[:, None, None]
+    sh = sum_h[:, None, None]
+    nd = num_data[:, None, None]
+    # used_bin = num_bin - 1 + (missing_type == None) (:125-126)
+    used_bin = (meta.num_bin - 1
+                + (meta.missing_type == MISSING_NONE).to(torch.int32))
+    valid_t = (bins[None, :] < used_bin[:, None]) & cat_mask[:, None]
+
+    def pair_gain(lg, lh, rg, rh, l2_eff):
+        return _leaf_split_gain(lg, lh, l1, l2_eff, max_delta_step) + \
+            _leaf_split_gain(rg, rh, l1, l2_eff, max_delta_step)
+
+    def pick(t, i):
+        return torch.gather(t, 2, i[..., None])[..., 0]
+
+    # ---- one-hot: left = the single bin t --------------------------------
+    other_g = sg - g
+    other_h = sh - h - eps
+    other_c = nd - c
+    ok_oh = valid_t & (c >= min_data_in_leaf) \
+        & (h >= min_sum_hessian_in_leaf) & (other_c >= min_data_in_leaf) \
+        & (other_h >= min_sum_hessian_in_leaf)
+    gain_oh = pair_gain(g, h + eps, other_g, other_h, l2)
+    gain_oh = torch.where(ok_oh, gain_oh, torch.full_like(gain_oh,
+                                                          K_MIN_SCORE))
+    t_oh = torch.argmax(gain_oh, dim=2)                         # [Q, F]
+    best_oh = pick(gain_oh, t_oh)
+
+    # ---- sorted subset ----------------------------------------------------
+    keep = valid_t & (c >= cat_smooth)
+    ctr = g / (h + cat_smooth)
+    ctr = torch.where(keep, ctr, torch.full_like(ctr, float("inf")))
+    order = torch.argsort(ctr, dim=2, stable=True)              # [Q, F, B]
+    used = keep.sum(dim=2)                                      # [Q, F]
+    max_cat = torch.clamp((used + 1) // 2, max=max_cat_threshold)
+    l2s = l2 + cat_l2
+    slot_valid = bins < used[..., None]
+    zero = torch.zeros((), dtype=g.dtype, device=dev)
+    sorted_ghc = [torch.where(slot_valid, torch.gather(t, 2, order), zero)
+                  for t in (g, h, c)]
+    # direction -1 walks the sorted bins from the top (position used-1-i)
+    top = torch.clamp(used[..., None] - 1 - bins, 0, B - 1)
+    gd, hd, cd = [torch.stack([t, torch.gather(t, 2, top)])
+                  for t in sorted_ghc]                          # [2, Q, F, B]
+
+    def zeros():
+        return torch.zeros((2, Q, F), dtype=g.dtype, device=dev)
+
+    lg, lc, grp = zeros(), zeros(), zeros()
+    lh = torch.full((2, Q, F), eps, dtype=g.dtype, device=dev)
+    stopped = torch.zeros((2, Q, F), dtype=torch.bool, device=dev)
+    bg = torch.full((2, Q, F), K_MIN_SCORE, dtype=g.dtype, device=dev)
+    bi = torch.full((2, Q, F), -1, dtype=torch.int64, device=dev)
+    blg, blh, blc = zeros(), zeros(), zeros()
+    for i in range(min(B, int(max_cat_threshold))):
+        stepping = (i < used) & (i < max_cat)
+        lg = torch.where(stepping, lg + gd[..., i], lg)
+        lh = torch.where(stepping, lh + hd[..., i], lh)
+        lc = torch.where(stepping, lc + cd[..., i], lc)
+        grp = torch.where(stepping, grp + cd[..., i], grp)
+        cont1 = (lc < min_data_in_leaf) | (lh < min_sum_hessian_in_leaf)
+        rc = nd[..., 0] - lc
+        rh = sh[..., 0] - lh
+        brk = (rc < min_data_in_leaf) | (rc < min_data_per_group) | \
+            (rh < min_sum_hessian_in_leaf)
+        # the break is only evaluated when the left side qualifies (the
+        # reference `continue`s before its break checks, :205-212)
+        candidate = stepping & ~stopped & ~cont1 & ~brk & \
+            (grp >= min_data_per_group)
+        stopped = stopped | (stepping & ~cont1 & brk)
+        grp = torch.where(candidate, zero, grp)
+        gain_i = pair_gain(lg, lh, sg[..., 0] - lg, rh, l2s)
+        take = candidate & (gain_i > bg)
+        bg = torch.where(take, gain_i, bg)
+        bi = torch.where(take, i, bi)
+        blg = torch.where(take, lg, blg)
+        blh = torch.where(take, lh, blh)
+        blc = torch.where(take, lc, blc)
+
+    use2 = bg[1] > bg[0]
+
+    def best_dir(t):
+        return torch.where(use2, t[1], t[0])
+
+    bg_s, bi_s = best_dir(bg), best_dir(bi)
+    # the bitset: the first bi+1 sorted bins (direction +1) or the last
+    # bi+1 (direction -1) go left; rank (the position of each bin) is the
+    # inverse of order, by scatter
+    rank = torch.empty_like(order).scatter_(2, order,
+                                            bins.expand(Q, F, B))
+    rank_dir = torch.where(use2[..., None], used[..., None] - 1 - rank, rank)
+    bitset_s = keep & (rank_dir <= bi_s[..., None]) & (rank_dir >= 0)
+
+    # ---- one-hot or sorted, per feature ------------------------------------
+    use_onehot = meta.num_bin <= max_cat_to_onehot             # [F]
+    raw_gain = torch.where(use_onehot, best_oh, bg_s)
+    bitset = torch.where(use_onehot[:, None], bins == t_oh[..., None],
+                         bitset_s)
+    lg = torch.where(use_onehot, pick(g, t_oh), best_dir(blg))
+    lh = torch.where(use_onehot, pick(h, t_oh) + eps, best_dir(blh))
+    lc = torch.where(use_onehot, pick(c, t_oh), best_dir(blc))
+    return raw_gain, bitset, lg, lh, lc, ~use_onehot
 
 
 def dequantize_hist(hist: torch.Tensor, gscale, hscale) -> torch.Tensor:
@@ -181,20 +310,21 @@ def dequantize_hist(hist: torch.Tensor, gscale, hscale) -> torch.Tensor:
 def find_best_split_batched(hist, sum_g, sum_h, num_data, feature_mask, *,
                             meta: FeatureMeta, l1, l2, max_delta_step,
                             min_data_in_leaf, min_sum_hessian_in_leaf,
-                            min_gain_to_split,
+                            min_gain_to_split, max_cat_threshold=32,
+                            cat_l2=10.0, cat_smooth=10.0, max_cat_to_onehot=4,
+                            min_data_per_group=100,
                             with_categorical: bool = False) -> SplitResult:
     """Best split for each of Q leaves.
 
     hist: [Q, F, B, 3] f32; sum_g / sum_h / num_data: [Q] leaf totals;
     feature_mask: [F] bool.  Every field of the result carries the [Q]
-    axis.  Regularization scalars are Python floats."""
-    if with_categorical:
-        raise NotImplementedError(
-            "categorical split search is not ported yet")
+    axis.  Regularization scalars are Python floats.  with_categorical
+    (static) adds the categorical search; without it the numerical search
+    runs alone, unchanged."""
     Q, F, B, _ = hist.shape
     eps = K_EPSILON
     total_h = sum_h + 2 * eps
-    gains, (lgs, lhs, lcs) = _numerical_gain_tensor(
+    gains, (lgs, lhs, lcs), min_gain_shift = _numerical_gain_tensor(
         hist, sum_g, total_h, num_data, feature_mask, meta=meta,
         l1=l1, l2=l2, max_delta_step=max_delta_step,
         min_data_in_leaf=min_data_in_leaf,
@@ -216,18 +346,55 @@ def find_best_split_batched(hist, sum_g, sum_h, num_data, feature_mask, *,
     left_g = lgs[q, f, d, t]
     left_h = lhs[q, f, d, t]   # includes the kEpsilon seed
     left_c = lcs[q, f, d, t]
+    dev = hist.device
+    is_cat = torch.zeros(Q, dtype=torch.bool, device=dev)
+    cat_bitset = torch.zeros((Q, B), dtype=torch.bool, device=dev)
+    l2_eff = l2
+
+    if with_categorical:
+        cat_mask = meta.is_categorical & ~meta.is_trivial & feature_mask
+        raw_cat, bitset_cat, clg, clh, clc, sorted_mode = _categorical_best(
+            hist[..., 0], hist[..., 1], hist[..., 2], sum_g, total_h,
+            num_data, cat_mask, meta=meta, l1=l1, l2=l2,
+            max_delta_step=max_delta_step, min_data_in_leaf=min_data_in_leaf,
+            min_sum_hessian_in_leaf=min_sum_hessian_in_leaf,
+            max_cat_threshold=max_cat_threshold, cat_l2=cat_l2,
+            cat_smooth=cat_smooth, max_cat_to_onehot=max_cat_to_onehot,
+            min_data_per_group=min_data_per_group)
+        mgs = min_gain_shift[:, None]
+        gain_cat = torch.where(raw_cat > mgs,
+                               (raw_cat - mgs) * meta.penalty[None, :],
+                               torch.full_like(raw_cat, K_MIN_SCORE))
+        fc = torch.argmax(gain_cat, dim=1)
+        best_cat = gain_cat[q, fc]
+        cat_wins = best_cat > best_gain
+        best_gain = torch.where(cat_wins, best_cat, best_gain)
+        f = torch.where(cat_wins, fc, f)
+        t = torch.where(cat_wins, 0, t)
+        default_left = default_left & ~cat_wins
+        left_g = torch.where(cat_wins, clg[q, fc], left_g)
+        left_h = torch.where(cat_wins, clh[q, fc], left_h)
+        left_c = torch.where(cat_wins, clc[q, fc], left_c)
+        is_cat = cat_wins
+        cat_bitset = bitset_cat[q, fc] & cat_wins[:, None]
+        # sorted-subset splits regularize their children's outputs with
+        # l2 + cat_l2 (fills, which a CUDA graph can hold)
+        f32 = dict(dtype=torch.float32, device=dev)
+        l2_eff = torch.where(cat_wins & sorted_mode[fc],
+                             torch.full((), l2 + cat_l2, **f32),
+                             torch.full((), l2, **f32))
+
     right_g = sum_g - left_g
     right_h = total_h - left_h
-    lo = leaf_output(left_g, left_h, l1, l2, max_delta_step)
-    ro = leaf_output(right_g, right_h, l1, l2, max_delta_step)
+    lo = leaf_output(left_g, left_h, l1, l2_eff, max_delta_step)
+    ro = leaf_output(right_g, right_h, l1, l2_eff, max_delta_step)
     return SplitResult(
         gain=best_gain,
         feature=f.to(torch.int32),
         threshold_bin=t.to(torch.int32),
         default_left=default_left,
         left_sum_g=left_g, left_sum_h=left_h - eps, left_count=left_c,
-        is_cat=torch.zeros(Q, dtype=torch.bool, device=hist.device),
-        cat_bitset=torch.zeros((Q, B), dtype=torch.bool, device=hist.device),
+        is_cat=is_cat, cat_bitset=cat_bitset,
         left_output=lo, right_output=ro)
 
 

@@ -62,11 +62,14 @@ class Site:
     count that fn's launches add to."""
 
     def __init__(self, name: str, fn: Callable[[], None], enabled: bool,
-                 counted: Callable[[], Sequence] = tuple):
+                 counted: Callable[[], Sequence] = tuple, pool=None):
         self.name = name
         self.fn = fn
         self.enabled = enabled
         self.counted = counted
+        # a memory pool shared with other sites (torch.cuda.
+        # graph_pool_handle()), for graphs that never run at once
+        self.pool = pool
         self.graph = None
         self.added = ()
         self.hooks = []
@@ -99,7 +102,8 @@ class Site:
         _tls.capturing = self
         try:
             with torch.cuda.stream(side):
-                graph.capture_begin(capture_error_mode="thread_local")
+                graph.capture_begin(pool=self.pool,
+                                    capture_error_mode="thread_local")
                 try:
                     self.fn()
                 finally:

@@ -7,7 +7,9 @@ iteration does the host wait for the card, and where?":
 * `tree_fetch`: the grower's small outputs of one tree, one packed
   transfer (`gbdt._fetch_packed`);
 * `eval_fetch`: scores fetched for the metrics (`raw_train_score`,
-  `raw_valid_score`).
+  `raw_valid_score`);
+* `predict_fetch`: one micro-batch's output of the device predictor
+  (`wait_event`).
 
 Each event is recorded under its label and under whether the calling
 thread sits on the tree-to-tree critical path (marked with
@@ -68,6 +70,20 @@ def device_get(x: torch.Tensor, label: str = "host_fetch") -> Any:
     numpy array (callers pack what they need into one tensor first)."""
     record(label)
     return x.cpu().numpy()
+
+
+def wait_event(event: "torch.cuda.Event", label: str) -> None:
+    """Audited wait: ONE recorded blocking wait for `event` (a copy into
+    pinned host memory recorded it).  It is the sync its caller means
+    to make, so a torch.cuda.set_sync_debug_mode around the caller is
+    lifted for it alone."""
+    record(label)
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        event.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
 
 
 def snapshot() -> Dict[str, Any]:

@@ -39,6 +39,9 @@ MODES = {
     "merged": (CASES[1], {}, True),
     "quantized int8": (CASES[1], dict(quantized=True, qmax=127), None),
     "frontier 8": (CASES[1], dict(frontier_batch=8), None),
+    "categorical": (CASES[1], dict(with_categorical=True,
+                                   min_data_per_group=20, cat_smooth=5.0),
+                    None),
 }
 
 
@@ -64,8 +67,16 @@ def no_host_reads():
 def _inputs(mode):
     case, extra, merged = MODES[mode]
     X, y = _problem(case["seed"], case["nan_frac"])
+    cats = ()
+    if extra.get("with_categorical"):
+        # ~20 and 4 categories (NaN among them): the sorted-subset and the
+        # one-hot searches
+        X[:, 2] = np.floor(np.abs(X[:, 2]) * 8)
+        X[:, 3] = np.abs(X[:, 3])
+        cats = (2, 3)
     ds = JBinnedDataset.from_matrix(X, JConfig(dict(max_bin=case["max_bin"],
-                                                    verbose=-1)))
+                                                    verbose=-1)),
+                                    categorical_feature=cats)
     pay, cols = _payload(ds, y, case["seed"])
     qscale = None
     if extra.get("quantized"):
@@ -146,6 +157,10 @@ def test_no_host_read_and_the_jax_tree(mode, monkeypatch):
     assert ttree["host_syncs"] == 0
     if extra.get("frontier_batch"):
         assert int(ttree["split_rounds"]) < nl - 1
+    if extra.get("with_categorical"):
+        assert bool(ttree["split_is_cat"].any())
+        np.testing.assert_array_equal(ttree["split_cat_bitset"].numpy(),
+                                      np.asarray(jtree["split_cat_bitset"]))
 
 
 @pytest.mark.parametrize("mode", list(MODES))

@@ -127,16 +127,6 @@ def test_no_valid_split_reports_minus_inf():
     assert float(got.gain) == float("-inf")
 
 
-def test_categorical_search_raises():
-    meta = _meta(0)
-    hist, sg, sh, n = _hist(0, meta)
-    with pytest.raises(NotImplementedError):
-        tsplit.find_best_split(torch.from_numpy(hist), float(sg), float(sh),
-                               float(n), torch.ones(F, dtype=bool),
-                               meta=convert.feature_meta_from_numpy(meta),
-                               with_categorical=True, **KW)
-
-
 @pytest.mark.parametrize("l1,l2,mds", [(0.0, 0.0, 0.0), (0.3, 2.0, 0.0),
                                        (0.0, 1.0, 0.05)])
 def test_leaf_output_matches(l1, l2, mds):

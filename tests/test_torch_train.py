@@ -170,18 +170,6 @@ def test_unported_options_raise(params):
                  lt.Dataset(X, label=y), 1, verbose_eval=False)
 
 
-def test_categorical_features_raise():
-    # the categorical split search is not ported: training must refuse a
-    # categorical feature rather than drop it from the search
-    X, y = _data(7)
-    X[:, 0] = np.floor(np.abs(X[:, 0]) * 3)
-    with pytest.raises(NotImplementedError, match="categorical"):
-        lt.train(dict(PARAMS, device_type="cpu"),
-                 lt.Dataset(X, label=y, categorical_feature=[0]), 1,
-                 verbose_eval=False)
-
-
-
 def test_payload_conversion_roundtrip():
     rng = np.random.default_rng(8)
     pay = rng.standard_normal((300, 38)).astype(np.float32)
