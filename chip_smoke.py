@@ -98,6 +98,20 @@ host's, pass the repeat check, write the same model text at frontier 8,
 hold every B2 call of three iterations (bitset predicates among them) to
 the plain partition and agree with the CPU on a 20,000-row cut; its
 device kernels per split step are printed beside the main path's.
+Every single-model objective: B1 at the year path's width (F = 90,
+P = 100) held against its plain version and timed; the main path's data
+bagged (bagging_fraction=0.5, bagging_freq=1; the repeat check, the
+count column against the host RNG's bag, held-out AUC of at least 0.8,
+frontier 8 writing the one-leaf model text, and with int8 gradients and
+its repeat check); objective=regression on YearPredictionMSD-shaped data
+(463,715 x 90, 51,630 held out, a year-like label; valid scores equal
+to predict(raw_score=True), held-out RMSE below 0.9 of the label's std,
+the repeat check, device kernels per split step); objective=regression_l1
+on it for 5 iterations with leaf renewal (two blocking syncs per tree,
+one tree's leaf values renew_leaf_values of its fetched partition and
+pre-tree scores bit for bit, the repeat check); and the eleven newly
+trainable objectives on a 20,000-row cut, card against CPU (structure
+equal, leaf values within rtol 1e-5).
 Every phase always runs and prints one line, prefixed with the seconds
 since start; any failed check exits non-zero.  The last line is the
 device record {"ok": true, "device": {...}}.  Imports nothing of JAX or
@@ -124,6 +138,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # the port, from this checkout only: alone in a directory this script fails
 import lightgbm_tpu_torch as lt  # noqa: E402
 import torch  # noqa: E402
+from lightgbm_tpu_torch import convert  # noqa: E402
 from lightgbm_tpu_torch.boosting import gbdt as tgbdt  # noqa: E402
 from lightgbm_tpu_torch.boosting import grower2  # noqa: E402
 from lightgbm_tpu_torch.metric import create_metrics  # noqa: E402
@@ -1716,11 +1731,15 @@ def make_main_data(rows: int, seed: int, params: dict) -> tuple:
 
 
 def train_path(name: str, ds, Xv, yv, params: dict, iters: int,
-               auc_floor: float = 0.8, valid_sets=None) -> dict:
+               auc_floor: float = 0.8, valid_sets=None,
+               syncs_per_tree: int = 1, quality=None) -> dict:
     """Train one configuration of the main path through
     lightgbm_tpu_torch.train on the card (with `valid_sets` scored every
     iteration, when given), with every launch count set to 0 just before
-    and read just after; predict the held-out rows."""
+    and read just after; predict the held-out rows.  Each tree must take
+    `syncs_per_tree` blocking syncs (2 where leaves are renewed).  The
+    held-out check is AUC above `auc_floor`, or `quality(yv, pred)`, which
+    returns (its value, whether it passes)."""
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.max_memory_allocated()
     graphs_before = graph_counts()
@@ -1750,12 +1769,17 @@ def train_path(name: str, ds, Xv, yv, params: dict, iters: int,
     t_pred = time.perf_counter() - t0
     check(pred.shape == (len(yv),) and bool(np.isfinite(pred).all()),
           "%s: held-out predictions malformed" % name)
-    auc = auc_score(yv, pred)
-    check(auc > auc_floor, "%s: held-out AUC %.4f too low" % (name, auc))
+    if quality is None:
+        auc = auc_score(yv, pred)
+        check(auc > auc_floor, "%s: held-out AUC %.4f too low" % (name, auc))
+    else:
+        auc, ok = quality(yv, pred)
+        check(ok, "%s: held-out quality %.6f fails its bound" % (name, auc))
     leaves = [t.num_leaves for t in bst._model.trees]
     syncs = bst.host_syncs_per_tree()
-    check(not DEVICE_LOOP or syncs == [1] * iters,
-          "%s: blocking syncs per tree %s, not one" % (name, syncs))
+    check(not DEVICE_LOOP or syncs == [syncs_per_tree] * iters,
+          "%s: blocking syncs per tree %s, not %d" % (name, syncs,
+                                                      syncs_per_tree))
     t0 = bst._model.trees[0]
     return dict(name=name, bst=bst, model_text=bst.model_to_string(),
                 launches=launches, auc=auc, raw=raw, pred=pred, splits=sum(leaves) - len(leaves),
@@ -3212,6 +3236,380 @@ def categorical_phase(seed: int, iters: int, main_run: dict):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases: every single-model objective, leaf renewal and bagging
+# ---------------------------------------------------------------------------
+
+#: YearPredictionMSD (UCI; the "year" set of NVIDIA's gbm-bench): 463,715
+#: training and 51,630 held-out songs, 90 timbre features (12 averages,
+#: 78 covariances), the release year 1922-2011 as the label
+YEAR_ROWS, YEAR_VALID, YEAR_F = 463_715, 51_630, 90
+#: the held-out RMSE must stay below this share of the label's std
+YEAR_RMSE_SHARE = 0.9
+YEAR_RENEW_ITERS = 5
+#: the renewal check's tree (the second: past the first tree's init score)
+RENEW_CHECKED_TREE = 1
+#: the objectives this slice makes trainable, held card against CPU
+PARITY_OBJECTIVES = ("regression", "regression_l1", "huber", "fair",
+                     "poisson", "quantile", "mape", "gamma", "tweedie",
+                     "xentropy", "xentlambda")
+OBJ_PARITY_ROWS = 20_000
+#: card vs CPU leaf values, as a share of the tree's largest |leaf value|:
+#: the card sums in fixed point, the CPU in row-order f32, and each runs
+#: the split search's f32 scans and sums in its own order, which leaves
+#: L2's leaves up to 8e-5 and fair's up to 1.5e-4 of that apart at 20,000
+#: rows (H100 80GB HBM3, 700 W); on fair there the JAX package's CPU
+#: leaves stand 1.1e-4 (absolute) from the port's CPU ones
+LEAF_RTOL = 3e-4
+RENEWING = ("regression_l1", "quantile", "mape")
+
+
+def year_synth(n_rows: int, seed: int):
+    """Rows shaped after YearPredictionMSD: 12 timbre averages (scale ~10)
+    and 78 covariances (scale ~100, heavier tails), and a year label skewed
+    to recent years (mean ~1998, std ~11, 1922-2011) from a sparse linear
+    and pairwise signal of the averages plus noise."""
+    rng = np.random.default_rng(seed)
+    avg = rng.standard_normal((n_rows, 12)) * 10.0
+    cov = rng.standard_t(5, (n_rows, 78)) * 100.0
+    z = avg[:, :6] @ rng.standard_normal(6) / 10.0 \
+        + 0.05 * avg[:, 6] * avg[:, 7] / 10.0 + cov[:, :3].sum(1) / 300.0
+    z = (z - z.mean()) / z.std() + 0.5 * rng.standard_normal(n_rows)
+    year = np.clip(np.round(1998.0 + 10.0 * z - 3.0 * np.abs(z) ** 1.5),
+                   1922, 2011)
+    return np.column_stack([avg, cov]).astype(np.float32), year
+
+
+def year_b1_phase(seed: int, dev) -> dict:
+    """B1 at the year path's width (F = 90, P = 100: five feature groups)
+    on YEAR_ROWS rows, held against its fixed-point plain version on the
+    root, an unaligned, an empty and a middle segment, and timed on the
+    root beside its plain version, its bound and index_add_."""
+    n, f = YEAR_ROWS, YEAR_F
+    pay = make_payload(n, f, f + 10, seed + 90, dev)
+    hk = dict(num_features=f, num_bins=B, grad_col=f + 5, hess_col=f + 6,
+              cnt_col=f + 2)
+    err = 0.0
+    for s, c in ((0, n), (100, 37), (500, 0), (12345, n // 3)):
+        got = cuda_segment.segment_histogram(pay, s, c, **hk)
+        torch.cuda.synchronize()
+        err = max(err, hist_exact(pay, s, c, f, got))
+    kw = scale_kw(cuda_segment.segment_histogram, pay, [0], [n], f)
+    ms = time_ms(lambda: cuda_segment.segment_histogram(pay, 0, n, **hk,
+                                                        **kw), 20)
+    plain_ms = time_ms(lambda: seg.segment_histogram_fixed(
+        pay, 0, n, **hk, scale=kw.get("scale")), 3)
+    flat = (pay[:n, :f].long() + torch.arange(f, device=dev) * B).reshape(-1)
+    vals = pay[:n, [f + 5, f + 6, f + 2]].repeat_interleave(f, dim=0)
+    out = torch.zeros(f * B, 3, device=dev)
+    library_ms = time_ms(lambda: out.index_add_(0, flat, vals), 5)
+    # each row's F bins, grad, hess and count read once; [F, B, 3] written
+    b_ms, b_by = bound(n * (f + 3) * 4 + f * B * 3 * 4, n * f * 3)
+    return dict(rows=n, features=f, width=f + 10, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def rmse_below(share: float, ys):
+    """quality for train_path: the held-out RMSE, below `share` of the
+    label's standard deviation."""
+    limit = share * float(np.std(ys))
+
+    def quality(yv, pred):
+        rmse = float(np.sqrt(np.mean((pred - yv) ** 2)))
+        return rmse, rmse < limit
+    return quality
+
+
+def year_phase(seed: int, iters: int, main_run: dict, smi: str):
+    """objective=regression on the year-shaped data, 255 leaves, max_bin
+    255, the held-out rows scored every iteration: the valid scores must
+    equal predict(raw_score=True), the held-out RMSE stay below
+    YEAR_RMSE_SHARE of the label's std, and the repeat check pass.
+    Returns the data for the renewal phase and the path's launches."""
+    X, y = year_synth(YEAR_ROWS + YEAR_VALID, seed + 41)
+    Xt, yt, Xv, yv = X[:YEAR_ROWS], y[:YEAR_ROWS], X[YEAR_ROWS:], \
+        y[YEAR_ROWS:]
+    params = train_params(255, objective="regression", metric="l2")
+    t0 = time.perf_counter()
+    ds = lt.Dataset(Xt, label=yt)
+    ds.construct(lt.Config(params))
+    dv = lt.Dataset(Xv, label=yv, reference=ds)
+    dv.construct(lt.Config(params))
+    t_bin = time.perf_counter() - t0
+    r = train_path("year", ds, Xv, yv, params, iters, valid_sets=[dv],
+                   quality=rmse_below(YEAR_RMSE_SHARE, yv))
+    bst, launches = r["bst"], r["launches"]
+    check(launches["segment_histogram"] >= iters
+          and launches["partition_segment"] > 0,
+          "year: B1 / B2 launched %d / %d times"
+          % (launches["segment_histogram"], launches["partition_segment"]))
+    valid, raw = bst._engine.raw_valid_score(0)[0], r["raw"]
+    check(np.allclose(valid, raw, rtol=0,
+                      atol=1e-5 * max(1.0, float(np.abs(raw).max()))),
+          "year: valid scores vs predict max |diff| %.3g"
+          % float(np.abs(valid - raw).max()))
+    kernels = step_kernels(bst)
+    sha = hashlib.sha256(r["model_text"].encode()).hexdigest()
+    say("year: %dx%d (P=%d), regression, max_bin 255, 255 leaves, lr 0.1, "
+        "%d iters: %.4f s/iter (main path %.4f; train %.3f s, binning "
+        "%.3f s), syncs/tree %s, splits/tree %.2f, device kernels per split "
+        "step %d (main path %d), held-out RMSE %.4f (label std %.4f, limit "
+        "%.2f of it) on %d rows, valid scores equal predict(raw_score=True) "
+        "(max |diff| %.3g), max_memory_allocated %d B, sha256 %s, graph "
+        "replays %s, launches %s (%s)"
+        % (YEAR_ROWS, YEAR_F, YEAR_F + 10, iters, r["s_per_iter"],
+           main_run["s_per_iter"], r["t_train"], t_bin, r["syncs"],
+           r["splits_per_tree"], kernels, main_run["step_kernels"], r["auc"],
+           float(np.std(yv)), YEAR_RMSE_SHARE, YEAR_VALID,
+           float(np.abs(valid - raw).max()), r["peak"], sha,
+           json.dumps(r["replays"]), json.dumps(launches), smi))
+    text = r["model_text"]
+    del r, bst
+    say(repeat_check("year", lambda: lt.train(
+        params, ds, iters, valid_sets=[dv], verbose_eval=False), text))
+    return (ds, Xt, Xv, yv), launches
+
+
+def renewal_phase(data, iters: int = YEAR_RENEW_ITERS) -> dict:
+    """objective=regression_l1 on the year data: leaf renewal on the host
+    after every tree, two blocking syncs per tree.  One tree's leaf values
+    must be renew_leaf_values of its fetched partition and pre-tree scores
+    (recomputed on the host) bit for bit; the fetched partition must route
+    each row as the host model does and the pre-tree scores be the host's
+    prediction of the earlier trees; then the repeat check.  Returns the
+    path's launches."""
+    ds, Xt, Xv, yv = data
+    params = train_params(255, objective="regression_l1")
+    seen = {}
+    real_inputs = tgbdt._FastState.renew_inputs
+    real_renew = tgbdt.GBDT._renew_leaf_values
+
+    def inputs(fs, host):
+        got = real_inputs(fs, host)
+        seen.setdefault("inputs", []).append(got)
+        return got
+
+    def renew(engine, fs, host, lr):
+        seen.setdefault("fetched", []).append(
+            host["leaf_value"][:int(host["num_leaves"])].copy())
+        t0 = time.perf_counter()
+        real_renew(engine, fs, host, lr)
+        seen.setdefault("host_s", []).append(time.perf_counter() - t0)
+
+    tgbdt._FastState.renew_inputs = inputs
+    tgbdt.GBDT._renew_leaf_values = renew
+    try:
+        r = train_path("renewal", ds, Xv, yv, params, iters,
+                       syncs_per_tree=2,
+                       quality=rmse_below(YEAR_RMSE_SHARE, yv))
+    finally:
+        tgbdt._FastState.renew_inputs = real_inputs
+        tgbdt.GBDT._renew_leaf_values = real_renew
+    bst = r["bst"]
+    check(len(seen["inputs"]) == iters, "renewal: %d of %d trees renewed"
+          % (len(seen["inputs"]), iters))
+    k = RENEW_CHECKED_TREE
+    lid, pred, in_bag = seen["inputs"][k]
+    lv = seen["fetched"][k].astype(np.float64)
+    tree = bst._model.trees[k]
+    nl = tree.num_leaves
+    renewed = bst._objective.renew_leaf_values(lv, lid, pred, in_bag)
+    want = renewed.astype(np.float32).astype(np.float64) * 0.1
+    check(np.array_equal(tree.leaf_value[:nl], want),
+          "renewal: tree %d's leaf values are not its host renewal's, max "
+          "|diff| %.3g" % (k, float(np.abs(tree.leaf_value[:nl] - want)
+                                    .max())))
+    check(not np.array_equal(renewed, lv), "renewal renewed nothing")
+    n = len(Xt)
+    host_leaf = bst._model.predict_leaf_index(Xt)[:, k]
+    check(np.array_equal(lid[:n], host_leaf),
+          "renewal: the fetched partition routes %d rows unlike the host"
+          % int(np.sum(lid[:n] != host_leaf)))
+    before = bst.predict(Xt, raw_score=True, num_iteration=k)
+    d_pred = float(np.abs(pred[:n] - before).max())
+    check(d_pred <= 1e-5 * max(1.0, float(np.abs(before).max())),
+          "renewal: pre-tree scores vs host predict max |diff| %.3g"
+          % d_pred)
+    check(bool(in_bag[:n].all()) and not in_bag[n:].any(),
+          "renewal: the bag of an unbagged run is not every real row")
+    line = ("renewal: %dx%d, regression_l1, 255 leaves, %d iters: %.4f "
+            "s/iter, syncs/tree %s (tree_fetch + renew_fetch), host renewal "
+            "%s s per tree, tree %d's %d leaf values equal "
+            "renew_leaf_values of its fetched partition and pre-tree scores "
+            "bit for bit, the partition routes every row as the host model "
+            "does, pre-tree scores vs host predict max |diff| %.3g, held-out "
+            "RMSE %.4f, launches %s"
+            % (YEAR_ROWS, YEAR_F, iters, r["s_per_iter"], r["syncs"],
+               json.dumps([round(t, 4) for t in seen["host_s"]]), k, nl,
+               d_pred, r["auc"], json.dumps(r["launches"])))
+    text, launches = r["model_text"], r["launches"]
+    del r, bst
+    say(line)
+    say(repeat_check("renewal", lambda: lt.train(
+        params, ds, iters, verbose_eval=False), text))
+    return launches
+
+
+def bag_check(ds, params: dict, iters: int = 3) -> str:
+    """After each of `iters` updates (each a resample at bagging_freq=1),
+    the payload's count column, read in original row order, must be the
+    host RNG's bag."""
+    with grower_mode():
+        bst = lt.Booster(params, ds)
+        sums = []
+        for _ in range(iters):
+            bst.update()
+            eng = bst._engine
+            fs = eng._fast
+            got = convert.bag_mask_from_payload(fs.payload, fs.cnt_col,
+                                                fs.idx_col, fs.n_pad)
+            check(np.array_equal(got, eng.bag_mask_host),
+                  "bagging: the count column is not the host's bag at "
+                  "iteration %d" % eng.iter)
+            sums.append(int(got.sum()))
+    return "count column = host bag after %d resamples (%s rows)" % (
+        iters, sums)
+
+
+def bagging_phase(data, main_run: dict, iters: int) -> dict:
+    """The main path's data with bagging_fraction=0.5, bagging_freq=1: the
+    repeat check, the count column against the host RNG's bag, held-out
+    AUC of at least 0.8, frontier 8's model text equal to the one-leaf
+    loop's, and again with int8 quantized gradients (its repeat check).
+    Returns the runs' launch counts by path."""
+    ds, Xv, yv = data
+    params = train_params(255, bagging_fraction=0.5, bagging_freq=1)
+    r = train_path("bagging", ds, Xv, yv, params, iters)
+    launches = r["launches"]
+    check(launches["segment_histogram"] >= iters
+          and launches["partition_segment"] > 0,
+          "bagging: B1 / B2 launched %d / %d times"
+          % (launches["segment_histogram"], launches["partition_segment"]))
+    n_bag = int(ds.binned.num_data * 0.5)
+    roots = [int(t.internal_count[0]) for t in r["bst"]._model.trees]
+    check(roots == [n_bag] * iters, "bagging: root counts %s, not the bag "
+          "of %d rows" % (roots, n_bag))
+    say(path_line(r, ds.binned.num_data, iters,
+                  ", main path %.4f s/iter, %d-row bags at every root"
+                  % (main_run["s_per_iter"], n_bag)))
+    text = r["model_text"]
+    runs = {"bagging": launches}
+    del r
+    say(repeat_check("bagging", lambda: lt.train(
+        params, ds, iters, verbose_eval=False), text))
+    say("bagging: " + bag_check(ds, params))
+    reset_counts()
+    with grower_mode():
+        front = lt.train(dict(params, tpu_frontier_batch=8), ds, iters,
+                         verbose_eval=False)
+    runs["bagging frontier 8"] = read_counts()
+    check(front.model_to_string() == text, "bagging: frontier 8's model "
+          "text differs at %s" % first_difference(front.model_to_string(),
+                                                  text))
+    check(runs["bagging frontier 8"]["segment_histogram_batched"] > 0,
+          "bagging frontier 8 never launched B5")
+    say("bagging frontier 8: model text byte-identical to the one-leaf "
+        "loop's, %.2f split rounds per tree, launches %s"
+        % (front.split_rounds_per_tree(),
+           json.dumps(runs["bagging frontier 8"])))
+    del front
+    qparams = dict(params, gradient_quantization=True,
+                   gradient_quant_dtype="int8")
+    rq = train_path("bagging int8", ds, Xv, yv, qparams, iters)
+    check(rq["launches"]["segment_histogram_quant"] > 0
+          and rq["launches"]["segment_histogram"] == 0,
+          "bagging int8: launches %s" % json.dumps(rq["launches"]))
+    runs["bagging int8"] = rq["launches"]
+    say(path_line(rq, ds.binned.num_data, iters))
+    text = rq["model_text"]
+    del rq
+    say(repeat_check("bagging int8", lambda: lt.train(
+        qparams, ds, iters, verbose_eval=False), text))
+    return runs
+
+
+def objective_labels(objective: str, X, rng):
+    """Labels of the objective's domain from a signal of X: positive for
+    poisson, gamma and tweedie, in [0, 1] for the cross-entropies, else
+    real around 3."""
+    f = X[:, 0] + 0.5 * X[:, 1] * X[:, 2] - 0.3 * np.abs(X[:, 3])
+    noise = 0.3 * rng.standard_normal(len(X))
+    if objective in ("poisson", "gamma", "tweedie"):
+        return np.exp(0.5 * f + noise)
+    if objective in ("xentropy", "xentlambda"):
+        return 1.0 / (1.0 + np.exp(-(f + noise)))
+    return 3.0 + f + noise
+
+
+def same_structure(a, b, X) -> str:
+    """'' if two boosters' trees have the same split features, topology,
+    counts and leaf of every row of X, else where they first differ."""
+    for i, (ta, tb) in enumerate(zip(a._model.trees, b._model.trees)):
+        if ta.num_leaves != tb.num_leaves:
+            return "tree %d: %d vs %d leaves" % (i, ta.num_leaves,
+                                                 tb.num_leaves)
+        ni = ta.num_leaves - 1
+        for k in ("split_feature", "left_child", "right_child",
+                  "internal_count"):
+            if not np.array_equal(getattr(ta, k)[:ni], getattr(tb, k)[:ni]):
+                return "tree %d: %s" % (i, k)
+        if not np.array_equal(ta.leaf_count[:ni + 1],
+                              tb.leaf_count[:ni + 1]):
+            return "tree %d: leaf_count" % i
+    la, lb = a._model.predict_leaf_index(X), b._model.predict_leaf_index(X)
+    return "" if np.array_equal(la, lb) else \
+        "%d rows in other leaves" % int(np.sum(np.any(la != lb, axis=1)))
+
+
+def objectives_parity_phase(seed: int) -> str:
+    """Every objective this slice makes trainable on a 20,000-row cut (31
+    leaves, 3 iterations, weighted rows), the card against the CPU: the
+    same structure (split features, topology, counts, every row's leaf)
+    and each tree's leaf values within LEAF_RTOL of its largest |leaf
+    value|.  The renewal objectives skip splits that gain less than 0.01
+    (a leaf on one side of its quantile gains 0 exactly)."""
+    X, _ = synth(OBJ_PARITY_ROWS, F, seed + 31)
+    rng = np.random.default_rng(seed + 32)
+    w = rng.uniform(0.5, 1.5, OBJ_PARITY_ROWS)
+    out = {}
+    for obj in PARITY_OBJECTIVES:
+        y = objective_labels(obj, X, rng)
+        params = train_params(31, objective=obj)
+        if obj in RENEWING:
+            params["min_gain_to_split"] = 0.01
+        with grower_mode():
+            bc = lt.train(params, lt.Dataset(X, label=y, weight=w), 3,
+                          verbose_eval=False)
+        bh = lt.train(dict(params, device_type="cpu"),
+                      lt.Dataset(X, label=y, weight=w), 3,
+                      verbose_eval=False)
+        check(bc.device.type == "cuda" and bh.device.type == "cpu",
+              "%s parity ran on %s and %s" % (obj, bc.device, bh.device))
+        where = same_structure(bc, bh, X)
+        check(not where, "%s: card vs CPU structure differs: %s"
+              % (obj, where))
+        worst = 0.0
+        for tc, th in zip(bc._model.trees, bh._model.trees):
+            nl = tc.num_leaves
+            scale = float(np.abs(th.leaf_value[:nl]).max())
+            d = float(np.abs(tc.leaf_value[:nl] - th.leaf_value[:nl]).max())
+            check(d <= LEAF_RTOL * scale, "%s: card vs CPU leaf values "
+                  "%.3g apart, beyond %g of the tree's largest |leaf| %.4g"
+                  % (obj, d, LEAF_RTOL, scale))
+            worst = max(worst, d / scale)
+        syncs = bc.host_syncs_per_tree()
+        check(syncs == [2 if obj in RENEWING else 1] * 3,
+              "%s: syncs per tree %s" % (obj, syncs))
+        out[obj] = dict(leaves=[t.num_leaves for t in bc._model.trees],
+                        max_leaf_diff_share=worst)
+    return ("objectives parity: %dx%d, 31 leaves, 3 iters, weighted rows, "
+            "card vs CPU: structure equal, leaf values within %g of each "
+            "tree's largest |leaf| (the largest such share) for every "
+            "objective: %s" % (OBJ_PARITY_ROWS, F, LEAF_RTOL,
+                               json.dumps(out)))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1_000_000)
@@ -3249,6 +3647,12 @@ def main() -> int:
                                                "library_ms", "bound_ms",
                                                "max_abs_err")}
                       for k, v in kernels.items()}))
+    year_b1 = year_b1_phase(args.seed, dev)
+    kernels["segment_histogram"]["year_f90"] = year_b1
+    say("kernels at the year path's width: B1 checked against its plain "
+        "version at n=%d, F=%d, P=%d, B=256 (five feature groups) and timed "
+        "on the root (%s): %s" % (YEAR_ROWS, YEAR_F, YEAR_F + 10, smi,
+                                  json.dumps(year_b1)))
     merged = merged_kernel_phase(1_015_808, args.seed, dev)
     kernels["partition_segment_hist"] = merged
     say("merged kernel: B6 checked against its plain version on every "
@@ -3326,6 +3730,7 @@ def main() -> int:
     say(repeat_check("frontier 8", lambda: lt.train(
         train_params(255, **QUANT_PATHS["frontier 8"]), ds, args.iters,
         verbose_eval=False), runs["frontier 8"]["model_text"]))
+    bagged = bagging_phase(data, main_run, args.iters)
     del data, ds
     # each kernel's launches are read from the path it serves; every
     # path's counts stand beside them
@@ -3354,6 +3759,12 @@ def main() -> int:
     say(serving_phase(args.seed, dev, smi))
     paths["categorical"] = categorical_phase(args.seed, args.iters,
                                              main_run)
+    paths.update(bagged)
+    year_data, paths["year"] = year_phase(args.seed, args.iters, main_run,
+                                          smi)
+    paths["renewal"] = renewal_phase(year_data)
+    del year_data
+    say(objectives_parity_phase(args.seed))
     serves = {"segment_histogram": "main path",
               "partition_segment": "main path",
               "segment_histogram_quant": "quantized int8",

@@ -43,14 +43,16 @@ class Dataset:
     """Raw data + lazily-constructed binned form (basic.py Dataset semantics)."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
-                 weight=None, feature_name="auto", categorical_feature="auto",
-                 params: Optional[Dict] = None):
+                 weight=None, init_score=None, feature_name="auto",
+                 categorical_feature="auto", params: Optional[Dict] = None):
         """categorical_feature: "auto" (none) or a list of column indices;
-        names and pandas categories are not ported."""
+        names and pandas categories are not ported.  init_score: a
+        per-row raw score that training (or validation) starts from."""
         self.data = data
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.init_score = init_score
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
         self.params = dict(params) if params else {}
@@ -79,7 +81,16 @@ class Dataset:
         if self.label is not None:
             md.set_label(np.asarray(self.label))
         md.set_weight(self.weight)
+        md.set_init_score(self.init_score)
         return self
+
+    def set_init_score(self, init_score) -> None:
+        self.init_score = init_score
+        if self._binned is not None:
+            self._binned.metadata.set_init_score(init_score)
+
+    def get_init_score(self):
+        return self.binned.metadata.init_score
 
     @property
     def binned(self) -> BinnedDataset:

@@ -1,20 +1,26 @@
 """GBDT boosting engine (counterpart of lightgbm_tpu/boosting/gbdt.py).
 
 Role parity with the reference src/boosting/gbdt.cpp: Init, TrainOneIter
-(:387-482), BoostFromAverage (:363-385).  This slice ports the serial
-partition-ordered fast path for one tree per iteration (K = 1): the
+(:387-482), BoostFromAverage (:363-385), Bagging (:213-295).  This slice
+ports the serial partition-ordered fast path for one tree per iteration
+(K = 1), for every single-model objective (`objective.TRAINABLE`): the
 `_FastState` payload, the fused step (gradient fill -> grow -> score
 add), `_boost_from_average` and `_finish_tree_host`, in f32 or with
 quantized gradients (gradient_quantization: the grad/hess columns hold
 integers, histograms are int32), growing one leaf per round or
 frontier-batched (tpu_frontier_batch), with the histogram pool
 (histogram_pool_size) or the grower's merged mode (its own rule; no
-config key reaches it, as in the JAX package), and validation sets,
-scored on the device after every tree by bin-level traversal
-(`add_valid`), on numerical and categorical features.
-Bagging, GOSS, DART, RF, the non-finite sentinel, the parallel learners
-and training with an objective other than binary are not ported; asking
-for one raises.  boost_window and
+config key reaches it, as in the JAX package), bagging (the host draws
+the bag on the JAX package's RNG stream; the count column carries it),
+leaf-output renewal (L1, quantile, MAPE: grow without the fused score
+add, renew on the host, add the renewed outputs; a second blocking
+fetch per tree), a training init_score, and validation sets, scored on
+the device after every tree by bin-level traversal (`add_valid`), on
+numerical and categorical features.
+GOSS, DART, RF, the non-finite sentinel, the parallel learners and the
+objectives with several trees per iteration or query groups (multiclass,
+multiclassova, lambdarank) are not ported; asking for one raises.
+boost_window and
 pipeline_depth change only how the JAX package dispatches its work, never
 the model, and are accepted as no-ops.
 """
@@ -85,7 +91,9 @@ class _FastState:
         value | bvalid | gweight
 
     so P = G + 10 (38 at 28 features).  The TPU pads P to 128 lanes; that
-    padding does not carry over.  Guard rows carry idx == n_pad."""
+    padding does not carry over.  Guard rows carry idx == n_pad.  The
+    count column starts as the valid-row mask; bagging refreshes it
+    (`set_bag`)."""
 
     def __init__(self, gbdt: "GBDT", score: torch.Tensor):
         ds = gbdt.train_set
@@ -131,6 +139,20 @@ class _FastState:
         self.payload = pay
         self.aux = torch.zeros_like(pay)
 
+    def set_bag(self, bag: np.ndarray) -> None:
+        """Refresh the count column from an ORIGINAL-order [n_pad] f32 bag
+        mask (zero on padded rows; the JAX package's set_bag): the rows
+        sit in partition order, so the index column routes the gather.
+        Guard rows route to an appended 0 and stay masked out.  The mask
+        goes up from pinned memory with no blocking sync."""
+        pay = self.payload
+        bag = torch.from_numpy(np.concatenate(
+            [bag.astype(np.float32), np.zeros(1, np.float32)]))
+        if pay.is_cuda:
+            bag = bag.pin_memory().to(pay.device, non_blocking=True)
+        seg.payload_col_write(pay, self.cnt_col,
+                              bag[pay[:, self.idx_col].long()])
+
     def fill_gradients(self, objective, qmax: int = 0,
                        generator: Optional[torch.Generator] = None):
         """Write the masked gradients of the current scores into the
@@ -145,8 +167,12 @@ class _FastState:
         g, h = objective.get_gradients_multi(pay[:, self.score0][None],
                                              pay[:, self.label_col],
                                              pay[:, self.weight_col])
-        valid = pay[:, self.cnt_col]
-        g, h = g[0] * valid, h[0] * valid
+        # masked rows (padding, guards, out of the bag) are selected to 0,
+        # not multiplied: a NaN there (NaN * 0 is NaN) would reach the
+        # histogram scale below
+        valid = pay[:, self.cnt_col] > 0
+        g = torch.where(valid, g[0], 0.0)
+        h = torch.where(valid, h[0], 0.0)
         if qmax:
             g, h, scale = quantize_pair(g, h, generator, float(qmax))
         else:
@@ -155,6 +181,57 @@ class _FastState:
         seg.payload_col_write(pay, self.grad_col, g)
         seg.payload_col_write(pay, self.hess_col, h)
         return scale
+
+    def add_leaf_outputs(self, seg_start: np.ndarray, seg_cnt: np.ndarray,
+                         leaf_out: np.ndarray) -> None:
+        """score += leaf_out[leaf of each row], in place, for a tree whose
+        leaves hold the payload rows [seg_start, seg_start + seg_cnt) in
+        partition order: each row finds its segment by a search over the
+        leaves' starts (a gather of each row's segment; the same f32 adds
+        as the JAX package's bin-level payload_tree_add).  Guard rows, in
+        no segment, add 0."""
+        pay = self.payload
+        keep = seg_cnt > 0
+        order = np.argsort(seg_start[keep], kind="stable")
+        table = np.stack([seg_start[keep][order],
+                          (seg_start + seg_cnt)[keep][order]]
+                         ).astype(np.int64)
+        vals = torch.from_numpy(
+            np.ascontiguousarray(leaf_out[keep][order], np.float32))
+        table = torch.from_numpy(table)
+        if pay.is_cuda:
+            table = table.pin_memory().to(pay.device, non_blocking=True)
+            vals = vals.pin_memory().to(pay.device, non_blocking=True)
+        rows = torch.arange(pay.shape[0], device=pay.device)
+        pos = torch.searchsorted(table[0], rows, right=True) - 1
+        at = pos.clamp(min=0)
+        inside = (pos >= 0) & (rows < table[1][at])
+        seg.payload_col_write(pay, self.score0,
+                              pay[:, self.score0]
+                              + torch.where(inside, vals[at], 0.0))
+
+    def renew_inputs(self, host: Dict[str, np.ndarray]):
+        """What renewal reads, in ORIGINAL row order (the JAX package's
+        _renew_leaf_values_fast): each row's leaf from the fetched segment
+        table, and from one labelled blocking fetch (`renew_fetch`) of the
+        count / index / score columns, its pre-tree score and whether it
+        is in the bag.  Returns (leaf_ids, pred, in_bag), each [n_pad]."""
+        nl = int(host["num_leaves"])
+        h = syncs.device_get(self.payload[:, self.cnt_col:self.score0 + 1],
+                             label="renew_fetch")
+        cnt, idx = h[:, 0], h[:, 1].astype(np.int64)
+        lid_part = np.full(self.n_rows, nl, np.int64)
+        for leaf in range(nl):
+            s = int(host["seg_start"][leaf])
+            lid_part[s:s + int(host["seg_cnt"][leaf])] = leaf
+        keep = idx < self.n_pad
+        lid = np.full(self.n_pad, nl, np.int64)
+        lid[idx[keep]] = lid_part[keep]
+        pred = np.zeros(self.n_pad, np.float64)
+        pred[idx[keep]] = h[keep, 2]
+        in_bag = np.zeros(self.n_pad, bool)
+        in_bag[idx[keep]] = cnt[keep] > 0
+        return lid, pred, in_bag
 
     def raw_scores(self) -> np.ndarray:
         """[1, n_pad] scores in ORIGINAL row order (host; one eval_fetch)."""
@@ -312,17 +389,26 @@ class GBDT:
 
         md = train_set.metadata
         n_pad = train_set.num_data_padded
-        # pre-payload scores; the payload's score column takes over at the
-        # first iteration
+        # pre-payload scores, from the training init_score if it has one;
+        # the payload's score column takes over at the first iteration
         self.score = torch.zeros((1, n_pad), dtype=torch.float32,
                                  device=device)
+        if md.init_score is not None:
+            self.score += torch.as_tensor(train_set.padded(
+                md.init_score.astype(np.float32)), device=device)
         objective.init(md.label, md.weight, md.query_boundaries)
         self._fast: Optional[_FastState] = None
         self.grower = None
 
+        # the JAX package's per-subsystem host RNG streams (bagging,
+        # feature sampling), so both packages draw the same bags and
+        # feature masks
         seed = int(getattr(config, "seed", 0) or 0)
+        self.bagging_rng = Random(partition_seed(
+            seed + int(config.bagging_seed), 1))
         self.feature_rng = Random(partition_seed(
             seed + int(config.feature_fraction_seed), 2))
+        self.bag_mask_host = train_set.valid_row_mask()
         self._boosted_from_average = False
 
     @staticmethod
@@ -355,16 +441,15 @@ class GBDT:
             (self.objective is None, "a custom objective"),
             (str(cfg.tree_learner) != "serial",
              "tree_learner=%s" % cfg.tree_learner),
-            (cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0, "bagging"),
             (bool(cfg.forcedsplits_filename), "forced splits"),
             (self.objective is not None
              and self.objective.name not in TRAINABLE,
-             "training with objective=%s (its gradients come with the "
-             "slice that trains the other objectives)"
+             "training with objective=%s (objectives with several trees "
+             "per iteration or query groups come with the slice that "
+             "trains multiclass and lambdarank)"
              % getattr(self.objective, "name", None)),
             (ds.bundle_info is not None, "an EFB-bundled dataset"),
             (bool(np.any(ds.monotone_constraints)), "monotone constraints"),
-            (ds.metadata.init_score is not None, "init_score"),
             (ds.num_data_padded + 1 >= _IDX_EXACT_LIMIT,
              "%d rows (the f32 row-index column is exact below 2^24)"
              % ds.num_data_padded),
@@ -460,7 +545,12 @@ class GBDT:
         fs = self._fast
         before = syncs.snapshot()
         fmask = self._feature_sample()
+        self._refresh_bag(fs)
         lr = self.shrinkage_rate
+        # leaf-output renewal (RenewTreeOutput, serial_tree_learner.cpp
+        # :780-818) needs the pre-update scores: its trees grow without
+        # the fused score add
+        renew = self.objective.renew_tree_output_required()
 
         # the fused step: gradients -> grow -> score add, with no host
         # read until the tree's one fetch
@@ -477,16 +567,19 @@ class GBDT:
             hist_scale = fs.fill_gradients(self.objective)
             out, fs.payload, fs.aux = self.grower(fs.payload, fs.aux, fmask,
                                                   hist_scale=hist_scale)
-        # stumps must not move the scores (gbdt.cpp stops instead): the
-        # add is predicated on the device's leaf count
-        score = fs.payload[:, fs.score0]
-        seg.payload_col_write(fs.payload, fs.score0, torch.where(
-            out["num_leaves"] > 1, score + fs.payload[:, fs.value_col] * lr,
-            score))
+        if not renew:
+            # stumps must not move the scores (gbdt.cpp stops instead): the
+            # add is predicated on the device's leaf count
+            score = fs.payload[:, fs.score0]
+            seg.payload_col_write(fs.payload, fs.score0, torch.where(
+                out["num_leaves"] > 1,
+                score + fs.payload[:, fs.value_col] * lr, score))
         # the tree-to-tree critical path: the next tree waits for this
         # fetch (the JAX package's pipeline_depth=0 dispatch)
         with syncs.critical_path():
             host = _fetch_packed(out)
+            if renew and int(host["num_leaves"]) > 1:
+                self._renew_leaf_values(fs, host, lr)
         self.host_syncs.append(syncs.delta(before)["total"])
         self.split_rounds_total += int(host["split_rounds"])
         self.trees_finished += 1
@@ -501,8 +594,49 @@ class GBDT:
             return True
         return False
 
+    def _renew_leaf_values(self, fs: _FastState, host: Dict[str, np.ndarray],
+                           lr: float) -> None:
+        """RenewTreeOutput on the partitioned path (the JAX package's
+        _renew_leaf_values_fast): the objective renews the fetched leaf
+        values on the host from the rows' pre-tree scores in original
+        order (the second blocking fetch of the tree), the renewed values
+        replace the fetched ones (as f32, as the JAX package stores them),
+        and their shrunk outputs are added to the payload's scores."""
+        nl = int(host["num_leaves"])
+        lid, pred, in_bag = fs.renew_inputs(host)
+        lv = host["leaf_value"].astype(np.float64)
+        renewed = self.objective.renew_leaf_values(lv[:nl], lid, pred, in_bag)
+        host["leaf_value"] = host["leaf_value"].copy()
+        host["leaf_value"][:nl] = renewed
+        fs.add_leaf_outputs(host["seg_start"][:nl], host["seg_cnt"][:nl],
+                            host["leaf_value"][:nl] * np.float32(lr))
+
+    def _bagging_host(self, it: int) -> np.ndarray:
+        """The bag of iteration `it` (the JAX package's _bagging_host):
+        on the bagging_freq grid, int(num_data * bagging_fraction) rows
+        drawn from the bagging stream; between resamples, the last bag."""
+        cfg = self.config
+        n = self.train_set.num_data
+        if it % cfg.bagging_freq == 0:
+            idx = self.bagging_rng.sample(n, int(n * cfg.bagging_fraction))
+            mask = np.zeros(self.train_set.num_data_padded, np.float32)
+            mask[idx] = 1.0
+            self.bag_mask_host = mask
+        return self.bag_mask_host
+
+    def _refresh_bag(self, fs: _FastState) -> None:
+        """Bagging (gbdt.cpp:213-295) through the count column every grower
+        mode reads (the JAX package's _fast_refresh_bag): the column rides
+        the partition, so only a resample refreshes it (the payload is
+        built at iteration 0, which resamples)."""
+        cfg = self.config
+        if cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0 \
+                and self.iter % cfg.bagging_freq == 0:
+            fs.set_bag(self._bagging_host(self.iter))
+
     def _boost_from_average(self) -> float:
         if self._boosted_from_average or self.model.current_iteration > 0 \
+                or self.train_set.metadata.init_score is not None \
                 or self.num_class > 1:
             return 0.0
         self._boosted_from_average = True

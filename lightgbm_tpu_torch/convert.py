@@ -7,8 +7,13 @@ layouts.  These helpers take the numpy form of that state (np.asarray of
 each JAX array, or any tuple with the same field names) and return the
 tensors this package uses, and back.  A quantized payload (integer-valued
 grad/hess columns) crosses like any other, with its [2] scales beside it
-(`qscale_from_numpy`).  They import nothing of the JAX package.  A GBDT's "weights" are its model text, which both packages read
-and write: `Booster(model_str=...)` loads a model written by either.
+(`qscale_from_numpy`).  A partition-ordered payload's per-row state (the
+bag in the count column, the scores) reads back in original row order
+through its index column (`original_order`, `bag_mask_from_payload`,
+`scores_from_payload`), so the two packages' bags and pre-tree scores
+compare row for row.  They import nothing of the JAX package.  A GBDT's
+"weights" are its model text, which both packages read and write:
+`Booster(model_str=...)` loads a model written by either.
 """
 from __future__ import annotations
 
@@ -76,3 +81,32 @@ def split_predicate_from_numpy(pred, device="cpu") -> SplitPredicate:
     return SplitPredicate(**{
         k: torch.as_tensor(_fields(pred, k), device=device).to(dt)
         for k, dt in _PRED_DTYPES.items()})
+
+
+def original_order(payload, col: int, idx_col: int, n_pad: int) -> np.ndarray:
+    """Column `col` of a partition-ordered payload (either package's, as a
+    tensor or any array-like) in ORIGINAL row order: [n_pad] f64, routed
+    by the index column; guard rows (index n_pad) are dropped."""
+    if isinstance(payload, torch.Tensor):
+        payload = payload.detach().cpu().numpy()
+    pay = np.asarray(payload, dtype=np.float32)
+    idx = pay[:, idx_col].astype(np.int64)
+    keep = idx < n_pad
+    out = np.zeros(n_pad, np.float64)
+    out[idx[keep]] = pay[keep, col]
+    return out
+
+
+def bag_mask_from_payload(payload, cnt_col: int, idx_col: int,
+                          n_pad: int) -> np.ndarray:
+    """The bag (count-mask column) in original row order, [n_pad] f32 of
+    0/1: zero on padded rows and on rows out of the bag."""
+    return (original_order(payload, cnt_col, idx_col, n_pad) > 0) \
+        .astype(np.float32)
+
+
+def scores_from_payload(payload, score_col: int, idx_col: int,
+                        n_pad: int) -> np.ndarray:
+    """The raw scores (the score column) in original row order, [n_pad]
+    f64: before a tree is added, the pre-tree scores renewal reads."""
+    return original_order(payload, score_col, idx_col, n_pad)

@@ -34,8 +34,11 @@ _REGISTRY = {
     "xentlambda": CrossEntropyLambda,
 }
 
-#: the objectives whose gradients are ported
-TRAINABLE = ("binary",)
+#: the objectives the port trains: every single-model (one tree per
+#: iteration) objective of the registry
+TRAINABLE = ("binary", "regression", "regression_l1", "huber", "fair",
+             "poisson", "quantile", "mape", "gamma", "tweedie", "xentropy",
+             "xentlambda")
 
 
 def create_objective(name: str, config) -> ObjectiveFunction:

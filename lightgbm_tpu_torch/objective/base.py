@@ -2,8 +2,10 @@
 
 Role parity with the reference include/LightGBM/objective_function.h.
 Gradients/hessians are computed on the training device by plain PyTorch
-functions of the raw score; host-side helpers provide init-score
-boosting and output transforms.
+functions of the raw score (f32, in the JAX package's order of
+operations); host-side helpers provide init-score boosting, output
+transforms and the leaf-output renewal of the objectives that ask for it
+(IsRenewTreeOutput), in numpy.
 """
 from __future__ import annotations
 
@@ -59,8 +61,17 @@ class ObjectiveFunction:
         return raw
 
     def renew_tree_output_required(self) -> bool:
-        """IsRenewTreeOutput (objective_function.h)."""
+        """IsRenewTreeOutput (objective_function.h): objectives that replace
+        leaf outputs with a robust statistic after the tree is grown."""
         return False
+
+    def renew_leaf_values(self, leaf_values: np.ndarray, leaf_ids: np.ndarray,
+                          pred: np.ndarray, in_bag: np.ndarray) -> np.ndarray:
+        """RenewTreeOutput: leaf_values [L] (unshrunk), leaf_ids [N_pad] row
+        -> leaf, pred [N_pad] raw scores before this tree, in_bag [N_pad]
+        bagging mask, all in original row order.  Returns the renewed
+        leaf values."""
+        return leaf_values
 
     def to_string(self) -> str:
         return self.name

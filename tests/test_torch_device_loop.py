@@ -218,6 +218,34 @@ def test_one_tree_fetch_per_iteration(extra):
     assert bst.split_rounds_per_tree() > 0
 
 
+@pytest.mark.parametrize("objective,extra,renew", [
+    ("regression", {}, False),
+    ("regression", dict(bagging_fraction=0.5, bagging_freq=1), False),
+    ("regression_l1", {}, True),
+    ("regression_l1", dict(tpu_frontier_batch=8), True),
+    ("quantile", dict(bagging_fraction=0.5, bagging_freq=2,
+                      histogram_pool_size=0.01), True)])
+def test_renewal_adds_one_renew_fetch_per_iteration(objective, extra, renew):
+    """Every trainable objective keeps the one tree_fetch per iteration;
+    leaf renewal (L1, quantile, MAPE) adds exactly one more blocking
+    fetch, renew_fetch (the pre-tree scores, the bag and the index
+    column), and bagging none."""
+    X, y = _sync_data()
+    params = {"objective": objective, "num_leaves": 15, "verbose": -1,
+              "pipeline_depth": 0, "device_type": "cpu", **extra}
+    bst = lt.Booster(params, lt.Dataset(X, label=y + X[:, 3]))
+    bst.update()
+    tsyncs.reset()
+    for _ in range(3):
+        bst.update()
+    snap = tsyncs.snapshot()
+    expect = {"tree_fetch": 3, "renew_fetch": 3} if renew \
+        else {"tree_fetch": 3}
+    assert snap["critical_by_label"] == expect, snap
+    assert snap["total"] == snap["critical_path"] == sum(expect.values())
+    assert bst.host_syncs_per_tree() == [1 + renew] * 4
+
+
 def test_eval_fetch_counted_apart():
     """Scores fetched for metrics go through the seam as eval_fetch, not
     into the tree's count."""

@@ -8,7 +8,8 @@ tests/test_device_predictor.py's rule).  Also the engine's plumbing:
 early stop, depth bound, the scan engine, micro-batching, row buckets,
 out_dtype, int8 leaves, pred_leaf / pred_contrib, every objective's
 output transform, engine.predict, the device rule and the refusal to
-train objectives whose gradients are not ported."""
+train the objectives that are not ported (several trees per iteration,
+query groups)."""
 import numpy as np
 import pytest
 import torch
@@ -21,6 +22,7 @@ from lightgbm_tpu.objective import _REGISTRY as J_REGISTRY
 from lightgbm_tpu_torch.config import Config as TConfig
 from lightgbm_tpu_torch.models import device_predictor as tdpr
 from lightgbm_tpu_torch.models.device_predictor import DevicePredictor as TDP
+from lightgbm_tpu_torch.objective import TRAINABLE
 from lightgbm_tpu_torch.objective import _REGISTRY as T_REGISTRY
 
 RTOL, ATOL = 1e-5, 1e-6          # device vs host (the JAX test's rule)
@@ -371,7 +373,8 @@ def test_trained_booster_predicts_on_its_training_device():
                                rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("objective", sorted(set(T_REGISTRY) - {"binary"}))
+@pytest.mark.parametrize("objective",
+                         sorted(set(T_REGISTRY) - set(TRAINABLE)))
 def test_training_other_objectives_is_refused(objective):
     X = _x(21)
     params = dict(objective=objective, verbose=-1, device_type="cpu")

@@ -158,11 +158,10 @@ def test_train_without_cpu_request_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("params", [dict(boosting="dart"),
-                                    dict(bagging_fraction=0.5,
-                                         bagging_freq=1),
+                                    dict(boosting="goss"),
                                     dict(tree_learner="data"),
                                     dict(monotone_constraints=[1] + [0] * 7),
-                                    dict(objective="regression")])
+                                    dict(objective="lambdarank")])
 def test_unported_options_raise(params):
     X, y = _data(7)
     with pytest.raises(NotImplementedError):
