@@ -109,9 +109,30 @@ to predict(raw_score=True), held-out RMSE below 0.9 of the label's std,
 the repeat check, device kernels per split step); objective=regression_l1
 on it for 5 iterations with leaf renewal (two blocking syncs per tree,
 one tree's leaf values renew_leaf_values of its fetched partition and
-pre-tree scores bit for bit, the repeat check); and the eleven newly
-trainable objectives on a 20,000-row cut, card against CPU (structure
-equal, leaf values within rtol 1e-5).
+pre-tree scores bit for bit, the repeat check).
+K trees per iteration and ranking: objective=multiclass (num_class 7) on
+Covertype-shaped data (581,012 x 54: 10 numeric columns, 4 wilderness and
+40 soil one-hot columns, 7 cover types in the real shares; 100,000 rows
+held out, enable_bundle=false) with the held-out rows scored every
+iteration (7 trees an iteration, one blocking sync per tree, B1 and B2
+and no other kernel, multi_error below the majority class's, valid
+scores equal to predict(raw_score=True), predict(device=True) [N, 7]
+against the host's, the gradient fill's cost, the no-op step's, B1 on
+the path's own payload (P = 77) against its plain version, one
+iteration's profile), then 3 iterations each of multiclassova, the
+one-leaf loop, frontier 8 (the one-leaf model text byte for byte; B5 and
+the stage + commit) and int8 (B4), one iteration with every B2 call
+(P = 77) held against the plain partition, and the path's repeat check;
+objective=lambdarank (ndcg at 1, 3, 5, 10) on MSLR-WEB30K-shaped data
+(2,270,296 x 136 in ~18,900 queries of up to 1,251 documents, relevance
+0-4 in the real shares; the last 2,000 queries held out and scored every
+iteration: NDCG@10 above the first iteration's and a random ranking's,
+the gradient fill's ms and kernels, B1 on the path's own payload
+(F = 136, P = 146) against its plain version, one iteration with every
+B2 call held against the plain partition, the repeat check); and every objective but binary on a 20,000-row cut
+(multiclass and multiclassova at K = 3, lambdarank on 20-row queries),
+card against CPU (structure equal, leaf values within 3e-4 of a tree's
+largest).
 Every phase always runs and prints one line, prefixed with the seconds
 since start; any failed check exits non-zero.  The last line is the
 device record {"ok": true, "device": {...}}.  Imports nothing of JAX or
@@ -371,14 +392,21 @@ def predicates(dev, nb: int = B):
 TIMED_SPLITS = {"": 100, "_90_10": 229, "_10_90": 25}
 
 
-def hist_errors(pay, start, count, f, got, nb: int = B) -> float:
-    """Max |kernel - f64 sum| per cell of an nb-bin histogram; raises past
-    the stated bound."""
+def hist_cols(f: int, cols=None) -> tuple:
+    """(grad, hess, count) columns: `cols`, else the K = 1 layout's."""
+    return cols or (f + 5, f + 6, f + 2)
+
+
+def hist_errors(pay, start, count, f, got, nb: int = B,
+                cols=None) -> float:
+    """Max |kernel - f64 sum| per cell of an nb-bin histogram of the
+    (grad, hess, count) columns `cols` (by default the K = 1 layout's);
+    raises past the stated bound."""
     s, c = int(start), int(count)
     rows = pay[s:s + c].double()
     cell = (rows[:, :f].long()
             + torch.arange(f, device=pay.device)[None, :] * nb).reshape(-1)
-    vals = torch.stack([rows[:, f + 5], rows[:, f + 6], rows[:, f + 2]], 1)
+    vals = rows[:, list(hist_cols(f, cols))]
     upd = vals[:, None, :].expand(c, f, 3).reshape(-1, 3)
     ref = torch.zeros(f * nb, 3, dtype=torch.float64, device=pay.device)
     ref.index_add_(0, cell, upd)
@@ -392,15 +420,17 @@ def hist_errors(pay, start, count, f, got, nb: int = B) -> float:
     return float(err.max()) if err.numel() else 0.0
 
 
-def hist_exact(pay, start, count, f, got, nb: int = B, scale=None) -> float:
+def hist_exact(pay, start, count, f, got, nb: int = B, scale=None,
+               cols=None) -> float:
     """Raises unless an f32 kernel histogram of rows [start, start + count)
     is the plain fixed-point version's bit for bit
     (seg.segment_histogram_fixed at `scale`, by default the segment's own,
     as a wrapper called without one derives it) and within hist_errors'
     bound of the f64 sum; returns hist_errors' largest error."""
+    g, h, c = hist_cols(f, cols)
     want = seg.segment_histogram_fixed(
         pay, int(start), int(count), num_features=f, num_bins=nb,
-        grad_col=f + 5, hess_col=f + 6, cnt_col=f + 2, scale=scale)
+        grad_col=g, hess_col=h, cnt_col=c, scale=scale)
     check(torch.equal(got.reshape(want.shape).view(torch.int32),
                       want.view(torch.int32)),
           "f32 histogram not bit-identical to the fixed-point plain version "
@@ -408,17 +438,18 @@ def hist_exact(pay, start, count, f, got, nb: int = B, scale=None) -> float:
           % (int(start), int(count), f,
              int((got.reshape(want.shape) != want).sum())))
     del want
-    return hist_errors(pay, start, count, f, got, nb)
+    return hist_errors(pay, start, count, f, got, nb, cols)
 
 
-def scale_kw(fn, pay, starts, counts, f: int) -> dict:
+def scale_kw(fn, pay, starts, counts, f: int, cols=None) -> dict:
     """{"scale": the fixed-point exponents of the segments} when the f32
     wrapper `fn` takes them (this tree's), else {} (a parent tree's
     wrapper, which compare_phase drives too): computed here, outside the
     timed window, as the grower computes them once per tree."""
     if "scale" not in inspect.signature(fn).parameters:
         return {}
-    return dict(scale=seg.fixed_scale(pay, starts, counts, f + 5, f + 6))
+    g, h, _ = hist_cols(f, cols)
+    return dict(scale=seg.fixed_scale(pay, starts, counts, g, h))
 
 
 def quantize_columns(pay: torch.Tensor, n: int, qmax: int, seed: int,
@@ -1661,8 +1692,9 @@ def check_trees_stopped(label: str, bst) -> None:
     if not DEVICE_LOOP:
         return
     n = bst._engine.grower.stopped()
-    check(n == bst.current_iteration(), "%s: %d of %d trees checked at "
-          "their loop condition" % (label, n, bst.current_iteration()))
+    trees = len(bst._model.trees)
+    check(n == trees, "%s: %d of %d trees checked at their loop condition"
+          % (label, n, trees))
 
 
 def graph_counts() -> dict:
@@ -1732,7 +1764,8 @@ def make_main_data(rows: int, seed: int, params: dict) -> tuple:
 
 def train_path(name: str, ds, Xv, yv, params: dict, iters: int,
                auc_floor: float = 0.8, valid_sets=None,
-               syncs_per_tree: int = 1, quality=None) -> dict:
+               syncs_per_tree: int = 1, quality=None,
+               evals_result=None) -> dict:
     """Train one configuration of the main path through
     lightgbm_tpu_torch.train on the card (with `valid_sets` scored every
     iteration, when given), with every launch count set to 0 just before
@@ -1748,7 +1781,7 @@ def train_path(name: str, ds, Xv, yv, params: dict, iters: int,
     t0 = time.perf_counter()
     with grower_mode():
         bst = lt.train(params, ds, iters, valid_sets=valid_sets,
-                       verbose_eval=False)
+                       evals_result=evals_result, verbose_eval=False)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
     launches = read_counts()
@@ -1767,7 +1800,9 @@ def train_path(name: str, ds, Xv, yv, params: dict, iters: int,
     raw = bst.predict(Xv, raw_score=True)
     pred = bst._objective.convert_output(raw)
     t_pred = time.perf_counter() - t0
-    check(pred.shape == (len(yv),) and bool(np.isfinite(pred).all()),
+    K = bst._model.num_tree_per_iteration
+    check(pred.shape == ((len(yv),) if K == 1 else (len(yv), K))
+          and bool(np.isfinite(pred).all()),
           "%s: held-out predictions malformed" % name)
     if quality is None:
         auc = auc_score(yv, pred)
@@ -1777,7 +1812,7 @@ def train_path(name: str, ds, Xv, yv, params: dict, iters: int,
         check(ok, "%s: held-out quality %.6f fails its bound" % (name, auc))
     leaves = [t.num_leaves for t in bst._model.trees]
     syncs = bst.host_syncs_per_tree()
-    check(not DEVICE_LOOP or syncs == [syncs_per_tree] * iters,
+    check(not DEVICE_LOOP or syncs == [syncs_per_tree] * len(leaves),
           "%s: blocking syncs per tree %s, not %d" % (name, syncs,
                                                       syncs_per_tree))
     t0 = bst._model.trees[0]
@@ -1822,13 +1857,15 @@ def main_path_phase(rows: int, iters: int, seed: int) -> tuple:
 
 def checked_partition_phase(data, rows: int, iters: int,
                             params: dict = None,
-                            label: str = "B2 in training") -> str:
+                            label: str = "B2 in training",
+                            quality=None) -> str:
     """A path (the main path unless `params` say otherwise) again for
     `iters` iterations, every B2 call held against the plain partition on
     copies of its inputs (its predicate, categorical bitset included):
     payload and num_left byte for byte and aux untouched outside the
-    segment, so an ordering race in training shows.  Its launches are not
-    counted against any path."""
+    segment, so an ordering race in training shows.  The line ends with
+    the held-out AUC, or `quality` = (its name, quality(bst)).  Its
+    launches are not counted against any path."""
     ds, Xv, yv = data
     params = params or train_params(255)
     whole = cuda_segment.partition_segment
@@ -1862,13 +1899,15 @@ def checked_partition_phase(data, rows: int, iters: int,
     calls = [c for c in calls if c]
     check(len(calls) == splits, "checked %d B2 calls on rows for %d splits"
           % (len(calls), splits))
-    auc = auc_score(yv, bst.predict(Xv))
-    return ("%s: %dx%d, %d iters, %d calls on segments of %d to %d rows "
-            "(%d with a categorical bitset), each byte-identical to the "
-            "plain partition; held-out AUC %.6f"
-            % (label, rows, ds.binned.num_features, iters, len(calls),
-               min(calls), max(calls), len([c for c in cat_calls if c]),
-               auc))
+    name, value = quality(bst) if quality else ("AUC", auc_score(
+        yv, bst.predict(Xv)))
+    fs = bst._engine._fast
+    return ("%s: %dx%d (P=%d), %d iters, %d trees, %d calls on segments of "
+            "%d to %d rows (%d with a categorical bitset), each "
+            "byte-identical to the plain partition; held-out %s %.6f"
+            % (label, rows, ds.binned.num_features, fs.P, iters,
+               len(bst._model.trees), len(calls), min(calls), max(calls),
+               len([c for c in cat_calls if c]), name, value))
 
 
 def first_difference(a: str, b: str) -> str:
@@ -1909,14 +1948,16 @@ def recorded_train(train, deterministic: bool) -> dict:
     counts = read_counts()
 
     def keep(into, name, tensors):
-        """Record clones of `tensors`; inside a capture, a captured clone
-        that each replay refills, cloned again after every replay."""
+        """Record clones of `tensors`, with the count of histograms
+        recorded so far; inside a capture, a captured clone that each
+        replay refills, cloned again after every replay."""
         if DEVICE_LOOP and torch.cuda.is_current_stream_capturing():
             bufs = tuple(t.clone() for t in tensors)
             graphs.after_replay(lambda: into.append(
-                (name, tuple(b.clone() for b in bufs))))
+                (name, tuple(b.clone() for b in bufs), len(hists))))
         else:
-            into.append((name, tuple(t.clone() for t in tensors)))
+            into.append((name, tuple(t.clone() for t in tensors),
+                         len(hists)))
 
     def recorder(name, fn):
         def rec(*args, **kw):
@@ -1958,10 +1999,21 @@ def recorded_train(train, deterministic: bool) -> dict:
         for name, v in counts.items():
             if hasattr(cuda_segment, name):
                 getattr(cuda_segment, name).launches = v
+    # a step past a tree's stop is a no-op, each of its histograms all
+    # zero (count 0), and how many of them grower2._drive enqueues before
+    # it reads the stop flag depends on the host's timing: such steps,
+    # and their split searches, are left out of the record
+    live = [bool(t[0].any()) for _, t, _ in hists]
+    kept, start = [], 0
+    for _, t, end in searches:
+        if end == start or any(live[start:end]):
+            kept.append(t)
+        start = end
     text = bst.model_to_string()
     return dict(text=text, sha=hashlib.sha256(text.encode()).hexdigest(),
-                hists=[(n, t[0]) for n, t in hists],
-                searches=[t for _, t in searches],
+                hists=[(n, t[0]) for (n, t, _), on in zip(hists, live)
+                       if on],
+                searches=kept, noop_steps=len(searches) - len(kept),
                 scores=bst._engine._fast.raw_scores(),
                 warnings=sorted({"%s:%s %s" % (w.filename.split("/")[-1],
                                                w.lineno, str(w.message)[:160])
@@ -2000,7 +2052,8 @@ def repeat_check(label: str, train, reference_text: str = None) -> str:
     (warn_only, its warnings printed), the second without.  Raises unless
     the two model texts are byte-identical (and the path's own run's,
     when given), every recorded f32 histogram bit-identical, every split
-    search's outputs and the final scores too; the failure names the first
+    search's outputs and the final scores too (the no-op steps past a
+    tree's stop left out: recorded_train); the failure names the first
     array that differs, histograms first.  Returns its line, with the model
     text's sha256 so that calls can be compared."""
     a = recorded_train(train, True)
@@ -2009,6 +2062,9 @@ def repeat_check(label: str, train, reference_text: str = None) -> str:
     if len(a["hists"]) != len(b["hists"]):
         where = "histogram calls: %d vs %d" % (len(a["hists"]),
                                                 len(b["hists"]))
+    elif len(a["searches"]) != len(b["searches"]):
+        where = "split searches: %d vs %d" % (len(a["searches"]),
+                                               len(b["searches"]))
     for k, ((na, ha), (nb, hb)) in enumerate(zip(a["hists"], b["hists"])):
         if where is None and (na != nb or not bits_equal(ha, hb)):
             diff = (ha != hb) if ha.shape == hb.shape else ha.new_ones(1)
@@ -2037,11 +2093,12 @@ def repeat_check(label: str, train, reference_text: str = None) -> str:
     return ("repeat %s: trained twice more, the first run in PyTorch's "
             "deterministic mode: model text byte-identical%s, sha256 %s; "
             "%d f32 histograms, %d split searches and the final scores "
-            "bit-identical; deterministic-mode warnings %s"
+            "bit-identical (no-op steps past a tree's stop left out: %d "
+            "and %d); deterministic-mode warnings %s"
             % (label, " (and to the path's own run)"
                if reference_text is not None else "", a["sha"],
-               len(a["hists"]), len(a["searches"]),
-               json.dumps(a["warnings"])))
+               len(a["hists"]), len(a["searches"]), a["noop_steps"],
+               b["noop_steps"], json.dumps(a["warnings"])))
 
 
 # ---------------------------------------------------------------------------
@@ -2661,7 +2718,41 @@ ENQUEUE_CALLS = {"kernel": ("LaunchKernel",), "graph": ("GraphLaunch",),
                  "copy or fill": ("MemcpyAsync", "MemsetAsync")}
 
 
-def profile_phase(bst, label: str, launched=(), retired=()) -> str:
+class EventSum:
+    """One event name's records summed, with the attributes of
+    torch.profiler's key_averages() entries that profile_phase reads."""
+
+    def __init__(self, key: str, device_type):
+        self.key, self.device_type = key, device_type
+        self.count, self.self_device_time_total = 0, 0.0
+
+
+def event_sums(prof) -> list:
+    """prof.key_averages()'s entries (by event name and device type: the
+    count and, for device events, the summed duration in us) summed from
+    the profiler's raw records under key_averages' own name filter and
+    rewrite.  key_averages first builds an event object and a tree per
+    record, ~100 us each: a minute for a 7-class iteration's ~600k
+    kernels.  profile_phase(crosscheck=True) holds the two equal."""
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+    sums = {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if _filter_name(name) or getattr(e, "is_hidden_event",
+                                         lambda: False)():
+            continue
+        key = (_rewrite_name(name, with_wildcard=True), e.device_type())
+        if key not in sums:
+            sums[key] = EventSum(*key)
+        rec = sums[key]
+        rec.count += 1
+        if key[1] == torch.autograd.DeviceType.CUDA:
+            rec.self_device_time_total += (e.end_ns() - e.start_ns()) / 1e3
+    return list(sums.values())
+
+
+def profile_phase(bst, label: str, launched=(), retired=(),
+                  crosscheck: bool = False) -> str:
     """Two more boosting iterations of a trained booster: one timed
     on the host clock alone, then one under torch.profiler.  Prints both
     walls, the profiled iteration's summed kernel time, the device's idle
@@ -2672,7 +2763,9 @@ def profile_phase(bst, label: str, launched=(), retired=()) -> str:
     device time.  Raises unless a
     kernel named by each of `launched` ran and none named by `retired`
     did.  Only device activity is recorded: with the ~90k host ops of an
-    iteration recorded too, reading the profile took over a minute."""
+    iteration recorded too, reading the profile took over a minute.  The
+    records are summed by event_sums; with `crosscheck`, raises unless
+    every device event's count and time equal key_averages'."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2687,9 +2780,21 @@ def profile_phase(bst, label: str, launched=(), retired=()) -> str:
         wall_prof = time.perf_counter() - t0
     calls = {k: v - before[k] for k, v in read_counts().items()
              if v != before[k]}
-    averages = prof.key_averages()
+    averages = event_sums(prof)
     kernels = [e for e in averages
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    if crosscheck:
+        want = {e.key: (e.count, e.self_device_time_total)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+        got = {e.key: (e.count, e.self_device_time_total) for e in kernels}
+        check(want.keys() == got.keys() and all(
+            got[k][0] == want[k][0]
+            and abs(got[k][1] - want[k][1]) <= 1e-6 * want[k][1] + 1e-3
+            for k in want), "profile (%s): the summed records differ from "
+              "key_averages' at %s" % (label, sorted(
+                  k for k in set(want) | set(got)
+                  if want.get(k, (0, 0))[0] != got.get(k, (0, 0))[0])[:3]))
     # the host's enqueue calls, from the runtime / driver API records
     api = {}
     for e in averages:
@@ -3249,10 +3354,13 @@ YEAR_RMSE_SHARE = 0.9
 YEAR_RENEW_ITERS = 5
 #: the renewal check's tree (the second: past the first tree's init score)
 RENEW_CHECKED_TREE = 1
-#: the objectives this slice makes trainable, held card against CPU
+#: every objective but binary (the main path's), held card against CPU:
+#: the multiclass ones at K = 3, lambdarank on queries of PARITY_QUERY rows
 PARITY_OBJECTIVES = ("regression", "regression_l1", "huber", "fair",
                      "poisson", "quantile", "mape", "gamma", "tweedie",
-                     "xentropy", "xentlambda")
+                     "xentropy", "xentlambda", "multiclass", "multiclassova",
+                     "lambdarank")
+PARITY_K, PARITY_QUERY = 3, 20
 OBJ_PARITY_ROWS = 20_000
 #: card vs CPU leaf values, as a share of the tree's largest |leaf value|:
 #: the card sums in fixed point, the CPU in row-order f32, and each runs
@@ -3280,34 +3388,58 @@ def year_synth(n_rows: int, seed: int):
     return np.column_stack([avg, cov]).astype(np.float32), year
 
 
-def year_b1_phase(seed: int, dev) -> dict:
-    """B1 at the year path's width (F = 90, P = 100: five feature groups)
-    on YEAR_ROWS rows, held against its fixed-point plain version on the
-    root, an unaligned, an empty and a middle segment, and timed on the
-    root beside its plain version, its bound and index_add_."""
-    n, f = YEAR_ROWS, YEAR_F
-    pay = make_payload(n, f, f + 10, seed + 90, dev)
-    hk = dict(num_features=f, num_bins=B, grad_col=f + 5, hess_col=f + 6,
-              cnt_col=f + 2)
+def b1_on_payload(pay, n: int, f: int, cols=None) -> dict:
+    """B1 on `pay` (its first n rows, F features, the (grad, hess, count)
+    columns `cols`, by default the K = 1 layout's) held against its
+    fixed-point plain version on the root, an unaligned, an empty and a
+    middle segment, and timed on the root beside its plain version, its
+    bound and index_add_."""
+    g, h, c_col = hist_cols(f, cols)
+    hk = dict(num_features=f, num_bins=B, grad_col=g, hess_col=h,
+              cnt_col=c_col)
     err = 0.0
-    for s, c in ((0, n), (100, 37), (500, 0), (12345, n // 3)):
+    for s, c in ((0, n), (100, 37), (500, 0), (min(12345, n // 4), n // 3)):
         got = cuda_segment.segment_histogram(pay, s, c, **hk)
         torch.cuda.synchronize()
-        err = max(err, hist_exact(pay, s, c, f, got))
-    kw = scale_kw(cuda_segment.segment_histogram, pay, [0], [n], f)
+        err = max(err, hist_exact(pay, s, c, f, got, cols=cols))
+    kw = scale_kw(cuda_segment.segment_histogram, pay, [0], [n], f, cols)
     ms = time_ms(lambda: cuda_segment.segment_histogram(pay, 0, n, **hk,
                                                         **kw), 20)
     plain_ms = time_ms(lambda: seg.segment_histogram_fixed(
         pay, 0, n, **hk, scale=kw.get("scale")), 3)
-    flat = (pay[:n, :f].long() + torch.arange(f, device=dev) * B).reshape(-1)
-    vals = pay[:n, [f + 5, f + 6, f + 2]].repeat_interleave(f, dim=0)
-    out = torch.zeros(f * B, 3, device=dev)
+    flat = (pay[:n, :f].long() + torch.arange(f, device=pay.device)
+            * B).reshape(-1)
+    vals = pay[:n, [g, h, c_col]].repeat_interleave(f, dim=0)
+    out = torch.zeros(f * B, 3, device=pay.device)
     library_ms = time_ms(lambda: out.index_add_(0, flat, vals), 5)
     # each row's F bins, grad, hess and count read once; [F, B, 3] written
     b_ms, b_by = bound(n * (f + 3) * 4 + f * B * 3 * 4, n * f * 3)
-    return dict(rows=n, features=f, width=f + 10, max_abs_err=err, ms=ms,
+    return dict(rows=n, features=f, width=int(pay.shape[1]),
+                cols=[g, h, c_col], max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
                 bound_by=b_by)
+
+
+def year_b1_phase(seed: int, dev) -> dict:
+    """B1 at the year path's width (F = 90, P = 100: five feature groups)
+    on YEAR_ROWS rows of a random payload (b1_on_payload)."""
+    pay = make_payload(YEAR_ROWS, YEAR_F, YEAR_F + 10, seed + 90, dev)
+    return b1_on_payload(pay, YEAR_ROWS, YEAR_F)
+
+
+def path_b1_check(label: str, bst) -> dict:
+    """B1 on a trained path's own payload (b1_on_payload): its rows in the
+    last tree's order, its width and its (grad, hess, count) columns,
+    which hold the last class tree's gradients.  Returns the record and
+    prints its line."""
+    fs = bst._engine._fast
+    rec = b1_on_payload(fs.payload, fs.n_pad, fs.G,
+                        (fs.grad_col, fs.hess_col, fs.cnt_col))
+    say("kernels at the %s path's payload: B1 checked against its plain "
+        "version at n=%d, F=%d, P=%d, B=256 (grad, hess, count at columns "
+        "%s) and timed on the root: %s"
+        % (label, fs.n_pad, fs.G, fs.P, rec["cols"], json.dumps(rec)))
+    return rec
 
 
 def rmse_below(share: float, ys):
@@ -3385,16 +3517,16 @@ def renewal_phase(data, iters: int = YEAR_RENEW_ITERS) -> dict:
     real_inputs = tgbdt._FastState.renew_inputs
     real_renew = tgbdt.GBDT._renew_leaf_values
 
-    def inputs(fs, host):
-        got = real_inputs(fs, host)
+    def inputs(fs, host, k=0):
+        got = real_inputs(fs, host, k)
         seen.setdefault("inputs", []).append(got)
         return got
 
-    def renew(engine, fs, host, lr):
+    def renew(engine, fs, host, lr, k=0):
         seen.setdefault("fetched", []).append(
             host["leaf_value"][:int(host["num_leaves"])].copy())
         t0 = time.perf_counter()
-        real_renew(engine, fs, host, lr)
+        real_renew(engine, fs, host, lr, k)
         seen.setdefault("host_s", []).append(time.perf_counter() - t0)
 
     tgbdt._FastState.renew_inputs = inputs
@@ -3539,6 +3671,11 @@ def objective_labels(objective: str, X, rng):
         return np.exp(0.5 * f + noise)
     if objective in ("xentropy", "xentlambda"):
         return 1.0 / (1.0 + np.exp(-(f + noise)))
+    if objective in ("multiclass", "multiclassova"):
+        return np.digitize(f + noise, np.quantile(
+            f, np.arange(1, PARITY_K) / PARITY_K)).astype(np.float64)
+    if objective == "lambdarank":
+        return np.clip(np.round(f + noise + 1.0), 0, 4)
     return 3.0 + f + noise
 
 
@@ -3563,8 +3700,9 @@ def same_structure(a, b, X) -> str:
 
 
 def objectives_parity_phase(seed: int) -> str:
-    """Every objective this slice makes trainable on a 20,000-row cut (31
-    leaves, 3 iterations, weighted rows), the card against the CPU: the
+    """Every objective but binary on a 20,000-row cut (31 leaves, 3
+    iterations, weighted rows; K = 3 for the multiclass ones, queries of
+    PARITY_QUERY rows for lambdarank), the card against the CPU: the
     same structure (split features, topology, counts, every row's leaf)
     and each tree's leaf values within LEAF_RTOL of its largest |leaf
     value|.  The renewal objectives skip splits that gain less than 0.01
@@ -3578,11 +3716,16 @@ def objectives_parity_phase(seed: int) -> str:
         params = train_params(31, objective=obj)
         if obj in RENEWING:
             params["min_gain_to_split"] = 0.01
+        if obj in ("multiclass", "multiclassova"):
+            params["num_class"] = PARITY_K
+        group = [PARITY_QUERY] * (OBJ_PARITY_ROWS // PARITY_QUERY) \
+            if obj == "lambdarank" else None
         with grower_mode():
-            bc = lt.train(params, lt.Dataset(X, label=y, weight=w), 3,
+            bc = lt.train(params, lt.Dataset(X, label=y, weight=w,
+                                             group=group), 3,
                           verbose_eval=False)
         bh = lt.train(dict(params, device_type="cpu"),
-                      lt.Dataset(X, label=y, weight=w), 3,
+                      lt.Dataset(X, label=y, weight=w, group=group), 3,
                       verbose_eval=False)
         check(bc.device.type == "cuda" and bh.device.type == "cpu",
               "%s parity ran on %s and %s" % (obj, bc.device, bh.device))
@@ -3599,7 +3742,7 @@ def objectives_parity_phase(seed: int) -> str:
                   % (obj, d, LEAF_RTOL, scale))
             worst = max(worst, d / scale)
         syncs = bc.host_syncs_per_tree()
-        check(syncs == [2 if obj in RENEWING else 1] * 3,
+        check(syncs == [2 if obj in RENEWING else 1] * len(bc._model.trees),
               "%s: syncs per tree %s" % (obj, syncs))
         out[obj] = dict(leaves=[t.num_leaves for t in bc._model.trees],
                         max_leaf_diff_share=worst)
@@ -3608,6 +3751,411 @@ def objectives_parity_phase(seed: int) -> str:
             "tree's largest |leaf| (the largest such share) for every "
             "objective: %s" % (OBJ_PARITY_ROWS, F, LEAF_RTOL,
                                json.dumps(out)))
+
+
+# ---------------------------------------------------------------------------
+# phases: K trees per iteration and ranking
+# ---------------------------------------------------------------------------
+
+#: UCI Covertype as NVIDIA gbm-bench's "covtype" uses it: 581,012 rows of
+#: 10 numeric columns, 4 wilderness and 40 soil one-hot columns, 7 cover
+#: types; 100,000 of the rows held out
+COVTYPE_ROWS, COVTYPE_VALID, COVTYPE_K = 581_012, 100_000, 7
+#: the cover types' shares of the real data (211,840 / 283,301 / 35,754 /
+#: 2,747 / 9,493 / 17,367 / 20,510 rows)
+COVTYPE_SHARES = (0.36461, 0.48760, 0.06154, 0.00473, 0.01634, 0.02989,
+                  0.03530)
+#: the numeric columns' ranges in the real data, and per cover type the
+#: means of elevation, slope and the three horizontal distances
+COVTYPE_RANGES = ((1859, 3858), (0, 360), (0, 66), (0, 1397), (-173, 601),
+                  (0, 7117), (0, 254), (0, 254), (0, 254), (0, 7173))
+COVTYPE_MEANS = {"elevation": (3129, 2913, 2394, 2223, 2787, 2419, 3362),
+                 "slope": (13.1, 13.6, 20.8, 18.5, 16.6, 19.0, 14.3),
+                 "hydrology": (270, 279, 210, 100, 212, 160, 356),
+                 "roadways": (2614, 2429, 943, 914, 1349, 1037, 2738),
+                 "fire": (2009, 2168, 910, 859, 1577, 1055, 2070)}
+#: the short runs beside the multiclass path (multiclassova, frontier 8,
+#: int8), in iterations
+SHORT_ITERS = 3
+
+
+def covtype_synth(n_rows: int, seed: int):
+    """Rows shaped after Covertype: the cover type drawn in its real
+    shares, then each column from it: elevation (the strongest signal),
+    slope and the horizontal distances around the type's real means,
+    aspect, the vertical distance and the hillshades with little signal,
+    each in its real range; one wilderness area of 4 and one soil type of
+    40 from per-type tables (one-hot).  Returns X [n, 54] f32 and y in
+    0..6."""
+    rng = np.random.default_rng(seed)
+    y = rng.choice(COVTYPE_K, size=n_rows, p=np.asarray(COVTYPE_SHARES)
+                   / sum(COVTYPE_SHARES))
+    mean = {k: np.asarray(v, np.float64)[y] for k, v in
+            COVTYPE_MEANS.items()}
+    num = np.empty((n_rows, 10))
+    num[:, 0] = mean["elevation"] + rng.normal(0, 160, n_rows)
+    num[:, 1] = rng.uniform(0, 360, n_rows)
+    num[:, 2] = rng.gamma(4.0, mean["slope"] / 4.0)
+    num[:, 3] = rng.exponential(mean["hydrology"])
+    num[:, 4] = 0.2 * num[:, 3] + rng.normal(0, 50, n_rows)
+    num[:, 5] = rng.exponential(mean["roadways"])
+    shade = num[:, 1] / 360.0
+    num[:, 6] = 212 + 25 * np.cos(2 * np.pi * shade) \
+        + rng.normal(0, 15, n_rows)
+    num[:, 7] = 223 - 0.5 * num[:, 2] + rng.normal(0, 15, n_rows)
+    num[:, 8] = 142 - 30 * np.cos(2 * np.pi * shade) \
+        + rng.normal(0, 25, n_rows)
+    num[:, 9] = rng.exponential(mean["fire"])
+    for j, (lo, hi) in enumerate(COVTYPE_RANGES):
+        num[:, j] = np.clip(np.round(num[:, j]), lo, hi)
+
+    def one_hot(n_levels: int, alpha: float) -> np.ndarray:
+        table = np.cumsum(rng.dirichlet(np.full(n_levels, alpha),
+                                        COVTYPE_K), axis=1)
+        level = (rng.random(n_rows)[:, None] > table[y]).sum(1)
+        out = np.zeros((n_rows, n_levels), np.float32)
+        out[np.arange(n_rows), np.minimum(level, n_levels - 1)] = 1.0
+        return out
+
+    X = np.column_stack([num.astype(np.float32), one_hot(4, 0.7),
+                         one_hot(40, 0.15)])
+    return X, y.astype(np.float64)
+
+
+def multi_metrics(objective, raw_kn, yv) -> dict:
+    """multi_logloss and multi_error of [K, N] raw scores, by the port's
+    metrics."""
+    out = {}
+    for m in create_metrics(["multi_logloss", "multi_error"], lt.Config({})):
+        m.init(yv, None)
+        out[m.name] = m.eval(raw_kn, objective)
+    return out
+
+
+def fill_cost(bst, k: int = 0) -> tuple:
+    """One class k gradient fill of a trained booster's payload (the
+    rows as its last tree left them): device ms per fill over 5 fills
+    (CUDA events, after one warm fill run under sync debug mode "error",
+    so a sync in the fill raises) and its device kernels per fill
+    (torch.profiler, over 5 fills).  The booster is not trained
+    further."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = bst._engine
+    fs = eng._fast
+    with sync_errors():
+        fs.fill_gradients(eng.objective, k)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(5):
+        fs.fill_gradients(eng.objective, k)
+    e1.record()
+    torch.cuda.synchronize()
+    # five fills under the profiler: the count of one short window alone
+    # read 36 and 4 kernels in two calls (H100 80GB HBM3, 700 W)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        for _ in range(5):
+            fs.fill_gradients(eng.objective, k)
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return e0.elapsed_time(e1) / 5, n / 5
+
+
+def multiclass_phase(seed: int, iters: int, main_run: dict, smi: str):
+    """objective=multiclass, num_class=7 on the covtype-shaped data (255
+    leaves, max_bin 255, lr 0.1, enable_bundle=false: EFB would bundle
+    the one-hot columns and is not ported), the held-out rows scored every
+    iteration: 7 trees an iteration, one blocking sync per tree, B1 and
+    B2 launched and no other kernel; held-out multi_error below the
+    majority class's error; the valid scores [7, N] equal
+    predict(raw_score=True); predict(device=True) [N, 7] against the
+    host's within rtol 1e-5 / atol 1e-6; kernels per split step, the
+    no-op step's cost and the fill's; B1 held against its plain version on
+    the path's own payload (P = 77, the K > 1 columns); one more iteration
+    profiled; then SHORT_ITERS iterations of multiclassova, of the one-leaf
+    loop, of frontier 8 (the one-leaf model text byte for byte; B5 and the
+    stage + commit) and of int8 (B4, no B1); one iteration with every B2
+    call held against the plain partition; the repeat check of the path's
+    `iters` iterations.  Returns the runs' launches by path and the B1
+    record."""
+    X, y = covtype_synth(COVTYPE_ROWS, seed + 51)
+    n = COVTYPE_ROWS - COVTYPE_VALID
+    Xt, yt, Xv, yv = X[:n], y[:n], X[n:], y[n:]
+    params = train_params(255, objective="multiclass", num_class=COVTYPE_K,
+                          enable_bundle=False,
+                          metric=["multi_logloss", "multi_error"])
+    t0 = time.perf_counter()
+    ds = lt.Dataset(Xt, label=yt)
+    ds.construct(lt.Config(params))
+    dv = lt.Dataset(Xv, label=yv, reference=ds)
+    dv.construct(lt.Config(params))
+    t_bin = time.perf_counter() - t0
+    check(ds.binned.bundle_info is None, "multiclass: EFB bundles formed")
+    majority = 1.0 - float(np.max(np.bincount(yv.astype(int),
+                                              minlength=COVTYPE_K))) / len(yv)
+
+    def quality(yv_, prob):
+        err = float(np.mean(np.argmax(prob, 1) != yv_))
+        return err, err < majority
+
+    evals = {}
+    r = train_path("multiclass", ds, Xv, yv, params, iters, valid_sets=[dv],
+                   quality=quality, evals_result=evals)
+    bst, launches = r["bst"], r["launches"]
+    trees = len(bst._model.trees)
+    check(trees == COVTYPE_K * iters, "multiclass: %d trees for %d "
+          "iterations" % (trees, iters))
+    check(launches["segment_histogram"] >= trees
+          and launches["partition_segment"] > 0,
+          "multiclass: B1 / B2 launched %d / %d times"
+          % (launches["segment_histogram"], launches["partition_segment"]))
+    idle = [k for k in COUNTED if k not in ("segment_histogram",
+                                            "partition_segment")]
+    check(not any(launches[k] for k in idle), "multiclass launched %s"
+          % {k: launches[k] for k in idle if launches[k]})
+    raw = r["raw"]                                  # [N, 7], host f64
+    valid = bst._engine.raw_valid_score(0)          # [7, N], the card's
+    d_valid = float(np.abs(valid.T - raw).max())
+    check(d_valid <= 1e-5 * max(1.0, float(np.abs(raw).max())),
+          "multiclass: valid scores vs predict max |diff| %.3g" % d_valid)
+    metrics = multi_metrics(bst._objective, raw.T, yv)
+    check(metrics["multi_error"] < majority, "multiclass: multi_error %.4f "
+          "not below the majority class's %.4f"
+          % (metrics["multi_error"], majority))
+    check(abs(evals["valid_0"]["multi_error"][-1] - metrics["multi_error"])
+          < 1e-3, "multiclass: the last valid multi_error %.6f is not the "
+          "prediction's %.6f" % (evals["valid_0"]["multi_error"][-1],
+                                 metrics["multi_error"]))
+    with sync_errors():
+        t0 = time.perf_counter()
+        dev = bst.predict(Xv, device=True, raw_score=True)
+        t_dev = time.perf_counter() - t0
+    check(dev.shape == (len(yv), COVTYPE_K) and np.allclose(
+        dev, raw, rtol=1e-5, atol=1e-6), "multiclass: predict(device=True) "
+          "%s vs host max |diff| %.3g" % (dev.shape,
+                                          float(np.abs(dev - raw).max())))
+    dev_us, host_us = inactive_step_cost(bst)
+    kernels = step_kernels(bst)
+    fill_ms, fill_kernels = fill_cost(bst)
+    sha = hashlib.sha256(r["model_text"].encode()).hexdigest()
+    say("multiclass: %dx54 (P=%d, K=%d; %d held out), max_bin 255, 255 "
+        "leaves, lr 0.1, %d iters: %.4f s/iter (main path %.4f; train %.3f "
+        "s, binning %.3f s), %d trees an iteration, syncs/tree %s, "
+        "splits/tree %.2f, device kernels per split step %d (main path %d), "
+        "no-op step %.2f us device / %.2f us host, gradient fill (class 0) "
+        "%.4f ms and %.1f kernels, held-out multi_logloss %.6f multi_error "
+        "%.6f (majority class's error %.6f), valid multi_error by iteration "
+        "%s, valid scores equal predict(raw_score=True) (max |diff| %.3g), "
+        "predict(device=True) [%d, %d] within rtol 1e-5 of the host's (max "
+        "|diff| %.3g, %.4f s), peak %.1f MiB (max_memory_allocated %d B, "
+        "%d B before), sha256 %s, graph replays %s, launches %s (%s)"
+        % (n, 54 + 2 * COVTYPE_K + 9, COVTYPE_K, COVTYPE_VALID, iters,
+           r["s_per_iter"], main_run["s_per_iter"], r["t_train"], t_bin,
+           COVTYPE_K, r["syncs"][:COVTYPE_K], r["splits_per_tree"], kernels,
+           main_run["step_kernels"], dev_us, host_us, fill_ms, fill_kernels,
+           metrics["multi_logloss"], metrics["multi_error"], majority,
+           json.dumps([round(v, 6) for v in evals["valid_0"]["multi_error"]]),
+           d_valid, len(yv), COVTYPE_K, float(np.abs(dev - raw).max()), t_dev,
+           r["peak"] / 2 ** 20, r["peak"], r["peak_before"], sha, json.dumps(r["replays"]),
+           json.dumps(launches), smi))
+    b1 = path_b1_check("multiclass", bst)
+    # a whole iteration (K class trees) profiled: its device kernels
+    say(profile_phase(bst, "multiclass", launched=("part_move",),
+                      retired=("part_stage_move", "part_commit")))
+    text = r["model_text"]
+    del r, bst
+    runs = {"multiclass": launches}
+    short = dict(params, metric=["multi_error"])
+    for name, extra, want, never in (
+            ("multiclassova", dict(objective="multiclassova"),
+             ("segment_histogram", "partition_segment"), ()),
+            ("multiclass one-leaf", {},
+             ("segment_histogram", "partition_segment"), ()),
+            ("multiclass frontier 8", dict(tpu_frontier_batch=8),
+             ("segment_histogram_batched", "partition_segment_stage",
+              "partition_segment_commit"), ()),
+            ("multiclass int8", dict(gradient_quantization=True,
+                                     gradient_quant_dtype="int8"),
+             ("segment_histogram_quant", "partition_segment"),
+             ("segment_histogram",))):
+        rs = train_path(name, ds, Xv, yv, dict(short, **extra), SHORT_ITERS,
+                        quality=quality)
+        runs[name] = rs["launches"]
+        check(all(rs["launches"][k] > 0 for k in want)
+              and not any(rs["launches"][k] for k in never),
+              "%s: launches %s" % (name, json.dumps(rs["launches"])))
+        extra_line = ", held-out error %.6f (majority %.6f)" % (rs["auc"],
+                                                               majority)
+        if name == "multiclass one-leaf":
+            one_text = rs["model_text"]
+        if name == "multiclass frontier 8":
+            check(rs["model_text"] == one_text, "multiclass frontier 8: the "
+                  "model text differs from the one-leaf loop's at %s"
+                  % first_difference(rs["model_text"], one_text))
+            extra_line += ", model text byte-identical to the one-leaf " \
+                "loop's (%d trees)" % len(rs["bst"]._model.trees)
+        say("%s: %dx54, max_bin 255, 255 leaves, lr 0.1, %d iters: %.4f "
+            "s/iter (train %.3f s), %d trees, syncs/tree %s, split "
+            "rounds/tree %.2f, splits/tree %.2f%s, graph replays %s, "
+            "launches %s" % (name, n, SHORT_ITERS, rs["s_per_iter"],
+                             rs["t_train"], len(rs["leaves"]),
+                             rs["syncs"][:COVTYPE_K], rs["rounds_per_tree"],
+                             rs["splits_per_tree"], extra_line,
+                             json.dumps(rs["replays"]),
+                             json.dumps(rs["launches"])))
+        del rs
+
+    def error(bst):
+        raw_ = bst.predict(Xv, raw_score=True)
+        return "multi_error", multi_metrics(bst._objective, raw_.T,
+                                            yv)["multi_error"]
+
+    say(checked_partition_phase((ds, Xv, yv), n, 1, params=params,
+                                label="B2 in multiclass training",
+                                quality=error))
+    say(repeat_check("multiclass", lambda: lt.train(
+        params, ds, iters, valid_sets=[dv], verbose_eval=False), text))
+    del runs["multiclass one-leaf"]
+    return runs, b1
+
+
+#: MSLR-WEB30K (LightGBM docs/Experiments.rst's "MS LTR", 2,270,296 x 137
+#: with the label): 136 features, ~18,919 queries of mean ~120 and at most
+#: ~1,250 documents, relevance 0-4; the last 2,000 queries held out
+MSLR_ROWS, MSLR_F, MSLR_VALID_QUERIES, MSLR_MAX_QUERY = 2_270_296, 136, \
+    2_000, 1_251
+#: the relevance labels' shares in the real set (0 to 4)
+MSLR_SHARES = (0.514, 0.325, 0.134, 0.019, 0.008)
+NDCG_AT = (1, 3, 5, 10)
+
+
+def mslr_synth(n_rows: int, seed: int):
+    """Rows shaped after MSLR-WEB30K: query sizes from a lognormal law
+    (median ~85, mean ~120) cut at MSLR_MAX_QUERY, the last query cut so
+    the rows sum to n_rows; 136 features (every fourth a count: integer,
+    few distinct values, as the real term-frequency columns are); the
+    relevance from a sparse linear signal of 20 features, a per-query
+    offset and noise, cut at the real labels' shares.  Returns X [n, 136]
+    f32, y in 0..4 and the query sizes."""
+    rng = np.random.default_rng(seed)
+    sizes = np.clip(np.round(rng.lognormal(4.45, 0.85, 2 * n_rows // 100)),
+                    1, MSLR_MAX_QUERY).astype(np.int64)
+    cum = np.cumsum(sizes)
+    nq = int(np.searchsorted(cum, n_rows)) + 1
+    sizes = sizes[:nq]
+    sizes[-1] -= int(cum[nq - 1]) - n_rows
+    X = rng.standard_normal((n_rows, MSLR_F), dtype=np.float32)
+    X[:, ::4] = np.floor(np.exp(X[:, ::4]))
+    w = np.zeros(MSLR_F, np.float32)
+    w[rng.choice(MSLR_F, 20, replace=False)] = rng.standard_normal(20)
+    q_off = np.repeat(rng.standard_normal(nq).astype(np.float32) * 0.5,
+                      sizes)
+    z = X @ w / np.float32(np.sqrt(20.0)) + q_off \
+        + rng.standard_normal(n_rows, dtype=np.float32) * 0.7
+    cuts = np.quantile(z, np.cumsum(MSLR_SHARES)[:-1])
+    y = np.searchsorted(cuts, z).astype(np.float64)
+    return X, y, sizes
+
+
+def rank_phase(seed: int, iters: int, main_run: dict, smi: str):
+    """objective=lambdarank, metric ndcg at 1, 3, 5, 10 on the MSLR-shaped
+    data (255 leaves, max_bin 255, lr 0.1), the held-out queries scored
+    every iteration: one blocking sync per tree, B1 and B2 launched and
+    no other kernel; NDCG@10 after the last iteration above the first's
+    and a random ranking's; the valid scores equal
+    predict(raw_score=True); the gradient fill's ms and kernels (no sync
+    inside it), kernels per split step; B1 held against its plain version
+    on the path's own payload (F = 136, P = 146); one more iteration
+    profiled; one iteration with every B2 call held against the plain
+    partition; the repeat check.  Returns the path's launches and the B1
+    record."""
+    X, y, sizes = mslr_synth(MSLR_ROWS, seed + 61)
+    nq = len(sizes)
+    n = int(sizes[:nq - MSLR_VALID_QUERIES].sum())
+    Xt, yt, gt = X[:n], y[:n], sizes[:nq - MSLR_VALID_QUERIES]
+    Xv, yv, gv = X[n:], y[n:], sizes[nq - MSLR_VALID_QUERIES:]
+    params = train_params(255, objective="lambdarank", metric="ndcg",
+                          eval_at=list(NDCG_AT))
+    t0 = time.perf_counter()
+    ds = lt.Dataset(Xt, label=yt, group=gt)
+    ds.construct(lt.Config(params))
+    dv = lt.Dataset(Xv, label=yv, group=gv, reference=ds)
+    dv.construct(lt.Config(params))
+    t_bin = time.perf_counter() - t0
+    del X
+    ndcg10 = create_metrics(["ndcg@10"], lt.Config(params))[0]
+    ndcg10.init(yv, None, dv.binned.metadata.query_boundaries)
+    rand = ndcg10.eval(np.random.default_rng(seed).random(len(yv)), None)
+
+    def quality(yv_, pred):
+        v = ndcg10.eval(pred, None)
+        return v, v > rand
+
+    evals = {}
+    r = train_path("rank", ds, Xv, yv, params, iters, valid_sets=[dv],
+                   quality=quality, evals_result=evals)
+    bst, launches = r["bst"], r["launches"]
+    check(launches["segment_histogram"] >= iters
+          and launches["partition_segment"] > 0,
+          "rank: B1 / B2 launched %d / %d times"
+          % (launches["segment_histogram"], launches["partition_segment"]))
+    idle = [k for k in COUNTED if k not in ("segment_histogram",
+                                            "partition_segment")]
+    check(not any(launches[k] for k in idle), "rank launched %s"
+          % {k: launches[k] for k in idle if launches[k]})
+    curve = evals["valid_0"]["ndcg@10"]
+    check(curve[-1] > curve[0] and curve[-1] > rand, "rank: NDCG@10 %.6f "
+          "after %d iterations, %.6f after 1, %.6f at random"
+          % (curve[-1], iters, curve[0], rand))
+    check(abs(curve[-1] - r["auc"]) < 1e-6, "rank: the last valid NDCG@10 "
+          "%.6f is not the prediction's %.6f" % (curve[-1], r["auc"]))
+    valid, raw = bst._engine.raw_valid_score(0)[0], r["raw"]
+    d_valid = float(np.abs(valid - raw).max())
+    check(d_valid <= 1e-5 * max(1.0, float(np.abs(raw).max())),
+          "rank: valid scores vs predict max |diff| %.3g" % d_valid)
+    kernels = step_kernels(bst)
+    fill_ms, fill_kernels = fill_cost(bst)
+    obj = bst._objective
+    blocks = [[b["S"], int(b["doc_idx"].shape[0]), -(-b["doc_idx"].shape[0]
+                                                    // b["chunk"])]
+              for b in obj.blocks]
+    pairs = sum(b[0] * b[0] * b[1] for b in blocks)
+    sha = hashlib.sha256(r["model_text"].encode()).hexdigest()
+    say("rank: %dx%d (P=%d) in %d queries (mean %.1f, max %d documents; %d "
+        "queries, %d rows held out), lambdarank, max_bin 255, 255 leaves, lr "
+        "0.1, %d iters: %.4f s/iter (main path %.4f; train %.3f s, binning "
+        "%.3f s), syncs/tree %s, splits/tree %.2f, device kernels per split "
+        "step %d (main path %d), gradient fill %.4f ms per iteration and %.1f "
+        "kernels (size classes [S, queries, chunks] %s, %d padded pairs "
+        "against %d real and %d at the longest query's width), held-out "
+        "NDCG@10 by iteration %s (random ranking %.6f), valid scores equal "
+        "predict(raw_score=True) (max |diff| %.3g), peak %.1f MiB "
+        "(max_memory_allocated %d B, %d B before), sha256 %s, graph replays "
+        "%s, launches %s (%s)"
+        % (n, MSLR_F, MSLR_F + 10, len(gt), float(np.mean(gt)),
+           int(np.max(gt)), len(gv), len(yv), iters, r["s_per_iter"],
+           main_run["s_per_iter"], r["t_train"], t_bin, r["syncs"],
+           r["splits_per_tree"], kernels, main_run["step_kernels"], fill_ms,
+           fill_kernels, json.dumps(blocks), pairs,
+           int(np.sum(gt.astype(np.float64) ** 2)),
+           len(gt) * int(np.max(gt)) ** 2,
+           json.dumps([round(v, 6) for v in curve]), rand, d_valid,
+           r["peak"] / 2 ** 20, r["peak"], r["peak_before"], sha, json.dumps(r["replays"]),
+           json.dumps(launches), smi))
+    b1 = path_b1_check("rank", bst)
+    say(profile_phase(bst, "rank", launched=("part_move",),
+                      retired=("part_stage_move", "part_commit")))
+    text = r["model_text"]
+    del r, bst
+    say(checked_partition_phase(
+        (ds, Xv, yv), n, 1, params=params, label="B2 in rank training",
+        quality=lambda b: ("NDCG@10", ndcg10.eval(b.predict(Xv), None))))
+    say(repeat_check("rank", lambda: lt.train(
+        params, ds, iters, valid_sets=[dv], verbose_eval=False), text))
+    return launches, b1
 
 
 def main() -> int:
@@ -3693,7 +4241,8 @@ def main() -> int:
     # stage's scatter or the full-segment copy-back
     say(profile_phase(main_run["bst"], "main path",
                       launched=("part_move", "part_copy_side"),
-                      retired=("part_stage_move", "part_commit")))
+                      retired=("part_stage_move", "part_commit"),
+                      crosscheck=True))
     line, census_bounds = census_line(main_run["bst"]._model.trees)
     say(line)
     dev_us, host_us = inactive_step_cost(main_run["bst"])
@@ -3764,6 +4313,11 @@ def main() -> int:
                                           smi)
     paths["renewal"] = renewal_phase(year_data)
     del year_data
+    runs, kernels["segment_histogram"]["covtype_k7"] = multiclass_phase(
+        args.seed, args.iters, main_run, smi)
+    paths.update(runs)
+    paths["rank"], kernels["segment_histogram"]["mslr_f136"] = rank_phase(
+        args.seed, args.iters, main_run, smi)
     say(objectives_parity_phase(args.seed))
     serves = {"segment_histogram": "main path",
               "partition_segment": "main path",

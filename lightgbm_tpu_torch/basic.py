@@ -2,8 +2,9 @@
 
 Role parity with the reference Python binding python-package/lightgbm/basic.py.
 This slice keeps the surface the training paths use: a Dataset over a
-dense matrix (categorical features by column index; a validation set
-binned with its reference's mappers), and a Booster that trains (update),
+dense matrix (categorical features by column index; query groups for
+ranking; a validation set binned with its reference's mappers, with its
+own labels, weights and groups), and a Booster that trains (update),
 evaluates on the training set and on validation sets, predicts through
 the exact f64 host model or, with device=True, the tree-parallel device
 predictor (models/device_predictor.py), and reads and writes the model
@@ -43,15 +44,19 @@ class Dataset:
     """Raw data + lazily-constructed binned form (basic.py Dataset semantics)."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
-                 weight=None, init_score=None, feature_name="auto",
-                 categorical_feature="auto", params: Optional[Dict] = None):
+                 weight=None, group=None, init_score=None,
+                 feature_name="auto", categorical_feature="auto",
+                 params: Optional[Dict] = None):
         """categorical_feature: "auto" (none) or a list of column indices;
-        names and pandas categories are not ported.  init_score: a
-        per-row raw score that training (or validation) starts from."""
+        names and pandas categories are not ported.  group: the number of
+        consecutive rows of each query (ranking).  init_score: a per-row
+        raw score that training (or validation) starts from, every class
+        plane's when the model has several."""
         self.data = data
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group
         self.init_score = init_score
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
@@ -82,7 +87,24 @@ class Dataset:
             md.set_label(np.asarray(self.label))
         md.set_weight(self.weight)
         md.set_init_score(self.init_score)
+        md.set_query(self.group)
         return self
+
+    def get_label(self) -> np.ndarray:
+        return self.binned.metadata.label
+
+    def get_weight(self):
+        return self.binned.metadata.weight
+
+    def get_group(self):
+        """Rows per query, or None without query groups."""
+        qb = self.binned.metadata.query_boundaries
+        return None if qb is None else np.diff(qb)
+
+    def set_group(self, group) -> None:
+        self.group = group
+        if self._binned is not None:
+            self._binned.metadata.set_query(group)
 
     def set_init_score(self, init_score) -> None:
         self.init_score = init_score
@@ -91,6 +113,15 @@ class Dataset:
 
     def get_init_score(self):
         return self.binned.metadata.init_score
+
+    def get_field(self, field_name: str):
+        """Generic field accessor (reference Dataset.get_field)."""
+        getters = {"label": self.get_label, "weight": self.get_weight,
+                   "init_score": self.get_init_score,
+                   "group": self.get_group, "query": self.get_group}
+        if field_name not in getters:
+            raise LightGBMError("Unknown field name: %s" % field_name)
+        return getters[field_name]()
 
     @property
     def binned(self) -> BinnedDataset:

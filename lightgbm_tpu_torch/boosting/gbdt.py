@@ -2,8 +2,11 @@
 
 Role parity with the reference src/boosting/gbdt.cpp: Init, TrainOneIter
 (:387-482), BoostFromAverage (:363-385), Bagging (:213-295).  This slice
-ports the serial partition-ordered fast path for one tree per iteration
-(K = 1), for every single-model objective (`objective.TRAINABLE`): the
+ports the serial partition-ordered fast path for every objective of the
+registry: one tree per iteration, or K for the
+multiclass objectives (each class's gradients from a snapshot of the
+pre-iteration scores), and lambdarank's query-coupled gradients (filled
+in original row order through the index column): the
 `_FastState` payload, the fused step (gradient fill -> grow -> score
 add), `_boost_from_average` and `_finish_tree_host`, in f32 or with
 quantized gradients (gradient_quantization: the grad/hess columns hold
@@ -17,9 +20,8 @@ add, renew on the host, add the renewed outputs; a second blocking
 fetch per tree), a training init_score, and validation sets, scored on
 the device after every tree by bin-level traversal (`add_valid`), on
 numerical and categorical features.
-GOSS, DART, RF, the non-finite sentinel, the parallel learners and the
-objectives with several trees per iteration or query groups (multiclass,
-multiclassova, lambdarank) are not ported; asking for one raises.
+GOSS, DART, RF, the non-finite sentinel and the parallel learners are
+not ported; asking for one raises.
 boost_window and
 pipeline_depth change only how the JAX package dispatches its work, never
 the model, and are accepted as no-ops.
@@ -35,7 +37,6 @@ from ..io.binning import BIN_TYPE_CATEGORICAL
 from ..io.dataset import BinnedDataset
 from ..models.gbdt_model import GBDTModel
 from ..models.tree import Tree
-from ..objective import TRAINABLE
 from ..ops import segment as seg
 from ..ops.quantize import (F32_GH_BYTES, QUANT_GH_BYTES, derive_qmax,
                             quant_seed, quantize_pair)
@@ -85,29 +86,36 @@ def feature_meta(ds: BinnedDataset, device) -> FeatureMeta:
 class _FastState:
     """Partition-ordered training state: ONE row-major payload matrix
     [N_pad + GUARD, P] f32 that the grower reorders in place, with the
-    JAX package's column layout for K = 1 (gbdt.py:279-305):
+    JAX package's column layout (gbdt.py:279-305):
 
-        bins 0..G-1 | label | weight | cnt | idx | score | grad | hess |
-        value | bvalid | gweight
+        bins 0..G-1 | label | weight | cnt | idx | score x K |
+        snapshot x K (K > 1 only) | grad | hess | value | bvalid | gweight
 
-    so P = G + 10 (38 at 28 features).  The TPU pads P to 128 lanes; that
-    padding does not carry over.  Guard rows carry idx == n_pad.  The
-    count column starts as the valid-row mask; bagging refreshes it
-    (`set_bag`)."""
+    so P = G + 10 for one tree per iteration (38 at 28 features; the
+    snapshot is the score column itself, snap0 == score0) and G + 2K + 9
+    for K > 1 (77 at 54 features and K = 7).  The TPU pads P to 128
+    lanes; that padding does not carry over.  Guard rows carry idx ==
+    n_pad and stay the last GUARD rows (the grower partitions [0, n_pad)
+    only).  The count column starts as the valid-row mask; bagging
+    refreshes it (`set_bag`).  Every class's tree of an iteration reads
+    its gradients from the snapshot (`snap_scores`), which rides the
+    partition like every column."""
 
     def __init__(self, gbdt: "GBDT", score: torch.Tensor):
         ds = gbdt.train_set
         dev = gbdt.device
         G = ds.bins.shape[0]
+        K = int(score.shape[0])
         n_pad = ds.num_data_padded
-        self.G, self.n_pad = G, n_pad
+        self.G, self.K, self.n_pad = G, K, n_pad
         self.n_rows = n_pad + seg.GUARD
         self.label_col = G
         self.weight_col = G + 1
         self.cnt_col = G + 2
         self.idx_col = G + 3
         self.score0 = G + 4
-        self.grad_col = self.score0 + 1
+        self.snap0 = G + 4 + K if K > 1 else self.score0
+        self.grad_col = self.snap0 + K
         self.hess_col = self.grad_col + 1
         self.value_col = self.grad_col + 2
         self.bvalid_col = self.value_col + 1
@@ -125,19 +133,36 @@ class _FastState:
                           device=dev)
         pay[:n_pad, :G] = torch.as_tensor(ds.bins, device=dev).T \
             .to(torch.float32)
-        pay[:n_pad, G] = torch.as_tensor(ds.padded(md.label), device=dev)
+        label = torch.as_tensor(ds.padded(md.label), device=dev)
+        pay[:n_pad, G] = label
         weight = md.weight if md.weight is not None \
             else np.ones(ds.num_data, np.float32)
-        pay[:n_pad, G + 1] = torch.as_tensor(ds.padded(weight), device=dev)
+        weight = torch.as_tensor(ds.padded(weight), device=dev)
+        pay[:n_pad, G + 1] = weight
         vmask = torch.as_tensor(ds.valid_row_mask(), device=dev)
         pay[:n_pad, self.cnt_col] = vmask
         pay[:n_pad, self.bvalid_col] = vmask
         pay[:, self.idx_col] = float(n_pad)
         pay[:n_pad, self.idx_col] = torch.arange(n_pad, device=dev,
                                                  dtype=torch.float32)
-        pay[:n_pad, self.score0] = score[0]
+        pay[:n_pad, self.score0:self.score0 + K] = score.T
         self.payload = pay
         self.aux = torch.zeros_like(pay)
+        # a non-rowwise objective (lambdarank) reads label and weight in
+        # original row order, where its query boundaries live
+        self.rowwise = getattr(gbdt.objective, "is_rowwise", True)
+        self.label_orig = None if self.rowwise else label.to(torch.float32)
+        self.weight_orig = None if self.rowwise else \
+            weight.to(torch.float32)
+
+    def snap_scores(self) -> None:
+        """Copy the K score columns to the snapshot columns (K > 1): every
+        class's gradients of the iteration come from these pre-iteration
+        scores, in whatever order the class trees leave the rows."""
+        if self.K > 1:
+            pay = self.payload
+            pay[:, self.snap0:self.snap0 + self.K] = \
+                pay[:, self.score0:self.score0 + self.K]
 
     def set_bag(self, bag: np.ndarray) -> None:
         """Refresh the count column from an ORIGINAL-order [n_pad] f32 bag
@@ -153,9 +178,34 @@ class _FastState:
         seg.payload_col_write(pay, self.cnt_col,
                               bag[pay[:, self.idx_col].long()])
 
-    def fill_gradients(self, objective, qmax: int = 0,
+    def class_gradients(self, objective, k: int):
+        """Class k's unmasked (gradient, hessian) of the snapshot scores,
+        [n_rows] each, in the payload's current row order (the JAX
+        package's _class_grads).  A non-rowwise objective gets the
+        snapshot scattered back to original row order through the index
+        column (a permutation of [0, n_pad): no two rows write one slot),
+        computes against the original-order label and weight, and its
+        class-k plane is gathered back into partition order; guard rows
+        gather an appended 0."""
+        pay, K = self.payload, self.K
+        snap = pay[:, self.snap0:self.snap0 + K].T
+        if self.rowwise:
+            g, h = objective.get_gradients_multi(snap, pay[:, self.label_col],
+                                                 pay[:, self.weight_col])
+            return g[k], h[k]
+        idx = pay[:, self.idx_col].long()
+        n_pad = self.n_pad
+        score = torch.empty((K, n_pad), dtype=torch.float32,
+                            device=pay.device)
+        score[:, idx[:n_pad]] = snap[:, :n_pad]
+        g, h = objective.get_gradients_multi(score, self.label_orig,
+                                             self.weight_orig)
+        zero = g.new_zeros(1)
+        return torch.cat([g[k], zero])[idx], torch.cat([h[k], zero])[idx]
+
+    def fill_gradients(self, objective, k: int = 0, qmax: int = 0,
                        generator: Optional[torch.Generator] = None):
-        """Write the masked gradients of the current scores into the
+        """Write class k's masked gradients of the snapshot scores into the
         grad/hess columns, in the payload's current row order.  With
         qmax > 0 (the quantized mode, gbdt.py:500-511 of the JAX package)
         they are quantized first, after the count mask, with `generator`'s
@@ -164,15 +214,13 @@ class _FastState:
         (`seg.fixed_exponents` of the largest |grad|, |hess| over every
         payload row), computed on the device with no host read."""
         pay = self.payload
-        g, h = objective.get_gradients_multi(pay[:, self.score0][None],
-                                             pay[:, self.label_col],
-                                             pay[:, self.weight_col])
+        g, h = self.class_gradients(objective, k)
         # masked rows (padding, guards, out of the bag) are selected to 0,
         # not multiplied: a NaN there (NaN * 0 is NaN) would reach the
         # histogram scale below
         valid = pay[:, self.cnt_col] > 0
-        g = torch.where(valid, g[0], 0.0)
-        h = torch.where(valid, h[0], 0.0)
+        g = torch.where(valid, g, 0.0)
+        h = torch.where(valid, h, 0.0)
         if qmax:
             g, h, scale = quantize_pair(g, h, generator, float(qmax))
         else:
@@ -183,8 +231,8 @@ class _FastState:
         return scale
 
     def add_leaf_outputs(self, seg_start: np.ndarray, seg_cnt: np.ndarray,
-                         leaf_out: np.ndarray) -> None:
-        """score += leaf_out[leaf of each row], in place, for a tree whose
+                         leaf_out: np.ndarray, k: int = 0) -> None:
+        """score[k] += leaf_out[leaf of each row], in place, for a tree whose
         leaves hold the payload rows [seg_start, seg_start + seg_cnt) in
         partition order: each row finds its segment by a search over the
         leaves' starts (a gather of each row's segment; the same f32 adds
@@ -206,18 +254,20 @@ class _FastState:
         pos = torch.searchsorted(table[0], rows, right=True) - 1
         at = pos.clamp(min=0)
         inside = (pos >= 0) & (rows < table[1][at])
-        seg.payload_col_write(pay, self.score0,
-                              pay[:, self.score0]
+        seg.payload_col_write(pay, self.score0 + k,
+                              pay[:, self.score0 + k]
                               + torch.where(inside, vals[at], 0.0))
 
-    def renew_inputs(self, host: Dict[str, np.ndarray]):
+    def renew_inputs(self, host: Dict[str, np.ndarray], k: int = 0):
         """What renewal reads, in ORIGINAL row order (the JAX package's
         _renew_leaf_values_fast): each row's leaf from the fetched segment
         table, and from one labelled blocking fetch (`renew_fetch`) of the
         count / index / score columns, its pre-tree score and whether it
-        is in the bag.  Returns (leaf_ids, pred, in_bag), each [n_pad]."""
+        is in the bag; class k's score column.  Returns (leaf_ids, pred,
+        in_bag), each [n_pad]."""
         nl = int(host["num_leaves"])
-        h = syncs.device_get(self.payload[:, self.cnt_col:self.score0 + 1],
+        h = syncs.device_get(self.payload[:, [self.cnt_col, self.idx_col,
+                                              self.score0 + k]],
                              label="renew_fetch")
         cnt, idx = h[:, 0], h[:, 1].astype(np.int64)
         lid_part = np.full(self.n_rows, nl, np.int64)
@@ -234,21 +284,22 @@ class _FastState:
         return lid, pred, in_bag
 
     def raw_scores(self) -> np.ndarray:
-        """[1, n_pad] scores in ORIGINAL row order (host; one eval_fetch)."""
-        h = syncs.device_get(self.payload[:, self.idx_col:self.score0 + 1],
-                             label="eval_fetch")
+        """[K, n_pad] scores in ORIGINAL row order (host; one eval_fetch)."""
+        h = syncs.device_get(
+            self.payload[:, self.idx_col:self.score0 + self.K],
+            label="eval_fetch")
         idx = h[:, 0].astype(np.int64)
         keep = idx < self.n_pad
-        out = np.zeros((1, self.n_pad), np.float32)
-        out[0, idx[keep]] = h[keep, 1]
+        out = np.zeros((self.K, self.n_pad), np.float32)
+        out[:, idx[keep]] = h[keep, 1:].T
         return out
 
 
 def _traverse_add(bins_v: torch.Tensor, score_v: torch.Tensor,
                   leaf_out: torch.Tensor, tree_dev: Dict[str, torch.Tensor],
                   meta: FeatureMeta, bmap: BundleMap,
-                  depth_iters: int) -> None:
-    """score_v[0] += leaf_out[leaf of each row], in place: one tree's
+                  depth_iters: int, k: int = 0) -> None:
+    """score_v[k] += leaf_out[leaf of each row], in place: one tree's
     bin-level traversal over a [G, M] binned matrix, `depth_iters` steps of
     Tree::DecisionInner (tree.h:234-249 / 288-295).  The JAX package's
     _make_decision_body and _traverse_update (gbdt.py:858-911), eager."""
@@ -277,7 +328,7 @@ def _traverse_add(bins_v: torch.Tensor, score_v: torch.Tensor,
             go_left)
         child = torch.where(go_left, lc[ndc], rc[ndc]).long()
         nd = torch.where(is_leaf, nd, child)
-    score_v[0] += leaf_out[~nd]
+    score_v[k] += leaf_out[~nd]
 
 
 def _depth_iters(tree: Tree) -> int:
@@ -328,7 +379,7 @@ class GBDT:
         self._check_supported()
         self.shrinkage_rate = float(config.learning_rate)
         self.num_class = int(config.num_class)
-        self.num_tree_per_iteration = 1
+        self.num_tree_per_iteration = objective.num_model_per_iteration
         #: blocking host syncs of every finished tree (the sync seam's
         #: count over its iteration: the tree_fetch alone)
         self.host_syncs: List[int] = []
@@ -336,7 +387,7 @@ class GBDT:
         #: unless the frontier-batched grower committed several per round)
         self.split_rounds_total = 0
         self.trees_finished = 0
-        #: [name, dataset, bins on the device, [1, n_pad] scores, metrics]
+        #: [name, dataset, bins on the device, [K, n_pad] scores, metrics]
         self.valid_sets: List[list] = []
 
         # quantized-gradient training (the JAX package's gate,
@@ -389,9 +440,11 @@ class GBDT:
 
         md = train_set.metadata
         n_pad = train_set.num_data_padded
-        # pre-payload scores, from the training init_score if it has one;
-        # the payload's score column takes over at the first iteration
-        self.score = torch.zeros((1, n_pad), dtype=torch.float32,
+        # pre-payload scores, from the training init_score if it has one
+        # (a length-N init score starts every class plane); the payload's
+        # score columns take over at the first iteration
+        K = self.num_tree_per_iteration
+        self.score = torch.zeros((K, n_pad), dtype=torch.float32,
                                  device=device)
         if md.init_score is not None:
             self.score += torch.as_tensor(train_set.padded(
@@ -442,12 +495,6 @@ class GBDT:
             (str(cfg.tree_learner) != "serial",
              "tree_learner=%s" % cfg.tree_learner),
             (bool(cfg.forcedsplits_filename), "forced splits"),
-            (self.objective is not None
-             and self.objective.name not in TRAINABLE,
-             "training with objective=%s (objectives with several trees "
-             "per iteration or query groups come with the slice that "
-             "trains multiclass and lambdarank)"
-             % getattr(self.objective, "name", None)),
             (ds.bundle_info is not None, "an EFB-bundled dataset"),
             (bool(np.any(ds.monotone_constraints)), "monotone constraints"),
             (ds.num_data_padded + 1 >= _IDX_EXACT_LIMIT,
@@ -469,31 +516,33 @@ class GBDT:
     def add_valid(self, name: str, valid: BinnedDataset, metrics: List) -> None:
         """Score `valid` (binned with the training mappers) after every
         tree: its bins go to the device, every existing tree is replayed
-        onto its scores, and the metrics are initialised on its labels."""
+        onto its class plane (tree i onto plane i % K), and the metrics
+        are initialised on its labels, weights and query groups."""
         bins = valid.bins if valid.bins.dtype == np.uint8 \
             else valid.bins.astype(np.int32)
         bins_v = torch.as_tensor(bins, device=self.device)
-        score_v = torch.zeros((1, valid.num_data_padded), dtype=torch.float32,
+        K = self.num_tree_per_iteration
+        score_v = torch.zeros((K, valid.num_data_padded), dtype=torch.float32,
                               device=self.device)
         if valid.metadata.init_score is not None:
             score_v += torch.as_tensor(valid.padded(
                 valid.metadata.init_score.astype(np.float32)),
                 device=self.device)
-        for tree in self.model.trees:
-            self._add_tree_to_score(bins_v, score_v, tree)
+        for i, tree in enumerate(self.model.trees):
+            self._add_tree_to_score(bins_v, score_v, tree, i % K)
         for m in metrics:
             m.init(valid.metadata.label, valid.metadata.weight,
                    valid.metadata.query_boundaries)
         self.valid_sets.append([name, valid, bins_v, score_v, metrics])
 
     def _add_tree_to_score(self, bins_v: torch.Tensor, score_v: torch.Tensor,
-                           tree: Tree) -> None:
+                           tree: Tree, k: int = 0) -> None:
         if tree.num_leaves <= 1:
-            score_v += np.float32(tree.leaf_value[0])
+            score_v[k] += np.float32(tree.leaf_value[0])
             return
         tree_dev, leaf_out = self._tree_to_device(tree)
         _traverse_add(bins_v, score_v, leaf_out, tree_dev, self.meta,
-                      self._bmap, _depth_iters(tree))
+                      self._bmap, _depth_iters(tree), k)
 
     def _tree_to_device(self, tree: Tree):
         """Device arrays for the bin-level traversal of a host tree (the
@@ -533,6 +582,11 @@ class GBDT:
 
     # -- one boosting iteration (gbdt.cpp:387-482) ---------------------------
     def train_one_iter(self, grad=None, hess=None) -> bool:
+        """One iteration: K trees (one per class, in order), each from the
+        snapshot of the pre-iteration scores.  Training stops once every
+        class's tree of an iteration is a stump (the JAX package's
+        should_continue); a stump is kept in the model and moves no score
+        plane."""
         if grad is not None or hess is not None:
             raise NotImplementedError(
                 "custom gradients are not ported to the PyTorch package yet")
@@ -543,35 +597,57 @@ class GBDT:
                 self.meta, self.grower_cfg, self.train_set.max_num_bin,
                 self._fast.cols, self.train_set.num_features)
         fs = self._fast
-        before = syncs.snapshot()
         fmask = self._feature_sample()
         self._refresh_bag(fs)
+        fs.snap_scores()
+        should_continue = False
+        for k in range(self.num_tree_per_iteration):
+            tree = self._train_tree(fs, fmask, init_score, k)
+            self.model.trees.append(tree)
+            if tree.num_leaves > 1 or self.num_tree_per_iteration == 1:
+                # K = 1 folds the boost-from-average score into the first
+                # tree's leaves, so its stump still carries it to the
+                # validation scores
+                for vs in self.valid_sets:
+                    self._add_tree_to_score(vs[2], vs[3], tree, k)
+            should_continue |= tree.num_leaves > 1
+        self.iter += 1
+        if not should_continue:
+            Log.warning("Stopped training because there are no more leaves "
+                        "that meet the split requirements")
+            return True
+        return False
+
+    def _train_tree(self, fs: _FastState, fmask: torch.Tensor,
+                    init_score: float, k: int) -> Tree:
+        """Class k's tree: the fused step (gradients -> grow -> score
+        add, with no host read until the tree's one fetch), then the
+        host's Tree."""
+        before = syncs.snapshot()
         lr = self.shrinkage_rate
         # leaf-output renewal (RenewTreeOutput, serial_tree_learner.cpp
         # :780-818) needs the pre-update scores: its trees grow without
         # the fused score add
         renew = self.objective.renew_tree_output_required()
-
-        # the fused step: gradients -> grow -> score add, with no host
-        # read until the tree's one fetch
         if self._qmax:
             # one generator per (iteration, class), seeded on the JAX
             # schedule, so reruns on one device quantize identically
             gen = torch.Generator(device=self.device)
             gen.manual_seed(quant_seed(self.config.seed or 0, self.iter,
-                                       self.num_tree_per_iteration, 0))
-            qscale = fs.fill_gradients(self.objective, self._qmax, gen)
+                                       self.num_tree_per_iteration, k))
+            qscale = fs.fill_gradients(self.objective, k, self._qmax, gen)
             out, fs.payload, fs.aux = self.grower(fs.payload, fs.aux, fmask,
                                                   qscale)
         else:
-            hist_scale = fs.fill_gradients(self.objective)
+            hist_scale = fs.fill_gradients(self.objective, k)
             out, fs.payload, fs.aux = self.grower(fs.payload, fs.aux, fmask,
                                                   hist_scale=hist_scale)
         if not renew:
             # stumps must not move the scores (gbdt.cpp stops instead): the
             # add is predicated on the device's leaf count
-            score = fs.payload[:, fs.score0]
-            seg.payload_col_write(fs.payload, fs.score0, torch.where(
+            col = fs.score0 + k
+            score = fs.payload[:, col]
+            seg.payload_col_write(fs.payload, col, torch.where(
                 out["num_leaves"] > 1,
                 score + fs.payload[:, fs.value_col] * lr, score))
         # the tree-to-tree critical path: the next tree waits for this
@@ -579,23 +655,14 @@ class GBDT:
         with syncs.critical_path():
             host = _fetch_packed(out)
             if renew and int(host["num_leaves"]) > 1:
-                self._renew_leaf_values(fs, host, lr)
+                self._renew_leaf_values(fs, host, lr, k)
         self.host_syncs.append(syncs.delta(before)["total"])
         self.split_rounds_total += int(host["split_rounds"])
         self.trees_finished += 1
-        tree = self._finish_tree_host(host, init_score, lr)
-        self.model.trees.append(tree)
-        for vs in self.valid_sets:
-            self._add_tree_to_score(vs[2], vs[3], tree)
-        self.iter += 1
-        if tree.num_leaves <= 1:
-            Log.warning("Stopped training because there are no more leaves "
-                        "that meet the split requirements")
-            return True
-        return False
+        return self._finish_tree_host(host, init_score, lr)
 
     def _renew_leaf_values(self, fs: _FastState, host: Dict[str, np.ndarray],
-                           lr: float) -> None:
+                           lr: float, k: int = 0) -> None:
         """RenewTreeOutput on the partitioned path (the JAX package's
         _renew_leaf_values_fast): the objective renews the fetched leaf
         values on the host from the rows' pre-tree scores in original
@@ -603,13 +670,13 @@ class GBDT:
         replace the fetched ones (as f32, as the JAX package stores them),
         and their shrunk outputs are added to the payload's scores."""
         nl = int(host["num_leaves"])
-        lid, pred, in_bag = fs.renew_inputs(host)
+        lid, pred, in_bag = fs.renew_inputs(host, k)
         lv = host["leaf_value"].astype(np.float64)
         renewed = self.objective.renew_leaf_values(lv[:nl], lid, pred, in_bag)
         host["leaf_value"] = host["leaf_value"].copy()
         host["leaf_value"][:nl] = renewed
         fs.add_leaf_outputs(host["seg_start"][:nl], host["seg_cnt"][:nl],
-                            host["leaf_value"][:nl] * np.float32(lr))
+                            host["leaf_value"][:nl] * np.float32(lr), k)
 
     def _bagging_host(self, it: int) -> np.ndarray:
         """The bag of iteration `it` (the JAX package's _bagging_host):
@@ -741,19 +808,30 @@ class GBDT:
 
     # -- evaluation ----------------------------------------------------------
     def raw_train_score(self) -> np.ndarray:
+        """[K, num_data] training scores (host)."""
         if self._fast is None:
             raw = syncs.device_get(self.score, label="eval_fetch")
         else:
             raw = self._fast.raw_scores()
         return raw[:, : self.train_set.num_data]
 
+    @staticmethod
+    def _metric_input(raw: np.ndarray, m) -> np.ndarray:
+        """Metrics see score plane 0, except the multiclass metrics, which
+        take the whole [K, N] matrix (multiclass_metric.hpp Eval)."""
+        return raw if getattr(m, "multiclass", False) else raw[0]
+
+    def _eval(self, name: str, raw: np.ndarray, metrics: List):
+        return [(name, m.name, m.eval(self._metric_input(raw, m),
+                                      self.objective), m.is_higher_better)
+                for m in metrics]
+
     def eval_train(self) -> List[Tuple[str, str, float, bool]]:
-        raw = self.raw_train_score()
-        return [("training", m.name, m.eval(raw[0], self.objective),
-                 m.is_higher_better) for m in self.train_metrics]
+        return self._eval("training", self.raw_train_score(),
+                          self.train_metrics)
 
     def raw_valid_score(self, i: int) -> np.ndarray:
-        """[1, num_data] scores of validation set i (host)."""
+        """[K, num_data] scores of validation set i (host)."""
         _, valid, _, score_v, _ = self.valid_sets[i]
         return syncs.device_get(score_v[:, : valid.num_data],
                                 label="eval_fetch")
@@ -761,7 +839,5 @@ class GBDT:
     def eval_valid(self) -> List[Tuple[str, str, float, bool]]:
         out = []
         for i, (name, _, _, _, metrics) in enumerate(self.valid_sets):
-            raw = self.raw_valid_score(i)
-            out.extend((name, m.name, m.eval(raw[0], self.objective),
-                        m.is_higher_better) for m in metrics)
+            out.extend(self._eval(name, self.raw_valid_score(i), metrics))
         return out

@@ -10,8 +10,8 @@ grad/hess columns) crosses like any other, with its [2] scales beside it
 (`qscale_from_numpy`).  A partition-ordered payload's per-row state (the
 bag in the count column, the scores) reads back in original row order
 through its index column (`original_order`, `bag_mask_from_payload`,
-`scores_from_payload`), so the two packages' bags and pre-tree scores
-compare row for row.  They import nothing of the JAX package.  A GBDT's
+`scores_from_payload`), so the two packages' bags and scores (every class
+plane's, and the snapshot's, for K > 1) compare row for row.  They import nothing of the JAX package.  A GBDT's
 "weights" are its model text, which both packages read and write:
 `Booster(model_str=...)` loads a model written by either.
 """
@@ -37,9 +37,11 @@ _PRED_DTYPES = dict(col=torch.int32, threshold=torch.int32,
 
 def payload_from_numpy(payload, device="cpu") -> torch.Tensor:
     """A payload array ([N_pad + GUARD, P] f32) as a contiguous tensor.
-    The column layout is the same in both packages (P = G + 10 for one
-    tree per iteration); the TPU's padding to 128 lanes, if present, is
-    kept as it is."""
+    The column layout is the same in both packages: bins 0..G-1, label,
+    weight, count, index, then K score columns from G + 4, for K > 1 K
+    snapshot columns from G + 4 + K, then grad, hess, value, bvalid and
+    gweight (P = G + 10 for one tree per iteration, G + 2K + 9 for K > 1).
+    The TPU's padding to 128 lanes, if present, is kept as it is."""
     arr = np.ascontiguousarray(np.asarray(payload, dtype=np.float32))
     if arr.ndim != 2:
         raise ValueError("payload must be 2-D, got shape %s" % (arr.shape,))
@@ -83,18 +85,20 @@ def split_predicate_from_numpy(pred, device="cpu") -> SplitPredicate:
         for k, dt in _PRED_DTYPES.items()})
 
 
-def original_order(payload, col: int, idx_col: int, n_pad: int) -> np.ndarray:
-    """Column `col` of a partition-ordered payload (either package's, as a
-    tensor or any array-like) in ORIGINAL row order: [n_pad] f64, routed
-    by the index column; guard rows (index n_pad) are dropped."""
+def original_order(payload, col, idx_col: int, n_pad: int) -> np.ndarray:
+    """Column `col` (or a sequence of columns) of a partition-ordered
+    payload (either package's, as a tensor or any array-like) in ORIGINAL
+    row order: [n_pad] f64 (or [len(col), n_pad]), routed by the index
+    column; guard rows (index n_pad) are dropped."""
     if isinstance(payload, torch.Tensor):
         payload = payload.detach().cpu().numpy()
     pay = np.asarray(payload, dtype=np.float32)
     idx = pay[:, idx_col].astype(np.int64)
     keep = idx < n_pad
-    out = np.zeros(n_pad, np.float64)
-    out[idx[keep]] = pay[keep, col]
-    return out
+    cols = np.atleast_1d(np.asarray(col, np.int64))
+    out = np.zeros((len(cols), n_pad), np.float64)
+    out[:, idx[keep]] = pay[keep][:, cols].T
+    return out if np.ndim(col) else out[0]
 
 
 def bag_mask_from_payload(payload, cnt_col: int, idx_col: int,
@@ -106,7 +110,13 @@ def bag_mask_from_payload(payload, cnt_col: int, idx_col: int,
 
 
 def scores_from_payload(payload, score_col: int, idx_col: int,
-                        n_pad: int) -> np.ndarray:
-    """The raw scores (the score column) in original row order, [n_pad]
-    f64: before a tree is added, the pre-tree scores renewal reads."""
+                        n_pad: int, num_class: int = 0) -> np.ndarray:
+    """The raw scores in original row order: the score column, [n_pad]
+    f64 (before a tree is added, the pre-tree scores renewal reads), or
+    with num_class=K the K columns from `score_col` (the scores, or the
+    snapshot from snap0), [K, n_pad]."""
+    if num_class:
+        return original_order(payload, range(score_col,
+                                             score_col + num_class),
+                              idx_col, n_pad)
     return original_order(payload, score_col, idx_col, n_pad)

@@ -1,8 +1,8 @@
 """Metrics — role parity with src/metric/ (factory at metric.cpp:11-56).
 
 Host-side numpy implementations operating on raw scores; each returns
-(name, value, is_higher_better).  The ranking metrics (NDCG, MAP) are not
-ported yet.
+(name, value, is_higher_better).  The ranking metrics (NDCG@k, MAP@k) are
+in metric/rank.py.
 """
 from __future__ import annotations
 
@@ -285,6 +285,8 @@ class MultiErrorMetric(Metric):
         return self._wmean(err)
 
 
+from .rank import MAPAtK, NDCGAtK  # noqa: E402
+
 _REGISTRY = {
     "l1": L1Metric, "l2": L2Metric, "rmse": RMSEMetric,
     "multi_logloss": MultiLoglossMetric, "multi_error": MultiErrorMetric,
@@ -299,6 +301,15 @@ _REGISTRY = {
 }
 
 
+_RANK_METRICS = {"ndcg": NDCGAtK, "map": MAPAtK}
+
+
+def _eval_positions(config) -> List[int]:
+    """eval_at with the reference default 1..5 (DCGCalculator::DefaultEvalAt)."""
+    at = list(getattr(config, "eval_at", ()) or ())
+    return [int(k) for k in at] if at else [1, 2, 3, 4, 5]
+
+
 def create_metric(name: str, config) -> Optional[Metric]:
     cls = _REGISTRY.get(name)
     if cls is None:
@@ -308,11 +319,23 @@ def create_metric(name: str, config) -> Optional[Metric]:
 
 
 def create_metrics(names, config) -> List:
-    """Metric instances for the configured names; unknown names (the
-    ranking metrics among them) are warned about and skipped."""
+    """Expand metric names into instances; rank metrics ('ndcg', 'map',
+    'ndcg@3') expand over eval_at positions (rank_metric.hpp:20,
+    metric.cpp); unknown names are warned about and skipped."""
     out: List = []
     for name in names:
-        m = create_metric(name, config)
-        if m is not None:
-            out.append(m)
+        base, _, at = str(name).partition("@")
+        if base in _RANK_METRICS:
+            cls = _RANK_METRICS[base]
+            try:
+                ks = [int(k) for k in at.split(",")] if at \
+                    else _eval_positions(config)
+            except ValueError:
+                Log.warning("Unknown metric type name: %s", name)
+                continue
+            out.extend(cls(config, k) for k in ks)
+        else:
+            m = create_metric(name, config)
+            if m is not None:
+                out.append(m)
     return out

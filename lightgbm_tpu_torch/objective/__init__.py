@@ -1,8 +1,7 @@
 """Objective factory — reference src/objective/objective_function.cpp:10-47.
 
 Every name of the JAX package's registry is registered, so every model
-text it writes loads and predicts.  Training takes the objectives whose
-gradients are ported (`TRAINABLE`); gbdt refuses the others."""
+text it writes loads and predicts, and every one trains."""
 from __future__ import annotations
 
 from ..utils.log import Log
@@ -33,13 +32,6 @@ _REGISTRY = {
     "xentropy": CrossEntropy,
     "xentlambda": CrossEntropyLambda,
 }
-
-#: the objectives the port trains: every single-model (one tree per
-#: iteration) objective of the registry
-TRAINABLE = ("binary", "regression", "regression_l1", "huber", "fair",
-             "poisson", "quantile", "mape", "gamma", "tweedie", "xentropy",
-             "xentlambda")
-
 
 def create_objective(name: str, config) -> ObjectiveFunction:
     if name in _REGISTRY:

@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 
 class ObjectiveFunction:
@@ -37,10 +38,25 @@ class ObjectiveFunction:
         self.label = np.asarray(label, dtype=np.float64)
         self.weight = None if weight is None else np.asarray(weight, dtype=np.float64)
         self.num_data = len(self.label)
+        self._device_tables = {}
         self.check_label()
 
     def check_label(self) -> None:
         pass
+
+    def device_table(self, key: str, array: np.ndarray, device,
+                     dtype=torch.float32) -> torch.Tensor:
+        """A host table that init built (`array`), on `device`: copied
+        once per device and kept, from pinned memory on the card so the
+        copy never blocks the host."""
+        cache = self._device_tables
+        at = (key, str(device))
+        if at not in cache:
+            t = torch.as_tensor(np.ascontiguousarray(array)).to(dtype)
+            if torch.device(device).type == "cuda":
+                t = t.pin_memory().to(device, non_blocking=True)
+            cache[at] = t
+        return cache[at]
 
     def get_gradients(self, score, label, weight):
         """(grad, hess) from raw scores: [N] f32 tensors on the training

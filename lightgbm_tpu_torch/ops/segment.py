@@ -25,6 +25,8 @@ which launches the kernels for CUDA tensors).
 """
 from __future__ import annotations
 
+import math
+
 import numbers
 from typing import NamedTuple
 
@@ -219,12 +221,15 @@ def fixed_exponents(amax: torch.Tensor, rows) -> torch.Tensor:
     magnitude at most amax ([2] f32) summed over at most `rows` rows (a
     host integer or a 0-d tensor): as large as keeps rows * amax * 2^s
     below 2^FIXED_SUM_BITS, so no sum of rint(v * 2^s) overflows an int64.
-    Computed on amax's device with no host read."""
-    dev = amax.device
+    Computed on amax's device with no host read, and for a host `rows`
+    with no copy to the device."""
     # amax < 2^e and rows < 2^r (frexp's mantissa lies in [0.5, 1))
     e = torch.frexp(amax.to(torch.float64)).exponent
-    r = torch.frexp(torch.as_tensor(rows, dtype=torch.float64,
-                                    device=dev)).exponent
+    if isinstance(rows, torch.Tensor):
+        r = torch.frexp(rows.to(device=amax.device,
+                                dtype=torch.float64)).exponent
+    else:
+        r = math.frexp(float(rows))[1]
     return (FIXED_SUM_BITS - r - e).clamp(-FIXED_MAX_EXP, FIXED_MAX_EXP) \
         .to(torch.int32)
 

@@ -161,7 +161,7 @@ def test_train_without_cpu_request_raises_without_cuda(monkeypatch):
                                     dict(boosting="goss"),
                                     dict(tree_learner="data"),
                                     dict(monotone_constraints=[1] + [0] * 7),
-                                    dict(objective="lambdarank")])
+                                    dict(boosting="rf")])
 def test_unported_options_raise(params):
     X, y = _data(7)
     with pytest.raises(NotImplementedError):
