@@ -133,6 +133,23 @@ B2 call held against the plain partition, the repeat check); and every objective
 (multiclass and multiclassova at K = 3, lambdarank on 20-row queries),
 card against CPU (structure equal, leaf values within 3e-4 of a tree's
 largest).
+Continued training and the Booster / Dataset surface, on the main path's
+binned data: init_model (5 iterations saved to a file, 5 more from the
+file with the held-out rows scored every iteration: the loaded trees'
+text unchanged, the replay's ms and no blocking sync in it, one per new
+tree, valid scores equal to predict(raw_score=True), AUC within 0.002 of
+the main path's, the same trees from init_model as a Booster, the repeat
+check); a host numpy logloss fobj against the builtin binary objective
+with boost_from_average=false (the root split equal, AUC within 0.002,
+two blocking syncs per tree by label); rollback_one_iter under
+bagging_fraction=0.5, bagging_freq=2 (the scores back within 1e-6 of
+max(1, |s|), the payload rebuilt in its storage with the graph captures
+it cost, the count column the host's bag) and a learning_rates schedule
+(each tree's shrinkage); cv with three stratified folds over the 1M
+rows, 5 iterations (the keys, each fold's last valid logloss against its
+booster's prediction of its test rows within 1e-5, every fold's B1 and
+B2 launches); refit of the main model on the held-out rows (decay 1
+keeps every leaf, the default decay lowers their logloss).
 Every phase always runs and prints one line, prefixed with the seconds
 since start; any failed check exits non-zero.  The last line is the
 device record {"ok": true, "device": {...}}.  Imports nothing of JAX or
@@ -163,6 +180,7 @@ from lightgbm_tpu_torch import convert  # noqa: E402
 from lightgbm_tpu_torch.boosting import gbdt as tgbdt  # noqa: E402
 from lightgbm_tpu_torch.boosting import grower2  # noqa: E402
 from lightgbm_tpu_torch.metric import create_metrics  # noqa: E402
+from lightgbm_tpu_torch.models.gbdt_model import GBDTModel  # noqa: E402
 from lightgbm_tpu_torch.ops import build, cuda_segment, quantize  # noqa: E402
 from lightgbm_tpu_torch.ops import segment as seg  # noqa: E402
 from lightgbm_tpu_torch.ops.segment import SplitPredicate  # noqa: E402
@@ -1686,13 +1704,17 @@ def grower_mode(jit: bool = True, strict: bool = True):
         tgbdt.make_partitioned_grower = real
 
 
-def check_trees_stopped(label: str, bst) -> None:
-    """Raises unless each tree `bst` grew under StrictGrow ended at its
-    loop condition (after training, the last tree's fetch has passed)."""
+def check_trees_stopped(label: str, bst, grown: int = None) -> None:
+    """Raises unless each of the `grown` trees `bst` grew under StrictGrow
+    ended at its loop condition (after training, the last tree's fetch
+    has passed); by default the model's trees less those it was loaded
+    with."""
     if not DEVICE_LOOP:
         return
     n = bst._engine.grower.stopped()
-    trees = len(bst._model.trees)
+    eng = bst._engine
+    trees = len(bst._model.trees) - getattr(eng, "num_init_iteration", 0) \
+        * eng.num_tree_per_iteration if grown is None else grown
     check(n == trees, "%s: %d of %d trees checked at their loop condition"
           % (label, n, trees))
 
@@ -1765,14 +1787,15 @@ def make_main_data(rows: int, seed: int, params: dict) -> tuple:
 def train_path(name: str, ds, Xv, yv, params: dict, iters: int,
                auc_floor: float = 0.8, valid_sets=None,
                syncs_per_tree: int = 1, quality=None,
-               evals_result=None) -> dict:
+               evals_result=None, fobj=None) -> dict:
     """Train one configuration of the main path through
     lightgbm_tpu_torch.train on the card (with `valid_sets` scored every
     iteration, when given), with every launch count set to 0 just before
     and read just after; predict the held-out rows.  Each tree must take
-    `syncs_per_tree` blocking syncs (2 where leaves are renewed).  The
-    held-out check is AUC above `auc_floor`, or `quality(yv, pred)`, which
-    returns (its value, whether it passes)."""
+    `syncs_per_tree` blocking syncs (2 where leaves are renewed or a
+    custom objective `fobj` reads the scores).  The held-out check is AUC
+    above `auc_floor`, or `quality(yv, pred)`, which returns (its value,
+    whether it passes)."""
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.max_memory_allocated()
     graphs_before = graph_counts()
@@ -1781,7 +1804,8 @@ def train_path(name: str, ds, Xv, yv, params: dict, iters: int,
     t0 = time.perf_counter()
     with grower_mode():
         bst = lt.train(params, ds, iters, valid_sets=valid_sets,
-                       evals_result=evals_result, verbose_eval=False)
+                       evals_result=evals_result, verbose_eval=False,
+                       fobj=fobj)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
     launches = read_counts()
@@ -1796,9 +1820,11 @@ def train_path(name: str, ds, Xv, yv, params: dict, iters: int,
           "%s launched a wide kernel: %s"
           % (name, {k: launches[k] for k in WIDE_ONLY}))
     t0 = time.perf_counter()
-    # predict(Xv) is convert_output of these raw scores
+    # predict(Xv) is convert_output of these raw scores (a custom
+    # objective's model predicts them as they are)
     raw = bst.predict(Xv, raw_score=True)
-    pred = bst._objective.convert_output(raw)
+    pred = raw if bst._objective is None \
+        else bst._objective.convert_output(raw)
     t_pred = time.perf_counter() - t0
     K = bst._model.num_tree_per_iteration
     check(pred.shape == ((len(yv),) if K == 1 else (len(yv), K))
@@ -3661,6 +3687,333 @@ def bagging_phase(data, main_run: dict, iters: int) -> dict:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phases: continued training, custom objective, rollback, cv, refit
+# ---------------------------------------------------------------------------
+
+#: iterations of the first and of the continued run
+CONTINUE_ITERS = 5
+CV_FOLDS, CV_ITERS = 3, 5
+ROLLBACK_PARAMS = dict(bagging_fraction=0.5, bagging_freq=2)
+LR_SCHEDULE = (0.1, 0.05, 0.2)
+
+
+def logloss_fobj(preds, dataset):
+    """A custom objective on the host: binary logloss gradients of the raw
+    scores (numpy)."""
+    y = dataset.get_label()
+    p = 1.0 / (1.0 + np.exp(-preds))
+    return (p - y).astype(np.float32), (p * (1.0 - p)).astype(np.float32)
+
+
+def logloss(y, raw) -> float:
+    p = np.clip(1.0 / (1.0 + np.exp(-np.asarray(raw, np.float64))),
+                1e-15, 1 - 1e-15)
+    return float(-np.mean(y * np.log(p) + (1 - y) * np.log(1 - p)))
+
+
+def tree_texts(text: str) -> list:
+    return text.split("end of trees")[0].split("Tree=")[1:]
+
+
+def continued_phase(data, main_run: dict, iters: int, smi: str) -> dict:
+    """init_model: 5 iterations saved to a file, then 5 more from the file
+    and from the Booster, with the held-out rows scored every iteration.
+    The loaded trees' text must stay as it was, the replay cost no
+    blocking sync and each new tree one, the valid scores equal
+    predict(raw_score=True), the AUC be within 0.002 of the 10-iteration
+    main path's, the two spellings write one model text, and the repeat
+    check hold.  Returns the continued run's launch counts."""
+    ds, Xv, yv = data
+    params = train_params(255)
+    n = CONTINUE_ITERS
+    first = train_path("continued (first %d)" % n, ds, Xv, yv, params, n)
+    path = os.path.join(HERE, "build", "continued_first.txt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    first["bst"].save_model(path)
+    with open(path) as fh:
+        saved = fh.read()
+    # the replay: a Booster made with the loaded trees (replayed onto the
+    # training scores) against one made without them
+    model = GBDTModel.load_model(path)
+    made_ms = {}
+    for init in (None, model, None, model):
+        before = syncs.snapshot()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst = lt.Booster(params, ds, init_model=init)
+        torch.cuda.synchronize()
+        made_ms.setdefault(init is not None, []).append(
+            (time.perf_counter() - t0) * 1e3)
+        replay_syncs = syncs.delta(before)["total"]
+        check(replay_syncs == 0, "continued: making the Booster took %d "
+              "blocking syncs" % replay_syncs)
+        del bst
+    with_ms, plain_ms = min(made_ms[True]), min(made_ms[False])
+    dv = lt.Dataset(Xv, label=yv, reference=ds)
+    graphs_before = graph_counts()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with grower_mode():
+        cont = lt.train(dict(params, metric="auc"), ds, n, init_model=path,
+                        valid_sets=[dv], verbose_eval=False)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    launches = read_counts()
+    check_trees_stopped("continued", cont)
+    check(launches["segment_histogram"] >= n
+          and launches["partition_segment"] > 0,
+          "continued: B1 / B2 launched %d / %d times"
+          % (launches["segment_histogram"], launches["partition_segment"]))
+    check(cont.current_iteration() == 2 * n, "continued: %d iterations"
+          % cont.current_iteration())
+    text = cont.model_to_string()
+    check(tree_texts(text)[:n] == tree_texts(saved),
+          "continued: the loaded trees' text changed")
+    check(cont.host_syncs_per_tree() == [1] * n,
+          "continued: blocking syncs per new tree %s"
+          % cont.host_syncs_per_tree())
+    raw_v = cont._engine.raw_valid_score(0)[0]
+    raw = cont.predict(Xv, raw_score=True)
+    err = float(np.max(np.abs(raw_v - raw) / np.maximum(1.0, np.abs(raw))))
+    check(err <= 1e-5, "continued: valid scores vs predict, %.3g" % err)
+    auc = auc_score(yv, raw)
+    d_auc = abs(auc - main_run["auc"])
+    check(d_auc <= 0.002, "continued: AUC %.6f vs the main path's %.6f"
+          % (auc, main_run["auc"]))
+    replays = {k: v["replays"] - graphs_before.get(k, {}).get("replays", 0)
+               for k, v in graph_counts().items()}
+    del cont
+    with grower_mode():
+        again = lt.train(params, ds, n, init_model=first["bst"],
+                         verbose_eval=False)
+    check(again.model_to_string().split("end of trees")[0]
+          == text.split("end of trees")[0],
+          "continued: init_model as a Booster differs from the file's at %s"
+          % first_difference(again.model_to_string(), text))
+    del again, first
+    say("continued: %dx%d, %d iterations from %s then %d more with the "
+        "held-out rows scored, a Booster made with the %d loaded trees "
+        "replayed %.2f ms against %.2f ms without them (the faster of two "
+        "each; %d blocking syncs), %.4f s/iter (main path %.4f), syncs/tree "
+        "%s, "
+        "loaded trees' text unchanged, valid scores = predict within %.3g, "
+        "held-out AUC %.6f (main path %.6f, |dAUC| %.6f), init_model as a "
+        "Booster writes the same trees, graph replays %s, launches %s (%s)"
+        % (ds.binned.num_data, F, n, os.path.relpath(path, HERE), n, n,
+           with_ms, plain_ms, replay_syncs, t_train / n,
+           main_run["s_per_iter"],
+           [1] * n, err, auc, main_run["auc"], d_auc, json.dumps(replays),
+           json.dumps(launches), smi))
+    say(repeat_check("continued", lambda: lt.train(
+        params, ds, n, init_model=path, verbose_eval=False)))
+    return launches
+
+
+def custom_objective_phase(data, main_run: dict, iters: int,
+                           smi: str) -> dict:
+    """A host numpy logloss fobj against the builtin binary objective with
+    boost_from_average=false, `iters` iterations each: the first tree's
+    root split equal, held-out AUC within 0.002, and two blocking syncs
+    per tree (the named score fetch and the tree's).  Returns the fobj
+    run's launch counts."""
+    ds, Xv, yv = data
+    params = train_params(255, boost_from_average=False)
+    builtin = train_path("binary, boost_from_average=false", ds, Xv, yv,
+                         params, iters)
+    before = syncs.snapshot()
+    r = train_path("custom objective", ds, Xv, yv, params, iters,
+                   syncs_per_tree=2, fobj=logloss_fobj)
+    labels = syncs.delta(before)["by_label"]
+    check(labels.get("fobj_fetch") == iters
+          and labels.get("tree_fetch") == iters,
+          "custom objective: blocking syncs by label %s" % labels)
+    check(r["first_split"] == builtin["first_split"],
+          "custom objective: root split %s, builtin %s"
+          % (r["first_split"], builtin["first_split"]))
+    d_auc = abs(r["auc"] - builtin["auc"])
+    check(d_auc <= 0.002, "custom objective: AUC %.6f vs builtin %.6f"
+          % (r["auc"], builtin["auc"]))
+    check(r["launches"]["segment_histogram"] >= iters
+          and r["launches"]["partition_segment"] > 0,
+          "custom objective: launches %s" % json.dumps(r["launches"]))
+    say(path_line(r, ds.binned.num_data, iters,
+                  ", builtin binary %.4f s/iter, AUC %.6f, |dAUC| %.6f, root "
+                  "split %s on both, main path %.4f s/iter, syncs by label "
+                  "%s (%s)" % (builtin["s_per_iter"], builtin["auc"], d_auc,
+                               r["first_split"], main_run["s_per_iter"],
+                               json.dumps(labels), smi)))
+    return r["launches"]
+
+
+def rollback_phase(data, smi: str) -> dict:
+    """Under bagging_fraction=0.5, bagging_freq=2: 3 updates, the scores
+    read, a 4th update (no resample), a rollback: the scores must be back
+    within 1e-6 * max(1, |s|); the next update rebuilds the payload in its
+    storage (the graph captures it cost are printed) and its count column
+    must be the host's bag.  Then a learning_rates schedule: each tree's
+    shrinkage follows it.  Returns the rollback run's launch counts."""
+    ds = data[0]
+    params = train_params(255, **ROLLBACK_PARAMS)
+    reset_counts()
+    with grower_mode():
+        bst = lt.Booster(params, ds)
+        for _ in range(3):
+            bst.update()
+        want = bst._engine.raw_train_score()
+        bst.update()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst.rollback_one_iter()
+        torch.cuda.synchronize()
+        rollback_ms = (time.perf_counter() - t0) * 1e3
+        got = bst._engine.raw_train_score()
+        err = float(np.max(np.abs(got - want) / np.maximum(1.0,
+                                                           np.abs(want))))
+        check(err <= 1e-6, "rollback: scores back within %.3g" % err)
+        captures0 = {k: v["captures"] for k, v in graph_counts().items()}
+        bst.update()
+        captures = {k: v["captures"] - captures0.get(k, 0)
+                    for k, v in graph_counts().items()
+                    if v["captures"] - captures0.get(k, 0)}
+        eng = bst._engine
+        fs = eng._fast
+        bag = convert.bag_mask_from_payload(fs.payload, fs.cnt_col,
+                                            fs.idx_col, fs.n_pad)
+        check(eng.iter == 4 and np.array_equal(bag, eng.bag_mask_host),
+              "rollback: the count column is not the host's bag after the "
+              "rebuild")
+        # five trees grown, one of them rolled back
+        check_trees_stopped("rollback", bst, grown=5)
+    launches = read_counts()
+    roots = [int(t.internal_count[0]) for t in bst._model.trees]
+    n_bag = int(ds.binned.num_data * ROLLBACK_PARAMS["bagging_fraction"])
+    check(roots == [n_bag] * 4, "rollback: root counts %s" % roots)
+    del bst
+    with grower_mode():
+        sched = lt.train(train_params(255, boost_from_average=False), ds,
+                         len(LR_SCHEDULE), learning_rates=list(LR_SCHEDULE),
+                         verbose_eval=False)
+    shrink = [t.shrinkage for t in sched._model.trees]
+    check(shrink == list(LR_SCHEDULE), "learning_rates: shrinkage %s"
+          % shrink)
+    del sched
+    say("rollback: %s, 3 updates, a 4th, rolled back in %.2f ms: scores "
+        "back within %.3g of max(1, |s|); the next update rebuilt the "
+        "payload in place with %s graph captures and its count column is "
+        "the host's %d-row bag; learning_rates %s: tree shrinkage %s; "
+        "launches %s (%s)" % (json.dumps(ROLLBACK_PARAMS), rollback_ms, err,
+                              json.dumps(captures), int(bag.sum()),
+                              list(LR_SCHEDULE), shrink,
+                              json.dumps(launches), smi))
+    return launches
+
+
+def cv_phase(data, smi: str) -> dict:
+    """lightgbm_tpu_torch.cv: three stratified folds over the main path's
+    rows, 5 iterations each: the result's keys, each fold's last valid
+    logloss against its booster's prediction of its test rows (the exact
+    host model) within 1e-5, and every fold's B1 and B2 launches (counted
+    around each fold booster's update).  Returns the launch counts of all
+    folds."""
+    ds = data[0]
+    per_fold = {}
+    real_update = lt.Booster.update
+
+    def counted(self, *args, **kwargs):
+        before = read_counts()
+        try:
+            return real_update(self, *args, **kwargs)
+        finally:
+            acc = per_fold.setdefault(id(self), dict.fromkeys(COUNTED, 0))
+            for k, v in read_counts().items():
+                acc[k] += v - before[k]
+
+    reset_counts()
+    lt.Booster.update = counted
+    t0 = time.perf_counter()
+    try:
+        with grower_mode():
+            res = lt.cv(train_params(255), ds, CV_ITERS, nfold=CV_FOLDS,
+                        metrics="binary_logloss", return_cvbooster=True)
+    finally:
+        lt.Booster.update = real_update
+    torch.cuda.synchronize()
+    t_cv = time.perf_counter() - t0
+    launches = read_counts()
+    check(set(res) == {"binary_logloss-mean", "binary_logloss-stdv",
+                       "cvbooster"}, "cv: keys %s" % sorted(res))
+    check(len(res["binary_logloss-mean"]) == CV_ITERS, "cv: %d iterations"
+          % len(res["binary_logloss-mean"]))
+    errs, folds = [], []
+    for bst in res["cvbooster"].boosters:
+        check_trees_stopped("cv fold", bst)
+        valid = dict(bst._valid_data)["valid"]
+        last = bst.eval_valid()[0][2]
+        want = logloss(valid.get_label(), bst.predict(valid.data,
+                                                      raw_score=True))
+        errs.append(abs(last - want) / max(1.0, abs(want)))
+        c = per_fold[id(bst)]
+        folds.append((valid.num_data(), c["segment_histogram"],
+                      c["partition_segment"]))
+        check(c["segment_histogram"] >= CV_ITERS
+              and c["partition_segment"] > 0,
+              "cv: a fold launched B1 / B2 %d / %d times"
+              % (c["segment_histogram"], c["partition_segment"]))
+    check(max(errs) <= 1e-5, "cv: last valid logloss vs predict %s" % errs)
+    say("cv: %d stratified folds of %d rows x %d, %d iterations, %.3f s "
+        "(folds binned against the main path's mappers), logloss mean %s, "
+        "stdv %s, last valid logloss vs the fold's predict within %.3g; "
+        "(test rows, B1, B2) per fold %s; launches %s (%s)"
+        % (CV_FOLDS, ds.binned.num_data, F, CV_ITERS, t_cv,
+           ["%.6f" % v for v in res["binary_logloss-mean"]],
+           ["%.6f" % v for v in res["binary_logloss-stdv"]], max(errs),
+           folds, json.dumps(launches), smi))
+    return launches
+
+
+def refit_phase(data, main_run: dict, smi: str) -> dict:
+    """Booster.refit of the main path's model on the 100k held-out rows:
+    decay_rate=1 keeps every leaf (rtol 1e-9), the default decay lowers
+    the logloss on those rows.  Returns its launch counts (no tree grows:
+    all 0)."""
+    _, Xv, yv = data
+    bst = lt.Booster(train_params(255), model_str=main_run["model_text"])
+    reset_counts()
+    before = syncs.snapshot()
+    t0 = time.perf_counter()
+    refit = bst.refit(Xv, yv)
+    t_refit = time.perf_counter() - t0
+    fetches = syncs.delta(before)["by_label"]
+    kept = bst.refit(Xv, yv, decay_rate=1.0)
+    launches = read_counts()
+    for t0_, t1_ in zip(bst._model.trees, kept._model.trees):
+        check(np.allclose(t1_.leaf_value, t0_.leaf_value, rtol=1e-9,
+                          atol=0.0), "refit: decay_rate=1 moved a leaf")
+    ll0 = logloss(yv, bst.predict(Xv, raw_score=True))
+    ll1 = logloss(yv, refit.predict(Xv, raw_score=True))
+    check(ll1 < ll0, "refit: logloss %.6f, not below %.6f" % (ll1, ll0))
+    say("refit: the main path's %d trees on the %d held-out rows in %.3f s "
+        "(blocking fetches %s), decay_rate=1 keeps every leaf, default "
+        "decay logloss %.6f -> %.6f; launches %s (%s)"
+        % (bst.num_trees(), len(yv), t_refit, json.dumps(fetches), ll0, ll1,
+           json.dumps(launches), smi))
+    return launches
+
+
+def api_phases(data, main_run: dict, iters: int, smi: str) -> dict:
+    """Continued training, a custom objective, rollback with the
+    learning-rate schedule, cv and refit on the main path's binned data.
+    Returns each path's launch counts."""
+    return {"continued": continued_phase(data, main_run, iters, smi),
+            "custom objective": custom_objective_phase(data, main_run,
+                                                       iters, smi),
+            "rollback": rollback_phase(data, smi),
+            "cv": cv_phase(data, smi),
+            "refit": refit_phase(data, main_run, smi)}
+
+
 def objective_labels(objective: str, X, rng):
     """Labels of the objective's domain from a signal of X: positive for
     poisson, gamma and tweedie, in [0, 1] for the cross-entropies, else
@@ -4280,6 +4633,7 @@ def main() -> int:
         train_params(255, **QUANT_PATHS["frontier 8"]), ds, args.iters,
         verbose_eval=False), runs["frontier 8"]["model_text"]))
     bagged = bagging_phase(data, main_run, args.iters)
+    api = api_phases(data, main_run, args.iters, smi)
     del data, ds
     # each kernel's launches are read from the path it serves; every
     # path's counts stand beside them
@@ -4309,6 +4663,7 @@ def main() -> int:
     paths["categorical"] = categorical_phase(args.seed, args.iters,
                                              main_run)
     paths.update(bagged)
+    paths.update(api)
     year_data, paths["year"] = year_phase(args.seed, args.iters, main_run,
                                           smi)
     paths["renewal"] = renewal_phase(year_data)

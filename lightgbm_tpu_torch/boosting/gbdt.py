@@ -19,7 +19,14 @@ leaf-output renewal (L1, quantile, MAPE: grow without the fused score
 add, renew on the host, add the renewed outputs; a second blocking
 fetch per tree), a training init_score, and validation sets, scored on
 the device after every tree by bin-level traversal (`add_valid`), on
-numerical and categorical features.
+numerical and categorical features.  Continued training replays a loaded
+model onto the training scores before the payload is built; a custom
+objective's gradients (objective None) go up from pinned memory and are
+gathered into partition order through the index column; a rollback
+leaves the payload, subtracts the last iteration's trees by negated
+traversal, and the next iteration rebuilds the payload in place with
+the bag applied again; reset_config moves the shrinkage, bagging and
+feature fraction.
 GOSS, DART, RF, the non-finite sentinel and the parallel learners are
 not ported; asking for one raises.
 boost_window and
@@ -43,7 +50,7 @@ from ..ops.quantize import (F32_GH_BYTES, QUANT_GH_BYTES, derive_qmax,
 from ..ops.bundle import BundleMap, decode_bin, identity_bundle_map
 from ..ops.split import MISSING_NAN, MISSING_ZERO, FeatureMeta
 from ..runtime import syncs
-from ..utils.log import Log
+from ..utils.log import LightGBMError, Log
 from ..utils.random import Random, partition_seed
 from .grower2 import GrowerConfig, PayloadCols, make_partitioned_grower
 
@@ -128,9 +135,29 @@ class _FastState:
                  self.n_rows * self.P * 4 / 2**30,
                  self.n_rows * self.P * 4 / 2**30, dev)
 
+        self.payload = torch.empty((self.n_rows, self.P),
+                                   dtype=torch.float32, device=dev)
+        self.aux = torch.empty_like(self.payload)
+        label, weight = self.reset(gbdt, score)
+        # a non-rowwise objective (lambdarank) reads label and weight in
+        # original row order, where its query boundaries live
+        self.rowwise = getattr(gbdt.objective, "is_rowwise", True)
+        self.label_orig = None if self.rowwise else label.to(torch.float32)
+        self.weight_orig = None if self.rowwise else \
+            weight.to(torch.float32)
+
+    def reset(self, gbdt: "GBDT", score: torch.Tensor):
+        """(Re)build the payload from ORIGINAL-order [K, n_pad] scores, in
+        its existing storage, so the grower's captured graphs stay valid
+        (the JAX package's _FastState.reset): on the first entry and when
+        training re-enters after a rollback.  The count column holds the
+        plain valid mask until the bag is applied again (`bag_dirty`).
+        Returns the padded label and weight on the device."""
+        ds, pay = gbdt.train_set, self.payload
+        dev, G, n_pad = pay.device, self.G, self.n_pad
         md = ds.metadata
-        pay = torch.zeros((self.n_rows, self.P), dtype=torch.float32,
-                          device=dev)
+        pay.zero_()
+        self.aux.zero_()
         pay[:n_pad, :G] = torch.as_tensor(ds.bins, device=dev).T \
             .to(torch.float32)
         label = torch.as_tensor(ds.padded(md.label), device=dev)
@@ -145,15 +172,21 @@ class _FastState:
         pay[:, self.idx_col] = float(n_pad)
         pay[:n_pad, self.idx_col] = torch.arange(n_pad, device=dev,
                                                  dtype=torch.float32)
-        pay[:n_pad, self.score0:self.score0 + K] = score.T
-        self.payload = pay
-        self.aux = torch.zeros_like(pay)
-        # a non-rowwise objective (lambdarank) reads label and weight in
-        # original row order, where its query boundaries live
-        self.rowwise = getattr(gbdt.objective, "is_rowwise", True)
-        self.label_orig = None if self.rowwise else label.to(torch.float32)
-        self.weight_orig = None if self.rowwise else \
-            weight.to(torch.float32)
+        pay[:n_pad, self.score0:self.score0 + self.K] = score.T
+        self.bag_dirty = True
+        return label, weight
+
+    def original_scores(self) -> torch.Tensor:
+        """[K, n_pad] scores in ORIGINAL row order, on the device with no
+        host read (the JAX package's _fast_sync_back): the index column of
+        the first n_pad rows is a permutation of [0, n_pad) (the guard
+        rows stay the last GUARD rows), so it routes a scatter."""
+        pay, n_pad = self.payload, self.n_pad
+        out = torch.empty((self.K, n_pad), dtype=torch.float32,
+                          device=pay.device)
+        out[:, pay[:n_pad, self.idx_col].long()] = \
+            pay[:n_pad, self.score0:self.score0 + self.K].T
+        return out
 
     def snap_scores(self) -> None:
         """Copy the K score columns to the snapshot columns (K > 1): every
@@ -203,10 +236,21 @@ class _FastState:
         zero = g.new_zeros(1)
         return torch.cat([g[k], zero])[idx], torch.cat([h[k], zero])[idx]
 
+    def gather_custom_gradients(self, custom, k: int):
+        """Class k's plane of caller-supplied ORIGINAL-order [K, n_pad]
+        (gradient, hessian), gathered into the payload's current row order
+        through the index column (guard rows gather an appended 0)."""
+        idx = self.payload[:, self.idx_col].long()
+        zero = custom[0].new_zeros(1)
+        return (torch.cat([custom[0][k], zero])[idx],
+                torch.cat([custom[1][k], zero])[idx])
+
     def fill_gradients(self, objective, k: int = 0, qmax: int = 0,
-                       generator: Optional[torch.Generator] = None):
-        """Write class k's masked gradients of the snapshot scores into the
-        grad/hess columns, in the payload's current row order.  With
+                       generator: Optional[torch.Generator] = None,
+                       custom=None):
+        """Write class k's masked gradients of the snapshot scores (or of
+        `custom`, a custom objective's [K, n_pad] pair) into the grad/hess
+        columns, in the payload's current row order.  With
         qmax > 0 (the quantized mode, gbdt.py:500-511 of the JAX package)
         they are quantized first, after the count mask, with `generator`'s
         draws, and the [2] f32 scales are returned.  Else the int32 [2]
@@ -214,7 +258,8 @@ class _FastState:
         (`seg.fixed_exponents` of the largest |grad|, |hess| over every
         payload row), computed on the device with no host read."""
         pay = self.payload
-        g, h = self.class_gradients(objective, k)
+        g, h = self.class_gradients(objective, k) if custom is None \
+            else self.gather_custom_gradients(custom, k)
         # masked rows (padding, guards, out of the bag) are selected to 0,
         # not multiplied: a NaN there (NaN * 0 is NaN) would reach the
         # histogram scale below
@@ -283,11 +328,11 @@ class _FastState:
         in_bag[idx[keep]] = cnt[keep] > 0
         return lid, pred, in_bag
 
-    def raw_scores(self) -> np.ndarray:
-        """[K, n_pad] scores in ORIGINAL row order (host; one eval_fetch)."""
+    def raw_scores(self, label: str = "eval_fetch") -> np.ndarray:
+        """[K, n_pad] scores in ORIGINAL row order (host; one blocking
+        fetch under `label`)."""
         h = syncs.device_get(
-            self.payload[:, self.idx_col:self.score0 + self.K],
-            label="eval_fetch")
+            self.payload[:, self.idx_col:self.score0 + self.K], label=label)
         idx = h[:, 0].astype(np.int64)
         keep = idx < self.n_pad
         out = np.zeros((self.K, self.n_pad), np.float32)
@@ -369,7 +414,13 @@ class GBDT:
     """The boosting engine behind Booster."""
 
     def __init__(self, config, train_set: BinnedDataset, objective,
-                 metrics: List, device: torch.device):
+                 metrics: List, device: torch.device,
+                 init_model: Optional[GBDTModel] = None):
+        """objective None is a custom objective (objective="none"): K =
+        num_class trees an iteration from the caller's gradients
+        (`train_one_iter(grad, hess)`).  `init_model` continues training:
+        its trees are mapped onto this dataset's bins and replayed onto
+        the training scores (gbdt.cpp:64-169, num_init_iteration_ > 0)."""
         self.config = config
         self.train_set = train_set
         self.objective = objective
@@ -379,7 +430,8 @@ class GBDT:
         self._check_supported()
         self.shrinkage_rate = float(config.learning_rate)
         self.num_class = int(config.num_class)
-        self.num_tree_per_iteration = objective.num_model_per_iteration
+        self.num_tree_per_iteration = objective.num_model_per_iteration \
+            if objective is not None else self.num_class
         #: blocking host syncs of every finished tree (the sync seam's
         #: count over its iteration: the tree_fetch alone)
         self.host_syncs: List[int] = []
@@ -407,13 +459,15 @@ class GBDT:
             Log.info("gradient quantization on: %s grid (qmax=%d)", qdtype,
                      self._qmax)
 
-        self.model = GBDTModel()
+        self.model = init_model if init_model is not None else GBDTModel()
         self.model.num_class = self.num_class
         self.model.num_tree_per_iteration = self.num_tree_per_iteration
         self.model.max_feature_idx = train_set.num_features - 1
         self.model.feature_names = list(train_set.feature_names)
         self.model.feature_infos = train_set.feature_infos()
-        self.model.objective_str = objective.to_string()
+        if objective is not None:
+            self.model.objective_str = objective.to_string()
+        self.num_init_iteration = self.model.current_iteration
 
         self.meta = feature_meta(train_set, device)
         self._bmap = identity_bundle_map(train_set.num_features, device)
@@ -449,9 +503,20 @@ class GBDT:
         if md.init_score is not None:
             self.score += torch.as_tensor(train_set.padded(
                 md.init_score.astype(np.float32)), device=device)
-        objective.init(md.label, md.weight, md.query_boundaries)
+        if objective is not None:
+            objective.init(md.label, md.weight, md.query_boundaries)
         self._fast: Optional[_FastState] = None
+        # False once a rollback has synced the payload's scores back to
+        # self.score; the next iteration rebuilds the payload from them
+        self._fast_active = False
         self.grower = None
+        # the f32 grower of custom-gradient trees under
+        # gradient_quantization (made on first use)
+        self._grower_f32 = None
+        # the sync snapshot taken before a custom objective's score fetch,
+        # counted with the iteration's first tree
+        self._iter_before = None
+        self._warned_quant_custom = False
 
         # the JAX package's per-subsystem host RNG streams (bagging,
         # feature sampling), so both packages draw the same bags and
@@ -463,6 +528,16 @@ class GBDT:
             seed + int(config.feature_fraction_seed), 2))
         self.bag_mask_host = train_set.valid_row_mask()
         self._boosted_from_average = False
+
+        if self.num_init_iteration > 0:
+            # continued training: every loaded tree's thresholds mapped
+            # onto this dataset's bins, tree i replayed onto plane i % K
+            # over the training bins on the device, before the payload is
+            # built from self.score (no blocking host read)
+            bins = self._bins_on_device(self.train_set)
+            for i, tree in enumerate(self.model.trees):
+                tree.set_bin_thresholds(train_set.bin_mappers)
+                self._add_tree_to_score(bins, self.score, tree, i % K)
 
     @staticmethod
     def _hist_pool_slots(config, train_set: BinnedDataset) -> int:
@@ -491,7 +566,6 @@ class GBDT:
         cfg, ds = self.config, self.train_set
         unsupported = [
             (str(cfg.boosting) != "gbdt", "boosting=%s" % cfg.boosting),
-            (self.objective is None, "a custom objective"),
             (str(cfg.tree_learner) != "serial",
              "tree_learner=%s" % cfg.tree_learner),
             (bool(cfg.forcedsplits_filename), "forced splits"),
@@ -518,9 +592,7 @@ class GBDT:
         tree: its bins go to the device, every existing tree is replayed
         onto its class plane (tree i onto plane i % K), and the metrics
         are initialised on its labels, weights and query groups."""
-        bins = valid.bins if valid.bins.dtype == np.uint8 \
-            else valid.bins.astype(np.int32)
-        bins_v = torch.as_tensor(bins, device=self.device)
+        bins_v = self._bins_on_device(valid)
         K = self.num_tree_per_iteration
         score_v = torch.zeros((K, valid.num_data_padded), dtype=torch.float32,
                               device=self.device)
@@ -535,14 +607,26 @@ class GBDT:
                    valid.metadata.query_boundaries)
         self.valid_sets.append([name, valid, bins_v, score_v, metrics])
 
+    def _bins_on_device(self, ds: BinnedDataset) -> torch.Tensor:
+        """A binned set's [G, n_pad] bins on the device, in original row
+        order, for the traversal (a validation set's, or the training
+        set's for a replay: the payload's bin columns ride the
+        partition)."""
+        return torch.as_tensor(ds.bins if ds.bins.dtype == np.uint8
+                               else ds.bins.astype(np.int32),
+                               device=self.device)
+
     def _add_tree_to_score(self, bins_v: torch.Tensor, score_v: torch.Tensor,
-                           tree: Tree, k: int = 0) -> None:
+                           tree: Tree, k: int = 0,
+                           negate: bool = False) -> None:
+        """score_v[k] += tree(bins_v) (-= with `negate`: rollback)."""
         if tree.num_leaves <= 1:
-            score_v[k] += np.float32(tree.leaf_value[0])
+            v = np.float32(tree.leaf_value[0])
+            score_v[k] += -v if negate else v
             return
         tree_dev, leaf_out = self._tree_to_device(tree)
-        _traverse_add(bins_v, score_v, leaf_out, tree_dev, self.meta,
-                      self._bmap, _depth_iters(tree), k)
+        _traverse_add(bins_v, score_v, -leaf_out if negate else leaf_out,
+                      tree_dev, self.meta, self._bmap, _depth_iters(tree), k)
 
     def _tree_to_device(self, tree: Tree):
         """Device arrays for the bin-level traversal of a host tree (the
@@ -583,31 +667,45 @@ class GBDT:
     # -- one boosting iteration (gbdt.cpp:387-482) ---------------------------
     def train_one_iter(self, grad=None, hess=None) -> bool:
         """One iteration: K trees (one per class, in order), each from the
-        snapshot of the pre-iteration scores.  Training stops once every
+        snapshot of the pre-iteration scores, or from a custom objective's
+        class-major [K * num_data] `grad` / `hess` (the JAX package's
+        _pad_custom_gradients layout).  Training stops once every
         class's tree of an iteration is a stump (the JAX package's
         should_continue); a stump is kept in the model and moves no score
         plane."""
+        custom = None
         if grad is not None or hess is not None:
-            raise NotImplementedError(
-                "custom gradients are not ported to the PyTorch package yet")
-        init_score = self._boost_from_average()
+            custom = self._upload_custom_gradients(grad, hess)
+            init_score = 0.0
+        elif self.objective is None:
+            raise LightGBMError("objective=none trains on the gradients of "
+                                "a custom objective (update(fobj=...))")
+        else:
+            init_score = self._boost_from_average()
         if self._fast is None:
             self._fast = _FastState(self, self.score)
             self.grower = make_partitioned_grower(
                 self.meta, self.grower_cfg, self.train_set.max_num_bin,
                 self._fast.cols, self.train_set.num_features)
+        elif not self._fast_active:
+            self._fast.reset(self, self.score)
+        self._fast_active = True
         fs = self._fast
         fmask = self._feature_sample()
         self._refresh_bag(fs)
         fs.snap_scores()
         should_continue = False
+        before, self._iter_before = self._iter_before, None
         for k in range(self.num_tree_per_iteration):
-            tree = self._train_tree(fs, fmask, init_score, k)
+            tree = self._train_tree(fs, fmask, init_score, k, custom,
+                                    before if k == 0 else None)
             self.model.trees.append(tree)
-            if tree.num_leaves > 1 or self.num_tree_per_iteration == 1:
+            if tree.num_leaves > 1 or (self.num_tree_per_iteration == 1
+                                       and custom is None):
                 # K = 1 folds the boost-from-average score into the first
                 # tree's leaves, so its stump still carries it to the
-                # validation scores
+                # validation scores (the JAX package's masked path, which
+                # trains custom gradients, adds no stump)
                 for vs in self.valid_sets:
                     self._add_tree_to_score(vs[2], vs[3], tree, k)
             should_continue |= tree.num_leaves > 1
@@ -618,18 +716,60 @@ class GBDT:
             return True
         return False
 
+    def _upload_custom_gradients(self, grad, hess):
+        """A custom objective's class-major gradients -> [K, n_pad] f32 on
+        the device (padded rows 0), up from pinned memory with no blocking
+        sync.  Under gradient_quantization the trees train in f32, with the
+        JAX package's warning (its masked grower, which trains custom
+        gradients, does not quantize)."""
+        K, n = self.num_tree_per_iteration, self.train_set.num_data
+        if self._qmax and not self._warned_quant_custom:
+            Log.warning("gradient_quantization rides the fast path only; "
+                        "this iteration trains with f32 gradients")
+            self._warned_quant_custom = True
+        out = []
+        for a in (grad, hess):
+            t = torch.zeros((K, self.train_set.num_data_padded),
+                            dtype=torch.float32)
+            t[:, :n] = torch.from_numpy(
+                np.asarray(a, np.float32).reshape(K, n))
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            out.append(t)
+        return tuple(out)
+
+    def _f32_grower(self):
+        """The grower of custom-gradient trees: the training grower, or
+        under gradient_quantization an f32 one of the same shape."""
+        if not self._qmax:
+            return self.grower
+        if self._grower_f32 is None:
+            self._grower_f32 = make_partitioned_grower(
+                self.meta, self.grower_cfg._replace(quantized=False, qmax=0),
+                self.train_set.max_num_bin, self._fast.cols,
+                self.train_set.num_features)
+        return self._grower_f32
+
     def _train_tree(self, fs: _FastState, fmask: torch.Tensor,
-                    init_score: float, k: int) -> Tree:
+                    init_score: float, k: int, custom=None,
+                    before=None) -> Tree:
         """Class k's tree: the fused step (gradients -> grow -> score
         add, with no host read until the tree's one fetch), then the
-        host's Tree."""
-        before = syncs.snapshot()
+        host's Tree.  `before` is a sync snapshot taken earlier (a custom
+        objective's score fetch), counted with this tree."""
+        if before is None:
+            before = syncs.snapshot()
         lr = self.shrinkage_rate
         # leaf-output renewal (RenewTreeOutput, serial_tree_learner.cpp
         # :780-818) needs the pre-update scores: its trees grow without
         # the fused score add
-        renew = self.objective.renew_tree_output_required()
-        if self._qmax:
+        renew = self.objective is not None \
+            and self.objective.renew_tree_output_required()
+        if custom is not None:
+            hist_scale = fs.fill_gradients(self.objective, k, custom=custom)
+            out, fs.payload, fs.aux = self._f32_grower()(
+                fs.payload, fs.aux, fmask, hist_scale=hist_scale)
+        elif self._qmax:
             # one generator per (iteration, class), seeded on the JAX
             # schedule, so reruns on one device quantize identically
             gen = torch.Generator(device=self.device)
@@ -684,7 +824,8 @@ class GBDT:
         drawn from the bagging stream; between resamples, the last bag."""
         cfg = self.config
         n = self.train_set.num_data
-        if it % cfg.bagging_freq == 0:
+        if cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0 \
+                and it % cfg.bagging_freq == 0:
             idx = self.bagging_rng.sample(n, int(n * cfg.bagging_fraction))
             mask = np.zeros(self.train_set.num_data_padded, np.float32)
             mask[idx] = 1.0
@@ -694,17 +835,22 @@ class GBDT:
     def _refresh_bag(self, fs: _FastState) -> None:
         """Bagging (gbdt.cpp:213-295) through the count column every grower
         mode reads (the JAX package's _fast_refresh_bag): the column rides
-        the partition, so only a resample refreshes it (the payload is
-        built at iteration 0, which resamples)."""
+        the partition, so only a resample, or a payload rebuilt after a
+        rollback (`fs.bag_dirty`: its count column is the plain valid
+        mask), refreshes it."""
         cfg = self.config
-        if cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0 \
-                and self.iter % cfg.bagging_freq == 0:
-            fs.set_bag(self._bagging_host(self.iter))
+        if not (cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0):
+            return
+        resampled = self.iter % cfg.bagging_freq == 0
+        bag = self._bagging_host(self.iter)
+        if resampled or fs.bag_dirty:
+            fs.set_bag(bag)
+            fs.bag_dirty = False
 
     def _boost_from_average(self) -> float:
         if self._boosted_from_average or self.model.current_iteration > 0 \
                 or self.train_set.metadata.init_score is not None \
-                or self.num_class > 1:
+                or self.num_class > 1 or self.objective is None:
             return 0.0
         self._boosted_from_average = True
         if not bool(self.config.boost_from_average):
@@ -806,14 +952,56 @@ class GBDT:
             return None
         return self.split_rounds_total / self.trees_finished
 
+    # -- rollback and parameter reset (gbdt.py:2005-2038 of the JAX package)
+    def reset_config(self, new_params: Dict) -> None:
+        """Booster::ResetConfig: the new values take effect on the next
+        iteration.  The grower's configuration is built once, so what
+        moves is what the engine reads every iteration: the learning rate
+        (the shrinkage), bagging and feature fraction."""
+        from ..config import Config
+        self.config.set(new_params)
+        if any(Config.resolve_alias(k) == "learning_rate"
+               for k in new_params):
+            self.shrinkage_rate = float(self.config.learning_rate)
+
+    def rollback_one_iter(self) -> None:
+        """RollbackOneIter (gbdt.cpp:484-500): leave the payload (its
+        scores scattered back to original order on the device), subtract
+        each class tree of the last iteration from the training scores and
+        from every validation set by the bin-level traversal with negated
+        leaf outputs, drop the trees.  The next iteration rebuilds the
+        payload in its storage and applies the bag again."""
+        if self.iter <= 0:
+            return
+        if self._fast_active:
+            self.score = self._fast.original_scores()
+            self._fast_active = False
+        bins = self._bins_on_device(self.train_set)
+        for k in reversed(range(self.num_tree_per_iteration)):
+            tree = self.model.trees.pop()
+            if tree.num_leaves <= 1:
+                continue
+            self._add_tree_to_score(bins, self.score, tree, k, negate=True)
+            for vs in self.valid_sets:
+                self._add_tree_to_score(vs[2], vs[3], tree, k, negate=True)
+        self.iter -= 1
+
     # -- evaluation ----------------------------------------------------------
-    def raw_train_score(self) -> np.ndarray:
-        """[K, num_data] training scores (host)."""
-        if self._fast is None:
-            raw = syncs.device_get(self.score, label="eval_fetch")
+    def raw_train_score(self, label: str = "eval_fetch") -> np.ndarray:
+        """[K, num_data] training scores (host; one blocking fetch under
+        `label`)."""
+        if self._fast_active:
+            raw = self._fast.raw_scores(label)
         else:
-            raw = self._fast.raw_scores()
+            raw = syncs.device_get(self.score, label=label)
         return raw[:, : self.train_set.num_data]
+
+    def custom_objective_scores(self) -> np.ndarray:
+        """The training scores a custom objective is called on: one
+        blocking fetch under its own label (`fobj_fetch`), counted with
+        the next iteration's first tree, whose own fetch makes two."""
+        self._iter_before = syncs.snapshot()
+        return self.raw_train_score("fobj_fetch")
 
     @staticmethod
     def _metric_input(raw: np.ndarray, m) -> np.ndarray:

@@ -1,8 +1,8 @@
 """Training callbacks.
 
 Role parity with the reference python-package/lightgbm/callback.py:
-print/log evaluation, record evaluation, early stopping via
-EarlyStopException.
+print/log evaluation, record evaluation, parameter schedules
+(reset_parameter), early stopping via EarlyStopException.
 """
 from __future__ import annotations
 
@@ -65,6 +65,32 @@ def record_evaluation(eval_result: Dict) -> Callable:
             eval_result[name].setdefault(metric, [])
             eval_result[name][metric].append(value)
     _callback.order = 20
+    return _callback
+
+
+def reset_parameter(**kwargs) -> Callable:
+    """Before each iteration, set each named parameter from its schedule:
+    a list of one value per round, or a function of the iteration.  cv()
+    passes a CVBooster; every fold's booster gets the values."""
+    def _callback(env: CallbackEnv) -> None:
+        new_params = {}
+        for key, value in kwargs.items():
+            if isinstance(value, list):
+                if len(value) != env.end_iteration - env.begin_iteration:
+                    raise ValueError("Length of list %r has to be equal to "
+                                     "'num_boost_round'" % key)
+                new_params[key] = value[env.iteration - env.begin_iteration]
+            elif callable(value):
+                new_params[key] = value(env.iteration - env.begin_iteration)
+            else:
+                raise ValueError("Only list and callable values are "
+                                 "supported as a parameter schedule")
+        if new_params:
+            for bst in getattr(env.model, "boosters", [env.model]):
+                bst.reset_parameter(new_params)
+            env.params.update(new_params)
+    _callback.before_iteration = True
+    _callback.order = 10
     return _callback
 
 

@@ -1,7 +1,9 @@
 """Objective factory — reference src/objective/objective_function.cpp:10-47.
 
 Every name of the JAX package's registry is registered, so every model
-text it writes loads and predicts, and every one trains."""
+text it writes loads and predicts, and every one trains.  "none" (what a
+custom objective sets) makes no objective: the trainer takes the caller's
+gradients and the metrics read raw scores."""
 from __future__ import annotations
 
 from ..utils.log import Log

@@ -5,6 +5,7 @@ renewal input for input, and the grower modes and quantized reruns under
 bagging byte for byte."""
 import numpy as np
 import pytest
+import torch
 
 import lightgbm_tpu as lj
 import lightgbm_tpu_torch as lt
@@ -14,6 +15,10 @@ from test_torch_categorical_train import TRAIN, _assert_models_alike
 from test_torch_categorical_train import _train_data as _cat_data
 from test_torch_regression_train import (_assert_leaves_close, _data,
                                          _params, _weights)
+
+# one intra-op thread: the pytest-xdist workers share the cores, and
+# torch's OpenMP regions spin in their barriers when oversubscribed
+torch.set_num_threads(1)
 
 N, ROUNDS = 2000, 5
 #: min_gain_to_split: a leaf whose bagged rows share one label has a

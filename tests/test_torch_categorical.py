@@ -20,6 +20,10 @@ from lightgbm_tpu_torch.boosting import grower2 as tgrower2
 from lightgbm_tpu_torch.ops import split as tsplit
 from lightgbm_tpu_torch.ops.quantize import derive_qmax
 
+# one intra-op thread: the pytest-xdist workers share the cores, and
+# torch's OpenMP regions spin in their barriers when oversubscribed
+torch.set_num_threads(1)
+
 # -- the split search on the same histograms -------------------------------
 
 F, B = 6, 64

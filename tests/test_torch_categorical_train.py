@@ -7,9 +7,14 @@ model text across packages; and the validation traversal against predict
 and against the JAX package's."""
 import numpy as np
 import pytest
+import torch
 
 import lightgbm_tpu as lj
 import lightgbm_tpu_torch as lt
+
+# one intra-op thread: the pytest-xdist workers share the cores, and
+# torch's OpenMP regions spin in their barriers when oversubscribed
+torch.set_num_threads(1)
 
 TN = 3000
 TRAIN = dict(objective="binary", num_leaves=15, max_bin=63, learning_rate=0.1,

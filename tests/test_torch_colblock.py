@@ -34,6 +34,10 @@ from lightgbm_tpu.ops import pallas_segment as pseg
 from lightgbm_tpu.ops import segment as jseg
 from lightgbm_tpu_torch.ops import segment as tseg
 
+# one intra-op thread: the pytest-xdist workers share the cores, and
+# torch's OpenMP regions spin in their barriers when oversubscribed
+torch.set_num_threads(1)
+
 SOURCE = (Path(__file__).resolve().parent.parent / "lightgbm_tpu_torch"
           / "csrc" / "segment_hist_colblock.cu").read_text()
 

@@ -27,6 +27,10 @@ from lightgbm_tpu_torch.runtime import syncs as tsyncs
 from test_torch_grower import (CASES, F, _assert_trees_match, _grower_kw,
                                _payload, _problem, _quantize_columns)
 
+# one intra-op thread: the pytest-xdist workers share the cores, and
+# torch's OpenMP regions spin in their barriers when oversubscribed
+torch.set_num_threads(1)
+
 #: the host reads of a tensor's value that grow() must not make
 READS = ("item", "cpu", "numpy", "tolist", "__bool__", "__int__",
          "__float__", "__index__")

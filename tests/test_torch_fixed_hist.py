@@ -23,6 +23,10 @@ from lightgbm_tpu.ops import segment as jseg
 from lightgbm_tpu_torch.ops import cuda_segment as cs
 from lightgbm_tpu_torch.ops import segment as tseg
 
+# one intra-op thread: the pytest-xdist workers share the cores, and
+# torch's OpenMP regions spin in their barriers when oversubscribed
+torch.set_num_threads(1)
+
 F, B = 6, 16
 COLS = dict(grad_col=F, hess_col=F + 1, cnt_col=F + 2)
 HK = dict(num_features=F, num_bins=B, **COLS)

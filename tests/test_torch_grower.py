@@ -14,6 +14,10 @@ from lightgbm_tpu.ops import segment as jseg
 from lightgbm_tpu_torch import convert
 from lightgbm_tpu_torch.boosting import grower2 as tgrower2
 
+# one intra-op thread: the pytest-xdist workers share the cores, and
+# torch's OpenMP regions spin in their barriers when oversubscribed
+torch.set_num_threads(1)
+
 N, F = 1500, 6
 
 

@@ -30,6 +30,10 @@ from test_torch_segment import (B, COLS, F, VALUE_COL, _jax_pred, _payload,
                                 _pred_fields)
 from test_torch_train import _assert_same_structure, _data, _train_both
 
+# one intra-op thread: the pytest-xdist workers share the cores, and
+# torch's OpenMP regions spin in their barriers when oversubscribed
+torch.set_num_threads(1)
+
 # the segments of tests/test_pallas_segment.py:234-236
 SEGMENTS = [(0, 1000), (256, 700), (100, 37), (513, 256), (7, 1), (0, 0)]
 # numerical, NaN-missing and zero-missing routing, with default_left

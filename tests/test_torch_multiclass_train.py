@@ -23,6 +23,10 @@ from lightgbm_tpu_torch.objective import create_objective as t_create
 
 from test_torch_train import _assert_same_structure
 
+# one intra-op thread: the pytest-xdist workers share the cores, and
+# torch's OpenMP regions spin in their barriers when oversubscribed
+torch.set_num_threads(1)
+
 N, F, K, ROUNDS = 1500, 8, 3, 3
 PARAMS = dict(num_class=K, num_leaves=7, max_bin=63, learning_rate=0.1,
               verbose=-1, metric=["multi_logloss", "multi_error"])

@@ -19,6 +19,10 @@ from lightgbm_tpu_torch.config import Config as TConfig
 from lightgbm_tpu_torch.objective import create_objective as t_create
 from lightgbm_tpu_torch.objective import regression as treg
 
+# one intra-op thread: the pytest-xdist workers share the cores, and
+# torch's OpenMP regions spin in their barriers when oversubscribed
+torch.set_num_threads(1)
+
 N, PAD = 700, 68
 #: objectives whose labels pass through reg_sqrt (the others disable it)
 SQRT = ("regression", "regression_l1", "fair", "quantile", "mape")

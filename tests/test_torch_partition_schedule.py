@@ -44,6 +44,10 @@ from hypothesis import HealthCheck, given, settings, strategies as st
 from lightgbm_tpu.ops import segment as jseg
 from lightgbm_tpu_torch.ops import segment as tseg
 
+# one intra-op thread: the pytest-xdist workers share the cores, and
+# torch's OpenMP regions spin in their barriers when oversubscribed
+torch.set_num_threads(1)
+
 F, B = 5, 16
 P = F + 4
 VALUE_COL = F + 3

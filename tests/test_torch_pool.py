@@ -20,6 +20,10 @@ from test_torch_grower import (CASES, _assert_trees_match, _grow_both,
                                _quantize_columns)
 from test_torch_train import _assert_same_structure
 
+# one intra-op thread: the pytest-xdist workers share the cores, and
+# torch's OpenMP regions spin in their barriers when oversubscribed
+torch.set_num_threads(1)
+
 # the fault's input: 3000 x 6 weighted rows from numpy seed 0, 31 leaves,
 # 3 rounds; 0.01 MB gives the JAX package 2 pool slots
 N, F = 3000, 6

@@ -23,6 +23,10 @@ from lightgbm_tpu_torch.models import device_predictor as tdpr
 from lightgbm_tpu_torch.models.device_predictor import DevicePredictor as TDP
 from lightgbm_tpu_torch.objective import _REGISTRY as T_REGISTRY
 
+# one intra-op thread: the pytest-xdist workers share the cores, and
+# torch's OpenMP regions spin in their barriers when oversubscribed
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-6          # device vs host (the JAX test's rule)
 X_RTOL, X_ATOL = 1e-6, 1e-6      # the port's engine vs the JAX engine
 N = 400

@@ -14,6 +14,10 @@ from lightgbm_tpu.ops.split import dequantize_hist as jdequantize_hist
 from lightgbm_tpu_torch.ops import quantize as tq
 from lightgbm_tpu_torch.ops.split import dequantize_hist
 
+# one intra-op thread: the pytest-xdist workers share the cores, and
+# torch's OpenMP regions spin in their barriers when oversubscribed
+torch.set_num_threads(1)
+
 
 def _gen(seed):
     g = torch.Generator()

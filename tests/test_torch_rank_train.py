@@ -23,6 +23,10 @@ from lightgbm_tpu_torch.objective import rank as trank
 from test_rank import _synth_rank, reference_lambdas
 from test_torch_train import _assert_same_structure
 
+# one intra-op thread: the pytest-xdist workers share the cores, and
+# torch's OpenMP regions spin in their barriers when oversubscribed
+torch.set_num_threads(1)
+
 #: query sizes crossing the size classes (1, 2, powers of two and one
 #: past them) and one query far longer than the rest
 SIZES = [7, 1, 12, 5, 9, 33, 2, 64, 65, 16, 17, 130]

@@ -8,6 +8,7 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
 import lightgbm_tpu as lj
 import lightgbm_tpu_torch as lt
@@ -16,6 +17,10 @@ from lightgbm_tpu_torch.boosting import grower2 as tgrower2
 from lightgbm_tpu_torch.ops import cuda_segment
 
 from test_torch_train import _assert_same_structure
+
+# one intra-op thread: the pytest-xdist workers share the cores, and
+# torch's OpenMP regions spin in their barriers when oversubscribed
+torch.set_num_threads(1)
 
 N, F, ROUNDS = 2000, 8, 5
 PARAMS = dict(num_leaves=31, max_bin=63, learning_rate=0.1, verbose=-1)

@@ -14,6 +14,10 @@ from lightgbm_tpu_torch.ops import bundle as tbundle
 from lightgbm_tpu_torch.ops import cuda_segment
 from lightgbm_tpu_torch.ops import segment as tseg
 
+# one intra-op thread: the pytest-xdist workers share the cores, and
+# torch's OpenMP regions spin in their barriers when oversubscribed
+torch.set_num_threads(1)
+
 F, B = 5, 16
 COLS = dict(grad_col=F, hess_col=F + 1, cnt_col=F + 2)
 VALUE_COL = F + 3

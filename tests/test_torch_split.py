@@ -13,6 +13,10 @@ from lightgbm_tpu_torch.config import Config as TConfig
 from lightgbm_tpu_torch.objective.binary import BinaryLogloss as TBinary
 from lightgbm_tpu_torch.ops import split as tsplit
 
+# one intra-op thread: the pytest-xdist workers share the cores, and
+# torch's OpenMP regions spin in their barriers when oversubscribed
+torch.set_num_threads(1)
+
 F, B = 7, 32
 
 KW = dict(l1=0.0, l2=0.0, max_delta_step=0.0, min_data_in_leaf=5,

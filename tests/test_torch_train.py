@@ -15,6 +15,10 @@ import lightgbm_tpu as lj
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch import convert
 
+# one intra-op thread: the pytest-xdist workers share the cores, and
+# torch's OpenMP regions spin in their barriers when oversubscribed
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "lightgbm_tpu_torch"
 

@@ -5,10 +5,15 @@ validation set added after training has started (its scores replay the
 existing trees)."""
 import numpy as np
 import pytest
+import torch
 
 import lightgbm_tpu as lj
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu.callback import record_evaluation
+
+# one intra-op thread: the pytest-xdist workers share the cores, and
+# torch's OpenMP regions spin in their barriers when oversubscribed
+torch.set_num_threads(1)
 
 N, F = 2000, 8
 PARAMS = dict(objective="binary", num_leaves=15, max_bin=63,

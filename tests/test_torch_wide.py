@@ -19,6 +19,10 @@ from lightgbm_tpu_torch.ops.segment import SplitPredicate as TPred
 
 from test_torch_train import _assert_same_structure
 
+# one intra-op thread: the pytest-xdist workers share the cores, and
+# torch's OpenMP regions spin in their barriers when oversubscribed
+torch.set_num_threads(1)
+
 B = 16
 
 
