@@ -150,6 +150,29 @@ rows, 5 iterations (the keys, each fold's last valid logloss against its
 booster's prediction of its test rows within 1e-5, every fold's B1 and
 B2 launches); refit of the main model on the held-out rows (decay 1
 keeps every leaf, the default decay lowers their logloss).
+Boosting variants, forced splits and monotone constraints, on the main
+path's binned data (B1 and B2 and no other kernel, one blocking sync a
+tree, a repeat check each): boosting=goss (top_rate 0.2, other_rate 0.1,
+15 iterations, the last 5 sampled; the first sampled iteration's gweight
+and count columns against a numpy selection of the fetched gradients
+with the host's threefry, bit for bit, top_k + other_k rows give or
+take the ties, the selection's device ms; AUC above 0.8), then GOSS on
+the covtype-shaped data (K 7, lr 0.5, 4 iterations, its
+once-an-iteration selection checked alike); boosting=dart with its
+defaults (the drop lists against a host replay of Random(4), the
+training scores of the first 100,000 rows and the validation scores
+against predict(raw_score=True) within 1e-5 of max(1, |raw|), the drop
+replay's device ms an iteration); boosting=rf (bagging_fraction 0.632,
+bagging_freq 1, feature_fraction 0.7; the scores against the averaged
+predict, AUC above 0.8, the fold's device ms); forcedsplits_filename with
+the root and both children forced on features 0, 1 and 2 at their
+median bin edges (every tree's first three nodes, real gains), and a
+left child made infeasible under min_data_in_leaf=20,000 (it falls back,
+the right child stays forced); monotone_constraints +1 on features 0-3
+and -1 on 4-5 (the walk over every dumped tree, a 64-point sweep of
+each constrained feature for 1,000 held-out rows, tpu_frontier_batch=8
+writing the same model text); DART and RF continued for 5 iterations
+from 5 saved ones (the loaded trees' text, the running average).
 Every phase always runs and prints one line, prefixed with the seconds
 since start; any failed check exits non-zero.  The last line is the
 device record {"ok": true, "device": {...}}.  Imports nothing of JAX or
@@ -196,6 +219,12 @@ try:  # ... or the device predictor
     from lightgbm_tpu_torch.runtime import syncs  # noqa: E402
 except ImportError:
     device_predictor = syncs = None
+try:  # ... or the boosting variants
+    from lightgbm_tpu_torch.boosting import variants  # noqa: E402
+    from lightgbm_tpu_torch.utils import threefry  # noqa: E402
+except ImportError:
+    variants = threefry = None
+from lightgbm_tpu_torch.utils.random import Random  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and
 # f32 (non-tensor-core) operations/s
@@ -1821,10 +1850,13 @@ def train_path(name: str, ds, Xv, yv, params: dict, iters: int,
           % (name, {k: launches[k] for k in WIDE_ONLY}))
     t0 = time.perf_counter()
     # predict(Xv) is convert_output of these raw scores (a custom
-    # objective's model predicts them as they are)
+    # objective's model predicts them as they are, a forest their average)
     raw = bst.predict(Xv, raw_score=True)
-    pred = raw if bst._objective is None \
-        else bst._objective.convert_output(raw)
+    if bst._model.average_output:
+        pred = raw / bst._model.num_prediction_iterations()
+    else:
+        pred = raw if bst._objective is None \
+            else bst._objective.convert_output(raw)
     t_pred = time.perf_counter() - t0
     K = bst._model.num_tree_per_iteration
     check(pred.shape == ((len(yv),) if K == 1 else (len(yv), K))
@@ -4511,6 +4543,644 @@ def rank_phase(seed: int, iters: int, main_run: dict, smi: str):
     return launches, b1
 
 
+# ---------------------------------------------------------------------------
+# phases: boosting variants, forced splits, monotone constraints
+# ---------------------------------------------------------------------------
+
+#: GOSS on the main path's data: the warm-up lasts int(1 / 0.1) = 10
+#: iterations, so the last 5 sample
+GOSS_ITERS = 15
+GOSS_PARAMS = dict(boosting="goss", top_rate=0.2, other_rate=0.1)
+#: covtype-shaped GOSS: learning_rate 0.5 makes the warm-up 2 iterations
+GOSS_K7_ITERS, GOSS_K7_LR = 4, 0.5
+#: tests/test_continued_training.py:126-127's forest
+RF_PARAMS = dict(boosting="rf", bagging_fraction=0.632, bagging_freq=1,
+                 feature_fraction=0.7)
+#: the monotone phase's constraints: +1 on features 0-3, -1 on 4-5
+MONOTONE = (1, 1, 1, 1, -1, -1)
+MONO_SWEEP_POINTS, MONO_SWEEP_ROWS = 64, 1000
+#: the training rows whose fetched scores are held to the host's predict
+SCORE_ROWS = 100_000
+#: the fallback JSON's min_data_in_leaf: its left child's forced
+#: threshold (feature 1's first bin edge) leaves fewer rows than this
+FORCED_FALLBACK_MIN_DATA = 20_000
+
+
+def goss_masks_numpy(g, h, valid, key, top_k: int, other_k: int,
+                     multiply: float):
+    """The plain version of GOSS's selection (variants.goss_masks) in
+    numpy on the host: the classes' |g h| summed in class order, the
+    top_k-th largest as the threshold (ties in), the other_k-th smallest
+    of the threefry uniforms over the rest (ties in), the amplification
+    f32(multiply).  Returns (gradient weight, count mask, rows tied at
+    the threshold, rows tied at the other_k-th uniform)."""
+    prod = np.abs(g * h)
+    gh = prod[0].copy()
+    for k in range(1, len(prod)):
+        gh = gh + prod[k]
+    gh = np.where(valid, gh, np.float32(-np.inf)).astype(np.float32)
+    thresh = np.sort(gh)[::-1][top_k - 1]
+    is_top = valid & (gh >= thresh)
+    rest = valid & ~is_top
+    r = np.where(rest, threefry.uniform_numpy(key, len(gh)),
+                 np.float32(np.inf)).astype(np.float32)
+    kth = np.sort(r)[other_k - 1]
+    sampled = rest & (r <= kth)
+    gw = np.where(is_top, np.float32(1.0),
+                  np.where(sampled, np.float32(multiply),
+                           np.float32(0.0))).astype(np.float32)
+    return (gw, (is_top | sampled).astype(np.float32),
+            int(np.sum(valid & (gh == thresh))),
+            int(np.sum(rest & (r == kth))))
+
+
+@contextlib.contextmanager
+def goss_recorder(iteration: int, into: dict):
+    """Inside the block, GOSS's fill of class 0 at `iteration` records on
+    the card what its selection read (every class's g and h times the
+    pristine valid column, the valid column, the key and the counts) and
+    what it wrote (the gweight and count columns, before the tree moves
+    the rows); every other fill runs as it is."""
+    real = variants.GOSS._fill
+
+    def fill(self, fs, k):
+        if self.iter != iteration or k != 0 or "gw" in into:
+            return real(self, fs, k)
+        g, h = fs.all_gradients(self.objective)
+        valid = fs.payload[:, fs.bvalid_col].clone()
+        rec = dict(key=self.sample_key(), top_k=self._goss_top_k,
+                   other_k=self._goss_other_k,
+                   multiply=self._goss_multiply, g=g * valid, h=h * valid,
+                   valid=valid)
+        out = real(self, fs, k)
+        rec.update(gw=fs.payload[:, fs.gweight_col].clone(),
+                   cm=fs.payload[:, fs.cnt_col].clone())
+        into.update(rec)
+        return out
+
+    variants.GOSS._fill = fill
+    try:
+        yield
+    finally:
+        variants.GOSS._fill = real
+
+
+def goss_mask_check(label: str, rec: dict) -> str:
+    """The card's selection of one sampled iteration (goss_recorder)
+    against goss_masks_numpy of the fetched gradients and the host's
+    threefry, bit for bit; the selected count top_k + other_k give or
+    take the ties; the selection's device ms on the recorded inputs."""
+    check("gw" in rec, "%s: no sampled iteration was recorded" % label)
+    g, h, valid, gw, cm = (rec[k].cpu().numpy()
+                           for k in ("g", "h", "valid", "gw", "cm"))
+    top_k, other_k = rec["top_k"], rec["other_k"]
+    ref_gw, ref_cm, tie_top, tie_other = goss_masks_numpy(
+        g, h, valid > 0, rec["key"], top_k, other_k, rec["multiply"])
+    check(np.array_equal(gw.view(np.int32), ref_gw.view(np.int32))
+          and np.array_equal(cm.view(np.int32), ref_cm.view(np.int32)),
+          "%s: the card's gweight / count columns differ from the host's "
+          "selection in %d / %d rows" % (label, int(np.sum(gw != ref_gw)),
+                                         int(np.sum(cm != ref_cm))))
+    kept = int(cm.sum())
+    excess = kept - (top_k + other_k)
+    check(0 <= excess <= max(tie_top - 1, 0) + max(tie_other - 1, 0),
+          "%s: %d rows selected, top_k + other_k = %d, ties %d + %d"
+          % (label, kept, top_k + other_k, tie_top, tie_other))
+    valid_t = rec["valid"] > 0
+    ms = time_ms(lambda: variants.goss_masks(
+        rec["g"], rec["h"], valid_t, rec["key"], top_k, other_k,
+        rec["multiply"]), 20)
+    return ("selection bit for bit against the host's (K %d, %d rows, key "
+            "%s): %d selected = top_k %d + other_k %d + %d tied, %d rows "
+            "amplified by %.6f; the selection %.4f device ms"
+            % (g.shape[0], g.shape[1], list(rec["key"]), kept, top_k,
+               other_k, excess, int(np.sum(gw > 1.0)), rec["multiply"], ms))
+
+
+class EventTimer:
+    """Device ms spent between the start and the end of calls to a
+    method, by CUDA events recorded around each call (no host wait); read
+    after a synchronize.  `after(obj)` runs after each call, on the
+    object the method was called on."""
+
+    def __init__(self, cls, name: str, after=None):
+        self.cls, self.name, self.pairs = cls, name, []
+        self.real, self.after = getattr(cls, name), after
+
+    def __enter__(self):
+        real, pairs, after = self.real, self.pairs, self.after
+
+        def timed(obj, *args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(obj, *args, **kwargs)
+            end.record()
+            pairs.append((start, end))
+            if after is not None:
+                after(obj)
+            return out
+
+        setattr(self.cls, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.real)
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+def launches_of(r: dict) -> str:
+    return "B1 %d, B2 %d launches" % (r["launches"]["segment_histogram"],
+                                      r["launches"]["partition_segment"])
+
+
+def b1_b2_ran(label: str, launches: dict, trees: int) -> None:
+    check(launches["segment_histogram"] >= trees
+          and launches["partition_segment"] > 0,
+          "%s: B1 / B2 launched %d / %d times" % (
+              label, launches["segment_histogram"],
+              launches["partition_segment"]))
+    idle = [k for k in COUNTED if k not in ("segment_histogram",
+                                            "partition_segment")]
+    check(not any(launches[k] for k in idle), "%s launched %s"
+          % (label, {k: launches[k] for k in idle if launches[k]}))
+
+
+def scores_match(label: str, bst, X, raw_train, average: bool) -> float:
+    """The fetched training scores of the first SCORE_ROWS rows against
+    the host's predict of them (averaged for a forest, raw otherwise)
+    within 1e-5 of max(1, |raw|); returns the largest such error."""
+    n = min(SCORE_ROWS, len(X))
+    ref = bst.predict(X[:n]) if average else bst.predict(X[:n],
+                                                         raw_score=True)
+    err = float(np.max(np.abs(raw_train[:n] - ref)
+                       / np.maximum(1.0, np.abs(ref))))
+    check(err <= 1e-5, "%s: training scores vs predict, %.3g" % (label, err))
+    return err
+
+
+def valid_match(label: str, bst, raw_valid, ref) -> float:
+    err = float(np.max(np.abs(raw_valid - ref)
+                       / np.maximum(1.0, np.abs(ref))))
+    check(err <= 1e-5, "%s: validation scores vs predict, %.3g"
+          % (label, err))
+    return err
+
+
+def replay_cost(bst) -> tuple:
+    """Device microseconds and kernels of one replay of the model's last
+    tree over the payload's own bin columns (`payload_tree_add`, the
+    edit of DART's drops and RF's fold), kernels only (torch.profiler
+    over 10 replays that add 0 to the scores; a score of -0.0 turns
+    +0.0, so call it after the scores are read)."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = bst._engine
+    tree = next(t for t in reversed(eng.model.trees) if t.num_leaves > 1)
+    tree_dev, leaf_out = eng._tree_to_device(tree, 0.0)
+    depth = tgbdt._depth_iters(tree)
+
+    def replay():
+        eng._fast.payload_tree_add(tree_dev, leaf_out, 0, eng.meta,
+                                   eng._bmap, depth)
+
+    replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            replay()
+        torch.cuda.synchronize()
+    cuda = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in cuda) / 10,
+            sum(e.count for e in cuda) / 10, depth)
+
+
+def goss_phase(data, main_run: dict, seed: int, smi: str) -> dict:
+    """boosting=goss on the main path's data (top_rate 0.2, other_rate
+    0.1, 15 iterations: the last 5 sample): the first sampled
+    iteration's selection on the card against the host's, B1 and B2 and
+    no other kernel, one blocking sync a tree, AUC above 0.8, the repeat
+    check; then covtype-shaped multiclass GOSS (K 7, lr 0.5: a 2-iteration
+    warm-up, 4 iterations), whose once-an-iteration selection is checked
+    the same way.  Returns the runs' launch counts."""
+    ds, Xv, yv = data
+    params = train_params(255, **GOSS_PARAMS)
+    rec = {}
+    with goss_recorder(int(1.0 / params["learning_rate"]), rec):
+        r = train_path("goss", ds, Xv, yv, params, GOSS_ITERS)
+    b1_b2_ran("goss", r["launches"], GOSS_ITERS)
+    masks = goss_mask_check("goss", rec)
+    del rec
+    say(path_line(r, ds.binned.num_data, GOSS_ITERS,
+                  ", main path %.4f s/iter, %s; %s (%s)"
+                  % (main_run["s_per_iter"], launches_of(r), masks, smi)))
+    runs = {"goss": r["launches"]}
+    text = r["model_text"]
+    del r
+    say(repeat_check("goss", lambda: lt.train(
+        params, ds, GOSS_ITERS, verbose_eval=False), text))
+
+    X, y = covtype_synth(COVTYPE_ROWS, seed + 51)
+    n = COVTYPE_ROWS - COVTYPE_VALID
+    mparams = train_params(255, objective="multiclass", num_class=COVTYPE_K,
+                           enable_bundle=False, learning_rate=GOSS_K7_LR,
+                           **GOSS_PARAMS)
+    dsm = lt.Dataset(X[:n], label=y[:n])
+    dsm.construct(lt.Config(mparams))
+    yvm = y[n:]
+    majority = 1.0 - float(np.max(np.bincount(
+        yvm.astype(int), minlength=COVTYPE_K))) / len(yvm)
+
+    def quality(yv_, prob):
+        err = float(np.mean(np.argmax(prob, 1) != yv_))
+        return err, err < majority
+
+    rec = {}
+    with goss_recorder(int(1.0 / GOSS_K7_LR), rec):
+        r = train_path("goss multiclass", dsm, X[n:], yvm, mparams,
+                       GOSS_K7_ITERS, quality=quality)
+    b1_b2_ran("goss multiclass", r["launches"], COVTYPE_K * GOSS_K7_ITERS)
+    masks = goss_mask_check("goss multiclass", rec)
+    say("goss multiclass: %dx54, K %d, lr %.1f, %d iterations (%d of "
+        "warm-up), %.4f s/iter, multi_error %.4f (majority %.4f), "
+        "syncs/tree %s, %s; %s (%s)"
+        % (n, COVTYPE_K, GOSS_K7_LR, GOSS_K7_ITERS, int(1.0 / GOSS_K7_LR),
+           r["s_per_iter"], r["auc"], majority, sorted(set(r["syncs"])),
+           launches_of(r), masks, smi))
+    runs["goss multiclass"] = r["launches"]
+    return runs
+
+
+def dart_drop_replay(cfg: dict, iters: int) -> list:
+    """DART's drop lists replayed on the host alone (dart.hpp
+    DroppingTrees / Normalize with the reference's tree weights):
+    Random(drop_seed)'s draws, no tree needed."""
+    rng = Random(int(cfg.get("drop_seed", 4)))
+    rate0, skip = cfg.get("drop_rate", 0.1), cfg.get("skip_drop", 0.5)
+    max_drop, lr = cfg.get("max_drop", 50), cfg["learning_rate"]
+    weights, total, lists = [], 0.0, []
+    for it in range(iters):
+        drop = []
+        if not rng.next_float() < skip and it > 0 and total > 0:
+            inv_avg = len(weights) / total
+            rate = min(rate0, max_drop * inv_avg / total) if max_drop > 0 \
+                else rate0
+            for i in range(it):
+                if rng.next_float() < rate * weights[i] * inv_avg:
+                    drop.append(i)
+                    if max_drop > 0 and len(drop) >= max_drop:
+                        break
+        lists.append(drop)
+        k = float(len(drop))
+        for i in drop:
+            total -= weights[i] * (1.0 / (k + 1.0))
+            weights[i] *= k / (k + 1.0)
+        weights.append(lr / (1.0 + k))
+        total += lr / (1.0 + k)
+    return lists
+
+
+def dart_phase(data, main_run: dict, iters: int, smi: str) -> dict:
+    """boosting=dart with its defaults (drop_rate 0.1, skip_drop 0.5,
+    drop_seed 4), the held-out rows scored every iteration: the drop
+    lists against dart_drop_replay, the fetched training scores (first
+    SCORE_ROWS rows) and the validation scores against
+    predict(raw_score=True), B1 and B2, one sync a tree, the drop replay's
+    device ms an iteration, the repeat check."""
+    ds, Xv, yv = data
+    params = train_params(255, boosting="dart")
+    dv = lt.Dataset(Xv, label=yv, reference=ds)
+    drops = []
+    with EventTimer(variants.DART, "_dropping_trees", after=lambda eng:
+                    drops.append(list(eng.drop_index))) as t_drop, \
+            EventTimer(variants.DART, "_normalize") as t_norm:
+        r = train_path("dart", ds, Xv, yv, params, iters, valid_sets=[dv])
+    b1_b2_ran("dart", r["launches"], iters)
+    replay = dart_drop_replay(params, iters)
+    check(drops == replay, "dart: drop lists %s, the host's replay %s"
+          % (drops, replay))
+    bst = r["bst"]
+    err_t = scores_match("dart", bst, ds.data,
+                         bst._engine.raw_train_score()[0], False)
+    err_v = valid_match("dart", bst, bst._engine.raw_valid_score(0)[0],
+                        r["raw"])
+    replay_ms = (t_drop.ms() + t_norm.ms()) / iters
+    us, kernels, depth = replay_cost(bst)
+    say(path_line(r, ds.binned.num_data, iters,
+                  ", main path %.4f s/iter, %s; drop lists %s = the host's "
+                  "replay of Random(4), %d trees dropped in all, the drop "
+                  "and normalize calls %.3f ms an iteration of event span; "
+                  "one payload replay of a depth-%d tree %.1f device us in "
+                  "%d kernels; training scores (first %d rows) = predict "
+                  "within %.3g, valid within %.3g (%s)"
+                  % (main_run["s_per_iter"], launches_of(r), drops,
+                     sum(map(len, drops)), replay_ms, depth, us, kernels,
+                     SCORE_ROWS, err_t, err_v, smi)))
+    text = r["model_text"]
+    runs = {"dart": r["launches"]}
+    del r, bst
+    say(repeat_check("dart", lambda: lt.train(
+        params, ds, iters, verbose_eval=False), text))
+    return runs
+
+
+def rf_phase(data, main_run: dict, iters: int, smi: str) -> dict:
+    """boosting=rf (bagging_fraction 0.632, bagging_freq 1,
+    feature_fraction 0.7), the held-out rows scored every iteration: the
+    training scores (first SCORE_ROWS rows) and the validation scores
+    equal the averaged predict, AUC above 0.8, B1 and B2, one sync a
+    tree, the fold's device ms, the repeat check."""
+    ds, Xv, yv = data
+    params = train_params(255, **RF_PARAMS)
+    dv = lt.Dataset(Xv, label=yv, reference=ds)
+    with EventTimer(variants.RF, "_rf_fold") as t_fold:
+        r = train_path("rf", ds, Xv, yv, params, iters, valid_sets=[dv])
+    b1_b2_ran("rf", r["launches"], iters)
+    bst = r["bst"]
+    check(bst._model.average_output, "rf: the model does not average")
+    err_t = scores_match("rf", bst, ds.data,
+                         bst._engine.raw_train_score()[0], True)
+    err_v = valid_match("rf", bst, bst._engine.raw_valid_score(0)[0],
+                        r["pred"])
+    fold_ms = t_fold.ms() / iters
+    us, kernels, depth = replay_cost(bst)
+    say(path_line(r, ds.binned.num_data, iters,
+                  ", main path %.4f s/iter, %s; training scores (first %d "
+                  "rows) = the averaged predict within %.3g, valid within "
+                  "%.3g; the fold %.3f ms a tree of event span, its payload "
+                  "replay of a depth-%d tree %.1f device us in %d kernels "
+                  "(%s)" % (main_run["s_per_iter"], launches_of(r),
+                            SCORE_ROWS, err_t, err_v, fold_ms, depth, us,
+                            kernels, smi)))
+    text = r["model_text"]
+    runs = {"rf": r["launches"]}
+    del r, bst
+    say(repeat_check("rf", lambda: lt.train(
+        params, ds, iters, verbose_eval=False), text))
+    return runs
+
+
+def median_edge(ds, X, f: int) -> tuple:
+    """Feature f's bin of its median value and that bin's upper edge."""
+    mapper = ds.binned.bin_mappers[f]
+    b = int(mapper.value_to_bin(float(np.median(X[:, f]))))
+    return float(mapper.bin_upper_bound[b]), b
+
+
+def forced_phase(data, main_run: dict, iters: int, smi: str) -> dict:
+    """forcedsplits_filename: a 3-node JSON (the root and both children on
+    features 0, 1 and 2 at their median bin edges): every tree's first
+    three nodes are the forced ones at their bins, with real (not
+    priority) gains; B1, B2, one sync a tree; the repeat check.  A second
+    JSON whose left child's threshold (feature 1's first bin edge) leaves
+    fewer than min_data_in_leaf = 20,000 rows: that child falls back on
+    its own best split, the right child stays forced."""
+    ds, Xv, yv = data
+    X = ds.data
+    edges = [median_edge(ds, X, f) for f in range(3)]
+    forced = {"feature": 0, "threshold": edges[0][0],
+              "left": {"feature": 1, "threshold": edges[1][0]},
+              "right": {"feature": 2, "threshold": edges[2][0]}}
+    path = os.path.join(HERE, "build", "forced.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as fh:
+        json.dump(forced, fh)
+    params = train_params(255, forcedsplits_filename=path)
+    r = train_path("forced", ds, Xv, yv, params, iters)
+    b1_b2_ran("forced", r["launches"], iters)
+    bins = [b for _, b in edges]
+    gains = []
+    for i, t in enumerate(r["bst"]._model.trees):
+        got = (list(t.split_feature[:3]), list(t.threshold_in_bin[:3]),
+               int(t.left_child[0]), int(t.right_child[0]))
+        check(got == ([0, 1, 2], bins, 1, 2), "forced: tree %d's first "
+              "nodes %s, not %s" % (i, got, ([0, 1, 2], bins, 1, 2)))
+        g = t.split_gain[:3]
+        check(bool(np.all(np.isfinite(g)) and np.all(np.abs(g) < 1e20)),
+              "forced: tree %d's forced gains %s are not real gains"
+              % (i, list(g)))
+        gains.append(float(g[0]))
+    say(path_line(r, ds.binned.num_data, iters,
+                  ", main path %.4f s/iter, %s; every tree's first three "
+                  "nodes the forced (feature, bin) %s, root gains %.1f.."
+                  "%.1f; device kernels per split step %d (main path %s) "
+                  "(%s)" % (main_run["s_per_iter"], launches_of(r),
+                            list(zip([0, 1, 2], bins)), min(gains),
+                            max(gains), step_kernels(r["bst"]),
+                            main_run.get("step_kernels"), smi)))
+    runs = {"forced": r["launches"]}
+    text = r["model_text"]
+    del r
+    fallback = dict(forced, left={"feature": 1, "threshold": float(
+        ds.binned.bin_mappers[1].bin_upper_bound[0])})
+    fpath = os.path.join(HERE, "build", "forced_fallback.json")
+    with open(fpath, "w") as fh:
+        json.dump(fallback, fh)
+    reset_counts()
+    with grower_mode():
+        fb = lt.train(train_params(255, forcedsplits_filename=fpath,
+                                   min_data_in_leaf=FORCED_FALLBACK_MIN_DATA),
+                      ds, SHORT_ITERS, verbose_eval=False)
+    check_trees_stopped("forced fallback", fb)
+    runs["forced fallback"] = read_counts()
+    left_splits = []
+    for i, t in enumerate(fb._model.trees):
+        # the right child's forced split comes second; the left child
+        # splits (if at all) by its own best
+        check(int(t.split_feature[0]) == 0 and int(t.right_child[0]) == 1
+              and int(t.split_feature[1]) == 2
+              and int(t.threshold_in_bin[1]) == bins[2],
+              "forced fallback: tree %d's root and right child are not "
+              "the forced ones" % i)
+        lc = int(t.left_child[0])
+        node = (int(t.split_feature[lc]), int(t.threshold_in_bin[lc])) \
+            if lc > 0 else None
+        check(node != (1, 0), "forced fallback: tree %d took the "
+              "infeasible forced split" % i)
+        left_splits.append(node)
+    say("forced fallback: the left child forced at feature 1's first bin "
+        "edge under min_data_in_leaf=%d, %d iterations: every tree's root "
+        "and right child forced, the left child's split by its own best "
+        "%s, launches %s" % (FORCED_FALLBACK_MIN_DATA, SHORT_ITERS,
+                             left_splits, json.dumps(runs["forced "
+                                                          "fallback"])))
+    del fb
+    say(repeat_check("forced", lambda: lt.train(
+        params, ds, iters, verbose_eval=False), text))
+    return runs
+
+
+def walk_monotone(node: dict, constraint: int, feature: int) -> tuple:
+    """tests/test_monotone_missing.py's walk: every split on `feature`
+    orders its children's subtree outputs per the constraint; returns the
+    subtree's (min, max) output."""
+    if "split_feature" not in node:
+        return node["leaf_value"], node["leaf_value"]
+    lmin, lmax = walk_monotone(node["left_child"], constraint, feature)
+    rmin, rmax = walk_monotone(node["right_child"], constraint, feature)
+    if node["split_feature"] == feature:
+        check(lmax <= rmin + 1e-10 if constraint > 0
+              else lmin >= rmax - 1e-10,
+              "monotone: a split on feature %d breaks its constraint %+d"
+              % (feature, constraint))
+    return min(lmin, rmin), max(lmax, rmax)
+
+
+def monotone_phase(data, main_run: dict, iters: int, smi: str) -> dict:
+    """monotone_constraints +1 on features 0-3 and -1 on 4-5: the walk
+    holds on every dumped tree, predictions over a 64-point sweep of each
+    constrained feature for 1,000 held-out rows are monotone, B1 and B2,
+    one sync a tree, tpu_frontier_batch=8 grows the same model text in
+    the same rounds (the gate keeps the one-leaf loop), the repeat
+    check."""
+    ds, Xv, yv = data
+    mono = list(MONOTONE) + [0] * (F - len(MONOTONE))
+    params = train_params(255, monotone_constraints=mono)
+    # the constraints belong to the binned Dataset (the reference's
+    # monotone_types_): the main rows binned again against the main
+    # mappers, with them
+    ds = lt.Dataset(ds.data, label=ds.get_label(), reference=ds)
+    ds.construct(lt.Config(params))
+    check(list(ds.binned.monotone_constraints[:len(MONOTONE)])
+          == list(MONOTONE), "monotone: the Dataset holds constraints %s"
+          % list(ds.binned.monotone_constraints[:len(MONOTONE)]))
+    r = train_path("monotone", ds, Xv, yv, params, iters, auc_floor=0.6)
+    b1_b2_ran("monotone", r["launches"], iters)
+    bst = r["bst"]
+    splits = {}
+    for t in bst.dump_model()["tree_info"]:
+        root = t["tree_structure"]
+        for f, c in enumerate(MONOTONE):
+            if "split_feature" in root:
+                walk_monotone(root, c, f)
+    for t in bst._model.trees:
+        for f in t.split_feature[:t.num_leaves - 1]:
+            splits[int(f)] = splits.get(int(f), 0) + 1
+    rows = Xv[:MONO_SWEEP_ROWS]
+    worst = 0.0
+    for f, c in enumerate(MONOTONE):
+        grid = np.linspace(ds.data[:, f].min(), ds.data[:, f].max(),
+                           MONO_SWEEP_POINTS, dtype=np.float32)
+        Xs = np.repeat(rows, MONO_SWEEP_POINTS, axis=0)
+        Xs[:, f] = np.tile(grid, MONO_SWEEP_ROWS)
+        pred = bst.predict(Xs, raw_score=True).reshape(MONO_SWEEP_ROWS,
+                                                       MONO_SWEEP_POINTS)
+        step = np.diff(pred, axis=1) * c
+        worst = min(worst, float(step.min()))
+        check(step.min() >= -1e-10, "monotone: predictions over feature "
+              "%d's sweep break its constraint by %.3g" % (f, -step.min()))
+    say(path_line(r, ds.binned.num_data, iters,
+                  ", main path %.4f s/iter, %s; constraints %s: the walk "
+                  "holds on every tree, a %d-point sweep of each for %d "
+                  "held-out rows monotone (worst step %.3g), splits by "
+                  "feature %s; device kernels per split step %d (main path "
+                  "%s) (%s)"
+                  % (main_run["s_per_iter"], launches_of(r), list(MONOTONE),
+                     MONO_SWEEP_POINTS, MONO_SWEEP_ROWS, worst,
+                     json.dumps(dict(sorted(splits.items()))),
+                     step_kernels(bst), main_run.get("step_kernels"), smi)))
+    runs = {"monotone": r["launches"]}
+    text, rounds = r["model_text"], r["rounds_per_tree"]
+    del r, bst
+    reset_counts()
+    with grower_mode():
+        front = lt.train(dict(params, tpu_frontier_batch=8), ds, iters,
+                         verbose_eval=False)
+    check_trees_stopped("monotone frontier 8", front)
+    runs["monotone frontier 8"] = read_counts()
+    check(front.model_to_string() == text, "monotone: frontier 8's model "
+          "text differs at %s" % first_difference(front.model_to_string(),
+                                                  text))
+    check(front.split_rounds_per_tree() == rounds
+          and runs["monotone frontier 8"]["segment_histogram_batched"] == 0,
+          "monotone: frontier 8 batched its rounds")
+    say("monotone frontier 8: the request keeps the one-leaf loop (the "
+        "JAX gate): model text byte-identical, %.2f split rounds per tree, "
+        "launches %s" % (front.split_rounds_per_tree(),
+                         json.dumps(runs["monotone frontier 8"])))
+    del front
+    say(repeat_check("monotone", lambda: lt.train(
+        params, ds, iters, verbose_eval=False), text))
+    return runs
+
+
+def continued_variants_phase(data, main_run: dict, smi: str) -> dict:
+    """DART and RF, CONTINUE_ITERS iterations saved to a file and as many
+    more from it: for DART the loaded trees' text unchanged (only this
+    run's trees drop) and the training scores equal predict(raw_score=
+    True); for RF the running average over all the trees equals the
+    averaged predict (the loaded sum scaled by 1 / num_init_iteration);
+    one sync a new tree, B1 and B2."""
+    ds, Xv, yv = data
+    n = CONTINUE_ITERS
+    runs, parts = {}, []
+    for name, extra in (("dart", dict(boosting="dart", drop_rate=0.5,
+                                      skip_drop=0.0)),
+                        ("rf", RF_PARAMS)):
+        params = train_params(255, **extra)
+        with grower_mode():
+            first = lt.train(params, ds, n, verbose_eval=False)
+        path = os.path.join(HERE, "build", "continued_%s.txt" % name)
+        first.save_model(path)
+        del first
+        with open(path) as fh:
+            saved = fh.read()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with grower_mode():
+            cont = lt.train(params, ds, n, init_model=path,
+                            verbose_eval=False)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        launches = read_counts()
+        label = "continued %s" % name
+        check_trees_stopped(label, cont)
+        b1_b2_ran(label, launches, n)
+        check(cont.num_trees() == 2 * n, "%s: %d trees" % (label,
+                                                            cont.num_trees()))
+        check(cont.host_syncs_per_tree() == [1] * n, "%s: syncs per tree %s"
+              % (label, cont.host_syncs_per_tree()))
+        raw = cont._engine.raw_train_score()[0]
+        err = scores_match(label, cont, ds.data, raw, name == "rf")
+        if name == "dart":
+            check(tree_texts(cont.model_to_string())[:n] == tree_texts(saved),
+                  "continued dart: the loaded trees' text changed")
+            parts.append("dart: loaded trees' text unchanged, training "
+                         "scores = predict(raw_score=True) within %.3g, "
+                         "%.4f s/iter, last drop list %s"
+                         % (err, t_train / n, cont._engine.drop_index))
+        else:
+            parts.append("rf: the running average over %d trees = the "
+                         "averaged predict within %.3g, %.4f s/iter"
+                         % (2 * n, err, t_train / n))
+        runs[label] = launches
+        del cont
+    say("continued variants: %d + %d iterations from a saved model; %s; "
+        "main path %.4f s/iter; launches %s (%s)"
+        % (n, n, "; ".join(parts), main_run["s_per_iter"],
+           json.dumps(runs), smi))
+    return runs
+
+
+def variant_phases(data, main_run: dict, iters: int, seed: int,
+                   smi: str) -> dict:
+    """GOSS, DART, RF, forced splits, monotone constraints and the
+    continued variants on the main path's binned data.  Returns each
+    path's launch counts."""
+    runs = {}
+    runs.update(goss_phase(data, main_run, seed, smi))
+    runs.update(dart_phase(data, main_run, iters, smi))
+    runs.update(rf_phase(data, main_run, iters, smi))
+    runs.update(forced_phase(data, main_run, iters, smi))
+    runs.update(monotone_phase(data, main_run, iters, smi))
+    runs.update(continued_variants_phase(data, main_run, smi))
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1_000_000)
@@ -4634,6 +5304,7 @@ def main() -> int:
         verbose_eval=False), runs["frontier 8"]["model_text"]))
     bagged = bagging_phase(data, main_run, args.iters)
     api = api_phases(data, main_run, args.iters, smi)
+    api.update(variant_phases(data, main_run, args.iters, args.seed, smi))
     del data, ds
     # each kernel's launches are read from the path it serves; every
     # path's counts stand beside them

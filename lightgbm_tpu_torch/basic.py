@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from .boosting.gbdt import GBDT
+from .boosting.variants import create_boosting
 from .config import Config, resolve_device
 from .io.dataset import BinnedDataset
 from .metric import create_metrics
@@ -355,9 +356,11 @@ class Booster:
             for m in metrics:
                 m.init(binned.metadata.label, binned.metadata.weight,
                        binned.metadata.query_boundaries)
-            self._engine = GBDT(self.config, binned, self._objective, metrics,
-                                device, init_model=copy.deepcopy(init_model)
-                                if init_model is not None else None)
+            self._engine = create_boosting(
+                str(self.config.boosting), self.config, binned,
+                self._objective, metrics, device,
+                init_model=copy.deepcopy(init_model)
+                if init_model is not None else None)
             self._model = self._engine.model
             self.train_set = train_set
             self.pandas_categorical = train_set.pandas_categorical

@@ -18,12 +18,14 @@ width, as in the JAX package, whose column-block engine has no int32 or
 batched sibling.  `grow.hist_engine` / `grow.part_engine` name the
 wrappers chosen.
 
-The port covers the serial, unforced, non-monotone path, with
-numerical and categorical splits (the split's bitset rides the leaf
-records into every partition's predicate), in f32 or
-quantized (int32 histograms, dequantized at the split search), one leaf
-per round or frontier-batched, with the JAX grower's three histogram
-modes.
+The port covers the serial path, with numerical and categorical
+splits (the split's bitset rides the leaf records into every
+partition's predicate), in f32 or quantized (int32 histograms,
+dequantized at the split search), one leaf per round or
+frontier-batched, with the JAX grower's three histogram modes, and
+with forced splits (f32 only) and monotone constraints as predicated
+per-leaf state of the one-leaf step (`CON_COLS`; either turns the
+frontier off, as in the JAX grower).
 
 A tree is one device program, as in the JAX package, whose tree is one
 `lax.while_loop`: nothing in it reads the device from the host.  The
@@ -122,6 +124,10 @@ class GrowerConfig(NamedTuple):
     # histogram pool slots (gbdt's _hist_pool_slots): 0 < slots <
     # num_leaves keeps that many histograms with LRU eviction
     hist_pool_slots: int = 0
+    # monotone constraints (Config.monotone_constraints): per-leaf output
+    # bounds tracked and propagated through monotone splits (LeafSplits
+    # min/max_constraint, serial_tree_learner.cpp:765-777)
+    with_monotone: bool = False
 
 
 class PayloadCols(NamedTuple):
@@ -162,9 +168,30 @@ NODE_COLS = (("split_feature", torch.int32), ("split_bin", torch.int32),
 _LC = {k: i for i, k in enumerate(LEAF_COLS)}
 _NC = {k: i for i, (k, _) in enumerate(NODE_COLS)}
 
+#: the columns of a leaf's constraint record (forced or monotone growers
+#: only): its pending forced rank, the real gain of its stored best split
+#: (its gain column holds a forced split's priority) and its output bounds
+CON_COLS = ("fleaf", "breal", "mincon", "maxcon")
+_CC = {k: i for i, k in enumerate(CON_COLS)}
+
 #: steps the card's driver keeps enqueued ahead of the stop flag it has
 #: read
 STEPS_AHEAD = 4
+
+
+def propagate_monotone_bounds(blo, bro, is_num, mono_f, pmin, pmax):
+    """Children's output bounds after a split (the JAX package's
+    grower.propagate_monotone_bounds; serial_tree_learner.cpp:765-777):
+    they inherit the parent's, and a numerical split on a monotone
+    feature pins the shared boundary at the midpoint of its outputs.
+    Tightened (max / min), never replaced, so an out-of-bounds midpoint
+    (possible for a forced split) cannot loosen a child's bounds."""
+    mid = (blo + bro) * 0.5
+    lmin = torch.where(is_num & (mono_f < 0), torch.maximum(mid, pmin), pmin)
+    lmax = torch.where(is_num & (mono_f > 0), torch.minimum(mid, pmax), pmax)
+    rmin = torch.where(is_num & (mono_f > 0), torch.maximum(mid, pmin), pmin)
+    rmax = torch.where(is_num & (mono_f < 0), torch.minimum(mid, pmax), pmax)
+    return lmin, lmax, rmin, rmax
 
 
 def _drive(step, n: int, flag: torch.Tensor, device) -> None:
@@ -219,7 +246,7 @@ def _put(t: torch.Tensor, mask: torch.Tensor, v) -> None:
 def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                             num_bins_max: int, cols: PayloadCols,
                             num_features: int, merged_hist=None,
-                            jit: bool = True):
+                            jit: bool = True, forced=None):
     """Returns grow(payload, aux, feature_mask[, qscale][, hist_scale]) ->
     (tree dict, payload, aux).
 
@@ -228,8 +255,17 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
     all of them whatever order previous trees left them in.  payload and
     aux are updated in place, and the grower keeps its state for them:
     calls with the same payload and aux reuse it (and, on the card, its
-    captured graphs).  Monotone constraints are not ported (gbdt refuses
-    them).  Storage columns are the features themselves (no EFB bundles).
+    captured graphs).  Storage columns are the features themselves (no
+    EFB bundles).
+
+    forced (a forced.ForcedSchedule) and cfg.with_monotone: the JAX
+    grower's forced splits and monotone bounds, as predicated state of
+    the same steps (a [L, 4] record per leaf, CON_COLS): the root's
+    search with bounds (-inf, inf) and its forced override, both
+    children's constrained searches and overrides at every split, and a
+    forced node's real gain in its split_gain.  Either turns frontier
+    batching off (the JAX gate, grower2.py:325-350); forced splits are
+    f32 only, as in the JAX grower.
 
     The tree dict's fields are device tensors, num_leaves and
     split_rounds 0-d int32 among them; `host_syncs` is 0, since the
@@ -267,6 +303,11 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
     if quantized and cfg.qmax < 2:
         raise ValueError("the quantized grower needs the derive_qmax grid "
                          "(qmax >= 2), got %d" % cfg.qmax)
+    if quantized and forced is not None:
+        # the forced override reads f32 histograms (JAX grower2.py:181-185)
+        raise ValueError("the quantized grower is unforced only")
+    monotone = bool(cfg.with_monotone)
+    constrained = monotone or forced is not None
     find_kwargs = dict(
         l1=cfg.lambda_l1, l2=cfg.lambda_l2, max_delta_step=cfg.max_delta_step,
         min_data_in_leaf=cfg.min_data_in_leaf,
@@ -275,7 +316,12 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
         with_categorical=cfg.with_categorical,
         max_cat_threshold=cfg.max_cat_threshold, cat_l2=cfg.cat_l2,
         cat_smooth=cfg.cat_smooth, max_cat_to_onehot=cfg.max_cat_to_onehot,
-        min_data_per_group=cfg.min_data_per_group)
+        min_data_per_group=cfg.min_data_per_group, monotone=monotone)
+    if forced is not None:
+        from .forced import PRIORITY_UNIT, make_forced_machinery
+        # the schedule's tables go up once, here, not inside a tree
+        fc_lnext, fc_rnext, forced_override = make_forced_machinery(
+            forced, meta, cfg, meta.num_bin.device, monotone)
     hist_kwargs = dict(num_features=F, num_bins=B, grad_col=cols.grad,
                        hess_col=cols.hess, cnt_col=cols.cnt)
     # the histogram pool (grower2.py:301-310 of the JAX package)
@@ -284,10 +330,10 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
     if POOL < 2:
         raise ValueError("the histogram pool needs at least 2 slots, got %d"
                          % POOL)
-    # the JAX gate (grower2.py:325-350): serial and unforced hold by
-    # construction here; unpooled and unmerged are read per call
+    # the JAX gate (grower2.py:325-350): serial by construction here,
+    # unforced and non-monotone read here, unpooled and unmerged per call
     fb = max(int(cfg.frontier_batch or 1), 1)
-    KB = min(fb, L - 1) if fb > 1 and L > 2 else 1
+    KB = min(fb, L - 1) if fb > 1 and L > 2 and not constrained else 1
     ni = L - 1
     NL, NN = len(LEAF_COLS), len(NODE_COLS)
     lc, nc = _LC, _NC
@@ -348,6 +394,14 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
         BITS = torch.zeros((L, B), dtype=torch.bool, device=dev)
         NODE = torch.zeros((ni, NN), **f32)
         NBITS = torch.zeros((ni, B), dtype=torch.bool, device=dev)
+        if constrained:
+            C0 = torch.zeros((L, len(CON_COLS)), **f32)
+            C0[:, _CC["fleaf"]] = -1.0
+            C0[:, _CC["breal"]] = K_MIN_SCORE
+            C0[:, _CC["mincon"]] = float("-inf")
+            C0[:, _CC["maxcon"]] = float("inf")
+            C = torch.empty_like(C0)
+            unbounded = C0[0, _CC["mincon"]:]
         # one slot past the last: where a no-op step's writes go
         HIST = None if merged else torch.empty((POOL + 1, F, B, 3),
                                                dtype=hdtype, device=dev)
@@ -382,11 +436,12 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                 payload, starts, counts, quantized=quantized, **hist_kwargs,
                 **fixed, **wkw)
 
-        def find_split_batched(hists, sgs, shs, cnts):
+        def find_split_batched(hists, sgs, shs, cnts, **constraints):
             """The one search routine: root (Q = 1), the two children of a
             split (Q = 2) and the 2K children of a frontier round."""
             return find_best_split_batched(deq(hists), sgs, shs, cnts, fmask,
-                                           meta=meta, **find_kwargs)
+                                           meta=meta, **find_kwargs,
+                                           **constraints)
 
         def set_flag(go):
             flag.copy_(go.to(torch.int32).reshape(1), non_blocking=True)
@@ -439,8 +494,23 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             # the quantized mode, f32 only from the boundary on)
             totals = deq(torch.sum(hist_root[0], dim=0,
                                    dtype=hist_root.dtype))
+            bounds = {}
+            if monotone:
+                bounds = dict(min_constraint=unbounded[0:1],
+                              max_constraint=unbounded[1:2])
             res0 = find_split_batched(hist_root[None], totals[0:1],
-                                      totals[1:2], totals[2:3])
+                                      totals[1:2], totals[2:3], **bounds)
+            if constrained:
+                C.copy_(C0)
+                real0 = res0.gain
+                if forced is not None:
+                    # the root's forced override (JAX :523-526), without
+                    # bounds as there
+                    res0, real0, rank0 = forced_override(
+                        zero.reshape(1).long(), deq(hist_root[None]),
+                        totals[0:1], totals[1:2], totals[2:3], res0)
+                    C[0, _CC["fleaf"]] = rank0[0].to(torch.float32)
+                C[0, _CC["breal"]] = real0[0]
             # rows start as one root segment with the root Newton step as
             # the per-row output (covers the unsplittable-stump case)
             payload_col_write(payload, cols.value,
@@ -547,17 +617,47 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                 new_left = torch.where(left_smaller, hist_small, hist_big)
                 new_right = torch.where(left_smaller, hist_big, hist_small)
 
-            res = find_split_batched(
-                torch.stack([new_left, new_right]), torch.stack([lg, rg]),
-                torch.stack([lh, rh]), torch.stack([lcnt, rcnt]))
+            hists2 = torch.stack([new_left, new_right])
+            sums2 = (torch.stack([lg, rg]), torch.stack([lh, rh]),
+                     torch.stack([lcnt, rcnt]))
+            bounds = {}
+            if constrained:
+                crow = _take(C, bl)
+            if monotone:
+                f = r[lc["bfeat"]].long().reshape(1)
+                lmin, lmax, rmin, rmax = propagate_monotone_bounds(
+                    lo, ro, r[lc["bcat"]] == 0.0,
+                    meta.monotone.index_select(0, f)[0],
+                    crow[_CC["mincon"]], crow[_CC["maxcon"]])
+                bounds = dict(min_constraint=torch.stack([lmin, rmin]),
+                              max_constraint=torch.stack([lmax, rmax]))
+            res = find_split_batched(hists2, *sums2, **bounds)
+            if constrained:
+                real = res.gain
+                jnext = torch.full((2,), -1.0, **f32)
+            if forced is not None:
+                # the children's forced ranks, where the parent's own
+                # forced split was applied (JAX :729-741)
+                jp = crow[_CC["fleaf"]]
+                applied = (jp >= 0) & (r[lc["bgain"]] >= 0.5 * PRIORITY_UNIT)
+                jp0 = jp.clamp(min=0).long().reshape(1)
+                ranks = torch.where(
+                    applied, torch.cat([fc_lnext.index_select(0, jp0),
+                                        fc_rnext.index_select(0, jp0)]), -1)
+                res, real, jnext = forced_override(ranks, deq(hists2),
+                                                   *sums2, res, **bounds)
+                jnext = jnext.to(torch.float32)
             depth = r[lc["leaf_depth"]] + 1.0
             gains = depth_gate(res.gain, depth)
 
             # the internal node, from the pre-split records
             bl_f, s_f = bl.to(torch.float32), s.to(torch.float32)
             node_f = s_f - 1.0
+            # a forced node's gain is its split's real gain (JAX :794)
+            node_gain = crow[_CC["breal"]] if forced is not None \
+                else r[lc["bgain"]]
             _put(NODE, (iota_n == node) & active, torch.stack(
-                [r[lc["bfeat"]], r[lc["bbin"]], r[lc["bgain"]],
+                [r[lc["bfeat"]], r[lc["bbin"]], node_gain,
                  r[lc["bdleft"]], r[lc["bcat"]], r[lc["leaf_val"]], pc,
                  -1.0 - bl_f, -1.0 - s_f]))
             _put(NBITS, (iota_n == node) & active, bits)
@@ -575,6 +675,16 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             _put(R, mask_s, kids[1])
             _put(BITS, mask_b, res.cat_bitset[0])
             _put(BITS, mask_s, res.cat_bitset[1])
+            if constrained:
+                if monotone:
+                    mins, maxs = bounds["min_constraint"], \
+                        bounds["max_constraint"]
+                else:
+                    mins = unbounded[0].expand(2)
+                    maxs = unbounded[1].expand(2)
+                con = torch.stack([jnext, real, mins, maxs], dim=1)
+                _put(C, mask_b, con[0])
+                _put(C, mask_s, con[1])
             if pooled:
                 lslot, rslot = pool_store(bl, s, live, pslot, mask_b,
                                           mask_s, active)

@@ -17,6 +17,12 @@ does not depend on Q: the frontier-batched grower (Q = 2K) picks the
 same splits as the one-leaf loop (Q = 2), on the card too.
 `dequantize_hist` gives the f32 view of the quantized mode's int32
 histograms.
+
+Monotone constraints (static `monotone`, with per-leaf output bounds)
+clip the candidates' outputs, take the gain at the clipped outputs and
+zero the gain of a candidate against its feature's direction;
+`evaluate_split_at` scores a forced (feature, threshold) per leaf.
+Without constraints the search runs operation for operation as before.
 """
 from __future__ import annotations
 
@@ -79,24 +85,37 @@ def _leaf_split_gain(sum_g, sum_h, l1, l2, max_delta_step):
 
 def _numerical_gain_tensor(hist, sum_g, total_h, num_data, feature_mask, *,
                            meta, l1, l2, max_delta_step, min_data_in_leaf,
-                           min_sum_hessian_in_leaf, min_gain_to_split):
+                           min_sum_hessian_in_leaf, min_gain_to_split,
+                           monotone: bool = False, min_constraint=None,
+                           max_constraint=None,
+                           apply_min_gain_filter: bool = True):
     """Shifted and penalized gains [Q, F, 2, B] (direction -1 first), the
     stacked left-side aggregates and min_gain_shift [Q].  hist is
-    [Q, F, B, 3]; sum_g, total_h and num_data are [Q]."""
+    [Q, F, B, 3]; sum_g, total_h and num_data are [Q]; the meta fields
+    and feature_mask are [F], or [Q, F] where each leaf has its own
+    features (the forced evaluation).
+
+    monotone (static): candidates whose outputs break their feature's
+    monotone direction gain 0, after the outputs are clipped to the
+    leaf's [min_constraint, max_constraint] ([Q] each, or None), as the
+    JAX package's _numerical_gain_tensor does (LeafSplits constraints,
+    feature_histogram.hpp:478-489).  Without it no operation is added.
+    apply_min_gain_filter False (the forced evaluation) keeps a split
+    below min_gain_shift instead of rejecting it."""
     B = hist.shape[2]
     dev = hist.device
     bins = torch.arange(B, dtype=torch.int32, device=dev)[None, :]   # [1, B]
-    nb = meta.num_bin[:, None]                                        # [F, 1]
+    nb = meta.num_bin[..., None]                                      # [.., F, 1]
     valid_bin = bins < nb
 
-    is_nan = (meta.missing_type == MISSING_NAN)[:, None]
-    is_zero = (meta.missing_type == MISSING_ZERO)[:, None]
+    is_nan = (meta.missing_type == MISSING_NAN)[..., None]
+    is_zero = (meta.missing_type == MISSING_ZERO)[..., None]
     two_scan = ((meta.num_bin > 2)
-                & (meta.missing_type != MISSING_NONE))[:, None]
+                & (meta.missing_type != MISSING_NONE))[..., None]
 
     # mass excluded from the scanned prefix: it follows the default direction
     excl = (is_nan & (bins == nb - 1)) | \
-        (is_zero & (bins == meta.default_bin[:, None]))
+        (is_zero & (bins == meta.default_bin[..., None]))
     excl = excl & two_scan
     drop = excl | ~valid_bin
     zero = torch.zeros((), dtype=hist.dtype, device=dev)
@@ -106,7 +125,7 @@ def _numerical_gain_tensor(hist, sum_g, total_h, num_data, feature_mask, *,
     # loop on the CPU), so a histogram's prefix sums are the same bits at
     # any Q.  A scan along the innermost axis on a card picks its threads
     # per row from the number of rows, and its sums then differ with Q.
-    p = torch.cumsum(torch.where(drop[None, :, :, None], zero, hist), dim=2)
+    p = torch.cumsum(torch.where(drop[..., None], zero, hist), dim=2)
     pg, ph, pc = p[..., 0], p[..., 1], p[..., 2]
 
     eps = K_EPSILON
@@ -123,8 +142,13 @@ def _numerical_gain_tensor(hist, sum_g, total_h, num_data, feature_mask, *,
 
     # candidate thresholds: t <= num_bin-2, not the zero-skip bin, real feature
     tmask = (bins <= nb - 2) & valid_bin
-    tmask &= ~(is_zero & (bins == meta.default_bin[:, None]) & two_scan)
-    tmask &= (~meta.is_trivial & ~meta.is_categorical & feature_mask)[:, None]
+    tmask &= ~(is_zero & (bins == meta.default_bin[..., None]) & two_scan)
+    tmask &= (~meta.is_trivial & ~meta.is_categorical
+              & feature_mask)[..., None]
+    if min_constraint is not None:
+        cmin = min_constraint[:, None, None]
+        cmax = max_constraint[:, None, None]
+    mono = meta.monotone[..., None]
 
     def direction(lg, lh, lc, rg, rh, rc, extra_mask):
         ok = (tmask & extra_mask
@@ -133,10 +157,18 @@ def _numerical_gain_tensor(hist, sum_g, total_h, num_data, feature_mask, *,
               & (rh >= min_sum_hessian_in_leaf))
         lo = leaf_output(lg, lh, l1, l2, max_delta_step)
         ro = leaf_output(rg, rh, l1, l2, max_delta_step)
+        if min_constraint is not None:
+            # the gain is taken AT the clipped outputs, which is what
+            # keeps monotonicity through whole subtrees
+            lo = torch.clamp(lo, cmin, cmax)
+            ro = torch.clamp(ro, cmin, cmax)
         sgl = threshold_l1(lg, l1)
         sgr = threshold_l1(rg, l1)
         gain = -(2.0 * sgl * lo + (lh + l2) * lo * lo) \
             - (2.0 * sgr * ro + (rh + l2) * ro * ro)
+        if monotone:
+            mono_bad = ((mono > 0) & (lo > ro)) | ((mono < 0) & (lo < ro))
+            gain = torch.where(mono_bad, torch.zeros_like(gain), gain)
         return torch.where(ok, gain, torch.full_like(gain, K_MIN_SCORE))
 
     gain_shift = _leaf_split_gain(sum_g, total_h, l1, l2, max_delta_step)
@@ -148,9 +180,14 @@ def _numerical_gain_tensor(hist, sum_g, total_h, num_data, feature_mask, *,
     gain1 = direction(lg1, lh1, lc1, rg1, rh1, rc1, two_scan)
     gains = torch.stack([gain2, gain1], dim=2)            # [Q, F, 2, B]
     # shift by the no-split gain, then penalize (reference order)
-    gains = torch.where(gains > mgs,
-                        (gains - mgs) * meta.penalty[None, :, None, None],
-                        torch.full_like(gains, K_MIN_SCORE))
+    penalty = meta.penalty[..., None, None]
+    if apply_min_gain_filter:
+        gains = torch.where(gains > mgs, (gains - mgs) * penalty,
+                            torch.full_like(gains, K_MIN_SCORE))
+    else:
+        # the forced evaluation: the constraint masks (already -inf)
+        # still hold, but a split below min_gain_shift is kept
+        gains = (gains - mgs) * penalty
     lgs = torch.stack([lg2, lg1], dim=2)
     lhs = torch.stack([lh2, lh1], dim=2)
     lcs = torch.stack([lc2, lc1], dim=2)
@@ -313,14 +350,23 @@ def find_best_split_batched(hist, sum_g, sum_h, num_data, feature_mask, *,
                             min_gain_to_split, max_cat_threshold=32,
                             cat_l2=10.0, cat_smooth=10.0, max_cat_to_onehot=4,
                             min_data_per_group=100,
-                            with_categorical: bool = False) -> SplitResult:
+                            with_categorical: bool = False,
+                            monotone: bool = False, min_constraint=None,
+                            max_constraint=None) -> SplitResult:
     """Best split for each of Q leaves.
 
     hist: [Q, F, B, 3] f32; sum_g / sum_h / num_data: [Q] leaf totals;
     feature_mask: [F] bool.  Every field of the result carries the [Q]
     axis.  Regularization scalars are Python floats.  with_categorical
     (static) adds the categorical search; without it the numerical search
-    runs alone, unchanged."""
+    runs alone, unchanged.
+
+    monotone (static) with min_constraint / max_constraint ([Q] f32
+    bounds of each leaf's output, or None): the constrained search of the
+    JAX package's find_best_split; a numerical winner's outputs are
+    clipped to the bounds, a categorical winner's are not (as in the JAX
+    package and feature_histogram.hpp:345-351).  Without them the search
+    runs unchanged, operation for operation."""
     Q, F, B, _ = hist.shape
     eps = K_EPSILON
     total_h = sum_h + 2 * eps
@@ -329,7 +375,8 @@ def find_best_split_batched(hist, sum_g, sum_h, num_data, feature_mask, *,
         l1=l1, l2=l2, max_delta_step=max_delta_step,
         min_data_in_leaf=min_data_in_leaf,
         min_sum_hessian_in_leaf=min_sum_hessian_in_leaf,
-        min_gain_to_split=min_gain_to_split)
+        min_gain_to_split=min_gain_to_split, monotone=monotone,
+        min_constraint=min_constraint, max_constraint=max_constraint)
 
     flat = gains.reshape(Q, -1)
     idx = torch.argmax(flat, dim=1)           # first maximum, like jnp.argmax
@@ -388,6 +435,11 @@ def find_best_split_batched(hist, sum_g, sum_h, num_data, feature_mask, *,
     right_h = total_h - left_h
     lo = leaf_output(left_g, left_h, l1, l2_eff, max_delta_step)
     ro = leaf_output(right_g, right_h, l1, l2_eff, max_delta_step)
+    if min_constraint is not None:
+        lo = torch.where(is_cat, lo,
+                         torch.clamp(lo, min_constraint, max_constraint))
+        ro = torch.where(is_cat, ro,
+                         torch.clamp(ro, min_constraint, max_constraint))
     return SplitResult(
         gain=best_gain,
         feature=f.to(torch.int32),
@@ -407,7 +459,65 @@ def find_best_split(hist, sum_g, sum_h, num_data, feature_mask, *,
     def vec(x):
         return torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(1)
 
+    for key in ("min_constraint", "max_constraint"):
+        if kwargs.get(key) is not None:
+            kwargs[key] = vec(kwargs[key])
     res = find_best_split_batched(hist[None], vec(sum_g), vec(sum_h),
                                   vec(num_data), feature_mask, meta=meta,
                                   **kwargs)
     return SplitResult(*[a[0] for a in res])
+
+
+def evaluate_split_at(hist, sum_g, sum_h, num_data, feature, threshold_bin,
+                      *, meta: FeatureMeta, l1, l2, max_delta_step,
+                      min_data_in_leaf, min_sum_hessian_in_leaf,
+                      monotone: bool = False, min_constraint=None,
+                      max_constraint=None) -> SplitResult:
+    """The split of each of Q leaves at a GIVEN numerical (feature,
+    threshold_bin) ([Q] each): a forced split (the JAX package's
+    evaluate_split_at; ForceSplits, serial_tree_learner.cpp:546-701).
+    The threshold is imposed, the missing values' default direction is
+    still chosen by gain, and min_data / min_sum_hessian still hold: an
+    infeasible split comes back with gain -inf, so the caller falls back
+    on the leaf's own best.  hist is [Q, F, B, 3]; only the forced
+    feature's [B] slice of each leaf is scanned."""
+    Q, B = hist.shape[0], hist.shape[2]
+    dev = hist.device
+    eps = K_EPSILON
+    q = torch.arange(Q, device=dev)
+    f = feature.long()
+    t = threshold_bin.long()
+    total_h = sum_h + 2 * eps
+    meta1 = FeatureMeta(*[a[f][:, None] for a in meta])      # [Q, 1]
+    gains, (lgs, lhs, lcs), _ = _numerical_gain_tensor(
+        hist[q, f][:, None], sum_g, total_h, num_data,
+        torch.ones((Q, 1), dtype=torch.bool, device=dev), meta=meta1,
+        l1=l1, l2=l2, max_delta_step=max_delta_step,
+        min_data_in_leaf=min_data_in_leaf,
+        min_sum_hessian_in_leaf=min_sum_hessian_in_leaf,
+        min_gain_to_split=0.0, monotone=monotone,
+        min_constraint=min_constraint, max_constraint=max_constraint,
+        apply_min_gain_filter=False)
+    pair = gains[q, 0, :, t]                        # [Q, 2], dir -1 first
+    d = torch.argmax(pair, dim=1)
+    gain = pair[q, d]
+    force_right = (meta1.num_bin[:, 0] <= 2) & \
+        (meta1.missing_type[:, 0] == MISSING_NAN)
+    default_left = (d == 0) & ~force_right
+    left_g = lgs[q, 0, d, t]
+    left_h = lhs[q, 0, d, t]
+    left_c = lcs[q, 0, d, t]
+    right_g = sum_g - left_g
+    right_h = total_h - left_h
+    lo = leaf_output(left_g, left_h, l1, l2, max_delta_step)
+    ro = leaf_output(right_g, right_h, l1, l2, max_delta_step)
+    if min_constraint is not None:
+        lo = torch.clamp(lo, min_constraint, max_constraint)
+        ro = torch.clamp(ro, min_constraint, max_constraint)
+    return SplitResult(
+        gain=gain, feature=f.to(torch.int32),
+        threshold_bin=t.to(torch.int32), default_left=default_left,
+        left_sum_g=left_g, left_sum_h=left_h - eps, left_count=left_c,
+        is_cat=torch.zeros(Q, dtype=torch.bool, device=dev),
+        cat_bitset=torch.zeros((Q, B), dtype=torch.bool, device=dev),
+        left_output=lo, right_output=ro)

@@ -161,11 +161,13 @@ def test_train_without_cpu_request_raises_without_cuda(monkeypatch):
                  verbose_eval=False)
 
 
-@pytest.mark.parametrize("params", [dict(boosting="dart"),
-                                    dict(boosting="goss"),
-                                    dict(tree_learner="data"),
-                                    dict(monotone_constraints=[1] + [0] * 7),
-                                    dict(boosting="rf")])
+@pytest.mark.parametrize("params", [
+    # the variants the JAX package trains on its masked grower
+    dict(boosting="goss", objective="regression_l1"),
+    dict(boosting="goss", objective="quantile"),
+    dict(tree_learner="data"),
+    dict(boosting="goss", objective="mape"),
+    dict(tree_learner="voting")])
 def test_unported_options_raise(params):
     X, y = _data(7)
     with pytest.raises(NotImplementedError):
