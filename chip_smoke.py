@@ -173,6 +173,22 @@ and -1 on 4-5 (the walk over every dumped tree, a 64-point sweep of
 each constrained feature for 1,000 held-out rows, tpu_frontier_batch=8
 writing the same model text); DART and RF continued for 5 iterations
 from 5 saved ones (the loaded trees' text, the running average).
+The data side: the main path again with the row index split in
+radix-4096 halves (its model text and sha256 unchanged); the main
+path's Dataset through save_binary and back, 200,000 of its rows as CSV
+and LibSVM read by Dataset(path), its rows pushed in 8 positioned
+chunks into a stream made by reference and 200,000 through push_rows /
+push_rows_csr (bins, and the 3-iteration model text, as in memory);
+Expo (1M x 700 one-hot blocks, 100k held out) EFB-bundled to 76 storage
+columns, 10 iterations (B1 on its payload; 3 iterations unbundled at
+P 710 through B3 beside it, peak memory and the two models compared;
+one iteration with every bundle-decoding B2 call held against the plain
+partition; the repeat check; 3 iterations of int8); the covtype-shaped
+data bundled (3 iterations, then one of frontier 8 writing the one-leaf
+model's text); 17,000,000 Higgs-shaped rows (past 2^24), 3 iterations,
+the training scores in original order against predict; and one B2 and
+one B1 call past the payload's rows, each in a child process, refused
+by the kernels' device check.
 Every phase always runs and prints one line, prefixed with the seconds
 since start; any failed check exits non-zero.  The last line is the
 device record {"ok": true, "device": {...}}.  Imports nothing of JAX or
@@ -202,6 +218,7 @@ import torch  # noqa: E402
 from lightgbm_tpu_torch import convert  # noqa: E402
 from lightgbm_tpu_torch.boosting import gbdt as tgbdt  # noqa: E402
 from lightgbm_tpu_torch.boosting import grower2  # noqa: E402
+from lightgbm_tpu_torch.io.dataset import BinnedDataset  # noqa: E402
 from lightgbm_tpu_torch.metric import create_metrics  # noqa: E402
 from lightgbm_tpu_torch.models.gbdt_model import GBDTModel  # noqa: E402
 from lightgbm_tpu_torch.ops import build, cuda_segment, quantize  # noqa: E402
@@ -1816,7 +1833,7 @@ def make_main_data(rows: int, seed: int, params: dict) -> tuple:
 def train_path(name: str, ds, Xv, yv, params: dict, iters: int,
                auc_floor: float = 0.8, valid_sets=None,
                syncs_per_tree: int = 1, quality=None,
-               evals_result=None, fobj=None) -> dict:
+               evals_result=None, fobj=None, wide_ok: bool = False) -> dict:
     """Train one configuration of the main path through
     lightgbm_tpu_torch.train on the card (with `valid_sets` scored every
     iteration, when given), with every launch count set to 0 just before
@@ -1824,7 +1841,7 @@ def train_path(name: str, ds, Xv, yv, params: dict, iters: int,
     `syncs_per_tree` blocking syncs (2 where leaves are renewed or a
     custom objective `fobj` reads the scores).  The held-out check is AUC
     above `auc_floor`, or `quality(yv, pred)`, which returns (its value,
-    whether it passes)."""
+    whether it passes).  No wide kernel may launch unless `wide_ok`."""
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.max_memory_allocated()
     graphs_before = graph_counts()
@@ -1845,7 +1862,7 @@ def train_path(name: str, ds, Xv, yv, params: dict, iters: int,
     check(bst.device.type == "cuda", "%s ran on %s" % (name, bst.device))
     check(bst.current_iteration() == iters, "%s trained %d of %d iterations"
           % (name, bst.current_iteration(), iters))
-    check(not any(launches[k] for k in WIDE_ONLY),
+    check(wide_ok or not any(launches[k] for k in WIDE_ONLY),
           "%s launched a wide kernel: %s"
           % (name, {k: launches[k] for k in WIDE_ONLY}))
     t0 = time.perf_counter()
@@ -2261,6 +2278,8 @@ def device_state(bst) -> dict:
     prog = bst._engine.grower.program
     state = dict(R=prog.R, NODE=prog.NODE, BITS=prog.BITS, NBITS=prog.NBITS,
                  nleaves=prog.nleaves, payload=bst._engine._fast.payload)
+    if getattr(prog, "SEG", None) is not None:  # a parent tree may lack it
+        state["SEG"] = prog.SEG
     if prog.HIST is not None:
         state["HIST"] = prog.HIST[:-1]
     return state
@@ -4251,8 +4270,9 @@ def fill_cost(bst, k: int = 0) -> tuple:
 
 def multiclass_phase(seed: int, iters: int, main_run: dict, smi: str):
     """objective=multiclass, num_class=7 on the covtype-shaped data (255
-    leaves, max_bin 255, lr 0.1, enable_bundle=false: EFB would bundle
-    the one-hot columns and is not ported), the held-out rows scored every
+    leaves, max_bin 255, lr 0.1, enable_bundle=false, so its sha256 stays
+    comparable across PRs; efb_covtype_phase trains the same data
+    bundled), the held-out rows scored every
     iteration: 7 trees an iteration, one blocking sync per tree, B1 and
     B2 launched and no other kernel; held-out multi_error below the
     majority class's error; the valid scores [7, N] equal
@@ -5181,11 +5201,599 @@ def variant_phases(data, main_run: dict, iters: int, seed: int,
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phases: the data side (EFB bundles, past 2^24 rows, files and streams)
+# ---------------------------------------------------------------------------
+
+#: Expo (LightGBM docs/Experiments.rst: the airline data one-hot encoded,
+#: 11M x 700; BASELINE.md), rows cut to these; the generator is
+#: tests/test_wide_sparse.py's, one-hot blocks of cards 2/4/8/16/28 filled
+#: to 700 columns with dense noise columns
+EXPO_COLS = 700
+EXPO_CARDS = (2, 4, 8, 16, 28)
+EXPO_ROWS = 1_000_000
+EXPO_VALID = 100_000
+EXPO_ITERS = 10
+#: the unbundled, equivalence, repeat and int8 runs beside it
+EXPO_SHORT = 3
+#: the bundled storage columns the JAX package's Expo test allows
+EXPO_MAX_G = 120
+EXPO_AUC_FLOOR = 0.6
+#: the wide-index path: Higgs-shaped rows past 2^24 (16,777,216)
+WIDE_INDEX_ROWS = 17_000_000
+WIDE_INDEX_ITERS = 3
+WIDE_INDEX_CHECKED = 100_000
+#: the rows of the main path written as CSV and LibSVM, and the chunks
+#: its rows are pushed in
+TEXT_ROWS = 200_000
+STREAM_CHUNKS = 8
+
+def sha(text: str) -> str:
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def mib(n_bytes: int) -> float:
+    return n_bytes / 2**20
+
+
+#: the held-out AUC two equivalent models may differ by (parity_phase's)
+AGREE_AUC = 0.002
+#: max |d raw| / max(1, |raw|) between the bundled and unbundled Expo
+#: models: 25 times the 3.96e-07 read on an H100 80GB HBM3 (PERF.md §6)
+AGREE_RAW = 1e-5
+
+
+def bundle_agreement(a, b, Xv, yv) -> dict:
+    """Bundled model `a` against unbundled model `b` on the held-out rows.
+    A feature's default bin is the bundle's total minus its other bins in
+    f32, not a summed bin, so gains that tie exactly (Expo's card-2
+    one-hot pairs are complementary: a split on either column is the same
+    partition mirrored) or nearly can be won by another candidate; the
+    two texts then differ where the search was undecided.  So the checks
+    are on what the models compute: every tree's leaves partition the
+    held-out rows alike (a bijection of leaves, which mirrored splits
+    keep), max |d raw| / max(1, |raw|) <= AGREE_RAW and |dAUC| <=
+    AGREE_AUC; the first node where each tree's split features differ is
+    reported beside them.  The texts' structural equivalence is held in
+    tests/test_torch_efb.py on tie-free data."""
+    la, lb = a.predict(Xv, pred_leaf=True), b.predict(Xv, pred_leaf=True)
+    same_partition = 0
+    for t in range(la.shape[1]):
+        pairs = np.unique(np.stack([la[:, t], lb[:, t]], 1), axis=0)
+        same_partition += int(len(pairs) == len(np.unique(la[:, t]))
+                              == len(np.unique(lb[:, t])))
+    first_diff = []
+    for ta, tb in zip(a._model.trees, b._model.trees):
+        ni = min(ta.num_leaves, tb.num_leaves) - 1
+        d = np.nonzero(ta.split_feature[:ni] != tb.split_feature[:ni])[0]
+        first_diff.append(int(d[0]) if len(d) else None)
+    ra, rb = a.predict(Xv, raw_score=True), b.predict(Xv, raw_score=True)
+    d_auc = abs(auc_score(yv, ra) - auc_score(yv, rb))
+    rel = float(np.max(np.abs(ra - rb) / np.maximum(1.0, np.abs(ra))))
+    check(same_partition == la.shape[1], "efb expo: %d of %d bundled trees "
+          "partition the held-out rows as the unbundled ones do"
+          % (same_partition, la.shape[1]))
+    check(rel <= AGREE_RAW, "efb expo: bundled and unbundled raw scores "
+          "differ by %.3e of max(1, |raw|)" % rel)
+    check(d_auc <= AGREE_AUC, "efb expo: bundled and unbundled held-out AUC "
+          "differ by %.6f" % d_auc)
+    return dict(d_auc=d_auc, trees=la.shape[1],
+                trees_same_partition=same_partition,
+                first_differing_node=first_diff, max_rel_raw_diff=rel)
+
+
+def expo_synth(n_rows: int, seed: int):
+    """tests/test_wide_sparse.py's _onehot_problem at Expo's width: one-hot
+    blocks of cards 2, 4, 8, 16, 28 in turn up to 692 columns (every
+    seventh variable carrying signal), the rest dense noise.  X [n, 700]
+    f32, y 0/1."""
+    rng = np.random.default_rng(seed)
+    X = np.zeros((n_rows, EXPO_COLS), np.float32)
+    logit = np.zeros(n_rows)
+    rows = np.arange(n_rows)
+    c0, v = 0, 0
+    while c0 < EXPO_COLS - 8:
+        card = EXPO_CARDS[v % len(EXPO_CARDS)]
+        which = rng.integers(0, card, size=n_rows)
+        X[rows, c0 + which] = 1.0
+        if v % 7 == 0:
+            logit += 0.4 * (which % 3 - 1)
+        c0 += card
+        v += 1
+    X[:, c0:] = rng.standard_normal((n_rows, EXPO_COLS - c0),
+                                    dtype=np.float32)
+    y = (logit + rng.standard_normal(n_rows) * 0.7 > 0).astype(np.float64)
+    return X, y
+
+
+def efb_expo_phase(seed: int, smi: str) -> dict:
+    """Expo's width through EFB: 1,000,000 training rows x 700 columns
+    binned and bundled (G storage columns, at most EXPO_MAX_G as the JAX
+    package's test allows), 10 iterations, 255 leaves; the held-out AUC;
+    peak memory against the same rows unbundled (EXPO_SHORT iterations:
+    P = 710 routes the partition to B3) and the two models compared over
+    those iterations (`bundle_agreement`); one iteration with every B2
+    call (each decoding the bundles) held against the plain partition; B1
+    on the path's payload; the repeat check; EXPO_SHORT iterations under
+    int8 (B4).  Returns the runs' launches by path."""
+    X, y = expo_synth(EXPO_ROWS + EXPO_VALID, seed + 70)
+    Xt, yt = X[:EXPO_ROWS], y[:EXPO_ROWS]
+    Xv, yv = X[EXPO_ROWS:], y[EXPO_ROWS:]
+    params = train_params(255)
+    t0 = time.perf_counter()
+    ds = lt.Dataset(Xt, label=yt)
+    ds.construct(lt.Config(params))
+    t_bin = time.perf_counter() - t0
+    b = ds.binned
+    G = int(b.bins.shape[0])
+    check(b.bundle_info is not None and G <= EXPO_MAX_G,
+          "efb expo: %d storage columns for %d features" % (G,
+                                                            b.num_features))
+    r = train_path("efb expo", ds, Xv, yv, params, EXPO_ITERS,
+                   auc_floor=EXPO_AUC_FLOOR)
+    fs = r["bst"]._engine._fast
+    check(r["launches"]["segment_histogram"] > 0
+          and r["launches"]["partition_segment"] > 0,
+          "efb expo: B1 / B2 never launched")
+    say(path_line(r, EXPO_ROWS, EXPO_ITERS, ", binning %.3f s, G %d of F "
+                  "%d, P %d (%s)" % (t_bin, G, b.num_features, fs.P, smi),
+                  n_feat=EXPO_COLS))
+    path_b1_check("efb expo", r["bst"])
+    bundled3 = r["bst"].model_to_string(num_iteration=EXPO_SHORT)
+    b3 = lt.Booster(params={"device_type": "cpu"}, model_str=bundled3)
+    del r["bst"], fs
+    torch.cuda.empty_cache()
+
+    # the same rows and mappers, unbundled
+    t0 = time.perf_counter()
+    ub = BinnedDataset.from_matrix(Xt, lt.Config(dict(
+        params, enable_bundle=False)), bin_mappers=b.bin_mappers)
+    ub.metadata.set_label(yt)
+    t_bin_u = time.perf_counter() - t0
+    plain_params = dict(params, enable_bundle=False)
+    ru = train_path("efb expo unbundled", lt.Dataset._from_binned(
+        ub, params=plain_params), Xv, yv, plain_params, EXPO_SHORT,
+        auc_floor=EXPO_AUC_FLOOR, wide_ok=True)
+    P_u = ru["bst"]._engine._fast.P
+    check(ru["launches"]["partition_segment_rmw"] > 0,
+          "efb expo unbundled: P %d did not route to B3" % P_u)
+    agree = bundle_agreement(b3, ru["bst"], Xv, yv)
+    # each run's peak less what was allocated before it (PERF.md §2)
+    net_b, net_u = (x["peak"] - x["peak_before"] for x in (r, ru))
+    say(path_line(ru, EXPO_ROWS, EXPO_SHORT, ", binning %.3f s, P %d; "
+                  "bundled vs unbundled over %d iterations: %s; peak MiB "
+                  "bundled %.1f vs unbundled %.1f (%.3f of it)"
+                  % (t_bin_u, P_u, EXPO_SHORT, json.dumps(agree),
+                     mib(net_b), mib(net_u), net_b / net_u),
+                  n_feat=EXPO_COLS))
+    del ru["bst"], ub
+    torch.cuda.empty_cache()
+
+    data = (ds, Xv, yv)
+    say(checked_partition_phase(data, EXPO_ROWS, 1, params=params,
+                                label="B2 in efb expo"))
+    say(repeat_check("efb expo (%d iters)" % EXPO_SHORT, lambda: lt.train(
+        params, ds, EXPO_SHORT, verbose_eval=False), bundled3))
+    qp = dict(params, gradient_quantization=True, gradient_quant_dtype="int8")
+    rq = train_path("efb expo int8", ds, Xv, yv, qp, EXPO_SHORT,
+                    auc_floor=EXPO_AUC_FLOOR)
+    check(rq["launches"]["segment_histogram_quant"] > 0
+          and rq["launches"]["segment_histogram"] == 0,
+          "efb expo int8: launches %s" % rq["launches"])
+    say(path_line(rq, EXPO_ROWS, EXPO_SHORT, ", G %d (%s)" % (G, smi),
+                  n_feat=EXPO_COLS))
+    del rq["bst"]
+    torch.cuda.empty_cache()
+    return {"efb expo": r["launches"], "efb expo unbundled": ru["launches"],
+            "efb expo int8": rq["launches"]}
+
+
+def efb_covtype_phase(seed: int, smi: str) -> dict:
+    """The multiclass path's covtype-shaped data with enable_bundle at its
+    default (the one-hot wilderness and soil columns bundle): SHORT_ITERS
+    iterations, then one under tpu_frontier_batch=8 (B5 and the stage +
+    commit over the bundled columns), whose model text must equal the
+    one-leaf model's first iteration.  Returns the launches by path."""
+    X, y = covtype_synth(COVTYPE_ROWS, seed + 51)
+    n = COVTYPE_ROWS - COVTYPE_VALID
+    Xt, yt, Xv, yv = X[:n], y[:n], X[n:], y[n:]
+    params = train_params(255, objective="multiclass", num_class=COVTYPE_K,
+                          metric=["multi_logloss", "multi_error"])
+    t0 = time.perf_counter()
+    ds = lt.Dataset(Xt, label=yt)
+    ds.construct(lt.Config(params))
+    t_bin = time.perf_counter() - t0
+    G = int(ds.binned.bins.shape[0])
+    check(ds.binned.bundle_info is not None and G < X.shape[1],
+          "efb covtype: no bundle formed (G %d)" % G)
+    majority = 1.0 - float(np.max(np.bincount(yv.astype(int),
+                                              minlength=COVTYPE_K))) / len(yv)
+
+    def quality(yv_, prob):
+        err = float(np.mean(np.argmax(prob, 1) != yv_))
+        return err, err < majority
+
+    r = train_path("efb covtype", ds, Xv, yv, params, SHORT_ITERS,
+                   quality=quality)
+    one_leaf = r["bst"].model_to_string(num_iteration=1)
+    say(path_line(r, n, SHORT_ITERS, ", binning %.3f s, G %d of F %d, "
+                  "held-out multi_error %.6f (majority class's %.6f) (%s)"
+                  % (t_bin, G, X.shape[1], r["auc"], majority, smi),
+                  n_feat=X.shape[1]))
+    del r["bst"]
+    rf = train_path("efb covtype frontier 8", ds, Xv, yv,
+                    dict(params, tpu_frontier_batch=8), 1,
+                    quality=lambda yv_, prob: (float(np.mean(
+                        np.argmax(prob, 1) != yv_)), True))
+    lf = rf["launches"]
+    check(lf["segment_histogram_batched"] > 0
+          and lf["partition_segment_stage"] > 0
+          and lf["partition_segment_commit"] > 0,
+          "efb covtype frontier 8: launches %s" % lf)
+    check(rf["model_text"] == one_leaf, "efb covtype frontier 8: the model "
+          "text differs from the one-leaf model's at %s"
+          % first_difference(rf["model_text"], one_leaf))
+    say(path_line(rf, n, 1, ", split rounds/tree %.2f; model text equal to "
+                  "the one-leaf model's first iteration" %
+                  rf["rounds_per_tree"], n_feat=X.shape[1]))
+    del rf["bst"]
+    return {"efb covtype": r["launches"], "efb covtype frontier 8": lf}
+
+
+def wide_index_forced_phase(data, main_run: dict, iters: int) -> dict:
+    """The main path again with the port's _IDX_WIDE_THRESHOLD set to 1
+    in-process (a module constant, as the JAX package's test sets its
+    own): the index column splits into radix-4096 halves (P grows by one)
+    and the model text must be the main path's, sha256 and all."""
+    ds, Xv, yv = data
+    saved = tgbdt._IDX_WIDE_THRESHOLD
+    tgbdt._IDX_WIDE_THRESHOLD = 1
+    try:
+        r = train_path("wide index (forced)", ds, Xv, yv, train_params(255),
+                       iters)
+    finally:
+        tgbdt._IDX_WIDE_THRESHOLD = saved
+    fs = r["bst"]._engine._fast
+    check(fs.wide_idx and fs.P == P + 1, "wide index (forced): the wide "
+          "layout did not engage (P %d)" % fs.P)
+    check(r["model_text"] == main_run["model_text"], "wide index (forced): "
+          "the model text differs from the main path's at %s"
+          % first_difference(r["model_text"], main_run["model_text"]))
+    say(path_line(r, ds.binned.num_data, iters, ", P %d, model sha256 %s "
+                  "equal to the main path's" % (fs.P, sha(r["model_text"]))))
+    del r["bst"]
+    return r["launches"]
+
+
+def wide_index_phase(seed: int, smi: str) -> dict:
+    """Higgs-shaped rows past 2^24 (bench.py's generator): 17,000,000
+    training rows x 28 binned, 3 iterations at 255 leaves (the index
+    column splits into radix-4096 halves on its own), 100,000 held out;
+    the training scores fetched in original order against
+    predict(raw_score=True) on 100,000 sampled training rows within
+    1e-5 * max(1, |raw|); one blocking sync a tree (train_path)."""
+    t0 = time.perf_counter()
+    X, y = synth(WIDE_INDEX_ROWS + 100_000, F, seed + 80)
+    t_gen = time.perf_counter() - t0
+    Xt, yt = X[:WIDE_INDEX_ROWS], y[:WIDE_INDEX_ROWS]
+    Xv, yv = X[WIDE_INDEX_ROWS:], y[WIDE_INDEX_ROWS:]
+    params = train_params(255)
+    t0 = time.perf_counter()
+    ds = lt.Dataset(Xt, label=yt)
+    ds.construct(lt.Config(params))
+    t_bin = time.perf_counter() - t0
+    r = train_path("wide index", ds, Xv, yv, params, WIDE_INDEX_ITERS)
+    bst = r["bst"]
+    fs = bst._engine._fast
+    check(fs.wide_idx and fs.P == P + 1, "wide index: %d rows kept the "
+          "narrow layout (P %d)" % (WIDE_INDEX_ROWS, fs.P))
+    t0 = time.perf_counter()
+    raw = bst._engine.raw_train_score()[0]
+    t_fetch = time.perf_counter() - t0
+    pick = np.random.default_rng(seed).choice(WIDE_INDEX_ROWS,
+                                              WIDE_INDEX_CHECKED,
+                                              replace=False)
+    ref = bst.predict(Xt[pick], raw_score=True)
+    err = float(np.max(np.abs(raw[pick] - ref)
+                       / np.maximum(1.0, np.abs(ref))))
+    check(err <= 1e-5, "wide index: training scores against predict: "
+          "max relative error %.3g" % err)
+    say(path_line(r, WIDE_INDEX_ROWS, WIDE_INDEX_ITERS,
+                  ", generation %.1f s, binning %.3f s, P %d, training scores "
+                  "in original order (fetched in %.3f s) against "
+                  "predict(raw_score=True) on %d sampled rows: max "
+                  "|diff| / max(1, |raw|) %.3g (%s)"
+                  % (t_gen, t_bin, fs.P, t_fetch, WIDE_INDEX_CHECKED, err,
+                     smi)))
+    del r["bst"], bst, fs, ds, X
+    torch.cuda.empty_cache()
+    return r["launches"]
+
+
+def bins_equal(a, b) -> bool:
+    return a.bins.shape == b.bins.shape and np.array_equal(a.bins, b.bins)
+
+
+def write_text_data(path: str, X, y, fmt: str) -> None:
+    """Rows as CSV with a header line or as LibSVM: each value as the
+    shortest decimal of its f64, which parses back to it exactly."""
+    with open(path, "w") as fh:
+        if fmt == "csv":
+            fh.write(",".join(["label"] + ["f%d" % j
+                                           for j in range(X.shape[1])])
+                     + "\n")
+            for lab, row in zip(y.tolist(), X.astype(np.float64).tolist()):
+                fh.write(",".join(map(repr, [lab] + row)) + "\n")
+        else:
+            keys = ["%d:" % j for j in range(X.shape[1])]
+            for lab, row in zip(y.tolist(), X.astype(np.float64).tolist()):
+                fh.write(" ".join([repr(lab)] + [
+                    k + repr(v) for k, v in zip(keys, row) if v != 0.0])
+                    + "\n")
+
+
+def files_phase(data, seed: int, smi: str) -> dict:
+    """The data side's files and streams on the main path's data: its
+    Dataset saved with save_binary and loaded by path trains the main
+    model's text (3 iterations) byte for byte; 200,000 of its rows written
+    as CSV (with a header) and as LibSVM and read by Dataset(path) bin
+    exactly as from_matrix bins them; the 1,000,000 rows pushed in 8
+    positioned chunks into a StreamingDatasetBuilder made by reference
+    (bins and the 3-iteration model text equal to the in-memory ones),
+    and the 200,000 rows pushed through Dataset.push_rows and
+    push_rows_csr in 8 chunks into a fresh stream (its reservoir at the
+    cap), binned exactly as from_matrix bins them (the JAX package's
+    test_stream_ingest holds model identity below the reservoir's cap)."""
+    import tempfile
+    from lightgbm_tpu_torch.io.stream import StreamingDatasetBuilder
+    ds, Xv, yv = data
+    params = train_params(255)
+    X, y = ds.data, np.asarray(ds.label)
+    n = len(y)
+    t0 = time.perf_counter()
+    ref3 = lt.train(params, ds, 3, verbose_eval=False).model_to_string()
+    t_ref = time.perf_counter() - t0
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, "main.bin")
+        t0 = time.perf_counter()
+        ds.save_binary(cache)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dc = lt.Dataset(cache, params=params)
+        dc.construct(lt.Config(params))
+        t_load = time.perf_counter() - t0
+        check(bins_equal(dc.binned, ds.binned)
+              and np.array_equal(dc.binned.metadata.label,
+                                 ds.binned.metadata.label),
+              "files: the binary cache's bins or labels differ")
+        reset_counts()
+        with grower_mode():
+            text_c = lt.train(params, dc, 3, verbose_eval=False) \
+                .model_to_string()
+        out["binary cache"] = read_counts()
+        check(text_c == ref3, "files: the cache's model text differs at %s"
+              % first_difference(text_c, ref3))
+        cache_mb = os.path.getsize(cache) / 2**20
+
+        Xs, ys = X[:TEXT_ROWS], y[:TEXT_ROWS]
+        t0 = time.perf_counter()
+        ref_b = BinnedDataset.from_matrix(Xs, lt.Config(params))
+        t_mat = time.perf_counter() - t0
+        parsed = {}
+        for fmt in ("csv", "libsvm"):
+            path = os.path.join(tmp, "rows." + fmt)
+            t0 = time.perf_counter()
+            write_text_data(path, Xs, ys, fmt)
+            t_write = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            dt = lt.Dataset(path, params=params)
+            dt.construct(lt.Config(params))
+            t_parse = time.perf_counter() - t0
+            check(bins_equal(dt.binned, ref_b)
+                  and np.array_equal(dt.binned.metadata.label,
+                                     ys.astype(np.float32)),
+                  "files: %s rows bin differently from from_matrix" % fmt)
+            parsed[fmt] = (t_write, t_parse)
+
+        t0 = time.perf_counter()
+        sb = StreamingDatasetBuilder(params=params, reference=ds,
+                                     num_total_rows=n)
+        step = -(-n // STREAM_CHUNKS)
+        for s in range(n, 0, -step):  # positioned, last chunk first
+            lo = max(0, s - step)
+            sb.push_dense(X[lo:s], label=y[lo:s], start_row=lo)
+        streaming = sb.streaming  # encoded at push time, nothing kept
+        dstr = lt.Dataset(sb, params=params)
+        dstr.construct(lt.Config(params))
+        t_stream = time.perf_counter() - t0
+        check(streaming and bins_equal(dstr.binned, ds.binned),
+              "files: the by-reference stream bins differently")
+        reset_counts()
+        with grower_mode():
+            text_s = lt.train(params, dstr, 3, verbose_eval=False) \
+                .model_to_string()
+        out["stream by reference"] = read_counts()
+        check(text_s == ref3, "files: the stream's model text differs at %s"
+              % first_difference(text_s, ref3))
+
+        t0 = time.perf_counter()
+        fresh = lt.Dataset(StreamingDatasetBuilder(params=params), label=ys,
+                           params=params)
+        step = TEXT_ROWS // STREAM_CHUNKS
+        for k, s in enumerate(range(0, TEXT_ROWS, step)):
+            part = Xs[s:s + step].astype(np.float64)
+            if k % 2:
+                mask = part != 0.0
+                fresh.push_rows_csr(
+                    np.concatenate([[0], np.cumsum(mask.sum(1))]),
+                    np.nonzero(mask)[1], part[mask], part.shape[1])
+            else:
+                fresh.push_rows(part)
+        held = fresh.data.reservoir_rows
+        fresh.construct(lt.Config(params))
+        t_fresh = time.perf_counter() - t0
+        check(held == TEXT_ROWS and bins_equal(fresh.binned, ref_b),
+              "files: the pushed rows bin differently from from_matrix "
+              "(reservoir %d rows)" % held)
+    say("files: binary cache of the main path's %d x %d Dataset (%.1f MiB, "
+        "saved %.3f s, loaded %.3f s) trains the main model's text byte for "
+        "byte over 3 iterations (reference run %.3f s); %d rows as CSV "
+        "(written %.3f s, parsed and binned %.3f s) and LibSVM (%.3f s, "
+        "%.3f s) bin as from_matrix (%.3f s) bins them; %d rows pushed in %d "
+        "positioned chunks by reference (%.3f s): bins and model text equal; "
+        "%d rows through push_rows / push_rows_csr (%.3f s, reservoir %d "
+        "rows): bins equal (%s)"
+        % (n, ds.binned.num_features, cache_mb, t_save, t_load, t_ref,
+           TEXT_ROWS, *parsed["csv"], *parsed["libsvm"], t_mat, n,
+           STREAM_CHUNKS, t_stream, TEXT_ROWS, t_fresh, held, smi))
+    return out
+
+
+#: a payload past 2^31 elements: the rank path's width (F 136, P 146) at
+#: 14,800,000 rows, 2,160,800,000 elements before the guard rows
+ELEMENTS_ROWS, ELEMENTS_F = 14_800_000, 136
+ELEMENTS_TAIL = 200_000
+
+
+def elements_phase(seed: int, dev) -> str:
+    """The kernels' 64-bit element indexing, on a payload of more than
+    2^31 elements (random integer bins, random value columns, drawn on
+    the card): B1 on the last 4,096 rows bit for bit to its fixed-point
+    plain version; B2 on the last ELEMENTS_TAIL rows against the plain
+    partition of a copy of those rows (payload rows and num_left byte for
+    byte); the commit over every row (count * P past 2^31) against aux,
+    the leaf values in the value column."""
+    n, f = ELEMENTS_ROWS, ELEMENTS_F
+    cols = cols_of(f)
+    p = f + 10
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    pay = torch.empty((n + seg.GUARD, p), device=dev)
+    pay[:, :f].random_(0, B, generator=gen)
+    pay[:, f:].normal_(generator=gen)
+    pay[:, cols["cnt"]] = 1.0
+    pay[n:] = 0.0
+    check(pay.numel() > 2**31, "elements: %d elements" % pay.numel())
+    t0 = time.perf_counter()
+    s, c = n - 4096, 4096
+    g, h, cn = cols["grad"], cols["hess"], cols["cnt"]
+    got = cuda_segment.segment_histogram(pay, s, c, num_features=f,
+                                         num_bins=B, grad_col=g, hess_col=h,
+                                         cnt_col=cn)
+    hist_exact(pay, s, c, f, got, cols=(g, h, cn))
+    s, c = n - ELEMENTS_TAIL, ELEMENTS_TAIL
+    sub = torch.zeros((c + seg.GUARD, p), device=dev)
+    sub[:c] = pay[s:s + c]
+    aux = torch.empty_like(pay).normal_(generator=gen)
+    pred = make_pred(dev, B, 3, 100)
+    _, _, nl = cuda_segment.partition_segment(pay, aux, s, c, pred, -1.0,
+                                              1.0, cols["value"])
+    plain_pay, _, plain_nl = seg.partition_segment(
+        sub, torch.zeros_like(sub), 0, c, pred, -1.0, 1.0, cols["value"])
+    check(int(nl) == int(plain_nl) and torch.equal(
+        pay[s:s + c].view(torch.int32), plain_pay[:c].view(torch.int32)),
+        "elements: B2 at rows [%d, %d) differs from the plain partition"
+        % (s, s + c))
+    del sub, plain_pay
+    nl = torch.tensor(n // 3, dtype=torch.int32, device=dev)
+    cuda_segment.partition_segment_commit(pay, aux, 0, n, nl, -2.0, 2.0,
+                                          cols["value"])
+    v = cols["value"]
+    ok = True
+    for r in range(0, n, 1 << 21):
+        e = min(n, r + (1 << 21))
+        a, b = pay[r:e], aux[r:e]
+        want_v = torch.where(torch.arange(r, e, device=dev) < n // 3,
+                             -2.0, 2.0)
+        ok = ok and torch.equal(a[:, :v].view(torch.int32),
+                                b[:, :v].view(torch.int32)) \
+            and torch.equal(a[:, v + 1:].view(torch.int32),
+                            b[:, v + 1:].view(torch.int32)) \
+            and torch.equal(a[:, v], want_v)
+    check(ok, "elements: the commit over %d x %d differs from aux" % (n, p))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    del pay, aux
+    torch.cuda.empty_cache()
+    return ("elements: a %d x %d payload (%d elements, past 2^31): B1 on its "
+            "last 4096 rows bit for bit to the plain version, B2 on its last "
+            "%d rows byte for byte to the plain partition, the commit over "
+            "every row (count * P = %d) equal to aux with the leaf values "
+            "(%.1f s)" % (n + seg.GUARD, p, (n + seg.GUARD) * p,
+                          ELEMENTS_TAIL, n * p, secs))
+
+
+#: the child's out-of-range calls (a segment that ends past the payload),
+#: and what names the failing kernel in its message: the entry the
+#: device check prints, or the kernel the assertion names
+BOUNDS_CALLS = {"partition_segment": ("partition_segment count",
+                                      "part_count_tiles"),
+                "segment_histogram": ("segment_hist_kernel",)}
+
+
+def bounds_child(kind: str) -> int:
+    """In a child process: one call of `kind` (B2 or B1) on a segment that
+    ends past the payload's rows, then a synchronize.  The kernel's device
+    check must fail the call; printing "returned" means it did not."""
+    dev = torch.device("cuda", 0)
+    build.build_all()
+    n = 4096
+    pay = make_payload(n, F, P, 3, dev)
+    aux = torch.zeros_like(pay)
+    start, count = n - 100, 1000
+    if kind == "partition_segment":
+        cuda_segment.partition_segment(pay, aux, start, count,
+                                       make_pred(dev, B, 3, 100), 0.0, 1.0,
+                                       COLS["value"])
+    else:
+        cuda_segment.segment_histogram(
+            pay, start, count, num_features=F, num_bins=B,
+            grad_col=COLS["grad"], hess_col=COLS["hess"],
+            cnt_col=COLS["cnt"])
+    torch.cuda.synchronize()
+    print("returned", flush=True)
+    return 0
+
+
+def bounds_phase() -> str:
+    """One B2 and one B1 call whose segment ends past the payload's rows,
+    each in a child process (a device assertion leaves the child's CUDA
+    context unusable): each child must exit non-zero, with the kernel's
+    message naming it and the segment; this process carries on."""
+    seen = {}
+    for kind in BOUNDS_CALLS:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--bounds-child", kind], capture_output=True,
+                              text=True, timeout=300)
+        text = proc.stdout + proc.stderr
+        lines = [ln for ln in text.splitlines()
+                 if "outside the payload" in ln
+                 and any(k in ln for k in BOUNDS_CALLS[kind])]
+        check(proc.returncode != 0 and "returned" not in proc.stdout
+              and lines,
+              "bounds: the out-of-range %s call was not refused (exit %d): "
+              "%s" % (kind, proc.returncode, text[-2000:]))
+        err = [ln for ln in text.splitlines() if "CUDA error" in ln]
+        seen[kind] = dict(exit=proc.returncode, kernel=lines[0].strip(),
+                          error=err[0].strip() if err else None,
+                          seconds=round(time.perf_counter() - t0, 3))
+    x = torch.ones(4, device="cuda")
+    check(float(x.sum()) == 4.0, "bounds: this process's context broke")
+    return ("bounds: a B2 and a B1 call with start + count past the "
+            "payload's rows, each in a child process, fail with the "
+            "kernel's check and this process carries on: %s"
+            % json.dumps(seen))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--bounds-child", choices=sorted(BOUNDS_CALLS),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not 1 <= args.rows <= 10_500_000:
         ap.error("--rows must be in [1, 10500000]")
@@ -5200,6 +5808,8 @@ def main() -> int:
         print("no CUDA device: chip_smoke.py runs on the GPU only",
               file=sys.stderr)
         return 2
+    if args.bounds_child:
+        return bounds_child(args.bounds_child)
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
     build_s, build_logs = build.build_all()
@@ -5305,6 +5915,9 @@ def main() -> int:
     bagged = bagging_phase(data, main_run, args.iters)
     api = api_phases(data, main_run, args.iters, smi)
     api.update(variant_phases(data, main_run, args.iters, args.seed, smi))
+    api["wide index (forced)"] = wide_index_forced_phase(data, main_run,
+                                                         args.iters)
+    api.update(files_phase(data, args.seed, smi))
     del data, ds
     # each kernel's launches are read from the path it serves; every
     # path's counts stand beside them
@@ -5345,6 +5958,11 @@ def main() -> int:
     paths["rank"], kernels["segment_histogram"]["mslr_f136"] = rank_phase(
         args.seed, args.iters, main_run, smi)
     say(objectives_parity_phase(args.seed))
+    paths.update(efb_expo_phase(args.seed, smi))
+    paths.update(efb_covtype_phase(args.seed, smi))
+    paths["wide index"] = wide_index_phase(args.seed, smi)
+    say(elements_phase(args.seed, dev))
+    say(bounds_phase())
     serves = {"segment_histogram": "main path",
               "partition_segment": "main path",
               "segment_histogram_quant": "quantized int8",

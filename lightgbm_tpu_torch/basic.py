@@ -4,7 +4,11 @@ Role parity with the reference Python binding python-package/lightgbm/basic.py.
 A Dataset over a dense or scipy sparse matrix or a pandas DataFrame
 (categorical features by index, name or category dtype; query groups
 for ranking; validation sets and subsets binned with their reference's
-mappers; the field accessors and setters), and a Booster that trains
+mappers; the field accessors and setters), over a path (a binary dataset
+cache written by `save_binary`, by either package, or a CSV / TSV /
+LibSVM text file), or over a stream (a StreamingDatasetBuilder, fed by
+`push_rows` / `push_rows_csr`, or an iterator of chunks), and a Booster
+that trains
 (update, with a custom objective too), continues a loaded model, rolls
 back an iteration, resets parameters, refits its leaves, evaluates (with
 custom metrics) on the training set, on validation sets and on any
@@ -13,8 +17,7 @@ device=True, the tree-parallel device predictor
 (models/device_predictor.py), and reads, writes, pickles, copies and
 dumps the model text that both packages share.  Training and device
 prediction run on the device that config.resolve_device picks: the card
-unless device_type='cpu'.  File-backed and streamed datasets and
-save_binary are not ported.
+unless device_type='cpu'.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from .boosting.gbdt import GBDT
 from .boosting.variants import create_boosting
 from .config import Config, resolve_device
 from .io.dataset import BinnedDataset
+from .io.stream import StreamingDatasetBuilder
 from .metric import create_metrics
 from .models import device_predictor as dpr
 from .models.gbdt_model import GBDTModel
@@ -120,6 +124,12 @@ def _slice_rows(data, idx: np.ndarray) -> np.ndarray:
     return _to_2d_float(data)[idx]
 
 
+def _is_stream(data) -> bool:
+    """A StreamingDatasetBuilder or an iterator of chunks."""
+    return isinstance(data, StreamingDatasetBuilder) or (
+        hasattr(data, "__next__") and not isinstance(data, np.ndarray))
+
+
 def _to_2d_float(data, pandas_categorical=None) -> np.ndarray:
     if _is_dataframe(data):
         data, _, _, _ = _data_from_pandas(data, "auto", "auto",
@@ -142,12 +152,16 @@ class Dataset:
                  feature_name="auto", categorical_feature="auto",
                  params: Optional[Dict] = None):
         """data: a dense matrix, a scipy sparse matrix (densified when
-        binned) or a pandas DataFrame (category columns become
-        categorical features).  categorical_feature: "auto", column
-        indices, or names.  group: the number of consecutive rows of each
-        query (ranking).  init_score: a per-row raw score that training
-        (or validation) starts from, every class plane's when the model
-        has several.  File paths and streamed chunks are not ported."""
+        binned), a pandas DataFrame (category columns become categorical
+        features), a path (a binary dataset cache, or a CSV / TSV /
+        LibSVM file whose label column is the first; `.weight`,
+        `.query` and `.init` sidecar files beside it are read), a
+        StreamingDatasetBuilder (rows pushed with push_rows /
+        push_rows_csr) or an iterator of chunks (X, (X, y) or (X, y, w)).
+        categorical_feature: "auto", column indices, or names.  group:
+        the number of consecutive rows of each query (ranking).
+        init_score: a per-row raw score that training (or validation)
+        starts from, every class plane's when the model has several."""
         self.data = data
         self.label = label
         self.reference = reference
@@ -165,15 +179,17 @@ class Dataset:
             return self
         if config is None:
             config = Config(self.params)
-        if self.data is None or isinstance(self.data, (str, os.PathLike)):
-            raise NotImplementedError(
-                "file-backed datasets are not ported to the PyTorch package "
-                "yet")
+        if self.data is None:
+            raise LightGBMError("Dataset has no data to construct")
         # a validation set reuses its reference's mappers and bundling
         # (Dataset::CreateValid)
         ref = None
         if self.reference is not None:
             ref = self.reference.construct(config).binned
+        if _is_stream(self.data):
+            return self._construct_stream(config, ref)
+        if isinstance(self.data, (str, os.PathLike)):
+            return self._construct_path(config, ref)
         if _is_dataframe(self.data):
             ref_pc = self.reference.pandas_categorical \
                 if self.reference is not None else None
@@ -182,21 +198,145 @@ class Dataset:
                 ref_pc)
         else:
             X = _to_2d_float(self.data)
-            fn = None if self.feature_name == "auto" \
-                else list(self.feature_name)
-            cats = ()
-            if self.categorical_feature != "auto" and self.categorical_feature:
-                cats = [int(c) for c in self.categorical_feature]
+            fn, cats = self._names_and_categories()
+        self._bin(X, config, ref, fn, cats)
+        self._set_metadata()
+        return self
+
+    def _names_and_categories(self):
+        """feature_name and categorical_feature (indices) as from_matrix
+        takes them; a DataFrame's come from its columns instead."""
+        fn = None if self.feature_name == "auto" else list(self.feature_name)
+        cats = [] if self.categorical_feature == "auto" \
+            else [int(c) for c in self.categorical_feature or ()]
+        return fn, cats
+
+    def _bin(self, X, config: Config, ref, fn, cats) -> None:
+        """Bin a raw matrix, with the reference's mappers and bundles for
+        a validation set (Dataset::CreateValid)."""
         self._binned = BinnedDataset.from_matrix(
             X, config, feature_names=fn, categorical_feature=cats,
             bin_mappers=ref.bin_mappers if ref is not None else None,
             reference_bundle=ref.bundle_info if ref is not None else None)
+
+    def _set_metadata(self) -> None:
+        """The fields given to this Dataset, onto the binned set's
+        metadata (a field left None keeps what the binned set holds: a
+        cache's or a stream's own)."""
         md = self._binned.metadata
         if self.label is not None:
             md.set_label(np.asarray(self.label))
-        md.set_weight(self.weight)
-        md.set_init_score(self.init_score)
-        md.set_query(self.group)
+        if self.weight is not None:
+            md.set_weight(self.weight)
+        if self.init_score is not None:
+            md.set_init_score(self.init_score)
+        if self.group is not None:
+            md.set_query(self.group)
+
+    def _construct_path(self, config: Config, ref) -> "Dataset":
+        """A binary dataset cache (save_binary, either package's), or a
+        text file parsed by io/parser.py and binned (with the reference's
+        mappers and bundles for a validation set), its sidecars read
+        where this Dataset has no such field (the JAX package's
+        basic.py:173-206; metadata.cpp LoadWeights / LoadQueryBoundaries /
+        LoadInitialScore)."""
+        from .io.parser import load_sidecar, parse_file
+        path = os.fspath(self.data)
+        if BinnedDataset.is_binary_file(path):
+            if ref is not None:
+                Log.fatal("A binary dataset cache carries its own bin "
+                          "mappers and cannot be re-aligned to a reference "
+                          "dataset; rebuild the cache from the validation "
+                          "data instead")
+            self._binned = BinnedDataset.load_binary(path)
+        else:
+            X, label = parse_file(path)
+            self._bin(X, config, ref, *self._names_and_categories())
+            if self.label is None:
+                self.label = label
+            for field, ext in (("weight", ".weight"), ("group", ".query"),
+                               ("init_score", ".init")):
+                if getattr(self, field) is None:
+                    side = load_sidecar(path + ext)
+                    if side is not None:
+                        setattr(self, field, side.astype(np.int64)
+                                if field == "group" else side)
+        self._set_metadata()
+        return self
+
+    def _construct_stream(self, config: Config, ref) -> "Dataset":
+        """Construct from a StreamingDatasetBuilder or an iterator of
+        chunks (X, (X, y) or (X, y, w); io/stream.py): finalize bins the
+        pushed rows as from_matrix would (with the reference's mappers
+        and bundles for a validation set), and the stream's labels and
+        weights fill the fields this Dataset was not given (the JAX
+        package's basic.py:228-258)."""
+        builder = self.data
+        if not isinstance(builder, StreamingDatasetBuilder):
+            it = builder
+            builder = StreamingDatasetBuilder(params=self.params)
+            for chunk in it:
+                builder.push(chunk)
+            self.data = builder
+        fn, cats = self._names_and_categories()
+        self._binned = builder.finalize(
+            config, bin_mappers=ref.bin_mappers if ref is not None else None,
+            reference_bundle=ref.bundle_info if ref is not None else None,
+            feature_names=fn, categorical_feature=cats)
+        if self.label is None:
+            self.label = builder.labels()
+        if self.weight is None:
+            self.weight = builder.weights()
+        self._set_metadata()
+        return self
+
+    def push_rows(self, data, start_row: int = -1) -> "Dataset":
+        """Push dense rows into this Dataset's stream (LGBM_DatasetPushRows):
+        its data must be a StreamingDatasetBuilder, and it must not be
+        constructed yet.  start_row >= 0 places the rows (a builder made
+        with a reference and num_total_rows)."""
+        self._stream_builder().push_dense(np.asarray(data),
+                                          start_row=start_row)
+        return self
+
+    def push_rows_csr(self, indptr, indices, values, num_col: int,
+                      start_row: int = -1) -> "Dataset":
+        """Push CSR rows into this Dataset's stream
+        (LGBM_DatasetPushRowsByCSR)."""
+        self._stream_builder().push_csr(indptr, indices, values, num_col,
+                                        start_row=start_row)
+        return self
+
+    def _stream_builder(self) -> StreamingDatasetBuilder:
+        if self._binned is not None:
+            raise LightGBMError(
+                "Cannot push rows after the dataset is constructed")
+        if not isinstance(self.data, StreamingDatasetBuilder):
+            raise LightGBMError(
+                "push_rows needs a streaming Dataset: create it from a "
+                "StreamingDatasetBuilder")
+        return self.data
+
+    def has_raw_matrix(self) -> bool:
+        """Whether the rows are held as a matrix (dense, sparse or a
+        DataFrame), not only binned (a path, a stream or a binned
+        subset)."""
+        return not (self.data is None or _is_stream(self.data)
+                    or isinstance(self.data, (str, os.PathLike)))
+
+    @classmethod
+    def _from_binned(cls, binned: BinnedDataset,
+                     params: Optional[Dict] = None) -> "Dataset":
+        """A Dataset over an already-binned set (a binned subset)."""
+        ds = cls(None, params=params)
+        ds._binned = binned
+        return ds
+
+    def save_binary(self, filename) -> "Dataset":
+        """Write the constructed dataset to a binary cache file that
+        Dataset(filename) loads directly, in either package (reference
+        save_binary)."""
+        self.binned.save_binary(os.fspath(filename))
         return self
 
     @property
@@ -213,8 +353,15 @@ class Dataset:
 
     def subset(self, used_indices, params=None) -> "Dataset":
         """The rows `used_indices` (labels and weights with them), binned
-        with this set's mappers; a sparse matrix is sliced while sparse."""
+        with this set's mappers; a sparse matrix is sliced while sparse.
+        A Dataset with no raw matrix (path-backed, streamed, or itself a
+        binned subset) gathers its binned rows instead (reference
+        GetSubset; BinnedDataset.subset), in ascending order."""
         idx = np.asarray(used_indices)
+        if not self.has_raw_matrix():
+            return Dataset._from_binned(
+                self.construct().binned.subset(np.sort(np.unique(idx))),
+                params=params or self.params)
         X = _slice_rows(self.data, idx)
         y = None if self.label is None else np.asarray(self.label)[idx]
         w = None if self.weight is None else np.asarray(self.weight)[idx]

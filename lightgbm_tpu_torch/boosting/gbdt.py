@@ -33,7 +33,11 @@ over the payload's own bin columns (`_add_tree_to_train_score`,
 `_FastState.payload_tree_add`), score scaling (`_multiply_scores`) and
 a leaf transform (`_leaf_transform`); forced splits
 (forcedsplits_filename) and monotone constraints run inside the
-grower's device program.
+grower's device program.  An EFB-bundled dataset trains on its G
+storage columns (the grower's bundle map; the payload, histograms and
+replays read the bundles), a <= 16-bin dataset goes up nibble-packed
+(io/nbits.py), and past 2^24 rows the payload's row index splits into
+radix-4096 halves (`_FastState.wide_idx`), up to 2^31 rows.
 The non-finite sentinel and the parallel learners are not ported;
 asking for one raises, as does a variant the JAX package trains only on
 its masked grower (GOSS with a non-rowwise objective, leaf renewal or a
@@ -56,7 +60,8 @@ from ..models.tree import Tree
 from ..ops import segment as seg
 from ..ops.quantize import (F32_GH_BYTES, QUANT_GH_BYTES, derive_qmax,
                             quant_seed, quantize_pair)
-from ..ops.bundle import BundleMap, decode_bin, identity_bundle_map
+from ..ops.bundle import (BundleMap, bundle_map_from_info, decode_bin,
+                          identity_bundle_map)
 from ..ops.split import MISSING_NAN, MISSING_ZERO, FeatureMeta
 from ..runtime import syncs
 from ..utils.log import LightGBMError, Log
@@ -66,9 +71,14 @@ from .grower2 import GrowerConfig, PayloadCols, make_partitioned_grower
 
 K_EPSILON = 1e-15
 
-#: f32 holds every integer row index exactly below this (the JAX package
-#: switches to a radix-split index column past it; this slice raises)
-_IDX_EXACT_LIMIT = 1 << 24
+#: row count past which the payload's f32 index column splits into
+#: radix-4096 (hi, lo) halves (f32 integers are exact below 2^24; tests
+#: lower this to exercise the wide layout at small N), as in the JAX
+#: package (gbdt.py:90-95)
+_IDX_WIDE_THRESHOLD = 1 << 24
+
+#: radix of the split index
+_IDX_RADIX = 4096
 
 
 def _construct_bitset(vals) -> list:
@@ -107,11 +117,16 @@ class _FastState:
 
         bins 0..G-1 | label | weight | cnt | idx | score x K |
         snapshot x K (K > 1 only) | grad | hess | value | bvalid | gweight
+        | idxhi (the wide layout only)
 
     so P = G + 10 for one tree per iteration (38 at 28 features; the
     snapshot is the score column itself, snap0 == score0) and G + 2K + 9
-    for K > 1 (77 at 54 features and K = 7).  The TPU pads P to 128
-    lanes; that padding does not carry over.  Guard rows carry idx ==
+    for K > 1 (77 at 54 features and K = 7).  G is the storage columns:
+    the features, or their EFB bundles.  From _IDX_WIDE_THRESHOLD rows
+    (2^24, where f32 stops holding every integer) the row index splits
+    into radix-4096 halves, idx (the low) and idxhi (the high), and P
+    grows by one (the JAX package's wide_idx layout).  The TPU pads P to
+    128 lanes; that padding does not carry over.  Guard rows carry idx ==
     n_pad and stay the last GUARD rows (the grower partitions [0, n_pad)
     only).  The count column starts as the valid-row mask; bagging
     refreshes it (`set_bag`).  Every class's tree of an iteration reads
@@ -137,7 +152,9 @@ class _FastState:
         self.value_col = self.grad_col + 2
         self.bvalid_col = self.value_col + 1
         self.gweight_col = self.bvalid_col + 1
-        self.P = self.gweight_col + 1
+        self.wide_idx = (n_pad + 1) >= _IDX_WIDE_THRESHOLD
+        self.idxhi_col = self.gweight_col + 1 if self.wide_idx else None
+        self.P = (self.idxhi_col if self.wide_idx else self.gweight_col) + 1
         self.cols = PayloadCols(grad=self.grad_col, hess=self.hess_col,
                                 cnt=self.cnt_col, value=self.value_col)
         Log.info("fast path payload: %d rows x %d cols, %.2f GB "
@@ -168,8 +185,7 @@ class _FastState:
         md = ds.metadata
         pay.zero_()
         self.aux.zero_()
-        pay[:n_pad, :G] = torch.as_tensor(ds.bins, device=dev).T \
-            .to(torch.float32)
+        pay[:n_pad, :G] = gbdt._bins_on_device(ds).T.to(torch.float32)
         label = torch.as_tensor(ds.padded(md.label), device=dev)
         pay[:n_pad, G] = label
         weight = md.weight if md.weight is not None \
@@ -179,12 +195,33 @@ class _FastState:
         vmask = torch.as_tensor(ds.valid_row_mask(), device=dev)
         pay[:n_pad, self.cnt_col] = vmask
         pay[:n_pad, self.bvalid_col] = vmask
-        pay[:, self.idx_col] = float(n_pad)
-        pay[:n_pad, self.idx_col] = torch.arange(n_pad, device=dev,
-                                                 dtype=torch.float32)
+        self.write_index(slice(None), torch.full(
+            (self.n_rows,), n_pad, dtype=torch.int64, device=dev))
+        self.write_index(slice(0, n_pad),
+                         torch.arange(n_pad, dtype=torch.int64, device=dev))
         pay[:n_pad, self.score0:self.score0 + self.K] = score.T
         self.bag_dirty = True
         return label, weight
+
+    def write_index(self, rows: slice, idx: torch.Tensor) -> None:
+        """Store int64 original-row indices into the index column(s) of
+        payload rows `rows` (the JAX package's write_idx)."""
+        pay = self.payload
+        if self.wide_idx:
+            pay[rows, self.idxhi_col] = torch.div(
+                idx, _IDX_RADIX, rounding_mode="floor").to(torch.float32)
+            idx = idx % _IDX_RADIX
+        pay[rows, self.idx_col] = idx.to(torch.float32)
+
+    def row_index(self) -> torch.Tensor:
+        """[n_rows] int64: the original row of every payload row (n_pad
+        on the guard rows), from the index column(s), on the device (the
+        JAX package's read_idx)."""
+        pay = self.payload
+        idx = pay[:, self.idx_col].long()
+        if self.wide_idx:
+            idx = idx + pay[:, self.idxhi_col].long() * _IDX_RADIX
+        return idx
 
     def original_scores(self) -> torch.Tensor:
         """[K, n_pad] scores in ORIGINAL row order, on the device with no
@@ -194,7 +231,7 @@ class _FastState:
         pay, n_pad = self.payload, self.n_pad
         out = torch.empty((self.K, n_pad), dtype=torch.float32,
                           device=pay.device)
-        out[:, pay[:n_pad, self.idx_col].long()] = \
+        out[:, self.row_index()[:n_pad]] = \
             pay[:n_pad, self.score0:self.score0 + self.K].T
         return out
 
@@ -218,8 +255,7 @@ class _FastState:
             [bag.astype(np.float32), np.zeros(1, np.float32)]))
         if pay.is_cuda:
             bag = bag.pin_memory().to(pay.device, non_blocking=True)
-        seg.payload_col_write(pay, self.cnt_col,
-                              bag[pay[:, self.idx_col].long()])
+        seg.payload_col_write(pay, self.cnt_col, bag[self.row_index()])
 
     def all_gradients(self, objective, zero_score: bool = False):
         """Every class's unmasked [K, n_rows] (gradient, hessian) of the
@@ -248,7 +284,7 @@ class _FastState:
             g, h = self.all_gradients(objective, zero_score)
             return g[k], h[k]
         snap = pay[:, self.snap0:self.snap0 + K].T
-        idx = pay[:, self.idx_col].long()
+        idx = self.row_index()
         n_pad = self.n_pad
         score = torch.empty((K, n_pad), dtype=torch.float32,
                             device=pay.device)
@@ -262,7 +298,7 @@ class _FastState:
         """Class k's plane of caller-supplied ORIGINAL-order [K, n_pad]
         (gradient, hessian), gathered into the payload's current row order
         through the index column (guard rows gather an appended 0)."""
-        idx = self.payload[:, self.idx_col].long()
+        idx = self.row_index()
         zero = custom[0].new_zeros(1)
         return (torch.cat([custom[0][k], zero])[idx],
                 torch.cat([custom[1][k], zero])[idx])
@@ -394,10 +430,13 @@ class _FastState:
         is in the bag; class k's score column.  Returns (leaf_ids, pred,
         in_bag), each [n_pad]."""
         nl = int(host["num_leaves"])
-        h = syncs.device_get(self.payload[:, [self.cnt_col, self.idx_col,
-                                              self.score0 + k]],
-                             label="renew_fetch")
-        cnt, idx = h[:, 0], h[:, 1].astype(np.int64)
+        pay = self.payload
+        # f64 holds the f32 columns and the int64 row index exactly
+        h = syncs.device_get(torch.stack(
+            [pay[:, self.cnt_col].double(), pay[:, self.score0 + k].double(),
+             self.row_index().double()], 1), label="renew_fetch")
+        cnt = h[:, 0]
+        idx = h[:, 2].astype(np.int64)
         lid_part = np.full(self.n_rows, nl, np.int64)
         for leaf in range(nl):
             s = int(host["seg_start"][leaf])
@@ -406,7 +445,7 @@ class _FastState:
         lid = np.full(self.n_pad, nl, np.int64)
         lid[idx[keep]] = lid_part[keep]
         pred = np.zeros(self.n_pad, np.float64)
-        pred[idx[keep]] = h[keep, 2]
+        pred[idx[keep]] = h[keep, 1]
         in_bag = np.zeros(self.n_pad, bool)
         in_bag[idx[keep]] = cnt[keep] > 0
         return lid, pred, in_bag
@@ -414,13 +453,7 @@ class _FastState:
     def raw_scores(self, label: str = "eval_fetch") -> np.ndarray:
         """[K, n_pad] scores in ORIGINAL row order (host; one blocking
         fetch under `label`)."""
-        h = syncs.device_get(
-            self.payload[:, self.idx_col:self.score0 + self.K], label=label)
-        idx = h[:, 0].astype(np.int64)
-        keep = idx < self.n_pad
-        out = np.zeros((self.K, self.n_pad), np.float32)
-        out[:, idx[keep]] = h[keep, 1:].T
-        return out
+        return syncs.device_get(self.original_scores(), label=label)
 
 
 def _leaf_of_rows(gather_raw, M: int, tree_dev: Dict[str, torch.Tensor],
@@ -488,19 +521,29 @@ def _depth_iters(tree: Tree) -> int:
 
 def _fetch_packed(out: Dict) -> Dict[str, np.ndarray]:
     """The grower's small outputs in ONE device-to-host transfer through
-    the sync seam (`tree_fetch`): every tensor field is exact in f32
-    (counts and ids < 2^24, flags 0/1), so they are flattened and
-    concatenated on the device, fetched once and split on the host."""
+    the sync seam (`tree_fetch`): flattened into one f32 vector on the
+    device, fetched once and split on the host.  int32 fields travel as
+    their bits (segment starts and counts pass f32's exact integers past
+    2^24 rows); flags go as 0/1."""
     keys = sorted(k for k, v in out.items() if isinstance(v, torch.Tensor))
-    flat = torch.cat([out[k].to(torch.float32).reshape(-1) for k in keys])
+
+    def flat_f32(t):
+        t = t.reshape(-1)
+        return t.view(torch.float32) if t.dtype == torch.int32 \
+            else t.to(torch.float32)
+
+    flat = torch.cat([flat_f32(out[k]) for k in keys])
     flat = syncs.device_get(flat, label="tree_fetch")
     host = {k: v for k, v in out.items() if not isinstance(v, torch.Tensor)}
     off = 0
     for k in keys:
-        n = out[k].numel()
+        n, dtype = out[k].numel(), out[k].dtype
         a = flat[off:off + n].reshape(tuple(out[k].shape))
-        host[k] = a if out[k].dtype == torch.float32 \
-            else a.astype(str(out[k].dtype).replace("torch.", ""))
+        if dtype == torch.int32:
+            a = a.view(np.int32)
+        elif dtype != torch.float32:
+            a = a.astype(str(dtype).replace("torch.", ""))
+        host[k] = a
         off += n
     return host
 
@@ -588,7 +631,13 @@ class GBDT:
         self.num_init_iteration = self.model.current_iteration
 
         self.meta = feature_meta(train_set, device)
-        self._bmap = identity_bundle_map(train_set.num_features, device)
+        # the EFB decode map (JAX gbdt.py:1028-1046; identity when the
+        # dataset is unbundled): the grower's predicates and views, the
+        # replays over the payload and the validation traversal read it
+        self._bundled = train_set.bundle_info is not None
+        self._bmap = bundle_map_from_info(train_set.bundle_info, device) \
+            if self._bundled \
+            else identity_bundle_map(train_set.num_features, device)
         has_cat = any(m.bin_type == BIN_TYPE_CATEGORICAL and not m.is_trivial
                       for m in train_set.bin_mappers)
         self.grower_cfg = GrowerConfig(
@@ -691,9 +740,8 @@ class GBDT:
         unsupported = [
             (str(cfg.tree_learner) != "serial",
              "tree_learner=%s" % cfg.tree_learner),
-            (ds.bundle_info is not None, "an EFB-bundled dataset"),
-            (ds.num_data_padded + 1 >= _IDX_EXACT_LIMIT,
-             "%d rows (the f32 row-index column is exact below 2^24)"
+            (ds.num_data_padded >= 1 << 31,
+             "%d rows (the segment engine's row positions are int32)"
              % ds.num_data_padded),
             (str(cfg.sentinel_nonfinite) != "off",
              "sentinel_nonfinite=%s" % cfg.sentinel_nonfinite),
@@ -730,9 +778,9 @@ class GBDT:
 
     def _bins_on_device(self, ds: BinnedDataset) -> torch.Tensor:
         """A binned set's [G, n_pad] bins on the device, in original row
-        order, for the traversal (a validation set's, or the training
-        set's for a replay: the payload's bin columns ride the
-        partition)."""
+        order: the payload's bin columns, and the traversal's (a
+        validation set's, or the training set's for a replay: the
+        payload's bin columns ride the partition)."""
         return torch.as_tensor(ds.bins if ds.bins.dtype == np.uint8
                                else ds.bins.astype(np.int32),
                                device=self.device)
@@ -893,7 +941,7 @@ class GBDT:
             self.grower = make_partitioned_grower(
                 self.meta, self.grower_cfg, self.train_set.max_num_bin,
                 self._fast.cols, self.train_set.num_features,
-                forced=self.forced_schedule)
+                **self._grower_kwargs())
         elif not self._fast_active:
             self._fast.reset(self, self.score)
         self._fast_active = True
@@ -930,8 +978,17 @@ class GBDT:
             self._grower_f32 = make_partitioned_grower(
                 self.meta, self.grower_cfg._replace(quantized=False, qmax=0),
                 self.train_set.max_num_bin, self._fast.cols,
-                self.train_set.num_features, forced=self.forced_schedule)
+                self.train_set.num_features, **self._grower_kwargs())
         return self._grower_f32
+
+    def _grower_kwargs(self) -> Dict:
+        """The grower's forced schedule and, on a bundled dataset, its
+        bundle map over the G storage columns."""
+        kw = dict(forced=self.forced_schedule)
+        if self._bundled:
+            kw.update(bundle_map=self._bmap,
+                      num_columns=self.train_set.bins.shape[0])
+        return kw
 
     def _train_tree(self, fs: _FastState, fmask: torch.Tensor,
                     init_score: float, k: int, custom=None,

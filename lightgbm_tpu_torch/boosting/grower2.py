@@ -30,10 +30,11 @@ frontier off, as in the JAX grower).
 A tree is one device program, as in the JAX package, whose tree is one
 `lax.while_loop`: nothing in it reads the device from the host.  The
 state lives on the device in buffers made once per payload: one f32 row
-of records per leaf (`LEAF_COLS`: its segment, totals, creation value,
-depth, parent and best split; ids and counts are exact in f32 below
-2^24, which gbdt enforces) and per node (`NODE_COLS`), the bitsets, the
-histograms and the leaf count.  Two steps run on it:
+of records per leaf (`LEAF_COLS`: its totals, creation value, depth,
+parent and best split; leaf and node ids are exact in f32) and its
+int32 segment (`SEG`: the start and count of its rows, exact at any row
+count), one f32 row per node (`NODE_COLS`), the bitsets, the histograms
+and the leaf count.  Two steps run on it:
 
 - the root (site `grower2.root`): the state's reset, the root histogram
   and its split search;
@@ -45,7 +46,8 @@ histograms and the leaf count.  Two steps run on it:
 
 Modes of the one-leaf step (the leaf of the largest gain, argmax on the
 device):
-- per-leaf state (the default): one `[F, B, 3]` histogram per leaf; a
+- per-leaf state (the default): one `[G, B, 3]` histogram per leaf (G
+  storage columns: the features, or their EFB bundles); a
   split builds the smaller child from rows and the sibling by
   subtraction from the parent's;
 - the LRU pool (`GrowerConfig.hist_pool_slots`, from
@@ -87,7 +89,8 @@ from typing import NamedTuple
 import torch
 
 from ..ops import cuda_segment
-from ..ops.bundle import identity_bundle_map
+from ..ops.bundle import (BundleMap, expand_histogram, histogram_expansion,
+                          identity_bundle_map)
 from ..ops.segment import GUARD, SplitPredicate, payload_col_write
 from ..ops.split import (FeatureMeta, K_MIN_SCORE, dequantize_hist,
                          find_best_split_batched, leaf_output)
@@ -132,7 +135,7 @@ class GrowerConfig(NamedTuple):
 
 class PayloadCols(NamedTuple):
     """Column indices of the value columns inside the payload
-    (bin columns occupy [0, F))."""
+    (bin columns occupy [0, G): the features, or their EFB bundles)."""
     grad: int
     hess: int
     cnt: int       # 0/1 count-mask (valid & bagged)
@@ -154,9 +157,11 @@ _BEST_FIELDS = (("bgain", "gain"), ("bfeat", "feature"),
                 ("blo", "left_output"), ("bro", "right_output"))
 
 #: the columns of a leaf's f32 record: what its split gave it, then its
-#: best split (its categorical bitset is kept apart)
-LEAF_COLS = ("seg_start", "seg_cnt", "sum_g", "sum_h", "cnt", "leaf_val",
-             "leaf_depth", "leaf_parent") + tuple(k for k, _ in _BEST_FIELDS)
+#: best split (its categorical bitset is kept apart, and its segment, the
+#: int32 (start, count) of its rows, in the SEG record: row numbers pass
+#: f32's exact integers past 2^24 rows)
+LEAF_COLS = ("sum_g", "sum_h", "cnt", "leaf_val", "leaf_depth",
+             "leaf_parent") + tuple(k for k, _ in _BEST_FIELDS)
 
 #: the columns of a node's f32 record, and each one's dtype in the tree
 NODE_COLS = (("split_feature", torch.int32), ("split_bin", torch.int32),
@@ -246,7 +251,9 @@ def _put(t: torch.Tensor, mask: torch.Tensor, v) -> None:
 def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                             num_bins_max: int, cols: PayloadCols,
                             num_features: int, merged_hist=None,
-                            jit: bool = True, forced=None):
+                            jit: bool = True, forced=None,
+                            bundle_map: BundleMap = None,
+                            num_columns: int = None):
     """Returns grow(payload, aux, feature_mask[, qscale][, hist_scale]) ->
     (tree dict, payload, aux).
 
@@ -255,8 +262,16 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
     all of them whatever order previous trees left them in.  payload and
     aux are updated in place, and the grower keeps its state for them:
     calls with the same payload and aux reuse it (and, on the card, its
-    captured graphs).  Storage columns are the features themselves (no
-    EFB bundles).
+    captured graphs).
+
+    bundle_map (EFB; the JAX grower's bundle_map / num_columns): the
+    payload holds num_columns = G < F bundled bin columns.  Histograms
+    are built over the G storage columns, so the histogram state, the
+    pool and the merged and frontier stacks stay [.., G, B, 3] (the
+    memory win), and every split search (and the forced override) sees
+    the [F, B, 3] per-feature view (`ops.bundle.expand_histogram`, after
+    dequantization); the partition predicates decode the bundle.  The
+    routes and gates take G and the payload width, never F.
 
     forced (a forced.ForcedSchedule) and cfg.with_monotone: the JAX
     grower's forced splits and monotone bounds, as predicated state of
@@ -299,6 +314,8 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
     L = cfg.num_leaves
     B = num_bins_max
     F = num_features
+    G = num_columns if num_columns is not None else F
+    bundled = bundle_map is not None
     quantized = bool(cfg.quantized)
     if quantized and cfg.qmax < 2:
         raise ValueError("the quantized grower needs the derive_qmax grid "
@@ -322,7 +339,7 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
         # the schedule's tables go up once, here, not inside a tree
         fc_lnext, fc_rnext, forced_override = make_forced_machinery(
             forced, meta, cfg, meta.num_bin.device, monotone)
-    hist_kwargs = dict(num_features=F, num_bins=B, grad_col=cols.grad,
+    hist_kwargs = dict(num_features=G, num_bins=B, grad_col=cols.grad,
                        hess_col=cols.hess, cnt_col=cols.cnt)
     # the histogram pool (grower2.py:301-310 of the JAX package)
     slots = int(cfg.hist_pool_slots or 0)
@@ -351,7 +368,7 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
     # the f32 histogram of a segment follows the route by width (B1 or
     # B7); the int32 histogram (B4) serves every width
     hist_wrapper = cuda_segment.segment_histogram_quant if quantized \
-        else cuda_segment.histogram_route(F)
+        else cuda_segment.histogram_route(G)
 
     def build(payload, aux, merged: bool, fused: bool, pooled: bool,
               frontier: bool, part_fn, scaled: bool) -> SimpleNamespace:
@@ -362,7 +379,12 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
         n_rows = payload.shape[0] - GUARD
         i32 = dict(dtype=torch.int32, device=dev)
         f32 = dict(dtype=torch.float32, device=dev)
-        bmap = identity_bundle_map(F, dev)
+        if bundled:
+            bmap = BundleMap(*(t.to(dev) for t in bundle_map))
+            tables = histogram_expansion(bmap, meta.num_bin,
+                                         meta.default_bin, B, B)
+        else:
+            bmap = identity_bundle_map(F, dev)
         hdtype = torch.int32 if quantized else torch.float32
 
         # the kernels' scratch: one workspace for the route's largest call
@@ -377,7 +399,7 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                 wrappers = [part_fn]
             wkw["workspace"] = cuda_segment.Workspace.sized(dev, [
                 cuda_segment.scratch_need(w, payload.shape[0],
-                                          payload.shape[1], F, B, KB)
+                                          payload.shape[1], G, B, KB)
                 for w in wrappers + [hist_wrapper]])
 
         # static inputs, copied in per tree
@@ -391,6 +413,7 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
         R0[:, lc["bgain"]] = K_MIN_SCORE
         R0[:, lc["leaf_parent"]] = -1.0
         R = torch.empty_like(R0)
+        SEG = torch.zeros((L, 2), **i32)
         BITS = torch.zeros((L, B), dtype=torch.bool, device=dev)
         NODE = torch.zeros((ni, NN), **f32)
         NBITS = torch.zeros((ni, B), dtype=torch.bool, device=dev)
@@ -403,7 +426,7 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             C = torch.empty_like(C0)
             unbounded = C0[0, _CC["mincon"]:]
         # one slot past the last: where a no-op step's writes go
-        HIST = None if merged else torch.empty((POOL + 1, F, B, 3),
+        HIST = None if merged else torch.empty((POOL + 1, G, B, 3),
                                                dtype=hdtype, device=dev)
         nleaves = torch.ones((), **i32)
         rounds = torch.zeros((), **i32)
@@ -427,6 +450,12 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             def deq(h):
                 return h
 
+        def view(h):
+            """[.., G, B, 3] storage histograms (dequantized) -> the
+            [.., F, B, 3] per-feature views the split search reads (the
+            JAX grower's hist_view)."""
+            return expand_histogram(h, tables) if bundled else h
+
         def hist_fn(payload, start, count):
             return hist_wrapper(payload, start, count, **hist_kwargs,
                                 **fixed, **wkw)
@@ -439,8 +468,8 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
         def find_split_batched(hists, sgs, shs, cnts, **constraints):
             """The one search routine: root (Q = 1), the two children of a
             split (Q = 2) and the 2K children of a frontier round."""
-            return find_best_split_batched(deq(hists), sgs, shs, cnts, fmask,
-                                           meta=meta, **find_kwargs,
+            return find_best_split_batched(view(deq(hists)), sgs, shs, cnts,
+                                           fmask, meta=meta, **find_kwargs,
                                            **constraints)
 
         def set_flag(go):
@@ -475,6 +504,8 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
 
         def root() -> None:
             R.copy_(R0)
+            SEG.zero_()
+            SEG[:1, 1].copy_(rows_all.reshape(1))
             BITS.zero_()
             NODE.zero_()
             NBITS.zero_()
@@ -507,7 +538,7 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                     # the root's forced override (JAX :523-526), without
                     # bounds as there
                     res0, real0, rank0 = forced_override(
-                        zero.reshape(1).long(), deq(hist_root[None]),
+                        zero.reshape(1).long(), view(deq(hist_root[None])),
                         totals[0:1], totals[1:2], totals[2:3], res0)
                     C[0, _CC["fleaf"]] = rank0[0].to(torch.float32)
                 C[0, _CC["breal"]] = real0[0]
@@ -515,9 +546,7 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             # the per-row output (covers the unsplittable-stump case)
             payload_col_write(payload, cols.value,
                               out_fn(totals[0], totals[1]))
-            R[0, lc["seg_cnt"]:lc["cnt"] + 1] = torch.stack(
-                [rows_all.to(torch.float32), totals[0], totals[1],
-                 totals[2]])
+            R[0, lc["sum_g"]:lc["cnt"] + 1] = totals
             R[0, lc["bgain"]:] = _best_cols(res0, res0.gain)[0]
             BITS[0].copy_(res0.cat_bitset[0])
             if HIST is not None:
@@ -533,7 +562,7 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             if fused:
                 return cuda_segment.partition_segment_hist(
                     payload, aux, start, count, pred, lo, ro, cols.value, B,
-                    num_features=F, grad_col=cols.grad, hess_col=cols.hess,
+                    num_features=G, grad_col=cols.grad, hess_col=cols.hess,
                     cnt_col=cols.cnt, **fixed, **wkw)[2:]
             _, _, nl = part_fn(payload, aux, start, count, pred, lo, ro,
                                cols.value, **wkw)
@@ -581,8 +610,9 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             mask_s = (iota_l == s) & active
             bits = _take(BITS, bl)
             pred = predicate(r, bits)
-            start = r[lc["seg_start"]].to(torch.int32)
-            count = torch.where(active, r[lc["seg_cnt"]].to(torch.int32), 0)
+            sg = _take(SEG, bl)
+            start = sg[0]
+            count = torch.where(active, sg[1], 0)
             # child aggregates: left from the stored split, right by diff
             lg, lh, lcnt = r[lc["blg"]], r[lc["blh"]], r[lc["blc"]]
             pg, ph, pc = r[lc["sum_g"]], r[lc["sum_h"]], r[lc["cnt"]]
@@ -644,7 +674,7 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                 ranks = torch.where(
                     applied, torch.cat([fc_lnext.index_select(0, jp0),
                                         fc_rnext.index_select(0, jp0)]), -1)
-                res, real, jnext = forced_override(ranks, deq(hists2),
+                res, real, jnext = forced_override(ranks, view(deq(hists2)),
                                                    *sums2, res, **bounds)
                 jnext = jnext.to(torch.float32)
             depth = r[lc["leaf_depth"]] + 1.0
@@ -664,15 +694,15 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             link_parent(r[lc["leaf_parent"]], bl_f, node_f, active)
 
             # the children's records
-            start_f, nl_f = r[lc["seg_start"]], nl.to(torch.float32)
             own = torch.stack([
-                torch.stack([start_f, nl_f, lg, lh, lcnt, lo, depth,
-                             node_f]),
-                torch.stack([start_f + nl_f, count.to(torch.float32) - nl_f,
-                             rg, rh, rcnt, ro, depth, node_f])])
+                torch.stack([lg, lh, lcnt, lo, depth, node_f]),
+                torch.stack([rg, rh, rcnt, ro, depth, node_f])])
             kids = torch.cat([own, _best_cols(res, gains)], dim=1)
             _put(R, mask_b, kids[0])
             _put(R, mask_s, kids[1])
+            nl = nl.to(torch.int32)
+            _put(SEG, mask_b, torch.stack([start, nl]))
+            _put(SEG, mask_s, torch.stack([start + nl, count - nl]))
             _put(BITS, mask_b, res.cat_bitset[0])
             _put(BITS, mask_s, res.cat_bitset[1])
             if constrained:
@@ -723,8 +753,9 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             def col(key):
                 return rc[:, lc[key]]
 
-            start_c = col("seg_start").to(torch.int32)
-            cnt_c = torch.where(active, col("seg_cnt").to(torch.int32), 0)
+            seg_c = SEG.index_select(0, cand)
+            start_c = seg_c[:, 0]
+            cnt_c = torch.where(active, seg_c[:, 1], 0)
             bits_c = BITS.index_select(0, cand)
             pred_c = predicate(rc, bits_c)
 
@@ -760,15 +791,16 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
 
             # every candidate's children's records (lefts, then rights;
             # the parent column is set as each commits) and node record
-            nl_f = nl_c.to(torch.float32)
-            pad = torch.zeros_like(nl_f)
+            pad = torch.zeros_like(lg_c)
             own = torch.cat([
-                torch.stack([col("seg_start"), nl_f, lg_c, lh_c, lc_c,
-                             col("blo"), depth_c, pad], dim=1),
-                torch.stack([col("seg_start") + nl_f,
-                             cnt_c.to(torch.float32) - nl_f, rg_c, rh_c,
-                             rc_c, col("bro"), depth_c, pad], dim=1)])
+                torch.stack([lg_c, lh_c, lc_c, col("blo"), depth_c, pad],
+                            dim=1),
+                torch.stack([rg_c, rh_c, rc_c, col("bro"), depth_c, pad],
+                            dim=1)])
             kids_c = torch.cat([own, _best_cols(res, gains)], dim=1)
+            segs_c = torch.cat([torch.stack([start_c, nl_c], dim=1),
+                                torch.stack([start_c + nl_c, cnt_c - nl_c],
+                                            dim=1)])
             node_c = torch.stack([col("bfeat"), col("bbin"), col("bgain"),
                                   col("bdleft"), col("bcat"),
                                   col("leaf_val"), pc_c, pad, pad], dim=1)
@@ -800,6 +832,9 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                 mask_s = (iota_l == s) & do
                 _put(R, mask_b, kids[0])
                 _put(R, mask_s, kids[1])
+                segs = segs_c.index_select(0, pair)
+                _put(SEG, mask_b, segs[0])
+                _put(SEG, mask_s, segs[1])
                 cbits = res.cat_bitset.index_select(0, pair)
                 _put(BITS, mask_b, cbits[0])
                 _put(BITS, mask_s, cbits[1])
@@ -847,8 +882,8 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                 "leaf_count": R[:, lc["cnt"]].clone(),
                 "leaf_sum_g": R[:, lc["sum_g"]].clone(),
                 "leaf_sum_h": R[:, lc["sum_h"]].clone(),
-                "seg_start": R[:, lc["seg_start"]].to(torch.int32),
-                "seg_cnt": R[:, lc["seg_cnt"]].to(torch.int32),
+                "seg_start": SEG[:, 0].clone(),
+                "seg_cnt": SEG[:, 1].clone(),
                 "split_cat_bitset": NBITS.clone(),
             }
             for key, dtype in NODE_COLS:
@@ -864,7 +899,8 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                              "grower2.split",
                              round_step if frontier else split_step,
                              capture, counted),
-            load=load, tree=tree, flag=flag, R=R, NODE=NODE, BITS=BITS,
+            load=load, tree=tree, flag=flag, R=R, SEG=SEG, NODE=NODE,
+            BITS=BITS,
             NBITS=NBITS, HIST=HIST, nleaves=nleaves)
 
     class Grow:
@@ -885,7 +921,7 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                      hist_scale: torch.Tensor = None):
             dev = payload.device
             width = payload.shape[1]
-            fits = cuda_segment.partition_hist_fits(width, F, B)
+            fits = cuda_segment.partition_hist_fits(width, G, B)
             if quantized:
                 merged = False
                 if qscale is None:

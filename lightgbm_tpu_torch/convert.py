@@ -10,8 +10,10 @@ grad/hess columns) crosses like any other, with its [2] scales beside it
 (`qscale_from_numpy`).  A partition-ordered payload's per-row state (the
 bag in the count column, the scores) reads back in original row order
 through its index column (`original_order`, `bag_mask_from_payload`,
-`scores_from_payload`), so the two packages' bags and scores (every class
-plane's, and the snapshot's, for K > 1) compare row for row.  They import nothing of the JAX package.  A GBDT's
+`scores_from_payload`; on the wide layout past 2^24 rows the index is
+split in radix-4096 halves, and `idxhi_col` names the high one), so the
+two packages' bags and scores (every class plane's, and the snapshot's,
+for K > 1) compare row for row.  They import nothing of the JAX package.  A GBDT's
 "weights" are its model text, which both packages read and write:
 `Booster(model_str=...)` loads a model written by either.
 """
@@ -20,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .boosting.gbdt import _IDX_RADIX
 from .ops.segment import SplitPredicate
 from .ops.split import FeatureMeta
 
@@ -40,7 +43,8 @@ def payload_from_numpy(payload, device="cpu") -> torch.Tensor:
     The column layout is the same in both packages: bins 0..G-1, label,
     weight, count, index, then K score columns from G + 4, for K > 1 K
     snapshot columns from G + 4 + K, then grad, hess, value, bvalid and
-    gweight (P = G + 10 for one tree per iteration, G + 2K + 9 for K > 1).
+    gweight, and idxhi on the wide layout (P = G + 10 for one tree per
+    iteration, G + 2K + 9 for K > 1, one more on the wide layout).
     The TPU's padding to 128 lanes, if present, is kept as it is."""
     arr = np.ascontiguousarray(np.asarray(payload, dtype=np.float32))
     if arr.ndim != 2:
@@ -85,15 +89,23 @@ def split_predicate_from_numpy(pred, device="cpu") -> SplitPredicate:
         for k, dt in _PRED_DTYPES.items()})
 
 
-def original_order(payload, col, idx_col: int, n_pad: int) -> np.ndarray:
+#: radix of the wide layout's split index (both packages' _IDX_RADIX)
+IDX_RADIX = _IDX_RADIX
+
+
+def original_order(payload, col, idx_col: int, n_pad: int,
+                   idxhi_col: int = None) -> np.ndarray:
     """Column `col` (or a sequence of columns) of a partition-ordered
     payload (either package's, as a tensor or any array-like) in ORIGINAL
     row order: [n_pad] f64 (or [len(col), n_pad]), routed by the index
-    column; guard rows (index n_pad) are dropped."""
+    column (idx + IDX_RADIX * idxhi on the wide layout, where
+    `idxhi_col` is given); guard rows (index n_pad) are dropped."""
     if isinstance(payload, torch.Tensor):
         payload = payload.detach().cpu().numpy()
     pay = np.asarray(payload, dtype=np.float32)
     idx = pay[:, idx_col].astype(np.int64)
+    if idxhi_col is not None:
+        idx = idx + pay[:, idxhi_col].astype(np.int64) * IDX_RADIX
     keep = idx < n_pad
     cols = np.atleast_1d(np.asarray(col, np.int64))
     out = np.zeros((len(cols), n_pad), np.float64)
@@ -102,15 +114,16 @@ def original_order(payload, col, idx_col: int, n_pad: int) -> np.ndarray:
 
 
 def bag_mask_from_payload(payload, cnt_col: int, idx_col: int,
-                          n_pad: int) -> np.ndarray:
+                          n_pad: int, idxhi_col: int = None) -> np.ndarray:
     """The bag (count-mask column) in original row order, [n_pad] f32 of
     0/1: zero on padded rows and on rows out of the bag."""
-    return (original_order(payload, cnt_col, idx_col, n_pad) > 0) \
-        .astype(np.float32)
+    return (original_order(payload, cnt_col, idx_col, n_pad, idxhi_col)
+            > 0).astype(np.float32)
 
 
 def scores_from_payload(payload, score_col: int, idx_col: int,
-                        n_pad: int, num_class: int = 0) -> np.ndarray:
+                        n_pad: int, num_class: int = 0,
+                        idxhi_col: int = None) -> np.ndarray:
     """The raw scores in original row order: the score column, [n_pad]
     f64 (before a tree is added, the pre-tree scores renewal reads), or
     with num_class=K the K columns from `score_col` (the scores, or the
@@ -118,5 +131,5 @@ def scores_from_payload(payload, score_col: int, idx_col: int,
     if num_class:
         return original_order(payload, range(score_col,
                                              score_col + num_class),
-                              idx_col, n_pad)
-    return original_order(payload, score_col, idx_col, n_pad)
+                              idx_col, n_pad, idxhi_col)
+    return original_order(payload, score_col, idx_col, n_pad, idxhi_col)

@@ -63,10 +63,13 @@ namespace {
 #define SEGMENT_HIST_KERNEL(name)                                           \
   template <bool Fixed>                                                     \
   __global__ void __launch_bounds__(kHistThreads, 2)                        \
-  name(const float* __restrict__ payload, int P, const int* __restrict__ seg, \
-       int K, int* iout, FixedOut fo, int F, int B, int cap, int grad_col,  \
-       int hess_col, int cnt_col) {                                         \
+  name(const float* __restrict__ payload, int P, int rows,                  \
+       const int* __restrict__ seg, int K, int* iout, FixedOut fo, int F,   \
+       int B, int cap, int grad_col, int hess_col, int cnt_col) {           \
     extern __shared__ __align__(16) unsigned char smem[];                   \
+    for (int k = 0; k < K; ++k) {                                           \
+      CHECK_SEGMENT(#name, seg[2 * k], seg[2 * k + 1], rows);               \
+    }                                                                       \
     hist_block<Fixed>(SegTable{payload, seg, P}, K, P, iout, fo, F, B, cap, \
                       grad_col, hess_col, cnt_col, blockIdx.x, gridDim.x,   \
                       smem);                                                \
@@ -77,9 +80,9 @@ SEGMENT_HIST_KERNEL(segment_hist_batched_kernel)
 
 template <typename Kernel>
 int launch(Kernel kernel, int* smem_set, const float* payload, int P,
-           const int* seg, int K, int* iout, const FixedOut& fo, int F, int B,
-           int cap, int grad_col, int hess_col, int cnt_col, int grid,
-           bool fixed, void* stream) {
+           int rows, const int* seg, int K, int* iout, const FixedOut& fo,
+           int F, int B, int cap, int grad_col, int hess_col, int cnt_col,
+           int grid, bool fixed, void* stream) {
   const int smem = hist_smem_bytes(cap, B, fixed);
   if (smem != *smem_set) {  // the opt-in last set for this kernel
     cudaError_t err = cudaFuncSetAttribute(
@@ -88,7 +91,8 @@ int launch(Kernel kernel, int* smem_set, const float* payload, int P,
     *smem_set = smem;
   }
   kernel<<<grid, kHistThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      payload, P, seg, K, iout, fo, F, B, cap, grad_col, hess_col, cnt_col);
+      payload, P, rows, seg, K, iout, fo, F, B, cap, grad_col, hess_col,
+      cnt_col);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -97,18 +101,20 @@ int launch(Kernel kernel, int* smem_set, const float* payload, int P,
 extern "C" {
 
 // Histograms over K segments: seg = [K, 2] int32 (start, count) on the
-// device.  quantized != 0 (B4, and B5's int32 instance): out = int32 [K, F,
-// B, 3] zeroed by the caller.  Else (B1, B5): out = f32 [K, F, B, 3],
-// every cell written here; scale = int32 [2], the fixed-point exponents of
-// grad and hess (ops/segment.fixed_scale); scratch_gh = int64 [K, F, B, 2]
-// and scratch_cnt = int32 [K, F, B], zero on entry; tickets = int32 [K,
-// F] (one per segment and feature group at most), zero on entry; all
-// three are left zero.  cap: features per group at most (<=
+// device, each inside the payload's `rows` rows (checked on the device:
+// segment_check.cuh).  quantized != 0 (B4, and B5's int32 instance): out =
+// int32 [K, F, B, 3] zeroed by the caller.  Else (B1, B5): out = f32 [K, F,
+// B, 3], every cell written here; scale = int32 [2], the fixed-point
+// exponents of grad and hess (ops/segment.fixed_scale); scratch_gh = int64
+// [K, F, B, 2] and scratch_cnt = int32 [K, F, B], zero on entry; tickets =
+// int32 [K, F] (one per segment and feature group at most), zero on entry;
+// all three are left zero.  cap: features per group at most (<=
 // kHistGroupCols of segment_hist.cuh, and hist_smem_bytes(cap, B, f32) of
 // shared memory); grid: the blocks, at least ceil(F / cap).  batched != 0
 // launches the kernel under B5's name.  Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a cap or grid outside those bounds.
-int segment_hist_launch(const float* payload, int P, const int* seg,
+int segment_hist_launch(const float* payload, int P, int rows,
+                        const int* seg,
                         void* out, int K, int F, int B, int cap, int grad_col,
                         int hess_col, int cnt_col, int grid, int quantized,
                         int batched, const int* scale,
@@ -122,7 +128,8 @@ int segment_hist_launch(const float* payload, int P, const int* seg,
   if (quantized) {
     return launch(batched ? segment_hist_batched_kernel<false>
                           : segment_hist_kernel<false>,
-                  set, payload, P, seg, K, static_cast<int*>(out), FixedOut{},
+                  set, payload, P, rows, seg, K, static_cast<int*>(out),
+                  FixedOut{},
                   F, B, cap, grad_col, hess_col, cnt_col, grid, false,
                   stream);
   }
@@ -130,7 +137,7 @@ int segment_hist_launch(const float* payload, int P, const int* seg,
                     tickets, scale};
   return launch(batched ? segment_hist_batched_kernel<true>
                         : segment_hist_kernel<true>,
-                set, payload, P, seg, K, nullptr, fo, F, B, cap, grad_col,
+                set, payload, P, rows, seg, K, nullptr, fo, F, B, cap, grad_col,
                 hess_col, cnt_col, grid, true, stream);
 }
 

@@ -69,6 +69,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "segment_check.cuh"
+
 namespace {
 
 constexpr int kHistThreads = 512;

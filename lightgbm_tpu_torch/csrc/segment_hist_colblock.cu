@@ -87,7 +87,7 @@ __host__ __device__ inline int smem_bytes(int Fb, int B) {
 // seg: int32 [2] (start, count); fo: segment_hist.cuh's FixedOut for one
 // segment, one ticket per column block
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
-hist_colblock_kernel(const float* __restrict__ payload, int P,
+hist_colblock_kernel(const float* __restrict__ payload, int P, int rows,
                      const int* __restrict__ seg, FixedOut fo, int F, int B,
                      int Fb, int grad_col, int hess_col, int cnt_col) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -99,6 +99,7 @@ hist_colblock_kernel(const float* __restrict__ payload, int P,
   unsigned short* bins =
       reinterpret_cast<unsigned short*>(cv + kRowTile);        // [kRowTile, kCols]
 
+  CHECK_SEGMENT("segment_histogram_colblock", seg[0], seg[1], rows);
   const int start = seg[0];
   const int count = seg[1];
   // at least one block, which writes the output of an empty segment
@@ -183,14 +184,16 @@ int segment_hist_colblock_cols(int F, int B) {
 }
 
 // hist[F, B, 3] f32 over one segment: seg = int32[2] (start, count) on the
-// device; out: every cell written here; scale = int32 [2], the fixed-point
-// exponents of grad and hess (ops/segment.fixed_scale); scratch_gh = int64
-// [F, B, 2], scratch_cnt = int32 [F, B] and tickets = int32 [F], zero on
-// entry and left zero.  Fb = segment_hist_colblock_cols(F, B) columns per
+// device, inside the payload's `rows` rows (checked on the device); out:
+// every cell written here; scale = int32 [2], the fixed-point exponents of
+// grad and hess (ops/segment.fixed_scale); scratch_gh = int64 [F, B, 2],
+// scratch_cnt = int32 [F, B] and tickets = int32 [F], zero on entry and
+// left zero.  Fb = segment_hist_colblock_cols(F, B) columns per
 // block; a grid of ceil(F / Fb) column blocks by as many row chunks as
 // keep the whole grid resident on `sms` multiprocessors.  Returns
 // cudaGetLastError().
-int segment_hist_colblock_launch(const float* payload, int P, const int* seg,
+int segment_hist_colblock_launch(const float* payload, int P, int rows,
+                                 const int* seg,
                                  float* out, int F, int B, int sms,
                                  int grad_col, int hess_col, int cnt_col,
                                  const int* scale,
@@ -210,8 +213,9 @@ int segment_hist_colblock_launch(const float* payload, int P, const int* seg,
   const dim3 grid(max(1, kBlocksPerSm * sms / ncb), ncb);
   hist_colblock_kernel<<<grid, kThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-      payload, P, seg, FixedOut{scratch_gh, scratch_cnt, out, tickets, scale},
-      F, B, Fb, grad_col, hess_col, cnt_col);
+      payload, P, rows, seg,
+      FixedOut{scratch_gh, scratch_cnt, out, tickets, scale}, F, B, Fb,
+      grad_col, hess_col, cnt_col);
   return static_cast<int>(cudaGetLastError());
 }
 

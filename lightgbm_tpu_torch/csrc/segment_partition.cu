@@ -91,6 +91,7 @@ part_count_tiles(const float* __restrict__ payload, int P,
                  const int* __restrict__ sc,
                  const unsigned char* __restrict__ bitset, int B, int T,
                  int* __restrict__ tile_left, int* __restrict__ sync) {
+  CHECK_SCALARS("partition_segment count", sc);
   count_tiles(payload, P, sc, bitset, B, T, tile_left, sync);
 }
 
@@ -98,6 +99,7 @@ __global__ void __launch_bounds__(kTile)
 part_scan_tiles(const int* __restrict__ sc, int T,
                 const int* __restrict__ tile_left, int* __restrict__ tile_off,
                 int* __restrict__ num_left) {
+  CHECK_SCALARS("partition_segment scan", sc);
   scan_tile_counts((sc[kCount] + T - 1) / T, tile_left, tile_off, num_left);
 }
 
@@ -107,6 +109,7 @@ part_move(float* payload, float* aux, int P, const int* __restrict__ sc,
           const int* __restrict__ tile_left, const int* __restrict__ tile_off,
           const int* __restrict__ num_left, const float* __restrict__ fvals,
           int value_col, int* sync) {
+  CHECK_SCALARS("partition_segment move", sc);
   move_tiles(payload, aux, P, sc, bitset, B, T, tile_left, tile_off,
              num_left, fvals, value_col, sync);
 }
@@ -115,6 +118,7 @@ __global__ void __launch_bounds__(kCopyThreads)
 part_copy_side(float* __restrict__ payload, const float* __restrict__ aux,
                int P, const int* __restrict__ sc,
                const int* __restrict__ num_left) {
+  CHECK_SCALARS("partition_segment copy", sc);
   copy_smaller_side(payload, aux, P, sc, num_left);
 }
 
@@ -129,6 +133,7 @@ part_stage_move(const float* payload, float* __restrict__ aux, int P,
                 const int* __restrict__ tile_left,
                 const int* __restrict__ tile_off,
                 const int* __restrict__ num_left, int* sync) {
+  CHECK_SCALARS("partition_segment_stage move", sc);
   move_tiles<true>(const_cast<float*>(payload), aux, P, sc, bitset, B, T,
                    tile_left, tile_off, num_left, nullptr, 0, sync);
 }
@@ -138,49 +143,55 @@ part_stage_move(const float* payload, float* __restrict__ aux, int P,
 // 16-byte moves where aux and payload share their offset within 16 bytes
 // (always, for two buffers of one shape from the allocator), else 4-byte
 // ones; element e of the segment is row e / P, column e % P, tracked by a
-// running pair.
+// running pair.  Element counts and indices are 64-bit: a segment of
+// count * P elements passes 2^31 past 2^24 rows at P >= 128.
 __global__ void __launch_bounds__(kCopyThreads)
 part_commit(float* __restrict__ payload, const float* __restrict__ aux, int P,
-            const int* __restrict__ sc, const int* __restrict__ num_left,
+            const int* __restrict__ sc, int rows,
+            const int* __restrict__ num_left,
             const float* __restrict__ fvals, int value_col) {
+  CHECK_SEGMENT("partition_segment_commit", sc[kStart], sc[kCount], rows);
   const long long base = static_cast<long long>(sc[kStart]) * P;
-  const int n = sc[kCount] * P;  // the payload's elements fit an int
+  const long long n = static_cast<long long>(sc[kCount]) * P;
   const int nl = *num_left;
   const float lv = fvals[0];
   const float rv = fvals[1];
   const float* src = aux + base;
   float* dst = payload + base;
-  const int t0 = blockIdx.x * blockDim.x + threadIdx.x;
-  const int step = gridDim.x * blockDim.x;
-  auto value = [&](int e, float v) {
-    const int r = e / P;
+  const long long t0 =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  auto value = [&](long long e, float v) {
+    const long long r = e / P;
     return e - r * P == value_col ? (r < nl ? lv : rv) : v;
   };
   if (phase16(src) != phase16(dst)) {
-    for (int e = t0; e < n; e += step) dst[e] = value(e, src[e]);
+    for (long long e = t0; e < n; e += step) dst[e] = value(e, src[e]);
     return;
   }
-  const int head = min((4 - phase16(dst)) & 3, n);
-  const int nvec = (n - head) >> 2;
+  const long long head = min(static_cast<long long>((4 - phase16(dst)) & 3),
+                             n);
+  const long long nvec = (n - head) >> 2;
   // the at most three elements before the aligned middle and after it
-  const int edge = t0 < 3 ? t0 : head + 4 * nvec + t0 - 3;
+  const long long edge = t0 < 3 ? t0 : head + 4 * nvec + t0 - 3;
   if ((t0 < 3 && edge < head) || (t0 >= 3 && t0 < 6 && edge < n)) {
     dst[edge] = value(edge, src[edge]);
   }
   const float4* s4 = reinterpret_cast<const float4*>(src + head);
   float4* d4 = reinterpret_cast<float4*>(dst + head);
-  const int e0 = head + 4 * t0;
-  int row = e0 / P;  // once per thread
-  int col = e0 - row * P;
-  const int drow = (4 * step) / P;
-  const int dcol = 4 * step - drow * P;
+  const long long e0 = head + 4 * t0;
+  long long row = e0 / P;  // once per thread
+  int col = static_cast<int>(e0 - row * P);
+  const long long drow = (4 * step) / P;
+  const int dcol = static_cast<int>(4 * step - drow * P);
 #pragma unroll 4
-  for (int i = t0; i < nvec; i += step) {
+  for (long long i = t0; i < nvec; i += step) {
     float4 v = s4[i];
     float* f = reinterpret_cast<float*>(&v);
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      int c = col + q, r = row;
+      int c = col + q;
+      long long r = row;
       if (c >= P) {
         c -= P;
         ++r;
@@ -249,10 +260,10 @@ int segment_partition_launch(float* payload, float* aux, int P,
 
 // The stage (part_count_tiles, part_scan_tiles, part_stage_move): the rows
 // of [start, start + count), left rows first, into aux over the same range;
-// payload is only read.  scalars: int32[11] on the device (start, count,
+// payload is only read.  scalars: int32[12] on the device (start, count,
 // col, threshold, default_left, is_cat, missing_type, num_bin,
-// default_bin, offset, identity); bitset: uint8[B], the bytes of a bool
-// tensor.  Scratch, for n_tiles tiles of
+// default_bin, offset, identity, and the payload's rows); bitset:
+// uint8[B], the bytes of a bool tensor.  Scratch, for n_tiles tiles of
 // segment_partition_move_tile_rows(P) rows covering the largest count:
 // tile_left / tile_off int32[n_tiles], sync int32[1 + n_tiles] (cleared by
 // the count kernel).  num_left: one int32 on the device (any slot of a
@@ -289,16 +300,18 @@ int segment_partition_stage_launch(const float* payload, float* aux, int P,
 
 // The commit (part_commit): aux -> payload over [start, start + count) with
 // fvals[0] (left) / fvals[1] (right) written into value_col.  seg: int32[2]
-// (start, count) on the device, or the stage's int32[11] scalars;
-// num_left: one int32 on the device.  count 0 is a no-op.  copy_blocks:
-// the grid.  Returns cudaGetLastError().
+// (start, count) on the device, or the stage's int32[12] scalars; rows:
+// the payload's rows, the segment's bound; num_left: one int32 on the
+// device.  count 0 is a no-op.  copy_blocks: the grid.  Returns
+// cudaGetLastError().
 int segment_partition_commit_launch(float* payload, const float* aux, int P,
-                                    const int* seg, const int* num_left,
-                                    const float* fvals, int value_col,
-                                    int copy_blocks, void* stream) {
+                                    const int* seg, int rows,
+                                    const int* num_left, const float* fvals,
+                                    int value_col, int copy_blocks,
+                                    void* stream) {
   part_commit<<<copy_blocks, kCopyThreads, 0,
                 static_cast<cudaStream_t>(stream)>>>(
-      payload, aux, P, seg, num_left, fvals, value_col);
+      payload, aux, P, seg, rows, num_left, fvals, value_col);
   return static_cast<int>(cudaGetLastError());
 }
 

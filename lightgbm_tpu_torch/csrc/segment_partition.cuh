@@ -7,21 +7,29 @@
 // and zero-missing with default_left, categorical bitset, EFB offset /
 // identity decode.  start, count and every predicate scalar are read from
 // device memory, and num_left stays there, so the grower never syncs to
-// launch these.
+// launch these; every kernel checks the segment against the payload's rows
+// (the last scalar) on the device first (segment_check.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "segment_check.cuh"
 
 namespace {
 
 constexpr int kTile = 1024;  // rows per tile, one per thread
 constexpr int kCopyThreads = 256;
 
-// predicate scalars, in the order of pallas_segment._partition_segment_acc
+// predicate scalars, in the order of pallas_segment._partition_segment_acc,
+// then the payload's rows (the segment's bound)
 enum {
   kStart = 0, kCount, kCol, kThreshold, kDefaultLeft, kIsCat, kMissingType,
-  kNumBin, kDefaultBin, kOffset, kIdentity, kNumScalars
+  kNumBin, kDefaultBin, kOffset, kIdentity, kRows, kNumScalars
 };
+// Returns from the kernel when the scalars' segment is outside the payload.
+#define CHECK_SCALARS(entry, sc) \
+  CHECK_SEGMENT(entry, (sc)[kStart], (sc)[kCount], (sc)[kRows])
+
 constexpr int kMissingZero = 1;
 constexpr int kMissingNan = 2;
 

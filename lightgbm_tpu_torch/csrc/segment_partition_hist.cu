@@ -68,6 +68,7 @@ phist_count(const float* __restrict__ payload, int P,
             const int* __restrict__ sc,
             const unsigned char* __restrict__ bitset, int B, int T,
             int* __restrict__ tile_left, int* __restrict__ sync) {
+  CHECK_SCALARS("partition_segment_hist count", sc);
   count_tiles(payload, P, sc, bitset, B, T, tile_left, sync);
 }
 
@@ -75,6 +76,7 @@ __global__ void __launch_bounds__(kTile)
 phist_scan(const int* __restrict__ sc, int T,
            const int* __restrict__ tile_left, int* __restrict__ tile_off,
            int* __restrict__ num_left) {
+  CHECK_SCALARS("partition_segment_hist scan", sc);
   scan_tile_counts((sc[kCount] + T - 1) / T, tile_left, tile_off, num_left);
 }
 
@@ -85,6 +87,7 @@ phist_move(float* payload, float* aux, int P, const int* __restrict__ sc,
            const int* __restrict__ tile_off,
            const int* __restrict__ num_left, const float* __restrict__ fvals,
            int value_col, int* sync) {
+  CHECK_SCALARS("partition_segment_hist move", sc);
   move_tiles(payload, aux, P, sc, bitset, B, T, tile_left, tile_off,
              num_left, fvals, value_col, sync);
 }
@@ -99,6 +102,7 @@ phist_side_hist(float* payload, const float* aux, int P,
                 FixedOut fo, int F, int Bh, int cap, int grad_col,
                 int hess_col, int cnt_col, int copy_blocks) {
   extern __shared__ __align__(16) unsigned char smem[];
+  CHECK_SCALARS("partition_segment_hist histograms", sc);
   const int count = sc[kCount];
   const int nl = *num_left;
   const bool fwd = left_in_place(nl, count);
@@ -128,9 +132,10 @@ int segment_partition_hist_tile_rows(int P) {
   return P > 0 ? tile_rows(P) : 0;
 }
 
-// The merged partition (kernels 1-4).  scalars: int32[11] on the device
+// The merged partition (kernels 1-4).  scalars: int32[12] on the device
 // (start, count, col, threshold, default_left, is_cat, missing_type,
-// num_bin, default_bin, offset, identity); bitset: uint8[B], the bytes of a
+// num_bin, default_bin, offset, identity, and the payload's rows, the
+// segment's bound); bitset: uint8[B], the bytes of a
 // bool tensor; fvals: f32[2] (left, right value) on the device.  Scratch,
 // for n_tiles tiles of segment_partition_hist_tile_rows(P) rows covering
 // the largest count: tile_left / tile_off int32[n_tiles], sync

@@ -88,6 +88,7 @@ route_count(const float* __restrict__ payload, int P,
             const unsigned char* __restrict__ bitset, int B,
             unsigned char* __restrict__ side, int* __restrict__ tile_left,
             int* __restrict__ sync, int ncb) {
+  CHECK_SCALARS("partition_segment_blocks route_count", sc);
   const int count = sc[kCount];
   const int row0 = blockIdx.x * kTile;
   if (blockIdx.x == 0 && threadIdx.x == 0) sync[0] = 0;
@@ -113,6 +114,7 @@ route_count(const float* __restrict__ payload, int P,
 __global__ void __launch_bounds__(kTile)
 route_scan(const int* __restrict__ sc, const int* __restrict__ tile_left,
            int* __restrict__ tile_off, int* __restrict__ num_left) {
+  CHECK_SCALARS("partition_segment_blocks route_scan", sc);
   scan_tile_counts((sc[kCount] + kTile - 1) / kTile, tile_left, tile_off,
                    num_left);
 }
@@ -122,6 +124,7 @@ route_rank(const int* __restrict__ sc, const unsigned char* __restrict__ side,
            const int* __restrict__ tile_off, const int* __restrict__ num_left,
            int* __restrict__ dest) {
   __shared__ int warp_left[32];
+  CHECK_SCALARS("partition_segment_blocks route_rank", sc);
   const int start = sc[kStart];
   const int count = sc[kCount];
   const int row0 = blockIdx.x * kTile;
@@ -162,12 +165,14 @@ __global__ void __launch_bounds__(kRmwCountThreads)
 rmw_count(const float* __restrict__ payload, int P, const int* __restrict__ sc,
           const unsigned char* __restrict__ bitset, int B, int T,
           int* __restrict__ tile_left, int* __restrict__ sync) {
+  CHECK_SCALARS("partition_segment_rmw count", sc);
   count_tiles(payload, P, sc, bitset, B, T, tile_left, sync);
 }
 
 __global__ void __launch_bounds__(kTile)
 rmw_scan(const int* __restrict__ sc, int T, const int* __restrict__ tile_left,
          int* __restrict__ tile_off, int* __restrict__ num_left) {
+  CHECK_SCALARS("partition_segment_rmw scan", sc);
   scan_tile_counts((sc[kCount] + T - 1) / T, tile_left, tile_off, num_left);
 }
 
@@ -177,6 +182,7 @@ rmw_move(float* payload, float* aux, int P, const int* __restrict__ sc,
          const int* __restrict__ tile_left, const int* __restrict__ tile_off,
          const int* __restrict__ num_left, const float* __restrict__ fvals,
          int value_col, int* sync) {
+  CHECK_SCALARS("partition_segment_rmw move", sc);
   move_tiles(payload, aux, P, sc, bitset, B, T, tile_left, tile_off,
              num_left, fvals, value_col, sync);
 }
@@ -185,6 +191,7 @@ __global__ void __launch_bounds__(kCopyThreads)
 rmw_copy_side(float* __restrict__ payload, const float* __restrict__ aux,
               int P, const int* __restrict__ sc,
               const int* __restrict__ num_left) {
+  CHECK_SCALARS("partition_segment_rmw copy", sc);
   copy_smaller_side(payload, aux, P, sc, num_left);
 }
 
@@ -262,6 +269,7 @@ block_move(float* payload, float* aux, int P, const int* __restrict__ sc,
   __shared__ int s_ticket;
   __shared__ int s_claim[2];
   __shared__ int s_wait[2];
+  CHECK_SCALARS("partition_segment_blocks move", sc);
   const long long start = sc[kStart];
   const int count = sc[kCount];
   const int nl = *num_left;
@@ -404,6 +412,7 @@ __global__ void __launch_bounds__(kCopyThreads)
 wide_copy_side(float* __restrict__ payload, const float* __restrict__ aux,
                int P, const int* __restrict__ sc,
                const int* __restrict__ num_left) {
+  CHECK_SCALARS("partition_segment_blocks copy", sc);
   copy_smaller_side(payload, aux, P, sc, num_left);
 }
 
@@ -424,8 +433,9 @@ int segment_partition_rmw_tile_rows(int P) {
 }
 
 // B3 (kernels rmw_count, rmw_scan, rmw_move, rmw_copy_side).  scalars:
-// int32[11] on the device (start, count, col, threshold, default_left,
-// is_cat, missing_type, num_bin, default_bin, offset, identity); bitset:
+// int32[12] on the device (start, count, col, threshold, default_left,
+// is_cat, missing_type, num_bin, default_bin, offset, identity, and the
+// payload's rows, the segment's bound); bitset:
 // uint8[B], the bytes of a bool tensor; fvals: f32[2] (left, right value)
 // on the device.  Scratch, for n_tiles tiles of
 // segment_partition_rmw_tile_rows(P) rows covering the largest count:

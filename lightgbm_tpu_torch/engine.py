@@ -247,9 +247,15 @@ def _make_n_folds(train_set: Dataset, folds, nfold: int, params: Dict,
         train_idx = np.sort(np.asarray(train_idx))
         test_idx = np.sort(np.asarray(test_idx))
         tr = train_set.subset(train_idx)
-        te = tr.create_valid(_slice_rows(train_set.data, test_idx),
-                             label=None if y is None
-                             else np.asarray(y)[test_idx])
+        if train_set.has_raw_matrix():
+            te = tr.create_valid(_slice_rows(train_set.data, test_idx),
+                                 label=None if y is None
+                                 else np.asarray(y)[test_idx])
+        else:
+            # no raw matrix (a path or a stream): the held-out fold is a
+            # binned subset too, with the same mappers and bundles
+            te = train_set.subset(test_idx)
+            te.reference = tr
         if fold_group is not None:
             tr.set_group(fold_group[k][0])
             te.set_group(fold_group[k][1])

@@ -59,7 +59,11 @@ def find_bundles(nonzero: List[np.ndarray], num_rows: int,
     order = [f for f in rng.permutation(F) if bundleable[f]]
 
     groups: List[List[int]] = []
-    group_rows: List[np.ndarray] = []     # sorted nonzero rows per bundle
+    # each bundle's rows with a non-default member, as a [num_rows] mask:
+    # a feature's conflicts with it are a gather of the mask at the
+    # feature's rows (the JAX package intersects sorted row lists; the
+    # counts, and so the bundles, are the same)
+    group_rows: List[np.ndarray] = []
     group_conflicts: List[int] = []
     group_bins: List[int] = []            # 1 + sum(nb_f - 1) so far
 
@@ -70,18 +74,19 @@ def find_bundles(nonzero: List[np.ndarray], num_rows: int,
         for gi in range(len(groups)):
             if group_bins[gi] + extra_bins > max_bundle_bins:
                 continue
-            cnt = np.intersect1d(group_rows[gi], rows_f,
-                                 assume_unique=True).size
+            cnt = int(np.count_nonzero(group_rows[gi][rows_f]))
             if group_conflicts[gi] + cnt <= max_conflicts:
                 groups[gi].append(f)
-                group_rows[gi] = np.union1d(group_rows[gi], rows_f)
+                group_rows[gi][rows_f] = True
                 group_conflicts[gi] += cnt
                 group_bins[gi] += extra_bins
                 placed = True
                 break
         if not placed:
+            mask = np.zeros(num_rows, bool)
+            mask[rows_f] = True
             groups.append([f])
-            group_rows.append(rows_f)
+            group_rows.append(mask)
             group_conflicts.append(0)
             group_bins.append(1 + extra_bins)
     return groups

@@ -5,14 +5,19 @@ Role parity with the reference Dataset/DatasetLoader/Metadata
 src/io/dataset_loader.cpp CostructFromSampleData:501+, src/io/metadata.cpp).
 
 Copied from the JAX package (numpy only): instead of per-feature-group Bin
-objects with push iterators, the dataset is one [num_features, num_rows]
-integer matrix (uint8 for <=256 bins) padded to the row chunk, plus small
-per-feature metadata arrays (bin counts, missing types, default bins)
-consumed by the split finder.  The binary dataset cache and the native
-encoder are not ported; host binning runs the per-feature numpy path.
+objects with push iterators, the dataset is one [G, num_rows] integer
+matrix (uint8 for <=256 bins; G storage columns, the features or their EFB
+bundles) padded to the row chunk, plus small per-feature metadata arrays
+(bin counts, missing types, default bins) consumed by the split finder.
+The binary dataset cache (`save_binary` / `load_binary`, the JAX
+package's npz format with its JSON header, bundles, mappers, metadata and
+nibble packing, so either package loads the other's) and the binned row
+subset (`subset`, for datasets with no raw matrix) are ported; the native
+encoder is not, and host binning runs the per-feature numpy path.
 """
 from __future__ import annotations
 
+import json
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -21,6 +26,7 @@ from ..utils.log import Log
 from ..utils.random import Random
 from .binning import (BIN_TYPE_CATEGORICAL, BIN_TYPE_NUMERICAL, BinMapper)
 from .bundling import BundleInfo, bundle_features
+from .nbits import pack_nibbles, should_pack, unpack_nibbles
 
 
 def _round_up(n: int, m: int) -> int:
@@ -189,6 +195,128 @@ class BinnedDataset:
         return ds
 
 
+    # -- binary dataset cache (reference save_binary / DatasetLoader::
+    #    LoadFromBinFile, src/io/dataset_loader.cpp:267+) -------------------
+    BINARY_MAGIC = "lightgbm_tpu.dataset.v1"
+    #: cache-format version stamp, the JAX package's: bumped whenever the
+    #: on-disk layout or the binning semantics it froze change, so a stale
+    #: cache refuses to load with a rebuild instruction instead of
+    #: training on bins a newer build would not have produced.  v2 is the
+    #: first stamped format (v1 files predate the stamp).  The magic and
+    #: the version are shared, so a cache written by either package loads
+    #: in the other.
+    BINARY_FORMAT_VERSION = 2
+
+    def save_binary(self, path: str) -> None:
+        """Serialize the fully-constructed dataset (bins, mappers, bundles,
+        metadata) so later runs skip parsing + find-bin + bundling."""
+        header = {
+            "magic": self.BINARY_MAGIC,
+            "format_version": self.BINARY_FORMAT_VERSION,
+            "num_data": self.num_data,
+            "num_total_features": self.num_total_features,
+            "num_data_padded": self.num_data_padded,
+            "max_num_bin": self.max_num_bin,
+            "feature_names": self.feature_names,
+            "num_columns": int(self.bins.shape[0]),
+        }
+        if should_pack(self):
+            # dense_nbits_bin parity at the storage boundary: <=16-bin
+            # columns cache at two per byte
+            header["nbits4"] = True
+            arrays = {"bins": pack_nibbles(self.bins)}
+        else:
+            arrays = {"bins": self.bins}
+        arrays.update({"monotone": self.monotone_constraints,
+                       "penalty": self.feature_penalty})
+        for i, m in enumerate(self.bin_mappers):
+            ma = m.to_arrays()
+            header.setdefault("mappers", []).append(
+                {k: v for k, v in ma.items()
+                 if not isinstance(v, np.ndarray)})
+            arrays["mapper%d_upper" % i] = ma["bin_upper_bound"]
+            arrays["mapper%d_cats" % i] = ma["bin_2_categorical"]
+        if self.bundle_info is not None:
+            bi = self.bundle_info
+            header["bundle_groups"] = [list(map(int, g)) for g in bi.groups]
+            arrays["bundle_f_group"] = bi.f_group
+            arrays["bundle_f_offset"] = bi.f_offset
+            arrays["bundle_f_identity"] = bi.f_identity
+            arrays["bundle_group_num_bin"] = bi.group_num_bin
+            if bi.conflict_rates is not None:
+                arrays["bundle_conflict_rates"] = bi.conflict_rates
+        md = self.metadata
+        if md is not None:
+            for name in ("label", "weight", "init_score", "query_boundaries"):
+                v = getattr(md, name)
+                if v is not None:
+                    arrays["md_" + name] = v
+        arrays["header"] = np.frombuffer(
+            json.dumps(header).encode(), dtype=np.uint8)
+        with open(path, "wb") as fh:
+            np.savez_compressed(fh, **arrays)
+        Log.info("Saved binary dataset cache to %s", path)
+
+    @staticmethod
+    def is_binary_file(path: str) -> bool:
+        try:
+            with np.load(path, allow_pickle=False) as z:
+                if "header" not in z.files:
+                    return False
+                header = json.loads(bytes(z["header"].tobytes()).decode())
+                return header.get("magic") == BinnedDataset.BINARY_MAGIC
+        except Exception:
+            return False
+
+    @classmethod
+    def load_binary(cls, path: str) -> "BinnedDataset":
+        with np.load(path, allow_pickle=False) as z:
+            header = json.loads(bytes(z["header"].tobytes()).decode())
+            if header.get("magic") != cls.BINARY_MAGIC:
+                Log.fatal("%s is not a lightgbm_tpu binary dataset", path)
+            version = int(header.get("format_version", 1))
+            if version != cls.BINARY_FORMAT_VERSION:
+                Log.fatal(
+                    "binary dataset cache %s has format version %d but "
+                    "this build reads version %d; the cache is stale — "
+                    "delete it and rebuild with save_binary", path, version,
+                    cls.BINARY_FORMAT_VERSION)
+            ds = cls()
+            ds.num_data = int(header["num_data"])
+            ds.num_total_features = int(header["num_total_features"])
+            ds.num_data_padded = int(header["num_data_padded"])
+            ds.max_num_bin = int(header["max_num_bin"])
+            ds.feature_names = list(header["feature_names"])
+            if header.get("nbits4"):
+                ds.bins = unpack_nibbles(z["bins"],
+                                         int(header["num_columns"]))
+            else:
+                ds.bins = z["bins"]
+            ds.monotone_constraints = z["monotone"]
+            ds.feature_penalty = z["penalty"]
+            for i, mh in enumerate(header["mappers"]):
+                d = dict(mh)
+                d["bin_upper_bound"] = z["mapper%d_upper" % i]
+                d["bin_2_categorical"] = z["mapper%d_cats" % i]
+                ds.bin_mappers.append(BinMapper.from_arrays(d))
+            if "bundle_groups" in header:
+                ds.bundle_info = BundleInfo(
+                    groups=[list(g) for g in header["bundle_groups"]],
+                    f_group=z["bundle_f_group"],
+                    f_offset=z["bundle_f_offset"],
+                    f_identity=z["bundle_f_identity"],
+                    group_num_bin=z["bundle_group_num_bin"],
+                    max_group_bin=int(z["bundle_group_num_bin"].max()),
+                    conflict_rates=z["bundle_conflict_rates"]
+                    if "bundle_conflict_rates" in z.files else None)
+            ds.metadata = Metadata(ds.num_data)
+            for name in ("label", "weight", "init_score", "query_boundaries"):
+                if "md_" + name in z.files:
+                    setattr(ds.metadata, name, z["md_" + name])
+        Log.info("Loaded binary dataset cache from %s (%d rows, %d features)",
+                 path, ds.num_data, ds.num_total_features)
+        return ds
+
     @staticmethod
     def _find_bin_mappers(X: np.ndarray, config,
                           categorical_feature: Sequence[int]) -> List[BinMapper]:
@@ -224,6 +352,63 @@ class BinnedDataset:
                  sum(m.num_bin for m in mappers), f - num_trivial)
         return mappers
 
+    # -- row subsetting (reference Dataset::CopySubrow via
+    #    LGBM_DatasetGetSubset): gather BINNED rows directly, sharing the
+    #    mappers/bundles — no raw data needed, so it also serves datasets
+    #    built from a stream whose raw chunks were dropped ------------------
+    def subset(self, used_indices) -> "BinnedDataset":
+        idx = np.asarray(used_indices, dtype=np.int64).reshape(-1)
+        if idx.size == 0:
+            Log.fatal("used_indices must not be empty")
+        if idx.min() < 0 or idx.max() >= self.num_data:
+            Log.fatal("used_indices out of range [0, %d)", self.num_data)
+        if np.any(np.diff(idx) <= 0):
+            Log.fatal("used_indices must be sorted ascending and unique "
+                      "(the reference GetSubset contract)")
+        k = int(idx.size)
+        ds = BinnedDataset()
+        ds.num_data = k
+        ds.num_total_features = self.num_total_features
+        ds.bin_mappers = list(self.bin_mappers)
+        ds.max_num_bin = self.max_num_bin
+        ds.bundle_info = self.bundle_info
+        n_pad = _round_up(k, 16384) if k > 16384 else _round_up(k, 128)
+        bins = np.zeros((self.bins.shape[0], n_pad), dtype=self.bins.dtype)
+        bins[:, :k] = self.bins[:, idx]
+        ds.bins = bins
+        ds.num_data_padded = n_pad
+        ds.feature_names = list(self.feature_names)
+        ds.monotone_constraints = self.monotone_constraints
+        ds.feature_penalty = self.feature_penalty
+        md = Metadata(k)
+        src = self.metadata
+        if src is not None:
+            if src.query_boundaries is not None:
+                # ranking subset: slice the query structure
+                # along with the rows.  Each kept row maps to its source
+                # query; since idx is sorted ascending, rows of one query
+                # stay contiguous, so the subset's boundaries are the
+                # run lengths of that mapping.  Whole kept groups keep
+                # their size; partially-kept groups shrink (the
+                # rolling-window trainer cuts on group boundaries, so in
+                # that path groups are always whole).
+                qb = src.query_boundaries
+                row_query = np.searchsorted(qb, idx, side="right") - 1
+                starts = np.flatnonzero(np.diff(row_query)) + 1
+                counts = np.diff(np.concatenate([[0], starts, [k]]))
+                md.set_query(counts)
+            if src.label is not None:
+                md.set_label(src.label[idx])
+            if src.weight is not None:
+                md.set_weight(src.weight[idx])
+            if src.init_score is not None:
+                if len(src.init_score) != self.num_data:
+                    Log.fatal("cannot subset a multi-class init_score "
+                              "through GetSubset")
+                md.set_init_score(src.init_score[idx])
+        ds.metadata = md
+        return ds
+
     # -- accessors -----------------------------------------------------------
     @property
     def num_features(self) -> int:
@@ -249,3 +434,10 @@ class BinnedDataset:
         if arr is not None:
             out[: self.num_data] = arr
         return out
+
+    def storage_num_bins(self) -> np.ndarray:
+        """[G] bin count of each STORAGE column (bundle width when EFB is
+        active, the feature's own bins otherwise)."""
+        if self.bundle_info is not None:
+            return np.asarray(self.bundle_info.group_num_bin)
+        return np.asarray([m.num_bin for m in self.bin_mappers])

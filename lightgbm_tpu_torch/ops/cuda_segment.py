@@ -165,9 +165,9 @@ def _check_payload(payload: torch.Tensor, name: str) -> None:
             or not payload.is_contiguous():
         raise ValueError("%s: payload must be a contiguous 2-D float32 "
                          "tensor" % name)
-    if payload.shape[0] * payload.shape[1] >= 2 ** 31:
-        raise ValueError("%s: payload of %d elements is past the kernel's "
-                         "int32 element indexing" % (name, payload.numel()))
+    if payload.shape[0] >= 2 ** 31:
+        raise ValueError("%s: payload of %d rows is past the kernels' int32 "
+                         "row indexing" % (name, payload.shape[0]))
 
 
 def _check_aux(payload: torch.Tensor, aux: torch.Tensor, name: str) -> None:
@@ -396,7 +396,7 @@ def _hist_launch(name: str, payload: torch.Tensor, segv: torch.Tensor,
                              % (name, c, P))
     dev = payload.device
     lib, fn = _lib("segment_hist", "segment_hist_launch",
-                   [_P, _I, _P, _P] + [_I] * 10 + [_P] * 5)
+                   [_P, _I, _I, _P, _P] + [_I] * 10 + [_P] * 5)
     if quantized:
         out = torch.zeros((K, F, B, 3), device=dev, dtype=torch.int32)
         sc, gh, cnt, tk = None, None, None, None
@@ -405,8 +405,8 @@ def _hist_launch(name: str, payload: torch.Tensor, segv: torch.Tensor,
         sc = _scale_of(payload, scale, segv[:, 0], segv[:, 1], grad_col,
                        hess_col)
         gh, cnt, tk = _workspace(workspace, dev).fixed(K * F * B, K * F)
-    rc = fn(payload.data_ptr(), P, segv.data_ptr(), out.data_ptr(), K, F, B,
-            cap, grad_col, hess_col, cnt_col,
+    rc = fn(payload.data_ptr(), P, payload.shape[0], segv.data_ptr(),
+            out.data_ptr(), K, F, B, cap, grad_col, hess_col, cnt_col,
             hist_grid(_sm_count(dev.index), F, cap), int(quantized),
             int(name == "segment_histogram_batched"),
             None if sc is None else sc.data_ptr(), gh, cnt, tk,
@@ -497,14 +497,16 @@ def segment_histogram_batched(payload: torch.Tensor, starts, counts, *,
 segment_histogram_batched.launches = 0
 
 
-def _pred_args(start, count, pred: SplitPredicate, dev):
-    """The kernels' predicate: int32[11] scalars (start, count, col,
+def _pred_args(start, count, pred: SplitPredicate, rows: int, dev):
+    """The kernels' predicate: int32[12] scalars (start, count, col,
     threshold, default_left, is_cat, missing_type, num_bin, default_bin,
-    offset, identity) and the bitset's bytes, both on `dev`."""
+    offset, identity, and the payload's `rows`, which the kernels check
+    the segment against on the device) and the bitset's bytes, both on
+    `dev`."""
     scalars = _int_vec((start, count, pred.col, pred.threshold,
                         pred.default_left, pred.is_cat, pred.missing_type,
                         pred.num_bin, pred.default_bin, pred.offset,
-                        pred.identity), dev)
+                        pred.identity, rows), dev)
     # a bool bitset is passed as its bytes, with no conversion launch
     bitset = torch.as_tensor(pred.bitset, device=dev).to(torch.bool) \
         .contiguous().view(torch.uint8)
@@ -524,7 +526,7 @@ def _stage(payload, aux, start, count, pred: SplitPredicate, num_left,
     T = _tile_rows("segment_partition", "segment_partition_move_tile_rows", P)
     if T == 0:
         raise ValueError("partition stage: width %d past the kernel" % P)
-    scalars, bitset = _pred_args(start, count, pred, dev)
+    scalars, bitset = _pred_args(start, count, pred, N, dev)
     lib, fn = _lib("segment_partition", "segment_partition_stage_launch",
                    [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P])
     n_tiles = -(-N // T)
@@ -550,9 +552,9 @@ def _commit(payload, aux, start, count, num_left, left_value, right_value,
     segv = _int_vec((start, count), dev)
     fvals = _leaf_values(left_value, right_value, dev)
     lib, fn = _lib("segment_partition", "segment_partition_commit_launch",
-                   [_P, _P, _I, _P, _P, _P, _I, _I, _P])
+                   [_P, _P, _I, _P, _I, _P, _P, _I, _I, _P])
     rc = fn(payload.data_ptr(), aux.data_ptr(), P, segv.data_ptr(),
-            num_left.data_ptr(), fvals.data_ptr(), value_col,
+            payload.shape[0], num_left.data_ptr(), fvals.data_ptr(), value_col,
             4 * _sm_count(dev.index), _stream(dev))
     _check(lib, "segment_partition", rc)
 
@@ -623,7 +625,7 @@ def _whole_row_partition(payload, aux, start, count, pred: SplitPredicate,
     if T == 0 or not 0 <= value_col < P:
         raise ValueError("%s: width %d or value_col %d outside the kernel's "
                          "range" % (name, P, value_col))
-    scalars, bitset = _pred_args(start, count, pred, dev)
+    scalars, bitset = _pred_args(start, count, pred, N, dev)
     fvals = _leaf_values(left_value, right_value, dev)
     lib, fn = _lib(lib_name, entry,
                    [_P, _P, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I,
@@ -748,7 +750,7 @@ def segment_histogram_colblock(payload: torch.Tensor, start, count, *,
     _check_payload(payload, "segment_histogram_colblock")
     F, B, P = num_features, num_bins, payload.shape[1]
     lib, fn = _lib("segment_hist_colblock", "segment_hist_colblock_launch",
-                   [_P, _I, _P, _P] + [_I] * 6 + [_P] * 5)
+                   [_P, _I, _I, _P, _P] + [_I] * 6 + [_P] * 5)
     fb = _colblock_features(F, B) if 0 < B < 0xFFFF else 0
     if not 0 < F <= P or fb == 0:
         raise ValueError("segment_histogram_colblock: F=%d, B=%d outside "
@@ -762,8 +764,8 @@ def segment_histogram_colblock(payload: torch.Tensor, start, count, *,
     sc = _scale_of(payload, scale, segv[0], segv[1], grad_col, hess_col)
     gh, cnt, tk = _workspace(workspace, dev).fixed(F * B, F)
     out = torch.empty((F, B, 3), device=dev, dtype=torch.float32)
-    rc = fn(payload.data_ptr(), P, segv.data_ptr(), out.data_ptr(), F, B,
-            _sm_count(dev.index), grad_col, hess_col, cnt_col, sc.data_ptr(),
+    rc = fn(payload.data_ptr(), P, payload.shape[0], segv.data_ptr(),
+            out.data_ptr(), F, B, _sm_count(dev.index), grad_col, hess_col, cnt_col, sc.data_ptr(),
             gh, cnt, tk, _stream(dev))
     _check(lib, "segment_hist_colblock", rc)
     segment_histogram_colblock.launches += 1
@@ -806,7 +808,7 @@ def _partition_blocks(payload, aux, start, count, pred: SplitPredicate,
     if not 0 <= value_col < P:
         raise ValueError("%s: value_col %d outside [0, %d)"
                          % (name, value_col, P))
-    scalars, bitset = _pred_args(start, count, pred, dev)
+    scalars, bitset = _pred_args(start, count, pred, N, dev)
     fvals = _leaf_values(left_value, right_value, dev)
     n_tiles = -(-N // _blocks_tiles()[0])
     ws = _workspace(workspace, dev)
@@ -930,7 +932,7 @@ def partition_segment_hist(payload: torch.Tensor, aux: torch.Tensor, start,
     for c in (grad_col, hess_col, cnt_col, value_col):
         if not 0 <= c < P:
             raise ValueError("%s: column %d outside [0, %d)" % (name, c, P))
-    scalars, bitset = _pred_args(start, count, pred, dev)
+    scalars, bitset = _pred_args(start, count, pred, N, dev)
     fvals = _leaf_values(left_value, right_value, dev)
     lib, fn = _lib("segment_partition_hist", "segment_partition_hist_launch",
                    [_P, _P, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P]

@@ -48,13 +48,23 @@ def _jax_route(f: int, num_bins: int):
 
 
 @pytest.mark.parametrize("f", [28, 137, 502, 503, 700, 888, 889, 968, 1654,
-                               1655, 2000, 4228])
+                               1655, 2000, 4228,
+                               # EFB: (features, storage columns), the
+                               # bundled Expo, Allstate and covtype widths
+                               (700, 76), (4228, 480), (54, 12)])
 def test_route_matches_jax_gates(f):
+    # a bundled payload holds G storage columns: the JAX grower's gates
+    # take G and the payload width (G + 10), never F, and so do the port's
+    F, G = f if isinstance(f, tuple) else (f, f)
     # max_bin 255 gives 255 bins, or 256 with a NaN bin
     for num_bins in (255, 256):
-        port = (cuda_segment.histogram_route(f).__name__,
-                cuda_segment.partition_route(f + 10).__name__)
-        assert port == _jax_route(f, num_bins)
+        port = (cuda_segment.histogram_route(G).__name__,
+                cuda_segment.partition_route(G + 10).__name__)
+        assert port == _jax_route(G, num_bins)
+    if F >= cuda_segment.COLBLOCK_MIN_FEATURES > G:
+        # bundling takes Allstate's width off the column-block histogram
+        assert cuda_segment.histogram_route(F) is not \
+            cuda_segment.histogram_route(G)
 
 
 def _wide_payload(n_pad, f, num_bins, seed):
