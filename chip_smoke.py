@@ -95,7 +95,7 @@ must make categorical splits, launch B1 and B2 and no wide kernel, beat
 the same columns treated as numeric on held-out AUC, keep valid scores
 equal to predict(raw_score=True) and predict(device=True) equal to the
 host's, pass the repeat check, write the same model text at frontier 8,
-hold every B2 call of three iterations (bitset predicates among them) to
+hold every B2 call of one iteration (bitset predicates among them) to
 the plain partition and agree with the CPU on a 20,000-row cut; its
 device kernels per split step are printed beside the main path's.
 Every single-model objective: B1 at the year path's width (F = 90,
@@ -129,8 +129,9 @@ objective=lambdarank (ndcg at 1, 3, 5, 10) on MSLR-WEB30K-shaped data
 iteration: NDCG@10 above the first iteration's and a random ranking's,
 the gradient fill's ms and kernels, B1 on the path's own payload
 (F = 136, P = 146) against its plain version, one iteration with every
-B2 call held against the plain partition, the repeat check); and every objective but binary on a 20,000-row cut
-(multiclass and multiclassova at K = 3, lambdarank on 20-row queries),
+B2 call held against the plain partition, the repeat check); and every
+objective but binary on a 20,000-row cut, 2 iterations (multiclass and
+multiclassova at K = 3, lambdarank on 20-row queries),
 card against CPU (structure equal, leaf values within 3e-4 of a tree's
 largest).
 Continued training and the Booster / Dataset surface, on the main path's
@@ -189,6 +190,19 @@ model's text); 17,000,000 Higgs-shaped rows (past 2^24), 3 iterations,
 the training scores in original order against predict; and one B2 and
 one B1 call past the payload's rows, each in a child process, refused
 by the kernels' device check.
+What the JAX package trains on its masked grower, which the port trains
+on the payload with GOSS's selection drawn over the rows in original
+order (held bit for bit against the host's), and the scikit-learn
+estimators: GOSS with the numpy logloss fobj on the main path's data (lr
+0.5, 4 iterations; tree 1 the GBDT fobj run's; AUC above iteration 1's);
+LGBMClassifier(n_estimators=10, num_leaves=255) fitted with scikit-learn
+absent or hidden (its trees the main path's, predict_proba[:, 1] the main
+path's Booster.predict within 1e-6); GOSS with regression_l1 on the year
+data (held-out L1 below the constant median's, the host renewal's ms a
+tree); GOSS with lambdarank on the rank data (trees 1 and 2 the GBDT
+lambdarank run's at lr 0.5, NDCG@10 above iteration 1's and a random
+ranking's; the card against the CPU on a 20,000-row cut) and RF with
+lambdarank (NDCG@10 above a random ranking's); a repeat check each.
 Every phase always runs and prints one line, prefixed with the seconds
 since start; any failed check exits non-zero.  The last line is the
 device record {"ok": true, "device": {...}}.  Imports nothing of JAX or
@@ -200,6 +214,7 @@ import argparse
 import contextlib
 import ctypes
 import hashlib
+import importlib.util
 import inspect
 import json
 import os
@@ -3389,7 +3404,8 @@ def categorical_phase(seed: int, iters: int, main_run: dict):
     say("categorical frontier 8: model text byte-identical to the one-leaf "
         "loop's, %.2f split rounds per tree" % front.split_rounds_per_tree())
     del front
-    say(checked_partition_phase((ds, Xv, yv), AIRLINE_ROWS, 3, params=params,
+    # one iteration keeps the script inside the chip tool's time limit
+    say(checked_partition_phase((ds, Xv, yv), AIRLINE_ROWS, 1, params=params,
                                 label="B2 in categorical training"))
     runs = {}
     for device in ("cuda", "cpu"):
@@ -3439,6 +3455,9 @@ PARITY_OBJECTIVES = ("regression", "regression_l1", "huber", "fair",
                      "lambdarank")
 PARITY_K, PARITY_QUERY = 3, 20
 OBJ_PARITY_ROWS = 20_000
+#: two iterations (three before PR 16) keep the script inside the chip
+#: tool's time limit
+OBJ_PARITY_ITERS = 2
 #: card vs CPU leaf values, as a share of the tree's largest |leaf value|:
 #: the card sums in fixed point, the CPU in row-order f32, and each runs
 #: the split search's f32 scans and sums in its own order, which leaves
@@ -4104,8 +4123,8 @@ def same_structure(a, b, X) -> str:
 
 
 def objectives_parity_phase(seed: int) -> str:
-    """Every objective but binary on a 20,000-row cut (31 leaves, 3
-    iterations, weighted rows; K = 3 for the multiclass ones, queries of
+    """Every objective but binary on a 20,000-row cut (31 leaves,
+    OBJ_PARITY_ITERS iterations, weighted rows; K = 3 for the multiclass ones, queries of
     PARITY_QUERY rows for lambdarank), the card against the CPU: the
     same structure (split features, topology, counts, every row's leaf)
     and each tree's leaf values within LEAF_RTOL of its largest |leaf
@@ -4126,11 +4145,11 @@ def objectives_parity_phase(seed: int) -> str:
             if obj == "lambdarank" else None
         with grower_mode():
             bc = lt.train(params, lt.Dataset(X, label=y, weight=w,
-                                             group=group), 3,
+                                             group=group), OBJ_PARITY_ITERS,
                           verbose_eval=False)
         bh = lt.train(dict(params, device_type="cpu"),
-                      lt.Dataset(X, label=y, weight=w, group=group), 3,
-                      verbose_eval=False)
+                      lt.Dataset(X, label=y, weight=w, group=group),
+                      OBJ_PARITY_ITERS, verbose_eval=False)
         check(bc.device.type == "cuda" and bh.device.type == "cpu",
               "%s parity ran on %s and %s" % (obj, bc.device, bh.device))
         where = same_structure(bc, bh, X)
@@ -4150,11 +4169,11 @@ def objectives_parity_phase(seed: int) -> str:
               "%s: syncs per tree %s" % (obj, syncs))
         out[obj] = dict(leaves=[t.num_leaves for t in bc._model.trees],
                         max_leaf_diff_share=worst)
-    return ("objectives parity: %dx%d, 31 leaves, 3 iters, weighted rows, "
+    return ("objectives parity: %dx%d, 31 leaves, %d iters, weighted rows, "
             "card vs CPU: structure equal, leaf values within %g of each "
             "tree's largest |leaf| (the largest such share) for every "
-            "objective: %s" % (OBJ_PARITY_ROWS, F, LEAF_RTOL,
-                               json.dumps(out)))
+            "objective: %s" % (OBJ_PARITY_ROWS, F, OBJ_PARITY_ITERS,
+                               LEAF_RTOL, json.dumps(out)))
 
 
 # ---------------------------------------------------------------------------
@@ -4560,7 +4579,8 @@ def rank_phase(seed: int, iters: int, main_run: dict, smi: str):
         quality=lambda b: ("NDCG@10", ndcg10.eval(b.predict(Xv), None))))
     say(repeat_check("rank", lambda: lt.train(
         params, ds, iters, valid_sets=[dv], verbose_eval=False), text))
-    return launches, b1
+    return launches, b1, dict(ds=ds, dv=dv, Xv=Xv, yv=yv, ndcg10=ndcg10,
+                              rand=rand, Xt=Xt, yt=yt, gt=gt)
 
 
 # ---------------------------------------------------------------------------
@@ -4587,12 +4607,13 @@ FORCED_FALLBACK_MIN_DATA = 20_000
 
 
 def goss_masks_numpy(g, h, valid, key, top_k: int, other_k: int,
-                     multiply: float):
+                     multiply: float, rows=None, n_draw: int = 0):
     """The plain version of GOSS's selection (variants.goss_masks) in
     numpy on the host: the classes' |g h| summed in class order, the
     top_k-th largest as the threshold (ties in), the other_k-th smallest
-    of the threefry uniforms over the rest (ties in), the amplification
-    f32(multiply).  Returns (gradient weight, count mask, rows tied at
+    of the threefry uniforms over the rest (ties in; with `rows`, each
+    row's original row's uniform of a draw over n_draw rows), the
+    amplification f32(multiply).  Returns (gradient weight, count mask, rows tied at
     the threshold, rows tied at the other_k-th uniform)."""
     prod = np.abs(g * h)
     gh = prod[0].copy()
@@ -4602,8 +4623,9 @@ def goss_masks_numpy(g, h, valid, key, top_k: int, other_k: int,
     thresh = np.sort(gh)[::-1][top_k - 1]
     is_top = valid & (gh >= thresh)
     rest = valid & ~is_top
-    r = np.where(rest, threefry.uniform_numpy(key, len(gh)),
-                 np.float32(np.inf)).astype(np.float32)
+    u = threefry.uniform_numpy(key, len(gh)) if rows is None else \
+        np.append(threefry.uniform_numpy(key, n_draw), np.float32(0))[rows]
+    r = np.where(rest, u, np.float32(np.inf)).astype(np.float32)
     kth = np.sort(r)[other_k - 1]
     sampled = rest & (r <= kth)
     gw = np.where(is_top, np.float32(1.0),
@@ -4618,21 +4640,24 @@ def goss_masks_numpy(g, h, valid, key, top_k: int, other_k: int,
 def goss_recorder(iteration: int, into: dict):
     """Inside the block, GOSS's fill of class 0 at `iteration` records on
     the card what its selection read (every class's g and h times the
-    pristine valid column, the valid column, the key and the counts) and
+    pristine valid column, the valid column, the key, the counts and,
+    where the draw runs in original order, each row's original row) and
     what it wrote (the gweight and count columns, before the tree moves
     the rows); every other fill runs as it is."""
     real = variants.GOSS._fill
 
-    def fill(self, fs, k):
+    def fill(self, fs, k, custom=None):
         if self.iter != iteration or k != 0 or "gw" in into:
-            return real(self, fs, k)
-        g, h = fs.all_gradients(self.objective)
+            return real(self, fs, k, custom)
+        g, h = fs.all_gradients(self.objective, custom=custom)
         valid = fs.payload[:, fs.bvalid_col].clone()
+        rows = fs.row_index() if self.draws_in_original_order(custom) \
+            else None
         rec = dict(key=self.sample_key(), top_k=self._goss_top_k,
                    other_k=self._goss_other_k,
                    multiply=self._goss_multiply, g=g * valid, h=h * valid,
-                   valid=valid)
-        out = real(self, fs, k)
+                   valid=valid, rows=rows, n_draw=fs.n_pad)
+        out = real(self, fs, k, custom)
         rec.update(gw=fs.payload[:, fs.gweight_col].clone(),
                    cm=fs.payload[:, fs.cnt_col].clone())
         into.update(rec)
@@ -4654,8 +4679,12 @@ def goss_mask_check(label: str, rec: dict) -> str:
     g, h, valid, gw, cm = (rec[k].cpu().numpy()
                            for k in ("g", "h", "valid", "gw", "cm"))
     top_k, other_k = rec["top_k"], rec["other_k"]
+    rows = rec["rows"]
+    order = {} if rows is None else dict(rows=rows, n_draw=rec["n_draw"])
     ref_gw, ref_cm, tie_top, tie_other = goss_masks_numpy(
-        g, h, valid > 0, rec["key"], top_k, other_k, rec["multiply"])
+        g, h, valid > 0, rec["key"], top_k, other_k, rec["multiply"],
+        **{k: v.cpu().numpy() if k == "rows" else v
+           for k, v in order.items()})
     check(np.array_equal(gw.view(np.int32), ref_gw.view(np.int32))
           and np.array_equal(cm.view(np.int32), ref_cm.view(np.int32)),
           "%s: the card's gweight / count columns differ from the host's "
@@ -4669,11 +4698,13 @@ def goss_mask_check(label: str, rec: dict) -> str:
     valid_t = rec["valid"] > 0
     ms = time_ms(lambda: variants.goss_masks(
         rec["g"], rec["h"], valid_t, rec["key"], top_k, other_k,
-        rec["multiply"]), 20)
+        rec["multiply"], **order), 20)
     return ("selection bit for bit against the host's (K %d, %d rows, key "
-            "%s): %d selected = top_k %d + other_k %d + %d tied, %d rows "
+            "%s%s): %d selected = top_k %d + other_k %d + %d tied, %d rows "
             "amplified by %.6f; the selection %.4f device ms"
-            % (g.shape[0], g.shape[1], list(rec["key"]), kept, top_k,
+            % (g.shape[0], g.shape[1], list(rec["key"]),
+               "" if rows is None else ", drawn over %d rows in original "
+               "order" % rec["n_draw"], kept, top_k,
                other_k, excess, int(np.sum(gw > 1.0)), rec["multiply"], ms))
 
 
@@ -5760,31 +5791,380 @@ def bounds_phase() -> str:
     """One B2 and one B1 call whose segment ends past the payload's rows,
     each in a child process (a device assertion leaves the child's CUDA
     context unusable): each child must exit non-zero, with the kernel's
-    message naming it and the segment; this process carries on."""
+    message naming it and the segment; this process carries on.  The
+    children run at the same time."""
     seen = {}
-    for kind in BOUNDS_CALLS:
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--bounds-child", kind], capture_output=True,
-                              text=True, timeout=300)
-        text = proc.stdout + proc.stderr
-        lines = [ln for ln in text.splitlines()
-                 if "outside the payload" in ln
-                 and any(k in ln for k in BOUNDS_CALLS[kind])]
-        check(proc.returncode != 0 and "returned" not in proc.stdout
-              and lines,
-              "bounds: the out-of-range %s call was not refused (exit %d): "
-              "%s" % (kind, proc.returncode, text[-2000:]))
-        err = [ln for ln in text.splitlines() if "CUDA error" in ln]
-        seen[kind] = dict(exit=proc.returncode, kernel=lines[0].strip(),
-                          error=err[0].strip() if err else None,
-                          seconds=round(time.perf_counter() - t0, 3))
+    t0 = time.perf_counter()
+    procs = {kind: subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--bounds-child", kind],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for kind in BOUNDS_CALLS}
+    try:
+        for kind, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            text = out + err
+            lines = [ln for ln in text.splitlines()
+                     if "outside the payload" in ln
+                     and any(k in ln for k in BOUNDS_CALLS[kind])]
+            check(proc.returncode != 0 and "returned" not in out and lines,
+                  "bounds: the out-of-range %s call was not refused (exit "
+                  "%d): %s" % (kind, proc.returncode, text[-2000:]))
+            cuda_err = [ln for ln in text.splitlines() if "CUDA error" in ln]
+            seen[kind] = dict(exit=proc.returncode, kernel=lines[0].strip(),
+                              error=cuda_err[0].strip() if cuda_err
+                              else None,
+                              seconds=round(time.perf_counter() - t0, 3))
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     x = torch.ones(4, device="cuda")
     check(float(x.sum()) == 4.0, "bounds: this process's context broke")
     return ("bounds: a B2 and a B1 call with start + count past the "
             "payload's rows, each in a child process, fail with the "
             "kernel's check and this process carries on: %s"
             % json.dumps(seen))
+
+
+# ---------------------------------------------------------------------------
+# phases: what the JAX package trains on its masked grower, and the
+# scikit-learn estimators
+# ---------------------------------------------------------------------------
+
+#: GOSS at lr 0.5: the warm-up lasts int(1 / 0.5) = 2 iterations, so
+#: iterations 3 and 4 sample
+GOSS_HALF = dict(GOSS_PARAMS, learning_rate=0.5)
+GOSS_HALF_ITERS = 4
+RF_RANK_ITERS = 3
+#: the card-against-CPU cut of the GOSS rank path
+GOSS_RANK_PARITY_ROWS = 20_000
+
+#: the model-text fields two equivalent models share exactly, and those
+#: held within a tolerance (the rule of the tests' assert_models_equivalent)
+EXACT_FIELDS = ("split_feature=", "threshold=", "decision_type=",
+                "left_child=", "right_child=", "leaf_count=",
+                "internal_count=", "num_leaves=", "num_cat=",
+                "cat_threshold=", "cat_boundaries=", "shrinkage=")
+CLOSE_FIELDS = ("leaf_value=", "internal_value=", "split_gain=",
+                "leaf_weight=", "internal_weight=")
+
+
+def models_equivalent(a: str, b: str, rtol: float = 1e-4,
+                      atol: float = 1e-6) -> str:
+    """'' if two model texts are equivalent by the tests' rule
+    (tests/conftest.py assert_models_equivalent: structure exact, values
+    within rtol / atol, split gains within 5e-3 / 1e-3), else the first
+    line that is not."""
+    la, lb = a.splitlines(), b.splitlines()
+    if len(la) != len(lb):
+        return "%d vs %d lines" % (len(la), len(lb))
+    for xa, xb in zip(la, lb):
+        if xa == xb:
+            continue
+        key = xa.split("=")[0] + "="
+        if key == "tree_sizes=":
+            continue
+        if key != xb.split("=")[0] + "=" or key in EXACT_FIELDS \
+                or key not in CLOSE_FIELDS:
+            return "%s vs %s" % (xa[:120], xb[:120])
+        va = np.asarray([float(v) for v in xa.split("=")[1].split()])
+        vb = np.asarray([float(v) for v in xb.split("=")[1].split()])
+        r, t = (max(rtol, 5e-3), max(atol, 1e-3)) if key == "split_gain=" \
+            else (rtol, atol)
+        if not np.allclose(va, vb, rtol=r, atol=t):
+            return "%s max |diff| %.3g" % (key, float(np.abs(va - vb).max()))
+    return ""
+
+
+def original_order_run(label: str, ds, Xv, yv, params: dict, iters: int,
+                       **kwargs) -> tuple:
+    """train_path of a configuration the JAX package grows on its masked
+    grower, which the port grows on the payload: B1 and B2 and no other
+    kernel, the payload active.  Under GOSS the first sampled
+    iteration's selection, drawn over the rows in original order, is
+    held bit for bit against the host's (goss_mask_check).  Returns (the
+    run, the selection's note)."""
+    rec = {}
+    goss = params.get("boosting") == "goss"
+    with goss_recorder(int(1.0 / params["learning_rate"]), rec) if goss \
+            else contextlib.nullcontext():
+        r = train_path(label, ds, Xv, yv, params, iters, **kwargs)
+    check(r["bst"]._engine._fast_active, "%s: the payload was left" % label)
+    b1_b2_ran(label, r["launches"], len(r["leaves"]))
+    if not goss:
+        return r, ""
+    check(rec.get("rows") is not None, "%s: the selection was not drawn in "
+          "original order" % label)
+    return r, goss_mask_check(label, rec)
+
+
+def original_order_line(label: str, r: dict, extra: str, smi: str) -> str:
+    return ("%s: %d iters: %.4f s/iter (train %.3f s), syncs/tree %s, "
+            "splits/tree %.2f, %s, peak %.1f MiB (max_memory_allocated %d "
+            "B, %d B before), sha256 %s%s, graph replays %s, launches %s "
+            "(%s)"
+            % (label, len(r["leaves"]) // max(
+                1, r["bst"]._model.num_tree_per_iteration),
+               r["s_per_iter"], r["t_train"], r["syncs"],
+               r["splits_per_tree"], launches_of(r), r["peak"] / 2 ** 20,
+               r["peak"], r["peak_before"], sha(r["model_text"]), extra,
+               json.dumps(r["replays"]), json.dumps(r["launches"]), smi))
+
+
+def goss_fobj_phase(data, smi: str) -> dict:
+    """GOSS with the custom objective phase's numpy logloss fobj on the
+    main path's data, lr 0.5, 4 iterations: tree 1 (the warm-up's)
+    equivalent to a GBDT fobj run's at lr 0.5, two blocking syncs a tree,
+    held-out AUC above iteration 1's; the repeat check.  Returns its
+    launches."""
+    ds, Xv, yv = data
+    params = train_params(255, **GOSS_HALF)
+    r, masks = original_order_run("goss fobj", ds, Xv, yv, params,
+                                  GOSS_HALF_ITERS, syncs_per_tree=2,
+                                  fobj=logloss_fobj)
+    part = train_path("fobj lr 0.5", ds, Xv, yv,
+                      train_params(255, learning_rate=0.5), 1,
+                      syncs_per_tree=2, fobj=logloss_fobj)
+    t1, p1 = tree_texts(r["model_text"])[0], tree_texts(part["model_text"])[0]
+    diff = models_equivalent(t1, p1)
+    check(not diff, "goss fobj: tree 1 not the GBDT fobj run's: %s" % diff)
+    auc1 = auc_score(yv, r["bst"].predict(Xv, raw_score=True,
+                                          num_iteration=1))
+    check(r["auc"] > auc1, "goss fobj: AUC %.6f after %d iterations, %.6f "
+          "after 1" % (r["auc"], GOSS_HALF_ITERS, auc1))
+    say(original_order_line(
+        "goss fobj", r, ", tree 1 %s the GBDT fobj run's at lr 0.5, held-"
+        "out AUC %.6f (%.6f after iteration 1); %s"
+        % ("byte-identical to" if t1 == p1 else "equivalent to", r["auc"],
+           auc1, masks), smi))
+    launches, text = r["launches"], r["model_text"]
+    del r, part
+    say(repeat_check("goss fobj", lambda: lt.train(
+        params, ds, GOSS_HALF_ITERS, fobj=logloss_fobj, verbose_eval=False),
+        text))
+    return launches
+
+
+def sklearn_module():
+    """The port's sklearn module as a process without scikit-learn has
+    it: the imported one where scikit-learn is absent, else a fresh copy
+    loaded with scikit-learn hidden from sys.modules."""
+    if importlib.util.find_spec("sklearn") is None:
+        return lt.sklearn, "scikit-learn absent"
+    saved = {k: sys.modules.pop(k) for k in list(sys.modules)
+             if k == "sklearn" or k.startswith("sklearn.")}
+    sys.modules["sklearn"] = None
+    try:
+        spec = importlib.util.spec_from_file_location(
+            "lightgbm_tpu_torch._sklearn_alone", lt.sklearn.__file__)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    finally:
+        del sys.modules["sklearn"]
+        sys.modules.update(saved)
+    return mod, "scikit-learn installed, hidden"
+
+
+def sklearn_phase(rows: int, seed: int, main_run: dict, iters: int,
+                  smi: str) -> dict:
+    """LGBMClassifier(n_estimators=10, num_leaves=255, learning_rate=0.1,
+    max_bin=255) fitted on the main path's rows with scikit-learn absent:
+    one blocking sync a tree, B1 and B2 launched, its trees equivalent to
+    the main path's (sha256 of both printed), predict_proba[:, 1] the main
+    path's Booster.predict within 1e-6, predict the classes of argmax;
+    the repeat check.  Returns its launches."""
+    mod, how = sklearn_module()
+    check(mod._SKBase is object, "sklearn: the estimators derive from %s"
+          % mod._SKBase)
+    X, y = synth(rows + 100_000, F, seed)
+    Xt, yt, Xv = X[:rows], y[:rows], X[rows:]
+
+    def fit():
+        return mod.LGBMClassifier(n_estimators=iters, num_leaves=255,
+                                  learning_rate=0.1, max_bin=255).fit(Xt, yt)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with grower_mode():
+        est = fit()
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    bst = est.booster_
+    check_trees_stopped("sklearn", bst)
+    check(bst.device.type == "cuda", "sklearn fit ran on %s" % bst.device)
+    b1_b2_ran("sklearn", launches, iters)
+    syncs_ = bst.host_syncs_per_tree()
+    check(syncs_ == [1] * iters, "sklearn: syncs per tree %s" % syncs_)
+    text = bst.model_to_string()
+    diff = models_equivalent(text, main_run["model_text"])
+    check(not diff, "sklearn: not equivalent to the main path: %s" % diff)
+    proba = est.predict_proba(Xv)
+    d = float(np.abs(proba[:, 1] - main_run["pred"]).max())
+    check(proba.shape == (len(Xv), 2) and d <= 1e-6,
+          "sklearn: predict_proba[:, 1] vs Booster.predict max |diff| %.3g"
+          % d)
+    labels = est.predict(Xv)
+    check(np.array_equal(labels, est.classes_[np.argmax(proba, axis=1)]),
+          "sklearn: predict is not the argmax class")
+    say("sklearn: LGBMClassifier(n_estimators=%d, num_leaves=255, "
+        "learning_rate=0.1, max_bin=255).fit on %dx%d (%s, the estimators "
+        "derive from object): %.4f s/iter (fit %.3f s, binning included; "
+        "main path %.4f s/iter), syncs/tree %s, trees %s the main path's "
+        "(sha256 %s, main path %s), predict_proba[:, 1] vs the main path's "
+        "Booster.predict max |diff| %.3g on %d held-out rows, peak %.1f MiB, "
+        "launches %s (%s)"
+        % (iters, rows, F, how, t_fit / iters, t_fit,
+           main_run["s_per_iter"], syncs_,
+           "byte-identical to" if text == main_run["model_text"]
+           else "equivalent to", sha(text), sha(main_run["model_text"]), d,
+           len(Xv), peak / 2 ** 20, json.dumps(launches), smi))
+    del est, bst
+    say(repeat_check("sklearn", lambda: fit().booster_,
+                     main_run["model_text"] if text ==
+                     main_run["model_text"] else text))
+    return launches
+
+
+def goss_l1_phase(data, smi: str) -> dict:
+    """GOSS with regression_l1 on the year-shaped data, lr 0.5, 4
+    iterations: two blocking syncs a tree (the tree's and the renewal's),
+    held-out L1 below the constant median's, the host renewal's ms a
+    tree; the repeat check.  Returns its launches."""
+    from lightgbm_tpu_torch.objective import regression as treg
+    ds, _, Xv, yv = data
+    params = train_params(255, objective="regression_l1", **GOSS_HALF)
+    base = float(np.mean(np.abs(yv - np.median(ds.get_label()))))
+
+    def quality(yv_, pred):
+        l1 = float(np.mean(np.abs(pred - yv_)))
+        return l1, l1 < base
+
+    spent = []
+    real = treg.RegressionL1.renew_leaf_values
+
+    def timed(obj, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = real(obj, *args, **kwargs)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    treg.RegressionL1.renew_leaf_values = timed
+    try:
+        r, masks = original_order_run("goss l1", ds, Xv, yv, params,
+                                      GOSS_HALF_ITERS, syncs_per_tree=2,
+                                      quality=quality)
+    finally:
+        treg.RegressionL1.renew_leaf_values = real
+    check(len(spent) == GOSS_HALF_ITERS, "goss l1: %d renewals for %d "
+          "trees" % (len(spent), GOSS_HALF_ITERS))
+    say(original_order_line(
+        "goss l1", r, ", held-out L1 %.4f (constant median %.4f), host "
+        "renewal %.2f ms a tree (%s); %s"
+        % (r["auc"], base, 1e3 * float(np.mean(spent)),
+           json.dumps([round(1e3 * v, 2) for v in spent]), masks), smi))
+    launches, text = r["launches"], r["model_text"]
+    del r
+    say(repeat_check("goss l1", lambda: lt.train(
+        params, ds, GOSS_HALF_ITERS, verbose_eval=False), text))
+    return launches
+
+
+def rank_variant_phases(rank: dict, smi: str) -> dict:
+    """GOSS with lambdarank on the rank path's data (top_rate 0.2,
+    other_rate 0.1, lr 0.5, 4 iterations, the held-out queries scored
+    every iteration): trees 1 and 2 (the warm-up's) equivalent to those
+    of the GBDT lambdarank run at lr 0.5, held-out NDCG@10 above
+    iteration 1's and a random ranking's, the repeat check; the card
+    against the CPU on a 20,000-row cut; then RF with lambdarank
+    (bagging_fraction 0.632, bagging_freq 1, feature_fraction 0.7, 3
+    iterations): NDCG@10 above a random ranking's, the repeat check.
+    Returns each path's launches."""
+    ds, dv, Xv, yv = rank["ds"], rank["dv"], rank["Xv"], rank["yv"]
+    ndcg10, rand = rank["ndcg10"], rank["rand"]
+
+    def quality(yv_, pred):
+        v = ndcg10.eval(pred, None)
+        return v, v > rand
+
+    base = dict(objective="lambdarank", metric="ndcg", eval_at=[10])
+    params = train_params(255, **base, **GOSS_HALF)
+    evals = {}
+    r, masks = original_order_run("goss rank", ds, Xv, yv, params,
+                                  GOSS_HALF_ITERS, valid_sets=[dv],
+                                  quality=quality, evals_result=evals)
+    curve = evals["valid_0"]["ndcg@10"]
+    check(curve[-1] > curve[0] and curve[-1] > rand,
+          "goss rank: NDCG@10 %s, random %.6f" % (curve, rand))
+    part = train_path("rank lr 0.5", ds, Xv, yv,
+                      train_params(255, **base, learning_rate=0.5), 2,
+                      quality=quality)
+    ta, tb = tree_texts(r["model_text"]), tree_texts(part["model_text"])
+    for i in (0, 1):
+        diff = models_equivalent(ta[i], tb[i])
+        check(not diff, "goss rank: tree %d not the GBDT run's: %s"
+              % (i + 1, diff))
+    say(original_order_line(
+        "goss rank", r, ", trees 1 and 2 %s the GBDT lambdarank run's at lr "
+        "0.5, held-out NDCG@10 by iteration %s (random ranking %.6f); %s"
+        % ("byte-identical to" if ta[:2] == tb[:2] else "equivalent to",
+           json.dumps([round(v, 6) for v in curve]), rand, masks), smi))
+    runs = {"goss rank": r["launches"]}
+    text = r["model_text"]
+    del r, part
+    say(repeat_check("goss rank", lambda: lt.train(
+        params, ds, GOSS_HALF_ITERS, valid_sets=[dv], verbose_eval=False),
+        text))
+    say(goss_rank_parity_line(rank, params))
+    rf_params = train_params(255, **base, **RF_PARAMS)
+    r, _ = original_order_run("rf rank", ds, Xv, yv, rf_params,
+                              RF_RANK_ITERS, quality=quality)
+    say(original_order_line("rf rank", r, ", held-out NDCG@10 %.6f (random "
+                            "ranking %.6f)" % (r["auc"], rand), smi))
+    runs["rf rank"], text = r["launches"], r["model_text"]
+    del r
+    say(repeat_check("rf rank", lambda: lt.train(
+        rf_params, ds, RF_RANK_ITERS, verbose_eval=False), text))
+    return runs
+
+
+def goss_rank_parity_line(rank: dict, params: dict) -> str:
+    """The GOSS rank path on its first queries up to GOSS_RANK_PARITY_ROWS
+    rows (31 leaves), the card against the CPU under the objectives
+    parity rule: the same structure and each tree's leaf values within
+    LEAF_RTOL of its largest |leaf value|."""
+    sizes = rank["gt"]
+    nq = int(np.searchsorted(np.cumsum(sizes), GOSS_RANK_PARITY_ROWS,
+                             side="right"))
+    n = int(np.sum(sizes[:nq]))
+    X, y, g = rank["Xt"][:n], rank["yt"][:n], sizes[:nq]
+    p = dict(params, num_leaves=31)
+    with grower_mode():
+        bc = lt.train(p, lt.Dataset(X, label=y, group=g), GOSS_HALF_ITERS,
+                      verbose_eval=False)
+    bh = lt.train(dict(p, device_type="cpu"), lt.Dataset(X, label=y,
+                                                         group=g),
+                  GOSS_HALF_ITERS, verbose_eval=False)
+    where = same_structure(bc, bh, X)
+    check(not where, "goss rank parity: card vs CPU structure differs: %s"
+          % where)
+    worst = 0.0
+    for tc, th in zip(bc._model.trees, bh._model.trees):
+        nl = tc.num_leaves
+        scale = float(np.abs(th.leaf_value[:nl]).max())
+        d = float(np.abs(tc.leaf_value[:nl] - th.leaf_value[:nl]).max())
+        check(d <= LEAF_RTOL * scale, "goss rank parity: leaf values %.3g "
+              "apart, beyond %g of %.4g" % (d, LEAF_RTOL, scale))
+        worst = max(worst, d / scale)
+    return ("goss rank parity: %d rows x %d in %d queries, 31 leaves, %d "
+            "iters, card vs CPU: structure equal, leaf values within %g of "
+            "each tree's largest |leaf| (largest share %.3g), leaves %s"
+            % (n, X.shape[1], nq, GOSS_HALF_ITERS, LEAF_RTOL, worst,
+               [t.num_leaves for t in bc._model.trees]))
 
 
 def main() -> int:
@@ -5918,6 +6298,9 @@ def main() -> int:
     api["wide index (forced)"] = wide_index_forced_phase(data, main_run,
                                                          args.iters)
     api.update(files_phase(data, args.seed, smi))
+    api["goss fobj"] = goss_fobj_phase(data, smi)
+    api["sklearn"] = sklearn_phase(args.rows, args.seed, main_run,
+                                   args.iters, smi)
     del data, ds
     # each kernel's launches are read from the path it serves; every
     # path's counts stand beside them
@@ -5951,12 +6334,15 @@ def main() -> int:
     year_data, paths["year"] = year_phase(args.seed, args.iters, main_run,
                                           smi)
     paths["renewal"] = renewal_phase(year_data)
+    paths["goss l1"] = goss_l1_phase(year_data, smi)
     del year_data
     runs, kernels["segment_histogram"]["covtype_k7"] = multiclass_phase(
         args.seed, args.iters, main_run, smi)
     paths.update(runs)
-    paths["rank"], kernels["segment_histogram"]["mslr_f136"] = rank_phase(
-        args.seed, args.iters, main_run, smi)
+    paths["rank"], kernels["segment_histogram"]["mslr_f136"], rank_data = \
+        rank_phase(args.seed, args.iters, main_run, smi)
+    paths.update(rank_variant_phases(rank_data, smi))
+    del rank_data
     say(objectives_parity_phase(args.seed))
     paths.update(efb_expo_phase(args.seed, smi))
     paths.update(efb_covtype_phase(args.seed, smi))

@@ -35,13 +35,16 @@ a leaf transform (`_leaf_transform`); forced splits
 (forcedsplits_filename) and monotone constraints run inside the
 grower's device program.  An EFB-bundled dataset trains on its G
 storage columns (the grower's bundle map; the payload, histograms and
-replays read the bundles), a <= 16-bin dataset goes up nibble-packed
-(io/nbits.py), and past 2^24 rows the payload's row index splits into
-radix-4096 halves (`_FastState.wide_idx`), up to 2^31 rows.
+replays read the bundles), and past 2^24 rows the payload's row index
+splits into radix-4096 halves (`_FastState.wide_idx`), up to 2^31 rows.
+What the JAX package trains on its masked grower (GOSS with a
+non-rowwise objective, leaf renewal or a custom objective's gradients;
+RF with a non-rowwise objective) trains here on the same partitioned
+path: gradients of a non-rowwise objective, and a custom objective's,
+are computed in original row order and gathered into the payload's
+(`_FastState.all_gradients`).
 The non-finite sentinel and the parallel learners are not ported;
-asking for one raises, as does a variant the JAX package trains only on
-its masked grower (GOSS with a non-rowwise objective, leaf renewal or a
-custom objective's gradients; RF with a non-rowwise objective).
+asking for one raises.
 boost_window and
 pipeline_depth change only how the JAX package dispatches its work, never
 the model, and are accepted as no-ops.
@@ -257,42 +260,44 @@ class _FastState:
             bag = bag.pin_memory().to(pay.device, non_blocking=True)
         seg.payload_col_write(pay, self.cnt_col, bag[self.row_index()])
 
-    def all_gradients(self, objective, zero_score: bool = False):
+    def all_gradients(self, objective, zero_score: bool = False,
+                      custom=None):
         """Every class's unmasked [K, n_rows] (gradient, hessian) of the
-        snapshot scores (of all-zero scores with `zero_score`: RF), for a
-        rowwise objective, in the payload's current row order (the JAX
-        package's _all_grads)."""
-        pay, K = self.payload, self.K
-        snap = pay[:, self.snap0:self.snap0 + K].T
-        if zero_score:
-            snap = torch.zeros_like(snap)
-        return objective.get_gradients_multi(snap, pay[:, self.label_col],
-                                             pay[:, self.weight_col])
-
-    def class_gradients(self, objective, k: int, zero_score: bool = False):
-        """Class k's unmasked (gradient, hessian) of the snapshot scores
-        (of zero scores with `zero_score`), [n_rows] each, in the
-        payload's current row order (the JAX
-        package's _class_grads).  A non-rowwise objective gets the
-        snapshot scattered back to original row order through the index
-        column (a permutation of [0, n_pad): no two rows write one slot),
-        computes against the original-order label and weight, and its
-        class-k plane is gathered back into partition order; guard rows
+        snapshot scores (of all-zero scores with `zero_score`: RF), in the
+        payload's current row order (the JAX package's _all_grads).  A
+        rowwise objective reads the payload's label and weight columns.  A
+        non-rowwise objective (lambdarank) gets the snapshot scattered back
+        to original row order through the index column (a permutation of
+        [0, n_pad): no two rows write one slot) and computes against the
+        original-order label and weight, where its query boundaries live.
+        Its gradients, or a custom objective's ORIGINAL-order [K, n_pad]
+        pair `custom`, are gathered into partition order; guard rows
         gather an appended 0."""
         pay, K = self.payload, self.K
-        if self.rowwise:
-            g, h = self.all_gradients(objective, zero_score)
-            return g[k], h[k]
         snap = pay[:, self.snap0:self.snap0 + K].T
+        if custom is None and self.rowwise:
+            if zero_score:
+                snap = torch.zeros_like(snap)
+            return objective.get_gradients_multi(
+                snap, pay[:, self.label_col], pay[:, self.weight_col])
         idx = self.row_index()
-        n_pad = self.n_pad
-        score = torch.empty((K, n_pad), dtype=torch.float32,
-                            device=pay.device)
-        score[:, idx[:n_pad]] = snap[:, :n_pad]
-        g, h = objective.get_gradients_multi(score, self.label_orig,
-                                             self.weight_orig)
-        zero = g.new_zeros(1)
-        return torch.cat([g[k], zero])[idx], torch.cat([h[k], zero])[idx]
+        if custom is None:
+            score = torch.zeros((K, self.n_pad), dtype=torch.float32,
+                                device=pay.device)
+            if not zero_score:
+                score[:, idx[:self.n_pad]] = snap[:, :self.n_pad]
+            custom = objective.get_gradients_multi(score, self.label_orig,
+                                                   self.weight_orig)
+        zero = custom[0].new_zeros((K, 1))
+        return (torch.cat([custom[0], zero], 1)[:, idx],
+                torch.cat([custom[1], zero], 1)[:, idx])
+
+    def class_gradients(self, objective, k: int, zero_score: bool = False):
+        """Class k's unmasked (gradient, hessian), [n_rows] each, in the
+        payload's current row order (the JAX package's _class_grads; a
+        non-rowwise objective trains one class)."""
+        g, h = self.all_gradients(objective, zero_score)
+        return g[k], h[k]
 
     def gather_custom_gradients(self, custom, k: int):
         """Class k's plane of caller-supplied ORIGINAL-order [K, n_pad]
@@ -335,10 +340,11 @@ class _FastState:
         seg.payload_col_write(pay, self.hess_col, h)
         return scale
 
-    def fill_sampled(self, objective, k: int, hook=None):
+    def fill_sampled(self, objective, k: int, hook=None, custom=None):
         """Class k's gradients under a row-sampling hook (GOSS; the JAX
         package's step_sampled for K = 1, apply_sample_masks +
-        step_masked for K > 1): every class's gradients of the snapshot,
+        step_masked for K > 1): every class's gradients of the snapshot
+        (or of `custom`, as all_gradients takes them),
         masked by the pristine valid column, give the hook its
         (gradient weight, count mask) = hook(g * valid, h * valid, valid),
         or (valid, valid) without a hook (GOSS's warm-up).  The weight
@@ -349,7 +355,7 @@ class _FastState:
         Returns the f32 histograms' fixed-point exponents, as
         fill_gradients does.  No host read."""
         pay = self.payload
-        g, h = self.all_gradients(objective)
+        g, h = self.all_gradients(objective, custom=custom)
         if k == 0 or self.K == 1:
             valid = pay[:, self.bvalid_col]
             gw, cm = (valid, valid) if hook is None \
@@ -1007,7 +1013,7 @@ class GBDT:
         renew = self._fused_score_add and self.objective is not None \
             and self.objective.renew_tree_output_required()
         if custom is not None:
-            hist_scale = fs.fill_gradients(self.objective, k, custom=custom)
+            hist_scale = self._fill(fs, k, custom)
             out, fs.payload, fs.aux = self._f32_grower()(
                 fs.payload, fs.aux, fmask, hist_scale=hist_scale)
         elif self._qmax:
@@ -1042,11 +1048,12 @@ class GBDT:
         self.trees_finished += 1
         return self._finish_tree_host(host, init_score, lr)
 
-    def _fill(self, fs: _FastState, k: int):
-        """Write class k's f32 gradients into the payload and return the
+    def _fill(self, fs: _FastState, k: int, custom=None):
+        """Write class k's f32 gradients (of the scores, or the custom
+        objective's `custom` pair) into the payload and return the
         histograms' fixed-point exponents (the variants' hook: GOSS
         samples, RF takes the zero score's gradients)."""
-        return fs.fill_gradients(self.objective, k)
+        return fs.fill_gradients(self.objective, k, custom=custom)
 
     def _renew_leaf_values(self, fs: _FastState, host: Dict[str, np.ndarray],
                            lr: float, k: int = 0) -> None:

@@ -10,14 +10,18 @@ zero-score gradients, running average of converted outputs);
 All three ride the partition-ordered fast path of gbdt.GBDT, on the
 device with one blocking fetch per tree:
 - GOSS samples inside the gradient fill (`_FastState.fill_sampled`):
-  a top-k of sum_k |g h| and a uniform draw over the payload's rows in
-  partition order, from the JAX package's threefry stream
-  (utils/threefry.py), so both packages select the same rows;
+  a top-k of sum_k |g h| and a uniform draw from the JAX package's
+  threefry stream (utils/threefry.py), over the payload's rows in
+  partition order as the JAX package's partitioned path draws, or over
+  the rows in original order, gathered through the index column, where
+  the JAX package trains on its masked grower (a non-rowwise objective,
+  leaf renewal, a custom objective's gradients), so both packages select
+  the same rows;
 - DART's drop and normalize edits replay trees over the payload's own
   bin columns (`GBDT._add_tree_to_train_score`);
-- RF grows each tree on the zero score's gradients, masked by the
-  bagged count column, and folds the running average into the payload
-  and every validation set.
+- RF grows each tree on the zero score's gradients (of a non-rowwise
+  objective too), masked by the bagged count column, and folds the
+  running average into the payload and every validation set.
 """
 from __future__ import annotations
 
@@ -32,21 +36,20 @@ from ..utils.random import Random, partition_seed
 from .gbdt import GBDT, _depth_iters, _FastState, _traverse_add
 
 
-def _masked_grower_only(what: str) -> None:
-    raise NotImplementedError(
-        "%s trains on the JAX package's masked grower, which is not ported "
-        "to the PyTorch package" % what)
-
-
 def goss_masks(grads: torch.Tensor, hesss: torch.Tensor,
                valid: torch.Tensor, key: Tuple[int, int], top_k: int,
-               other_k: int, multiply: float):
+               other_k: int, multiply: float,
+               rows: Optional[torch.Tensor] = None, n_draw: int = 0):
     """GOSS's selection (the JAX package's _goss_masks; goss.hpp
     BaggingHelper): the top_k rows by sum_k |g h| (ties at the threshold
     all in), other_k of the rest drawn by the smallest uniforms of
     `key`'s stream over the rows (ties in too), the rest amplified by
     `multiply` = (n - top_k) / other_k.  grads / hesss: [K, n]; valid:
-    [n] bool.  Returns the f32 (gradient weight, count mask), [n] each,
+    [n] bool.  With `rows` ([n] int64, each row's original row in
+    [0, n_draw]) the stream is drawn over n_draw rows in original order
+    and each row takes its original row's uniform (row n_draw, a guard,
+    takes 0 and is never drawn).  Returns the f32 (gradient weight, count
+    mask), [n] each,
     computed on the rows' device with no host read.  The classes' |g h|
     are summed in class order, one add at a time (as XLA sums the JAX
     package's K rows), not by a reduction whose order the card picks."""
@@ -58,7 +61,11 @@ def goss_masks(grads: torch.Tensor, hesss: torch.Tensor,
     thresh = torch.sort(gh, descending=True).values[top_k - 1]
     is_top = valid & (gh >= thresh)
     rest = valid & ~is_top
-    r = threefry.uniform(key, gh.shape[0], gh.device)
+    if rows is None:
+        r = threefry.uniform(key, gh.shape[0], gh.device)
+    else:
+        r = threefry.uniform(key, n_draw, gh.device)
+        r = torch.cat([r, r.new_zeros(1)])[rows]
     r = torch.where(rest, r, float("inf"))
     kth = torch.sort(r).values[other_k - 1]
     sampled = rest & (r <= kth)
@@ -82,13 +89,6 @@ class GOSS(GBDT):
             Log.fatal("top_rate and other_rate must be positive for GOSS")
         if config.bagging_freq > 0 and config.bagging_fraction != 1.0:
             Log.fatal("Cannot use bagging in GOSS")
-        if objective is not None:
-            if not getattr(objective, "is_rowwise", True):
-                _masked_grower_only("GOSS with a query-coupled objective "
-                                    "(%s)" % config.objective)
-            if objective.renew_tree_output_required():
-                _masked_grower_only("GOSS with leaf-output renewal (%s)"
-                                    % config.objective)
         Log.info("Using GOSS")
         self._goss_key = threefry.prng_key(partition_seed(
             int(config.seed or 0) + int(config.bagging_seed), 3))
@@ -107,19 +107,30 @@ class GOSS(GBDT):
             return None
         return threefry.fold_in(self._goss_key, self.iter)
 
-    def _fill(self, fs: _FastState, k: int):
+    def draws_in_original_order(self, custom=None) -> bool:
+        """Whether the uniform draw runs over the rows in original order:
+        where the JAX package trains GOSS on its masked grower (its
+        _fast_eligible refuses GOSS with a non-rowwise objective or leaf
+        renewal, and custom gradients always train masked), whose
+        _bagging_masks draws over the padded rows in original order.
+        Elsewhere its partitioned path draws in the payload's order."""
+        obj = self.objective
+        return custom is not None or not getattr(obj, "is_rowwise", True) \
+            or obj.renew_tree_output_required()
+
+    def _fill(self, fs: _FastState, k: int, custom=None):
         key = self.sample_key()
         hook = None
         if key is not None:
-            def hook(g, h, valid):
-                return goss_masks(g, h, valid > 0, key, self._goss_top_k,
-                                  self._goss_other_k, self._goss_multiply)
-        return fs.fill_sampled(self.objective, k, hook)
+            original = self.draws_in_original_order(custom)
 
-    def train_one_iter(self, grad=None, hess=None) -> bool:
-        if grad is not None or hess is not None:
-            _masked_grower_only("GOSS with a custom objective's gradients")
-        return super().train_one_iter()
+            def hook(g, h, valid):
+                order = dict(rows=fs.row_index(), n_draw=fs.n_pad) \
+                    if original else {}
+                return goss_masks(g, h, valid > 0, key, self._goss_top_k,
+                                  self._goss_other_k, self._goss_multiply,
+                                  **order)
+        return fs.fill_sampled(self.objective, k, hook, custom)
 
 
 class DART(GBDT):
@@ -246,9 +257,6 @@ class RF(GBDT):
         if objective is None:
             Log.fatal("RF mode requires an objective function (no custom "
                       "fobj)")
-        if not getattr(objective, "is_rowwise", True):
-            _masked_grower_only("RF with a query-coupled objective (%s)"
-                                % config.objective)
         super().__init__(config, train_set, objective, metrics, device,
                          init_model)
         if self.num_tree_per_iteration != 1:
@@ -273,7 +281,7 @@ class RF(GBDT):
         super().reset_config(new_params)
         self.shrinkage_rate = 1.0
 
-    def _fill(self, fs: _FastState, k: int):
+    def _fill(self, fs: _FastState, k: int, custom=None):
         return fs.fill_gradients(self.objective, k, zero_score=True)
 
     def train_one_iter(self, grad=None, hess=None) -> bool:

@@ -150,17 +150,25 @@ def test_rf_config_checks(extra, match):
                  lt.Dataset(X, label=y), 1, verbose_eval=False)
 
 
-def test_rf_refuses_init_score_and_ranking():
+def test_rf_refuses_init_score():
     X, y, _ = _data()
     with pytest.raises(lt.LightGBMError, match="init_score"):
         lt.train(dict(BASE, **RF, device_type="cpu"),
                  lt.Dataset(X, label=y, init_score=np.zeros(N)), 1,
                  verbose_eval=False)
+
+
+def test_rf_trains_ranking():
+    """RF with lambdarank trains on the payload: the zero score's
+    gradients in original row order, where the query boundaries live
+    (tests/test_torch_masked.py holds it against the JAX package)."""
+    X, _, _ = _data()
     ds = lt.Dataset(X, label=np.floor(np.abs(X[:, 0]) * 2))
     ds.set_group([20] * (N // 20))
-    with pytest.raises(NotImplementedError, match="query-coupled"):
-        lt.train(dict(BASE, **RF, objective="lambdarank", device_type="cpu"),
-                 ds, 1, verbose_eval=False)
+    bst = lt.train(dict(BASE, **RF, objective="lambdarank",
+                        device_type="cpu"), ds, 2, verbose_eval=False)
+    assert bst._engine._fast_active
+    assert bst._model.average_output and bst.current_iteration() == 2
 
 
 @pytest.mark.parametrize("alias,canonical", [("gbrt", {}),

@@ -4,9 +4,11 @@ int32 after dequantization), bundled training node for node on weighted
 rows (tests/test_efb.py's perfectly exclusive _sparse_problem) in every
 grower mode and boosting variant, the port's bundled model equivalent to
 its unbundled one (conftest's assert_models_equivalent) in each of them,
-a bundled validation set with early stopping, and the Expo and Allstate
+a bundled validation set with early stopping, the Expo and Allstate
 widths at 8,000 rows (tests/test_wide_sparse.py's G bounds) node for node
-against the JAX package."""
+against the JAX package, and bundled lambdarank: node for node against
+the JAX package on tie-free continuous columns, and equivalent to the
+port's unbundled run on the low-cardinality sparse problem."""
 import json
 
 import jax.numpy as jnp
@@ -36,6 +38,7 @@ from lightgbm_tpu_torch.ops.bundle import (bundle_map_from_info,
 from lightgbm_tpu_torch.ops.split import dequantize_hist
 
 from test_torch_grower import _assert_trees_match
+from test_torch_rank_train import _ragged_rank
 from test_torch_train import _assert_same_structure
 
 # one intra-op thread: the pytest-xdist workers share the cores, and
@@ -367,3 +370,64 @@ def test_find_bundles_matches_jax(rate):
                    rng=np.random.default_rng(4), **kw)
     assert got == ref
     assert any(len(g) > 1 for g in got)
+
+
+def _bundled_rank(n_q=150, seed=6, blocks=4, per_block=5):
+    """_ragged_rank's heavy-tailed queries and continuous columns, beside
+    blocks of mutually exclusive sparse columns with continuous non-zero
+    values (one per row in each block): bundled, and free of the near-tied
+    per-query scores that flip lambdarank's sorts (ROADMAP queue C)."""
+    X, rel, sizes = _ragged_rank(n_q, seed)
+    rng = np.random.default_rng(seed + 1)
+    n = len(rel)
+    sparse = np.zeros((n, blocks * per_block))
+    for b in range(blocks):
+        which = rng.integers(0, per_block, n)
+        sparse[np.arange(n), b * per_block + which] = \
+            rng.uniform(0.5, 3.0, n)
+    rel = np.clip(rel + (sparse[:, 0] > 1.5) - (sparse[:, 6] > 2.0), 0, 3)
+    return np.concatenate([X, sparse], 1), rel, sizes
+
+
+RANK = dict(PARAMS, objective="lambdarank", metric="ndcg", eval_at=[3])
+
+
+def test_bundled_lambdarank_matches_jax():
+    """Bundled lambdarank node for node against lj.train (the queue C
+    record's first remedy): the same bundles, splits, topology, leaf
+    counts and routing; raw scores within 1e-5."""
+    X, rel, sizes = _bundled_rank()
+    bj = lj.train(dict(RANK), lj.Dataset(X, label=rel, group=sizes), 5)
+    bt = lt.train(dict(RANK, device_type="cpu"),
+                  lt.Dataset(X, label=rel, group=sizes), 5,
+                  verbose_eval=False)
+    bj._engine.flush()
+    jb, tb = bj._engine.train_set, bt.train_set.binned
+    assert tb.bundle_info is not None
+    assert bt._engine._fast.G == tb.bins.shape[0] < tb.num_features
+    assert [list(g) for g in jb.bundle_info.groups] == \
+        [list(g) for g in tb.bundle_info.groups]
+    _assert_same_structure(bj, bt, X)
+    np.testing.assert_allclose(bt.predict(X, raw_score=True),
+                               bj.predict(X, raw_score=True), atol=1e-5)
+
+
+def test_bundled_lambdarank_equivalent_to_unbundled():
+    """The queue C record's low-cardinality input (_sparse_problem in 200
+    queries of 20, labels clip((X0 + X7) // 3, 0, 4)), bundled against the
+    port's own unbundled run: assert_models_equivalent."""
+    X, _ = _sparse_problem(seed=2)
+    rel = np.clip((X[:, 0] + X[:, 7]) // 3, 0, 4)
+    sizes = np.full(200, 20)
+    w = _weights(len(rel))
+    params = dict(RANK, device_type="cpu")
+    bundled = lt.train(dict(params), lt.Dataset(X, label=rel, group=sizes,
+                                                weight=w), 5,
+                       verbose_eval=False)
+    plain = lt.train(dict(params, enable_bundle=False),
+                     lt.Dataset(X, label=rel, group=sizes, weight=w), 5,
+                     verbose_eval=False)
+    assert bundled.train_set.binned.bins.shape[0] < X.shape[1]
+    assert plain.train_set.binned.bundle_info is None
+    assert_models_equivalent(bundled.model_to_string(),
+                             plain.model_to_string())

@@ -155,22 +155,33 @@ def test_goss_config_checks(extra, match):
                  lt.Dataset(X, label=y), 1, verbose_eval=False)
 
 
-@pytest.mark.parametrize("objective,match", [
-    ("regression_l1", "leaf-output renewal"),
-    ("quantile", "leaf-output renewal"),
-    ("lambdarank", "query-coupled"),
-])
-def test_goss_refuses_masked_grower_combinations(objective, match):
+@pytest.mark.parametrize("objective", ["regression_l1", "quantile",
+                                       "lambdarank"])
+def test_goss_renewal_and_ranking_train(objective):
+    """GOSS with leaf-output renewal or a query-coupled objective, which
+    the JAX package trains on its masked grower, trains on the payload,
+    drawing its selection over the rows in original order
+    (tests/test_torch_masked.py holds them node for node against the JAX
+    package)."""
     X, y, _ = _data()
     ds = lt.Dataset(X, label=np.floor(np.abs(y * 3)))
     if objective == "lambdarank":
         ds.set_group([20] * (N // 20))
-    with pytest.raises(NotImplementedError, match=match):
-        lt.train(dict(GOSS, objective=objective, device_type="cpu"), ds, 1,
-                 verbose_eval=False)
+    bst = lt.train(dict(GOSS, objective=objective, device_type="cpu"), ds, 3,
+                   verbose_eval=False)
+    assert bst._engine._fast_active
+    assert bst._engine.draws_in_original_order()
+    assert bst.current_iteration() == 3 and bst._model.trees[0].num_leaves > 1
+    counts = [int(t.internal_count[0]) for t in bst._model.trees]
+    # quantile's |g h| takes two values here, and the top-k threshold
+    # falls on the smaller one: every row ties in
+    assert counts[:2] == [N, N] and (counts[2] < N) == (objective
+                                                        != "quantile")
 
 
-def test_goss_refuses_custom_gradients():
+def test_goss_custom_gradients_train():
+    """A custom objective's gradients under GOSS train on the payload,
+    sampled from the third iteration on, drawn in original order."""
     X, y, _ = _data()
     bst = lt.Booster(dict(GOSS, objective="binary", device_type="cpu"),
                      lt.Dataset(X, label=y))
@@ -179,8 +190,13 @@ def test_goss_refuses_custom_gradients():
         p = 1.0 / (1.0 + np.exp(-preds))
         return p - ds.get_label(), p * (1.0 - p)
 
-    with pytest.raises(NotImplementedError, match="custom objective"):
+    for _ in range(3):
         bst.update(fobj=fobj)
+    assert bst._engine._fast_active
+    assert bst._engine.draws_in_original_order(custom=True)
+    assert not bst._engine.draws_in_original_order()
+    counts = [int(t.internal_count[0]) for t in bst._model.trees]
+    assert counts[:2] == [N, N] and counts[2] < N
 
 
 def test_goss_quantization_trains_f32_with_warning(capsys):
