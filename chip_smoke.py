@@ -27,7 +27,7 @@ payload widths and the f32 histograms over feature counts for the card's
 crossovers, checks that CUDA and CPU training agree on small problems at
 28, 968 and 2,000 features, then trains through lightgbm_tpu_torch.train
 on the card (binary objective, max_bin 255, 255 leaves, lr 0.1): on 28
-dense features the f32 main path (then three iterations of it with every
+dense features the f32 main path (then two iterations of it with every
 B2 call held against the plain partition, and the census of its trees'
 B1 and B6 segment sizes with their byte bound per iteration), the
 grower's merged mode (B6 on every split, with
@@ -147,7 +147,7 @@ bagging_fraction=0.5, bagging_freq=2 (the scores back within 1e-6 of
 max(1, |s|), the payload rebuilt in its storage with the graph captures
 it cost, the count column the host's bag) and a learning_rates schedule
 (each tree's shrinkage); cv with three stratified folds over the 1M
-rows, 5 iterations (the keys, each fold's last valid logloss against its
+rows, 3 iterations (the keys, each fold's last valid logloss against its
 booster's prediction of its test rows within 1e-5, every fold's B1 and
 B2 launches); refit of the main model on the held-out rows (decay 1
 keeps every leaf, the default decay lowers their logloss).
@@ -176,9 +176,9 @@ writing the same model text); DART and RF continued for 5 iterations
 from 5 saved ones (the loaded trees' text, the running average).
 The data side: the main path again with the row index split in
 radix-4096 halves (its model text and sha256 unchanged); the main
-path's Dataset through save_binary and back, 200,000 of its rows as CSV
+path's Dataset through save_binary and back, 40,000 of its rows as CSV
 and LibSVM read by Dataset(path), its rows pushed in 8 positioned
-chunks into a stream made by reference and 200,000 through push_rows /
+chunks into a stream made by reference and 40,000 through push_rows /
 push_rows_csr (bins, and the 3-iteration model text, as in memory);
 Expo (1M x 700 one-hot blocks, 100k held out) EFB-bundled to 76 storage
 columns, 10 iterations (B1 on its payload; 3 iterations unbundled at
@@ -203,6 +203,31 @@ tree); GOSS with lambdarank on the rank data (trees 1 and 2 the GBDT
 lambdarank run's at lr 0.5, NDCG@10 above iteration 1's and a random
 ranking's; the card against the CPU on a 20,000-row cut) and RF with
 lambdarank (NDCG@10 above a random ranking's); a repeat check each.
+The training runtime's seams, after the main path's repeat check, on
+its 1M-row Dataset: `phases` (tpu_profile_phases=true: the model's
+sha256 the unprofiled main path's, the phase table with its sum within
+the wall time, the profile_sync waits by label); `observe` (telemetry,
+tracing and the program ledger on against off, runs in the order off,
+on, on, off: the same model text, 10 iterations counted, 1 blocking sync
+in the last, no capture, build or cache miss after the first iteration,
+one `tree dispatch` instant per tree in the Chrome trace, s/iter of each
+run); `profile hook` (LGBM_TPU_PROFILE's torch.profiler trace of 2
+iterations, whose device kernels must include B1's and B2's);
+`sentinel` (a NaN burst from a host custom objective and nan_grad:3 on
+the builtin one: abort raises naming iteration 3 with the field that
+caught it, rollback returns finished with 3 iterations of trees and the
+training and validation scores the pre-iteration ones bit for bit, syncs
+per tree printed); `resume` (the main path and bagging, snapshots every
+iteration with keep-last 3 and their ms: resumed from iteration 5
+byte-identical, bagging also from the scan past its truncated last
+snapshot) and `resume (preempted child)` (a 200,000-row child process
+under PreemptionGuard with LGBM_TPU_FAULT=sigterm_at_iter:3, run as
+`python3 chip_smoke.py --preempt-child <path>`, exits 0 with its
+snapshot, which this process resumes to the uninterrupted run's model).
+Depth cuts that pay for them (each keeps its checks): the files phase
+writes and parses 40,000 rows (200,000 before), the wide parity trains 2
+iterations (5), the categorical parity 3 (10), the main path's
+every-B2-call check 2 iterations (3), and cv 3 iterations (5).
 Every phase always runs and prints one line, prefixed with the seconds
 since start; any failed check exits non-zero.  The last line is the
 device record {"ok": true, "device": {...}}.  Imports nothing of JAX or
@@ -1848,7 +1873,8 @@ def make_main_data(rows: int, seed: int, params: dict) -> tuple:
 def train_path(name: str, ds, Xv, yv, params: dict, iters: int,
                auc_floor: float = 0.8, valid_sets=None,
                syncs_per_tree: int = 1, quality=None,
-               evals_result=None, fobj=None, wide_ok: bool = False) -> dict:
+               evals_result=None, fobj=None, wide_ok: bool = False,
+               callbacks=None) -> dict:
     """Train one configuration of the main path through
     lightgbm_tpu_torch.train on the card (with `valid_sets` scored every
     iteration, when given), with every launch count set to 0 just before
@@ -1866,7 +1892,7 @@ def train_path(name: str, ds, Xv, yv, params: dict, iters: int,
     with grower_mode():
         bst = lt.train(params, ds, iters, valid_sets=valid_sets,
                        evals_result=evals_result, verbose_eval=False,
-                       fobj=fobj)
+                       fobj=fobj, callbacks=callbacks)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
     launches = read_counts()
@@ -2669,9 +2695,15 @@ WIDE_ENGINES = {968: ("segment_histogram_colblock", "partition_segment_rmw"),
                        "partition_segment_blocks")}
 
 
+#: the wide parity's iterations (5 before the runtime's seams joined the
+#: script; the first split and |dAUC| are still held)
+WIDE_PARITY_ITERS = 2
+
+
 def wide_parity_phase(seed: int, dev) -> str:
     """CUDA against CPU training at both wide widths: 10,000 rows, max_bin
-    63, 31 leaves, 5 iterations; the first split must agree and the AUC on
+    63, 31 leaves, WIDE_PARITY_ITERS iterations; the first split must
+    agree and the AUC on
     2,000 held-out rows within 0.002; the CUDA run must take the wide
     engines."""
     parts = []
@@ -2684,8 +2716,8 @@ def wide_parity_phase(seed: int, dev) -> str:
             # over [2, F, B, 3]) to a quarter of its 255-bin time
             params = train_params(31, max_bin=63) if d == "cuda" \
                 else train_params(31, max_bin=63, device_type="cpu")
-            bst = lt.train(params, lt.Dataset(Xt, label=yt), 5,
-                           verbose_eval=False)
+            bst = lt.train(params, lt.Dataset(Xt, label=yt),
+                           WIDE_PARITY_ITERS, verbose_eval=False)
             check(bst.device.type == d, "wide parity run on %s" % bst.device)
             g = bst._engine.grower
             t0 = bst._model.trees[0]
@@ -2704,7 +2736,7 @@ def wide_parity_phase(seed: int, dev) -> str:
                      "|dAUC| %.6f" % (f, runs["cuda"][:2], runs["cuda"][2],
                                       runs["cpu"][2], d_auc))
     return ("wide parity: 10000 rows (+2000 held out), max_bin 63, 31 "
-            "leaves, 5 iters: "
+            "leaves, %d iters: " % WIDE_PARITY_ITERS
             + "; ".join(parts))
 
 
@@ -3300,6 +3332,9 @@ AIRLINE_LEVELS = (("Month", 12), ("DayofMonth", 31), ("DayOfWeek", 7),
 AIRLINE_ROWS, AIRLINE_VALID = 1_000_000, 100_000
 #: the CUDA vs CPU parity cut
 CAT_PARITY_ROWS = 20_000
+#: the categorical parity's iterations (10 before the runtime's seams
+#: joined the script; the root split and |dAUC| are still held)
+CAT_PARITY_ITERS = 3
 #: the held-out AUC floor of the airline-shaped data (the benchmark's GBDT
 #: results sit near 0.70-0.75)
 CAT_AUC_FLOOR = 0.65
@@ -3335,7 +3370,7 @@ def categorical_phase(seed: int, iters: int, main_run: dict):
     kept on the card equal predict(raw_score=True) and predict(device=True)
     the host predict, the repeat check, that frontier 8 writes the same
     model text, CUDA vs CPU parity on a 20,000-row cut and every B2 call
-    of three iterations against the plain partition with its bitset.
+    of one iteration against the plain partition with its bitset.
     Prints its lines; returns the path's launch counts."""
     cats = list(range(len(AIRLINE_LEVELS)))
     X, y = airline_synth(AIRLINE_ROWS + AIRLINE_VALID, seed + 23)
@@ -3413,8 +3448,8 @@ def categorical_phase(seed: int, iters: int, main_run: dict):
             else train_params(63, device_type="cpu")
         b = lt.train(p, lt.Dataset(Xt[:CAT_PARITY_ROWS],
                                    label=yt[:CAT_PARITY_ROWS],
-                                   categorical_feature=cats), 10,
-                     verbose_eval=False)
+                                   categorical_feature=cats),
+                     CAT_PARITY_ITERS, verbose_eval=False)
         check(b.device.type == device, "categorical parity on %s" % b.device)
         t0 = b._model.trees[0]
         runs[device] = (int(t0.split_feature[0]), int(t0.decision_type[0]),
@@ -3426,11 +3461,11 @@ def categorical_phase(seed: int, iters: int, main_run: dict):
                                                      runs["cpu"][:3]))
     d_auc = abs(runs["cuda"][3] - runs["cpu"][3])
     check(d_auc <= 0.002, "categorical parity: |dAUC| %.6f > 0.002" % d_auc)
-    say("categorical parity: %dx%d, 63 leaves, 10 iters: the root split "
+    say("categorical parity: %dx%d, 63 leaves, %d iters: the root split "
         "(feature, decision_type, category bitset) %s on both, AUC on "
         "%d held-out rows cuda %.6f cpu %.6f |dAUC| %.6f"
-        % (CAT_PARITY_ROWS, X.shape[1], runs["cuda"][:3], CAT_PARITY_ROWS,
-           runs["cuda"][3], runs["cpu"][3], d_auc))
+        % (CAT_PARITY_ROWS, X.shape[1], CAT_PARITY_ITERS, runs["cuda"][:3],
+           CAT_PARITY_ROWS, runs["cuda"][3], runs["cpu"][3], d_auc))
     return launches
 
 
@@ -3618,11 +3653,11 @@ def renewal_phase(data, iters: int = YEAR_RENEW_ITERS) -> dict:
         seen.setdefault("inputs", []).append(got)
         return got
 
-    def renew(engine, fs, host, lr, k=0):
+    def renew(engine, fs, host, k=0):
         seen.setdefault("fetched", []).append(
             host["leaf_value"][:int(host["num_leaves"])].copy())
         t0 = time.perf_counter()
-        real_renew(engine, fs, host, lr, k)
+        real_renew(engine, fs, host, k)
         seen.setdefault("host_s", []).append(time.perf_counter() - t0)
 
     tgbdt._FastState.renew_inputs = inputs
@@ -3763,7 +3798,7 @@ def bagging_phase(data, main_run: dict, iters: int) -> dict:
 
 #: iterations of the first and of the continued run
 CONTINUE_ITERS = 5
-CV_FOLDS, CV_ITERS = 3, 5
+CV_FOLDS, CV_ITERS = 3, 3
 ROLLBACK_PARAMS = dict(bagging_fraction=0.5, bagging_freq=2)
 LR_SCHEDULE = (0.1, 0.05, 0.2)
 
@@ -5256,7 +5291,7 @@ WIDE_INDEX_ITERS = 3
 WIDE_INDEX_CHECKED = 100_000
 #: the rows of the main path written as CSV and LibSVM, and the chunks
 #: its rows are pushed in
-TEXT_ROWS = 200_000
+TEXT_ROWS = 40_000
 STREAM_CHUNKS = 8
 
 def sha(text: str) -> str:
@@ -5566,14 +5601,14 @@ def write_text_data(path: str, X, y, fmt: str) -> None:
 def files_phase(data, seed: int, smi: str) -> dict:
     """The data side's files and streams on the main path's data: its
     Dataset saved with save_binary and loaded by path trains the main
-    model's text (3 iterations) byte for byte; 200,000 of its rows written
+    model's text (3 iterations) byte for byte; TEXT_ROWS of its rows written
     as CSV (with a header) and as LibSVM and read by Dataset(path) bin
     exactly as from_matrix bins them; the 1,000,000 rows pushed in 8
     positioned chunks into a StreamingDatasetBuilder made by reference
     (bins and the 3-iteration model text equal to the in-memory ones),
-    and the 200,000 rows pushed through Dataset.push_rows and
-    push_rows_csr in 8 chunks into a fresh stream (its reservoir at the
-    cap), binned exactly as from_matrix bins them (the JAX package's
+    and the TEXT_ROWS rows pushed through Dataset.push_rows and
+    push_rows_csr in 8 chunks into a fresh stream (its reservoir holding
+    them all), binned exactly as from_matrix bins them (the JAX package's
     test_stream_ingest holds model identity below the reservoir's cap)."""
     import tempfile
     from lightgbm_tpu_torch.io.stream import StreamingDatasetBuilder
@@ -5825,6 +5860,482 @@ def bounds_phase() -> str:
             "payload's rows, each in a child process, fail with the "
             "kernel's check and this process carries on: %s"
             % json.dumps(seen))
+
+
+# ---------------------------------------------------------------------------
+# phases: the training runtime's seams
+# ---------------------------------------------------------------------------
+
+#: the preempted child's rows, its fault and the iterations of the runs
+PREEMPT_ROWS = 200_000
+PREEMPT_FAULT = "sigterm_at_iter:3"
+SEAM_ITERS = 10
+#: the snapshot that resumes in process, and keep-last
+RESUME_AT, SNAPSHOT_KEEP = 5, 3
+BAG_PARAMS = dict(bagging_fraction=0.5, bagging_freq=1)
+#: the sentinel's burst: every 7th gradient NaN at this iteration
+BURST_AT, BURST_STRIDE, SENTINEL_ITERS = 3, 7, 5
+#: the profiler hook's iterations, and the kernels its trace must show
+PROFILE_ITERS = 2
+PROFILE_KERNELS = {"B1": "segment_hist_kernel", "B2": "part_move"}
+
+
+def phases_phase(data, main_run: dict, rows: int, iters: int) -> tuple:
+    """The main path with tpu_profile_phases=true: the same model text
+    (sha256) as the unprofiled main path, the phase table printed with
+    its sum within the training's wall time, and the profile_sync waits
+    (one at the end of each timed phase) beside the tree fetches."""
+    ds, Xv, yv = data
+    before = syncs.snapshot()
+    r = train_path("phases", ds, Xv, yv,
+                   train_params(255, tpu_profile_phases=True), iters,
+                   syncs_per_tree=4)
+    by_label = syncs.delta(before)["by_label"]
+    check(sha(r["model_text"]) == sha(main_run["model_text"]),
+          "phases: the profiled model text differs from the main path's "
+          "at %s" % first_difference(r["model_text"],
+                                     main_run["model_text"]))
+    table = r["bst"].phase_timings()
+    check(list(table) == ["boosting (gradients)",
+                          "tree (hist+split+partition)",
+                          "tree assemble (host)", "train score update",
+                          "valid score update"],
+          "phases: phase names %s" % list(table))
+    total = sum(table.values())
+    check(total <= r["t_train"], "phases: the phases sum to %.4f s, past "
+          "the %.4f s of training" % (total, r["t_train"]))
+    line = path_line(r, rows, iters, ", model sha256 %s (the main path's), "
+                     "phases %s (sum %.4f s of %.4f s wall; main path "
+                     "%.4f s/iter unprofiled), syncs by label %s"
+                     % (sha(r["model_text"]),
+                        json.dumps({k: round(v, 4)
+                                    for k, v in table.items()}),
+                        total, r["t_train"], main_run["s_per_iter"],
+                        json.dumps(by_label)))
+    del r["bst"]
+    return line, r
+
+
+def profiled_kernels(path: str) -> dict:
+    """{kernel name: events} of a Chrome trace's device kernels."""
+    with open(path) as fh:
+        doc = json.load(fh)
+    out = {}
+    for e in doc.get("traceEvents", []):
+        if e.get("cat") == "kernel":
+            out[e["name"]] = out.get(e["name"], 0) + 1
+    return out
+
+
+def observe_phase(data, main_run: dict, rows: int, iters: int) -> tuple:
+    """The main path with the seams on (telemetry, tracing and the program
+    ledger, as they are by default) and with telemetry and tracing off,
+    in this call, in the order off, on, on, off (s/iter of each): the
+    same model text; in the first run with them on, 10 iterations
+    counted, the last one's blocking syncs 1, no capture, build or cache
+    miss in the ledger after the first iteration's captures, and one
+    `tree dispatch` instant per tree in the exported Chrome trace."""
+    import tempfile
+    from lightgbm_tpu_torch.runtime import graph_obs, telemetry, tracing
+    ds, Xv, yv = data
+    params = train_params(255)
+    runs = {"off": [], "on": []}
+    marks = {}
+
+    def after_first(env):
+        if env.iteration == 0:
+            marks["builds"] = graph_obs.snapshot()
+            marks["misses"] = graph_obs.LEDGER.misses_snapshot()
+            marks["replays"] = graph_obs.calls_snapshot()
+
+    for mode in ("off", "on", "on", "off"):
+        prev = (telemetry.set_enabled(mode == "on"),
+                tracing.set_enabled(mode == "on"))
+        first = mode == "on" and not runs["on"]
+        if first:
+            telemetry.reset()
+            tracing.reset()
+        try:
+            r = train_path("observe " + mode, ds, Xv, yv, params, iters,
+                           callbacks=[after_first] if first else None)
+        finally:
+            telemetry.set_enabled(prev[0])
+            tracing.set_enabled(prev[1])
+        del r["bst"]
+        check(r["model_text"] == main_run["model_text"],
+              "observe %s: the model text differs from the main path's at "
+              "%s" % (mode, first_difference(r["model_text"],
+                                             main_run["model_text"])))
+        runs[mode].append(r)
+        if not first:
+            continue
+        counted = telemetry.counter("lgbm_train_iterations_total").total()
+        gauge = telemetry.gauge("lgbm_train_host_syncs_per_iter") \
+            .value(path="total")
+        check(counted == iters and gauge == 1.0,
+              "observe: %s iterations counted, %s syncs in the last"
+              % (counted, gauge))
+        builds = graph_obs.delta(marks["builds"])
+        misses = {k: v - marks["misses"].get(k, 0)
+                  for k, v in graph_obs.LEDGER.misses_snapshot().items()
+                  if v != marks["misses"].get(k, 0)}
+        replays = graph_obs.calls_delta(marks["replays"])
+        check(not builds and not misses,
+              "observe: after the first iteration the ledger recorded "
+              "builds %s and cache misses %s" % (builds, misses))
+        with tempfile.TemporaryDirectory() as tmp:
+            doc = tracing.export_chrome(os.path.join(tmp, "trace.json"))
+        dispatch = [e for e in doc["traceEvents"]
+                    if e.get("name") == "tree dispatch"]
+        check(len(dispatch) == iters, "observe: %d tree dispatch instants "
+              "for %d trees" % (len(dispatch), iters))
+    s_on = [r["s_per_iter"] for r in runs["on"]]
+    s_off = [r["s_per_iter"] for r in runs["off"]]
+    overhead = np.mean(s_on) / np.mean(s_off) - 1.0
+    return ("observe: the main path (%dx%d, %d iters) with telemetry, "
+            "tracing and the program ledger on: model text the main "
+            "path's (sha256 %s) with the seams off and on; s/iter off, on, "
+            "on, off %s (on / off %+.2f %%); %d iterations counted, %d "
+            "blocking syncs in the last, no build or cache miss after the "
+            "first iteration (graph replays since: %s), %d tree dispatch "
+            "instants in the Chrome trace"
+            % (rows, F, iters, sha(main_run["model_text"]),
+               ["%.4f" % r["s_per_iter"] for r in (runs["off"][0],
+                                                   *runs["on"],
+                                                   runs["off"][1])],
+               100.0 * overhead, counted, gauge, json.dumps(replays),
+               len(dispatch))), runs["on"][0]
+
+
+def profile_hook_phase(data, iters: int = PROFILE_ITERS) -> str:
+    """LGBM_TPU_PROFILE=<dir> with LGBM_TPU_PROFILE_ITERS=`iters`: the
+    main path's first `iters` iterations in one torch.profiler trace of
+    CUDA activity, whose device kernels must include B1's and B2's."""
+    import tempfile
+    from lightgbm_tpu_torch.runtime import telemetry
+    ds = data[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ[telemetry.PROFILE_ENV] = tmp
+        os.environ[telemetry.PROFILE_ITERS_ENV] = str(iters)
+        telemetry._reset_profile_hooks()
+        try:
+            t0 = time.perf_counter()
+            with grower_mode():
+                lt.train(train_params(255), ds, iters, verbose_eval=False)
+            torch.cuda.synchronize()
+            t_prof = time.perf_counter() - t0
+            hook = telemetry.profile_hook("train")
+            check(hook.done and hook.ticks == iters and hook.cuda
+                  and os.path.exists(hook.path or ""),
+                  "profile hook: no trace of %d iterations (ticks %d, done "
+                  "%s)" % (iters, hook.ticks, hook.done))
+            trace_mb = os.path.getsize(hook.path) / 2**20
+            t0 = time.perf_counter()
+            kernels = profiled_kernels(hook.path)
+            t_read = time.perf_counter() - t0
+        finally:
+            os.environ.pop(telemetry.PROFILE_ENV, None)
+            os.environ.pop(telemetry.PROFILE_ITERS_ENV, None)
+            telemetry._reset_profile_hooks()
+    found = {b: sum(n for k, n in kernels.items() if name in k)
+             for b, name in PROFILE_KERNELS.items()}
+    check(all(found.values()), "profile hook: the trace's kernels lack %s"
+          % [b for b, n in found.items() if not n])
+    return ("profile hook: LGBM_TPU_PROFILE wrapped the main path's first "
+            "%d iterations in one torch.profiler trace of CUDA activity: "
+            "%.3f s of training (the profiler's stop %.3f s and export "
+            "%.3f s inside), trace %.1f MiB read in %.3f s, %d device "
+            "kernel names, B1 (%s) %d and B2 (%s) %d launches"
+            % (iters, t_prof, hook.stop_s, hook.export_s, trace_mb, t_read,
+               len(kernels), PROFILE_KERNELS["B1"], found["B1"],
+               PROFILE_KERNELS["B2"], found["B2"]))
+
+
+def snapshotting_train(ds, params: dict, iters: int, out: str,
+                       keep_at: int) -> tuple:
+    """lt.train on the card writing a snapshot every iteration (keep-last
+    SNAPSHOT_KEEP), as the JAX package's CLI does with snapshot_freq=1;
+    the snapshot of iteration `keep_at` is copied aside.  Returns (the
+    booster, each snapshot's ms, the kept copy's path)."""
+    import shutil
+    from lightgbm_tpu_torch.runtime import resilience
+    ms, kept = [], out + ".kept_%d" % keep_at
+
+    def snapshot(env):
+        total = env.model.current_iteration()
+        t0 = time.perf_counter()
+        path = resilience.write_snapshot(env.model, out, total_iter=total,
+                                         retention=SNAPSHOT_KEEP)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if total == keep_at:
+            shutil.copy(path, kept)
+
+    with grower_mode():
+        bst = lt.train(params, ds, iters, callbacks=[snapshot],
+                       verbose_eval=False)
+    return bst, ms, kept
+
+
+def resumed_text(ds, params: dict, iters: int, snap: str) -> str:
+    """The model text of a run resumed from snapshot `snap` (the JAX
+    package's CLI resume: init_model = the snapshot, its state restored
+    before the first iteration) and trained to `iters` iterations."""
+    from lightgbm_tpu_torch.runtime import resilience
+    ok, why = resilience.validate_snapshot(snap)
+    check(ok, "resume: snapshot %s is invalid: %s" % (snap, why))
+    state = resilience.load_snapshot_state(snap)
+    with grower_mode():
+        bst = lt.train(params, ds, iters - state["total_iter"],
+                       init_model=snap,
+                       callbacks=[resilience.make_resume_callback(state)],
+                       verbose_eval=False)
+    return bst.model_to_string()
+
+
+def preempt_child(out: str, seed: int) -> int:
+    """In a child process: PREEMPT_ROWS rows of the main path's data
+    trained under PreemptionGuard with LGBM_TPU_FAULT=PREEMPT_FAULT set by
+    the parent, as the JAX package's CLI trains (snapshots every iteration
+    from the guard only).  Exit 0 once preempted with its snapshot
+    written, 3 if training finished unpreempted."""
+    from lightgbm_tpu_torch.runtime import resilience
+    build.build_all()
+    X, y = synth(PREEMPT_ROWS, F, seed)
+    ds = lt.Dataset(X, label=y)
+    guard = resilience.PreemptionGuard(out, retention=SNAPSHOT_KEEP)
+    try:
+        with guard:
+            lt.train(train_params(255), ds, SEAM_ITERS,
+                     callbacks=[guard.callback], verbose_eval=False)
+    except resilience.TrainingPreempted as e:
+        print("preempted: signal %d at iteration %d, snapshot %s"
+              % (e.signum, e.iteration, e.snapshot), flush=True)
+        return 0 if e.snapshot else 4
+    return 3
+
+
+def resume_phase(data, main_run: dict, iters: int, smi: str) -> str:
+    """Snapshots and resume on the card.  The main path and BAG_PARAMS
+    bagging, each 10 iterations writing a snapshot every iteration
+    (keep-last SNAPSHOT_KEEP; each snapshot's ms recorded): the main
+    path's text must be the main path's; a resume from iteration
+    RESUME_AT must give each uninterrupted model byte for byte, and so
+    must the bagging run's resume after corrupt_snapshot truncated its
+    last snapshot (the scan falls back to the one before)."""
+    import tempfile
+    from lightgbm_tpu_torch.runtime import resilience
+    ds = data[0]
+    tmp = tempfile.mkdtemp(prefix="lgbm_resume_")
+    out = {}
+    for label, params in (("main", train_params(255)),
+                          ("bagging", train_params(255, **BAG_PARAMS))):
+        target = os.path.join(tmp, label + ".txt")
+        if label == "bagging":
+            os.environ["LGBM_TPU_FAULT"] = "corrupt_snapshot:%d" % iters
+        try:
+            bst, ms, kept = snapshotting_train(ds, params, iters, target,
+                                               RESUME_AT)
+        finally:
+            os.environ.pop("LGBM_TPU_FAULT", None)
+        text = bst.model_to_string()
+        del bst
+        if label == "main":
+            check(text == main_run["model_text"], "resume: the snapshotting "
+                  "main path's text differs at %s"
+                  % first_difference(text, main_run["model_text"]))
+        kept_iters = [it for it, _ in resilience.snapshot_paths(target)]
+        check(kept_iters == list(range(iters, iters - SNAPSHOT_KEEP, -1)),
+              "resume: %s kept snapshots %s" % (label, kept_iters))
+        t0 = time.perf_counter()
+        again = resumed_text(ds, params, iters, kept)
+        t_resume = time.perf_counter() - t0
+        check(again == text, "resume: %s from iteration %d differs at %s"
+              % (label, RESUME_AT, first_difference(again, text)))
+        rec = dict(sha256=sha(text), snapshot_ms=[round(m, 2) for m in ms],
+                   snapshot_ms_mean=round(float(np.mean(ms)), 2),
+                   snapshot_mib=round(os.path.getsize(kept) / 2**20, 2),
+                   resume_s=round(t_resume, 3))
+        if label == "bagging":
+            snap, state = resilience.find_resume_snapshot(target)
+            check(snap is not None and state["total_iter"] == iters - 1,
+                  "resume: the scan past the corrupt snapshot found %s"
+                  % snap)
+            check(again == resumed_text(ds, params, iters, snap),
+                  "resume: bagging from the fallback snapshot differs")
+            rec["fallback_from"] = state["total_iter"]
+        out[label] = rec
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    return ("resume (%s): %d iterations each writing a snapshot every "
+            "iteration (keep-last %d), resumed from iteration %d "
+            "byte-identical to the uninterrupted model (the main path's "
+            "text), bagging %s also from the scan past its truncated last "
+            "snapshot: %s" % (smi, iters, SNAPSHOT_KEEP, RESUME_AT,
+                              json.dumps(BAG_PARAMS), json.dumps(out)))
+
+
+def start_preempt_child(seed: int) -> dict:
+    """Start `preempt_child` with LGBM_TPU_FAULT=PREEMPT_FAULT; the parent
+    goes on with other phases (preempt_done ends it)."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="lgbm_preempt_")
+    env = dict(os.environ, LGBM_TPU_FAULT=PREEMPT_FAULT)
+    child_out = os.path.join(tmp, "preempt.txt")
+    child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--preempt-child",
+         child_out, "--seed", str(seed)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return dict(child=child, out=child_out, tmp=tmp, t0=time.perf_counter())
+
+
+def preempt_done(run: dict, seed: int, iters: int) -> str:
+    """The preempted child's end: exit 0 with a valid snapshot, and this
+    process's resume from it byte-identical to an uninterrupted run of
+    the same PREEMPT_ROWS rows here."""
+    import shutil
+    from lightgbm_tpu_torch.runtime import resilience
+    proc = run["child"]
+    try:
+        text, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    child_s = time.perf_counter() - run["t0"]
+    check(proc.returncode == 0, "resume: the preempted child exited %d: %s"
+          % (proc.returncode, text[-2000:]))
+    snap, state = resilience.find_resume_snapshot(run["out"])
+    check(snap is not None, "resume: the preempted child left no valid "
+          "snapshot")
+    X, y = synth(PREEMPT_ROWS, F, seed)
+    ds = lt.Dataset(X, label=y)
+    with grower_mode():
+        whole = lt.train(train_params(255), ds, iters,
+                         verbose_eval=False).model_to_string()
+    again = resumed_text(ds, train_params(255), iters, snap)
+    check(again == whole, "resume: the preempted run's resume differs at "
+          "%s" % first_difference(again, whole))
+    shutil.rmtree(run["tmp"], ignore_errors=True)
+    said = [ln for ln in text.splitlines() if ln.startswith("preempted")]
+    return ("resume (preempted child): %d rows, LGBM_TPU_FAULT=%s under "
+            "PreemptionGuard: exit 0 after %.1f s (%s), its snapshot of "
+            "iteration %d resumed here to %d iterations byte-identical to "
+            "the uninterrupted run (sha256 %s)"
+            % (PREEMPT_ROWS, PREEMPT_FAULT, child_s,
+               said[0] if said else "?", state["total_iter"], iters,
+               sha(whole)))
+
+
+def burst_fobj(at: int):
+    """logloss_fobj with every BURST_STRIDE-th gradient NaN at its call
+    `at` (the engine's iteration `at`)."""
+    calls = {"n": 0}
+
+    def fobj(preds, dataset):
+        g, h = logloss_fobj(preds, dataset)
+        if calls["n"] == at:
+            g = g.copy()
+            g[::BURST_STRIDE] = np.nan
+        calls["n"] += 1
+        return g, h
+    return fobj
+
+
+def sentinel_phase(data) -> str:
+    """The non-finite sentinel on the card, on the main path's data with a
+    held-out validation set: a real burst (burst_fobj at iteration
+    BURST_AT, the custom objective of the custom-objective phase) and
+    LGBM_TPU_FAULT=nan_grad:BURST_AT on the builtin objective.  abort
+    must raise NonFiniteDetected naming iteration BURST_AT (the field
+    that caught it is printed: "gradients" where the card's fixed-point
+    sums left the leaf values finite); rollback must return finished with
+    BURST_AT iterations of trees, its training and validation scores the
+    pre-iteration ones bit for bit, and the blocking syncs per tree are
+    printed."""
+    from lightgbm_tpu_torch.runtime import resilience
+    ds, Xv, yv = data
+    dv = lt.Dataset(Xv, label=yv, reference=ds)
+    out = {}
+    for source in ("burst", "nan_grad"):
+        fobj = None
+        params = train_params(255, metric="auc")
+        if source == "nan_grad":
+            os.environ["LGBM_TPU_FAULT"] = "nan_grad:%d" % BURST_AT
+        try:
+            for policy in ("abort", "rollback"):
+                if source == "burst":
+                    fobj = burst_fobj(BURST_AT)
+                    params = train_params(255, objective="none",
+                                          metric="auc")
+                p = dict(params, sentinel_nonfinite=policy)
+                with grower_mode(strict=False):
+                    bst = lt.Booster(p, ds)
+                    bst.add_valid(dv, "valid")
+                    raised, done, pre = None, None, None
+                    t0 = time.perf_counter()
+                    try:
+                        for i in range(SENTINEL_ITERS):
+                            if i == BURST_AT:
+                                pre = (bst._engine.raw_train_score(),
+                                       bst._engine.raw_valid_score(0))
+                            done = bst.update(fobj=fobj)
+                            if done:
+                                break
+                    except resilience.NonFiniteDetected as e:
+                        raised = e
+                    secs = time.perf_counter() - t0
+                key = "%s %s" % (source, policy)
+                if policy == "abort":
+                    check(raised is not None and raised.iteration == BURST_AT,
+                          "sentinel %s: raised %r" % (key, raised))
+                    out[key] = dict(iteration=raised.iteration,
+                                    field=raised.field,
+                                    trees=bst.num_trees(),
+                                    seconds=round(secs, 3))
+                    continue
+                check(raised is None and done and i == BURST_AT
+                      and bst.current_iteration() == BURST_AT,
+                      "sentinel %s: finished %s at update %d with %d "
+                      "iterations (raised %r)" % (key, done, i,
+                                                  bst.current_iteration(),
+                                                  raised))
+                post = (bst._engine.raw_train_score(),
+                        bst._engine.raw_valid_score(0))
+                same = all(np.array_equal(a.view(np.int32), b.view(np.int32))
+                           for a, b in zip(pre, post))
+                check(same, "sentinel %s: the scores are not the "
+                      "pre-iteration ones bit for bit" % key)
+                check(np.isfinite(bst.predict(Xv[:1000])).all(),
+                      "sentinel %s: non-finite predictions" % key)
+                out[key] = dict(trees=bst.num_trees(),
+                                syncs_per_tree=bst.host_syncs_per_tree(),
+                                seconds=round(secs, 3))
+        finally:
+            os.environ.pop("LGBM_TPU_FAULT", None)
+    return ("sentinel: %dx%d (+%d held out), NaN in every %dth gradient at "
+            "iteration %d (custom logloss) and nan_grad:%d (binary): %s"
+            % (ds.num_data(), F, len(yv), BURST_STRIDE, BURST_AT, BURST_AT,
+               json.dumps(out)))
+
+
+def seam_phases(data, main_run: dict, rows: int, iters: int, seed: int,
+                smi: str) -> dict:
+    """phases, observe (its timed runs first, then the profiler hook
+    beside the preempted child's start), sentinel and resume (in process,
+    then the child's end); returns their paths' launches."""
+    t0 = time.perf_counter()
+    line, r = phases_phase(data, main_run, rows, iters)
+    say(line)
+    line, on = observe_phase(data, main_run, rows, iters)
+    say(line)
+    child = start_preempt_child(seed)
+    say(profile_hook_phase(data))
+    say(sentinel_phase(data))
+    say(resume_phase(data, main_run, iters, smi))
+    say(preempt_done(child, seed, iters))
+    say("seams: the phases, observe, sentinel and resume phases took "
+        "%.1f s" % (time.perf_counter() - t0))
+    return {"phases": r["launches"], "observe": on["launches"]}
 
 
 # ---------------------------------------------------------------------------
@@ -6174,6 +6685,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--bounds-child", choices=sorted(BOUNDS_CALLS),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--preempt-child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not 1 <= args.rows <= 10_500_000:
         ap.error("--rows must be in [1, 10500000]")
@@ -6190,6 +6702,8 @@ def main() -> int:
         return 2
     if args.bounds_child:
         return bounds_child(args.bounds_child)
+    if args.preempt_child:
+        return preempt_child(args.preempt_child, args.seed)
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
     build_s, build_logs = build.build_all()
@@ -6271,12 +6785,14 @@ def main() -> int:
     say(jit_off_check("main path", lambda: lt.train(
         train_params(255), ds, args.iters, verbose_eval=False),
         main_run["model_text"]))
-    say(checked_partition_phase(data, args.rows, 3))
+    say(checked_partition_phase(data, args.rows, 2))
     say("deterministic mode: the capture's probe (torch.histc on the card) "
         "warned %s" % json.dumps(deterministic_probe()))
     say(repeat_check("main path", lambda: lt.train(
         train_params(255), ds, args.iters, verbose_eval=False),
         main_run["model_text"]))
+    seam_paths = seam_phases(data, main_run, args.rows, args.iters,
+                             args.seed, smi)
     early_stop_phase(data, args.rows)
     runs = histogram_mode_phases(data, main_run, args.rows, args.iters)
     say(repeat_check("merged", lambda: merged_train(ds, args.iters),
@@ -6305,6 +6821,7 @@ def main() -> int:
     # each kernel's launches are read from the path it serves; every
     # path's counts stand beside them
     paths = {"main path": main_run["launches"]}
+    paths.update(seam_paths)
     paths.update({k: v["launches"] for k, v in runs.items()})
     for f, rows in WIDE:
         line, r = wide_path_phase(f, rows, args.iters, args.seed, dev)

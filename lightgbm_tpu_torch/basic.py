@@ -38,7 +38,7 @@ from .metric import create_metrics
 from .models import device_predictor as dpr
 from .models.gbdt_model import GBDTModel
 from .objective import create_objective, create_objective_from_model_string
-from .runtime import syncs
+from .runtime import resilience, syncs, telemetry
 from .utils.log import LightGBMError, Log
 
 
@@ -575,16 +575,37 @@ class Booster:
     def update(self, train_set=None, fobj=None) -> bool:
         """One boosting iteration.  fobj(preds, train_set) -> (grad, hess)
         is called on the class-major [K * num_data] raw training scores
-        (one blocking fetch) and returns gradients in the same layout."""
+        (one blocking fetch) and returns gradients in the same layout.
+        The iteration boundary of the training runtime's seams (the JAX
+        package's Booster.update): the LGBM_TPU_FAULT iteration faults
+        land here, the iteration runs under the non-finite sentinel's
+        guard (abort re-raises naming the iteration; rollback drops the
+        iteration, restores the scores and returns True, finished) and
+        inside `telemetry.train_iteration` (timing, counters, sync gauges,
+        the LGBM_TPU_PROFILE hook)."""
         if self._engine is None:
             raise LightGBMError("Cannot update a loaded Booster")
+        resilience.maybe_die_or_preempt(self)
         self._model_version += 1
-        if fobj is not None:
-            grad, hess = fobj(
-                self._engine.custom_objective_scores().reshape(-1),
-                self.train_set)
-            return self._engine.train_one_iter(grad, hess)
-        return self._engine.train_one_iter()
+        guard = resilience.SentinelGuard(self._engine)
+        try:
+            with telemetry.train_iteration(self._engine.device):
+                if fobj is not None:
+                    grad, hess = fobj(
+                        self._engine.custom_objective_scores().reshape(-1),
+                        self.train_set)
+                    return self._engine.train_one_iter(grad, hess)
+                return self._engine.train_one_iter()
+        except resilience.NonFiniteDetected as e:
+            return guard.handle(e, Log)
+
+    def phase_timings(self) -> Dict[str, float]:
+        """Accumulated {phase: seconds} when tpu_profile_phases=true (the
+        reference's TIMETAG counters, the JAX package's phase names);
+        empty otherwise and for a loaded Booster."""
+        if self._engine is None:
+            return {}
+        return dict(self._engine.timer.seconds)
 
     def rollback_one_iter(self) -> "Booster":
         """Drop the last iteration's trees and their scores."""

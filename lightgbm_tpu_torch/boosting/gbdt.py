@@ -43,14 +43,23 @@ RF with a non-rowwise objective) trains here on the same partitioned
 path: gradients of a non-rowwise objective, and a custom objective's,
 are computed in original row order and gathered into the payload's
 (`_FastState.all_gradients`).
-The non-finite sentinel and the parallel learners are not ported;
-asking for one raises.
+The training runtime's seams ride the same path: `tpu_profile_phases`
+times each tree piecewise under the JAX package's phase names (the fill,
+the growth, the host assembly, the score adds and the bag each end in a
+`profile_sync` wait; the unprofiled tree stays one uninterrupted
+dispatch), `sentinel_nonfinite=abort|rollback` screens each tree's one
+fetch (`resilience.sentinel_check`; `Booster.update` arbitrates), each
+tree's dispatch is a ``tree dispatch`` instant on the trace recorder, and
+the grower made per fast state is a hit or a miss of
+``gbdt.grower_cache`` in the program ledger.
+The parallel learners are not ported; asking for one raises.
 boost_window and
 pipeline_depth change only how the JAX package dispatches its work, never
 the model, and are accepted as no-ops.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -66,9 +75,10 @@ from ..ops.quantize import (F32_GH_BYTES, QUANT_GH_BYTES, derive_qmax,
 from ..ops.bundle import (BundleMap, bundle_map_from_info, decode_bin,
                           identity_bundle_map)
 from ..ops.split import MISSING_NAN, MISSING_ZERO, FeatureMeta
-from ..runtime import syncs
+from ..runtime import graph_obs, resilience, syncs, tracing
 from ..utils.log import LightGBMError, Log
 from ..utils.random import Random, partition_seed
+from ..utils.timer import PhaseTimer
 from .forced import build_forced_schedule, load_forced_json
 from .grower2 import GrowerConfig, PayloadCols, make_partitioned_grower
 
@@ -561,6 +571,12 @@ class GBDT:
     #: whether each tree's shrunk outputs are added to the training
     #: scores inside its step (RF folds a running average instead)
     _fused_score_add = True
+    #: whether a profiled tree runs piecewise under the phase timers (the
+    #: JAX package's RF step times its bag only)
+    _piecewise_profile = True
+    #: whether the gradient fill samples rows (GOSS): a profiled tree
+    #: times it with the growth, as the JAX package's fused sampled step
+    _sampled_fill = False
 
     def __init__(self, config, train_set: BinnedDataset, objective,
                  metrics: List, device: torch.device,
@@ -577,6 +593,16 @@ class GBDT:
         self.device = device
         self.iter = 0
         self._check_supported()
+        self.timer = PhaseTimer(bool(getattr(config, "tpu_profile_phases",
+                                             False)))
+        # the non-finite sentinel: every tree's fetched outputs screened
+        # for NaN / inf under abort | rollback; 'off' costs nothing
+        self._sentinel_policy = str(getattr(config, "sentinel_nonfinite",
+                                            "off") or "off").lower()
+        if self._sentinel_policy not in ("off", "abort", "rollback"):
+            Log.warning("sentinel_nonfinite=%s is not off|abort|rollback; "
+                        "using abort", self._sentinel_policy)
+            self._sentinel_policy = "abort"
         # forced splits: the JSON compiled into a static BFS schedule
         # for the grower (serial_tree_learner.cpp:546-701)
         self.forced_schedule = None
@@ -749,8 +775,6 @@ class GBDT:
             (ds.num_data_padded >= 1 << 31,
              "%d rows (the segment engine's row positions are int32)"
              % ds.num_data_padded),
-            (str(cfg.sentinel_nonfinite) != "off",
-             "sentinel_nonfinite=%s" % cfg.sentinel_nonfinite),
         ]
         if str(cfg.tpu_histogram_impl) not in ("auto", "pallas", "lax"):
             raise ValueError("tpu_histogram_impl must be one of "
@@ -930,7 +954,12 @@ class GBDT:
                 # tree's leaves, so its stump still carries it to the
                 # validation scores (the JAX package's masked path, which
                 # trains custom gradients, adds no stump)
-                self._add_tree_to_valid_scores(tree, k, 1.0)
+                timed = self.timer.enabled and tree.num_leaves > 1
+                with self.timer.phase("valid score update") if timed \
+                        else nullcontext():
+                    self._add_tree_to_valid_scores(tree, k, 1.0)
+                    if timed and self.valid_sets:
+                        self.timer.sync(self.valid_sets[-1][3])
             should_continue |= tree.num_leaves > 1
         self.iter += 1
         if not should_continue:
@@ -944,12 +973,15 @@ class GBDT:
         rebuilt in its storage after the engine left it), active."""
         if self._fast is None:
             self._fast = _FastState(self, self.score)
+            graph_obs.cache_event("gbdt.grower_cache", "miss")
             self.grower = make_partitioned_grower(
                 self.meta, self.grower_cfg, self.train_set.max_num_bin,
                 self._fast.cols, self.train_set.num_features,
                 **self._grower_kwargs())
-        elif not self._fast_active:
-            self._fast.reset(self, self.score)
+        else:
+            graph_obs.cache_event("gbdt.grower_cache", "hit")
+            if not self._fast_active:
+                self._fast.reset(self, self.score)
         self._fast_active = True
         return self._fast
 
@@ -981,6 +1013,7 @@ class GBDT:
         if not self._qmax:
             return self.grower
         if self._grower_f32 is None:
+            graph_obs.cache_event("gbdt.grower_cache", "miss")
             self._grower_f32 = make_partitioned_grower(
                 self.meta, self.grower_cfg._replace(quantized=False, qmax=0),
                 self.train_set.max_num_bin, self._fast.cols,
@@ -1002,51 +1035,116 @@ class GBDT:
         """Class k's tree: the fused step (gradients -> grow -> score
         add, with no host read until the tree's one fetch), then the
         host's Tree.  `before` is a sync snapshot taken earlier (a custom
-        objective's score fetch), counted with this tree."""
+        objective's score fetch), counted with this tree.
+
+        Under tpu_profile_phases the same work is timed under the JAX
+        package's phase names (its _run_iter_trees with the timers on),
+        each phase ending in a `profile_sync` wait: the fill ("boosting
+        (gradients)"; GOSS's sampled fill is timed with the growth), the
+        growth ("tree (hist+split+partition)"), the fetch and renewal
+        ("leaf renewal (host)"), the fetch or assembly ("tree assemble
+        (host)") and the score add ("train score update", after the
+        assembly).  RF times its bag only.  The arithmetic is the same, so
+        is the model text."""
         if before is None:
             before = syncs.snapshot()
         lr = self.shrinkage_rate
+        timer = self.timer
+        timed = timer.enabled and self._piecewise_profile
+        sampled = self._sampled_fill
+
+        def phase(name, on=True):
+            return timer.phase(name) if timed and on else nullcontext()
+
+        def wait(on=True):
+            if timed and on:
+                timer.sync(fs.payload)
+
         # leaf-output renewal (RenewTreeOutput, serial_tree_learner.cpp
         # :780-818) needs the pre-update scores: its trees grow without
         # the fused score add
         # RF's trees are not renewed (the JAX package's step_rf)
         renew = self._fused_score_add and self.objective is not None \
             and self.objective.renew_tree_output_required()
+        late_add = renew or (self._fused_score_add and timed and not sampled)
+        with phase("tree (hist+split+partition)", sampled):
+            with phase("boosting (gradients)", not sampled):
+                grower, args, kw = self._fill_tree(fs, k, custom)
+                wait(not sampled)
+            with phase("tree (hist+split+partition)", not sampled):
+                out, fs.payload, fs.aux = grower(fs.payload, fs.aux, fmask,
+                                                 *args, **kw)
+                if self._fused_score_add and not late_add:
+                    self._add_tree_scores(fs, out, k, lr)
+                wait()
+        self._flag_nonfinite(fs, out)
+        tracing.instant("tree dispatch", it=self.iter, k=k)
+        # the tree-to-tree critical path: the next tree waits for this
+        # fetch (the JAX package's pipeline_depth=0 dispatch)
+        with syncs.critical_path():
+            with phase("leaf renewal (host)", renew):
+                if renew:
+                    host = _fetch_packed(out)
+                    resilience.sentinel_check(self, host)
+                    if int(host["num_leaves"]) > 1:
+                        self._renew_leaf_values(fs, host, k)
+            with phase("tree assemble (host)"):
+                if not renew:
+                    host = _fetch_packed(out)
+                    resilience.sentinel_check(self, host)
+                tree = self._finish_tree_host(host, init_score, lr)
+        nl = int(host["num_leaves"])
+        if late_add and nl > 1:
+            with phase("train score update"):
+                if renew:
+                    fs.add_leaf_outputs(host["seg_start"][:nl],
+                                        host["seg_cnt"][:nl],
+                                        host["leaf_value"][:nl]
+                                        * np.float32(lr), k)
+                else:
+                    self._add_tree_scores(fs, out, k, lr)
+                wait()
+        self.host_syncs.append(syncs.delta(before)["total"])
+        self.split_rounds_total += int(host["split_rounds"])
+        self.trees_finished += 1
+        return tree
+
+    def _fill_tree(self, fs: _FastState, k: int, custom=None):
+        """Write class k's gradients into the payload (the caller's
+        `custom` pair, the quantized fill, or `_fill`); returns the grower
+        that grows them, its extra positional and keyword arguments."""
         if custom is not None:
-            hist_scale = self._fill(fs, k, custom)
-            out, fs.payload, fs.aux = self._f32_grower()(
-                fs.payload, fs.aux, fmask, hist_scale=hist_scale)
-        elif self._qmax:
+            return self._f32_grower(), (), dict(
+                hist_scale=self._fill(fs, k, custom))
+        if self._qmax:
             # one generator per (iteration, class), seeded on the JAX
             # schedule, so reruns on one device quantize identically
             gen = torch.Generator(device=self.device)
             gen.manual_seed(quant_seed(self.config.seed or 0, self.iter,
                                        self.num_tree_per_iteration, k))
-            qscale = fs.fill_gradients(self.objective, k, self._qmax, gen)
-            out, fs.payload, fs.aux = self.grower(fs.payload, fs.aux, fmask,
-                                                  qscale)
-        else:
-            hist_scale = self._fill(fs, k)
-            out, fs.payload, fs.aux = self.grower(fs.payload, fs.aux, fmask,
-                                                  hist_scale=hist_scale)
-        if self._fused_score_add and not renew:
-            # stumps must not move the scores (gbdt.cpp stops instead): the
-            # add is predicated on the device's leaf count
-            col = fs.score0 + k
-            score = fs.payload[:, col]
-            seg.payload_col_write(fs.payload, col, torch.where(
-                out["num_leaves"] > 1,
-                score + fs.payload[:, fs.value_col] * lr, score))
-        # the tree-to-tree critical path: the next tree waits for this
-        # fetch (the JAX package's pipeline_depth=0 dispatch)
-        with syncs.critical_path():
-            host = _fetch_packed(out)
-            if renew and int(host["num_leaves"]) > 1:
-                self._renew_leaf_values(fs, host, lr, k)
-        self.host_syncs.append(syncs.delta(before)["total"])
-        self.split_rounds_total += int(host["split_rounds"])
-        self.trees_finished += 1
-        return self._finish_tree_host(host, init_score, lr)
+            return self.grower, (fs.fill_gradients(
+                self.objective, k, self._qmax, gen),), {}
+        return self.grower, (), dict(hist_scale=self._fill(fs, k))
+
+    @staticmethod
+    def _add_tree_scores(fs: _FastState, out: Dict, k: int,
+                         lr: float) -> None:
+        """score[k] += lr * each row's leaf value, on the device.  Stumps
+        must not move the scores (gbdt.cpp stops instead): the add is
+        predicated on the device's leaf count."""
+        col = fs.score0 + k
+        score = fs.payload[:, col]
+        seg.payload_col_write(fs.payload, col, torch.where(
+            out["num_leaves"] > 1,
+            score + fs.payload[:, fs.value_col] * lr, score))
+
+    def _flag_nonfinite(self, fs: _FastState, out: Dict) -> None:
+        """Under the sentinel, a device flag beside the tree's outputs
+        (fetched with them, no fetch of its own): whether any gradient or
+        hessian the tree read is not finite."""
+        if self._sentinel_policy != "off":
+            gh = fs.payload[:, [fs.grad_col, fs.hess_col]]
+            out[resilience.NONFINITE_KEY] = ~torch.isfinite(gh).all()
 
     def _fill(self, fs: _FastState, k: int, custom=None):
         """Write class k's f32 gradients (of the scores, or the custom
@@ -1056,21 +1154,19 @@ class GBDT:
         return fs.fill_gradients(self.objective, k, custom=custom)
 
     def _renew_leaf_values(self, fs: _FastState, host: Dict[str, np.ndarray],
-                           lr: float, k: int = 0) -> None:
+                           k: int = 0) -> None:
         """RenewTreeOutput on the partitioned path (the JAX package's
         _renew_leaf_values_fast): the objective renews the fetched leaf
         values on the host from the rows' pre-tree scores in original
-        order (the second blocking fetch of the tree), the renewed values
-        replace the fetched ones (as f32, as the JAX package stores them),
-        and their shrunk outputs are added to the payload's scores."""
+        order (the second blocking fetch of the tree), and the renewed
+        values replace the fetched ones (as f32, as the JAX package stores
+        them); `_train_tree` adds their shrunk outputs to the scores."""
         nl = int(host["num_leaves"])
         lid, pred, in_bag = fs.renew_inputs(host, k)
         lv = host["leaf_value"].astype(np.float64)
         renewed = self.objective.renew_leaf_values(lv[:nl], lid, pred, in_bag)
         host["leaf_value"] = host["leaf_value"].copy()
         host["leaf_value"][:nl] = renewed
-        fs.add_leaf_outputs(host["seg_start"][:nl], host["seg_cnt"][:nl],
-                            host["leaf_value"][:nl] * np.float32(lr), k)
 
     def _bagging_host(self, it: int) -> np.ndarray:
         """The bag of iteration `it` (the JAX package's _bagging_host):
@@ -1095,11 +1191,13 @@ class GBDT:
         cfg = self.config
         if not (cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0):
             return
-        resampled = self.iter % cfg.bagging_freq == 0
-        bag = self._bagging_host(self.iter)
-        if resampled or fs.bag_dirty:
-            fs.set_bag(bag)
-            fs.bag_dirty = False
+        with self.timer.phase("bagging"):
+            resampled = self.iter % cfg.bagging_freq == 0
+            bag = self._bagging_host(self.iter)
+            if resampled or fs.bag_dirty:
+                fs.set_bag(bag)
+                fs.bag_dirty = False
+            self.timer.sync(fs.payload)
 
     def _boost_from_average(self) -> float:
         if self._boosted_from_average or self.model.current_iteration > 0 \

@@ -78,11 +78,14 @@ host memory; the host keeps at most STEPS_AHEAD steps enqueued and stops
 once an event recorded after a step has completed with the flag clear
 (`Event.query`, never a synchronize), so a tree that stops early runs at
 most STEPS_AHEAD no-op steps.  On the CPU the steps run eagerly and the
-driver reads the flag (a CPU tensor) after each.
+driver reads the flag (a CPU tensor) after each.  A program built for a
+new payload is a build of site ``grower2.program`` in the program ledger
+(runtime/graph_obs.py), and each capture a build of its step's site.
 """
 from __future__ import annotations
 
 import collections
+import time
 from types import SimpleNamespace
 from typing import NamedTuple
 
@@ -94,7 +97,7 @@ from ..ops.bundle import (BundleMap, expand_histogram, histogram_expansion,
 from ..ops.segment import GUARD, SplitPredicate, payload_col_write
 from ..ops.split import (FeatureMeta, K_MIN_SCORE, dequantize_hist,
                          find_best_split_batched, leaf_output)
-from ..runtime import graphs
+from ..runtime import graph_obs, graphs
 
 
 class GrowerConfig(NamedTuple):
@@ -893,12 +896,14 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
         counted = lambda: [getattr(cuda_segment, n)  # noqa: E731
                            for n in cuda_segment.WRAPPERS]
         capture = bool(jit) and on_card
+        sig = lambda: graph_obs.signature(payload, aux, fmask)  # noqa: E731
         return SimpleNamespace(
-            root=graphs.Site("grower2.root", root, capture, counted),
+            root=graphs.Site("grower2.root", root, capture, counted,
+                             signature=sig),
             step=graphs.Site("grower2.round" if frontier else
                              "grower2.split",
                              round_step if frontier else split_step,
-                             capture, counted),
+                             capture, counted, signature=sig),
             load=load, tree=tree, flag=flag, R=R, SEG=SEG, NODE=NODE,
             BITS=BITS,
             NBITS=NBITS, HIST=HIST, nleaves=nleaves)
@@ -954,8 +959,13 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             if key != self._key:
                 # a new payload retires the old state and its graphs
                 self.program = None
+                t0 = time.perf_counter()
                 self.program = build(payload, aux, merged, fused, pooled,
                                      frontier, part_fn, scaled)
+                graph_obs.record_build(
+                    "grower2.program", time.perf_counter() - t0,
+                    graph_obs.signature(payload, aux, merged=merged,
+                                        frontier=frontier))
                 self._key = key
             prog = self.program
             prog.load(feature_mask, qscale, hist_scale)

@@ -79,6 +79,8 @@ def goss_masks(grads: torch.Tensor, hesss: torch.Tensor,
 class GOSS(GBDT):
     """Gradient-based One-Side Sampling (goss.hpp:26-210)."""
 
+    _sampled_fill = True
+
     def __init__(self, config, train_set, objective, metrics, device,
                  init_model=None):
         super().__init__(config, train_set, objective, metrics, device,
@@ -245,6 +247,7 @@ class RF(GBDT):
     running average of the trees."""
 
     _fused_score_add = False
+    _piecewise_profile = False
 
     def __init__(self, config, train_set, objective, metrics, device,
                  init_model=None):

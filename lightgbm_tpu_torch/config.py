@@ -91,13 +91,13 @@ class Config:
                 default = list(default)
             setattr(self, name, default)
         # the JAX package's non-registry knobs, with its defaults
-        # (lightgbm_tpu/config.py).  Honoured here: tpu_frontier_batch and
-        # gradient_quantization / gradient_quant_dtype.  No-ops of this
-        # package, because by contract they leave the model unchanged:
-        # tpu_histogram_impl (engine selection; the port has one engine),
-        # tpu_profile_phases (phase timers), pipeline_depth and
-        # boost_window (dispatch shape).  sentinel_nonfinite other than
-        # "off" is refused by GBDT._check_supported.
+        # (lightgbm_tpu/config.py).  Honoured here: tpu_frontier_batch,
+        # gradient_quantization / gradient_quant_dtype, tpu_profile_phases
+        # (the phase timers, Booster.phase_timings) and sentinel_nonfinite
+        # (off | abort | rollback; boosting/gbdt.py, runtime/resilience.py).
+        # No-ops of this package, because by contract they leave the model
+        # unchanged: tpu_histogram_impl (engine selection; the port has one
+        # engine), pipeline_depth and boost_window (dispatch shape).
         self.tpu_histogram_impl = "auto"  # auto | pallas | lax
         self.tpu_profile_phases = False
         self.tpu_frontier_batch = 1

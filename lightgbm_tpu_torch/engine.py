@@ -120,6 +120,8 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
     booster.best_score = collections.defaultdict(dict)
     for name, metric, value, _ in evaluation_result_list:
         booster.best_score[name][metric] = value
+    if booster._engine is not None:
+        booster._engine.timer.report()
     return booster
 
 

@@ -38,7 +38,9 @@ thresholds for device throughput, with the JAX engine's design:
   graph (`runtime/graphs.py`, site `predictor.tree_parallel`; the JAX
   engine's program cache per bucket), and the graphs of one predictor
   share one memory pool; ragged batches pad into the static input and
-  replay.  On the CPU the same functions run eagerly.
+  replay.  On the CPU the same functions run eagerly.  The program ledger
+  (`runtime/graph_obs.py`) hears each program's lookup as a hit or a
+  miss of ``predictor.bucket_cache``.
 - **Micro-batching with double buffering** on the card: pinned host
   buffers and a copy stream, so the next batch's upload and the last
   one's download overlap the current batch; one blocking wait per
@@ -46,8 +48,8 @@ thresholds for device throughput, with the JAX engine's design:
   `predict_fetch`).
 
 `batch_hook(i, n)` fires before each micro-batch: the batch-boundary seam
-that the JAX package's serving faults use (its `resilience` module has no
-counterpart in this package yet).
+that the JAX package's serving faults use (they come with serving,
+ROADMAP queue A item 6).
 """
 from __future__ import annotations
 
@@ -57,7 +59,7 @@ import numpy as np
 import torch
 
 from ..ops.quantize import stochastic_round
-from ..runtime import graphs, syncs
+from ..runtime import graph_obs, graphs, syncs
 
 _K_ZERO_THRESHOLD = 1e-35
 MISSING_NONE, MISSING_ZERO, MISSING_NAN = 0, 1, 2
@@ -340,8 +342,11 @@ class _Program:
                 depth_iters=pred.depth_iters, early_mode=early_mode,
                 early_freq=early_freq))
 
-        self.site = graphs.Site("predictor.tree_parallel", run,
-                                dev.type == "cuda", pool=pred._pool)
+        self.site = graphs.Site(
+            "predictor.tree_parallel", run, dev.type == "cuda",
+            pool=pred._pool, signature=lambda: graph_obs.signature(
+                self.X, self.out, early_mode=early_mode,
+                early_freq=early_freq))
 
 
 class DevicePredictor:
@@ -412,7 +417,10 @@ class DevicePredictor:
         key = (_bucket_rows(n), early_mode, early_freq)
         prog = self._programs.get(key)
         if prog is None:
+            graph_obs.cache_event("predictor.bucket_cache", "miss")
             prog = self._programs[key] = _Program(self, *key)
+        else:
+            graph_obs.cache_event("predictor.bucket_cache", "hit")
         return prog
 
     def _stage_buffers(self, rows: int):

@@ -5,8 +5,11 @@ a shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds) and loaded with ctypes.  Builds go into build/kernels/
 beside the package, keyed by a hash of the source and the csrc headers,
 and happen at first use; `build_all` starts one nvcc per source at once,
-so the build takes as long as the slowest source.  Nothing here runs at
-import time.
+so the build takes as long as the slowest source.  Each source's nvcc run
+is a build of site ``build.<source>`` in the program ledger
+(runtime/graph_obs.py), and a library found already built a cache hit
+there.  `runtime/warmup.py` can point BUILD_DIR at a fingerprinted cache
+directory.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
+
+from ..runtime import graph_obs
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -60,6 +65,7 @@ def build_all(names: Sequence[str] = SOURCES) -> Tuple[float, Dict[str, str]]:
     started = []
     for name in names:
         if _target(name).exists():
+            graph_obs.build_event(name, "hit")
             continue
         tmp = _target(name).with_suffix(".so.tmp%d" % os.getpid())
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / (name + ".cu"))]
@@ -67,10 +73,14 @@ def build_all(names: Sequence[str] = SOURCES) -> Tuple[float, Dict[str, str]]:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     # wait for every nvcc before raising, so none outlives a failed build
     logs = {name: proc.communicate()[0] for name, _, proc in started}
+    wall = time.perf_counter() - t0
     for name, tmp, proc in started:
         if proc.returncode != 0:
             raise RuntimeError("nvcc failed for %s.cu:\n%s" % (name, logs[name]))
         os.replace(tmp, _target(name))
+        # the builds run side by side: each is billed the whole wait
+        graph_obs.build_event(name, "miss", wall,
+                              (_target(name).name, *NVCC_FLAGS[:2]))
     return time.perf_counter() - t0, logs
 
 

@@ -20,31 +20,35 @@ records what its capture added to each counted wrapper, takes it back
 (the capture launched nothing), and adds it again at every replay, so
 each count stays the number of launches the card ran.
 
-Counters per site name: captures and replays (`counts`).
-`after_replay` lets a check read a captured tensor after every replay.
+The program ledger (`runtime/graph_obs.py`) counts each capture as a
+build of the site, with its wall time (the warm-up run and the capture)
+and the signature of the buffers it was built over (`signature`), and
+each replay as a call; `counts` reads the captures and replays of the
+graph sites from it.  `after_replay` lets a check read a captured tensor
+after every replay.
 """
 from __future__ import annotations
 
 import threading
-from typing import Callable, Dict, Sequence
+import time
+from typing import Callable, Dict, Sequence, Set, Tuple
 
 import torch
 
-_lock = threading.Lock()
-_counts: Dict[str, Dict[str, int]] = {}
+from . import graph_obs
+
+#: the names of the sites that captured a graph (the ledger holds their
+#: counts beside those of other programs)
+_names: Set[str] = set()
 _tls = threading.local()
 
 
-def _bump(site: str, key: str) -> None:
-    with _lock:
-        c = _counts.setdefault(site, {"captures": 0, "replays": 0})
-        c[key] += 1
-
-
 def counts() -> Dict[str, Dict[str, int]]:
-    """Captures and replays per site name, since the process began."""
-    with _lock:
-        return {k: dict(v) for k, v in _counts.items()}
+    """Captures and replays per graph site name, from the ledger."""
+    builds = graph_obs.snapshot()
+    calls = graph_obs.calls_snapshot()
+    return {k: {"captures": builds.get(k, 0), "replays": calls.get(k, 0)}
+            for k in sorted(_names)}
 
 
 def after_replay(fn: Callable[[], None]) -> None:
@@ -59,14 +63,17 @@ def after_replay(fn: Callable[[], None]) -> None:
 class Site:
     """fn, eager with `enabled` False, else captured once and replayed.
     `counted` returns, at the capture, the objects with a `.launches`
-    count that fn's launches add to."""
+    count that fn's launches add to; `signature`, the ledger's shape
+    signature of the buffers fn reads and writes."""
 
     def __init__(self, name: str, fn: Callable[[], None], enabled: bool,
-                 counted: Callable[[], Sequence] = tuple, pool=None):
+                 counted: Callable[[], Sequence] = tuple, pool=None,
+                 signature: Callable[[], Tuple[str, ...]] = tuple):
         self.name = name
         self.fn = fn
         self.enabled = enabled
         self.counted = counted
+        self.signature = signature
         # a memory pool shared with other sites (torch.cuda.
         # graph_pool_handle()), for graphs that never run at once
         self.pool = pool
@@ -86,11 +93,12 @@ class Site:
         self.graph.replay()
         for obj, n in self.added:
             obj.launches += n
-        _bump(self.name, "replays")
+        graph_obs.record_replay(self.name)
         for fn in self.hooks:
             fn()
 
     def _capture(self) -> None:
+        t0 = time.perf_counter()
         cur = torch.cuda.current_stream()
         side = torch.cuda.Stream(device=cur.device)
         side.wait_stream(cur)
@@ -117,4 +125,6 @@ class Site:
             obj.launches = b
         cur.wait_stream(side)
         self.graph = graph
-        _bump(self.name, "captures")
+        _names.add(self.name)
+        graph_obs.record_build(self.name, time.perf_counter() - t0,
+                               self.signature())

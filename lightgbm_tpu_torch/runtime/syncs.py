@@ -9,15 +9,17 @@ iteration does the host wait for the card, and where?":
 * `eval_fetch`: scores fetched for the metrics (`raw_train_score`,
   `raw_valid_score`);
 * `predict_fetch`: one micro-batch's output of the device predictor
-  (`wait_event`).
+  (`wait_event`);
+* `profile_sync`: a phase timer's wait at the end of each timed phase
+  (`block_until_ready`, `utils/timer.py`; profiled runs only).
 
 Each event is recorded under its label and under whether the calling
 thread sits on the tree-to-tree critical path (marked with
 `critical_path`, as the JAX package's dispatch loop is).  The counters
 are process-global and only grow; a consumer takes a `snapshot` before a
-region and diffs with `delta` after it.  The JAX package also feeds a
-metrics registry from `record`; the port has none, so that bridge is not
-ported.
+region and diffs with `delta` after it.  Every event also feeds the
+metrics registry (`telemetry.count_sync`), as in the JAX package, so a
+scrape sees the same sync profile.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ import threading
 from typing import Any, Dict, Optional
 
 import torch
+
+from . import telemetry
 
 _lock = threading.Lock()
 _counts: Dict[str, int] = {}
@@ -63,6 +67,7 @@ def record(label: str) -> None:
         if crit:
             _critical_counts[label] = _critical_counts.get(label, 0) + 1
             _critical_total += 1
+    telemetry.count_sync(label, crit)
 
 
 def device_get(x: torch.Tensor, label: str = "host_fetch") -> Any:
@@ -72,18 +77,49 @@ def device_get(x: torch.Tensor, label: str = "host_fetch") -> Any:
     return x.cpu().numpy()
 
 
-def wait_event(event: "torch.cuda.Event", label: str) -> None:
-    """Audited wait: ONE recorded blocking wait for `event` (a copy into
-    pinned host memory recorded it).  It is the sync its caller means
-    to make, so a torch.cuda.set_sync_debug_mode around the caller is
-    lifted for it alone."""
+def block_until_ready(x: Any, label: str = "block_until_ready") -> Any:
+    """Audited barrier: ONE recorded wait until the work queued so far on
+    the current stream of `x`'s device (a tensor, or a dict, list or tuple
+    holding some) has run.  A CPU tensor has nothing queued.  Returns `x`."""
     record(label)
+    dev = _first_device(x)
+    if dev is not None and dev.type == "cuda":
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(dev))
+        _synchronize(event)
+    return x
+
+
+def _first_device(x: Any) -> Optional[torch.device]:
+    if isinstance(x, torch.Tensor):
+        return x.device
+    vals = x.values() if isinstance(x, dict) else \
+        x if isinstance(x, (list, tuple)) else ()
+    for v in vals:
+        dev = _first_device(v)
+        if dev is not None:
+            return dev
+    return None
+
+
+def _synchronize(event: "torch.cuda.Event") -> None:
+    """event.synchronize() with any torch.cuda.set_sync_debug_mode lifted
+    for it alone: the wait is the sync its caller means to make."""
     mode = torch.cuda.get_sync_debug_mode()
     torch.cuda.set_sync_debug_mode(0)
     try:
         event.synchronize()
     finally:
         torch.cuda.set_sync_debug_mode(mode)
+
+
+def wait_event(event: "torch.cuda.Event", label: str) -> None:
+    """Audited wait: ONE recorded blocking wait for `event` (a copy into
+    pinned host memory recorded it).  It is the sync its caller means
+    to make, so a torch.cuda.set_sync_debug_mode around the caller is
+    lifted for it alone."""
+    record(label)
+    _synchronize(event)
 
 
 def snapshot() -> Dict[str, Any]:

@@ -162,13 +162,11 @@ def test_train_without_cpu_request_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("params", [
-    # the parallel learners and the non-finite sentinel (GOSS with leaf
-    # renewal, here until the masked grower was ported, now trains:
-    # tests/test_torch_masked.py)
+    # the parallel learners (GOSS with leaf renewal, here until the masked
+    # grower was ported, now trains: tests/test_torch_masked.py; the
+    # non-finite sentinel too: tests/test_torch_resilience.py)
     dict(tree_learner="feature"),
-    dict(sentinel_nonfinite="abort"),
     dict(tree_learner="data"),
-    dict(sentinel_nonfinite="rollback"),
     dict(tree_learner="voting")])
 def test_unported_options_raise(params):
     X, y = _data(7)
@@ -370,9 +368,9 @@ def test_jax_knobs_coerce_cli_strings():
 
 
 @pytest.mark.parametrize("policy", ["abort", "rollback"])
-def test_sentinel_nonfinite_raises(policy):
+def test_sentinel_nonfinite_trains(policy):
+    """The sentinel trains a clean run byte for byte as "off" does (it
+    reads the tree's one fetch and a device flag beside it)."""
     X, y = _binary_problem(1_000, f=4)
-    with pytest.raises(NotImplementedError, match="sentinel_nonfinite"):
-        _text(X, y, rounds=1, sentinel_nonfinite=policy)
-    # "off" is the default and trains
-    assert _text(X, y, rounds=1, sentinel_nonfinite="off")
+    assert _text(X, y, rounds=3, sentinel_nonfinite=policy) == \
+        _text(X, y, rounds=3, sentinel_nonfinite="off")
