@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py [--rows N] [--iters N] [--seed N]
 
-Builds the hand-written kernels from lightgbm_tpu_torch/csrc with nvcc,
+Builds the hand-written kernels from lightgbm_tpu_torch/csrc with nvcc
+(and, beside them, the C ABI's two libraries with g++: capi.ensure_built),
 holds each against its plain PyTorch version at main-path shapes: the f32
 histograms B1, B5 f32 and B6's bit for bit to the fixed-point plain
 version (ops/segment.segment_histogram_fixed; they sum in fixed point, so
@@ -220,14 +221,28 @@ training and validation scores the pre-iteration ones bit for bit, syncs
 per tree printed); `resume` (the main path and bagging, snapshots every
 iteration with keep-last 3 and their ms: resumed from iteration 5
 byte-identical, bagging also from the scan past its truncated last
-snapshot) and `resume (preempted child)` (a 200,000-row child process
-under PreemptionGuard with LGBM_TPU_FAULT=sigterm_at_iter:3, run as
-`python3 chip_smoke.py --preempt-child <path>`, exits 0 with its
-snapshot, which this process resumes to the uninterrupted run's model).
-Depth cuts that pay for them (each keeps its checks): the files phase
-writes and parses 40,000 rows (200,000 before), the wide parity trains 2
-iterations (5), the categorical parity 3 (10), the main path's
-every-B2-call check 2 iterations (3), and cv 3 iterations (5).
+snapshot) and `cli resume` (`python -m lightgbm_tpu_torch task=train
+snapshot_freq=1` on a binary cache of 200,000 rows, a child under
+LGBM_TPU_FAULT=sigterm_at_iter:3, exits 0 with its snapshot; task=train
+resume=true here writes the uninterrupted run's save_model file byte for
+byte).  Depth cuts that paid for them (each keeps its checks): the files
+phase writes and parses 40,000 rows (200,000 before), the categorical
+parity 3 iterations (10), and cv 3 iterations (5).
+The entry layers, in the files phase on its 1M-row binary cache and CSV
+(3 iterations, the files phase's reference run): `cli` (task=train in
+this process, B1 and B2 only, its model file the reference run's
+save_model file byte for byte; `python -m lightgbm_tpu_torch
+task=predict` of the held-out rows as children, the host predictor's raw
+scores (predict_device=false) NativeBooster.predict_for_file's byte for
+byte, the device predictor's (the default) within rtol 1e-5; task=train on the CSV; parse_dense against
+the numpy reader), `c abi` (TrainDataset / TrainBooster through ctypes in
+this process, B1 and B2 only; a compiled C program as a child, updating
+on a thread of its own while predicting through the handle, its model
+file save_model's byte for byte) and `doctor` (task=doctor probe=true
+names the card; a crashing task leaves a bundle).  Depth cuts that pay
+for them (each keeps its checks): the main path's jit=False run 3
+iterations (10), the profiler hook 1 (2), the CUDA vs CPU parity 3 (10),
+the wide parity 1 (2) and the main path's every-B2-call check 1 (2).
 Every phase always runs and prints one line, prefixed with the seconds
 since start; any failed check exits non-zero.  The last line is the
 device record {"ok": true, "device": {...}}.  Imports nothing of JAX or
@@ -1814,6 +1829,11 @@ def train_params(num_leaves: int, **extra) -> dict:
                      learning_rate=0.1, verbose=-1), **extra)
 
 
+#: the CUDA vs CPU parity's iterations (10 before the entry layers joined
+#: the script)
+PARITY_ITERS = 3
+
+
 def parity_phase(seed: int) -> str:
     X, y = synth(25_000, F, seed + 11)
     Xt, yt, Xv, yv = X[:20_000], y[:20_000], X[20_000:], y[20_000:]
@@ -1821,7 +1841,7 @@ def parity_phase(seed: int) -> str:
     for dev in ("cuda", "cpu"):
         params = train_params(63) if dev == "cuda" \
             else train_params(63, device_type="cpu")
-        bst = lt.train(params, lt.Dataset(Xt, label=yt), 10,
+        bst = lt.train(params, lt.Dataset(Xt, label=yt), PARITY_ITERS,
                        verbose_eval=False)
         check(bst.device.type == dev, "parity run on %s" % bst.device)
         t0 = bst._model.trees[0]
@@ -1832,9 +1852,10 @@ def parity_phase(seed: int) -> str:
                                                       runs["cpu"][:2]))
     d_auc = abs(runs["cuda"][2] - runs["cpu"][2])
     check(d_auc <= 0.002, "|dAUC| %.6f > 0.002" % d_auc)
-    return ("parity: 20000x28, 63 leaves, 10 iters: first split %s on both, "
+    return ("parity: 20000x28, 63 leaves, %d iters: first split %s on both, "
             "AUC cuda %.6f cpu %.6f |dAUC| %.6f"
-            % (runs["cuda"][:2], runs["cuda"][2], runs["cpu"][2], d_auc))
+            % (PARITY_ITERS, runs["cuda"][:2], runs["cuda"][2],
+               runs["cpu"][2], d_auc))
 
 
 #: the wrappers whose launch counts each training path reads
@@ -2416,6 +2437,11 @@ def step_kernels(bst) -> int:
     return n
 
 
+#: the main path's eager run: 3 iterations (10 before the entry layers
+#: joined the script), held to the graph run's first 3
+JIT_OFF_ITERS = 3
+
+
 def jit_off_check(label: str, train, reference_text: str) -> str:
     """The path trained again with jit=False (the same steps eagerly, no
     capture, still under sync debug mode "error"): raises unless its
@@ -2696,8 +2722,9 @@ WIDE_ENGINES = {968: ("segment_histogram_colblock", "partition_segment_rmw"),
 
 
 #: the wide parity's iterations (5 before the runtime's seams joined the
-#: script; the first split and |dAUC| are still held)
-WIDE_PARITY_ITERS = 2
+#: script, 2 before the entry layers did; the first split and |dAUC| are
+#: still held)
+WIDE_PARITY_ITERS = 1
 
 
 def wide_parity_phase(seed: int, dev) -> str:
@@ -5298,6 +5325,11 @@ def sha(text: str) -> str:
     return hashlib.sha256(text.encode()).hexdigest()
 
 
+def read_bytes(path: str) -> bytes:
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
 def mib(n_bytes: int) -> float:
     return n_bytes / 2**20
 
@@ -5617,10 +5649,16 @@ def files_phase(data, seed: int, smi: str) -> dict:
     X, y = ds.data, np.asarray(ds.label)
     n = len(y)
     t0 = time.perf_counter()
-    ref3 = lt.train(params, ds, 3, verbose_eval=False).model_to_string()
+    ref_bst = lt.train(params, ds, 3, verbose_eval=False)
+    ref3 = ref_bst.model_to_string()
     t_ref = time.perf_counter() - t0
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
+        # the reference run's save_model file: the CLI's and the C ABI's
+        # model files must be it byte for byte
+        ref_file = os.path.join(tmp, "ref3.txt")
+        ref_bst.save_model(ref_file)
+        del ref_bst
         cache = os.path.join(tmp, "main.bin")
         t0 = time.perf_counter()
         ds.save_binary(cache)
@@ -5702,18 +5740,420 @@ def files_phase(data, seed: int, smi: str) -> dict:
         check(held == TEXT_ROWS and bins_equal(fresh.binned, ref_b),
               "files: the pushed rows bin differently from from_matrix "
               "(reservoir %d rows)" % held)
-    say("files: binary cache of the main path's %d x %d Dataset (%.1f MiB, "
-        "saved %.3f s, loaded %.3f s) trains the main model's text byte for "
-        "byte over 3 iterations (reference run %.3f s); %d rows as CSV "
-        "(written %.3f s, parsed and binned %.3f s) and LibSVM (%.3f s, "
-        "%.3f s) bin as from_matrix (%.3f s) bins them; %d rows pushed in %d "
-        "positioned chunks by reference (%.3f s): bins and model text equal; "
-        "%d rows through push_rows / push_rows_csr (%.3f s, reservoir %d "
-        "rows): bins equal (%s)"
-        % (n, ds.binned.num_features, cache_mb, t_save, t_load, t_ref,
-           TEXT_ROWS, *parsed["csv"], *parsed["libsvm"], t_mat, n,
-           STREAM_CHUNKS, t_stream, TEXT_ROWS, t_fresh, held, smi))
+        say("files: binary cache of the main path's %d x %d Dataset (%.1f "
+            "MiB, saved %.3f s, loaded %.3f s) trains the main model's text "
+            "byte for byte over 3 iterations (reference run %.3f s); %d rows "
+            "as CSV (written %.3f s, parsed and binned %.3f s) and LibSVM "
+            "(%.3f s, %.3f s) bin as from_matrix (%.3f s) bins them; %d "
+            "rows pushed in %d positioned chunks by reference (%.3f s): bins "
+            "and model text equal; %d rows through push_rows / "
+            "push_rows_csr (%.3f s, reservoir %d rows): bins equal (%s)"
+            % (n, ds.binned.num_features, cache_mb, t_save, t_load, t_ref,
+               TEXT_ROWS, *parsed["csv"], *parsed["libsvm"], t_mat, n,
+               STREAM_CHUNKS, t_stream, TEXT_ROWS, t_fresh, held, smi))
+        entry = dict(tmp=tmp, cache=cache, ref_file=ref_file, ref3=ref3,
+                     t_ref=t_ref, csv=os.path.join(tmp, "rows.csv"))
+        out.update(entry_phases(data, entry, smi))
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases: the entry layers (the CLI, the C ABI, the doctor)
+# ---------------------------------------------------------------------------
+
+def start_capi_build() -> dict:
+    """Both C libraries (capi.ensure_built: g++ over cpp/c_api.cc +
+    cpp/ingest.cc and the port's c_train.cc) on a thread, beside the
+    kernels' nvcc runs; `capi_build_done` joins it."""
+    import threading
+    from lightgbm_tpu_torch import capi
+    rec = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            capi.ensure_built(train=True)
+        except BaseException as e:  # noqa: BLE001 — re-raised by the join
+            rec["error"] = e
+        rec["s"] = time.perf_counter() - t0
+
+    rec["thread"] = threading.Thread(target=run, daemon=True)
+    rec["thread"].start()
+    return rec
+
+
+def capi_build_done(rec: dict) -> float:
+    rec["thread"].join()
+    if "error" in rec:
+        raise rec["error"]
+    return rec["s"]
+
+
+#: a C program that trains through the port's training library: the
+#: dataset from a file, the booster, the updates on a thread that did not
+#: load the library while this thread predicts through the same handle
+#: (predict against update, the C ABI's any-thread contract), the
+#: training metric and the model file
+C_TRAIN_PROGRAM = r"""
+#include <pthread.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <time.h>
+#include <unistd.h>
+#include "lightgbm_tpu_c_api.h"
+
+#define CHECK(rc) do { if ((rc) != 0) { \
+  fprintf(stderr, "FAIL: %s\n", LGBM_GetLastError()); return 1; } } while (0)
+
+static BoosterHandle g_bst;
+static int g_iters, g_rc;
+static volatile int g_trees, g_done;
+static double g_first_s, g_iter_s;
+
+static double now(void) {
+  struct timespec t;
+  clock_gettime(CLOCK_MONOTONIC, &t);
+  return t.tv_sec + 1e-9 * t.tv_nsec;
+}
+
+static void* updates(void* arg) {
+  (void)arg;
+  int fin = 0;
+  double t0 = now();
+  for (int i = 0; i < g_iters && g_rc == 0; ++i) {
+    g_rc = LGBM_BoosterUpdateOneIter(g_bst, &fin);
+    g_trees = i + 1;
+    if (i == 0) g_first_s = now() - t0;
+  }
+  g_iter_s = now() - t0;
+  g_done = 1;
+  return NULL;
+}
+
+int main(int argc, char** argv) {
+  if (argc != 6) return 2;
+  int ncol = atoi(argv[5]), nrow = 1000;
+  double* X = malloc(sizeof(double) * nrow * ncol);
+  double* out = malloc(sizeof(double) * nrow);
+  unsigned s = 12345u;
+  for (int i = 0; i < nrow * ncol; ++i) {
+    s = s * 1103515245u + 12345u;
+    X[i] = ((double)(s >> 16) / 16384.0) - 2.0;
+  }
+  double t0 = now();
+  DatasetHandle ds;
+  CHECK(LGBM_DatasetCreateFromFile(argv[1], "", NULL, &ds));
+  double t1 = now();
+  CHECK(LGBM_BoosterCreate(ds, argv[2], &g_bst));
+  double t2 = now();
+  g_iters = atoi(argv[3]);
+  pthread_t t;
+  if (pthread_create(&t, NULL, updates, NULL) != 0) return 3;
+  long predicts = 0;
+  int64_t olen = 0;
+  while (!g_done) {
+    usleep(2000);  /* leave the cores to the updates between predicts */
+    if (g_trees == 0) continue;  /* a model needs a tree to predict */
+    CHECK(LGBM_BoosterPredictForMat(g_bst, X, 1, nrow, ncol, 1, 0, -1, "",
+                                    &olen, out));
+    for (int i = 0; i < nrow; ++i)
+      if (!(out[i] >= 0.0 && out[i] <= 1.0)) {
+        fprintf(stderr, "FAIL: prediction %d is %g under the race\n", i,
+                out[i]);
+        return 1;
+      }
+    ++predicts;
+  }
+  pthread_join(t, NULL);
+  CHECK(g_rc);
+  int len = 0;
+  double ev[8];
+  CHECK(LGBM_BoosterGetEval(g_bst, 0, &len, ev));
+  CHECK(LGBM_BoosterSaveModel(g_bst, -1, argv[4]));
+  printf("C-ABI train ok: dataset %.3f s (the interpreter's start and the "
+         "package's import inside), booster %.3f s, %d iterations %.3f s "
+         "on another thread (the first %.3f s with its captures, then "
+         "%.4f s/iter) beside %ld predicts of %d rows through the same "
+         "handle, training metric %.6f\n",
+         t1 - t0, t2 - t1, g_iters, g_iter_s, g_first_s,
+         (g_iter_s - g_first_s) / (g_iters > 1 ? g_iters - 1 : 1), predicts,
+         nrow, ev[0]);
+  CHECK(LGBM_BoosterFree(g_bst));
+  CHECK(LGBM_DatasetFree(ds));
+  return 0;
+}
+"""
+
+#: iterations of the entry layers' runs: the files phase's reference run
+ENTRY_ITERS = 3
+
+
+def cli_phase(data, entry: dict, children: dict, smi: str) -> tuple:
+    """The CLI on the card.  task=train in this process on the files
+    phase's 1M-row binary cache at the main path's parameters, its
+    launches counted (B1 and B2 only): the model file must be the
+    reference run's save_model file byte for byte.  Then `python -m
+    lightgbm_tpu_torch task=predict` of the held-out rows (written as a
+    TSV) as children: with predict_device=false the host predictor's raw
+    scores equal to NativeBooster.predict_for_file's byte for byte, by
+    default the device predictor's within rtol 1e-5 / atol 1e-6 of
+    them.  task=train on the
+    files phase's CSV (header=true): its model file is the save_model file
+    of lt.train on the rows parse_file reads here.  parse_dense's arrays
+    of that CSV are the numpy reader's.  Returns (its line, launches)."""
+    from lightgbm_tpu_torch import application, capi
+    from lightgbm_tpu_torch.io import native, parser
+    tmp, params = entry["tmp"], train_params(255)
+    _, Xv, yv = data
+    model = os.path.join(tmp, "cli.txt")
+    reset_counts()
+    t0 = time.perf_counter()
+    with grower_mode():
+        application.main(["task=train", "data=" + entry["cache"],
+                          "output_model=" + model,
+                          "num_trees=%d" % ENTRY_ITERS] + cli_args(params))
+    t_cli = time.perf_counter() - t0
+    launches = read_counts()
+    b1_b2_ran("cli", launches, ENTRY_ITERS)
+    check(read_bytes(model) == read_bytes(entry["ref_file"]),
+          "cli: the model file differs from save_model's at %s"
+          % first_difference(open(model).read(), open(entry["ref_file"])
+                             .read()))
+    heldout = os.path.join(tmp, "heldout.tsv")
+    t0 = time.perf_counter()
+    np.savetxt(heldout, np.column_stack([yv, Xv.astype(np.float64)]),
+               delimiter="\t", fmt="%.17g")
+    t_write = time.perf_counter() - t0
+    preds = {}
+    for name, extra in (("host", ["predict_device=false"]), ("device", [])):
+        preds[name] = os.path.join(tmp, "pred_%s.txt" % name)
+        children[name] = start_cli(
+            ["task=predict", "data=" + heldout, "input_model=" + model,
+             "output_result=" + preds[name], "predict_raw_score=true"]
+            + extra)
+    # the CSV through the CLI while the predictions run
+    csv_model, csv_ref = (os.path.join(tmp, n) for n in ("csv.txt",
+                                                          "csv_py.txt"))
+    t0 = time.perf_counter()
+    with grower_mode():
+        application.main(["task=train", "data=" + entry["csv"],
+                          "header=true", "output_model=" + csv_model,
+                          "num_trees=%d" % ENTRY_ITERS] + cli_args(params))
+    t_csv = time.perf_counter() - t0
+    X, y = parser.parse_file(entry["csv"], has_header=True)
+    with grower_mode():
+        lt.train(dict(params, header=True), lt.Dataset(X, label=y),
+                 ENTRY_ITERS, verbose_eval=False).save_model(csv_ref)
+    check(read_bytes(csv_model) == read_bytes(csv_ref),
+          "cli: the CSV's model file differs from save_model's at %s"
+          % first_difference(open(csv_model).read(), open(csv_ref).read()))
+    t0 = time.perf_counter()
+    got = native.parse_dense(entry["csv"], ",", 0, True, F + 1)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Xn, yn = parser._parse_delimited_numpy(entry["csv"], ",", 0, None, True)
+    t_numpy = time.perf_counter() - t0
+    check(got is not None and np.array_equal(got[0], Xn)
+          and np.array_equal(got[1], yn),
+          "cli: parse_dense of the CSV is not the numpy reader's")
+    took = {}
+    for name in ("host", "device"):
+        rc, text, took[name] = cli_done(children.pop(name))
+        check(rc == 0, "cli: task=predict (%s) exited %d: %s"
+              % (name, rc, text[-2000:]))
+    native_out = os.path.join(tmp, "pred_native.txt")
+    t0 = time.perf_counter()
+    capi.NativeBooster(model_file=model).predict_for_file(
+        heldout, native_out, raw_score=True)
+    t_c = time.perf_counter() - t0
+    check(read_bytes(native_out) == read_bytes(preds["host"]),
+          "cli: the host predictor's file is not predict_for_file's")
+    host, dev = np.loadtxt(preds["host"]), np.loadtxt(preds["device"])
+    check(host.shape == (len(yv),) and np.allclose(dev, host, rtol=1e-5,
+                                                   atol=1e-6),
+          "cli: the device predictor's raw scores are %.3g from the host's"
+          % float(np.abs(dev - host).max()))
+    return ("cli: task=train on the %d-row binary cache in this process, "
+            "%d iterations %.3f s (%.4f s/iter; the reference run %.3f s, "
+            "%.4f s/iter), B1 %d and B2 %d launches, no other kernel: the "
+            "model file is save_model's byte for byte; `python -m "
+            "lightgbm_tpu_torch task=predict` of the %d held-out rows "
+            "(written %.3f s) as children, predict_device=false (host) "
+            "%.1f s and the default (device) %.1f s from their start: host "
+            "raw scores "
+            "= NativeBooster.predict_for_file's (%.3f s) byte for byte, "
+            "device within rtol 1e-5 (max |diff| %.3g); task=train on the "
+            "%d-row CSV (header=true, %.3f s): save_model's file byte for "
+            "byte; parse_dense %.3f s against the numpy reader's %.3f s, "
+            "arrays equal (%s)"
+            % (data[0].num_data(), ENTRY_ITERS, t_cli, t_cli / ENTRY_ITERS,
+               entry["t_ref"], entry["t_ref"] / ENTRY_ITERS,
+               launches["segment_histogram"], launches["partition_segment"],
+               len(yv), t_write, took["host"], took["device"], t_c,
+               float(np.abs(dev - host).max()), TEXT_ROWS, t_csv, t_native,
+               t_numpy, smi)), launches
+
+
+def c_abi_phase(data, entry: dict, smi: str, meanwhile=None) -> tuple:
+    """The C ABI on the card.  In this process, through ctypes: the
+    1M-row cache by LGBM_DatasetCreateFromFile, LGBM_BoosterCreate with
+    the main path's parameters (no device_type: the card) and
+    ENTRY_ITERS updates, their launches counted (B1 and B2 only); its
+    model text (SaveModelToString) must be the reference run's save_model
+    file.  Out of process: C_TRAIN_PROGRAM compiled with cc against the
+    training library and run as a child on the same cache and
+    parameters, its updates on a thread of their own while its main
+    thread predicts through the handle: its LGBM_BoosterSaveModel file
+    must be that file byte for byte (the card's fixed-point trees differ
+    from the CPU's, so this also shows where the child trained), and
+    NativeBooster on it must predict the held-out rows as the host
+    Booster.predict does within 1e-12.  `meanwhile()` runs while the child
+    does.  Returns (its line, launches)."""
+    from lightgbm_tpu_torch import capi
+    tmp = entry["tmp"]
+    _, Xv, _ = data
+    params = " ".join(cli_args(train_params(255)))
+    want = read_bytes(entry["ref_file"])
+    reset_counts()
+    t0 = time.perf_counter()
+    with grower_mode():
+        tds = capi.TrainDataset.from_file(entry["cache"])
+        tb = capi.TrainBooster(tds, params)
+        for _ in range(ENTRY_ITERS):
+            tb.update()
+    t_in = time.perf_counter() - t0
+    launches = read_counts()
+    b1_b2_ran("c abi", launches, ENTRY_ITERS)
+    text = tb.model_to_string()
+    check(text.encode() == want and text.startswith(entry["ref3"]),
+          "c abi: the in-process model text differs from save_model's")
+    del tb, tds
+    src = os.path.join(tmp, "c_train.c")
+    with open(src, "w") as fh:
+        fh.write(C_TRAIN_PROGRAM)
+    exe = os.path.join(tmp, "c_train")
+    lib = capi.train_lib_path()
+    t0 = time.perf_counter()
+    cc = subprocess.run(
+        ["cc", "-O1", src, "-I", os.path.join(HERE, "cpp"), lib,
+         os.path.join(os.path.dirname(lib), capi.LIB_NAME),
+         "-Wl,-rpath," + os.path.dirname(lib), "-lpthread", "-o", exe],
+        capture_output=True, text=True)
+    t_cc = time.perf_counter() - t0
+    check(cc.returncode == 0, "c abi: cc failed: %s" % cc.stderr[-2000:])
+    c_model = os.path.join(tmp, "c_model.txt")
+    env = dict(os.environ)
+    env.pop("LIGHTGBM_TPU_ROOT", None)
+    env["PYTHONPATH"] = os.pathsep.join(sorted({
+        os.path.dirname(os.path.dirname(m.__file__)) for m in (np, torch)}))
+    t0 = time.perf_counter()
+    child = subprocess.Popen([exe, entry["cache"], params, str(ENTRY_ITERS),
+                              c_model, str(F)], stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True, env=env)
+    try:
+        if meanwhile is not None:
+            meanwhile()
+        stdout, stderr = child.communicate(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    t_child = time.perf_counter() - t0
+    check(child.returncode == 0 and "C-ABI train ok" in stdout,
+          "c abi: the C program exited %d: %s"
+          % (child.returncode, (stdout + stderr)[-3000:]))
+    check(read_bytes(c_model) == want,
+          "c abi: the C program's model file differs from save_model's at "
+          "%s" % first_difference(open(c_model).read(), want.decode()))
+    ref = lt.Booster(model_file=entry["ref_file"])
+    nb = capi.NativeBooster(model_file=c_model)
+    d = float(np.abs(nb.predict(Xv) - ref.predict(Xv)).max())
+    check(d <= 1e-12, "c abi: NativeBooster is %.3g from Booster.predict"
+          % d)
+    said = [ln for ln in stdout.splitlines()
+            if ln.startswith("C-ABI train ok")][0]
+    return ("c abi: in this process through ctypes, DatasetCreateFromFile "
+            "on the %d-row cache + BoosterCreate (no device_type: the card) "
+            "+ %d updates %.3f s, B1 %d and B2 %d launches, no other "
+            "kernel: the model text is save_model's; a C program (cc %.2f "
+            "s) as a child beside the doctor phase, %.1f s in all: %s; its "
+            "SaveModel file is "
+            "save_model's byte for byte, NativeBooster on it within %.3g "
+            "of Booster.predict on the held-out rows (%s)"
+            % (data[0].num_data(), ENTRY_ITERS, t_in,
+               launches["segment_histogram"], launches["partition_segment"],
+               t_cc, t_child, said[len("C-ABI train ok: "):], d, smi)), \
+        launches
+
+
+def doctor_phase(entry: dict, crash: dict, smi: str) -> str:
+    """task=doctor probe=true in this process: its bundle's probe.json
+    binds the card and names it.  And the crashing child started beside
+    the entry phases (task=train on a missing file): a non-zero exit and
+    a crash bundle, its note naming the error."""
+    import glob
+    import tarfile
+    from lightgbm_tpu_torch import application
+    out_dir = os.path.join(entry["tmp"], "doctor")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    application.main(["task=doctor", "probe=true", "probe_deadline=120",
+                      "output_dir=" + out_dir])
+    t_doc = time.perf_counter() - t0
+
+    def members(path):
+        with tarfile.open(path) as tar:
+            return {i.name.split("/", 1)[1]: tar.extractfile(i).read()
+                    for i in tar.getmembers()}
+    bundles = glob.glob(os.path.join(out_dir, "lgbm_debug_*.tar.gz"))
+    check(len(bundles) == 1, "doctor: bundles %s" % bundles)
+    probe = json.loads(members(bundles[0])["probe.json"])
+    check(probe["ok"] and probe["backend"] == "cuda"
+          and probe["device_name"] == torch.cuda.get_device_name(0),
+          "doctor: the probe did not bind the card: %s" % probe)
+    rc, text, t_crash = cli_done(crash)
+    found = glob.glob(os.path.join(entry["tmp"], "crash",
+                                   "lgbm_debug_crash_train_*.tar.gz"))
+    check(rc != 0 and len(found) == 1,
+          "doctor: the crashing task exited %d with bundles %s: %s"
+          % (rc, found, text[-2000:]))
+    note = json.loads(members(found[0])["manifest.json"])["note"]
+    check("FileNotFoundError" in note, "doctor: the crash bundle's note: %s"
+          % note[-500:])
+    return ("doctor: task=doctor probe=true %.1f s: probe.json binds %s "
+            "(%d device, the probe child %.2f s); task=train on a missing "
+            "file as a child: exit %d after %.1f s with a crash bundle "
+            "naming FileNotFoundError (%s)"
+            % (t_doc, probe["device_name"], probe["devices"],
+               probe["dur_s"], rc, t_crash, smi))
+
+
+def entry_phases(data, entry: dict, smi: str) -> dict:
+    """The CLI, the C ABI and the doctor on the files phase's cache, CSV
+    and reference run; the crashing child starts first and is read by the
+    doctor phase, which runs beside the C program.  Returns the launches
+    of the cli and c abi paths."""
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(entry["tmp"], "crash"))
+    crash = start_cli(["task=train", "data=" + os.path.join(
+        entry["tmp"], "missing.tsv")],
+        LGBM_TPU_DOCTOR_DIR=os.path.join(entry["tmp"], "crash"))
+    children = {}
+    try:
+        line, cli = cli_phase(data, entry, children, smi)
+        say(line)
+        line, c_abi = c_abi_phase(
+            data, entry, smi,
+            meanwhile=lambda: say(doctor_phase(entry, crash, smi)))
+        say(line)
+    finally:
+        for run in list(children.values()) + [crash]:
+            if run["child"].poll() is None:
+                run["child"].kill()
+                run["child"].wait()
+    say("entry layers: the cli, c abi and doctor phases took %.1f s"
+        % (time.perf_counter() - t0))
+    return {"cli": cli, "c abi": c_abi}
 
 
 #: a payload past 2^31 elements: the rank path's width (F 136, P 146) at
@@ -5875,8 +6315,9 @@ RESUME_AT, SNAPSHOT_KEEP = 5, 3
 BAG_PARAMS = dict(bagging_fraction=0.5, bagging_freq=1)
 #: the sentinel's burst: every 7th gradient NaN at this iteration
 BURST_AT, BURST_STRIDE, SENTINEL_ITERS = 3, 7, 5
-#: the profiler hook's iterations, and the kernels its trace must show
-PROFILE_ITERS = 2
+#: the profiler hook's iterations (2 before the entry layers joined the
+#: script), and the kernels its trace must show
+PROFILE_ITERS = 1
 PROFILE_KERNELS = {"B1": "segment_hist_kernel", "B2": "part_move"}
 
 
@@ -6092,28 +6533,6 @@ def resumed_text(ds, params: dict, iters: int, snap: str) -> str:
     return bst.model_to_string()
 
 
-def preempt_child(out: str, seed: int) -> int:
-    """In a child process: PREEMPT_ROWS rows of the main path's data
-    trained under PreemptionGuard with LGBM_TPU_FAULT=PREEMPT_FAULT set by
-    the parent, as the JAX package's CLI trains (snapshots every iteration
-    from the guard only).  Exit 0 once preempted with its snapshot
-    written, 3 if training finished unpreempted."""
-    from lightgbm_tpu_torch.runtime import resilience
-    build.build_all()
-    X, y = synth(PREEMPT_ROWS, F, seed)
-    ds = lt.Dataset(X, label=y)
-    guard = resilience.PreemptionGuard(out, retention=SNAPSHOT_KEEP)
-    try:
-        with guard:
-            lt.train(train_params(255), ds, SEAM_ITERS,
-                     callbacks=[guard.callback], verbose_eval=False)
-    except resilience.TrainingPreempted as e:
-        print("preempted: signal %d at iteration %d, snapshot %s"
-              % (e.signum, e.iteration, e.snapshot), flush=True)
-        return 0 if e.snapshot else 4
-    return 3
-
-
 def resume_phase(data, main_run: dict, iters: int, smi: str) -> str:
     """Snapshots and resume on the card.  The main path and BAG_PARAMS
     bagging, each 10 iterations writing a snapshot every iteration
@@ -6174,56 +6593,95 @@ def resume_phase(data, main_run: dict, iters: int, smi: str) -> str:
                               json.dumps(BAG_PARAMS), json.dumps(out)))
 
 
-def start_preempt_child(seed: int) -> dict:
-    """Start `preempt_child` with LGBM_TPU_FAULT=PREEMPT_FAULT; the parent
-    goes on with other phases (preempt_done ends it)."""
-    import tempfile
-    tmp = tempfile.mkdtemp(prefix="lgbm_preempt_")
-    env = dict(os.environ, LGBM_TPU_FAULT=PREEMPT_FAULT)
-    child_out = os.path.join(tmp, "preempt.txt")
+def cli_args(params: dict) -> list:
+    """The CLI's `key=value` arguments for a parameter dict."""
+    return ["%s=%s" % kv for kv in params.items()]
+
+
+def start_cli(args: list, **env) -> dict:
+    """`python -m lightgbm_tpu_torch <args>` as a child process of this
+    checkout, with `env` added to its environment; `cli_done` ends it."""
     child = subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--preempt-child",
-         child_out, "--seed", str(seed)], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return dict(child=child, out=child_out, tmp=tmp, t0=time.perf_counter())
+        [sys.executable, "-m", "lightgbm_tpu_torch", *args], cwd=HERE,
+        env=dict(os.environ, PYTHONPATH=HERE, **env), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    return dict(child=child, t0=time.perf_counter())
 
 
-def preempt_done(run: dict, seed: int, iters: int) -> str:
-    """The preempted child's end: exit 0 with a valid snapshot, and this
-    process's resume from it byte-identical to an uninterrupted run of
-    the same PREEMPT_ROWS rows here."""
-    import shutil
-    from lightgbm_tpu_torch.runtime import resilience
+def cli_done(run: dict, timeout: float = 600) -> tuple:
+    """(exit code, output, seconds since its start) of a `start_cli`
+    child, killed if it outlives `timeout`."""
     proc = run["child"]
     try:
-        text, _ = proc.communicate(timeout=600)
+        text, _ = proc.communicate(timeout=timeout)
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    child_s = time.perf_counter() - run["t0"]
-    check(proc.returncode == 0, "resume: the preempted child exited %d: %s"
-          % (proc.returncode, text[-2000:]))
-    snap, state = resilience.find_resume_snapshot(run["out"])
-    check(snap is not None, "resume: the preempted child left no valid "
-          "snapshot")
+    return proc.returncode, text or "", time.perf_counter() - run["t0"]
+
+
+def start_preempt_child(seed: int) -> dict:
+    """The CLI under LGBM_TPU_FAULT=PREEMPT_FAULT, as a child: task=train
+    snapshot_freq=1 on a binary cache of PREEMPT_ROWS rows of the main
+    path's generator, SEAM_ITERS iterations; the parent goes on with other
+    phases (preempt_done ends it)."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="lgbm_preempt_")
     X, y = synth(PREEMPT_ROWS, F, seed)
-    ds = lt.Dataset(X, label=y)
+    cache = os.path.join(tmp, "preempt.bin")
+    lt.Dataset(X, label=y).construct(lt.Config(train_params(255))) \
+        .save_binary(cache)
+    out = os.path.join(tmp, "preempt.txt")
+    args = ["task=train", "data=" + cache, "output_model=" + out,
+            "num_trees=%d" % SEAM_ITERS, "snapshot_freq=1",
+            "snapshot_retention=%d" % SNAPSHOT_KEEP] \
+        + cli_args(train_params(255))
+    return dict(start_cli(args, LGBM_TPU_FAULT=PREEMPT_FAULT), out=out,
+                tmp=tmp, cache=cache, args=args)
+
+
+def preempt_done(run: dict, seed: int, iters: int) -> str:
+    """The preempted CLI child's end: exit 0 with a valid snapshot and no
+    model, then `task=train resume=true` here, whose model file must be
+    the uninterrupted run's save_model file byte for byte."""
+    import shutil
+    from lightgbm_tpu_torch import application
+    from lightgbm_tpu_torch.runtime import resilience
+    rc, text, child_s = cli_done(run)
+    check(rc == 0, "cli resume: the preempted CLI exited %d: %s"
+          % (rc, text[-2000:]))
+    check("preemption signal" in text and not os.path.exists(run["out"]),
+          "cli resume: the CLI was not preempted: %s" % text[-2000:])
+    snap, state = resilience.find_resume_snapshot(run["out"])
+    check(snap is not None, "cli resume: the preempted CLI left no valid "
+          "snapshot")
+    t0 = time.perf_counter()
     with grower_mode():
-        whole = lt.train(train_params(255), ds, iters,
-                         verbose_eval=False).model_to_string()
-    again = resumed_text(ds, train_params(255), iters, snap)
-    check(again == whole, "resume: the preempted run's resume differs at "
-          "%s" % first_difference(again, whole))
+        application.main(run["args"] + ["resume=true"])
+    t_resume = time.perf_counter() - t0
+    ds = lt.Dataset(run["cache"])
+    with grower_mode():
+        whole = lt.train(train_params(255), ds, iters, verbose_eval=False)
+    whole_file = run["out"] + ".whole"
+    whole.save_model(whole_file)
+    check(read_bytes(run["out"]) == read_bytes(whole_file),
+          "cli resume: the resumed model file differs from the "
+          "uninterrupted run's at %s"
+          % first_difference(open(run["out"]).read(),
+                             open(whole_file).read()))
     shutil.rmtree(run["tmp"], ignore_errors=True)
-    said = [ln for ln in text.splitlines() if ln.startswith("preempted")]
-    return ("resume (preempted child): %d rows, LGBM_TPU_FAULT=%s under "
-            "PreemptionGuard: exit 0 after %.1f s (%s), its snapshot of "
-            "iteration %d resumed here to %d iterations byte-identical to "
-            "the uninterrupted run (sha256 %s)"
+    said = [ln.split("] ", 1)[-1] for ln in text.splitlines()
+            if "preemption signal" in ln]
+    return ("cli resume: %d rows as a binary cache, `python -m "
+            "lightgbm_tpu_torch task=train snapshot_freq=1` under "
+            "LGBM_TPU_FAULT=%s: exit 0 after %.1f s (%s), its snapshot of "
+            "iteration %d resumed here by task=train resume=true (%.3f s) "
+            "to %d iterations: the model file is the uninterrupted run's "
+            "save_model file byte for byte (its trees' sha256 %s)"
             % (PREEMPT_ROWS, PREEMPT_FAULT, child_s,
-               said[0] if said else "?", state["total_iter"], iters,
-               sha(whole)))
+               said[0].strip()[:120] if said else "?", state["total_iter"],
+               t_resume, iters, sha(whole.model_to_string())))
 
 
 def burst_fobj(at: int):
@@ -6685,7 +7143,6 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--bounds-child", choices=sorted(BOUNDS_CALLS),
                     help=argparse.SUPPRESS)
-    ap.add_argument("--preempt-child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not 1 <= args.rows <= 10_500_000:
         ap.error("--rows must be in [1, 10500000]")
@@ -6702,14 +7159,15 @@ def main() -> int:
         return 2
     if args.bounds_child:
         return bounds_child(args.bounds_child)
-    if args.preempt_child:
-        return preempt_child(args.preempt_child, args.seed)
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
+    capi_build = start_capi_build()
     build_s, build_logs = build.build_all()
-    say("device: %s | %s | torch %s CUDA %s | kernel build %.2f s"
+    capi_s = capi_build_done(capi_build)
+    say("device: %s | %s | torch %s CUDA %s | kernel build %.2f s | C "
+        "libraries (g++, beside it) %.2f s"
         % (torch.cuda.get_device_name(0), smi, torch.__version__,
-           torch.version.cuda, build_s))
+           torch.version.cuda, build_s, capi_s))
     for name, log in build_logs.items():
         info = [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "smem" in ln]
@@ -6780,12 +7238,15 @@ def main() -> int:
                                     main_run["step_kernels"], smi))
     say(replay_check(main_run["bst"]))
     say(predict_main_phase(main_run["bst"], data[1], data[2]))
+    # the eager run's reference: the main path's model cut to its first
+    # JIT_OFF_ITERS iterations (a run of that many writes it byte for byte)
+    main_cut = main_run["bst"].model_to_string(num_iteration=JIT_OFF_ITERS)
     del main_run["bst"]
     ds = data[0]
     say(jit_off_check("main path", lambda: lt.train(
-        train_params(255), ds, args.iters, verbose_eval=False),
-        main_run["model_text"]))
-    say(checked_partition_phase(data, args.rows, 2))
+        train_params(255), ds, JIT_OFF_ITERS, verbose_eval=False),
+        main_cut))
+    say(checked_partition_phase(data, args.rows, 1))
     say("deterministic mode: the capture's probe (torch.histc on the card) "
         "warned %s" % json.dumps(deterministic_probe()))
     say(repeat_check("main path", lambda: lt.train(

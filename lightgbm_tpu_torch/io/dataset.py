@@ -12,8 +12,10 @@ bundles) padded to the row chunk, plus small per-feature metadata arrays
 The binary dataset cache (`save_binary` / `load_binary`, the JAX
 package's npz format with its JSON header, bundles, mappers, metadata and
 nibble packing, so either package loads the other's) and the binned row
-subset (`subset`, for datasets with no raw matrix) are ported; the native
-encoder is not, and host binning runs the per-feature numpy path.
+subset (`subset`, for datasets with no raw matrix) are ported.  Host
+binning runs the per-feature numpy path on worker threads; the native
+encoder (io/native.encode_bins) gives the same bins but is slower at
+wide widths, so no path takes it.
 """
 from __future__ import annotations
 

@@ -4,13 +4,13 @@
 Role parity with the reference Parser (src/io/parser.cpp:169 CreateParser,
 include/LightGBM/dataset.h:252-277): sniff the format from sample lines,
 parse label + features into a dense matrix.  Host-side ingest; the result
-feeds BinnedDataset.from_matrix.  This is the numpy / pure-Python
-reader: CSV, TSV and LibSVM go through numpy's C-backed parsing when
-every value is a number and the rows are regular; anything else
-(missing-value markers, ragged rows) through the tolerant pure-Python
-parser.  Each gives every value as the decimal's nearest double, as
-float() does.  The JAX package first tries its native mmap parser
-(io/native, through the C ABI library), which is not ported.
+feeds BinnedDataset.from_matrix.  CSV and TSV go first through the native
+mmap parser (io/native.py, cpp/ingest.cc), as in the JAX package; a file
+it declines (a text token, a row wider than the first) and LibSVM go
+through numpy's C-backed parsing when every value is a number and the
+rows are regular, anything else (missing-value markers, ragged rows)
+through the tolerant pure-Python parser.  Each gives every value as the
+decimal's nearest double, as float() does, so the readers' arrays agree.
 """
 from __future__ import annotations
 
@@ -86,6 +86,17 @@ def parse_file(path: str, label_column: int = 0, has_header: Optional[bool] = No
     header; missing values ('', 'na', 'nan', 'null') become NaN."""
     fmt, sep, has_header, head = sniff(path, has_header)
     if fmt != "libsvm":
+        # the native mmap + OpenMP parser first (cpp/ingest.cc, the role
+        # of the reference's native Parser), then numpy's reader, then the
+        # tolerant pure-Python parser
+        n_cols = len(head[1 if has_header and len(head) > 1 else 0]
+                     .rstrip("\n\r").split(sep)) if head else 0
+        if n_cols >= 2:
+            from .native import parse_dense
+            out = parse_dense(path, sep, label_column, has_header, n_cols)
+            if out is not None:
+                X, y = out
+                return _fix_width(X, num_features), y
         out = _parse_delimited_numpy(path, sep, label_column, num_features,
                                      has_header)
         if out is not None:

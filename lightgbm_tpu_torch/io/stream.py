@@ -33,7 +33,9 @@ from a parsed file).
 The JAX package's push-time quarantine (``quarantine=``, its
 runtime/quality.py) is not ported yet: asking for it raises
 NotImplementedError.  Chunks are binned by the per-feature numpy encoder
-(io/dataset.py's), where the JAX package first tries its native one.
+(io/dataset.py's), where the JAX package first tries its native one
+(io/native.encode_bins here, which no path takes: it is slower at wide
+widths).
 """
 from __future__ import annotations
 

@@ -3,6 +3,9 @@
 Packages what a post-mortem needs into one atomic tar with a checksummed
 manifest:
 
+* **platform probe** (`probe.json`): `resilience.probe_platform` in a
+  short-deadline child (the card's name when it binds, the reason when
+  it does not; ``probe=False`` skips it, as the crash path does);
 * **environment fingerprint** (`env_fingerprint`): python, torch, CUDA
   and numpy versions, the platform, argv, every ``LGBM_* / CUDA_* /
   TORCH_* / NVIDIA_*`` environment variable, whether CUDA is initialized
@@ -24,8 +27,8 @@ The bundle is written tmp + fsync + rename (one atomic file); the
 manifest inside carries a sha256 per member and `verify_bundle` re-hashes
 them.  Collection never raises out of the crashing process: each member
 is gathered under its own guard, and one that cannot be gathered becomes
-an ``errors`` entry of the manifest.  The CLI's ``task=doctor`` and its
-crash-path bundle come with the CLI (ROADMAP queue A item 4).
+an ``errors`` entry of the manifest.  The CLI's ``task=doctor`` builds
+one, and a crashing CLI task leaves one (`application.py`).
 """
 from __future__ import annotations
 
@@ -146,6 +149,8 @@ def _metrics_member() -> bytes:
 def collect_debug_bundle(out_dir: str = ".",
                          tag: Optional[str] = None,
                          config: Optional[Dict[str, Any]] = None,
+                         probe: bool = True,
+                         probe_deadline: float = 10.0,
                          stage_reports: Optional[List[str]] = None,
                          artifact_dir: Optional[str] = None,
                          note: Optional[str] = None) -> Dict[str, Any]:
@@ -171,6 +176,9 @@ def collect_debug_bundle(out_dir: str = ".",
             errors[member] = "%s: %s" % (type(e).__name__, e)
 
     gather("env.json", lambda: env_fingerprint(config))
+    if probe:
+        gather("probe.json",
+               lambda: resilience.probe_platform(deadline=probe_deadline))
     gather("metrics.json", _metrics_member)
     gather("graph_ledger.json", lambda: graph_obs.LEDGER.to_json())
     gather("warmup_status.json", warmup.cache_status)

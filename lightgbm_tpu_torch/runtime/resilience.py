@@ -32,10 +32,16 @@ The reference survives multi-hour training through periodic snapshots
   port has no such point yet is refused, naming the ROADMAP item that
   brings it (`UNPORTED_FAULTS`).
 
-The platform probe and its degradation chain, and the serving, publish
-and online faults, are not ported (ROADMAP queue A items 4 and 6).  No
-torch or numpy import at module scope: a CLI entry can use this module
-without touching the card.
+* **Platform probe** (`probe_platform`): one short-deadline child
+  process initializes CUDA through torch and reports the backend, the
+  device count and the card's name; a hung bind dumps its tracebacks and
+  is killed at the deadline.
+
+The JAX package's degradation chain (`resolve_backend`, which lands on
+the CPU when the probe fails) and the serving, publish and online faults
+are not ported (ROADMAP queue A item 6).  No torch or numpy import at
+module scope: a CLI entry can use this module without touching the
+card.
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ import hashlib
 import json
 import os
 import signal
+import subprocess
 import sys
 import tempfile
 import threading
@@ -63,7 +70,7 @@ __all__ = [
     "NonFiniteDetected", "SentinelGuard", "sentinel_check",
     "fault_arg", "fault_active", "maybe_die_or_preempt",
     "maybe_corrupt_snapshot", "maybe_inject_nan",
-    "FAULT_TABLE", "FAULT_NAMES", "UNPORTED_FAULTS",
+    "FAULT_TABLE", "FAULT_NAMES", "UNPORTED_FAULTS", "probe_platform",
 ]
 
 
@@ -82,6 +89,10 @@ def wallclock() -> str:
 #: rejected loudly: a typoed fault name injecting nothing would make a
 #: "green under fault" test meaningless.
 FAULT_TABLE: Dict[str, Dict[str, str]] = {
+    "hang_import": {
+        "arg": "SECS",
+        "injects_at": "platform probe child (probe_platform), "
+                      "non-cpu probes only"},
     "die_at_iter": {
         "arg": "K",
         "injects_at": "Booster.update entry (maybe_die_or_preempt)"},
@@ -94,6 +105,9 @@ FAULT_TABLE: Dict[str, Dict[str, str]] = {
     "nan_grad": {
         "arg": "K",
         "injects_at": "the tree_fetch host copy (sentinel_check)"},
+    "bogus_platform": {
+        "arg": "",
+        "injects_at": "probe_platform's request rewrite"},
 }
 
 FAULT_NAMES = tuple(FAULT_TABLE)
@@ -101,8 +115,6 @@ FAULT_NAMES = tuple(FAULT_TABLE)
 #: the JAX package's faults whose injection point the port does not have
 #: yet, with the ROADMAP queue A item that brings it
 UNPORTED_FAULTS: Dict[str, str] = {
-    "hang_import": "4 (the platform probe)",
-    "bogus_platform": "4 (the platform probe)",
     "torn_write": "6 (publish)",
     "slow_stage": "6 (the continuous trainer)",
     "die_at_publish": "6 (publish)",
@@ -150,6 +162,17 @@ def fault_arg(name: str, default: Optional[str] = None) -> Optional[str]:
     if name not in spec:
         return default
     return spec[name] if spec[name] is not None else default
+
+
+def maybe_probe_hang_seconds(platform: Optional[str]) -> float:
+    """`hang_import:SECS` models a device bind that hangs: the probe
+    child sleeps before it imports torch.  A cpu probe never hangs, so
+    the injection applies to non-cpu probes only."""
+    if platform is None or platform == "cpu":
+        return 0.0
+    if not fault_active("hang_import"):
+        return 0.0
+    return float(fault_arg("hang_import", "30"))
 
 
 def maybe_die_or_preempt(booster) -> None:
@@ -439,6 +462,88 @@ def backoff_delays(attempts: int, base: float = 1.0, cap: float = 8.0,
         frac = 0.5 + (state / 0x7FFFFFFF) * 0.5          # [0.5, 1.0)
         delays.append(round(min(cap, base * (2 ** a)) * frac, 2))
     return delays
+
+
+#: the probe child: dumps its own tracebacks and exits shortly BEFORE the
+#: parent's kill lands, so a hung bind still leaves evidence on stderr.
+#: `_LGBM_TPU_PROBE_HANG` carries the injected hang (from the parent's
+#: fault spec; a real hang inside torch's CUDA init is caught the same
+#: way).
+_PROBE_CHILD = r"""
+import faulthandler, os, sys, time
+faulthandler.dump_traceback_later(%(dump_after)f, exit=True)
+hang = float(os.environ.get("_LGBM_TPU_PROBE_HANG", "0"))
+if hang > 0:
+    time.sleep(hang)
+platform = os.environ["_LGBM_TPU_PROBE_PLATFORM"]
+import torch
+if platform == "cpu":
+    print("platform=cpu devices=1 name=cpu", flush=True)
+elif platform in ("cuda", "gpu"):
+    if not torch.cuda.is_available():
+        sys.exit("platform %%s: no CUDA device (torch.cuda.is_available() "
+                 "is false)" %% platform)
+    torch.cuda.init()
+    print("platform=cuda devices=%%d name=%%s"
+          %% (torch.cuda.device_count(), torch.cuda.get_device_name(0)),
+          flush=True)
+else:
+    sys.exit("unknown platform %%r: the PyTorch package runs on cuda or "
+             "cpu" %% platform)
+"""
+
+
+def probe_platform(platform: Optional[str] = None, deadline: float = 20.0
+                   ) -> Dict[str, Any]:
+    """One short-deadline subprocess probe of the device's initialization
+    (`platform` "cuda", the default, or "cpu").
+
+    Returns a machine-readable record: ``{"ok": bool, "platform":
+    requested, "backend": reported backend or None, "devices",
+    "device_name", "rc", "dur_s", "reason", "tail"}`` (``tail``, the
+    child's stderr, on failure only).  Never hangs: the child self-dumps
+    and exits just before `deadline`, and the parent kills it at
+    `deadline` if even that failed."""
+    env = dict(os.environ)
+    req = platform if platform is not None else "cuda"
+    if fault_active("bogus_platform") and req != "cpu":
+        req = "bogus"
+    env["_LGBM_TPU_PROBE_PLATFORM"] = req
+    hang = maybe_probe_hang_seconds(req)
+    if hang > 0:
+        env["_LGBM_TPU_PROBE_HANG"] = str(hang)
+    code = _PROBE_CHILD % {"dump_after": max(deadline - 2.0, 1.0)}
+    t0 = time.monotonic()
+    rec: Dict[str, Any] = {"platform": req, "ok": False, "backend": None,
+                           "devices": None, "device_name": None,
+                           "rc": None, "reason": None,
+                           "t_start": wallclock()}
+    try:
+        r = subprocess.run([sys.executable, "-c", code], env=env,
+                           timeout=deadline, capture_output=True, text=True)
+        rec["rc"] = r.returncode
+        out = (r.stdout or "").strip().splitlines()
+        tail = (r.stderr or "")[-2000:]
+        if r.returncode == 0 and out and out[-1].startswith("platform="):
+            head, _, name = out[-1].partition(" name=")
+            fields = dict(kv.split("=", 1) for kv in head.split())
+            rec.update(ok=True, backend=fields["platform"],
+                       devices=int(fields["devices"]), device_name=name)
+        elif "Timeout" in tail or "dump_traceback_later" in tail \
+                or r.returncode != 0 and "Thread 0x" in tail:
+            rec["reason"] = "hang (child self-dumped at deadline)"
+            rec["tail"] = tail
+        else:
+            rec["reason"] = "init failed (rc=%d)" % r.returncode
+            rec["tail"] = tail
+    except subprocess.TimeoutExpired as e:
+        rec["rc"] = -9
+        rec["reason"] = "hang (parent killed the probe at %.0fs)" % deadline
+        rec["tail"] = ((e.stderr or b"").decode("utf-8", "replace")
+                       if isinstance(e.stderr, bytes)
+                       else (e.stderr or ""))[-2000:]
+    rec["dur_s"] = round(time.monotonic() - t0, 2)
+    return rec
 
 
 # ---------------------------------------------------------------------------

@@ -72,7 +72,7 @@ def test_fault_spec_parsing(monkeypatch):
         assert row["arg"] == jres.FAULT_TABLE[name]["arg"]
 
 
-@pytest.mark.parametrize("name,item", [("hang_import", "item 4"),
+@pytest.mark.parametrize("name,item", [("slow_stage", "item 6"),
                                        ("torn_write", "item 6"),
                                        ("die_at_predict", "item 6")])
 def test_unported_faults_refused_naming_their_item(monkeypatch, name, item):
