@@ -215,10 +215,12 @@ one `tree dispatch` instant per tree in the Chrome trace, s/iter of each
 run); `profile hook` (LGBM_TPU_PROFILE's torch.profiler trace of 2
 iterations, whose device kernels must include B1's and B2's);
 `sentinel` (a NaN burst from a host custom objective and nan_grad:3 on
-the builtin one: abort raises naming iteration 3 with the field that
-caught it, rollback returns finished with 3 iterations of trees and the
-training and validation scores the pre-iteration ones bit for bit, syncs
-per tree printed); `resume` (the main path and bagging, snapshots every
+the builtin one: abort raises naming iteration 3 with the JAX package's
+field, `leaf values`, rollback returns finished with 3 iterations of
+trees and the training and validation scores the pre-iteration ones bit
+for bit, syncs per tree printed; without the sentinel, on 20,000 rows,
+iteration 3's tree on the card is the CPU's, a stump whose leaf value is
+NaN); `resume` (the main path and bagging, snapshots every
 iteration with keep-last 3 and their ms: resumed from iteration 5
 byte-identical, bagging also from the scan past its truncated last
 snapshot) and `cli resume` (`python -m lightgbm_tpu_torch task=train
@@ -243,6 +245,19 @@ names the card; a crashing task leaves a bundle).  Depth cuts that pay
 for them (each keeps its checks): the main path's jit=False run 3
 iterations (10), the profiler hook 1 (2), the CUDA vs CPU parity 3 (10),
 the wide parity 1 (2) and the main path's every-B2-call check 1 (2).
+The distributed learners, in the files phase on its 1M-row binary cache:
+B1's and B7's raw int64 cells (the exchange's) bit for bit to
+segment.fixed_cells at the main and the Bosch roots (kernels and wide
+kernels lines), and `distributed` (two rank processes on cuda:0 over
+gloo, `--dist-child`, train tree_learner=data, feature, voting at top_k
+20 (2 top_k >= F: every feature voted) and 5 (10 of the 28 features
+summed), and data with int8, 3 iterations each, then data at 131,072 x
+968 for 2 beside this process's serial run: every rank's model rank 0's,
+data / feature / voting top_k 20 / wide data the serial cut byte for
+byte, voting top_k 5 within VOTE_AUC and int8 within 0.002 AUC of their
+serial runs; s/iter, syncs and exchange bytes a tree, each rank's peak
+MiB, launches).  The multiclass repeat check runs SHORT_ITERS
+iterations against the path's model cut there.
 Every phase always runs and prints one line, prefixed with the seconds
 since start; any failed check exits non-zero.  The last line is the
 device record {"ok": true, "device": {...}}.  Imports nothing of JAX or
@@ -606,6 +621,38 @@ def bound(n_bytes: float, n_ops: float) -> tuple:
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
+def raw_cells_check(label: str, fn, pay, n: int, f: int, hk: dict,
+                    chunk: int = None) -> dict:
+    """B1's or B7's raw output on the root segment [0, n) (the distributed
+    learners' exchange): the int64 cells bit for bit to segment.fixed_cells
+    (summed over row chunks of `chunk` rows where the index tensor would
+    not fit), and their conversion bit for bit to the kernel's own f32
+    output; both outputs timed (device ms, CUDA events)."""
+    i32 = dict(dtype=torch.int32, device=pay.device)
+    sc = seg.fixed_scale(pay, 0, n, hk["grad_col"], hk["hess_col"])
+    zero, cnt = torch.zeros((), **i32), torch.tensor(n, **i32)
+    raw = fn(pay, zero, cnt, scale=sc, raw=True, **hk)
+    f32h = fn(pay, zero, cnt, scale=sc, **hk)
+    torch.cuda.synchronize()
+    step = chunk or n
+    want = seg.fixed_cells(pay, 0, min(step, n), scale=sc, **hk)
+    for s in range(step, n, step):
+        want += seg.fixed_cells(pay, s, min(step, n - s), scale=sc, **hk)
+    check(raw.dtype == torch.int64 and torch.equal(raw, want),
+          "%s raw at the root F=%d: %d cells differ from fixed_cells"
+          % (label, f, int((raw != want).sum())))
+    check(torch.equal(seg.cells_to_hist(raw, sc).view(torch.int32),
+                      f32h.view(torch.int32)),
+          "%s raw at the root F=%d: the converted cells differ from the f32 "
+          "output" % (label, f))
+    del raw, f32h, want
+    return dict(
+        bit_identical=True,
+        raw_ms=time_ms(lambda: fn(pay, zero, cnt, scale=sc, raw=True, **hk),
+                       10),
+        f32_ms=time_ms(lambda: fn(pay, zero, cnt, scale=sc, **hk), 10))
+
+
 def kernels_phase(n: int, seed: int, dev) -> dict:
     pay = make_payload(n, F, P, seed, dev)
     hk = dict(num_features=F, num_bins=B, grad_col=COLS["grad"],
@@ -620,6 +667,8 @@ def kernels_phase(n: int, seed: int, dev) -> dict:
             pay, torch.tensor(s, **i32), torch.tensor(c, **i32), **hk)
         torch.cuda.synchronize()
         hist_err = max(hist_err, hist_exact(pay, s, c, F, got))
+    raw_root = raw_cells_check("B1", cuda_segment.segment_histogram, pay,
+                               n, F, hk)
     f_wide, n_wide = 137, 200_000
     pay_w = make_payload(n_wide, f_wide, f_wide + 10, seed + 1, dev)
     got = cuda_segment.segment_histogram(
@@ -908,7 +957,8 @@ def kernels_phase(n: int, seed: int, dev) -> dict:
             source="lightgbm_tpu_torch/csrc/segment_hist.cu",
             replaces="lightgbm_tpu/ops/pallas_segment.py:473",
             max_abs_err=hist_err, ms=hist_ms, plain_ms=hist_plain_ms,
-            library_ms=hist_lib_ms, breakdown_us=hist_breakdown),
+            library_ms=hist_lib_ms, breakdown_us=hist_breakdown,
+            raw_root=raw_root),
         "partition_segment": dict(
             part, name="partition_segment", route="cuda",
             source="lightgbm_tpu_torch/csrc/segment_partition.cu",
@@ -1516,6 +1566,10 @@ def wide_kernels_phase(seed: int, dev) -> dict:
               "plain version" % (f, int((got != want).sum())))
         rec["segment_histogram_colblock"]["root_bit_identical"] = True
         del got, want
+        if f == DIST_WIDE_F:
+            rec["segment_histogram_colblock"]["raw_root"] = raw_cells_check(
+                "B7", cuda_segment.segment_histogram_colblock, pay, n, f, hk,
+                chunk=WIDE_CMP_ROWS)
 
         # the quantized and frontier paths keep B4, B5 and B2's stage /
         # commit at every width
@@ -2357,7 +2411,7 @@ def replay_check(bst) -> str:
     further."""
     eng = bst._engine
     prog = eng.grower.program
-    check(prog.step.graph is not None and prog.root.graph is not None,
+    check(prog.step.pieces is not None and prog.root.pieces is not None,
           "replay: the root or the split step was never captured")
     fs = eng._fast
     hs = fs.fill_gradients(eng.objective)
@@ -4364,8 +4418,8 @@ def multiclass_phase(seed: int, iters: int, main_run: dict, smi: str):
     profiled; then SHORT_ITERS iterations of multiclassova, of the one-leaf
     loop, of frontier 8 (the one-leaf model text byte for byte; B5 and the
     stage + commit) and of int8 (B4, no B1); one iteration with every B2
-    call held against the plain partition; the repeat check of the path's
-    `iters` iterations.  Returns the runs' launches by path and the B1
+    call held against the plain partition; the repeat check of
+    SHORT_ITERS iterations against the path's model cut there.  Returns the runs' launches by path and the B1
     record."""
     X, y = covtype_synth(COVTYPE_ROWS, seed + 51)
     n = COVTYPE_ROWS - COVTYPE_VALID
@@ -4451,7 +4505,10 @@ def multiclass_phase(seed: int, iters: int, main_run: dict, smi: str):
     # a whole iteration (K class trees) profiled: its device kernels
     say(profile_phase(bst, "multiclass", launched=("part_move",),
                       retired=("part_stage_move", "part_commit")))
-    text = r["model_text"]
+    # the repeat check's SHORT_ITERS iterations: the path's model cut there
+    text = lt.Booster(params={"device_type": "cpu"},
+                      model_str=r["model_text"]).model_to_string(
+                          num_iteration=SHORT_ITERS)
     del r, bst
     runs = {"multiclass": launches}
     short = dict(params, metric=["multi_error"])
@@ -4502,8 +4559,8 @@ def multiclass_phase(seed: int, iters: int, main_run: dict, smi: str):
     say(checked_partition_phase((ds, Xv, yv), n, 1, params=params,
                                 label="B2 in multiclass training",
                                 quality=error))
-    say(repeat_check("multiclass", lambda: lt.train(
-        params, ds, iters, valid_sets=[dv], verbose_eval=False), text))
+    say(repeat_check("multiclass (%d iters)" % SHORT_ITERS, lambda: lt.train(
+        params, ds, SHORT_ITERS, valid_sets=[dv], verbose_eval=False), text))
     del runs["multiclass one-leaf"]
     return runs, b1
 
@@ -5630,7 +5687,7 @@ def write_text_data(path: str, X, y, fmt: str) -> None:
                     + "\n")
 
 
-def files_phase(data, seed: int, smi: str) -> dict:
+def files_phase(data, seed: int, smi: str, on_cache=None) -> dict:
     """The data side's files and streams on the main path's data: its
     Dataset saved with save_binary and loaded by path trains the main
     model's text (3 iterations) byte for byte; TEXT_ROWS of its rows written
@@ -5679,6 +5736,9 @@ def files_phase(data, seed: int, smi: str) -> dict:
         check(text_c == ref3, "files: the cache's model text differs at %s"
               % first_difference(text_c, ref3))
         cache_mb = os.path.getsize(cache) / 2**20
+        if on_cache is not None:
+            # the distributed ranks read the cache before it goes
+            on_cache(cache)
 
         Xs, ys = X[:TEXT_ROWS], y[:TEXT_ROWS]
         t0 = time.perf_counter()
@@ -6746,6 +6806,11 @@ def sentinel_phase(data) -> str:
                 if policy == "abort":
                     check(raised is not None and raised.iteration == BURST_AT,
                           "sentinel %s: raised %r" % (key, raised))
+                    # the burst's stump carries the JAX package's non-finite
+                    # leaf value, whichever field the fixed-point sums hid
+                    check(raised.field == "leaf values",
+                          "sentinel %s: caught by %r, not the JAX package's "
+                          "'leaf values'" % (key, raised.field))
                     out[key] = dict(iteration=raised.iteration,
                                     field=raised.field,
                                     trees=bst.num_trees(),
@@ -6770,10 +6835,43 @@ def sentinel_phase(data) -> str:
                                 seconds=round(secs, 3))
         finally:
             os.environ.pop("LGBM_TPU_FAULT", None)
+    out["burst unguarded"] = unguarded_burst(Xv, yv)
     return ("sentinel: %dx%d (+%d held out), NaN in every %dth gradient at "
             "iteration %d (custom logloss) and nan_grad:%d (binary): %s"
             % (ds.num_data(), F, len(yv), BURST_STRIDE, BURST_AT, BURST_AT,
                json.dumps(out)))
+
+
+#: rows of the burst run without the sentinel, on the card and the CPU
+UNGUARDED_ROWS = 20_000
+
+
+def unguarded_burst(X, y) -> dict:
+    """The burst without the sentinel, on UNGUARDED_ROWS rows, on the card
+    and on the CPU: iteration BURST_AT's tree must be the same text on
+    both, a stump whose leaf value is not finite (the JAX package's; the
+    card's fixed-point sums alone would grow a tree of finite values)."""
+    X, y = X[:UNGUARDED_ROWS], y[:UNGUARDED_ROWS]
+    trees = {}
+    for device in ("cuda", "cpu"):
+        fobj = burst_fobj(BURST_AT)
+        params = train_params(255, objective="none", device_type=device)
+        bst = lt.Booster(params, lt.Dataset(X, label=y))
+        for _ in range(BURST_AT + 1):
+            if bst.update(fobj=fobj):
+                break
+        check(bst.current_iteration() == BURST_AT + 1,
+              "burst unguarded on %s: %d iterations"
+              % (device, bst.current_iteration()))
+        trees[device] = tree_texts(bst.model_to_string())[BURST_AT]
+    tree = trees["cuda"]
+    leaf = [ln for ln in tree.splitlines() if ln.startswith("leaf_value=")]
+    check(trees["cpu"] == tree and "num_leaves=1" in tree.splitlines()
+          and leaf and not np.isfinite(float(leaf[0].split("=")[1])),
+          "burst unguarded: iteration %d's tree on the card %r, on the CPU "
+          "%r" % (BURST_AT, tree[:300], trees["cpu"][:300]))
+    return dict(rows=UNGUARDED_ROWS, tree=BURST_AT, leaf=leaf[0],
+                card_equals_cpu=True)
 
 
 def seam_phases(data, main_run: dict, rows: int, iters: int, seed: int,
@@ -7136,6 +7234,236 @@ def goss_rank_parity_line(rank: dict, params: dict) -> str:
                [t.num_leaves for t in bc._model.trees]))
 
 
+# ---------------------------------------------------------------------------
+# phases: the distributed learners
+# ---------------------------------------------------------------------------
+
+#: the distributed runs on the main data: (name, extra params); two ranks
+#: on cuda:0 over gloo, DIST_ITERS iterations each
+DIST_RUNS = (("data", dict(tree_learner="data")),
+             ("feature", dict(tree_learner="feature")),
+             ("voting top_k 20", dict(tree_learner="voting", top_k=20)),
+             ("voting top_k 5", dict(tree_learner="voting", top_k=5)),
+             ("data int8", dict(tree_learner="data",
+                                gradient_quantization=True,
+                                gradient_quant_dtype="int8")))
+DIST_ITERS = 3
+#: the wide distributed run: rows x F 968 (B7 and B3 on the path)
+DIST_WIDE_ROWS, DIST_WIDE_F, DIST_WIDE_ITERS = 131_072, 968, 2
+#: the runs that must write the serial model cut at the same iteration
+#: byte for byte (the exchange sums raw int64 cells exactly; voting at
+#: top_k 20 sums all 28 features, 2 top_k >= F)
+DIST_EXACT = ("data", "feature", "voting top_k 20", "wide data")
+#: the restricted vote's held-out AUC bound against the serial cut (its
+#: summed cells are exact, so the model is the same in every run; the
+#: gap measured on an H100 was 6.4e-9)
+VOTE_AUC = 1e-7
+#: the runs held to a serial run's held-out AUC: (the path whose model is
+#: the reference, None for the main path's cut; the bound)
+DIST_AUC = {"voting top_k 5": (None, VOTE_AUC),
+            "data int8": ("quantized int8", AGREE_AUC)}
+
+
+def dist_child(rank: int, spec_path: str) -> int:
+    """One rank of the distributed phase (a child process): joins the
+    gloo group through the FileStore of the spec, loads each run's binary
+    Dataset cache, trains it on cuda:0 (the parent built the kernels; this
+    process loads them from the build cache) with every launch count set
+    to 0 just before and read just after, and writes each run's model
+    text, s/iter, blocking syncs per tree, exchange bytes per tree, peak
+    memory and launches as JSON."""
+    from lightgbm_tpu_torch.parallel import comm, launch
+    import torch.distributed as tdist
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    torch.cuda.set_device(0)
+    build.build_all()
+    launch.init_group(store=tdist.FileStore(spec["store"], spec["world"]),
+                      world_size=spec["world"], rank=rank, timeout_s=600,
+                      attempts=1)
+    out = {}
+    try:
+        for job in spec["jobs"]:
+            params = train_params(255, **job["params"])
+            t0 = time.perf_counter()
+            ds = lt.Dataset(job["cache"], params=params)
+            ds.construct(lt.Config(params))
+            t_load = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            comm.bytes_sent = 0
+            t0 = time.perf_counter()
+            bst = lt.train(params, ds, job["iters"], verbose_eval=False)
+            torch.cuda.synchronize()
+            t_train = time.perf_counter() - t0
+            trees = bst.num_trees()
+            text = bst.model_to_string()
+            out[job["name"]] = dict(
+                mode=bst._engine.parallel_mode, world=bst._engine.world,
+                sha=sha(text), text=text if rank == 0 else None,
+                s_per_iter=t_train / job["iters"], load_s=t_load,
+                syncs_per_tree=float(np.mean(bst.host_syncs_per_tree())),
+                exchange_bytes_per_tree=comm.bytes_sent / trees,
+                peak_mib=mib(torch.cuda.max_memory_allocated()),
+                payload_rows=int(bst._engine._fast.payload.shape[0]),
+                launches=read_counts(),
+                hist_engine=bst._engine.grower.hist_engine,
+                part_engine=bst._engine.grower.part_engine)
+            del bst, ds
+            torch.cuda.empty_cache()
+    finally:
+        tdist.destroy_process_group()
+    with open(spec["out"] % rank, "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def run_ranks(spec: dict, world: int = 2, timeout: float = 600) -> list:
+    """Start `world` rank children on the spec, join them under a timeout
+    that kills the ones left; returns each rank's results."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="lgbm_dist_")
+    spec = dict(spec, world=world, store=os.path.join(tmp, "store"),
+                out=os.path.join(tmp, "rank%d.json"))
+    spec_path = os.path.join(tmp, "spec.json")
+    with open(spec_path, "w") as fh:
+        json.dump(spec, fh)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-child", str(r),
+         "--dist-spec", spec_path], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    logs = []
+    try:
+        deadline = time.time() + timeout
+        for proc in procs:
+            logs.append(proc.communicate(
+                timeout=max(deadline - time.time(), 1))[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for r, proc in enumerate(procs):
+        check(proc.returncode == 0, "distributed: rank %d exited %s:\n%s"
+              % (r, proc.returncode, (logs[r] if r < len(logs) else "")
+                 [-3000:]))
+    res = []
+    for r in range(world):
+        with open(spec["out"] % r) as fh:
+            res.append(json.load(fh))
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def host_auc(text: str, Xv, yv) -> float:
+    """The held-out AUC of a model text, predicted on the host."""
+    b = lt.Booster(params={"device_type": "cpu"}, model_str=text)
+    return auc_score(yv, b.predict(Xv))
+
+
+def distributed_phase(cache: str, data, main_cut: str, runs: dict,
+                      seed: int, dev, smi: str) -> tuple:
+    """The distributed learners on the card: two rank processes on cuda:0
+    (gloo; NCCL refuses two ranks on one device) load the main path's
+    binary cache and train DIST_ITERS iterations at 255 leaves in each
+    mode of DIST_RUNS, then tree_learner=data at DIST_WIDE_ROWS x 968
+    (B7 and B3) beside this process's serial run on the same rows.  Every
+    rank's model must be rank 0's; data, feature, voting top_k 20 (a
+    vote of every feature) and wide data must be the serial model cut at
+    the same iteration byte for byte (main_cut for the main data); the
+    restricted vote (top_k 5) within VOTE_AUC and data int8 within
+    AGREE_AUC of their serial runs' held-out AUC.  Returns its line and each run's
+    launches (rank 0's)."""
+    import tempfile
+    _, Xv, yv = data
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # the wide rows: binned here, trained serially here, cached for
+        # the ranks
+        X, y = wide_synth(DIST_WIDE_ROWS, DIST_WIDE_F, seed + 19, dev,
+                          WIDE_NAN[DIST_WIDE_F])
+        params = train_params(255)
+        dw = lt.Dataset(X, label=y)
+        dw.construct(lt.Config(params))
+        del X
+        wide_cache = os.path.join(tmp, "wide.bin")
+        dw.save_binary(wide_cache)
+        reset_counts()
+        t0 = time.perf_counter()
+        wide_serial = lt.train(params, dw, DIST_WIDE_ITERS,
+                               verbose_eval=False).model_to_string()
+        t_wide_serial = time.perf_counter() - t0
+        del dw
+        torch.cuda.empty_cache()
+        jobs = [dict(name=name, cache=cache, params=extra, iters=DIST_ITERS)
+                for name, extra in DIST_RUNS]
+        jobs.append(dict(name="wide data", cache=wide_cache,
+                         params=dict(tree_learner="data"),
+                         iters=DIST_WIDE_ITERS))
+        t0 = time.perf_counter()
+        ranks = run_ranks(dict(jobs=jobs))
+        t_ranks = time.perf_counter() - t0
+    serial = {"data": main_cut, "feature": main_cut,
+              "voting top_k 20": main_cut, "voting top_k 5": main_cut,
+              "wide data": wide_serial}
+    out, launches = {}, {}
+    for job in jobs:
+        name = job["name"]
+        r0, r1 = ranks[0][name], ranks[1][name]
+        mode = job["params"]["tree_learner"]
+        check(r0["mode"] == mode and r0["world"] == 2,
+              "distributed %s trained %s over %d ranks"
+              % (name, r0["mode"], r0["world"]))
+        check(r1["sha"] == r0["sha"], "distributed %s: rank 1's model "
+              "differs from rank 0's" % name)
+        n = r0["launches"]
+        hist = "segment_histogram_quant" if "int8" in name else (
+            "segment_histogram_colblock" if name == "wide data"
+            else "segment_histogram")
+        part = "partition_segment_rmw" if name == "wide data" \
+            else "partition_segment"
+        check(n[hist] > 0 and n[part] > 0,
+              "distributed %s: %s %d, %s %d launches"
+              % (name, hist, n[hist], part, n[part]))
+        rec = {k: r0[k] for k in ("s_per_iter", "syncs_per_tree",
+                                  "exchange_bytes_per_tree", "payload_rows",
+                                  "hist_engine", "part_engine", "load_s")}
+        rec["peak_mib"] = [r0["peak_mib"], r1["peak_mib"]]
+        rec["sha256"] = r0["sha"][:12]
+        if name in serial:
+            same = r0["text"] == serial[name]
+            rec["serial_identical"] = same
+            if name in DIST_EXACT:
+                check(same, "distributed %s: the model differs from the "
+                      "serial cut at %s" % (name, first_difference(
+                          r0["text"], serial[name])))
+        if name in DIST_AUC:
+            path, bound = DIST_AUC[name]
+            ref = main_cut if path is None else \
+                lt.Booster(params={"device_type": "cpu"},
+                           model_str=runs[path]["model_text"]) \
+                .model_to_string(num_iteration=DIST_ITERS)
+            a, b = host_auc(r0["text"], Xv, yv), host_auc(ref, Xv, yv)
+            rec["auc"], rec["serial_auc"] = a, b
+            check(abs(a - b) <= bound, "distributed %s: held-out AUC "
+                  "%.6f vs serial %.6f (bound %g)" % (name, a, b, bound))
+        rec["launches"] = n
+        out[name] = rec
+        launches["distributed " + name] = n
+    line = ("distributed: two gloo ranks on cuda:0, the main data's binary "
+            "cache (%d iterations, 255 leaves) and %dx%d (%d iterations; "
+            "serial run here %.3f s); each rank's model equals rank 0's, "
+            "data / feature / voting top_k 20 / wide data byte-identical "
+            "to the serial cut; "
+            "ranks %.1f s, phase %.1f s (%s): %s"
+            % (DIST_ITERS, DIST_WIDE_ROWS, DIST_WIDE_F, DIST_WIDE_ITERS,
+               t_wide_serial, t_ranks, time.perf_counter() - t_all, smi,
+               json.dumps(out)))
+    return line, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1_000_000)
@@ -7143,6 +7471,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--bounds-child", choices=sorted(BOUNDS_CALLS),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--dist-child", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-spec", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not 1 <= args.rows <= 10_500_000:
         ap.error("--rows must be in [1, 10500000]")
@@ -7159,6 +7489,8 @@ def main() -> int:
         return 2
     if args.bounds_child:
         return bounds_child(args.bounds_child)
+    if args.dist_child is not None:
+        return dist_child(args.dist_child, args.dist_spec)
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
     capi_build = start_capi_build()
@@ -7274,7 +7606,16 @@ def main() -> int:
     api.update(variant_phases(data, main_run, args.iters, args.seed, smi))
     api["wide index (forced)"] = wide_index_forced_phase(data, main_run,
                                                          args.iters)
-    api.update(files_phase(data, args.seed, smi))
+    dist = {}
+
+    def run_distributed(cache):
+        line, launches = distributed_phase(cache, data, main_cut, runs,
+                                           args.seed, dev, smi)
+        dist.update(launches)
+        dist["line"] = line
+
+    api.update(files_phase(data, args.seed, smi, on_cache=run_distributed))
+    say(dist.pop("line"))
     api["goss fobj"] = goss_fobj_phase(data, smi)
     api["sklearn"] = sklearn_phase(args.rows, args.seed, main_run,
                                    args.iters, smi)
@@ -7309,6 +7650,7 @@ def main() -> int:
                                              main_run)
     paths.update(bagged)
     paths.update(api)
+    paths.update(dist)
     year_data, paths["year"] = year_phase(args.seed, args.iters, main_run,
                                           smi)
     paths["renewal"] = renewal_phase(year_data)

@@ -12,6 +12,7 @@ from .callback import (early_stopping, log_evaluation, record_evaluation,
                        reset_parameter)
 from .config import Config
 from .engine import CVBooster, cv, predict, train
+from .parallel.launch import init_distributed
 from .plotting import (create_tree_digraph, plot_importance, plot_metric,
                        plot_tree)
 from .sklearn import LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor
@@ -20,7 +21,7 @@ from .utils.log import LightGBMError
 __version__ = "0.1.0"
 
 __all__ = ["Booster", "Dataset", "Config", "CVBooster", "LightGBMError",
-           "cv", "predict", "train", "early_stopping", "log_evaluation",
+           "cv", "predict", "train", "init_distributed", "early_stopping", "log_evaluation",
            "record_evaluation", "reset_parameter",
            "LGBMModel", "LGBMRegressor", "LGBMClassifier", "LGBMRanker",
            "plot_importance", "plot_metric", "plot_tree",

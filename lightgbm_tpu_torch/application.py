@@ -140,6 +140,12 @@ class Application:
             # LGBM_TPU_DOCTOR_DIR redirects it.
             self._crash_bundle()
             raise
+        finally:
+            if getattr(self, "_network_up", False):
+                # Network::Dispose: a group this run brought up goes with it
+                from .parallel import launch
+                launch.shutdown_distributed()
+                self._network_up = False
 
     def _crash_bundle(self) -> None:
         if os.environ.get("LGBM_TPU_DOCTOR_ON_CRASH", "1") == "0" \
@@ -166,22 +172,14 @@ class Application:
     def _maybe_init_network(self) -> None:
         """The reference brings the network up for a training task with a
         cluster config (application.cpp Network::Init) when it describes
-        more than one machine (the JAX package's maybe_init_distributed
-        rule); this package cannot, so it refuses."""
+        more than one machine: the process group comes up through
+        parallel/launch.py's maybe_init_distributed (the JAX package's
+        rule), and `run` tears down what it brought up."""
+        from .parallel import launch
         cfg = {Config.resolve_alias(k): v for k, v in self.raw_params.items()}
-        machines = cfg.get("machines", "") or ""
-        mfile = cfg.get("machine_list_filename", "") or ""
-        if not machines and not mfile:
-            return
-        num_machines = int(cfg.get("num_machines", 1) or 1)
-        if machines and "num_machines" not in cfg:
-            num_machines = max(num_machines, len(
-                [m for m in machines.split(",") if m.strip()]))
-        if num_machines > 1:
-            raise NotImplementedError(
-                "num_machines=%d: distributed training is not ported to "
-                "the PyTorch package yet (ROADMAP queue A item 5)"
-                % num_machines)
+        up = launch._already_initialized()
+        if launch.maybe_init_distributed(cfg) is not None and not up:
+            self._network_up = True
 
     # -- data loading --------------------------------------------------------
     def _load(self, path: str, num_features: Optional[int] = None):

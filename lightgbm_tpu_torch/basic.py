@@ -491,6 +491,11 @@ class Booster:
         self.config = Config(self.params)
         if train_set is not None:
             self.config.warn_unimplemented()
+            # a cluster config on the Booster brings the process group up
+            # (the reference binding's machines -> NetworkInit, basic.py
+            # :1470; the JAX package's basic.py:478)
+            from .parallel.launch import maybe_init_distributed
+            maybe_init_distributed(self.config)
             device = resolve_device(self.config)
             train_set.construct(self.config)
             obj = self.config.objective

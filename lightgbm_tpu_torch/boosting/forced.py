@@ -90,7 +90,7 @@ def _where(use: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
 
 
 def make_forced_machinery(forced: ForcedSchedule, meta, cfg, device,
-                          monotone: bool = False):
+                          monotone: bool = False, evaluate=None):
     """The schedule's device tables and the override closure of the
     grower (the JAX package's make_forced_machinery).
 
@@ -101,7 +101,13 @@ def make_forced_machinery(forced: ForcedSchedule, meta, cfg, device,
     forced), hists [Q, F, B, 3], the leaf totals and `normal` (the
     leaves' own best splits) [Q].  Where the rank is live and its split
     feasible, the forced split replaces the leaf's best, with its
-    priority gain in the result and its real gain beside it."""
+    priority gain in the result and its real gain beside it.
+
+    evaluate (the feature-parallel grower): replaces evaluate_split_at
+    with a callable of the same arguments, which evaluates the forced
+    split on the rank that owns its feature and syncs the result."""
+    if evaluate is None:
+        evaluate = evaluate_split_at
     def t(values, dtype):
         return torch.tensor(values, dtype=dtype, device=device)
 
@@ -114,7 +120,7 @@ def make_forced_machinery(forced: ForcedSchedule, meta, cfg, device,
     def forced_override(rank, hists, sg, sh, sc, normal: SplitResult,
                         min_constraint=None, max_constraint=None):
         r0 = rank.clamp(min=0)
-        fres = evaluate_split_at(
+        fres = evaluate(
             hists, sg, sh, sc, fc_feat[r0], fc_bin[r0], meta=meta,
             l1=cfg.lambda_l1, l2=cfg.lambda_l2,
             max_delta_step=cfg.max_delta_step,

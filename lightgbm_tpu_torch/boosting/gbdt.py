@@ -52,7 +52,15 @@ fetch (`resilience.sentinel_check`; `Booster.update` arbitrates), each
 tree's dispatch is a ``tree dispatch`` instant on the trace recorder, and
 the grower made per fast state is a hit or a miss of
 ``gbdt.grower_cache`` in the program ledger.
-The parallel learners are not ported; asking for one raises.
+The distributed learners (tree_learner=data|voting|feature over a
+torch.distributed process group, one rank a process: parallel/comm.py)
+ride the same path: the learner is chosen as the JAX package chooses it
+over its mesh (gbdt.py:946-980, the rank as its unit), each rank's
+payload holds its row block (data, voting) or every row with its owned
+storage columns first (feature), and the grower's mesh modes exchange
+histograms and winners; scores, gradients of a non-rowwise objective,
+renewal and metrics gather the blocks in original order, and every rank
+holds the same model.
 boost_window and
 pipeline_depth change only how the JAX package dispatches its work, never
 the model, and are accepted as no-ops.
@@ -74,7 +82,8 @@ from ..ops.quantize import (F32_GH_BYTES, QUANT_GH_BYTES, derive_qmax,
                             quant_seed, quantize_pair)
 from ..ops.bundle import (BundleMap, bundle_map_from_info, decode_bin,
                           identity_bundle_map)
-from ..ops.split import MISSING_NAN, MISSING_ZERO, FeatureMeta
+from ..ops.split import MISSING_NAN, MISSING_ZERO, FeatureMeta, owned_first
+from ..parallel import comm
 from ..runtime import graph_obs, resilience, syncs, tracing
 from ..utils.log import LightGBMError, Log
 from ..utils.random import Random, partition_seed
@@ -152,8 +161,33 @@ class _FastState:
         G = ds.bins.shape[0]
         K = int(score.shape[0])
         n_pad = ds.num_data_padded
+        # the distributed learners (the JAX package's mesh fast path,
+        # gbdt.py:252-273): under data / voting this rank's payload holds
+        # its block of n_loc = n_pad / world rows, original rows [row0,
+        # row0 + n_loc), and a GUARD-row tail of its own; under feature
+        # it holds every row with the storage columns padded to a
+        # multiple of the world size and permuted owned-first (`perm`:
+        # payload column j holds storage column perm[j]).  Guard rows
+        # carry idx == n_pad, a dead slot in every original-order map.
+        self.mode = gbdt.parallel_mode
+        world, rank = gbdt.world, gbdt.rank
+        self.row_sharded = self.mode in ("data", "voting")
+        self.n_loc = n_pad // world if self.row_sharded else n_pad
+        self.row0 = rank * self.n_loc if self.row_sharded else 0
+        perm = np.arange(G)
+        if self.mode == "feature":
+            Gp = -(-G // world) * world
+            gl = Gp // world
+            off = rank * gl
+            perm = owned_first(Gp, off, gl).numpy()
+            G = Gp
+        self.perm = perm
+        # storage column -> its payload column (identity but in feature
+        # mode)
+        self.col_of = torch.as_tensor(np.argsort(perm), dtype=torch.int64,
+                                      device=dev)
         self.G, self.K, self.n_pad = G, K, n_pad
-        self.n_rows = n_pad + seg.GUARD
+        self.n_rows = self.n_loc + seg.GUARD
         self.label_col = G
         self.weight_col = G + 1
         self.cnt_col = G + 2
@@ -175,6 +209,8 @@ class _FastState:
                  self.n_rows * self.P * 4 / 2**30,
                  self.n_rows * self.P * 4 / 2**30, dev)
 
+        #: the last fill's non-finite predicate (`hist_exponents`)
+        self.nonfinite = None
         self.payload = torch.empty((self.n_rows, self.P),
                                    dtype=torch.float32, device=dev)
         self.aux = torch.empty_like(self.payload)
@@ -195,24 +231,34 @@ class _FastState:
         Returns the padded label and weight on the device."""
         ds, pay = gbdt.train_set, self.payload
         dev, G, n_pad = pay.device, self.G, self.n_pad
+        n, r0 = self.n_loc, self.row0
+        blk = slice(r0, r0 + n)
         md = ds.metadata
         pay.zero_()
         self.aux.zero_()
-        pay[:n_pad, :G] = gbdt._bins_on_device(ds).T.to(torch.float32)
+        bins = gbdt._bins_on_device(ds)
+        ncol = bins.shape[0]
+        if self.mode == "feature":
+            live = self.perm < ncol
+            pay[:n, np.nonzero(live)[0]] = \
+                bins[torch.as_tensor(self.perm[live], device=dev)].T \
+                .to(torch.float32)
+        else:
+            pay[:n, :ncol] = bins[:, blk].T.to(torch.float32)
         label = torch.as_tensor(ds.padded(md.label), device=dev)
-        pay[:n_pad, G] = label
+        pay[:n, G] = label[blk]
         weight = md.weight if md.weight is not None \
             else np.ones(ds.num_data, np.float32)
         weight = torch.as_tensor(ds.padded(weight), device=dev)
-        pay[:n_pad, G + 1] = weight
-        vmask = torch.as_tensor(ds.valid_row_mask(), device=dev)
-        pay[:n_pad, self.cnt_col] = vmask
-        pay[:n_pad, self.bvalid_col] = vmask
+        pay[:n, G + 1] = weight[blk]
+        vmask = torch.as_tensor(ds.valid_row_mask(), device=dev)[blk]
+        pay[:n, self.cnt_col] = vmask
+        pay[:n, self.bvalid_col] = vmask
         self.write_index(slice(None), torch.full(
             (self.n_rows,), n_pad, dtype=torch.int64, device=dev))
-        self.write_index(slice(0, n_pad),
-                         torch.arange(n_pad, dtype=torch.int64, device=dev))
-        pay[:n_pad, self.score0:self.score0 + self.K] = score.T
+        self.write_index(slice(0, n), torch.arange(
+            r0, r0 + n, dtype=torch.int64, device=dev))
+        pay[:n, self.score0:self.score0 + self.K] = score[:, blk].T
         self.bag_dirty = True
         return label, weight
 
@@ -236,17 +282,51 @@ class _FastState:
             idx = idx + pay[:, self.idxhi_col].long() * _IDX_RADIX
         return idx
 
+    def to_original(self, x: torch.Tensor) -> torch.Tensor:
+        """[K, n_pad] in ORIGINAL row order from [K, n_rows] values in the
+        payload's row order, on the device: the index column of the first
+        n_loc rows is a permutation of this block's original rows (the
+        guard rows stay the last GUARD rows), so it routes a scatter; under
+        data / voting the ranks' blocks are then all-gathered (one
+        exchange), in rank order, which is row order."""
+        n = self.n_loc
+        blk = torch.empty((x.shape[0], n), dtype=x.dtype, device=x.device)
+        blk[:, self.row_index()[:n] - self.row0] = x[:, :n]
+        if not self.row_sharded:
+            return blk
+        return comm.all_gather(blk).movedim(0, 1).reshape(x.shape[0], -1)
+
+    def from_original(self, x: torch.Tensor) -> torch.Tensor:
+        """[K, n_rows] in the payload's row order from [K, n_pad] values in
+        original order; guard rows take 0."""
+        zero = x.new_zeros((x.shape[0], 1))
+        return torch.cat([x, zero], 1)[:, self.row_index()]
+
+    def hist_exponents(self, g: torch.Tensor, h: torch.Tensor):
+        """The int32 [2] fixed-point exponents of the tree's f32
+        histograms (`seg.fixed_exponents`) over the payload rows' largest
+        |grad|, |hess|, and the tree's non-finite predicate
+        (`self.nonfinite`, a device bool: whether a gradient or hessian
+        is NaN or inf), both on the device with no host read.  Under data
+        / voting the maxima and the predicate are the ranks' (one
+        all-reduce) and the row bound the serial payload's, n_pad +
+        GUARD, so every rank, and the serial learner, rounds alike."""
+        amax = torch.stack([g.abs().amax(), h.abs().amax()])
+        nf = ~(torch.isfinite(g).all() & torch.isfinite(h).all())
+        if not self.row_sharded:
+            self.nonfinite = nf
+            return seg.fixed_exponents(amax, self.payload.shape[0])
+        red = comm.all_reduce(torch.cat([amax, nf.to(amax.dtype)[None]]),
+                              "max")
+        self.nonfinite = red[2] > 0
+        return seg.fixed_exponents(red[:2], self.n_pad + seg.GUARD)
+
     def original_scores(self) -> torch.Tensor:
         """[K, n_pad] scores in ORIGINAL row order, on the device with no
-        host read (the JAX package's _fast_sync_back): the index column of
-        the first n_pad rows is a permutation of [0, n_pad) (the guard
-        rows stay the last GUARD rows), so it routes a scatter."""
-        pay, n_pad = self.payload, self.n_pad
-        out = torch.empty((self.K, n_pad), dtype=torch.float32,
-                          device=pay.device)
-        out[:, self.row_index()[:n_pad]] = \
-            pay[:n_pad, self.score0:self.score0 + self.K].T
-        return out
+        host read (the JAX package's _fast_sync_back; all-gathered under
+        data / voting)."""
+        pay = self.payload
+        return self.to_original(pay[:, self.score0:self.score0 + self.K].T)
 
     def snap_scores(self) -> None:
         """Copy the K score columns to the snapshot columns (K > 1): every
@@ -290,17 +370,16 @@ class _FastState:
                 snap = torch.zeros_like(snap)
             return objective.get_gradients_multi(
                 snap, pay[:, self.label_col], pay[:, self.weight_col])
-        idx = self.row_index()
         if custom is None:
+            # under data / voting the scores of every rank's block (the
+            # query groups straddle blocks): each rank computes every
+            # row's gradients and keeps its own
             score = torch.zeros((K, self.n_pad), dtype=torch.float32,
-                                device=pay.device)
-            if not zero_score:
-                score[:, idx[:self.n_pad]] = snap[:, :self.n_pad]
+                                device=pay.device) if zero_score \
+                else self.to_original(snap)
             custom = objective.get_gradients_multi(score, self.label_orig,
                                                    self.weight_orig)
-        zero = custom[0].new_zeros((K, 1))
-        return (torch.cat([custom[0], zero], 1)[:, idx],
-                torch.cat([custom[1], zero], 1)[:, idx])
+        return self.from_original(custom[0]), self.from_original(custom[1])
 
     def class_gradients(self, objective, k: int, zero_score: bool = False):
         """Class k's unmasked (gradient, hessian), [n_rows] each, in the
@@ -313,10 +392,8 @@ class _FastState:
         """Class k's plane of caller-supplied ORIGINAL-order [K, n_pad]
         (gradient, hessian), gathered into the payload's current row order
         through the index column (guard rows gather an appended 0)."""
-        idx = self.row_index()
-        zero = custom[0].new_zeros(1)
-        return (torch.cat([custom[0][k], zero])[idx],
-                torch.cat([custom[1][k], zero])[idx])
+        return (self.from_original(custom[0][k:k + 1])[0],
+                self.from_original(custom[1][k:k + 1])[0])
 
     def fill_gradients(self, objective, k: int = 0, qmax: int = 0,
                        generator: Optional[torch.Generator] = None,
@@ -342,10 +419,27 @@ class _FastState:
         g = torch.where(valid, g, 0.0)
         h = torch.where(valid, h, 0.0)
         if qmax:
+            self.nonfinite = ~(torch.isfinite(g).all()
+                               & torch.isfinite(h).all())
+
+        def global_max(m):
+            # the ranks' maxima and predicate, in one exchange
+            red = comm.all_reduce(torch.cat([m, self.nonfinite.to(
+                m.dtype)[None]]), "max")
+            self.nonfinite = red[2] > 0
+            return red[:2]
+
+        if qmax and self.mode is not None:
+            # every rank rounds a row by its original row's draw, at the
+            # global maxima
+            g, h, scale = quantize_pair(
+                g, h, generator, float(qmax), rows=self.row_index(),
+                n_draw=self.n_pad,
+                reduce_max=global_max if self.row_sharded else None)
+        elif qmax:
             g, h, scale = quantize_pair(g, h, generator, float(qmax))
         else:
-            scale = seg.fixed_exponents(
-                torch.stack([g.abs().amax(), h.abs().amax()]), pay.shape[0])
+            scale = self.hist_exponents(g, h)
         seg.payload_col_write(pay, self.grad_col, g)
         seg.payload_col_write(pay, self.hess_col, h)
         return scale
@@ -378,8 +472,7 @@ class _FastState:
         keep = gw > 0
         g = torch.where(keep, g[k] * gw, 0.0)
         h = torch.where(keep, h[k] * gw, 0.0)
-        scale = seg.fixed_exponents(
-            torch.stack([g.abs().amax(), h.abs().amax()]), pay.shape[0])
+        scale = self.hist_exponents(g, h)
         seg.payload_col_write(pay, self.grad_col, g)
         seg.payload_col_write(pay, self.hess_col, h)
         return scale
@@ -396,7 +489,8 @@ class _FastState:
         pay = self.payload
 
         def raw(f):
-            return pay.gather(1, bmap.f_group[f].long()[:, None])[:, 0]
+            col = self.col_of[bmap.f_group[f].long()]
+            return pay.gather(1, col[:, None])[:, 0]
 
         nd = _leaf_of_rows(raw, pay.shape[0], tree_dev, meta, bmap,
                            depth_iters)
@@ -457,6 +551,14 @@ class _FastState:
         for leaf in range(nl):
             s = int(host["seg_start"][leaf])
             lid_part[s:s + int(host["seg_cnt"][leaf])] = leaf
+        if self.row_sharded:
+            # every rank's rows (its own segment table places them), so
+            # each renews over all the rows alike
+            parts = comm.all_gather_object((idx, lid_part, h))
+            idx = np.concatenate([p[0] for p in parts])
+            lid_part = np.concatenate([p[1] for p in parts])
+            h = np.concatenate([p[2] for p in parts])
+            cnt = h[:, 0]
         keep = idx < self.n_pad
         lid = np.full(self.n_pad, nl, np.int64)
         lid[idx[keep]] = lid_part[keep]
@@ -593,6 +695,7 @@ class GBDT:
         self.device = device
         self.iter = 0
         self._check_supported()
+        self._select_learner()
         self.timer = PhaseTimer(bool(getattr(config, "tpu_profile_phases",
                                              False)))
         # the non-finite sentinel: every tree's fetched outputs screened
@@ -767,11 +870,47 @@ class GBDT:
             return slots
         return 0
 
+    def _select_learner(self) -> None:
+        """The tree learner (the JAX package's gbdt.py:946-980 and its EFB
+        rule, :1028-1045, with a rank of the process group as the unit):
+        tree_learner=data|voting|feature trains over every rank; with no
+        group, a group of one rank, or (data, voting) a padded row count
+        the ranks do not divide, the serial learner trains, with the JAX
+        package's warning; an EFB-bundled dataset trains feature-parallel
+        serially.  A num_machines > 1 other than the world size raises."""
+        cfg, ds = self.config, self.train_set
+        self.parallel_mode: Optional[str] = None
+        self.world, self.rank = 1, 0
+        tl = str(getattr(cfg, "tree_learner", "serial") or "serial")
+        if tl == "serial":
+            return
+        world = comm.world_size()
+        nm = int(getattr(cfg, "num_machines", 1) or 1)
+        if nm > 1 and nm != world:
+            raise LightGBMError(
+                "num_machines=%d but the process group has %d ranks; bring "
+                "the group up with init_distributed (or a machine list) "
+                "first" % (nm, world))
+        if world <= 1:
+            Log.warning("tree_learner=%s requested but only one process "
+                        "is running; training with the serial learner", tl)
+        elif tl in ("data", "voting") and ds.num_data_padded % world:
+            Log.warning("tree_learner=%s: padded row count %d is not "
+                        "divisible by %d ranks; training with the serial "
+                        "learner", tl, ds.num_data_padded, world)
+        elif tl == "feature" and ds.bundle_info is not None:
+            Log.warning("EFB-bundled dataset: feature-parallel is not "
+                        "supported with bundling; training with the serial "
+                        "learner")
+        else:
+            self.parallel_mode = tl
+            self.world, self.rank = world, comm.rank()
+            Log.info("Using %s-parallel tree learner over %d ranks (rank "
+                     "%d)", tl, world, self.rank)
+
     def _check_supported(self) -> None:
         cfg, ds = self.config, self.train_set
         unsupported = [
-            (str(cfg.tree_learner) != "serial",
-             "tree_learner=%s" % cfg.tree_learner),
             (ds.num_data_padded >= 1 << 31,
              "%d rows (the segment engine's row positions are int32)"
              % ds.num_data_padded),
@@ -1021,9 +1160,10 @@ class GBDT:
         return self._grower_f32
 
     def _grower_kwargs(self) -> Dict:
-        """The grower's forced schedule and, on a bundled dataset, its
-        bundle map over the G storage columns."""
-        kw = dict(forced=self.forced_schedule)
+        """The grower's forced schedule, its tree learner mode and, on a
+        bundled dataset, its bundle map over the G storage columns."""
+        kw = dict(forced=self.forced_schedule, mode=self.parallel_mode,
+                  top_k=int(getattr(self.config, "top_k", 20) or 20))
         if self._bundled:
             kw.update(bundle_map=self._bmap,
                       num_columns=self.train_set.bins.shape[0])
@@ -1115,7 +1255,8 @@ class GBDT:
         that grows them, its extra positional and keyword arguments."""
         if custom is not None:
             return self._f32_grower(), (), dict(
-                hist_scale=self._fill(fs, k, custom))
+                hist_scale=self._fill(fs, k, custom),
+                nonfinite=fs.nonfinite)
         if self._qmax:
             # one generator per (iteration, class), seeded on the JAX
             # schedule, so reruns on one device quantize identically
@@ -1124,7 +1265,8 @@ class GBDT:
                                        self.num_tree_per_iteration, k))
             return self.grower, (fs.fill_gradients(
                 self.objective, k, self._qmax, gen),), {}
-        return self.grower, (), dict(hist_scale=self._fill(fs, k))
+        return self.grower, (), dict(hist_scale=self._fill(fs, k),
+                                     nonfinite=fs.nonfinite)
 
     @staticmethod
     def _add_tree_scores(fs: _FastState, out: Dict, k: int,
@@ -1139,12 +1281,11 @@ class GBDT:
             score + fs.payload[:, fs.value_col] * lr, score))
 
     def _flag_nonfinite(self, fs: _FastState, out: Dict) -> None:
-        """Under the sentinel, a device flag beside the tree's outputs
-        (fetched with them, no fetch of its own): whether any gradient or
-        hessian the tree read is not finite."""
+        """Under the sentinel, the fill's device flag beside the tree's
+        outputs (fetched with them, no fetch of its own): whether any
+        gradient or hessian the tree read is not finite."""
         if self._sentinel_policy != "off":
-            gh = fs.payload[:, [fs.grad_col, fs.hess_col]]
-            out[resilience.NONFINITE_KEY] = ~torch.isfinite(gh).all()
+            out[resilience.NONFINITE_KEY] = fs.nonfinite
 
     def _fill(self, fs: _FastState, k: int, custom=None):
         """Write class k's f32 gradients (of the scores, or the custom

@@ -18,8 +18,10 @@ width, as in the JAX package, whose column-block engine has no int32 or
 batched sibling.  `grow.hist_engine` / `grow.part_engine` name the
 wrappers chosen.
 
-The port covers the serial path, with numerical and categorical
-splits (the split's bitset rides the leaf records into every
+The port covers the serial path and the JAX grower's mesh modes (the
+distributed learners over a torch.distributed group: `mode=` below),
+with numerical and categorical splits (the split's bitset rides the leaf
+records into every
 partition's predicate), in f32 or quantized (int32 histograms,
 dequantized at the split search), one leaf per round or
 frontier-batched, with the JAX grower's three histogram modes, and
@@ -77,7 +79,10 @@ replayed.  Each step writes whether the next one would split into pinned
 host memory; the host keeps at most STEPS_AHEAD steps enqueued and stops
 once an event recorded after a step has completed with the flag clear
 (`Event.query`, never a synchronize), so a tree that stops early runs at
-most STEPS_AHEAD no-op steps.  On the CPU the steps run eagerly and the
+most STEPS_AHEAD no-op steps.  A meshed grower's steps are generators
+that yield at each exchange; each piece between exchanges is captured as
+its own graph (`graphs.Site`), and the host reads the stop flag after
+each step (`_drive_meshed`).  On the CPU the steps run eagerly and the
 driver reads the flag (a CPU tensor) after each.  A program built for a
 new payload is a build of site ``grower2.program`` in the program ledger
 (runtime/graph_obs.py), and each capture a build of its step's site.
@@ -85,6 +90,7 @@ new payload is a build of site ``grower2.program`` in the program ledger
 from __future__ import annotations
 
 import collections
+import functools
 import time
 from types import SimpleNamespace
 from typing import NamedTuple
@@ -94,9 +100,14 @@ import torch
 from ..ops import cuda_segment
 from ..ops.bundle import (BundleMap, expand_histogram, histogram_expansion,
                           identity_bundle_map)
-from ..ops.segment import GUARD, SplitPredicate, payload_col_write
+from ..ops.segment import (GUARD, SplitPredicate, cells_to_hist,
+                           payload_col_write)
 from ..ops.split import (FeatureMeta, K_MIN_SCORE, dequantize_hist,
-                         find_best_split_batched, leaf_output)
+                         evaluate_split_at, find_best_split_batched,
+                         leaf_output, localize_col, pack_split,
+                         pad_feature_meta, per_feature_best_gains,
+                         pick_winner, slice_feature_meta, unpack_split)
+from ..parallel import comm
 from ..runtime import graph_obs, graphs
 
 
@@ -202,6 +213,18 @@ def propagate_monotone_bounds(blo, bro, is_num, mono_f, pmin, pmax):
     return lmin, lmax, rmin, rmax
 
 
+def _drive_meshed(step, n: int, flag: torch.Tensor) -> None:
+    """The distributed learners' driver: each step writes whether IT
+    splits before its first exchange, whose wait makes the flag readable,
+    so the host reads it after the step and runs no step ahead; every
+    rank reads the same replicated flag and makes the same collectives.
+    A tree that stops early pays one no-op step."""
+    for _ in range(n):
+        step()
+        if not flag[0]:
+            return
+
+
 def _drive(step, n: int, flag: torch.Tensor, device) -> None:
     """Run `step` up to n times, stopping once `flag` (written by each
     step: whether the next one would split) is seen clear."""
@@ -235,6 +258,14 @@ def _best_cols(res, gains) -> torch.Tensor:
                                   for _, f in _BEST_FIELDS[1:]], dim=1)
 
 
+def exact_exchange(dev: torch.device) -> bool:
+    """Whether the distributed learners' f32 histograms of a payload on
+    dev are the fixed-point kernels' (the card's B1 / B7), whose raw int64
+    cells cross and sum exactly; elsewhere the row-order f32 histograms
+    cross as f32, as the JAX package's psum."""
+    return dev.type == "cuda"
+
+
 def _take(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """t[i] for a device index i (0-d or [1]): index_select stays on the
     device, where indexing with a 0-d tensor reads it on the host."""
@@ -256,7 +287,8 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                             num_features: int, merged_hist=None,
                             jit: bool = True, forced=None,
                             bundle_map: BundleMap = None,
-                            num_columns: int = None):
+                            num_columns: int = None, mode: str = None,
+                            group=None, top_k: int = 20):
     """Returns grow(payload, aux, feature_mask[, qscale][, hist_scale]) ->
     (tree dict, payload, aux).
 
@@ -313,7 +345,44 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
     jit (the JAX grower's own switch): on a CUDA payload the root and the
     split step are captured as CUDA graphs and replayed; False runs the
     same steps eagerly, still with no host read.  A CPU payload always
-    runs them eagerly."""
+    runs them eagerly.
+
+    mode (the distributed learners; None is serial): this grower is one
+    rank of a process group (`group`, parallel/comm.py) of the JAX
+    grower's mesh modes (grower2.py:91-160, 384-505), whose collectives
+    stand at the histogram boundary:
+    - "data": each rank's payload holds its row block; local histograms
+      are reduce-scattered over the storage columns, each rank searches
+      its owned columns [r * Gloc, (r + 1) * Gloc) and the winner is
+      synced (`ops.split.pick_winner`: greatest gain, ties to the lowest
+      rank);
+    - "voting": histograms stay local; each rank votes its top_k features
+      by local gain (min_data_in_leaf / min_sum_hessian_in_leaf divided by
+      the world size), the votes are all-gathered and only the 2 top_k
+      winners' histograms are summed (in ascending feature order, so
+      ties go to the lower feature as in the serial search);
+    - "feature": full rows on every rank, the payload's storage columns
+      permuted owned-first (the caller lays them out); histograms cover
+      the owned leading Gloc columns, the winner is synced and its global
+      column translated back (`localize_col`); the root totals are rank
+      0's.
+    With EFB or forced splits, "data" and "voting" sum the whole
+    histogram and search it on every rank (replicated).  On the card the
+    f32 histograms that cross are B1's or B7's raw int64 cells
+    (`raw=True`, `exact_exchange`), summed exactly and converted once at
+    `hist_scale`, so every rank's histogram has the serial grower's bits
+    at any world size.  Voting keeps each leaf's local cells (the
+    sibling by exact integer subtraction) and the global f32 histograms
+    of the features it has summed; a larger child's selected feature
+    that its parent and its smaller sibling both hold is the parent's
+    less the sibling's, as the serial grower subtracts, so a vote that
+    selects every feature is the serial tree bit for bit.  A CPU
+    payload's row-order f32 histograms cross as f32 (the JAX
+    package's psum), and quantized int32 histograms as they are.  The
+    steps yield at each exchange; on the card each piece between two is
+    captured as a graph (`graphs.Site`).  A meshed grower is never
+    merged or frontier-batched (the JAX gates, grower2.py:269-275 and
+    :332)."""
     L = cfg.num_leaves
     B = num_bins_max
     F = num_features
@@ -328,6 +397,30 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
         raise ValueError("the quantized grower is unforced only")
     monotone = bool(cfg.with_monotone)
     constrained = monotone or forced is not None
+    meshed = mode is not None
+    if meshed and mode not in ("data", "voting", "feature"):
+        raise ValueError("tree learner mode must be data|voting|feature, "
+                         "got %r" % (mode,))
+    replicated = meshed and mode != "feature" and (
+        bundled or forced is not None)
+    scatter = meshed and not replicated and mode == "data"
+    voting = meshed and not replicated and mode == "voting"
+    feature_mode = meshed and mode == "feature"
+    if feature_mode and bundled:
+        raise ValueError("the feature-parallel grower is unbundled (the JAX "
+                         "gate, grower2.py:130-137)")
+    n_mach = comm.world_size(group) if meshed else 1
+    my = comm.rank(group) if meshed else 0
+    owned = scatter or feature_mode
+    if owned:
+        # rank `my` owns storage columns [my * Gloc, (my + 1) * Gloc) of
+        # the zero-padded Gp (grower2.py:140-146 of the JAX package)
+        Gp = -(-(num_columns if num_columns is not None else num_features)
+               // n_mach) * n_mach
+        Gloc = Gp // n_mach
+        f_offset = my * Gloc
+        meta_local = slice_feature_meta(pad_feature_meta(meta, Gp),
+                                        slice(f_offset, f_offset + Gloc))
     find_kwargs = dict(
         l1=cfg.lambda_l1, l2=cfg.lambda_l2, max_delta_step=cfg.max_delta_step,
         min_data_in_leaf=cfg.min_data_in_leaf,
@@ -337,12 +430,29 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
         max_cat_threshold=cfg.max_cat_threshold, cat_l2=cfg.cat_l2,
         cat_smooth=cfg.cat_smooth, max_cat_to_onehot=cfg.max_cat_to_onehot,
         min_data_per_group=cfg.min_data_per_group, monotone=monotone)
+    #: the feature learner's synced forced evaluation (`search` of a build)
+    forced_synced = {}
     if forced is not None:
         from .forced import PRIORITY_UNIT, make_forced_machinery
+        evaluate = None
+        if feature_mode:
+            def evaluate(*args, **kwargs):
+                """A forced split of the feature-parallel grower: the
+                owner's evaluation, synced by `search` (the JAX package
+                grows these on its masked mesh grower, which drops
+                them)."""
+                return forced_synced.pop("res")
         # the schedule's tables go up once, here, not inside a tree
         fc_lnext, fc_rnext, forced_override = make_forced_machinery(
-            forced, meta, cfg, meta.num_bin.device, monotone)
-    hist_kwargs = dict(num_features=G, num_bins=B, grad_col=cols.grad,
+            forced, meta, cfg, meta.num_bin.device, monotone, evaluate)
+        fc_feat = torch.tensor(forced.feat, dtype=torch.int64,
+                               device=meta.num_bin.device)
+        fc_bin = torch.tensor(forced.bin, dtype=torch.int64,
+                              device=meta.num_bin.device)
+    # feature mode's histograms cover the owned leading columns only
+    Gh = Gloc if owned else G
+    Ghist = Gloc if feature_mode else G
+    hist_kwargs = dict(num_features=Ghist, num_bins=B, grad_col=cols.grad,
                        hess_col=cols.hess, cnt_col=cols.cnt)
     # the histogram pool (grower2.py:301-310 of the JAX package)
     slots = int(cfg.hist_pool_slots or 0)
@@ -353,7 +463,8 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
     # the JAX gate (grower2.py:325-350): serial by construction here,
     # unforced and non-monotone read here, unpooled and unmerged per call
     fb = max(int(cfg.frontier_batch or 1), 1)
-    KB = min(fb, L - 1) if fb > 1 and L > 2 and not constrained else 1
+    KB = min(fb, L - 1) if fb > 1 and L > 2 and not constrained \
+        and not meshed else 1
     ni = L - 1
     NL, NN = len(LEAF_COLS), len(NODE_COLS)
     lc, nc = _LC, _NC
@@ -371,7 +482,7 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
     # the f32 histogram of a segment follows the route by width (B1 or
     # B7); the int32 histogram (B4) serves every width
     hist_wrapper = cuda_segment.segment_histogram_quant if quantized \
-        else cuda_segment.histogram_route(G)
+        else cuda_segment.histogram_route(Ghist)
 
     def build(payload, aux, merged: bool, fused: bool, pooled: bool,
               frontier: bool, part_fn, scaled: bool) -> SimpleNamespace:
@@ -388,7 +499,16 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                                          meta.default_bin, B, B)
         else:
             bmap = identity_bundle_map(F, dev)
-        hdtype = torch.int32 if quantized else torch.float32
+        # on the card the crossing f32 histograms are raw int64 cells;
+        # voting keeps its leaves' local cells (`vote_search`)
+        raw = meshed and not quantized and exact_exchange(dev) and (
+            scatter or replicated or voting)
+        if raw and not scaled:
+            raise ValueError("the distributed grower on the card needs the "
+                             "tree's hist_scale")
+        glob = raw and voting
+        hdtype = torch.int32 if quantized else (
+            torch.int64 if glob else torch.float32)
 
         # the kernels' scratch: one workspace for the route's largest call
         wkw = {}
@@ -409,6 +529,8 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
         fmask = torch.zeros(F, dtype=torch.bool, device=dev)
         qs = torch.zeros(2, **f32) if quantized else None
         hs = torch.zeros(2, **i32) if scaled else None
+        # whether any gradient or hessian of the tree is not finite
+        nf = torch.zeros((), dtype=torch.bool, device=dev)
         fixed = {} if quantized else dict(scale=hs)
 
         # the state
@@ -429,8 +551,13 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             C = torch.empty_like(C0)
             unbounded = C0[0, _CC["mincon"]:]
         # one slot past the last: where a no-op step's writes go
-        HIST = None if merged else torch.empty((POOL + 1, G, B, 3),
+        HIST = None if merged else torch.empty((POOL + 1, Gh, B, 3),
                                                dtype=hdtype, device=dev)
+        if glob:
+            # voting's global f32 histograms per slot, and which features
+            # each holds
+            GH = torch.zeros((POOL + 1, G, B, 3), **f32)
+            GV = torch.zeros((POOL + 1, G), dtype=torch.bool, device=dev)
         nleaves = torch.ones((), **i32)
         rounds = torch.zeros((), **i32)
         if pooled:
@@ -475,6 +602,192 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                                            fmask, meta=meta, **find_kwargs,
                                            **constraints)
 
+        # -- the distributed learners' histogram boundary ---------------
+        def local_hist(payload, start, count):
+            """This rank's histogram of a segment (raw cells where they
+            cross the wire on the card)."""
+            return hist_wrapper(payload, start, count, **hist_kwargs,
+                                **fixed, **wkw, **({"raw": True} if raw
+                                                   else {}))
+
+        # each exchange is a yield of (host collective, device tensor):
+        # the step's Site (runtime/graphs.py) runs it and sends the
+        # result back in
+        collectives = dict(
+            sum=functools.partial(comm.host_all_reduce, op="sum",
+                                  group=group),
+            scatter=functools.partial(comm.host_reduce_scatter, group=group),
+            gather=functools.partial(comm.host_all_gather, group=group))
+
+        def xchg(op, t):
+            out = yield (collectives[op], t)
+            return out
+
+        def reduce_hist(h):
+            """The global histogram from the ranks' local ones: this
+            rank's owned columns (data), the whole (replicated), or h
+            itself (voting, feature).  h may carry leading axes."""
+            if scatter:
+                lead = h.shape[:-3]
+                flat = h.reshape((-1,) + h.shape[-3:]).movedim(1, 0)
+                h = (yield from xchg("scatter", flat.contiguous())) \
+                    .movedim(0, 1).reshape(lead + (Gloc,) + h.shape[-2:])
+            elif replicated:
+                h = yield from xchg("sum", h)
+            if raw and not voting:
+                h = cells_to_hist(h, hs)
+            return h
+
+        def root_sums(hist_local, hist_root):
+            """The root's (grad, hess, count) totals and, in f32 mode, the
+            IEEE sums of the grad / hess columns, in one exchange.  Every
+            row lands in one bin of storage column 0, so the totals fall
+            out of its global histogram: rank 0's (data: it holds that
+            column; feature: every rank's are global in value and rank
+            0's are the serial grower's bits, JAX :532-542; replicated:
+            every rank's are equal), or the ranks' local totals summed
+            (voting).  The IEEE sums are the ranks' blocks' summed (data,
+            voting) or rank 0's (feature: full rows everywhere)."""
+            ieee = torch.stack([payload[:, cols.grad].sum(),
+                                payload[:, cols.hess].sum()])
+            if glob:
+                # voting's local cells: column 0's global cells, converted
+                # and summed as the serial grower sums its f32 histogram,
+                # then the IEEE sums (another dtype, another exchange)
+                h0 = cells_to_hist((yield from xchg("sum", hist_local[0])),
+                                   hs)
+                t = torch.sum(h0, dim=0, dtype=h0.dtype)
+                return t, (yield from xchg("sum", ieee))
+            src = hist_local if voting else hist_root
+            t = torch.sum(src[0], dim=0, dtype=src.dtype)
+            first = torch.full((), my == 0, device=dev)
+            if not voting:
+                t = torch.where(first, t, torch.zeros_like(t))
+            if quantized:
+                return (yield from xchg("sum", t)), None
+            if feature_mode:
+                ieee = torch.where(first, ieee, torch.zeros_like(ieee))
+            both = yield from xchg("sum", torch.cat([t, ieee]))
+            return both[:3], both[3:]
+
+        def fmask_owned():
+            fm = torch.cat([fmask, fmask.new_zeros(Gp - F)]) if Gp > F \
+                else fmask
+            return fm[f_offset:f_offset + Gloc]
+
+        vote_kwargs = dict(find_kwargs)
+        vote_kwargs["min_data_in_leaf"] = cfg.min_data_in_leaf / n_mach
+        vote_kwargs["min_sum_hessian_in_leaf"] = \
+            cfg.min_sum_hessian_in_leaf / n_mach
+
+        def vote_search(hists, sgs, shs, cnts, settle=None, **constraints):
+            """PV-Tree's search (the JAX grower's voting find_split): each
+            leaf's top_k features by local gain with the scaled
+            constraints, the votes all-gathered (one exchange for every
+            leaf), the 2 top_k most voted features' histograms summed (one
+            more) and searched.  Ties rank the lower index first, as
+            lax.top_k does.  With raw cells (`glob`) hists are the local
+            cells, and `settle(hsel, sel)` turns the selected features'
+            global f32 histograms, converted from their summed cells, into
+            the ones the search reads."""
+            Q = hists.shape[0]
+            k_vote = min(top_k, F)
+            S = min(2 * k_vote, F)
+            hf = cells_to_hist(hists, hs) if glob else deq(hists)
+            tot = hf[:, 0].sum(dim=1)                             # [Q, 3]
+            gains = per_feature_best_gains(
+                hf, tot[:, 0], tot[:, 1], tot[:, 2], fmask, meta=meta,
+                **vote_kwargs)                                    # [Q, F]
+            vals, idx = torch.sort(gains, dim=1, descending=True,
+                                   stable=True)
+            votes_mine = torch.stack([idx[:, :k_vote].to(torch.int64),
+                                      (vals[:, :k_vote] > K_MIN_SCORE)
+                                      .to(torch.int64)])          # [2, Q, k]
+            allv = yield from xchg("gather", votes_mine)    # [W, 2, Q, k]
+            votes = torch.zeros((Q, F), dtype=torch.int64, device=dev)
+            votes.scatter_add_(1, allv[:, 0].movedim(0, 1).reshape(Q, -1),
+                               allv[:, 1].movedim(0, 1).reshape(Q, -1))
+            sel = torch.sort(torch.sort(votes, dim=1, descending=True,
+                                        stable=True).indices[:, :S],
+                             dim=1).values                        # [Q, S]
+            hsel = torch.stack([hists[q].index_select(0, sel[q])
+                                for q in range(Q)])
+            hsel = yield from xchg("sum", hsel)
+            if glob:
+                hsel = settle(cells_to_hist(hsel, hs), sel)
+            else:
+                hsel = deq(hsel)
+            out = []
+            for q in range(Q):
+                cons = {k: v[q:q + 1] for k, v in constraints.items()}
+                r = find_best_split_batched(
+                    hsel[q:q + 1], sgs[q:q + 1], shs[q:q + 1],
+                    cnts[q:q + 1], fmask.index_select(0, sel[q]),
+                    meta=slice_feature_meta(meta, sel[q]), **find_kwargs,
+                    **cons)
+                out.append(r._replace(feature=sel[q].index_select(
+                    0, r.feature.long()).to(torch.int32)))
+            return type(out[0])(*[torch.cat(f) for f in zip(*out)])
+
+        def search(hists, sgs, shs, cnts, franks=None, settle=None,
+                   **constraints):
+            """The split search of Q leaves' (global, or local in voting)
+            histograms: the serial search, or the owned columns' search
+            and the winner sync (data, feature), or the vote.  franks
+            (feature mode with forced splits: the leaves' forced ranks):
+            the rank that owns each forced feature evaluates it on its
+            histogram, and the evaluation crosses in the winner sync's
+            exchange, for `forced_override` to read."""
+            if voting:
+                return (yield from vote_search(hists, sgs, shs, cnts,
+                                               settle, **constraints))
+            if not owned:
+                return find_split_batched(hists, sgs, shs, cnts,
+                                          **constraints)
+            hd = deq(hists)
+            res = find_best_split_batched(
+                hd, sgs, shs, cnts, fmask_owned(), meta=meta_local,
+                **find_kwargs, **constraints)
+            rows = pack_split(res, f_offset)
+            Q = rows.shape[0]
+            if franks is not None:
+                r0 = franks.clamp(min=0)
+                feat = fc_feat.index_select(0, r0)
+                fres = evaluate_split_at(
+                    hd, sgs, shs, cnts, (feat - f_offset).clamp(0, Gloc - 1),
+                    fc_bin.index_select(0, r0), meta=meta_local,
+                    l1=cfg.lambda_l1, l2=cfg.lambda_l2,
+                    max_delta_step=cfg.max_delta_step,
+                    min_data_in_leaf=cfg.min_data_in_leaf,
+                    min_sum_hessian_in_leaf=cfg.min_sum_hessian_in_leaf,
+                    monotone=monotone, **constraints)
+                rows = torch.cat([rows, pack_split(fres, f_offset)])
+            got = yield from xchg("gather", rows)
+            if franks is not None:
+                owner = torch.div(feat, Gloc, rounding_mode="floor")
+                q = torch.arange(Q, device=dev)
+                forced_synced["res"] = unpack_split(got[owner, Q + q])
+            return unpack_split(pick_winner(got[:, :Q]))
+
+        def spread(h, sel):
+            """[S, B, 3] histograms of features sel -> the [G, B, 3]
+            histogram holding them (zeros elsewhere) and its [G] mask."""
+            full = torch.zeros((G,) + h.shape[1:], **f32)
+            full.index_copy_(0, sel, h)
+            mask = torch.zeros(G, dtype=torch.bool, device=dev)
+            mask.index_fill_(0, sel, True)
+            return full, mask
+
+        def glob_put(slot, full, mask, do) -> None:
+            i = torch.where(do, slot, POOL).reshape(1).long()
+            GH.index_copy_(0, i, full[None])
+            GV.index_copy_(0, i, mask[None])
+
+        def settle_root(hsel, sel):
+            full, mask = spread(hsel[0], sel[0])
+            GH[0], GV[0] = full, mask
+            return hsel
+
         def set_flag(go):
             flag.copy_(go.to(torch.int32).reshape(1), non_blocking=True)
 
@@ -485,8 +798,11 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             def of_f(t):
                 return t.index_select(0, f.reshape(-1)).reshape(f.shape)
 
+            col = of_f(bmap.f_group)
+            if feature_mode:
+                col = localize_col(col, f_offset, Gloc)
             return SplitPredicate(
-                col=of_f(bmap.f_group),
+                col=col,
                 threshold=r[..., lc["bbin"]].to(torch.int32),
                 default_left=r[..., lc["bdleft"]].to(torch.bool),
                 is_cat=r[..., lc["bcat"]].to(torch.bool), bitset=bits,
@@ -505,7 +821,9 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             kids = NODE[:, nc["left_child"]:nc["right_child"] + 1]
             torch.where(mask, node_f, kids, out=kids)
 
-        def root() -> None:
+        def root():
+            """The root step (a generator: it yields at each exchange of
+            the distributed learners; a serial grower's never yields)."""
             R.copy_(R0)
             SEG.zero_()
             SEG[:1, 1].copy_(rows_all.reshape(1))
@@ -522,18 +840,41 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                 # a slice's fill: `t[0] = 0` copies a host scalar in
                 slot_of_leaf[:1].fill_(0)
                 leaf_of_slot[:1].fill_(0)
-            hist_root = hist_fn(payload, zero, rows_all)
-            # every row lands in exactly one bin of storage column 0, so
-            # the root totals fall out of the histogram (exact integers in
-            # the quantized mode, f32 only from the boundary on)
-            totals = deq(torch.sum(hist_root[0], dim=0,
-                                   dtype=hist_root.dtype))
+            if meshed:
+                hist_local = local_hist(payload, zero, rows_all)
+                hist_root = yield from reduce_hist(hist_local)
+                totals, ieee = yield from root_sums(hist_local, hist_root)
+                totals = deq(totals)
+            else:
+                hist_root = hist_fn(payload, zero, rows_all)
+                # every row lands in exactly one bin of storage column 0,
+                # so the root totals fall out of the histogram (exact
+                # integers in the quantized mode, f32 only from the
+                # boundary on)
+                totals = deq(torch.sum(hist_root[0], dim=0,
+                                       dtype=hist_root.dtype))
+            if not quantized:
+                # a non-finite gradient burst: the root's totals are the
+                # IEEE f32 sums of the grad / hess columns, NaN or +-inf as
+                # the JAX package's f32 histograms give them (the card's
+                # fixed-point cells turn NaN and inf into finite integers),
+                # and no split is taken below: a stump with a non-finite
+                # leaf value.  Selected, so a finite tree's bits stay.
+                if not meshed:
+                    ieee = torch.stack([payload[:, cols.grad].sum(),
+                                        payload[:, cols.hess].sum()])
+                totals = torch.where(nf, torch.cat([ieee, totals[2:]]),
+                                     totals)
             bounds = {}
             if monotone:
                 bounds = dict(min_constraint=unbounded[0:1],
                               max_constraint=unbounded[1:2])
-            res0 = find_split_batched(hist_root[None], totals[0:1],
-                                      totals[1:2], totals[2:3], **bounds)
+            franks = zero.reshape(1).long() \
+                if feature_mode and forced is not None else None
+            res0 = yield from search(hist_root[None], totals[0:1],
+                                     totals[1:2], totals[2:3], franks,
+                                     settle_root if glob else None,
+                                     **bounds)
             if constrained:
                 C.copy_(C0)
                 real0 = res0.gain
@@ -545,6 +886,8 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                         totals[0:1], totals[1:2], totals[2:3], res0)
                     C[0, _CC["fleaf"]] = rank0[0].to(torch.float32)
                 C[0, _CC["breal"]] = real0[0]
+            res0 = res0._replace(gain=torch.where(
+                nf, torch.full_like(res0.gain, K_MIN_SCORE), res0.gain))
             # rows start as one root segment with the root Newton step as
             # the per-row output (covers the unsplittable-stump case)
             payload_col_write(payload, cols.value,
@@ -557,7 +900,8 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                 # slots of its inactive candidates too
                 HIST.zero_()
                 HIST[0] = hist_root
-            set_flag(res0.gain[0] > 0.0)
+            if not meshed:
+                set_flag(res0.gain[0] > 0.0)
 
         def part_hist_fn(start, count, pred, lo, ro):
             """The merged split: the partition and both children's
@@ -599,15 +943,19 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             _put(slot_of_leaf, mask_s, rslot)
             return lslot, rslot
 
-        def split_step() -> None:
+        def split_step():
             """One leaf per round (the JAX package's body + do_split):
             split the leaf of the largest gain into leaves bl and s, and
             evaluate both children; a no-op unless the loop condition
-            holds."""
+            holds.  A generator, as `root`."""
             bl = torch.argmax(R[:, lc["bgain"]])
             r = _take(R, bl)
             s = nleaves
             active = (s < L) & (r[lc["bgain"]] > 0.0)
+            if meshed:
+                # whether THIS step splits, read by the host after the
+                # step's first exchange (`_drive`)
+                set_flag(active)
             node = s - 1
             mask_b = (iota_l == bl) & active
             mask_s = (iota_l == s) & active
@@ -625,6 +973,39 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             if merged:
                 nl, new_left, new_right = part_hist_fn(start, count, pred,
                                                        lo, ro)
+            elif meshed:
+                if pooled:
+                    pslot = _take(slot_of_leaf, bl)
+                    live = pslot >= 0
+                    rebuilt_local = local_hist(payload, start,
+                                               torch.where(live, 0, count))
+                else:
+                    hist_parent = _take(HIST, bl)
+                _, _, nl = part_fn(payload, aux, start, count, pred, lo, ro,
+                                   cols.value, **wkw)
+                left_smaller = lcnt <= rcnt
+                small_local = local_hist(
+                    payload, torch.where(left_smaller, start, start + nl),
+                    torch.where(left_smaller, nl, count - nl))
+                if pooled:
+                    # one exchange for the rebuilt parent and the child
+                    both = yield from reduce_hist(torch.stack(
+                        [rebuilt_local, small_local]))
+                    hist_parent = torch.where(
+                        live, _take(HIST, pslot.clamp(min=0)), both[0])
+                    hist_small = both[1]
+                else:
+                    hist_small = yield from reduce_hist(small_local)
+                hist_big = hist_parent - hist_small
+                new_left = torch.where(left_smaller, hist_small, hist_big)
+                new_right = torch.where(left_smaller, hist_big, hist_small)
+                if glob:
+                    gslot = pslot.clamp(min=0) if pooled else bl
+                    gh_parent = _take(GH, gslot)
+                    gv_parent = _take(GV, gslot)
+                    if pooled:
+                        # an evicted parent holds no global histogram
+                        gv_parent = gv_parent & live
             else:
                 if pooled:
                     # evicted: rebuild from the parent's contiguous rows,
@@ -664,10 +1045,7 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                     crow[_CC["mincon"]], crow[_CC["maxcon"]])
                 bounds = dict(min_constraint=torch.stack([lmin, rmin]),
                               max_constraint=torch.stack([lmax, rmax]))
-            res = find_split_batched(hists2, *sums2, **bounds)
-            if constrained:
-                real = res.gain
-                jnext = torch.full((2,), -1.0, **f32)
+            franks = None
             if forced is not None:
                 # the children's forced ranks, where the parent's own
                 # forced split was applied (JAX :729-741)
@@ -677,6 +1055,41 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                 ranks = torch.where(
                     applied, torch.cat([fc_lnext.index_select(0, jp0),
                                         fc_rnext.index_select(0, jp0)]), -1)
+                if feature_mode:
+                    franks = ranks
+            settled = {}
+
+            def settle(hsel, sel):
+                """The children's selected global histograms: the
+                smaller's converted from its cells; the larger's the
+                parent's less the smaller's where both hold the feature
+                (the serial grower's subtraction), else converted from its
+                own cells.  Keeps both children's [G] histograms."""
+                ls = left_smaller
+                s_sel, b_sel = (torch.where(ls, sel[0], sel[1]),
+                                torch.where(ls, sel[1], sel[0]))
+                s_full, s_mask = spread(torch.where(ls, hsel[0], hsel[1]),
+                                        s_sel)
+                b_own, b_mask = spread(torch.where(ls, hsel[1], hsel[0]),
+                                       b_sel)
+                derived = gv_parent & s_mask
+                b_full = torch.where(derived[:, None, None],
+                                     gh_parent - s_full, b_own)
+                b_mask = b_mask | derived
+                settled["left"] = (torch.where(ls, s_full, b_full),
+                                   torch.where(ls, s_mask, b_mask))
+                settled["right"] = (torch.where(ls, b_full, s_full),
+                                    torch.where(ls, b_mask, s_mask))
+                return torch.stack([settled[k][0].index_select(0, sel[q])
+                                    for q, k in enumerate(("left",
+                                                           "right"))])
+
+            res = yield from search(hists2, *sums2, franks,
+                                    settle if glob else None, **bounds)
+            if constrained:
+                real = res.gain
+                jnext = torch.full((2,), -1.0, **f32)
+            if forced is not None:
                 res, real, jnext = forced_override(ranks, view(deq(hists2)),
                                                    *sums2, res, **bounds)
                 jnext = jnext.to(torch.float32)
@@ -724,10 +1137,15 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                 hist_put(lslot, new_left, active)
                 hist_put(rslot, new_right, active)
             elif not merged:
+                lslot, rslot = bl, s
                 hist_put(bl, new_left, active)
                 hist_put(s, new_right, active)
+            if glob:
+                glob_put(lslot, *settled["left"], active)
+                glob_put(rslot, *settled["right"], active)
             nleaves.add_(active.to(torch.int32))
-            set_flag((nleaves < L) & (R[:, lc["bgain"]].max() > 0.0))
+            if not meshed:
+                set_flag((nleaves < L) & (R[:, lc["bgain"]].max() > 0.0))
 
         def round_step() -> None:
             """One round of the frontier-batched grower (the JAX package's
@@ -862,8 +1280,12 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             rounds.add_(round_on.to(torch.int32))
             set_flag((nleaves < L) & (R[:, lc["bgain"]].max() > 0.0))
 
-        def load(feature_mask, qscale, hist_scale) -> None:
+        def load(feature_mask, qscale, hist_scale, nonfinite=None) -> None:
             fmask.copy_(feature_mask)
+            if nonfinite is None:
+                nf.zero_()
+            else:
+                nf.copy_(nonfinite)
             if quantized:
                 qs.copy_(qscale)
             if scaled:
@@ -897,13 +1319,16 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                            for n in cuda_segment.WRAPPERS]
         capture = bool(jit) and on_card
         sig = lambda: graph_obs.signature(payload, aux, fmask)  # noqa: E731
+        # a meshed grower's steps are captured piece by piece between
+        # their exchanges; a serial grower's never exchange
+        site = functools.partial(graphs.Site, enabled=capture,
+                                 counted=counted, signature=sig,
+                                 exchange=comm.exchange if meshed else None)
+        root_site = site("grower2.root", root)
+        step_site = site("grower2.round" if frontier else "grower2.split",
+                         round_step if frontier else split_step)
         return SimpleNamespace(
-            root=graphs.Site("grower2.root", root, capture, counted,
-                             signature=sig),
-            step=graphs.Site("grower2.round" if frontier else
-                             "grower2.split",
-                             round_step if frontier else split_step,
-                             capture, counted, signature=sig),
+            root=root_site, step=step_site,
             load=load, tree=tree, flag=flag, R=R, SEG=SEG, NODE=NODE,
             BITS=BITS,
             NBITS=NBITS, HIST=HIST, nleaves=nleaves)
@@ -923,7 +1348,8 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
 
         def __call__(self, payload: torch.Tensor, aux: torch.Tensor,
                      feature_mask: torch.Tensor, qscale: torch.Tensor = None,
-                     hist_scale: torch.Tensor = None):
+                     hist_scale: torch.Tensor = None,
+                     nonfinite: torch.Tensor = None):
             dev = payload.device
             width = payload.shape[1]
             fits = cuda_segment.partition_hist_fits(width, G, B)
@@ -932,6 +1358,8 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                 if qscale is None:
                     raise ValueError("the quantized grower needs the [2] "
                                      "scales")
+            elif meshed:
+                merged = False
             elif merged_hist is None:
                 merged = (cuda_segment.PARTITION_HIST_VALIDATED
                           and payload.is_cuda and fits)
@@ -968,9 +1396,12 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                                         frontier=frontier))
                 self._key = key
             prog = self.program
-            prog.load(feature_mask, qscale, hist_scale)
+            prog.load(feature_mask, qscale, hist_scale, nonfinite)
             prog.root()
-            _drive(prog.step, L - 1, prog.flag, dev)
+            if meshed:
+                _drive_meshed(prog.step, L - 1, prog.flag)
+            else:
+                _drive(prog.step, L - 1, prog.flag, dev)
             return prog.tree(), payload, aux
 
     return Grow()

@@ -118,12 +118,25 @@ class GOSS(GBDT):
         Elsewhere its partitioned path draws in the payload's order."""
         obj = self.objective
         return custom is not None or not getattr(obj, "is_rowwise", True) \
-            or obj.renew_tree_output_required()
+            or obj.renew_tree_output_required() \
+            or self.parallel_mode is not None
 
     def _fill(self, fs: _FastState, k: int, custom=None):
         key = self.sample_key()
         hook = None
-        if key is not None:
+        if key is not None and fs.row_sharded:
+            # data / voting: the selection is over the global rows, in
+            # original order (one exchange gathers every rank's block),
+            # and each rank keeps its block's masks
+            def hook(g, h, valid):
+                gm, cm = goss_masks(
+                    fs.to_original(g), fs.to_original(h),
+                    fs.to_original(valid[None])[0] > 0, key,
+                    self._goss_top_k, self._goss_other_k,
+                    self._goss_multiply)
+                return (fs.from_original(gm[None])[0],
+                        fs.from_original(cm[None])[0])
+        elif key is not None:
             original = self.draws_in_original_order(custom)
 
             def hook(g, h, valid):

@@ -225,15 +225,19 @@ def booster_refit(handle, X: np.ndarray, y: np.ndarray) -> None:
 def network_init(machines: str, local_listen_port: int = 12400,
                  listen_time_out: int = 120, num_machines: int = 1) -> None:
     """LGBM_NetworkInit: the reference's machine-list bootstrap.  One
-    machine is a no-op; more raise: distributed training is not ported
-    to the PyTorch package yet (ROADMAP queue A item 5)."""
+    machine is a no-op; more bring the torch.distributed process group up
+    (parallel/launch.py: the first machine holds its store, this
+    process's rank is its ip:port's position, listen_time_out in minutes
+    bounds the bring-up), which tree_learner=data|voting|feature then
+    trains over."""
     _check_train(load_train_lib().LGBM_NetworkInit(
         machines.encode(), ctypes.c_int(local_listen_port),
         ctypes.c_int(listen_time_out), ctypes.c_int(num_machines)))
 
 
 def network_free() -> None:
-    """LGBM_NetworkFree (idempotent, reference Network::Dispose)."""
+    """LGBM_NetworkFree: tears the process group down (idempotent,
+    reference Network::Dispose)."""
     _check_train(load_train_lib().LGBM_NetworkFree())
 
 

@@ -9,6 +9,8 @@ config_auto.cpp with helper/parameter_generator.py.
 """
 from __future__ import annotations
 
+import os
+
 import re
 from typing import Any, Dict, Mapping, Optional
 
@@ -263,4 +265,10 @@ def resolve_device(config: Config) -> torch.device:
     if not torch.cuda.is_available():
         Log.fatal("device_type=%s but no CUDA device is available; pass "
                   "device_type='cpu' to train on the CPU", name)
+    from .parallel import comm
+    if comm.is_distributed():
+        # one rank a process: rank r takes card (local rank % cards), so
+        # ranks on one host with one card share it
+        local = int(os.environ.get("LOCAL_RANK", comm.rank()))
+        torch.cuda.set_device(local % torch.cuda.device_count())
     return torch.device("cuda", torch.cuda.current_device())

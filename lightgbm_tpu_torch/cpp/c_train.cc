@@ -7,7 +7,8 @@
 // embedded helpers import lightgbm_tpu_torch, the package is found by
 // walking up from this library, the helper module has its own name, the
 // model text carries its parameters section (Booster.save_model's file)
-// and a distributed LGBM_NetworkInit is refused.
+// and LGBM_NetworkInit / LGBM_NetworkFree bring the port's
+// torch.distributed process group up and down (parallel/launch.py).
 //
 // Design: the reference's C training surface is a marshalling layer over
 // its C++ Booster; ours is a marshalling layer over the port's engine (the
@@ -341,13 +342,20 @@ def booster_grad_len(bst):
     return int(ds.num_data()) * int(k)
 
 
-def network_init(machines, local_listen_port, num_machines):
+def network_init(machines, local_listen_port, listen_time_out,
+                 num_machines):
     if num_machines <= 1:
         return 0
-    raise NotImplementedError(
-        'LGBM_NetworkInit with num_machines=%d: distributed training is '
-        'not ported to the PyTorch package yet (ROADMAP queue A item 5)'
-        % num_machines)
+    from lightgbm_tpu_torch.parallel import launch
+    return launch.init_distributed(
+        machines=machines, local_listen_port=local_listen_port,
+        timeout_s=max(int(listen_time_out), 1) * 60)
+
+
+def network_free():
+    from lightgbm_tpu_torch.parallel import launch
+    launch.shutdown_distributed()
+    return 0
 )PY";
 
 PyObject* g_helpers = nullptr;  // module dict holding the helpers
@@ -1317,21 +1325,24 @@ int LGBM_BoosterGetEvalNames(BoosterHandle handle, int* out_len,
 
 int LGBM_NetworkInit(const char* machines, int local_listen_port,
                      int listen_time_out, int num_machines) {
-  (void)listen_time_out;
   PyScope py;
   if (!py.ok) return -1;
   PyObject* r = CallHelper(
       "network_init",
-      Py_BuildValue("(sii)", machines ? machines : "", local_listen_port,
-                    num_machines));
+      Py_BuildValue("(siii)", machines ? machines : "", local_listen_port,
+                    listen_time_out, num_machines));
   if (r == nullptr) return -1;
   Py_DECREF(r);
   return 0;
 }
 
 int LGBM_NetworkFree() {
-  // nothing was brought up (LGBM_NetworkInit refuses num_machines > 1);
   // the reference's Network::Dispose contract: idempotent
+  PyScope py;
+  if (!py.ok) return -1;
+  PyObject* r = CallHelper("network_free", PyTuple_New(0));
+  if (r == nullptr) return -1;
+  Py_DECREF(r);
   return 0;
 }
 

@@ -111,7 +111,9 @@ extern "C" {
 // all three are left zero.  cap: features per group at most (<=
 // kHistGroupCols of segment_hist.cuh, and hist_smem_bytes(cap, B, f32) of
 // shared memory); grid: the blocks, at least ceil(F / cap).  batched != 0
-// launches the kernel under B5's name.  Returns cudaGetLastError(), or
+// launches the kernel under B5's name.  raw != 0 (f32 mode only): out =
+// int64 [K, F, B, 3], each cell's exact integer sums (grad and hess at
+// the exponents, count), not converted.  Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a cap or grid outside those bounds.
 int segment_hist_launch(const float* payload, int P, int rows,
                         const int* seg,
@@ -119,7 +121,7 @@ int segment_hist_launch(const float* payload, int P, int rows,
                         int hess_col, int cnt_col, int grid, int quantized,
                         int batched, const int* scale,
                         unsigned long long* scratch_gh, int* scratch_cnt,
-                        int* tickets, void* stream) {
+                        int* tickets, int raw, void* stream) {
   if (cap < 1 || cap > kHistGroupCols || grid < (F + cap - 1) / cap) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -134,7 +136,7 @@ int segment_hist_launch(const float* payload, int P, int rows,
                   stream);
   }
   const FixedOut fo{scratch_gh, scratch_cnt, static_cast<float*>(out),
-                    tickets, scale};
+                    tickets, scale, raw};
   return launch(batched ? segment_hist_batched_kernel<true>
                         : segment_hist_kernel<true>,
                 set, payload, P, rows, seg, K, nullptr, fo, F, B, cap, grad_col,

@@ -191,13 +191,17 @@ struct FixedCells {
 // hess) and int32 [K, F, B] (count), zero on entry and left zero; the f32
 // output [K, F, B, 3], every cell written by the conversion; tickets [K,
 // groups] (one per segment and feature group), zero on entry and left
-// zero; the [2] exponents s.
+// zero; the [2] exponents s.  raw != 0 (B1's and B7's raw output, for the
+// distributed learners' exact exchange): `out` is int64 [K, F, B, 3]
+// instead, each cell's exact integer sums (grad, hess, count) as they
+// are, with no conversion to f32 (ops/segment.fixed_sums' integers).
 struct FixedOut {
   unsigned long long* gh;
   int* cnt;
   float* out;
   int* tickets;
   const int* scale;
+  int raw;
 };
 
 // Adds a group's non-zero int32 cells into its output span dst[0, fn * B *
@@ -240,7 +244,8 @@ __device__ __forceinline__ void flush_fixed(const FixedCells& cells,
 
 // The f32 cells of the scratch's cells [base, base + n) in each of K
 // slices (`slice` cells apart): each the exact sum times 2^-s rounded once
-// to f32; the scratch is cleared behind.  Reads bypass L1: the other
+// to f32 (or, raw, the int64 sums themselves); the scratch is cleared
+// behind.  Reads bypass L1: the other
 // blocks' atomics landed in L2.
 __device__ __forceinline__ void convert_fixed(const FixedOut& o, int K,
                                               long long slice, long long base,
@@ -254,10 +259,17 @@ __device__ __forceinline__ void convert_fixed(const FixedOut& o, int K,
       const long long g = static_cast<long long>(__ldcg(o.gh + 2 * e));
       const long long h = static_cast<long long>(__ldcg(o.gh + 2 * e + 1));
       const int c = __ldcg(o.cnt + e);
-      float* d = o.out + 3 * e;
-      d[0] = __fmul_rn(__ll2float_rn(g), ig);
-      d[1] = __fmul_rn(__ll2float_rn(h), ih);
-      d[2] = static_cast<float>(c);
+      if (o.raw) {
+        long long* d = reinterpret_cast<long long*>(o.out) + 3 * e;
+        d[0] = g;
+        d[1] = h;
+        d[2] = c;
+      } else {
+        float* d = o.out + 3 * e;
+        d[0] = __fmul_rn(__ll2float_rn(g), ig);
+        d[1] = __fmul_rn(__ll2float_rn(h), ih);
+        d[2] = static_cast<float>(c);
+      }
       o.gh[2 * e] = 0ull;
       o.gh[2 * e + 1] = 0ull;
       o.cnt[e] = 0;

@@ -190,7 +190,9 @@ int segment_hist_colblock_cols(int F, int B) {
 // scratch_cnt = int32 [F, B] and tickets = int32 [F], zero on entry and
 // left zero.  Fb = segment_hist_colblock_cols(F, B) columns per
 // block; a grid of ceil(F / Fb) column blocks by as many row chunks as
-// keep the whole grid resident on `sms` multiprocessors.  Returns
+// keep the whole grid resident on `sms` multiprocessors.  raw != 0: out
+// is int64 [F, B, 3], each cell's exact integer sums, not converted
+// (segment_hist.cuh's FixedOut).  Returns
 // cudaGetLastError().
 int segment_hist_colblock_launch(const float* payload, int P, int rows,
                                  const int* seg,
@@ -198,7 +200,7 @@ int segment_hist_colblock_launch(const float* payload, int P, int rows,
                                  int grad_col, int hess_col, int cnt_col,
                                  const int* scale,
                                  unsigned long long* scratch_gh,
-                                 int* scratch_cnt, int* tickets,
+                                 int* scratch_cnt, int* tickets, int raw,
                                  void* stream) {
   const int Fb = segment_hist_colblock_cols(F, B);
   if (Fb < 1 || B < 1 || B >= kNoBin) {
@@ -214,7 +216,7 @@ int segment_hist_colblock_launch(const float* payload, int P, int rows,
   hist_colblock_kernel<<<grid, kThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       payload, P, rows, seg,
-      FixedOut{scratch_gh, scratch_cnt, out, tickets, scale}, F, B, Fb,
+      FixedOut{scratch_gh, scratch_cnt, out, tickets, scale, raw}, F, B, Fb,
       grad_col, hess_col, cnt_col);
   return static_cast<int>(cudaGetLastError());
 }

@@ -376,11 +376,13 @@ def _scale_of(payload: torch.Tensor, scale, starts, counts, grad_col: int,
 def _hist_launch(name: str, payload: torch.Tensor, segv: torch.Tensor,
                  quantized: bool, scale=None, workspace=None, *,
                  num_features: int, num_bins: int, grad_col: int,
-                 hess_col: int, cnt_col: int) -> torch.Tensor:
+                 hess_col: int, cnt_col: int,
+                 raw: bool = False) -> torch.Tensor:
     """Launch csrc/segment_hist.cu over K segments (segv: int32 [K, 2]
     start/count on the device); returns the filled [K, F, B, 3] output:
     int32 when quantized, else f32 at the fixed-point exponents `scale`
-    (derived from the segments when None)."""
+    (derived from the segments when None), or with `raw` the int64 cells
+    (grad and hess at those exponents, count) without the conversion."""
     _check_payload(payload, name)
     F, B, P = num_features, num_bins, payload.shape[1]
     K = segv.shape[0]
@@ -396,12 +398,13 @@ def _hist_launch(name: str, payload: torch.Tensor, segv: torch.Tensor,
                              % (name, c, P))
     dev = payload.device
     lib, fn = _lib("segment_hist", "segment_hist_launch",
-                   [_P, _I, _I, _P, _P] + [_I] * 10 + [_P] * 5)
+                   [_P, _I, _I, _P, _P] + [_I] * 10 + [_P] * 4 + [_I, _P])
     if quantized:
         out = torch.zeros((K, F, B, 3), device=dev, dtype=torch.int32)
         sc, gh, cnt, tk = None, None, None, None
     else:
-        out = torch.empty((K, F, B, 3), device=dev, dtype=torch.float32)
+        out = torch.empty((K, F, B, 3), device=dev,
+                          dtype=torch.int64 if raw else torch.float32)
         sc = _scale_of(payload, scale, segv[:, 0], segv[:, 1], grad_col,
                        hess_col)
         gh, cnt, tk = _workspace(workspace, dev).fixed(K * F * B, K * F)
@@ -410,7 +413,7 @@ def _hist_launch(name: str, payload: torch.Tensor, segv: torch.Tensor,
             hist_grid(_sm_count(dev.index), F, cap), int(quantized),
             int(name == "segment_histogram_batched"),
             None if sc is None else sc.data_ptr(), gh, cnt, tk,
-            _stream(dev))
+            int(raw and not quantized), _stream(dev))
     _check(lib, "segment_hist", rc)
     return out
 
@@ -418,20 +421,28 @@ def _hist_launch(name: str, payload: torch.Tensor, segv: torch.Tensor,
 def segment_histogram(payload: torch.Tensor, start, count, *,
                       num_features: int, num_bins: int, grad_col: int,
                       hess_col: int, cnt_col: int, scale=None,
-                      workspace=None) -> torch.Tensor:
+                      workspace=None, raw: bool = False) -> torch.Tensor:
     """f32 hist[F, B, 3] over payload rows [start, start+count) (B1).  On
     the card: `segment.segment_histogram_fixed` at the int32 [2]
     exponents `scale` (by default those of this segment), bit for bit; on
     the CPU the plain row-order sum, `scale` unused.  The count mask
     column must hold small integers (0 or 1): the kernel rounds each to
-    int32 before its exact sum."""
+    int32 before its exact sum.
+
+    raw: the int64 [F, B, 3] cells before the conversion (the exact sums
+    of grad and hess at `scale`, and the count), which sum exactly across
+    the distributed learners' ranks (`segment.cells_to_hist` converts
+    them); the plain version, on the CPU too, is `segment.fixed_cells`."""
     kwargs = dict(num_features=num_features, num_bins=num_bins,
                   grad_col=grad_col, hess_col=hess_col, cnt_col=cnt_col)
     if payload.device.type == "cpu":
+        if raw:
+            return seg.fixed_cells(payload, start, count, scale=scale,
+                                   **kwargs)
         return seg.segment_histogram(payload, start, count, **kwargs)
     segv = _int_vec((start, count), payload.device).reshape(1, 2)
     out = _hist_launch("segment_histogram", payload, segv, False, scale,
-                       workspace, **kwargs)
+                       workspace, raw=raw, **kwargs)
     segment_histogram.launches += 1
     return out[0]
 
@@ -737,20 +748,24 @@ def _colblock_features(num_features: int, num_bins: int) -> int:
 def segment_histogram_colblock(payload: torch.Tensor, start, count, *,
                                num_features: int, num_bins: int,
                                grad_col: int, hess_col: int, cnt_col: int,
-                               scale=None, workspace=None) -> torch.Tensor:
+                               scale=None, workspace=None,
+                               raw: bool = False) -> torch.Tensor:
     """f32 hist[F, B, 3] over payload rows [start, start+count) of a wide
     payload (B7: replaces lightgbm_tpu/ops/pallas_segment.py
-    segment_histogram_colblock).  Its contract is B1's, fixed-point sums
-    and `scale` included, so a CPU tensor runs the same plain version,
-    `seg.segment_histogram`."""
+    segment_histogram_colblock).  Its contract is B1's, fixed-point sums,
+    `scale` and `raw` included, so a CPU tensor runs the same plain
+    versions, `seg.segment_histogram` and `seg.fixed_cells`."""
     kwargs = dict(num_features=num_features, num_bins=num_bins,
                   grad_col=grad_col, hess_col=hess_col, cnt_col=cnt_col)
     if payload.device.type == "cpu":
+        if raw:
+            return seg.fixed_cells(payload, start, count, scale=scale,
+                                   **kwargs)
         return seg.segment_histogram(payload, start, count, **kwargs)
     _check_payload(payload, "segment_histogram_colblock")
     F, B, P = num_features, num_bins, payload.shape[1]
     lib, fn = _lib("segment_hist_colblock", "segment_hist_colblock_launch",
-                   [_P, _I, _I, _P, _P] + [_I] * 6 + [_P] * 5)
+                   [_P, _I, _I, _P, _P] + [_I] * 6 + [_P] * 4 + [_I, _P])
     fb = _colblock_features(F, B) if 0 < B < 0xFFFF else 0
     if not 0 < F <= P or fb == 0:
         raise ValueError("segment_histogram_colblock: F=%d, B=%d outside "
@@ -763,10 +778,11 @@ def segment_histogram_colblock(payload: torch.Tensor, start, count, *,
     segv = _int_vec((start, count), dev)
     sc = _scale_of(payload, scale, segv[0], segv[1], grad_col, hess_col)
     gh, cnt, tk = _workspace(workspace, dev).fixed(F * B, F)
-    out = torch.empty((F, B, 3), device=dev, dtype=torch.float32)
+    out = torch.empty((F, B, 3), device=dev,
+                      dtype=torch.int64 if raw else torch.float32)
     rc = fn(payload.data_ptr(), P, payload.shape[0], segv.data_ptr(),
-            out.data_ptr(), F, B, _sm_count(dev.index), grad_col, hess_col, cnt_col, sc.data_ptr(),
-            gh, cnt, tk, _stream(dev))
+            out.data_ptr(), F, B, _sm_count(dev.index), grad_col, hess_col,
+            cnt_col, sc.data_ptr(), gh, cnt, tk, int(raw), _stream(dev))
     _check(lib, "segment_hist_colblock", rc)
     segment_histogram_colblock.launches += 1
     return out

@@ -61,17 +61,27 @@ def quant_seed(seed: int, iteration: int, num_tree_per_iteration: int,
 
 
 def stochastic_round(x: torch.Tensor, generator: torch.Generator, lo: float,
-                     hi: float) -> torch.Tensor:
+                     hi: float, rows: torch.Tensor = None,
+                     n_draw: int = 0) -> torch.Tensor:
     """floor(x + u), u ~ U[0, 1): unbiased (E[floor(x + u)] = x), clipped
     to [lo, hi] (the clip only acts at the grid's edge).  Exact zero stays
-    zero (u < 1), so masked-out rows keep contributing nothing."""
-    u = torch.rand(x.shape, generator=generator, dtype=torch.float32,
-                   device=x.device)
+    zero (u < 1), so masked-out rows keep contributing nothing.  With
+    `rows` ([n] int64, each row's original row in [0, n_draw]) the draws
+    run over n_draw rows in original order and each row takes its own
+    original row's, so a row rounds alike whichever rank holds it."""
+    if rows is None:
+        u = torch.rand(x.shape, generator=generator, dtype=torch.float32,
+                       device=x.device)
+    else:
+        u = torch.rand(n_draw + 1, generator=generator, dtype=torch.float32,
+                       device=x.device)[rows]
     return torch.clamp(torch.floor(x + u), lo, hi)
 
 
 def quantize_pair(g: torch.Tensor, h: torch.Tensor,
-                  generator: torch.Generator, qmax: float):
+                  generator: torch.Generator, qmax: float,
+                  rows: torch.Tensor = None, n_draw: int = 0,
+                  reduce_max=None):
     """Quantize one class's (already masked) gradient/hessian vectors.
 
     Returns (qg, qh, qscale): integer-valued f32 vectors for the payload's
@@ -80,11 +90,16 @@ def quantize_pair(g: torch.Tensor, h: torch.Tensor,
     divided by qmax (the paper's max-scaling); an all-zero vector gets
     scale 1, so the division is always finite.  Both scales are computed
     on the device, with no host read.  The gradient draws come first from
-    `generator`, then the hessian draws."""
+    `generator`, then the hessian draws.  The distributed learners pass
+    `rows` / `n_draw` (stochastic_round's original-order draws) and
+    `reduce_max`, which takes the [2] local maxima to the global ones."""
     gmax = torch.max(torch.abs(g))
     hmax = torch.max(h)
+    if reduce_max is not None:
+        gmax, hmax = reduce_max(torch.stack([gmax, hmax])).unbind()
     gscale = torch.where(gmax > 0, gmax, torch.full_like(gmax, qmax)) / qmax
     hscale = torch.where(hmax > 0, hmax, torch.full_like(hmax, qmax)) / qmax
-    qg = stochastic_round(g / gscale, generator, -qmax, qmax)
-    qh = stochastic_round(h / hscale, generator, 0.0, qmax)
+    order = dict(rows=rows, n_draw=n_draw)
+    qg = stochastic_round(g / gscale, generator, -qmax, qmax, **order)
+    qh = stochastic_round(h / hscale, generator, 0.0, qmax, **order)
     return qg, qh, torch.stack([gscale, hscale])

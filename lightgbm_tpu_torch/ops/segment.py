@@ -299,6 +299,35 @@ def fixed_hist(gh: torch.Tensor, cnt: torch.Tensor, scale, num_features: int,
     return out.reshape(num_features, num_bins, 3)
 
 
+def fixed_cells(payload: torch.Tensor, start, count, *, num_features: int,
+                num_bins: int, grad_col: int, hess_col: int, cnt_col: int,
+                scale) -> torch.Tensor:
+    """int64 [F, B, 3]: `fixed_sums`' integers in one tensor per cell
+    (grad, hess, count), the raw output of B1 and B7.  Cells of disjoint
+    row sets (the ranks' row blocks) add up exactly; `cells_to_hist`
+    converts a sum once.  scale: by default `fixed_scale` of the segment."""
+    if scale is None:
+        scale = fixed_scale(payload, start, count, grad_col, hess_col)
+    gh, cnt = fixed_sums(payload, start, count, num_features=num_features,
+                         num_bins=num_bins, grad_col=grad_col,
+                         hess_col=hess_col, cnt_col=cnt_col, scale=scale)
+    return torch.cat([gh, cnt.to(torch.int64)[:, None]], dim=1) \
+        .reshape(num_features, num_bins, 3)
+
+
+def cells_to_hist(cells: torch.Tensor, scale) -> torch.Tensor:
+    """f32 [..., 3] histogram of int64 [..., 3] fixed-point cells: each sum
+    times 2^-s rounded once to f32, the count converted (the card's
+    conversion, csrc/segment_hist.cuh convert_fixed; `fixed_hist`)."""
+    scale = torch.as_tensor(scale, device=cells.device).to(torch.int32) \
+        .reshape(2)
+    inv = torch.ldexp(torch.ones(2, dtype=torch.float32,
+                                 device=cells.device), -scale)
+    return torch.stack([cells[..., 0].to(torch.float32) * inv[0],
+                        cells[..., 1].to(torch.float32) * inv[1],
+                        cells[..., 2].to(torch.float32)], dim=-1)
+
+
 def segment_histogram_fixed(payload: torch.Tensor, start, count, *,
                             num_features: int, num_bins: int, grad_col: int,
                             hess_col: int, cnt_col: int,

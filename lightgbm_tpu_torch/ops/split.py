@@ -521,3 +521,131 @@ def evaluate_split_at(hist, sum_g, sum_h, num_data, feature, threshold_bin,
         is_cat=torch.zeros(Q, dtype=torch.bool, device=dev),
         cat_bitset=torch.zeros((Q, B), dtype=torch.bool, device=dev),
         left_output=lo, right_output=ro)
+
+
+def pad_feature_meta(meta: FeatureMeta, f_padded: int) -> FeatureMeta:
+    """Per-feature metadata extended by trivial (inert) entries for the
+    padded storage columns of the column-owning learners (the JAX
+    package's pad_feature_meta)."""
+    F = int(meta.num_bin.shape[0])
+    pad = f_padded - F
+    if pad <= 0:
+        return meta
+
+    def ext(a, fill):
+        return torch.cat([a, torch.full((pad,), fill, dtype=a.dtype,
+                                        device=a.device)])
+
+    return FeatureMeta(
+        num_bin=ext(meta.num_bin, 1), missing_type=ext(meta.missing_type, 0),
+        default_bin=ext(meta.default_bin, 0),
+        is_trivial=ext(meta.is_trivial, True),
+        is_categorical=ext(meta.is_categorical, False),
+        penalty=ext(meta.penalty, 1.0), monotone=ext(meta.monotone, 0))
+
+
+def owned_first(num_padded: int, f_offset: int, gloc) -> torch.Tensor:
+    """The feature learner's payload column layout: the rank that owns
+    storage columns [f_offset, f_offset + gloc) of the zero-padded
+    num_padded holds them first, then the columns before them, then
+    those after.  Returns perm ([num_padded] int64): payload column j
+    holds storage column perm[j].  `localize_col` is its inverse."""
+    j = torch.arange(num_padded)
+    return torch.where(j < gloc, f_offset + j,
+                       torch.where(j - gloc < f_offset, j - gloc, j))
+
+
+def localize_col(g: torch.Tensor, f_offset: int, gloc) -> torch.Tensor:
+    """Storage column g -> its payload column in the owned-first layout
+    (the JAX grower's localize_col; the inverse of `owned_first`)."""
+    return torch.where(g < f_offset, gloc + g,
+                       torch.where(g < f_offset + gloc, g - f_offset, g))
+
+
+def slice_feature_meta(meta: FeatureMeta, idx: torch.Tensor) -> FeatureMeta:
+    """The metadata of features `idx` (a [S] index tensor, or a slice)."""
+    if isinstance(idx, slice):
+        return FeatureMeta(*[a[idx] for a in meta])
+    return FeatureMeta(*[a.index_select(0, idx.long()) for a in meta])
+
+
+def per_feature_best_gains(hist, sum_g, sum_h, num_data, feature_mask, *,
+                           meta: FeatureMeta, l1, l2, max_delta_step,
+                           min_data_in_leaf, min_sum_hessian_in_leaf,
+                           min_gain_to_split, max_cat_threshold=32,
+                           cat_l2=10.0, cat_smooth=10.0, max_cat_to_onehot=4,
+                           min_data_per_group=100,
+                           with_categorical: bool = False,
+                           **_unused) -> torch.Tensor:
+    """Best gain per leaf and feature, [Q, F]: the vote statistic of the
+    voting learner (voting_parallel_tree_learner.cpp's local
+    FindBestSplits; the JAX package's per_feature_best_gains, ops/split.py
+    :213, over a leading [Q] axis).  hist [Q, F, B, 3]; totals [Q]."""
+    total_h = sum_h + 2 * K_EPSILON
+    gains, _, min_gain_shift = _numerical_gain_tensor(
+        hist, sum_g, total_h, num_data, feature_mask, meta=meta, l1=l1,
+        l2=l2, max_delta_step=max_delta_step,
+        min_data_in_leaf=min_data_in_leaf,
+        min_sum_hessian_in_leaf=min_sum_hessian_in_leaf,
+        min_gain_to_split=min_gain_to_split)
+    best = gains.amax(dim=(2, 3))
+    if with_categorical:
+        cat_mask = meta.is_categorical & ~meta.is_trivial & feature_mask
+        raw_cat = _categorical_best(
+            hist[..., 0], hist[..., 1], hist[..., 2], sum_g, total_h,
+            num_data, cat_mask, meta=meta, l1=l1, l2=l2,
+            max_delta_step=max_delta_step, min_data_in_leaf=min_data_in_leaf,
+            min_sum_hessian_in_leaf=min_sum_hessian_in_leaf,
+            max_cat_threshold=max_cat_threshold, cat_l2=cat_l2,
+            cat_smooth=cat_smooth, max_cat_to_onehot=max_cat_to_onehot,
+            min_data_per_group=min_data_per_group)[0]
+        mgs = min_gain_shift[:, None]
+        gain_cat = torch.where(raw_cat > mgs,
+                               (raw_cat - mgs) * meta.penalty[None, :],
+                               torch.full_like(raw_cat, K_MIN_SCORE))
+        best = torch.maximum(best, gain_cat)
+    return best
+
+
+#: the scalar fields of a SplitResult in the winner sync's packed row,
+#: in the JAX package's order (grower.py:108-118), the bitset after them
+_PACKED = ("gain", "feature", "threshold_bin", "default_left", "left_sum_g",
+           "left_sum_h", "left_count", "is_cat", "left_output",
+           "right_output")
+
+
+def pack_split(res: SplitResult, f_offset=0) -> torch.Tensor:
+    """[Q, 10 + B] f32: each leaf's SplitResult in one row, its feature
+    shifted by `f_offset` (the owned columns' first global column).
+    Feature and bin ids are exact in f32 below 2^24."""
+    cols = [getattr(res, k).to(torch.float32) for k in _PACKED]
+    cols[1] = cols[1] + f_offset
+    return torch.cat([torch.stack(cols, dim=1),
+                      res.cat_bitset.to(torch.float32)], dim=1)
+
+
+def unpack_split(rows: torch.Tensor) -> SplitResult:
+    """The SplitResult of `pack_split` rows."""
+    c = {k: rows[:, i] for i, k in enumerate(_PACKED)}
+    return SplitResult(
+        gain=c["gain"], feature=c["feature"].to(torch.int32),
+        threshold_bin=c["threshold_bin"].to(torch.int32),
+        default_left=c["default_left"] > 0, left_sum_g=c["left_sum_g"],
+        left_sum_h=c["left_sum_h"], left_count=c["left_count"],
+        is_cat=c["is_cat"] > 0, cat_bitset=rows[:, len(_PACKED):] > 0,
+        left_output=c["left_output"], right_output=c["right_output"])
+
+
+def pick_winner(gathered: torch.Tensor) -> torch.Tensor:
+    """SyncUpGlobalBestSplit (parallel_tree_learner.h:183-206; the JAX
+    package's make_winner_sync): from every rank's packed rows
+    ([world, Q, W], in rank order) each leaf's row of the greatest gain,
+    ties to the lowest rank (argmax takes the first maximum).  A rank
+    whose gain is NaN never wins, as a NaN fails the JAX rule's
+    gain == pmax(gain) test."""
+    gain = gathered[..., 0]
+    gain = torch.where(torch.isnan(gain), torch.full_like(gain, K_MIN_SCORE),
+                       gain)
+    win = torch.argmax(gain, dim=0)                              # [Q]
+    q = torch.arange(gathered.shape[1], device=gathered.device)
+    return gathered[win, q]

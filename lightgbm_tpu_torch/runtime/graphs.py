@@ -8,7 +8,9 @@ its scratch).  Its first call runs the function eagerly on a side stream
 (the warm-up, which is a real call: it builds the kernels and sizes
 nothing anew), then captures it under a `torch.cuda.CUDAGraph`; every
 later call replays the graph on the current stream.  A capture that fails
-raises: nothing falls back to eager calls.
+raises: nothing falls back to eager calls.  A step of the distributed
+learners is a generator function that yields at each exchange; its
+pieces between exchanges are captured one graph each (`Site`).
 
 The capture is begun and ended here rather than with `torch.cuda.graph`,
 whose entry synchronizes the device: a grower captures inside its first
@@ -29,6 +31,7 @@ after every replay.
 """
 from __future__ import annotations
 
+import inspect
 import threading
 import time
 from typing import Callable, Dict, Sequence, Set, Tuple
@@ -64,35 +67,82 @@ class Site:
     """fn, eager with `enabled` False, else captured once and replayed.
     `counted` returns, at the capture, the objects with a `.launches`
     count that fn's launches add to; `signature`, the ledger's shape
-    signature of the buffers fn reads and writes."""
+    signature of the buffers fn reads and writes.
 
-    def __init__(self, name: str, fn: Callable[[], None], enabled: bool,
+    fn may be a generator function (a step of the distributed learners):
+    its pieces of device work are separated by exchanges, at each of
+    which it yields (op, send), op a host collective and send the device
+    tensor it exchanges, and takes back the result on the device.
+    `exchange(op, send)` runs one (stages send out, runs op, stages the
+    result back); a step that yields with no `exchange` raises.  Eagerly
+    each exchange runs at once.  The first call with `enabled` runs the
+    step as the warm-up (its exchanges real, their result shapes
+    recorded), then captures each piece as its own graph, the results
+    arriving in device buffers made between the captures; every later
+    call replays the pieces and, after each but the last, runs its
+    exchange and copies the result into its buffer.  So the device work
+    runs as graphs and only the exchanges cross the host; every rank
+    makes the same calls, so the collectives pair up at the warm-up and
+    at every replay, and none runs at the capture.  A function that
+    never yields is the one-piece case."""
+
+    def __init__(self, name: str, fn: Callable, enabled: bool,
                  counted: Callable[[], Sequence] = tuple, pool=None,
-                 signature: Callable[[], Tuple[str, ...]] = tuple):
+                 signature: Callable[[], Tuple[str, ...]] = tuple,
+                 exchange: Callable = None):
         self.name = name
         self.fn = fn
+        self.staged = inspect.isgeneratorfunction(fn)
         self.enabled = enabled
         self.counted = counted
         self.signature = signature
         # a memory pool shared with other sites (torch.cuda.
         # graph_pool_handle()), for graphs that never run at once
         self.pool = pool
-        self.graph = None
+        self.exchange = exchange
+        self.pieces = None
+        # per piece, what its capture added to each counted wrapper
         self.added = ()
+        # (op, send, recv) after each piece but the last
+        self.exchanges = ()
         self.hooks = []
 
     def __call__(self) -> None:
         if not self.enabled:
-            self.fn()
-        elif self.graph is None:
+            self._run(None)
+        elif self.pieces is None:
             self._capture()
         else:
             self.replay()
 
+    def _run(self, shapes) -> None:
+        """fn eagerly, each exchange at once (its result's shape and
+        dtype appended to `shapes` where given)."""
+        gen = self.fn()
+        if not self.staged:
+            return
+        val = None
+        while True:
+            try:
+                op, send = gen.send(val)
+            except StopIteration:
+                return
+            if self.exchange is None:
+                gen.close()
+                raise RuntimeError("site %s exchanged without an exchange"
+                                   % self.name)
+            val = self.exchange(op, send)
+            if shapes is not None:
+                shapes.append((tuple(val.shape), val.dtype))
+
     def replay(self) -> None:
-        self.graph.replay()
-        for obj, n in self.added:
-            obj.launches += n
+        for k, graph in enumerate(self.pieces):
+            graph.replay()
+            for obj, n in self.added[k]:
+                obj.launches += n
+            if k < len(self.exchanges):
+                op, send, recv = self.exchanges[k]
+                recv.copy_(self.exchange(op, send), non_blocking=True)
         graph_obs.record_replay(self.name)
         for fn in self.hooks:
             fn()
@@ -102,29 +152,50 @@ class Site:
         cur = torch.cuda.current_stream()
         side = torch.cuda.Stream(device=cur.device)
         side.wait_stream(cur)
+        shapes = []
         with torch.cuda.stream(side):
-            self.fn()
+            self._run(shapes)
         counted = list(self.counted())
-        before = [obj.launches for obj in counted]
-        graph = torch.cuda.CUDAGraph()
+        pieces, added, exchanges = [], [], []
+        staged = self.staged
+        gen, val = (self.fn() if staged else None), None
         _tls.capturing = self
         try:
             with torch.cuda.stream(side):
-                graph.capture_begin(pool=self.pool,
-                                    capture_error_mode="thread_local")
-                try:
-                    self.fn()
-                finally:
-                    graph.capture_end()
+                while True:
+                    before = [obj.launches for obj in counted]
+                    graph = torch.cuda.CUDAGraph()
+                    graph.capture_begin(pool=self.pool,
+                                        capture_error_mode="thread_local")
+                    req = None
+                    try:
+                        if staged:
+                            req = gen.send(val)
+                        else:
+                            self.fn()
+                    except StopIteration:
+                        pass
+                    finally:
+                        graph.capture_end()
+                    pieces.append(graph)
+                    added.append(tuple((obj, obj.launches - b)
+                                       for obj, b in zip(counted, before)
+                                       if obj.launches != b))
+                    for obj, b in zip(counted, before):
+                        obj.launches = b
+                    if req is None:
+                        break
+                    op, send = req
+                    shape, dtype = shapes[len(exchanges)]
+                    val = torch.empty(shape, dtype=dtype, device=send.device)
+                    exchanges.append((op, send, val))
         finally:
             _tls.capturing = None
-        self.added = tuple((obj, obj.launches - b)
-                           for obj, b in zip(counted, before)
-                           if obj.launches != b)
-        for obj, b in zip(counted, before):
-            obj.launches = b
+            if staged:
+                gen.close()
         cur.wait_stream(side)
-        self.graph = graph
+        self.pieces, self.added = pieces, tuple(added)
+        self.exchanges = tuple(exchanges)
         _names.add(self.name)
         graph_obs.record_build(self.name, time.perf_counter() - t0,
                                self.signature())

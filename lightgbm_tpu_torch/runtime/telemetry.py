@@ -36,8 +36,8 @@ lightgbm_tpu/runtime/telemetry.py).
 
 Every instrument checks the module's enable flag first, so with
 `set_enabled(False)` each site costs one global read and a return.
-`gather_host_snapshots` is single-process until the distributed learners
-are ported (ROADMAP queue A item 5).  No torch or numpy at module scope.
+`gather_host_snapshots` gathers every rank's snapshot over the
+torch.distributed group.  No torch or numpy at module scope.
 """
 from __future__ import annotations
 
@@ -607,16 +607,19 @@ def mesh_process_count() -> int:
 def gather_host_snapshots(context: Optional[str] = None,
                           registry: Optional[MetricsRegistry] = None
                           ) -> Dict[str, Dict[str, Any]]:
-    """{host_index: snapshot}: the local snapshot under host "0".  A
-    multi-process gather comes with the distributed learners (ROADMAP
-    queue A item 5); in a run of several processes this raises rather
-    than pass one host's numbers off as the run's."""
+    """{rank: snapshot} across every process of the torch.distributed
+    group (the JAX package's telemetry.py:793-): one process, or no
+    group, gives the local snapshot under "0"; several exchange their
+    snapshots through the group's object all-gather, so every process
+    returns the full map and process 0 can export it.  It never starts
+    a group.  Every rank must call it (it is a collective)."""
     reg = registry if registry is not None else REGISTRY
-    if mesh_process_count() > 1:
-        raise NotImplementedError(
-            "gather_host_snapshots across %d processes is not ported yet "
-            "(ROADMAP queue A item 5)" % mesh_process_count())
-    return {"0": reg.snapshot(context)}
+    local = reg.snapshot(context)
+    if mesh_process_count() <= 1:
+        return {"0": local}
+    from ..parallel import comm
+    return {str(r): snap for r, snap in
+            enumerate(comm.all_gather_object(local))}
 
 
 def merge_host_snapshots(hosts: Dict[str, Dict[str, Any]]

@@ -15,8 +15,8 @@ hooks in its own base library and training through its own package, the
 port's refusing a call without device_type=cpu on a machine without CUDA
 with the port's message while the JAX package's trains; predictions race
 updates safely; NativeBooster and FastSingleRowPredictor predict as
-Booster.predict does; a distributed LGBM_NetworkInit is refused naming
-its ROADMAP item; and helper/check_abi.py's drift checks hold for the
+Booster.predict does; LGBM_NetworkInit refuses a machine list that does
+not name this host; and helper/check_abi.py's drift checks hold for the
 port (every header entry point bound in capi.py, the two training
 libraries exporting the same LGBM_* set, every embedded helper of the
 JAX library present in the port's copy)."""
@@ -411,9 +411,18 @@ def test_native_booster_predicts_as_booster_predict(built, problem,
 
 
 def test_network_init_refuses_several_machines(built):
+    """One machine is a no-op; several bring the process group up
+    (tests/test_torch_launch.py brings two ranks up through this entry
+    point), and a list that does not name this host is refused, naming
+    why, before any connection is tried; LGBM_NetworkFree is
+    idempotent."""
+    import torch.distributed as dist
     capi.network_init("", num_machines=1)
-    with pytest.raises(lt.LightGBMError, match="queue A item 5"):
-        capi.network_init("10.0.0.1:12400,10.0.0.2:12400", num_machines=2)
+    assert not dist.is_initialized()
+    with pytest.raises(lt.LightGBMError, match="none of this host"):
+        capi.network_init("10.255.255.1:12400,10.255.255.2:12400",
+                          num_machines=2)
+    assert not dist.is_initialized()
     capi.network_free()
     capi.network_free()
 

@@ -18,8 +18,9 @@ convert_model's C++ is the JAX package's string for string and compiles
 to the model's predictions; task=doctor's bundle carries probe.json and a
 crashing task leaves a bundle; without device_type=cpu every task but
 doctor fails on a machine without CUDA with the port's message, `python
--m lightgbm_tpu_torch` with a non-zero exit; a cluster, task=serve and
-task=train_online are refused naming their ROADMAP items;
+-m lightgbm_tpu_torch` with a non-zero exit; task=serve and
+task=train_online are refused naming their ROADMAP items, and a machine
+list that does not name this host before any connection;
 LGBM_TPU_METRICS_FILE and compile_cache_dir are read."""
 import json
 import os
@@ -305,16 +306,26 @@ def test_module_entry_without_cpu_exits_non_zero(run, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["task=train", "num_machines=2", "machines=a:1,b:2"], "item 5"),
-    (["task=train", "machines=a:1,b:2"], "item 5"),
-    (["task=refit", "num_machines=4", "machine_list_filename=m.txt"],
-     "item 5"),
     (["task=serve"], "item 6"),
     (["task=train_online"], "item 6")])
 def test_what_waits_is_refused_naming_its_item(run, argv, item,
                                                monkeypatch):
     monkeypatch.setenv("LGBM_TPU_DOCTOR_ON_CRASH", "0")
     with pytest.raises(NotImplementedError, match=item):
+        tapp.Application(argv + ["data=" + run["data"]] + CPU).run()
+
+
+@pytest.mark.parametrize("argv", [
+    ["task=train", "num_machines=2",
+     "machines=10.255.255.1:1,10.255.255.2:2"],
+    ["task=train", "machines=10.255.255.1:1,10.255.255.2:2"]])
+def test_a_machine_list_without_this_host_is_refused(run, argv,
+                                                     monkeypatch):
+    """A multi-machine config brings the process group up
+    (tests/test_torch_launch.py trains two CLI ranks); a list that does not
+    name this host is refused before any connection is tried."""
+    monkeypatch.setenv("LGBM_TPU_DOCTOR_ON_CRASH", "0")
+    with pytest.raises(ValueError, match="none of this host"):
         tapp.Application(argv + ["data=" + run["data"]] + CPU).run()
 
 

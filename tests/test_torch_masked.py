@@ -203,9 +203,15 @@ def test_goss_lambdarank_valid_and_early_stopping():
 
 @pytest.mark.parametrize("mode", ["data", "feature", "voting"])
 def test_mesh_modes_refused(mode):
+    """The mesh modes, refused here until the distributed learners were
+    ported: without a process group GOSS under each trains the serial
+    learner (two ranks: tests/test_torch_tree_learner.py)."""
     X, y, _ = _regression_data(3, n=800)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        lt.train(dict(objective="binary", boosting="goss", verbose=-1,
-                      tree_learner=mode, device_type="cpu"),
-                 lt.Dataset(X, label=(y > 0).astype(np.float64)), 1,
-                 verbose_eval=False)
+    params = dict(objective="binary", boosting="goss", verbose=-1,
+                  device_type="cpu")
+    label = (y > 0).astype(np.float64)
+    bst = lt.train(dict(params, tree_learner=mode),
+                   lt.Dataset(X, label=label), 1, verbose_eval=False)
+    assert bst._engine.parallel_mode is None
+    ref = lt.train(params, lt.Dataset(X, label=label), 1, verbose_eval=False)
+    assert bst.model_to_string() == ref.model_to_string()

@@ -580,10 +580,14 @@ def test_serving_profile_hook_is_not_ported():
 
 
 def test_gather_refuses_several_processes(monkeypatch):
-    """gather_host_snapshots is single-process until the distributed
-    learners are ported: with several processes it raises."""
+    """With several processes gather_host_snapshots no longer refuses: it
+    gathers every rank's snapshot through the group's object all-gather
+    (here a stand-in for the two-rank group of test_torch_launch.py)."""
+    from lightgbm_tpu_torch.parallel import comm
     monkeypatch.setattr(telemetry, "mesh_process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        telemetry.gather_host_snapshots()
+    monkeypatch.setattr(comm, "all_gather_object",
+                        lambda obj, group=None: [obj, {"peer": True}])
+    hosts = telemetry.gather_host_snapshots()
+    assert list(hosts) == ["0", "1"] and hosts["1"] == {"peer": True}
     monkeypatch.setattr(telemetry, "mesh_process_count", lambda: 1)
     assert list(telemetry.gather_host_snapshots()) == ["0"]

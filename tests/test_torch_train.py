@@ -162,17 +162,20 @@ def test_train_without_cpu_request_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("params", [
-    # the parallel learners (GOSS with leaf renewal, here until the masked
-    # grower was ported, now trains: tests/test_torch_masked.py; the
-    # non-finite sentinel too: tests/test_torch_resilience.py)
+    # the parallel learners, refused here until they were ported: without
+    # a process group each trains the serial learner, with the JAX
+    # package's warning (two ranks: tests/test_torch_parallel.py)
     dict(tree_learner="feature"),
     dict(tree_learner="data"),
     dict(tree_learner="voting")])
 def test_unported_options_raise(params):
     X, y = _data(7)
-    with pytest.raises(NotImplementedError):
-        lt.train(dict(PARAMS, device_type="cpu", **params),
-                 lt.Dataset(X, label=y), 1, verbose_eval=False)
+    bst = lt.train(dict(PARAMS, device_type="cpu", **params),
+                   lt.Dataset(X, label=y), 1, verbose_eval=False)
+    assert bst._engine.parallel_mode is None
+    ref = lt.train(dict(PARAMS, device_type="cpu"), lt.Dataset(X, label=y),
+                   1, verbose_eval=False)
+    assert bst.model_to_string() == ref.model_to_string()
 
 
 def test_payload_conversion_roundtrip():
