@@ -256,8 +256,21 @@ summed), and data with int8, 3 iterations each, then data at 131,072 x
 data / feature / voting top_k 20 / wide data the serial cut byte for
 byte, voting top_k 5 within VOTE_AUC and int8 within 0.002 AUC of their
 serial runs; s/iter, syncs and exchange bytes a tree, each rank's peak
-MiB, launches).  The multiclass repeat check runs SHORT_ITERS
-iterations against the path's model cut there.
+MiB, launches).  The repeat checks of the merged, frontier 8, bagging,
+bagging int8, rf, forced, monotone, categorical, year, renewal,
+multiclass and rank paths run SHORT_ITERS iterations against the path's
+model cut there (`model_cut`, `repeat_cut`, the line giving the path's
+own sha256 too); the main path's and the others' run the path's
+iterations.
+Serving and online training (runtime/continuous.py, runtime/serving.py):
+`online` runs ContinuousTrainer in process over the main path's 1M x 28
+rows as a TSV (a `--tsv-child` writes it during the kernel phases), 3
+cycles of 2 rounds with the gate on, B1 and B2 counted per cycle;
+`serve` a ServingRuntime over its publish dir, 8 client threads and ~2M
+rows of ragged requests with a 500 x 255 model published mid-stream,
+every response held to the offline device predict of its generation;
+`serve fault` die_at_predict and slow_predict on one batch each; `cli
+serve / cli online` the task=serve and task=train_online children.
 Every phase always runs and prints one line, prefixed with the seconds
 since start; any failed check exits non-zero.  The last line is the
 device record {"ok": true, "device": {...}}.  Imports nothing of JAX or
@@ -2237,7 +2250,25 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a, b)
 
 
-def repeat_check(label: str, train, reference_text: str = None) -> str:
+def model_cut(text: str, iters: int = None) -> str:
+    """A path's model text cut to its first `iters` iterations
+    (SHORT_ITERS by default): what a run of that many writes byte for
+    byte, the reference of a repeat check cut in depth."""
+    return lt.Booster(params={"device_type": "cpu"}, model_str=text) \
+        .model_to_string(num_iteration=iters or SHORT_ITERS)
+
+
+def repeat_cut(label: str, train, text: str) -> str:
+    """repeat_check of a path cut in depth: `train(SHORT_ITERS)` against
+    the path's model `text` cut there (`model_cut`); the line also gives
+    the sha256 of the path's own model."""
+    return repeat_check("%s (%d iters)" % (label, SHORT_ITERS),
+                        lambda: train(SHORT_ITERS), model_cut(text),
+                        path_text=text)
+
+
+def repeat_check(label: str, train, reference_text: str = None,
+                 path_text: str = None) -> str:
     """Queue C's check: a path trained twice more in this call from the
     same binned data, the first run under PyTorch's deterministic mode
     (warn_only, its warnings printed), the second without.  Raises unless
@@ -2282,12 +2313,14 @@ def repeat_check(label: str, train, reference_text: str = None) -> str:
           "repeat %s: the model text differs from the path's own run at %s"
           % (label, first_difference(a["text"], reference_text or "")))
     return ("repeat %s: trained twice more, the first run in PyTorch's "
-            "deterministic mode: model text byte-identical%s, sha256 %s; "
+            "deterministic mode: model text byte-identical%s, sha256 %s%s; "
             "%d f32 histograms, %d split searches and the final scores "
             "bit-identical (no-op steps past a tree's stop left out: %d "
             "and %d); deterministic-mode warnings %s"
             % (label, " (and to the path's own run)"
                if reference_text is not None else "", a["sha"],
+               " (the path's own model: sha256 %s)" % sha(path_text)
+               if path_text is not None else "",
                len(a["hists"]), len(a["searches"]), a["noop_steps"],
                b["noop_steps"], json.dumps(a["warnings"])))
 
@@ -3509,8 +3542,8 @@ def categorical_phase(seed: int, iters: int, main_run: dict):
            float(np.abs(dev_pred - host).max())))
     text = r["model_text"]
     del r, rn, bst, ds_num
-    say(repeat_check("categorical", lambda: lt.train(
-        params, ds, iters, verbose_eval=False), text))
+    say(repeat_cut("categorical", lambda n: lt.train(
+        params, ds, n, verbose_eval=False), text))
     with grower_mode():
         front = lt.train(dict(params, tpu_frontier_batch=8), ds, iters,
                          verbose_eval=False)
@@ -3710,8 +3743,8 @@ def year_phase(seed: int, iters: int, main_run: dict, smi: str):
            json.dumps(r["replays"]), json.dumps(launches), smi))
     text = r["model_text"]
     del r, bst
-    say(repeat_check("year", lambda: lt.train(
-        params, ds, iters, valid_sets=[dv], verbose_eval=False), text))
+    say(repeat_cut("year", lambda n: lt.train(
+        params, ds, n, valid_sets=[dv], verbose_eval=False), text))
     return (ds, Xt, Xv, yv), launches
 
 
@@ -3790,8 +3823,8 @@ def renewal_phase(data, iters: int = YEAR_RENEW_ITERS) -> dict:
     text, launches = r["model_text"], r["launches"]
     del r, bst
     say(line)
-    say(repeat_check("renewal", lambda: lt.train(
-        params, ds, iters, verbose_eval=False), text))
+    say(repeat_cut("renewal", lambda n: lt.train(
+        params, ds, n, verbose_eval=False), text))
     return launches
 
 
@@ -3840,8 +3873,8 @@ def bagging_phase(data, main_run: dict, iters: int) -> dict:
     text = r["model_text"]
     runs = {"bagging": launches}
     del r
-    say(repeat_check("bagging", lambda: lt.train(
-        params, ds, iters, verbose_eval=False), text))
+    say(repeat_cut("bagging", lambda n: lt.train(
+        params, ds, n, verbose_eval=False), text))
     say("bagging: " + bag_check(ds, params))
     reset_counts()
     with grower_mode():
@@ -3868,8 +3901,8 @@ def bagging_phase(data, main_run: dict, iters: int) -> dict:
     say(path_line(rq, ds.binned.num_data, iters))
     text = rq["model_text"]
     del rq
-    say(repeat_check("bagging int8", lambda: lt.train(
-        qparams, ds, iters, verbose_eval=False), text))
+    say(repeat_cut("bagging int8", lambda n: lt.train(
+        qparams, ds, n, verbose_eval=False), text))
     return runs
 
 
@@ -4506,9 +4539,7 @@ def multiclass_phase(seed: int, iters: int, main_run: dict, smi: str):
     say(profile_phase(bst, "multiclass", launched=("part_move",),
                       retired=("part_stage_move", "part_commit")))
     # the repeat check's SHORT_ITERS iterations: the path's model cut there
-    text = lt.Booster(params={"device_type": "cpu"},
-                      model_str=r["model_text"]).model_to_string(
-                          num_iteration=SHORT_ITERS)
+    text = model_cut(r["model_text"])
     del r, bst
     runs = {"multiclass": launches}
     short = dict(params, metric=["multi_error"])
@@ -4696,8 +4727,8 @@ def rank_phase(seed: int, iters: int, main_run: dict, smi: str):
     say(checked_partition_phase(
         (ds, Xv, yv), n, 1, params=params, label="B2 in rank training",
         quality=lambda b: ("NDCG@10", ndcg10.eval(b.predict(Xv), None))))
-    say(repeat_check("rank", lambda: lt.train(
-        params, ds, iters, valid_sets=[dv], verbose_eval=False), text))
+    say(repeat_cut("rank", lambda n: lt.train(
+        params, ds, n, valid_sets=[dv], verbose_eval=False), text))
     return launches, b1, dict(ds=ds, dv=dv, Xv=Xv, yv=yv, ndcg10=ndcg10,
                               rand=rand, Xt=Xt, yt=yt, gt=gt)
 
@@ -5088,8 +5119,8 @@ def rf_phase(data, main_run: dict, iters: int, smi: str) -> dict:
     text = r["model_text"]
     runs = {"rf": r["launches"]}
     del r, bst
-    say(repeat_check("rf", lambda: lt.train(
-        params, ds, iters, verbose_eval=False), text))
+    say(repeat_cut("rf", lambda n: lt.train(
+        params, ds, n, verbose_eval=False), text))
     return runs
 
 
@@ -5178,8 +5209,8 @@ def forced_phase(data, main_run: dict, iters: int, smi: str) -> dict:
                              left_splits, json.dumps(runs["forced "
                                                           "fallback"])))
     del fb
-    say(repeat_check("forced", lambda: lt.train(
-        params, ds, iters, verbose_eval=False), text))
+    say(repeat_cut("forced", lambda n: lt.train(
+        params, ds, n, verbose_eval=False), text))
     return runs
 
 
@@ -5272,8 +5303,8 @@ def monotone_phase(data, main_run: dict, iters: int, smi: str) -> dict:
         "launches %s" % (front.split_rounds_per_tree(),
                          json.dumps(runs["monotone frontier 8"])))
     del front
-    say(repeat_check("monotone", lambda: lt.train(
-        params, ds, iters, verbose_eval=False), text))
+    say(repeat_cut("monotone", lambda n: lt.train(
+        params, ds, n, verbose_eval=False), text))
     return runs
 
 
@@ -7464,6 +7495,545 @@ def distributed_phase(cache: str, data, main_cut: str, runs: dict,
     return line, launches
 
 
+# ---------------------------------------------------------------------------
+# phases: online training and serving (runtime/continuous.py,
+# runtime/serving.py, task=train_online / task=serve)
+# ---------------------------------------------------------------------------
+
+#: the online trainer's window: the main path's 1,000,000 training rows,
+#: written once as a TSV (label first) by a child while the kernel phases
+#: run
+ONLINE_ROWS = 1_000_000
+ONLINE_ROUNDS = 2
+ONLINE_CYCLES = 3
+#: the gate on (publish_gate_tolerance defaults to inf, which turns it off)
+ONLINE_GATE = dict(publish_gate_tolerance=0.05, publish_gate_holdout=0.1)
+#: generation 3 against the main path's model at the same iterations
+ONLINE_AUC_TOL = 0.01
+#: the serve line: client threads, ragged request rows, the stream's rows
+SERVE_CLIENTS = 8
+SERVE_MAX_REQUEST = 4096
+SERVE_STREAM_ROWS = 2_000_000
+SERVE_POOL_ROWS = 262_144
+#: the stream's share served before the serving-shape model is published
+SERVE_SWAP_SHARE = 0.4
+#: the manifest's row buckets for the first generation: every bucket a
+#: batch of requests up to SERVE_MAX_REQUEST rows can reach (16..8192)
+SERVE_BUCKETS = tuple(16 << i for i in range(10))
+#: requests the task=serve child answers
+CLI_SERVE_REQUESTS = 200
+#: the serve fault line's predict deadline and the slow_predict stall
+FAULT_DEADLINE_S = 2.0
+FAULT_STALL_S = 4.0
+
+
+def tsv_child(path: str, rows: int, seed: int) -> int:
+    """`--tsv-child PATH ROWS SEED`: the main path's first `rows` training
+    rows (its generator and seed) written as a label-first TSV, each
+    float32 value in '%.9g' (which reads back as the same float32)."""
+    t0 = time.perf_counter()
+    X, y = synth(rows + 100_000, F, seed)
+    fmt = "\t".join(["%.9g"] * (F + 1)) + "\n"
+    tmp = path + ".tmp"
+    with open(tmp, "w") as fh:
+        for s in range(0, rows, 50_000):
+            e = min(s + 50_000, rows)
+            block = np.column_stack([y[s:e], X[s:e].astype(np.float64)])
+            fh.write((fmt * (e - s)) % tuple(block.ravel().tolist()))
+    os.replace(tmp, path)
+    print("tsv %.3f s" % (time.perf_counter() - t0), flush=True)
+    return 0
+
+
+def start_tsv_child(work: str, seed: int) -> dict:
+    path = os.path.join(work, "online.tsv")
+    child = subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--tsv-child",
+         path, "--rows", str(ONLINE_ROWS), "--seed", str(seed)],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    return dict(child=child, path=path, t0=time.perf_counter())
+
+
+def tsv_done(run: dict) -> tuple:
+    """(the TSV's path, the child's own seconds to write it)."""
+    rc, out, _ = cli_done(run, timeout=600)
+    check(rc == 0 and os.path.exists(run["path"]),
+          "online: the TSV child exited %s: %s" % (rc, out[-2000:]))
+    return run["path"], float(out.rsplit("tsv ", 1)[1].split()[0])
+
+
+def online_params(tsv: str, out: str, cycles: int) -> dict:
+    return dict(train_params(255), data=tsv, output_model=out,
+                publish_dir=out + ".pub", online_window_rows=ONLINE_ROWS,
+                online_rounds=ONLINE_ROUNDS, online_cycles=cycles,
+                online_interval=0, **ONLINE_GATE)
+
+
+def published(pub_dir: str) -> dict:
+    """{generation: (model text, meta)} of a publish dir."""
+    from lightgbm_tpu_torch.runtime import publish
+    out = {}
+    for gen, path in publish.generation_paths(pub_dir):
+        with open(path) as fh:
+            out[gen] = publish._split_validate(fh.read())
+    return out
+
+
+def online_phase(tsv: str, t_tsv: float, work: str, main_text: str, Xv,
+                 yv, smi: str) -> tuple:
+    """`ContinuousTrainer` in this process, alone on the card, with the
+    main path's parameters over the 1M x 28 TSV: 3 cycles of 2 rounds, the
+    gate on.  Per cycle: the ingest, train and publish seconds from the
+    stage trail and B1's and B2's launches (the counts read around each
+    cycle).  Held: B1 and B2 launch in every cycle and no wide kernel
+    (B3, B7, B8) ever; generations 1-3 carry total_iter 2/4/6; the saved
+    model starts with generation 3's text; generation 3's AUC on the main
+    path's validation set within ONLINE_AUC_TOL of the main path's model
+    at 6 iterations."""
+    from lightgbm_tpu_torch.runtime import continuous
+    out = os.path.join(work, "online.txt")
+    per_cycle = {}
+
+    class Counting(continuous.ContinuousTrainer):
+        def _run_cycle(self, cycle, producer, guard):
+            before = read_counts()
+            super()._run_cycle(cycle, producer, guard)
+            after = read_counts()
+            per_cycle[cycle] = {k: after[k] - before[k] for k in COUNTED}
+
+    trainer = Counting(online_params(tsv, out, ONLINE_CYCLES))
+    trainer.wd.stream = sys.stderr
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = trainer.run()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = read_counts()
+    check(rc == 0, "online: the trainer returned %d" % rc)
+    gens = published(out + ".pub")
+    check(sorted(gens) == [1, 2, 3], "online: generations %s" % sorted(gens))
+    iters = {g: gens[g][1]["total_iter"] for g in gens}
+    check(iters == {1: 2, 2: 4, 3: 6}, "online: total_iter %s" % iters)
+    with open(out) as fh:
+        check(fh.read().startswith(gens[3][0]),
+              "online: the saved model does not start with generation 3")
+    for c in range(1, ONLINE_CYCLES + 1):
+        got = per_cycle.get(c, {})
+        check(got.get("segment_histogram", 0) > 0
+              and got.get("partition_segment", 0) > 0,
+              "online: cycle %d launched B1 %s, B2 %s" % (
+                  c, got.get("segment_histogram"),
+                  got.get("partition_segment")))
+    check(not any(launches[k] for k in WIDE_ONLY),
+          "online: a wide kernel launched: %s"
+          % {k: launches[k] for k in WIDE_ONLY})
+    stages = {s["name"]: s for s in trainer.wd.stages}
+    rows = []
+    for c in range(1, ONLINE_CYCLES + 1):
+        st = {k: stages.get("cycle %d: %s" % (c, k), {})
+              for k in ("ingest", "train", "gate", "publish")}
+        rows.append(dict(
+            cycle=c, ingest_s=st["ingest"].get("dur_s"),
+            train_s=st["train"].get("dur_s"),
+            gate=st["gate"].get("publish_gate", {}).get("verdict"),
+            publish_latency_s=st["publish"].get("publish_latency_s"),
+            syncs=st["train"].get("syncs"),
+            builds=st["train"].get("program_builds"),
+            b1=per_cycle[c]["segment_histogram"],
+            b2=per_cycle[c]["partition_segment"]))
+    check(all(r["gate"] in ("no_incumbent", "pass") for r in rows),
+          "online: gate verdicts %s" % [r["gate"] for r in rows])
+    first = trainer.wd.stages[0] if trainer.wd.stages else {}
+    parse = [s["ingest"] for s in trainer.wd.stages if "ingest" in s]
+    auc3 = auc_score(yv, lt.Booster(model_str=gens[3][0]).predict(Xv))
+    auc_main = auc_score(yv, lt.Booster(model_str=main_text).predict(
+        Xv, num_iteration=ONLINE_ROUNDS * ONLINE_CYCLES))
+    check(abs(auc3 - auc_main) <= ONLINE_AUC_TOL,
+          "online: generation 3 AUC %.6f vs the main path's %.6f at %d "
+          "iterations" % (auc3, auc_main, ONLINE_ROUNDS * ONLINE_CYCLES))
+    line = ("online (%s): ContinuousTrainer in this process over the %d x "
+            "%d TSV (written by a child in %.2f s), 255 leaves, %d cycles "
+            "of %d rounds, online_interval 0, the gate on (tolerance %.2f, "
+            "holdout %.2f): %.2f s in all (first stage %s); parse %s; per "
+            "cycle %s; launches B1 %d and B2 %d in all (B3/B7/B8 0); "
+            "generations 1-3 at total_iter 2/4/6, the saved model starts "
+            "with generation 3's text; generation 3 AUC %.6f, the main "
+            "path's at %d iterations %.6f (|d| %.6f <= %.2f)"
+            % (smi, ONLINE_ROWS, F, t_tsv, ONLINE_CYCLES, ONLINE_ROUNDS,
+               ONLINE_GATE["publish_gate_tolerance"],
+               ONLINE_GATE["publish_gate_holdout"], t_run,
+               first.get("name"), json.dumps(parse[:1]), json.dumps(rows),
+               launches["segment_histogram"], launches["partition_segment"],
+               auc3, ONLINE_ROUNDS * ONLINE_CYCLES, auc_main,
+               abs(auc3 - auc_main), ONLINE_AUC_TOL))
+    return line, launches, out + ".pub", gens
+
+
+def offline(text: str, X, **kw):
+    """The offline device predict of a model text (a Booster of its own)."""
+    return lt.Booster(model_str=text).predict(X, device=True, **kw)
+
+
+def serve_phase(pub_dir: str, gens: dict, seed: int, smi: str) -> tuple:
+    """A `ServingRuntime` on the card over the online line's publish dir,
+    its manifest naming SERVE_BUCKETS for generation 3: SERVE_CLIENTS
+    client threads send ragged requests of 1..SERVE_MAX_REQUEST rows
+    (slices of a seeded pool, about SERVE_STREAM_ROWS rows in all);
+    after SERVE_SWAP_SHARE of the stream a host `ModelPublisher`
+    publishes the serving-shape model (synth_serving_model, 500 x 255 x
+    28) as generation 4.  Held: no drop; every response is generation 3
+    or 4, byte for byte the offline device predict of its generation on
+    its rows, served by the device; 0 host batches, 0 prewarm failures,
+    0 breaker trips; after the prewarm, the captures at the predictor's
+    site are generation 4's programs only."""
+    import threading
+    from lightgbm_tpu_torch.runtime import (graph_obs, publish, serving,
+                                            telemetry, warmup)
+    text4 = synth_serving_model(SERVE_TREES, SERVE_LEAVES, F, seed) \
+        .save_model_to_string()
+    pool = np.random.default_rng(seed + 23).standard_normal(
+        (SERVE_POOL_ROWS, F)).astype(np.float32)
+    pub = publish.ModelPublisher(pub_dir, keep_last=0)
+    pub.publish_manifest("serving", warmup.build_serving_section(
+        F, list(SERVE_BUCKETS), generation=3))
+    hist = telemetry.histogram("lgbm_serve_latency_seconds")
+    t0 = time.perf_counter()
+    rt = serving.ServingRuntime(
+        publish_dir=pub_dir, poll_interval_s=0.02, max_queue=256,
+        max_batch_rows=SERVE_MAX_REQUEST, batch_window_s=0.002,
+        default_deadline_s=120.0, predict_deadline_s=120.0)
+    rt.start()
+    t_start = time.perf_counter() - t0
+    prewarm = rt.prewarm_events[0] if rt.prewarm_events else {}
+    check(prewarm.get("outcome") == "manifest_ok"
+          and prewarm.get("buckets") == list(SERVE_BUCKETS),
+          "serve: the manifest prewarm %s" % prewarm)
+    entry3 = rt._entries["default"]
+    check(entry3.generation == 3, "serve: started at generation %d"
+          % entry3.generation)
+    caps3 = entry3.booster._dev_predictor.capture_count()
+    caps0 = graph_obs.total_compiles(warmup.PREDICT_SITE)
+    st0 = rt.stats()
+    h0 = hist.state()
+    per_client = SERVE_STREAM_ROWS // SERVE_CLIENTS
+    swap_at = int(SERVE_STREAM_ROWS * SERVE_SWAP_SHARE)
+    lock = threading.Lock()
+    shared = {"rows": 0, "published": None, "seen4": None}
+    results = [[] for _ in range(SERVE_CLIENTS)]
+    errors = []
+
+    def client(i):
+        rng = np.random.default_rng(seed + 31 + i)
+        sent = 0
+        while sent < per_client:
+            n = int(rng.integers(1, SERVE_MAX_REQUEST + 1))
+            s = int(rng.integers(0, SERVE_POOL_ROWS - n + 1))
+            try:
+                rec = rt.submit(pool[s:s + n]).wait(timeout=300)
+            except BaseException as e:       # noqa: BLE001 — a drop
+                errors.append("%s: %s" % (type(e).__name__, e))
+                return
+            results[i].append((s, n, rec.generation, rec.served_by,
+                               rec.values))
+            sent += n
+            with lock:
+                shared["rows"] += n
+                publish_now = (shared["published"] is None
+                               and shared["rows"] >= swap_at)
+                if publish_now:
+                    shared["published"] = time.perf_counter()
+                if rec.generation == 4 and shared["seen4"] is None:
+                    shared["seen4"] = time.perf_counter()
+            if publish_now:
+                pub.publish(text4, meta={"cycle": 4})
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    t_stream = time.perf_counter() - t0
+    h1 = hist.state()
+    st = rt.stats()
+    entry4 = rt._entries["default"]
+    caps_new = graph_obs.total_compiles(warmup.PREDICT_SITE) - caps0
+    caps4 = entry4.booster._dev_predictor.capture_count() \
+        if entry4.generation == 4 else None
+    caps3_after = entry3.booster._dev_predictor.capture_count()
+    swap_events = [s["last_swap"] for s in rt.wd.stages
+                   if isinstance(s.get("last_swap"), dict)
+                   and s["last_swap"].get("generation") == 4]
+    rt.stop()
+    check(not errors, "serve: %d requests dropped: %s"
+          % (len(errors), errors[:3]))
+    check(entry4.generation == 4, "serve: never swapped to generation 4")
+    check(st["batches_host"] == st0["batches_host"] == 0
+          and st["prewarm_failures"] == 0 and st["degradations"] == 0,
+          "serve: host batches %d, prewarm failures %d, breaker trips %d"
+          % (st["batches_host"], st["prewarm_failures"],
+             st["degradations"]))
+    check(caps3_after == caps3, "serve: generation 3 captured %d programs "
+          "after its prewarm" % (caps3_after - caps3))
+    check(caps_new == caps4, "serve: %d captures at %s after the prewarm, "
+          "generation 4's programs %s" % (caps_new, warmup.PREDICT_SITE,
+                                          caps4))
+    want = {3: offline(gens[3][0], pool), 4: offline(text4, pool)}
+    n_req = n_rows = 0
+    by_gen = {3: 0, 4: 0}
+    for res in results:
+        for s, n, gen, by, values in res:
+            check(gen in want, "serve: a response names generation %s"
+                  % gen)
+            check(by == "device", "serve: a response served by %s" % by)
+            check(np.array_equal(values, want[gen][s:s + n]),
+                  "serve: a %d-row response of generation %d is not the "
+                  "offline device predict of its rows" % (n, gen))
+            n_req += 1
+            n_rows += n
+            by_gen[gen] += 1
+    check(by_gen[3] and by_gen[4], "serve: responses by generation %s"
+          % by_gen)
+    dh = telemetry.state_delta(h1, h0)
+    p50 = telemetry.quantile_from_state(dh, 0.5)
+    p99 = telemetry.quantile_from_state(dh, 0.99)
+    batches = st["batches_device"] - st0["batches_device"]
+    swap_s = (shared["seen4"] - shared["published"]) \
+        if shared["seen4"] and shared["published"] else None
+    line = ("serve (%s): ServingRuntime on the card over the online "
+            "publish dir (start %.3f s with the manifest prewarm of "
+            "buckets %s), %d client threads, %d ragged requests of 1..%d "
+            "rows (%d rows) in %.3f s: %.1f requests/s, %.1f rows/s; "
+            "latency p50 %.6f s p99 %.6f s (lgbm_serve_latency_seconds); "
+            "%d device batches, %.1f rows a batch, 0 host; generation 4 "
+            "(%d x %d x %d) published after %d rows, first answered %.3f "
+            "s later (load + prewarm %s); responses by generation %s, "
+            "every one the offline device predict of its generation byte "
+            "for byte; captures after the prewarm %d, all generation 4's"
+            % (smi, t_start, list(SERVE_BUCKETS), SERVE_CLIENTS, n_req,
+               SERVE_MAX_REQUEST, n_rows, t_stream, n_req / t_stream,
+               n_rows / t_stream, p50 or -1.0, p99 or -1.0, batches,
+               n_rows / max(batches, 1), SERVE_TREES, SERVE_LEAVES, F,
+               swap_at, swap_s if swap_s is not None else -1.0,
+               json.dumps([{k: e.get(k) for k in ("load_s",
+                                                  "prewarm_compiles")}
+                           for e in swap_events]), by_gen, caps_new))
+    return line, text4, pool, want
+
+
+def serve_fault_phase(pub_dir: str, text4: str, pool, smi: str) -> str:
+    """`die_at_predict` on one batch and `slow_predict` past the predict
+    deadline on another, on a raw-score runtime over the publish dir:
+    exactly those two batches are host-served, within 1e-5 of the
+    device's raw score; each trips the breaker once and recovers once
+    (a probe after the cooldown, once the abandoned call has left the
+    predictor); every other response is the device's, byte for byte."""
+    from lightgbm_tpu_torch.runtime import resilience, serving
+    rows = 1000
+    X = pool[:8 * rows]
+    raw = offline(text4, X, raw_score=True)
+    # no manifest prewarm or export: one bucket (1024 rows) serves it
+    rt = serving.ServingRuntime(
+        publish_dir=pub_dir, raw_score=True, batch_window_s=0.0,
+        predict_deadline_s=FAULT_DEADLINE_S, breaker_cooldown_s=0.2,
+        default_deadline_s=120.0, prewarm_manifest=False,
+        export_manifest=False)
+    rt.start()
+    served = []
+
+    def ask(k):
+        rec = rt.submit(X[k * rows:(k + 1) * rows]).wait(timeout=300)
+        want = raw[k * rows:(k + 1) * rows]
+        if rec.served_by == "device":
+            check(np.array_equal(rec.values, want),
+                  "serve fault: device batch %d is not the offline "
+                  "predict" % k)
+            err = 0.0
+        else:
+            err = float(np.abs(rec.values - want).max())
+            check(err <= 1e-5, "serve fault: host batch %d max |d| %.3g"
+                  % (k, err))
+        served.append((k, rec.served_by, err))
+        return rec
+
+    def recovered():
+        end = time.monotonic() + 60
+        while time.monotonic() < end:
+            st = rt.stats()
+            if st["abandoned_running"] == 0 \
+                    and time.monotonic() > st["breaker"]["open_until"]:
+                return
+            time.sleep(0.01)
+        raise SmokeFailure("serve fault: the abandoned call never ended")
+
+    ask(0)
+    counters = []
+    t = {}
+    for name, spec in (("die_at_predict", "die_at_predict:%d"
+                        % (resilience._PREDICT_FAULT["batches"] + 1)),
+                       ("slow_predict", "slow_predict:%g" % FAULT_STALL_S)):
+        st0 = rt.stats()
+        os.environ["LGBM_TPU_FAULT"] = spec
+        t0 = time.perf_counter()
+        try:
+            ask(1 if name == "die_at_predict" else 4)
+        finally:
+            os.environ.pop("LGBM_TPU_FAULT", None)
+        t[name] = time.perf_counter() - t0
+        recovered()
+        ask(2 if name == "die_at_predict" else 5)
+        ask(3 if name == "die_at_predict" else 6)
+        st1 = rt.stats()
+        counters.append({k: st1[k] - st0[k] for k in (
+            "degradations", "recoveries", "batches_host", "abandoned")})
+    ask(7)
+    rt.stop()
+    host = [k for k, by, _ in served if by == "host"]
+    check(host == [1, 4], "serve fault: host-served batches %s, not [1, 4]"
+          % host)
+    for name, c in zip(("die_at_predict", "slow_predict"), counters):
+        check(c["degradations"] == 1 and c["recoveries"] == 1,
+              "serve fault: %s tripped %d, recovered %d" % (
+                  name, c["degradations"], c["recoveries"]))
+    return ("serve fault (%s): raw-score runtime, %d-row batches, predict "
+            "deadline %.1f s: die_at_predict served batch 1 from the host "
+            "(max |d| %.3g against the device's raw score, %.3f s), "
+            "slow_predict:%g past the deadline batch 4 (max |d| %.3g, "
+            "answered in %.3f s); counters per fault %s; batches by path "
+            "%s; every later response the device's byte for byte"
+            % (smi, rows, FAULT_DEADLINE_S, served[1][2],
+               t["die_at_predict"], FAULT_STALL_S, served[4][2],
+               t["slow_predict"], json.dumps(counters),
+               [by for _, by, _ in served]))
+
+
+def start_cli_online(tsv: str, work: str, profile_dir: str) -> dict:
+    """task=train_online as a child: 2 cycles with the online line's
+    parameters into a fresh publish dir, its 4 iterations profiled
+    (LGBM_TPU_PROFILE) for B1's and B2's launches."""
+    out = os.path.join(work, "cli_online.txt")
+    params = online_params(tsv, out, 2)
+    return dict(start_cli(["task=train_online"] + cli_args(params),
+                          LGBM_TPU_PROFILE=profile_dir,
+                          LGBM_TPU_PROFILE_ITERS=str(2 * ONLINE_ROUNDS)),
+                out=out, profile=profile_dir)
+
+
+def start_cli_serve(pub_dir: str) -> dict:
+    """task=serve on the card as a child over the online publish dir."""
+    run = start_cli(["task=serve", "publish_dir=" + pub_dir,
+                     "serve_port=0"])
+    head = []
+    for text in run["child"].stdout:
+        head.append(text)
+        if text.startswith("serving ") or len(head) > 200:
+            break
+    check(head and head[-1].startswith("serving "),
+          "cli serve: no contract line: %s" % "".join(head)[-2000:])
+    run["port"] = int(head[-1].rsplit(":", 1)[1])
+    return run
+
+
+def cli_serve_done(run: dict, pool, want: dict, seed: int) -> tuple:
+    """CLI_SERVE_REQUESTS JSON-lines requests over TCP, each the offline
+    predict of its generation; then SIGTERM: exit 0, 0 host batches."""
+    import signal
+    import socket
+    rng = np.random.default_rng(seed + 41)
+    gens = set()
+    t0 = time.perf_counter()
+    with socket.create_connection(("127.0.0.1", run["port"]),
+                                  timeout=120) as sk:
+        fh = sk.makefile("rw")
+        for _ in range(CLI_SERVE_REQUESTS):
+            n = int(rng.integers(1, 65))
+            s = int(rng.integers(0, len(pool) - n))
+            fh.write(json.dumps({"features": pool[s:s + n].astype(
+                np.float64).tolist()}) + "\n")
+            fh.flush()
+            resp = json.loads(fh.readline())
+            gen = resp.get("generation")
+            check(gen in want and resp.get("served_by") == "device",
+                  "cli serve: response %s" % str(resp)[:300])
+            check(np.array_equal(np.asarray(resp["values"]),
+                                 want[gen][s:s + n]),
+                  "cli serve: a response differs from the offline predict")
+            gens.add(gen)
+    t_req = time.perf_counter() - t0
+    run["child"].send_signal(signal.SIGTERM)
+    rc, out, secs = cli_done(run, timeout=120)
+    check(rc == 0, "cli serve: SIGTERM exit %s: %s" % (rc, out[-2000:]))
+    stats = json.loads(out.split("serve: final stats: ")[1].splitlines()[0])
+    check(stats["batches_host"] == 0 and stats["completed"]
+          == CLI_SERVE_REQUESTS, "cli serve: final stats host %s, "
+          "completed %s" % (stats["batches_host"], stats["completed"]))
+    return ("task=serve child: %d JSON-lines requests in %.3f s, "
+            "generations %s, each the offline predict byte for byte; "
+            "SIGTERM drained it to exit 0 (%.1f s of child), final stats "
+            "%d completed, %d host batches"
+            % (CLI_SERVE_REQUESTS, t_req, sorted(gens), secs,
+               stats["completed"], stats["batches_host"]))
+
+
+def cli_online_done(run: dict, gens: dict) -> tuple:
+    """The task=train_online child's end: exit 0, generation 2's model
+    text the online line's generation 2 byte for byte; B1's and B2's
+    launches from its trace."""
+    rc, out, secs = cli_done(run, timeout=900)
+    check(rc == 0, "cli online: exit %s: %s" % (rc, out[-2000:]))
+    mine = published(run["out"] + ".pub")
+    check(sorted(mine) == [1, 2], "cli online: generations %s"
+          % sorted(mine))
+    check(mine[2][0] == gens[2][0], "cli online: generation 2 differs from "
+          "the online line's at %s" % first_difference(mine[2][0],
+                                                       gens[2][0]))
+    traces = [os.path.join(dp, f) for dp, _, fs in os.walk(run["profile"])
+              for f in fs if f.endswith(".json")]
+    check(len(traces) == 1, "cli online: traces %s" % traces)
+    kernels = profiled_kernels(traces[0])
+    found = {b: sum(n for k, n in kernels.items() if name in k)
+             for b, name in PROFILE_KERNELS.items()}
+    check(all(found.values()), "cli online: the trace lacks %s" % found)
+    counts = {"segment_histogram": found["B1"],
+              "partition_segment": found["B2"]}
+    return ("task=train_online child: 2 cycles of %d rounds in %.1f s of "
+            "child, generation 2 the online line's byte for byte (sha256 "
+            "%s); its %d iterations' trace: B1 %d, B2 %d launches"
+            % (ONLINE_ROUNDS, secs, sha(mine[2][0]), 2 * ONLINE_ROUNDS,
+               found["B1"], found["B2"])), counts
+
+
+def serving_online_phases(tsv_run: dict, main_text: str, data, seed: int,
+                          smi: str) -> dict:
+    """The lines `online`, `serve`, `serve fault` and `cli serve` /
+    `cli online`, in that order: the in-process trainer alone on the
+    card, then the serving runtime alone, then the fault runtime while
+    the two CLI children run.  Returns the launch counts by path."""
+    import tempfile
+    t_phase = time.perf_counter()
+    work = os.path.dirname(tsv_run["path"])
+    tsv, t_tsv = tsv_done(tsv_run)
+    line, launches, pub_dir, gens = online_phase(
+        tsv, t_tsv, work, main_text, data[1], data[2], smi)
+    say(line)
+    line, text4, pool, want = serve_phase(pub_dir, gens, seed, smi)
+    say(line)
+    t_children = time.perf_counter()
+    cli_on = start_cli_online(tsv, work, tempfile.mkdtemp(dir=work))
+    cli_sv = start_cli_serve(pub_dir)
+    say(serve_fault_phase(pub_dir, text4, pool, smi))
+    serve_line = cli_serve_done(cli_sv, pool, want, seed)
+    online_line, cli_counts = cli_online_done(cli_on, gens)
+    say("cli serve / cli online (%s): %s; %s (both children %.1f s)"
+        % (smi, serve_line, online_line, time.perf_counter() - t_children))
+    say("serving and online lines: %.1f s" % (time.perf_counter() - t_phase))
+    cli = {k: 0 for k in COUNTED}
+    cli.update(cli_counts)
+    return {"online": launches, "cli online": cli}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1_000_000)
@@ -7473,6 +8043,7 @@ def main() -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--dist-child", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--dist-spec", help=argparse.SUPPRESS)
+    ap.add_argument("--tsv-child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not 1 <= args.rows <= 10_500_000:
         ap.error("--rows must be in [1, 10500000]")
@@ -7491,11 +8062,19 @@ def main() -> int:
         return bounds_child(args.bounds_child)
     if args.dist_child is not None:
         return dist_child(args.dist_child, args.dist_spec)
+    if args.tsv_child:
+        return tsv_child(args.tsv_child, args.rows, args.seed)
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
     capi_build = start_capi_build()
     build_s, build_logs = build.build_all()
     capi_s = capi_build_done(capi_build)
+    # the online line's TSV, written by a child while the kernel phases
+    # run (its directory goes at the end)
+    import shutil
+    import tempfile
+    online_work = tempfile.mkdtemp(prefix="lgbm_online_")
+    tsv_run = start_tsv_child(online_work, args.seed)
     say("device: %s | %s | torch %s CUDA %s | kernel build %.2f s | C "
         "libraries (g++, beside it) %.2f s"
         % (torch.cuda.get_device_name(0), smi, torch.__version__,
@@ -7588,8 +8167,8 @@ def main() -> int:
                              args.seed, smi)
     early_stop_phase(data, args.rows)
     runs = histogram_mode_phases(data, main_run, args.rows, args.iters)
-    say(repeat_check("merged", lambda: merged_train(ds, args.iters),
-                     runs["merged"]["model_text"]))
+    say(repeat_cut("merged", lambda n: merged_train(ds, n),
+                   runs["merged"]["model_text"]))
     say(merged_pays_line(census_bounds))
     for key, path, group in (
             ("segment_histogram", "main path", "histogram f32"),
@@ -7598,8 +8177,8 @@ def main() -> int:
             census_bound_ms_per_iter=census_bounds[key],
             profile_ms_per_iter=PROFILED[path][group][1])
     runs.update(quantized_phases(data, main_run, args.rows, args.iters))
-    say(repeat_check("frontier 8", lambda: lt.train(
-        train_params(255, **QUANT_PATHS["frontier 8"]), ds, args.iters,
+    say(repeat_cut("frontier 8", lambda n: lt.train(
+        train_params(255, **QUANT_PATHS["frontier 8"]), ds, n,
         verbose_eval=False), runs["frontier 8"]["model_text"]))
     bagged = bagging_phase(data, main_run, args.iters)
     api = api_phases(data, main_run, args.iters, smi)
@@ -7619,6 +8198,9 @@ def main() -> int:
     api["goss fobj"] = goss_fobj_phase(data, smi)
     api["sklearn"] = sklearn_phase(args.rows, args.seed, main_run,
                                    args.iters, smi)
+    online_paths = serving_online_phases(tsv_run, main_run["model_text"],
+                                         data, args.seed, smi)
+    shutil.rmtree(online_work, ignore_errors=True)
     del data, ds
     # each kernel's launches are read from the path it serves; every
     # path's counts stand beside them
@@ -7651,6 +8233,7 @@ def main() -> int:
     paths.update(bagged)
     paths.update(api)
     paths.update(dist)
+    paths.update(online_paths)
     year_data, paths["year"] = year_phase(args.seed, args.iters, main_run,
                                           smi)
     paths["renewal"] = renewal_phase(year_data)

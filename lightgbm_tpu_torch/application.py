@@ -1,5 +1,5 @@
-"""CLI application: task=train / predict / convert_model / refit / doctor
-(counterpart of lightgbm_tpu/application.py).
+"""CLI application: task=train / predict / convert_model / refit / doctor /
+train_online / serve (counterpart of lightgbm_tpu/application.py).
 
 Role parity with the reference src/application/application.cpp and main.cpp:
 parameters from `k=v` argv entries plus a `config=<file>` of `key = value`
@@ -9,19 +9,21 @@ engine, saves the model and periodic snapshots (gbdt.cpp:330-334) and
 resumes from them; prediction writes one converted score per row
 (src/application/predictor.hpp); convert_model emits the model as C++
 if-else code (gbdt_model_text.cpp ModelToIfElse); doctor writes the debug
-bundle.
+bundle; train_online runs the continuous trainer (runtime/continuous.py)
+and serve the JSON-lines serving front end (runtime/serving.py).
 
 Every task but doctor runs on the card unless the parameters say
 device_type=cpu, and fails without a CUDA device otherwise (doctor is the
 tool that diagnoses a missing device).  What this package does not have
-yet is refused, never replaced by something quieter: a machine list or
-num_machines > 1 (distributed training, ROADMAP queue A item 5),
-task=serve and task=train_online (item 6), and the device predictor with
-leaf indices or contributions (it computes neither; task=predict runs it
-on the card unless predict_device=false).
+yet is refused, never replaced by something quieter: serve's binary data
+plane (serve_wire_port, serve_wire_uds, serve_wire_shm: ROADMAP queue A
+item 6, its second slice), and the device predictor with leaf indices or
+contributions (it computes neither; task=predict runs it on the card
+unless predict_device=false).
 """
 from __future__ import annotations
 
+import json
 import os
 import sys
 import time
@@ -47,6 +49,9 @@ from .utils.log import LightGBMError, Log
 _INGEST_STAGE_TIMEOUT = int(os.environ.get("LGBM_TPU_STAGE_TIMEOUT", "3600"))
 
 _TRUE = ("true", "1")
+
+#: serve's binary data-plane knobs (the next slice's wire and SHM ring)
+_WIRE_KNOBS = ("serve_wire_port", "serve_wire_uds", "serve_wire_shm")
 
 
 def parse_parameters(argv: List[str]) -> Dict[str, str]:
@@ -100,10 +105,15 @@ class Application:
 
     def run(self) -> None:
         try:
-            if self.task in ("serve", "train_online"):
-                raise NotImplementedError(
-                    "task=%s is not ported to the PyTorch package yet "
-                    "(ROADMAP queue A item 6)" % self.task)
+            if self.task == "serve":
+                for knob in _WIRE_KNOBS:
+                    if knob in self.raw_params:
+                        raise NotImplementedError(
+                            "%s: serve's binary data plane (runtime/wire, "
+                            "runtime/shm_ring) is not ported to the "
+                            "PyTorch package yet (ROADMAP queue A item 6, "
+                            "its second slice); task=serve answers on the "
+                            "JSON-lines front end" % knob)
             if self.task != "doctor":
                 # every task but the diagnosis runs where the parameters
                 # say: the card unless device_type=cpu, never a quiet CPU
@@ -129,6 +139,10 @@ class Application:
                 self.refit()
             elif self.task == "doctor":
                 self.doctor()
+            elif self.task == "train_online":
+                self.train_online()
+            elif self.task == "serve":
+                self.serve()
             else:
                 Log.fatal("Unknown task type %s", self.task)
         except (SystemExit, KeyboardInterrupt):
@@ -385,6 +399,109 @@ class Application:
                 for row in out:
                     fh.write("\t".join("%.18g" % v for v in row) + "\n")
         Log.info("Finished prediction, results saved to %s", output_result)
+
+    def train_online(self) -> None:
+        """Continuous training (runtime/continuous.py): a rolling-window
+        trainer that boosts or refits on an absolute-clock schedule,
+        survives preemption mid-cycle and publishes every cycle
+        atomically to `publish_dir`.  Key params: `online_interval`,
+        `online_cycles` (0 = forever), `online_rounds`,
+        `online_mode=boost|refit`, `online_window_rows`,
+        `publish_retention` / `publish_grace`, `snapshot_retention` /
+        `snapshot_grace`, `metrics_port`, and the quality firewall's
+        `online_quarantine_limit`, `publish_gate_tolerance` (inf = gate
+        off), `publish_gate_holdout`, `publish_gate_metric`."""
+        from .runtime.continuous import ContinuousTrainer
+        rc = ContinuousTrainer(dict(self.raw_params), log=Log).run()
+        if rc != 0:
+            sys.exit(rc)
+
+    def serve(self) -> None:
+        """Serving (runtime/serving.py): a long-lived JSON-lines TCP
+        server that micro-batches concurrent requests into the device
+        predictor, sheds overload with retryable rejections, degrades to
+        the host predictor when the device path fails or hangs, and
+        hot-swaps models from `publish_dir` without dropping a request.
+        Key params: `publish_dir=` or `input_model=`, `serve_port` (0 =
+        ephemeral, printed on stdout), `serve_host`, `serve_queue`,
+        `serve_batch_rows`, `serve_batch_window`, `serve_deadline`,
+        `predict_deadline`, `serve_poll_interval`, `breaker_cooldown`,
+        `serve_raw_score`, `serve_response_dtype`, `metrics_port`, and
+        the canary knobs `canary_fraction` (0 = off), `canary_min_samples`,
+        `canary_patience`, `canary_error_ratio`, `canary_error_margin`,
+        `canary_latency_ratio`, `canary_promote_after`.  The card is
+        probed first (a failed probe raises).  SIGTERM / SIGINT drain and
+        stop cleanly, with the final stats on stderr."""
+        import signal as _signal
+        import threading as _threading
+
+        from .runtime.serving import ServingRuntime, ServingServer
+        params = dict(self.raw_params)
+        publish_dir = params.pop("publish_dir", None)
+        input_model = params.pop("input_model", None)
+        host = params.pop("serve_host", "127.0.0.1")
+        port = int(params.pop("serve_port", 0) or 0)
+        metrics_port = params.pop("metrics_port", None)
+        response_dtype = params.pop("serve_response_dtype", None) or None
+        canary_fraction = float(params.pop("canary_fraction", 0.0) or 0.0)
+        canary_policy = None
+        if canary_fraction > 0:
+            from .runtime.policy import CanaryPolicy
+            canary_policy = CanaryPolicy(
+                min_samples=int(params.pop("canary_min_samples", 8)),
+                patience=int(params.pop("canary_patience", 3)),
+                error_ratio=float(params.pop("canary_error_ratio", 1.5)),
+                error_margin=float(params.pop("canary_error_margin",
+                                              0.02)),
+                latency_ratio=float(params.pop("canary_latency_ratio",
+                                               5.0)),
+                promote_after=int(params.pop("canary_promote_after", 64)))
+        runtime = ServingRuntime(
+            canary_fraction=canary_fraction, canary_policy=canary_policy,
+            metrics_port=int(metrics_port) if metrics_port is not None
+            else None,
+            publish_dir=publish_dir, model_file=input_model,
+            params=params, response_dtype=response_dtype,
+            raw_score=str(params.pop("serve_raw_score", "")).lower()
+            in _TRUE,
+            max_queue=int(params.pop("serve_queue", 256)),
+            max_batch_rows=int(params.pop("serve_batch_rows", 4096)),
+            batch_window_s=float(params.pop("serve_batch_window", 0.002)),
+            default_deadline_s=float(params.pop("serve_deadline", 10.0)),
+            predict_deadline_s=float(params.pop("predict_deadline", 30.0)),
+            poll_interval_s=float(params.pop("serve_poll_interval", 0.2)),
+            breaker_cooldown_s=float(params.pop("breaker_cooldown", 2.0)),
+            probe_platform_on_start=True, log=Log)
+        runtime.start()
+        server = ServingServer(runtime, host=host, port=port)
+        stop_evt = _threading.Event()
+
+        def _stop(signum, frame):
+            Log.warning("serve: signal %d received; draining and "
+                        "shutting down", signum)
+            if stop_evt.is_set():
+                return
+            stop_evt.set()
+            # shutdown() blocks until serve_forever returns, and this
+            # handler runs on the serve_forever thread: a helper issues it
+            _threading.Thread(target=server.shutdown, daemon=True).start()
+
+        for sig in (_signal.SIGTERM, _signal.SIGINT):
+            _signal.signal(sig, _stop)
+        # the port on stdout is the machine-readable contract for
+        # supervisors that asked for an ephemeral port
+        print("serving %s on %s:%d" % (publish_dir or input_model,
+                                       host, server.port), flush=True)
+        if runtime.metrics_port is not None:
+            print("metrics on %s:%d" % (host, runtime.metrics_port),
+                  flush=True)
+        try:
+            server.serve_forever(poll_interval=0.2)
+        finally:
+            server.server_close()
+            runtime.stop()
+            sys.stderr.write("serve: final stats: %s\n"
+                             % json.dumps(runtime.stats()))
 
     def convert_model(self) -> None:
         params = dict(self.raw_params)

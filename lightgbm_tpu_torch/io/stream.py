@@ -30,9 +30,9 @@ CSR semantics follow the reference C API: absent entries are 0.0 (so
 ``zero_as_missing`` applies to them exactly as it does to explicit zeros
 from a parsed file).
 
-The JAX package's push-time quarantine (``quarantine=``, its
-runtime/quality.py) is not ported yet: asking for it raises
-NotImplementedError.  Chunks are binned by the per-feature numpy encoder
+``quarantine=`` arms the push-time schema validation of
+runtime/quality.py, as the JAX package does: rows with non-finite labels
+or weights go to the ledger instead of the dataset.  Chunks are binned by the per-feature numpy encoder
 (io/dataset.py's), where the JAX package first tries its native one
 (io/native.encode_bins here, which no path takes: it is slower at wide
 widths).
@@ -107,14 +107,15 @@ class StreamingDatasetBuilder:
                  feature_names: Optional[Sequence[str]] = None,
                  categorical_feature: Sequence[int] = (),
                  quarantine=None):
-        """`quarantine` (the JAX package's push-time schema validation,
-        which needs its runtime/quality.py) is not ported: anything but
-        None raises NotImplementedError."""
-        if quarantine is not None:
-            raise NotImplementedError(
-                "stream quarantine (runtime/quality.py) is not ported to "
-                "the PyTorch package yet; it waits for the C ABI slice "
-                "(ROADMAP queue A item 8)")
+        """`quarantine` (a `runtime.quality.QuarantineLedger`, or True
+        for a fresh one) arms push-time schema validation: rows with
+        non-finite labels or weights are routed to the ledger instead of
+        the dataset.  Off by default; armed, a clean chunk passes through
+        untouched (the same objects, still zero-copy)."""
+        if quarantine is True:
+            from ..runtime.quality import QuarantineLedger
+            quarantine = QuarantineLedger()
+        self.quarantine = quarantine
         self.params = dict(params or {})
         self.feature_names = list(feature_names) if feature_names else None
         self.categorical_feature = tuple(int(c) for c in categorical_feature)
@@ -230,6 +231,14 @@ class StreamingDatasetBuilder:
             X = np.asarray(X).reshape(1, -1)
         if getattr(X, "ndim", None) != 2:
             raise LightGBMError("pushed chunks must be 2-dimensional")
+        keep = self._quarantine_mask(X.shape[0], label, weight, start_row)
+        if keep is not None:
+            X = np.asarray(X, dtype=np.float64)[keep]
+            label = np.asarray(label, dtype=np.float64).reshape(-1)[keep] \
+                if label is not None else None
+            weight = np.asarray(weight,
+                                dtype=np.float64).reshape(-1)[keep] \
+                if weight is not None else None
         m, f = X.shape
         self._check_features(f)
         chunk = _Chunk(start_row, m, dense=X)
@@ -255,6 +264,20 @@ class StreamingDatasetBuilder:
             raise LightGBMError("CSR column index %d out of range for "
                                 "num_col=%d" % (int(idx[:nnz].max()),
                                                 int(num_col)))
+        keep = self._quarantine_mask(m, label, weight, start_row)
+        if keep is not None:
+            ip = np.asarray(indptr, dtype=np.int64)
+            counts = np.diff(ip)[keep]
+            row_sel = np.repeat(keep, np.diff(ip))
+            idx = idx[:nnz][row_sel]
+            values = np.asarray(values)[:nnz][row_sel]
+            indptr = np.concatenate([[0], np.cumsum(counts)])
+            m = int(keep.sum())
+            label = np.asarray(label, dtype=np.float64).reshape(-1)[keep] \
+                if label is not None else None
+            weight = np.asarray(weight,
+                                dtype=np.float64).reshape(-1)[keep] \
+                if weight is not None else None
         self._check_features(int(num_col))
         chunk = _Chunk(start_row, m, csr=(indptr, idx, values, int(num_col)))
         return self._push(chunk, label, weight)
@@ -277,6 +300,33 @@ class StreamingDatasetBuilder:
         return self.push_dense(X, label=label, weight=weight)
 
     # -- internals -----------------------------------------------------------
+    def _quarantine_mask(self, n_rows: int, label, weight,
+                         start_row: int) -> Optional[np.ndarray]:
+        """Push-time schema validation (armed by `quarantine=`): the
+        keep-mask when rows must be dropped, None when the chunk is clean
+        (or validation is off).  A positioned (`start_row`) push cannot
+        renumber rows, so a quarantine hit there raises."""
+        if self.quarantine is None or (label is None and weight is None):
+            return None
+        from ..runtime.quality import validate_rows
+        y = None if label is None \
+            else np.asarray(label, dtype=np.float64).reshape(-1)
+        w = None if weight is None \
+            else np.asarray(weight, dtype=np.float64).reshape(-1)
+        # a width-0 X: validation reads only labels and weights here, so
+        # the caller's chunk is never densified on this path
+        keep, counts = validate_rows(np.zeros((n_rows, 0)), y, weight=w,
+                                     ledger=self.quarantine)
+        if keep.all():
+            return None
+        if start_row >= 0:
+            raise LightGBMError(
+                "quarantine: positioned push at start_row=%d carries %d "
+                "schema-invalid row(s) (%s); by-reference streams cannot "
+                "renumber rows, clean the chunk upstream"
+                % (start_row, int((~keep).sum()), counts))
+        return keep
+
     def _check_features(self, f: int) -> None:
         if self._finalized is not None:
             raise LightGBMError("cannot push rows into a finalized stream")

@@ -47,19 +47,24 @@ thresholds for device throughput, with the JAX engine's design:
   micro-batch, for its output (`runtime/syncs.wait_event`,
   `predict_fetch`).
 
-`batch_hook(i, n)` fires before each micro-batch: the batch-boundary seam
-that the JAX package's serving faults use (they come with serving,
-ROADMAP queue A item 6).
+`batch_hook(i, n)` fires before each micro-batch, and so does the
+serving fault seam (`resilience.maybe_fail_predict`: ``die_at_predict``,
+``slow_predict``).  One predictor's device work is serialized: a
+`predict_raw` holds the predictor's lock from its first staging copy to
+its last fetch, so a second caller (a serving executor that replaced a
+hung one) cannot replay the same programs into the same staging buffers
+mid-call and tear a response.
 """
 from __future__ import annotations
 
+import threading
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from ..ops.quantize import stochastic_round
-from ..runtime import graph_obs, graphs, syncs
+from ..runtime import graph_obs, graphs, resilience, syncs
 
 _K_ZERO_THRESHOLD = 1e-35
 MISSING_NONE, MISSING_ZERO, MISSING_NAN = 0, 1, 2
@@ -396,6 +401,9 @@ class DevicePredictor:
         self._copy_stream = torch.cuda.Stream(self.device) if on_card \
             else None
         self._staging = None
+        #: held across a whole predict_raw (captures, replays and the
+        #: staging buffers are per predictor)
+        self.lock = threading.Lock()
 
     def capture_count(self) -> int:
         """Programs built: one per (bucket, early-stop mode, frequency)
@@ -448,6 +456,7 @@ class DevicePredictor:
         for i, (s, e) in enumerate(slices):
             if batch_hook is not None:
                 batch_hook(i, len(slices))
+            resilience.maybe_fail_predict()
             prog = self._program(e - s, early, freq)
             prog.X[:e - s].copy_(torch.from_numpy(X[s:e]))
             prog.margin.fill_(margin)
@@ -484,6 +493,7 @@ class DevicePredictor:
         for i, (s, e) in enumerate(slices):
             if batch_hook is not None:
                 batch_hook(i, len(slices))
+            resilience.maybe_fail_predict()
             n, slot = e - s, i % 2
             prog = self._program(n, early, freq)
             compute.wait_event(st["ev_in"][slot])
@@ -527,8 +537,9 @@ class DevicePredictor:
         bs = self.batch_rows
         slices = [(s, min(s + bs, N)) for s in range(0, N, bs)]
         run = self._run_card if self.device.type == "cuda" else self._run_cpu
-        run(X, slices, early_stop, freq, float(early_stop_margin),
-            batch_hook, out)
+        with self.lock:
+            run(X, slices, early_stop, freq, float(early_stop_margin),
+                batch_hook, out)
         return out
 
     def predict_raw_scan(self, X: np.ndarray) -> np.ndarray:

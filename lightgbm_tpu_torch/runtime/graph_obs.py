@@ -44,7 +44,7 @@ __all__ = [
     "LEDGER", "ProgramLedger", "signature", "sig_delta", "record_build",
     "record_replay", "build_event", "cache_event", "mark_steady",
     "snapshot", "delta", "reset", "calls_snapshot", "calls_delta",
-    "set_compile_observer",
+    "set_compile_observer", "total_compiles",
 ]
 
 #: build-history entries kept per site (the ledger lives as long as the
@@ -250,6 +250,16 @@ class ProgramLedger:
         with self._lock:
             return {name: s.cache_misses for name, s in self._sites.items()}
 
+    def total_compiles(self, site: Optional[str] = None) -> int:
+        """Builds at `site` (all sites when None): the counterpart of the
+        JAX ledger's total_compiles, which serving reads before and after
+        a batch to stamp it `compiled`."""
+        with self._lock:
+            if site is not None:
+                rec = self._sites.get(site)
+                return rec.compiles if rec is not None else 0
+            return sum(s.compiles for s in self._sites.values())
+
     def to_json(self) -> Dict[str, Any]:
         with self._lock:
             sites = {name: s.to_json()
@@ -307,6 +317,10 @@ def calls_snapshot() -> Dict[str, int]:
 
 def calls_delta(before: Dict[str, int]) -> Dict[str, int]:
     return LEDGER.calls_delta(before)
+
+
+def total_compiles(site: Optional[str] = None) -> int:
+    return LEDGER.total_compiles(site)
 
 
 def reset() -> None:

@@ -28,20 +28,22 @@ The reference survives multi-hour training through periodic snapshots
   flag beside them (see `sentinel_check`).
 
 * **Fault injection** (`LGBM_TPU_FAULT`): the faults whose injection point
-  the port has (`FAULT_TABLE`).  A fault the JAX package injects where the
-  port has no such point yet is refused, naming the ROADMAP item that
-  brings it (`UNPORTED_FAULTS`).
+  the port has (`FAULT_TABLE`): training, publish, serving and the online
+  trainer's.  A fault the JAX package injects where the port has no such
+  point yet is refused, naming the ROADMAP item that brings it
+  (`UNPORTED_FAULTS`).
 
-* **Platform probe** (`probe_platform`): one short-deadline child
-  process initializes CUDA through torch and reports the backend, the
-  device count and the card's name; a hung bind dumps its tracebacks and
-  is killed at the deadline.
+* **Platform probe** (`probe_platform`, `resolve_backend`): one
+  short-deadline child process initializes CUDA through torch and reports
+  the backend, the device count and the card's name; a hung bind dumps
+  its tracebacks and is killed at the deadline.  `resolve_backend` probes
+  with the JAX package's retries and backoff, but where the JAX chain
+  degrades the process to the CPU, a failed probe here raises
+  `BackendUnavailable` carrying the machine-readable degradation event:
+  the port lands on the CPU only when the caller asks for it.
 
-The JAX package's degradation chain (`resolve_backend`, which lands on
-the CPU when the probe fails) and the serving, publish and online faults
-are not ported (ROADMAP queue A item 6).  No torch or numpy import at
-module scope: a CLI entry can use this module without touching the
-card.
+No torch or numpy import at module scope: a CLI entry can use this module
+without touching the card.
 """
 from __future__ import annotations
 
@@ -69,8 +71,12 @@ __all__ = [
     "make_resume_callback", "PreemptionGuard", "TrainingPreempted",
     "NonFiniteDetected", "SentinelGuard", "sentinel_check",
     "fault_arg", "fault_active", "maybe_die_or_preempt",
-    "maybe_corrupt_snapshot", "maybe_inject_nan",
+    "maybe_corrupt_snapshot", "maybe_inject_nan", "maybe_slow_stage",
+    "maybe_torn_publish", "maybe_die_at_publish", "maybe_die_at_spawn",
+    "maybe_fail_predict", "DevicePredictFault", "maybe_poison_rows",
+    "maybe_flip_labels", "maybe_regress_model", "snapshot_model_text",
     "FAULT_TABLE", "FAULT_NAMES", "UNPORTED_FAULTS", "probe_platform",
+    "resolve_backend", "BackendUnavailable",
 ]
 
 
@@ -107,7 +113,44 @@ FAULT_TABLE: Dict[str, Dict[str, str]] = {
         "injects_at": "the tree_fetch host copy (sentinel_check)"},
     "bogus_platform": {
         "arg": "",
-        "injects_at": "probe_platform's request rewrite"},
+        "injects_at": "probe_platform / resolve_backend request rewrite"},
+    "torn_write": {
+        "arg": "[K]",
+        "injects_at": "ModelPublisher.publish, before the atomic path"},
+    "slow_stage": {
+        "arg": "NAME:SECS",
+        "injects_at": "stage open in the continuous trainer "
+                      "(maybe_slow_stage; one-shot per process)"},
+    "die_at_publish": {
+        "arg": "K",
+        "injects_at": "ModelPublisher.publish, between generation rename "
+                      "and manifest write"},
+    "die_at_predict": {
+        "arg": "K",
+        "injects_at": "device-predict micro-batch boundary "
+                      "(maybe_fail_predict in DevicePredictor.predict_raw)"},
+    "slow_predict": {
+        "arg": "SECS",
+        "injects_at": "device-predict micro-batch boundary "
+                      "(maybe_fail_predict; every batch while armed)"},
+    "poison_rows": {
+        "arg": "F",
+        "injects_at": "online ingest, after parse / before quarantine "
+                      "(maybe_poison_rows; fraction F of every chunk)"},
+    "label_flip": {
+        "arg": "K",
+        "injects_at": "online cycle K's training-window labels "
+                      "(maybe_flip_labels in the continuous trainer)"},
+    "regress_model": {
+        "arg": "K",
+        "injects_at": "continuous trainer's publish seam, after the "
+                      "eval gate (maybe_regress_model on cycle K's "
+                      "model text)"},
+    "die_at_spawn": {
+        "arg": "K",
+        "injects_at": "ServingRuntime.start, after the prewarm pass and "
+                      "before /healthz readiness (maybe_die_at_spawn on "
+                      "the K-th spawn ordinal)"},
 }
 
 FAULT_NAMES = tuple(FAULT_TABLE)
@@ -115,16 +158,7 @@ FAULT_NAMES = tuple(FAULT_TABLE)
 #: the JAX package's faults whose injection point the port does not have
 #: yet, with the ROADMAP queue A item that brings it
 UNPORTED_FAULTS: Dict[str, str] = {
-    "torn_write": "6 (publish)",
-    "slow_stage": "6 (the continuous trainer)",
-    "die_at_publish": "6 (publish)",
-    "die_at_predict": "6 (serving)",
-    "slow_predict": "6 (serving)",
-    "poison_rows": "6 (the online ingest's quarantine)",
-    "label_flip": "6 (the continuous trainer)",
-    "regress_model": "6 (the continuous trainer)",
-    "die_at_spawn": "6 (the serving fleet)",
-    "die_at_ring": "6 (the shared-memory ring)",
+    "die_at_ring": "6, its second slice (the shared-memory ring)",
 }
 
 
@@ -234,6 +268,199 @@ def maybe_inject_nan(engine, host: Dict) -> None:
         return
     host["leaf_value"] = host["leaf_value"].copy()
     host["leaf_value"][:] = float("nan")
+
+
+#: stages already stalled by `slow_stage` in this process: the injection
+#: is one-shot per process (a transient stall; a permanent one would only
+#: crash-loop the service)
+_SLOW_STAGES_FIRED: set = set()
+
+
+def maybe_slow_stage(stage_name: str, defer: bool = False) -> float:
+    """`slow_stage:NAME:SECS` stalls the first stage whose name contains
+    NAME for SECS seconds, long enough to blow the stage's watchdog
+    deadline: the service must record the timeout in its stage trail and
+    go on with the next cycle.  Returns the injected stall (0.0 when
+    nothing fired); `defer=True` skips the sleep so the caller can record
+    the injection in its trail first (the alarm lands mid-sleep)."""
+    if not fault_active("slow_stage"):
+        return 0.0
+    arg = fault_arg("slow_stage", "")
+    name, _, secs = (arg or "").partition(":")
+    if not name or name not in stage_name or name in _SLOW_STAGES_FIRED:
+        return 0.0
+    _SLOW_STAGES_FIRED.add(name)
+    stall = float(secs or "5")
+    sys.stderr.write("[%s] FAULT slow_stage: stalling stage %r for %.1fs\n"
+                     % (wallclock(), stage_name, stall))
+    sys.stderr.flush()
+    if not defer:
+        time.sleep(stall)
+    return stall
+
+
+def maybe_torn_publish(path: str, body: str, publish_count: int) -> None:
+    """`torn_write[:K]`: the K-th publish (1-based; every publish when K
+    is omitted) lands torn and the process dies: half the body is written
+    straight to the final path (no tmp, no fsync, no rename) and the
+    process exits abruptly.  Subscribers must reject the torn generation
+    by its checksum; the relaunched publisher must republish it."""
+    if not fault_active("torn_write"):
+        return
+    arg = fault_arg("torn_write")
+    if arg is not None and int(arg) != int(publish_count):
+        return
+    with open(path, "w") as fh:
+        fh.write(body[: max(len(body) // 2, 1)])
+    sys.stderr.write("[%s] FAULT torn_write: tore publish #%d at %s and "
+                     "dying\n" % (wallclock(), publish_count, path))
+    sys.stderr.flush()
+    os._exit(137)
+
+
+def maybe_die_at_publish(publish_count: int) -> None:
+    """`die_at_publish:K` kills the process between the generation file's
+    atomic rename and the manifest update of the K-th publish (1-based):
+    the newest valid generation on disk is ahead of the manifest.
+    Subscribers must still resolve a valid model and the relaunched
+    publisher must reconcile."""
+    if not fault_active("die_at_publish"):
+        return
+    if int(fault_arg("die_at_publish", "1")) != int(publish_count):
+        return
+    sys.stderr.write("[%s] FAULT die_at_publish: abrupt exit mid-publish "
+                     "#%d (generation renamed, manifest stale)\n"
+                     % (wallclock(), publish_count))
+    sys.stderr.flush()
+    os._exit(137)
+
+
+def maybe_die_at_spawn(spawn_ordinal: Optional[int] = None) -> None:
+    """`die_at_spawn:K` kills a serving process after its prewarm pass
+    and before readiness, the K-th spawn (1-based, from
+    ``LGBM_TPU_SPAWN_ORDINAL``, which a spawner sets per child)."""
+    if not fault_active("die_at_spawn"):
+        return
+    if spawn_ordinal is None:
+        try:
+            spawn_ordinal = int(os.environ.get("LGBM_TPU_SPAWN_ORDINAL",
+                                               "1") or 1)
+        except ValueError:
+            spawn_ordinal = 1
+    if int(fault_arg("die_at_spawn", "1")) != int(spawn_ordinal):
+        return
+    sys.stderr.write("[%s] FAULT die_at_spawn: abrupt exit during spawn "
+                     "#%d (prewarmed, never ready)\n"
+                     % (wallclock(), spawn_ordinal))
+    sys.stderr.flush()
+    os._exit(137)
+
+
+#: device-predict fault bookkeeping: batches seen while die_at_predict is
+#: armed (the victim is the predict call, never the process)
+_PREDICT_FAULT = {"batches": 0}
+
+
+class DevicePredictFault(RuntimeError):
+    """The injected stand-in for a device failure mid-predict
+    (`LGBM_TPU_FAULT=die_at_predict`): the serving runtime must catch it,
+    trip its circuit breaker and answer from the host predictor."""
+
+
+def maybe_fail_predict() -> None:
+    """Serving fault seam, consulted at every device-predict micro-batch
+    boundary (models/device_predictor.py `predict_raw`, inside the
+    predictor's device lock):
+
+    * ``slow_predict:SECS`` stalls every device batch by SECS while armed,
+      long enough to blow the serving runtime's predict deadline: the
+      batch is re-served from the host and the timeout lands in the
+      serving stage trail.
+    * ``die_at_predict:K``: the K-th device batch (1-based, counted while
+      armed) and every later one raise `DevicePredictFault`; the runtime
+      degrades to the host predictor and recovers once the fault clears.
+    """
+    spec = _fault_spec()
+    if "slow_predict" in spec:
+        stall = float(spec["slow_predict"] or "5")
+        sys.stderr.write("[%s] FAULT slow_predict: stalling device batch "
+                         "for %.1fs\n" % (wallclock(), stall))
+        sys.stderr.flush()
+        time.sleep(stall)
+    if "die_at_predict" in spec:
+        _PREDICT_FAULT["batches"] += 1
+        if _PREDICT_FAULT["batches"] >= int(spec["die_at_predict"] or "1"):
+            sys.stderr.write("[%s] FAULT die_at_predict: failing device "
+                             "batch #%d\n"
+                             % (wallclock(), _PREDICT_FAULT["batches"]))
+            sys.stderr.flush()
+            raise DevicePredictFault(
+                "injected device predict failure "
+                "(LGBM_TPU_FAULT=die_at_predict, batch #%d)"
+                % _PREDICT_FAULT["batches"])
+
+
+def maybe_poison_rows(X, y):
+    """`poison_rows:F` corrupts fraction F of every parsed ingest chunk
+    as an upstream logging outage would: a stride of rows gets a
+    non-finite label (alternating NaN / +inf).  The quarantine must route
+    every poisoned row to its ledger.  Returns (y, n_poisoned); X is
+    untouched (NaN features are legitimate missing values)."""
+    if not fault_active("poison_rows") or y is None or len(y) == 0:
+        return y, 0
+    frac = float(fault_arg("poison_rows", "0.1"))
+    if frac <= 0:
+        return y, 0
+    stride = max(int(round(1.0 / min(frac, 1.0))), 1)
+    import numpy as np
+    y = np.array(y, dtype=np.float64, copy=True)
+    idx = np.arange(0, len(y), stride)
+    y[idx[0::2]] = float("nan")
+    y[idx[1::2]] = float("inf")
+    sys.stderr.write("[%s] FAULT poison_rows: poisoned %d/%d labels\n"
+                     % (wallclock(), len(idx), len(y)))
+    sys.stderr.flush()
+    return y, int(len(idx))
+
+
+def maybe_flip_labels(y, cycle: int):
+    """`label_flip:K` inverts the training labels of cycle K's window:
+    valid-looking values carrying wrong information, which the quarantine
+    cannot catch.  The pre-publish eval gate must refuse the model.
+    Returns (y, flipped?)."""
+    if not fault_active("label_flip") or y is None or len(y) == 0:
+        return y, False
+    if int(fault_arg("label_flip", "0")) != int(cycle):
+        return y, False
+    import numpy as np
+    y = np.asarray(y, dtype=np.float64)
+    flipped = (float(np.max(y)) + float(np.min(y))) - y
+    sys.stderr.write("[%s] FAULT label_flip: inverted cycle %d's %d "
+                     "labels\n" % (wallclock(), cycle, len(y)))
+    sys.stderr.flush()
+    return flipped, True
+
+
+def maybe_regress_model(model_text: str, cycle: int) -> str:
+    """`regress_model:K` sabotages cycle K's model text at the publish
+    seam, after the eval gate: every `leaf_value=` line is scaled by -2,
+    a valid, loadable model whose predictions are badly wrong, which only
+    the serving canary can catch."""
+    if not fault_active("regress_model"):
+        return model_text
+    if int(fault_arg("regress_model", "0")) != int(cycle):
+        return model_text
+    lines = model_text.split("\n")
+    for i, line in enumerate(lines):
+        if line.startswith("leaf_value="):
+            vals = ["%.17g" % (-2.0 * float(tok))
+                    for tok in line[len("leaf_value="):].split()]
+            lines[i] = "leaf_value=" + " ".join(vals)
+    sys.stderr.write("[%s] FAULT regress_model: sabotaged cycle %d's "
+                     "leaf values at the publish seam\n"
+                     % (wallclock(), cycle))
+    sys.stderr.flush()
+    return "\n".join(lines)
 
 
 # ---------------------------------------------------------------------------
@@ -546,6 +773,61 @@ def probe_platform(platform: Optional[str] = None, deadline: float = 20.0
     return rec
 
 
+class BackendUnavailable(RuntimeError):
+    """The requested device did not come up within the probe's retries.
+    `event` is the machine-readable degradation record (the JAX package's
+    ``platform_degradation`` event, with ``"to": None``: the port does
+    not land on the CPU on its own); `trail` the probe records."""
+
+    def __init__(self, event: Dict[str, Any], trail: List[Dict[str, Any]]):
+        super().__init__(
+            "platform %s did not come up after %d probe(s) (%s); the "
+            "PyTorch package runs on the CPU only when asked "
+            "(device_type=cpu)" % (event["from"], event["attempts"],
+                                   event["reason"]))
+        self.event = event
+        self.trail = trail
+
+
+def resolve_backend(requested: Optional[str] = None, deadline: float = 20.0,
+                    attempts: int = 2
+                    ) -> Tuple[str, None, List[Dict[str, Any]]]:
+    """Probe `requested` ("cuda", the default, or "cpu") up to `attempts`
+    times with the JAX package's jittered backoff.  Returns ``(backend,
+    None, probe_trail)`` (the JAX triple, whose degradation event is
+    always None here); a probe that never succeeds raises
+    `BackendUnavailable` with the event::
+
+        {"event": "platform_degradation", "from": ..., "to": None,
+         "reason": ..., "attempts": N, "probes": [...], "wallclock": ...}
+    """
+    req = requested if requested is not None else "cuda"
+    if req == "gpu":
+        req = "cuda"
+    trail: List[Dict[str, Any]] = []
+    if req == "cpu":
+        trail.append(probe_platform("cpu", deadline=deadline))
+        return "cpu", None, trail
+    delays = backoff_delays(attempts)
+    for a in range(attempts):
+        rec = probe_platform(req, deadline=deadline)
+        trail.append(rec)
+        if rec["ok"]:
+            return rec["backend"], None, trail
+        if a < len(delays):
+            time.sleep(delays[a])
+    event = {
+        "event": "platform_degradation",
+        "from": trail[-1]["platform"], "to": None,
+        "reason": trail[-1].get("reason") or "probe failed",
+        "attempts": attempts,
+        "probes": [{k: v for k, v in t.items() if k != "tail"}
+                   for t in trail],
+        "wallclock": wallclock(),
+    }
+    raise BackendUnavailable(event, trail)
+
+
 # ---------------------------------------------------------------------------
 # atomic snapshot writes + checksum + retention
 # ---------------------------------------------------------------------------
@@ -642,6 +924,23 @@ def load_snapshot_state(path: str, _prevalidated_text: Optional[str] = None
     except (OSError, ValueError, zlib.error):
         return None
     return None
+
+
+def snapshot_model_text(path: str) -> Optional[str]:
+    """The model-text portion of a snapshot file (everything before the
+    state footer), byte for byte what `save_model_to_string()` gave at
+    capture time: the continuous trainer republishes from it after a
+    death between snapshot and publish.  None when the file has no
+    footer."""
+    try:
+        with open(path) as fh:
+            text = fh.read()
+    except OSError:
+        return None
+    cut = text.find(_STATE_PREFIX)
+    if cut < 0:
+        return None
+    return text[:cut]
 
 
 def snapshot_paths(output_model: str) -> List[Tuple[int, str]]:
@@ -896,15 +1195,21 @@ def make_resume_callback(state: Dict[str, Any], log=None):
 
 
 def write_snapshot(booster, output_model: str, total_iter: Optional[int] = None,
-                   retention: int = -1, log=None) -> Optional[str]:
+                   retention: int = -1, log=None,
+                   extra_state: Optional[Dict[str, Any]] = None,
+                   retention_grace_s: float = 0.0) -> Optional[str]:
     """Atomic snapshot ``<output_model>.snapshot_iter_<N>``: the model and
     the resume state footer, with keep-last-`retention` cleanup (<= 0
     keeps everything).  Non-finite scores are not snapshotted (a poisoned
-    snapshot would poison the resume).  The JAX package's extra service
-    state and retention grace serve its continuous trainer and come with
-    it (ROADMAP queue A item 6)."""
+    snapshot would poison the resume).  `extra_state` goes under the
+    footer's ``"service"`` key (the continuous trainer's schedule clock;
+    resume ignores it).  With `retention_grace_s` > 0 a snapshot past the
+    K newest is unlinked only once it is also older than the grace
+    window, so a reader that just resolved its path can still read it."""
     import numpy as np
     state, score = _capture(booster)
+    if extra_state:
+        state["service"] = dict(extra_state)
     if total_iter is None:
         total_iter = state["total_iter"]
     if not np.isfinite(score).all():
@@ -916,9 +1221,11 @@ def write_snapshot(booster, output_model: str, total_iter: Optional[int] = None,
         booster._model.save_model_to_string(), state))
     maybe_corrupt_snapshot(path, total_iter)
     if retention > 0:
+        cutoff = time.time() - max(retention_grace_s, 0.0)
         for it, old in snapshot_paths(output_model)[retention:]:
             with contextlib.suppress(OSError):
-                os.unlink(old)
+                if retention_grace_s <= 0 or os.path.getmtime(old) < cutoff:
+                    os.unlink(old)
     return path
 
 

@@ -139,6 +139,118 @@ METRIC_TABLE: Dict[str, Dict[str, Any]] = {
         "help": "Program-cache traffic per site: event=hit (a graph "
                 "replay)/compile for graph sites, hit/miss for the grower "
                 "and predictor caches and the kernel builds"},
+    # the serving, publish, canary, quality and online families (the
+    # JAX package's rows)
+    "lgbm_ingest_rows_total": {
+        "type": "counter", "labels": ("mode",),
+        "help": "Rows parsed by ingest, mode=full_parse/tail_append/"
+                "binary_cache/file_parse"},
+    "lgbm_ingest_seconds": {
+        "type": "histogram", "labels": (),
+        "help": "Wall time of one ingest pass (parse or cache load)"},
+    "lgbm_ingest_window_rows": {
+        "type": "gauge", "labels": (),
+        "help": "Rows currently staged in the online rolling window"},
+    "lgbm_online_cycles_total": {
+        "type": "counter", "labels": ("status",),
+        "help": "Continuous-training cycles, status=ok/timeout/"
+                "quarantine/gate_reject"},
+    "lgbm_online_publish_seconds": {
+        "type": "histogram", "labels": (),
+        "help": "Atomic model publish latency per cycle"},
+    "lgbm_serve_latency_seconds": {
+        "type": "histogram", "labels": ("model",),
+        "help": "Per-request serving latency, admission to completion "
+                "(drives BENCH_SERVE's p50/p99)"},
+    "lgbm_serve_requests_total": {
+        "type": "counter", "labels": ("outcome",),
+        "help": "Serving requests by outcome: completed, or the shed "
+                "reason (queue_full/deadline_exceeded/no_model/shutdown)"},
+    "lgbm_serve_rows_total": {
+        "type": "counter", "labels": (),
+        "help": "Feature rows served (completed requests only)"},
+    "lgbm_serve_batches_total": {
+        "type": "counter", "labels": ("path",),
+        "help": "Micro-batches served, path=device/host (host = degraded)"},
+    "lgbm_serve_queue_depth": {
+        "type": "gauge", "labels": (),
+        "help": "Admission queue depth sampled at the last submit/batch"},
+    "lgbm_serve_swaps_total": {
+        "type": "counter", "labels": (),
+        "help": "Hot model swaps (new generation loaded + prewarmed)"},
+    "lgbm_serve_degradations_total": {
+        "type": "counter", "labels": (),
+        "help": "Circuit-breaker trips device->host"},
+    "lgbm_serve_recoveries_total": {
+        "type": "counter", "labels": (),
+        "help": "Probe-based recoveries host->device"},
+    "lgbm_serve_class_requests_total": {
+        "type": "counter", "labels": ("cls", "outcome"),
+        "help": "Serving requests by priority class (cls=p0 highest..pN "
+                "lowest) and outcome: completed or the machine-readable "
+                "shed reason (queue_full/load_shed/quota_exceeded/...)"},
+    "lgbm_serve_staleness_seconds": {
+        "type": "histogram", "labels": ("model",),
+        "help": "Age of the serving generation at batch completion "
+                "(now minus its publish stamp) - the model-staleness "
+                "distribution the production sim reports"},
+    "lgbm_policy_decisions_total": {
+        "type": "counter", "labels": ("action",),
+        "help": "Autoscale/shed policy transitions, action=widen/narrow/"
+                "shed_on/shed_off (runtime/policy.py hysteresis "
+                "controller)"},
+    "lgbm_policy_window_seconds": {
+        "type": "gauge", "labels": (),
+        "help": "Current micro-batch gather window the policy controller "
+                "has set on the serving runtime"},
+    "lgbm_policy_shed_active": {
+        "type": "gauge", "labels": (),
+        "help": "1 while the policy holds the lowest priority class in "
+                "load-shed mode, else 0"},
+    "lgbm_ingest_quarantined_total": {
+        "type": "counter", "labels": ("reason",),
+        "help": "Rows the ingest quarantine dropped before they could "
+                "reach a training window, reason=nonfinite_label/"
+                "nonfinite_weight/bad_query_id/column_drift "
+                "(runtime/quality.py firewall stage one)"},
+    "lgbm_publish_gate_total": {
+        "type": "counter", "labels": ("verdict",),
+        "help": "Pre-publish eval-gate decisions per cycle, verdict="
+                "pass/reject/no_incumbent/no_metric/disabled (firewall "
+                "stage two; a reject persists the rejected model next "
+                "to the publish dir)"},
+    "lgbm_canary_events_total": {
+        "type": "counter", "labels": ("event",),
+        "help": "Canary lifecycle events, event=start/promote/rollback "
+                "(runtime/policy.CanaryPolicy; rollback also writes the "
+                "durable ROLLBACK marker in the publish dir)"},
+    "lgbm_canary_batches_total": {
+        "type": "counter", "labels": ("kind",),
+        "help": "Serving micro-batches routed while a canary window is "
+                "open, kind=canary/incumbent (the canary-fraction "
+                "accounting the chaos artifact scrapes)"},
+    "lgbm_warmup_total": {
+        "type": "counter", "labels": ("kind", "outcome"),
+        "help": "Prewarm attempts by role (kind=serving/train_online) "
+                "and outcome: manifest_ok, or the degradation to the "
+                "legacy prewarm (manifest_missing/manifest_torn/"
+                "manifest_stale/manifest_invalid/shape_mismatch/error) "
+                "(runtime/warmup.py)"},
+    "lgbm_warmup_seconds": {
+        "type": "histogram", "labels": ("kind",),
+        "help": "Wall time of one prewarm pass (manifest read + bucket "
+                "precompiles before readiness opens)"},
+    "lgbm_serve_resident_models": {
+        "type": "gauge", "labels": (),
+        "help": "Model entries currently loaded in this serving runtime "
+                "(bounded by max_resident when the model-zoo residency "
+                "manager is on)"},
+    "lgbm_serve_residency_events_total": {
+        "type": "counter", "labels": ("event",),
+        "help": "Model-zoo residency transitions, event=page_in (tenant "
+                "loaded on demand)/evict (LRU victim dropped, manifest "
+                "exported)/defer (every resident model busy; page-in "
+                "retries next poll)"},
     "lgbm_compile_cache_events_total": {
         "type": "counter", "labels": ("event",),
         "help": "Kernel build-cache traffic, event=hit (a built library "
@@ -805,7 +917,11 @@ class MetricsServer:
     ``/healthz``; runs on a daemon thread, `stop()` shuts it down."""
 
     def __init__(self, port: int = 0, host: str = "127.0.0.1",
-                 registry: Optional[MetricsRegistry] = None):
+                 registry: Optional[MetricsRegistry] = None,
+                 health_provider: Optional[Any] = None):
+        """`health_provider`: optional zero-arg callable; while it returns
+        falsy, ``/healthz`` answers 503 ``warming`` instead of 200 ``ok``
+        (the serving runtime's prewarm-before-admit readiness gate)."""
         import http.server
 
         reg = registry if registry is not None else REGISTRY
@@ -813,6 +929,7 @@ class MetricsServer:
         class _Handler(http.server.BaseHTTPRequestHandler):
             def do_GET(self) -> None:            # noqa: N802 — stdlib API
                 path = self.path.split("?", 1)[0]
+                status = 200
                 if path == "/metrics":
                     body = reg.render_prometheus().encode("utf-8")
                     ctype = "text/plain; version=0.0.4; charset=utf-8"
@@ -820,13 +937,20 @@ class MetricsServer:
                     body = (json.dumps(reg.snapshot()) + "\n").encode("utf-8")
                     ctype = "application/json"
                 elif path == "/healthz":
-                    body = b"ok\n"
+                    healthy = True
+                    if health_provider is not None:
+                        try:
+                            healthy = bool(health_provider())
+                        except Exception:   # noqa: BLE001 — gate, not crash
+                            healthy = False
+                    body = b"ok\n" if healthy else b"warming\n"
+                    status = 200 if healthy else 503
                     ctype = "text/plain"
                 else:
                     self.send_response(404)
                     self.end_headers()
                     return
-                self.send_response(200)
+                self.send_response(status)
                 self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(body)))
                 self.end_headers()
@@ -857,9 +981,11 @@ class MetricsServer:
 
 
 def start_http_server(port: int = 0, host: str = "127.0.0.1",
-                      registry: Optional[MetricsRegistry] = None
+                      registry: Optional[MetricsRegistry] = None,
+                      health_provider: Optional[Any] = None
                       ) -> MetricsServer:
-    return MetricsServer(port=port, host=host, registry=registry)
+    return MetricsServer(port=port, host=host, registry=registry,
+                         health_provider=health_provider)
 
 
 # ---------------------------------------------------------------------------
@@ -968,6 +1094,7 @@ def write_snapshot_now(context: Optional[str] = None) -> Optional[str]:
 
 PROFILE_ENV = "LGBM_TPU_PROFILE"
 PROFILE_ITERS_ENV = "LGBM_TPU_PROFILE_ITERS"
+PROFILE_BATCHES_ENV = "LGBM_TPU_PROFILE_BATCHES"
 
 
 class _ProfilerHook:
@@ -1069,19 +1196,19 @@ _hooks_lock = threading.Lock()
 
 def profile_hook(kind: str) -> _ProfilerHook:
     """The per-process profiler hook for `kind` ("train" ticks per
-    boosting iteration; serving's "serve" hook comes with ROADMAP queue A
-    item 6)."""
+    boosting iteration, ``$LGBM_TPU_PROFILE_ITERS`` of them; "serve" per
+    device-served batch, ``$LGBM_TPU_PROFILE_BATCHES``)."""
     hook = _hooks.get(kind)
     if hook is None:
         with _hooks_lock:
             hook = _hooks.get(kind)
             if hook is None:
-                if kind != "train":
-                    raise NotImplementedError(
-                        "profile hook %r: only training is profiled in the "
-                        "PyTorch package (serving is ROADMAP queue A item "
-                        "6)" % kind)
-                hook = _ProfilerHook(kind, PROFILE_ITERS_ENV, 5)
+                if kind not in ("train", "serve"):
+                    raise ValueError("unknown profile hook %r (train or "
+                                     "serve)" % (kind,))
+                env, dflt = ((PROFILE_ITERS_ENV, 5) if kind == "train"
+                             else (PROFILE_BATCHES_ENV, 20))
+                hook = _ProfilerHook(kind, env, dflt)
                 _hooks[kind] = hook
     return hook
 

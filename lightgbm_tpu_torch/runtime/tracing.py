@@ -288,6 +288,15 @@ def context() -> Optional[Tuple[str, str]]:
     return current()
 
 
+def thread_context() -> Optional[Tuple[str, str]]:
+    """The innermost open span on this thread only, with no process-root
+    fallback: per-item consumers (the serving per-request tracer) use it
+    so an ambient ``$LGBM_TPU_TRACEPARENT`` does not turn every request
+    into a traced one."""
+    st = _stack()
+    return st[-1] if st else None
+
+
 @contextlib.contextmanager
 def attach(ctx: Optional[Tuple[str, str]]):
     """Adopt a captured (or parsed-traceparent) context as this thread's

@@ -18,9 +18,11 @@ convert_model's C++ is the JAX package's string for string and compiles
 to the model's predictions; task=doctor's bundle carries probe.json and a
 crashing task leaves a bundle; without device_type=cpu every task but
 doctor fails on a machine without CUDA with the port's message, `python
--m lightgbm_tpu_torch` with a non-zero exit; task=serve and
-task=train_online are refused naming their ROADMAP items, and a machine
-list that does not name this host before any connection;
+-m lightgbm_tpu_torch` with a non-zero exit; serve's binary data-plane
+knobs are refused naming their ROADMAP item, task=serve answers on the
+JSON-lines front end and drains on SIGTERM, task=serve without
+device_type=cpu fails without a card, and a machine list that does not
+name this host is refused before any connection;
 LGBM_TPU_METRICS_FILE and compile_cache_dir are read."""
 import json
 import os
@@ -306,13 +308,67 @@ def test_module_entry_without_cpu_exits_non_zero(run, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["task=serve"], "item 6"),
-    (["task=train_online"], "item 6")])
+    (["task=serve", "serve_wire_port=0"], "item 6, its second slice"),
+    (["task=serve", "serve_wire_uds=/nonexistent/serve.sock"],
+     "item 6, its second slice")])
 def test_what_waits_is_refused_naming_its_item(run, argv, item,
                                                monkeypatch):
+    """task=serve and task=train_online run since their slice landed;
+    serve's binary data plane (the wire and the SHM ring) waits for the
+    next and is refused before anything starts."""
     monkeypatch.setenv("LGBM_TPU_DOCTOR_ON_CRASH", "0")
     with pytest.raises(NotImplementedError, match=item):
-        tapp.Application(argv + ["data=" + run["data"]] + CPU).run()
+        tapp.Application(argv + ["input_model=" + run["tm"]] + CPU).run()
+
+
+def test_serve_answers_and_drains_on_sigterm(run, tmp_path):
+    """`python -m lightgbm_tpu_torch task=serve` on the CPU: the stdout
+    contract names the port, a JSON-lines request is answered by the
+    device predictor (the offline predict of the model, byte for byte),
+    SIGTERM drains it to exit 0 with its final stats on stderr; without
+    device_type=cpu it fails on a machine without a card."""
+    import signal
+    import socket
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
+               LGBM_TPU_DOCTOR_ON_CRASH="0")
+    args = [sys.executable, "-m", "lightgbm_tpu_torch", "task=serve",
+            "input_model=" + run["tm"], "serve_port=0"]
+    p = subprocess.Popen(args + CPU, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True)
+    try:
+        # the log's lines come first; the contract line names the port
+        head = []
+        for line in p.stdout:
+            head.append(line)
+            if line.startswith("serving ") or len(head) > 50:
+                break
+        assert line.startswith("serving %s on 127.0.0.1:" % run["tm"]), \
+            head
+        port = int(line.rsplit(":", 1)[1])
+        X = _data(n=5, seed=9)[0]
+        with socket.create_connection(("127.0.0.1", port), timeout=30) as s:
+            f = s.makefile("rw")
+            f.write(json.dumps({"features": X.tolist()}) + "\n")
+            f.flush()
+            resp = json.loads(f.readline())
+        want = lt.Booster(params={"device_type": "cpu"},
+                          model_file=run["tm"]).predict(X, device=True)
+        assert resp["served_by"] == "device" and resp["generation"] == 0
+        assert np.array_equal(resp["values"], want)
+        p.send_signal(signal.SIGTERM)
+        _, err = p.communicate(timeout=60)
+    finally:
+        if p.poll() is None:
+            p.kill()
+    assert p.returncode == 0, err[-2000:]
+    stats = json.loads(err.split("serve: final stats: ")[1].splitlines()[0])
+    assert stats["completed"] == 1 and stats["batches_host"] == 0
+    assert stats["degradations"] == 0 and stats["prewarm_failures"] == 0
+    if not torch.cuda.is_available():
+        r = subprocess.run(args, env=env, capture_output=True, text=True,
+                           timeout=120)
+        assert r.returncode != 0
+        assert "no CUDA device" in r.stderr
 
 
 @pytest.mark.parametrize("argv", [

@@ -250,8 +250,7 @@ def test_cv_over_a_path_dataset(tmp_path):
 def test_stream_errors(case, match):
     X, y = _data(n=400, seed=9)
     ref = lt.Dataset(X, label=y, params=PARAMS).construct()
-    err = NotImplementedError if case == "quarantine" else lt.LightGBMError
-    with pytest.raises(err, match=match):
+    with pytest.raises(lt.LightGBMError, match=match):
         if case == "mixed":
             b = StreamingDatasetBuilder(params=PARAMS)
             b.push_dense(X[:100])
@@ -271,7 +270,14 @@ def test_stream_errors(case, match):
             b.push_dense(X[:300], start_row=0)
             b.push_dense(X[200:], start_row=200)
         elif case == "quarantine":
-            StreamingDatasetBuilder(params=PARAMS, quarantine=True)
+            # quarantine is armed (runtime/quality.py); a by-reference
+            # stream cannot renumber rows, so a positioned push carrying
+            # a non-finite label is refused
+            b = StreamingDatasetBuilder(params=PARAMS, reference=ref,
+                                        num_total_rows=400, quarantine=True)
+            bad = y[:100].copy()
+            bad[7] = np.nan
+            b.push_dense(X[:100], label=bad, start_row=0)
         elif case == "not_a_stream":
             lt.Dataset(X, label=y).push_rows(X[:10])
         else:

@@ -72,13 +72,25 @@ def test_fault_spec_parsing(monkeypatch):
         assert row["arg"] == jres.FAULT_TABLE[name]["arg"]
 
 
-@pytest.mark.parametrize("name,item", [("slow_stage", "item 6"),
-                                       ("torn_write", "item 6"),
-                                       ("die_at_predict", "item 6")])
+@pytest.mark.parametrize("name,item", [("slow_stage", None),
+                                       ("torn_write", None),
+                                       ("die_at_predict", None),
+                                       ("die_at_ring",
+                                        "item 6, its second slice")])
 def test_unported_faults_refused_naming_their_item(monkeypatch, name, item):
+    """The serving, publish and online faults are injected since their
+    slice; die_at_ring (the shared-memory ring) alone is refused, naming
+    the slice that brings it."""
     monkeypatch.setenv("LGBM_TPU_FAULT", "nan_grad:1,%s:3" % name)
-    with pytest.raises(NotImplementedError, match=item):
-        resilience.fault_active("nan_grad")
+    if item is None:
+        assert resilience.fault_active("nan_grad")
+        assert resilience.fault_arg(name) == "3"
+        assert name in resilience.FAULT_TABLE
+        assert name not in resilience.UNPORTED_FAULTS
+    else:
+        assert list(resilience.UNPORTED_FAULTS) == [name]
+        with pytest.raises(NotImplementedError, match=item):
+            resilience.fault_active("nan_grad")
 
 
 def test_backoff_is_bounded_jittered_deterministic():

@@ -574,9 +574,26 @@ def test_profiler_failure_says_so_and_training_goes_on(tmp_path,
         telemetry._reset_profile_hooks()
 
 
-def test_serving_profile_hook_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        telemetry.profile_hook("serve")
+def test_serving_profile_hook_is_not_ported(monkeypatch, tmp_path):
+    """The serve hook is ported with serving: one trace over the first
+    $LGBM_TPU_PROFILE_BATCHES device-served batches; an unknown kind is
+    refused."""
+    monkeypatch.setenv(telemetry.PROFILE_ENV, str(tmp_path))
+    monkeypatch.setenv(telemetry.PROFILE_BATCHES_ENV, "2")
+    telemetry._reset_profile_hooks()
+    try:
+        hook = telemetry.profile_hook("serve")
+        assert hook.kind == "serve" and hook.limit == 2
+        assert telemetry.profile_hook("serve") is hook
+        for _ in range(3):
+            hook.tick()
+            hook.tock()
+        assert hook.done and not hook.active and hook.ticks == 2
+        assert hook.path and hook.path.endswith(".json")
+        with pytest.raises(ValueError, match="unknown profile hook"):
+            telemetry.profile_hook("fleet")
+    finally:
+        telemetry._reset_profile_hooks()
 
 
 def test_gather_refuses_several_processes(monkeypatch):
