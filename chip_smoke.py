@@ -269,8 +269,16 @@ cycles of 2 rounds with the gate on, B1 and B2 counted per cycle;
 `serve` a ServingRuntime over its publish dir, 8 client threads and ~2M
 rows of ragged requests with a 500 x 255 model published mid-stream,
 every response held to the offline device predict of its generation;
-`serve fault` die_at_predict and slow_predict on one batch each; `cli
-serve / cli online` the task=serve and task=train_online children.
+`wire` the same runtime behind WireTCPServer and WireUnixServer, ~500k
+rows of the same slices over TCP, the Unix socket and the shared-memory
+ring, each answer the JSON path's byte for byte, and two torn-frame
+classes; `loadgen` LoadGenerator's open loop on it, every answer
+verified; `die_at_ring` a ring client killed with frames in flight,
+its session reclaimed; `serve fault` die_at_predict and slow_predict on
+one batch each; `cli serve / cli online` the task=serve and
+task=train_online children; `fleet` a FleetController of two replicas
+(spawned with the children, die_at_spawn:2 relaunched), 200 requests on
+the wire and 200 on the ring, a graceful stop.
 Every phase always runs and prints one line, prefixed with the seconds
 since start; any failed check exits non-zero.  The last line is the
 device record {"ok": true, "device": {...}}.  Imports nothing of JAX or
@@ -7676,7 +7684,9 @@ def offline(text: str, X, **kw):
 
 
 def serve_phase(pub_dir: str, gens: dict, seed: int, smi: str) -> tuple:
-    """A `ServingRuntime` on the card over the online line's publish dir,
+    """A `ServingRuntime` on the card over the online line's publish dir
+    (returned running, with the JSON stream's figures, for the wire,
+    die_at_ring and loadgen lines),
     its manifest naming SERVE_BUCKETS for generation 3: SERVE_CLIENTS
     client threads send ragged requests of 1..SERVE_MAX_REQUEST rows
     (slices of a seeded pool, about SERVE_STREAM_ROWS rows in all);
@@ -7766,7 +7776,6 @@ def serve_phase(pub_dir: str, gens: dict, seed: int, smi: str) -> tuple:
     swap_events = [s["last_swap"] for s in rt.wd.stages
                    if isinstance(s.get("last_swap"), dict)
                    and s["last_swap"].get("generation") == 4]
-    rt.stop()
     check(not errors, "serve: %d requests dropped: %s"
           % (len(errors), errors[:3]))
     check(entry4.generation == 4, "serve: never swapped to generation 4")
@@ -7820,7 +7829,9 @@ def serve_phase(pub_dir: str, gens: dict, seed: int, smi: str) -> tuple:
                json.dumps([{k: e.get(k) for k in ("load_s",
                                                   "prewarm_compiles")}
                            for e in swap_events]), by_gen, caps_new))
-    return line, text4, pool, want
+    figures = {"requests/s": n_req / t_stream, "rows/s": n_rows / t_stream,
+               "p50_s": p50, "p99_s": p99}
+    return line, text4, pool, want, rt, figures
 
 
 def serve_fault_phase(pub_dir: str, text4: str, pool, smi: str) -> str:
@@ -7907,6 +7918,456 @@ def serve_fault_phase(pub_dir: str, text4: str, pool, smi: str) -> str:
                t["die_at_predict"], FAULT_STALL_S, served[4][2],
                t["slow_predict"], json.dumps(counters),
                [by for _, by, _ in served]))
+
+
+#: the wire line: rows each plane carries (the serve line's seeded slices)
+WIRE_PLANE_ROWS = 500_000
+#: the loadgen line: seconds of open-loop arrivals at LOADGEN_RPS, the
+#: verifier's probe rows (its host reference runs over them)
+LOADGEN_S, LOADGEN_RPS, LOADGEN_PROBE_ROWS = 3.0, 200.0, 4096
+#: the fleet line: replicas, requests over each transport
+FLEET_REPLICAS, FLEET_REQUESTS = 2, 200
+#: die_at_ring: the request frame in flight at which the ring client dies
+RING_DIE_AT = 6
+
+RING_CHILD = """
+import sys
+import numpy as np
+from lightgbm_tpu_torch.runtime import shm_ring
+c = shm_ring.ShmClient(sys.argv[1], resp_capacity=shm_ring.MIN_CAPACITY)
+X = np.ones((160, int(sys.argv[2])), np.float32)
+for _ in range(8):
+    assert c.submit_nowait(X) is None
+print("the fault never fired", file=sys.stderr)
+sys.exit(3)
+"""
+
+
+def ring_maps() -> int:
+    """Shared-memory ring segments mapped in this process."""
+    with open("/proc/self/maps") as fh:
+        return fh.read().count("lgbm-shm-ring")
+
+
+def plane_stream(make_client, pool, want4, seed: int, rows: int) -> dict:
+    """SERVE_CLIENTS threads, each with its own client from
+    `make_client()`, send the serve line's seeded slices of the pool (the
+    same generators) until `rows` rows in all; every answer must be
+    generation 4 from the device, byte for byte the offline device
+    predict of its rows as float32.  Returns the plane's figures: client
+    round trips and the server's latency histogram over the plane."""
+    import threading
+    from lightgbm_tpu_torch.runtime import telemetry
+    hist = telemetry.histogram("lgbm_serve_latency_seconds")
+    per_client = rows // SERVE_CLIENTS
+    lat = [[] for _ in range(SERVE_CLIENTS)]
+    sent = [0] * SERVE_CLIENTS
+    errors = []
+
+    def client(i):
+        rng = np.random.default_rng(seed + 31 + i)
+        try:
+            with make_client() as c:
+                while sent[i] < per_client:
+                    n = int(rng.integers(1, SERVE_MAX_REQUEST + 1))
+                    s = int(rng.integers(0, SERVE_POOL_ROWS - n + 1))
+                    t0 = time.perf_counter()
+                    out = c.request_once(pool[s:s + n])
+                    lat[i].append(time.perf_counter() - t0)
+                    if "error" in out:
+                        errors.append("rejected %s" % out)
+                        return
+                    if out["generation"] != 4 \
+                            or out["served_by"] != "device" \
+                            or not np.array_equal(out["values"][:, 0],
+                                                  want4[s:s + n]):
+                        errors.append("a %d-row answer (generation %s, %s) "
+                                      "is not the offline device predict"
+                                      % (n, out["generation"],
+                                         out["served_by"]))
+                        return
+                    sent[i] += n
+        except BaseException as e:       # noqa: BLE001 — a failed plane
+            errors.append("%s: %s" % (type(e).__name__, e))
+
+    h0 = hist.state()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    secs = time.perf_counter() - t0
+    check(not errors, "wire: %d failed requests: %s" % (len(errors),
+                                                          errors[:3]))
+    dh = telemetry.state_delta(hist.state(), h0)
+    rt_s = np.concatenate([np.asarray(x) for x in lat])
+    return {"requests": int(rt_s.size), "rows": int(sum(sent)),
+            "s": round(secs, 4), "requests/s": round(rt_s.size / secs, 1),
+            "rows/s": round(sum(sent) / secs, 1),
+            "p50_s": telemetry.quantile_from_state(dh, 0.5),
+            "p99_s": telemetry.quantile_from_state(dh, 0.99),
+            "client_p50_s": round(float(np.percentile(rt_s, 50)), 6),
+            "client_p99_s": round(float(np.percentile(rt_s, 99)), 6)}
+
+
+def torn_frames(port: int) -> dict:
+    """Two torn-frame classes on one TCP connection each: a bad CRC is
+    rejected and the connection answers the next frame; a bad magic is
+    rejected and the connection closes."""
+    import socket
+    from lightgbm_tpu_torch.runtime import wire
+    out = {}
+    X = np.ones((2, F), np.float32)
+    with socket.create_connection(("127.0.0.1", port), timeout=60) as sk:
+        rf = sk.makefile("rb")
+        bad = bytearray(wire.pack_request(X))
+        bad[-1] ^= 0xFF
+        sk.sendall(bytes(bad))
+        rej = wire.unpack_response(*wire.read_frame(rf))
+        sk.sendall(wire.pack_request(X))
+        ok = wire.unpack_response(*wire.read_frame(rf))
+        check(rej.get("reason") == "bad_crc" and rej.get("retryable")
+              and "values" in ok, "wire: bad CRC answered %s, then %s"
+              % (rej, {k: ok.get(k) for k in ("error", "reason")}))
+        out["bad_crc"] = "rejected, connection kept"
+    with socket.create_connection(("127.0.0.1", port), timeout=60) as sk:
+        rf = sk.makefile("rb")
+        sk.sendall(b"GET / HTTP/1.1\r\n" + b"\0" * 64)
+        rej = wire.unpack_response(*wire.read_frame(rf))
+        check(rej.get("reason") == "bad_magic" and rf.read(1) == b"",
+              "wire: bad magic answered %s and left the connection open"
+              % rej)
+        out["bad_magic"] = "rejected, connection closed"
+    return out
+
+
+def wire_phase(rt, pool, want4: np.ndarray, seed: int, work: str,
+               json_figs: dict, smi: str) -> tuple:
+    """The serve line's runtime behind a `WireTCPServer` and a
+    `WireUnixServer`, generation 4 first prewarmed for SERVE_BUCKETS
+    through the runtime's manifest prewarm: SERVE_CLIENTS clients send
+    the serve line's seeded slices, about WIRE_PLANE_ROWS rows a plane,
+    over TCP, over the Unix socket and over the shared-memory ring.
+    Held: every answer is the JSON path's (the offline device predict of
+    generation 4) byte for byte as float32; 0 host batches; 0 captures at the
+    predictor's site after readiness; a bad CRC is rejected and keeps
+    the connection, a bad magic closes it.  Starts the die_at_ring child
+    on the Unix server; returns (line, servers, the child)."""
+    import threading
+    from lightgbm_tpu_torch.runtime import graph_obs, shm_ring, warmup, wire
+    srv = wire.WireTCPServer(rt, port=0)
+    uds = os.path.join(work, "wire.sock")
+    usrv = wire.WireUnixServer(rt, uds)
+    for sv in (srv, usrv):
+        threading.Thread(target=sv.serve_forever,
+                         kwargs={"poll_interval": 0.2}, daemon=True).start()
+    # the wire carries float32: the JSON path's values in the server's
+    # own cast
+    want32 = want4.astype(np.float32)
+    # readiness: generation 4's programs for every bucket a batch can
+    # reach, through the runtime's own manifest prewarm (what a start on
+    # generation 4 does); the stream captured only the buckets it hit
+    caps0 = graph_obs.total_compiles(warmup.PREDICT_SITE)
+    t0 = time.perf_counter()
+    warmed = rt._prewarm_buckets(rt._entries["default"], list(SERVE_BUCKETS))
+    t_warm = time.perf_counter() - t0
+    check(warmed == list(SERVE_BUCKETS), "wire: prewarmed %s" % warmed)
+    warm_caps = graph_obs.total_compiles(warmup.PREDICT_SITE) - caps0
+    st0 = rt.stats()
+    caps0 = graph_obs.total_compiles(warmup.PREDICT_SITE)
+    planes = {}
+    for name, make in (
+            ("tcp", lambda: wire.WireClient(("127.0.0.1", srv.port),
+                                            timeout=300)),
+            ("uds", lambda: wire.WireClient(uds, timeout=300)),
+            ("shm", lambda: shm_ring.ShmClient(uds, timeout=300))):
+        planes[name] = plane_stream(make, pool, want32, seed,
+                                    WIRE_PLANE_ROWS)
+    st = rt.stats()
+    caps = graph_obs.total_compiles(warmup.PREDICT_SITE) - caps0
+    check(st["batches_host"] == 0 and st["degradations"] == 0,
+          "wire: host batches %d, breaker trips %d"
+          % (st["batches_host"], st["degradations"]))
+    check(caps == 0, "wire: %d captures at %s after readiness"
+          % (caps, warmup.PREDICT_SITE))
+    # the ring client that dies with frames in flight: started now, its
+    # start-up overlaps the torn frames and the loadgen line
+    ring = dict(before=shm_ring.stats_snapshot(), maps=ring_maps(),
+                child=subprocess.Popen(
+                    [sys.executable, "-c", RING_CHILD, uds, str(F)],
+                    cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE,
+                                       LGBM_TPU_FAULT="die_at_ring:%d"
+                                       % RING_DIE_AT),
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True), uds=uds)
+    torn = torn_frames(srv.port)
+    line = ("wire (%s): the serve line's runtime (generation 4 prewarmed "
+            "for buckets %s: %d captures, %.3f s) behind WireTCPServer and "
+            "WireUnixServer, %d client threads per plane sending the serve "
+            "line's seeded slices (1..%d rows): %s; the JSON stream of the "
+            "same call: %s; every answer generation 4 from the device, the "
+            "JSON path's values byte for byte as float32; host batches 0, "
+            "captures after readiness %d (%d device batches in the three "
+            "planes); torn frames %s"
+            % (smi, list(SERVE_BUCKETS), warm_caps, t_warm, SERVE_CLIENTS,
+               SERVE_MAX_REQUEST, json.dumps(planes),
+               json.dumps(json_figs), caps,
+               st["batches_device"] - st0["batches_device"],
+               json.dumps(torn)))
+    return line, (srv, usrv), ring
+
+
+def die_at_ring_done(rt, ring: dict, pool, want4: np.ndarray,
+                     smi: str) -> str:
+    """The die_at_ring child's end: exit 137 with RING_DIE_AT frames in
+    flight; the server reclaims its session (counted `reclaimed`, none
+    torn) and unmaps the segment (0 mappings left); a fresh ring client
+    on the same runtime is answered byte for byte."""
+    from lightgbm_tpu_torch.runtime import shm_ring
+    child = ring["child"]
+    try:
+        _, err = child.communicate(timeout=300)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    check(child.returncode == 137 and "FAULT die_at_ring" in err,
+          "die_at_ring: the ring child exited %s: %s"
+          % (child.returncode, err[-2000:]))
+    before = ring["before"]
+    # the planes' own sessions may still be closing: wait for this one
+    ended = lambda s: s["reclaimed"] + s["torn"]  # noqa: E731
+    t0 = time.perf_counter()
+    while ended(shm_ring.stats_snapshot()) <= ended(before) \
+            and time.perf_counter() - t0 < 60:
+        time.sleep(0.02)
+    after = shm_ring.stats_snapshot()
+    while ring_maps() > ring["maps"] and time.perf_counter() - t0 < 60:
+        time.sleep(0.05)
+    t_reclaim = time.perf_counter() - t0
+    check(after["reclaimed"] == before["reclaimed"] + 1
+          and after["torn"] == before["torn"],
+          "die_at_ring: sessions %s, before %s" % (after, before))
+    check(ring_maps() == ring["maps"], "die_at_ring: %d ring mappings "
+          "leaked" % (ring_maps() - ring["maps"]))
+    n = min(1000, SERVE_MAX_REQUEST)
+    with shm_ring.ShmClient(ring["uds"], timeout=300) as c:
+        out = c.request_once(pool[:n])
+    check("error" not in out and out["served_by"] == "device"
+          and np.array_equal(out["values"][:, 0],
+                             want4[:n].astype(np.float32)),
+          "die_at_ring: the runtime's next ring answer %s"
+          % {k: out.get(k) for k in ("error", "reason", "served_by")})
+    st = rt.stats()
+    check(st["batches_host"] == 0, "die_at_ring: %d host batches"
+          % st["batches_host"])
+    return ("die_at_ring (%s): a ring client on the wire runtime's Unix "
+            "socket killed with %d request frames in flight "
+            "(LGBM_TPU_FAULT=die_at_ring:%d, exit 137); the session "
+            "reclaimed %.3f s after the child's end (sessions %s), ring "
+            "mappings %d before and after, none leaked; a fresh ring "
+            "client then answered byte for byte from the device"
+            % (smi, RING_DIE_AT, RING_DIE_AT, t_reclaim,
+               json.dumps({k: after[k] - before[k] for k in (
+                   "reclaimed", "torn")}),
+               ring["maps"]))
+
+
+def loadgen_phase(rt, text4: str, pool, seed: int, smi: str) -> str:
+    """`LoadGenerator` against the serve line's runtime: LOADGEN_S s of
+    open-loop Poisson arrivals at LOADGEN_RPS requests/s, two
+    RequestClasses (priority 0 with 1-row requests, priority 2 with
+    SERVE_MAX_REQUEST-row ones) over the first LOADGEN_PROBE_ROWS rows of
+    the pool, every answer checked by `ResponseVerifier` against the
+    offline predictor of its generation.  Held: 0 mismatches (and no
+    wrong generation, unverifiable answer or hard error); offered =
+    verified + shed; the arrivals are poisson_arrivals of the shape,
+    duration and seed; 0 host batches."""
+    from lightgbm_tpu_torch.runtime.loadgen import (LoadGenerator,
+                                                    RequestClass,
+                                                    ResponseVerifier,
+                                                    TrafficShape,
+                                                    poisson_arrivals)
+    probe = pool[:LOADGEN_PROBE_ROWS].astype(np.float64)
+    shape = TrafficShape.step([(LOADGEN_S, LOADGEN_RPS)])
+    verifier = ResponseVerifier(probe, texts={4: text4})
+    t0 = time.perf_counter()
+    verifier.refs(4)
+    t_refs = time.perf_counter() - t0
+    st0 = rt.stats()
+    gen = LoadGenerator(
+        rt, [RequestClass("p0", 0, weight=3.0, rows=1),
+             RequestClass("p2", 2, weight=1.0, rows=SERVE_MAX_REQUEST)],
+        shape, LOADGEN_S, probe, seed=seed + 51, verifier=verifier,
+        deadline_s=120.0)
+    t0 = time.perf_counter()
+    led = gen.run()
+    t_run = time.perf_counter() - t0
+    st = rt.stats()
+    ver = led["verification"]
+    offered = led["offered_total"]
+    shed = sum(c["shed"] for c in led["classes"].values())
+    check(np.array_equal(gen.arrivals, poisson_arrivals(
+        shape, LOADGEN_S, seed + 51)) and offered == len(gen.arrivals),
+        "loadgen: the arrivals are not poisson_arrivals of the seed")
+    check(ver.get("mismatch", 0) == 0 and ver.get("wrong_generation", 0)
+          == 0 and ver.get("unverifiable", 0) == 0 and not
+          led["hard_errors"] and led["non_machine_readable_rejections"]
+          == 0, "loadgen: verification %s, errors %s" % (
+              ver, led["hard_errors"]))
+    check(offered == ver.get("ok", 0) + shed,
+          "loadgen: offered %d, verified %d, shed %d"
+          % (offered, ver.get("ok", 0), shed))
+    check(st["batches_host"] == st0["batches_host"] == 0,
+          "loadgen: %d host batches" % st["batches_host"])
+    return ("loadgen (%s): LoadGenerator on the serve line's runtime, "
+            "%.1f s of open-loop Poisson arrivals at %g requests/s (seed "
+            "%d, the arrivals poisson_arrivals' array), classes p0 (1 "
+            "row, weight 3) and p2 (%d rows, weight 1) over %d probe rows: "
+            "%.3f s; offered %d = verified %d + shed %d; verification %s; "
+            "max lag %.4f s; served by %s; classes %s; the verifier's "
+            "references (host f64 and device over the probe) %.3f s"
+            % (smi, LOADGEN_S, LOADGEN_RPS, seed + 51, SERVE_MAX_REQUEST,
+               LOADGEN_PROBE_ROWS, t_run, offered, ver.get("ok", 0), shed,
+               json.dumps(ver), led["max_lag_s"],
+               json.dumps(led["served_by"]),
+               json.dumps({k: {kk: v[kk] for kk in ("offered", "completed",
+                                                    "shed")}
+                           for k, v in led["classes"].items()}), t_refs))
+
+
+def start_fleet(pub_dir: str) -> dict:
+    """A `FleetController` of FLEET_REPLICAS replicas on the card over the
+    online line's publish dir, with die_at_spawn:2 in their environment:
+    spawns 1 and 2 start now (the second dies after its prewarm, before
+    it is ready, and the controller relaunches it as spawn 3)."""
+    import tempfile
+    from lightgbm_tpu_torch.runtime.fleet import FleetController
+    from lightgbm_tpu_torch.runtime.policy import FleetScalePolicy
+    fleet_dir = tempfile.mkdtemp(prefix="lgbm_fleet_")
+    check(len(os.path.join(fleet_dir, "replica-001.sock")) < 100,
+          "fleet: %s is too long a directory for a Unix socket" % fleet_dir)
+    spec = {"models": {"default": pub_dir}, "response_dtype": "float32",
+            "max_queue": 256, "max_batch_rows": SERVE_MAX_REQUEST,
+            "batch_window_s": 0.002, "shed_policy": False,
+            "default_deadline_s": 120.0, "predict_deadline_s": 120.0}
+    pol = FleetScalePolicy(min_replicas=FLEET_REPLICAS,
+                           max_replicas=FLEET_REPLICAS, slo_p99_s=60.0,
+                           high_watermark=0.99, low_watermark=0.0,
+                           patience=10 ** 6, scale_down_patience=10 ** 6,
+                           interval_s=0.5)
+    ctl = FleetController(fleet_dir, spec, policy=pol, interval_s=0.5,
+                          spawn_grace_s=600.0, drain_grace_s=60.0,
+                          env={"LGBM_TPU_FAULT": "die_at_spawn:2"})
+    t0 = time.perf_counter()
+    ctl.start()
+    return dict(ctl=ctl, dir=fleet_dir, t0=t0)
+
+
+def fleet_done(run: dict, pool, want4: np.ndarray, seed: int,
+               smi: str) -> str:
+    """The fleet's end: both replicas ready (spawns 1 and 3; spawn 2 died
+    with 137 before it was ready); FLEET_REQUESTS requests of 1..
+    SERVE_MAX_REQUEST rows through a `FleetClient` on the wire and as
+    many through one on the shared-memory ring, each answer generation 4
+    from the device, the offline device predict of its rows byte for
+    byte (a retryable `ring_full` from a ring still holding the last
+    frame is retried and counted); then a graceful stop: each live
+    replica exits 0 having built or loaded no kernel.  Prints each replica's spawn-to-ready seconds
+    and peak device MiB (its endpoint file, after its drain)."""
+    import shutil
+    from lightgbm_tpu_torch.runtime.fleet import FleetClient
+    from lightgbm_tpu_torch.runtime.serving import ServeRejected
+    ctl = run["ctl"]
+    try:
+        ctl.wait_ready(FLEET_REPLICAS, timeout=600)
+        t_ready = time.perf_counter() - run["t0"]
+        check(sorted(h.ordinal for h in ctl.replicas) == [1, 3],
+              "fleet: ready spawns %s"
+              % sorted(h.ordinal for h in ctl.replicas))
+        want32 = want4.astype(np.float32)
+        figs = {}
+        for kind, shm in (("wire", False), ("shm", True)):
+            rng = np.random.default_rng(seed + 61 + shm)
+            cli = FleetClient(ctl, workers=SERVE_CLIENTS,
+                              predict_deadline_s=120.0,
+                              request_timeout_s=300.0, prefer_shm=shm)
+            try:
+                reqs = []
+                for _ in range(FLEET_REQUESTS):
+                    n = int(rng.integers(1, SERVE_MAX_REQUEST + 1))
+                    s = int(rng.integers(0, SERVE_POOL_ROWS - n + 1))
+                    reqs.append((s, n))
+                t0 = time.perf_counter()
+                futs = [(cli.submit(pool[s:s + n]), s, n) for s, n in reqs]
+                retried = 0
+                for fut, s, n in futs:
+                    while True:
+                        try:
+                            rec = fut.wait(timeout=300)
+                            break
+                        except ServeRejected as e:
+                            # the ring's typed backpressure: a replica
+                            # frees a request frame's bytes just after it
+                            # publishes the answer, so a large frame sent
+                            # at once can find the ring full; retried as
+                            # its hint asks, never a drop
+                            check(e.reason == "ring_full" and e.retryable
+                                  and retried < FLEET_REQUESTS,
+                                  "fleet: a %s request rejected: %s"
+                                  % (kind, e))
+                            retried += 1
+                            time.sleep(e.retry_after_s or 0.002)
+                            fut = cli.submit(pool[s:s + n])
+                    check(rec.generation == 4 and rec.served_by == "device"
+                          and np.array_equal(rec.values, want32[s:s + n]),
+                          "fleet: a %d-row %s answer (generation %s, %s) is "
+                          "not the offline device predict" % (
+                              n, kind, rec.generation, rec.served_by))
+                secs = time.perf_counter() - t0
+                check(cli.transports[kind] == FLEET_REQUESTS,
+                      "fleet: transports %s" % cli.transports)
+                figs[kind] = {"s": round(secs, 4), "rows": sum(
+                    n for _, n in reqs), "requests/s": round(
+                    FLEET_REQUESTS / secs, 1), "ring_full_retried": retried}
+            finally:
+                cli.close()
+    finally:
+        rep = ctl.stop()
+    live = sorted((h for h in ctl.retired if h.ordinal in (1, 3)),
+                  key=lambda h: h.ordinal)
+    codes = {h.ordinal: h.proc.returncode for h in ctl.retired}
+    check(codes.get(1) == 0 and codes.get(3) == 0 and codes.get(2) == 137,
+          "fleet: replica exit codes by spawn %s" % codes)
+    replicas = []
+    ready = {e["replica"]: e["spawn_to_ready_s"] for e in rep["events"]
+             if e["action"] == "ready"}
+    for h in live:
+        with open(h.endpoint_path) as fh:
+            ep = json.load(fh)
+        check(ep.get("drained") and ep["kernel_builds"] == 0
+              and ep["peak_device_bytes"], "fleet: %s endpoint %s"
+              % (h.name, ep))
+        replicas.append({"replica": h.name,
+                         "spawn_to_ready_s": ready.get(h.name),
+                         "peak_device_mib": round(
+                             (ep["peak_device_bytes"] or 0) / 2 ** 20, 1),
+                         "kernel_builds": ep["kernel_builds"]})
+    shutil.rmtree(run["dir"], ignore_errors=True)
+    return ("fleet (%s): FleetController of %d replicas on the card "
+            "(python -m lightgbm_tpu_torch.runtime.fleet, spawned when the "
+            "CLI children started) over the online publish dir, "
+            "LGBM_TPU_FAULT=die_at_spawn:2: spawn 2 died before it was ready "
+            "(137), spawn 3 took its place; both ready %.1f s after the "
+            "start; replicas %s; %d requests of 1..%d rows on each "
+            "transport, every one generation 4 from the device, the offline "
+            "device predict byte for byte: %s; graceful stop, live replicas "
+            "exit 0, events %s"
+            % (smi, FLEET_REPLICAS, t_ready, json.dumps(replicas),
+               FLEET_REQUESTS, SERVE_MAX_REQUEST, json.dumps(figs),
+               [e["action"] for e in rep["events"]]))
 
 
 def start_cli_online(tsv: str, work: str, profile_dir: str) -> dict:
@@ -8007,10 +8468,14 @@ def cli_online_done(run: dict, gens: dict) -> tuple:
 
 def serving_online_phases(tsv_run: dict, main_text: str, data, seed: int,
                           smi: str) -> dict:
-    """The lines `online`, `serve`, `serve fault` and `cli serve` /
-    `cli online`, in that order: the in-process trainer alone on the
-    card, then the serving runtime alone, then the fault runtime while
-    the two CLI children run.  Returns the launch counts by path."""
+    """The lines `online`, `serve`, `wire`, `loadgen`, `die_at_ring`,
+    `serve fault`, `cli serve` / `cli online` and `fleet`, in that order:
+    the in-process trainer alone on the card, then the serving runtime
+    alone (its JSON stream, then its binary planes, the load generator
+    and the dying ring client), then the fault runtime while the two CLI
+    children and the fleet's replicas start.  Returns the launch counts
+    by path (the serving lines launch none of B1-B8: the device
+    predictor needs none)."""
     import tempfile
     t_phase = time.perf_counter()
     work = os.path.dirname(tsv_run["path"])
@@ -8018,20 +8483,52 @@ def serving_online_phases(tsv_run: dict, main_text: str, data, seed: int,
     line, launches, pub_dir, gens = online_phase(
         tsv, t_tsv, work, main_text, data[1], data[2], smi)
     say(line)
-    line, text4, pool, want = serve_phase(pub_dir, gens, seed, smi)
+    line, text4, pool, want, rt, json_figs = serve_phase(pub_dir, gens, seed,
+                                                         smi)
     say(line)
+    served = {}
+
+    def counted(path, fn, *args):
+        c0 = read_counts()
+        out = fn(*args)
+        c1 = read_counts()
+        served[path] = {k: c1[k] - c0[k] for k in COUNTED}
+        check(not any(served[path].values()), "%s: kernels launched %s"
+              % (path, served[path]))
+        return out
+
+    t_new = time.perf_counter()
+    line, servers, ring = counted("wire", wire_phase, rt, pool, want[4],
+                                  seed, work, json_figs, smi)
+    say(line)
+    say(counted("loadgen", loadgen_phase, rt, text4, pool, seed, smi))
+    say(counted("die_at_ring", die_at_ring_done, rt, ring, pool, want[4],
+                smi))
+    for sv in servers:
+        sv.shutdown()
+        sv.server_close()
+    rt.stop()
+    t_new = time.perf_counter() - t_new
     t_children = time.perf_counter()
     cli_on = start_cli_online(tsv, work, tempfile.mkdtemp(dir=work))
     cli_sv = start_cli_serve(pub_dir)
+    fleet = start_fleet(pub_dir)
     say(serve_fault_phase(pub_dir, text4, pool, smi))
     serve_line = cli_serve_done(cli_sv, pool, want, seed)
     online_line, cli_counts = cli_online_done(cli_on, gens)
     say("cli serve / cli online (%s): %s; %s (both children %.1f s)"
         % (smi, serve_line, online_line, time.perf_counter() - t_children))
-    say("serving and online lines: %.1f s" % (time.perf_counter() - t_phase))
+    t_fleet = time.perf_counter()
+    say(counted("fleet", fleet_done, fleet, pool, want[4], seed, smi))
+    t_fleet = time.perf_counter() - t_fleet
+    say("serving and online lines: %.1f s (wire, loadgen and die_at_ring "
+        "%.1f s; fleet after the children %.1f s)"
+        % (time.perf_counter() - t_phase, t_new, t_fleet))
     cli = {k: 0 for k in COUNTED}
     cli.update(cli_counts)
-    return {"online": launches, "cli online": cli}
+    out = {"online": launches, "cli online": cli}
+    out.update(served)
+    return out
 
 
 def main() -> int:

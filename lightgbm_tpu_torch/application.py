@@ -10,16 +10,17 @@ resumes from them; prediction writes one converted score per row
 (src/application/predictor.hpp); convert_model emits the model as C++
 if-else code (gbdt_model_text.cpp ModelToIfElse); doctor writes the debug
 bundle; train_online runs the continuous trainer (runtime/continuous.py)
-and serve the JSON-lines serving front end (runtime/serving.py).
+and serve the JSON-lines serving front end (runtime/serving.py) with,
+on request, the binary data plane beside it (runtime/wire.py over TCP and
+a Unix socket, whose connections may upgrade to a shared-memory ring,
+runtime/shm_ring.py).
 
 Every task but doctor runs on the card unless the parameters say
 device_type=cpu, and fails without a CUDA device otherwise (doctor is the
 tool that diagnoses a missing device).  What this package does not have
-yet is refused, never replaced by something quieter: serve's binary data
-plane (serve_wire_port, serve_wire_uds, serve_wire_shm: ROADMAP queue A
-item 6, its second slice), and the device predictor with leaf indices or
-contributions (it computes neither; task=predict runs it on the card
-unless predict_device=false).
+is refused, never replaced by something quieter: the device predictor
+with leaf indices or contributions (it computes neither; task=predict
+runs it on the card unless predict_device=false).
 """
 from __future__ import annotations
 
@@ -49,9 +50,6 @@ from .utils.log import LightGBMError, Log
 _INGEST_STAGE_TIMEOUT = int(os.environ.get("LGBM_TPU_STAGE_TIMEOUT", "3600"))
 
 _TRUE = ("true", "1")
-
-#: serve's binary data-plane knobs (the next slice's wire and SHM ring)
-_WIRE_KNOBS = ("serve_wire_port", "serve_wire_uds", "serve_wire_shm")
 
 
 def parse_parameters(argv: List[str]) -> Dict[str, str]:
@@ -105,15 +103,6 @@ class Application:
 
     def run(self) -> None:
         try:
-            if self.task == "serve":
-                for knob in _WIRE_KNOBS:
-                    if knob in self.raw_params:
-                        raise NotImplementedError(
-                            "%s: serve's binary data plane (runtime/wire, "
-                            "runtime/shm_ring) is not ported to the "
-                            "PyTorch package yet (ROADMAP queue A item 6, "
-                            "its second slice); task=serve answers on the "
-                            "JSON-lines front end" % knob)
             if self.task != "doctor":
                 # every task but the diagnosis runs where the parameters
                 # say: the card unless device_type=cpu, never a quiet CPU
@@ -426,12 +415,17 @@ class Application:
         ephemeral, printed on stdout), `serve_host`, `serve_queue`,
         `serve_batch_rows`, `serve_batch_window`, `serve_deadline`,
         `predict_deadline`, `serve_poll_interval`, `breaker_cooldown`,
-        `serve_raw_score`, `serve_response_dtype`, `metrics_port`, and
+        `serve_raw_score`, `serve_response_dtype`, `metrics_port`, the
+        binary data plane's `serve_wire_port` (0 = ephemeral; printed on
+        stdout as ``wire (tcp) on host:port``), `serve_wire_uds=/path`
+        (``wire (uds) on path``) and `serve_wire_shm` (default true: a
+        Unix-socket connection may upgrade to a shared-memory ring), and
         the canary knobs `canary_fraction` (0 = off), `canary_min_samples`,
         `canary_patience`, `canary_error_ratio`, `canary_error_margin`,
         `canary_latency_ratio`, `canary_promote_after`.  The card is
-        probed first (a failed probe raises).  SIGTERM / SIGINT drain and
-        stop cleanly, with the final stats on stderr."""
+        probed first (a failed probe raises).  SIGTERM / SIGINT close the
+        wire servers, then drain and stop the runtime, with the final
+        stats on stderr."""
         import signal as _signal
         import threading as _threading
 
@@ -442,6 +436,9 @@ class Application:
         host = params.pop("serve_host", "127.0.0.1")
         port = int(params.pop("serve_port", 0) or 0)
         metrics_port = params.pop("metrics_port", None)
+        wire_port = params.pop("serve_wire_port", None)
+        wire_uds = params.pop("serve_wire_uds", None)
+        wire_shm = str(params.pop("serve_wire_shm", "true")).lower() in _TRUE
         response_dtype = params.pop("serve_response_dtype", None) or None
         canary_fraction = float(params.pop("canary_fraction", 0.0) or 0.0)
         canary_policy = None
@@ -474,6 +471,15 @@ class Application:
             probe_platform_on_start=True, log=Log)
         runtime.start()
         server = ServingServer(runtime, host=host, port=port)
+        wire_servers = []
+        if wire_port is not None:
+            from .runtime.wire import WireTCPServer
+            wire_servers.append(WireTCPServer(runtime, host=host,
+                                              port=int(wire_port or 0)))
+        if wire_uds:
+            from .runtime.wire import WireUnixServer
+            wire_servers.append(WireUnixServer(runtime, path=str(wire_uds),
+                                               enable_shm=wire_shm))
         stop_evt = _threading.Event()
 
         def _stop(signum, frame):
@@ -492,12 +498,25 @@ class Application:
         # supervisors that asked for an ephemeral port
         print("serving %s on %s:%d" % (publish_dir or input_model,
                                        host, server.port), flush=True)
+        for wsrv in wire_servers:
+            _threading.Thread(target=wsrv.serve_forever,
+                              kwargs={"poll_interval": 0.2},
+                              daemon=True).start()
+            if wsrv.wire_path_label == "uds":
+                print("wire (uds) on %s" % wire_uds, flush=True)
+            else:
+                print("wire (tcp) on %s:%d" % (host, wsrv.port),
+                      flush=True)
         if runtime.metrics_port is not None:
             print("metrics on %s:%d" % (host, runtime.metrics_port),
                   flush=True)
         try:
             server.serve_forever(poll_interval=0.2)
         finally:
+            # the wire fronts close before the runtime stops
+            for wsrv in wire_servers:
+                wsrv.shutdown()
+                wsrv.server_close()
             server.server_close()
             runtime.stop()
             sys.stderr.write("serve: final stats: %s\n"

@@ -703,11 +703,29 @@ class Booster:
         return self
 
     def free_network(self) -> "Booster":
-        return self  # no network to tear down
+        """Tear the process group down (LGBM_NetworkFree; a no-op without
+        one)."""
+        from .parallel.launch import shutdown_distributed
+        shutdown_distributed()
+        return self
 
-    def set_network(self, *args, **kwargs) -> "Booster":
-        Log.warning("set_network is a no-op: the distributed learners are "
-                    "not ported")
+    def set_network(self, machines=None, local_listen_port: int = 12400,
+                    listen_time_out: int = 120,
+                    num_machines: int = 1) -> "Booster":
+        """Bring the process group up from a machine list (the reference
+        binding's LGBM_NetworkInit; `capi.network_init`): machines is
+        "ip:port,..." or a list of such entries, listen_time_out in
+        minutes bounds the bring-up.  One machine is a no-op.  Training
+        with tree_learner=data|voting|feature then runs over the
+        group."""
+        if num_machines <= 1 or not machines:
+            return self
+        if not isinstance(machines, str):
+            machines = ",".join(machines)
+        from .parallel.launch import init_distributed
+        init_distributed(machines=machines,
+                         local_listen_port=local_listen_port,
+                         timeout_s=max(int(listen_time_out), 1) * 60)
         return self
 
     def host_syncs_per_tree(self) -> List[int]:

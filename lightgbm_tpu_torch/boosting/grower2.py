@@ -687,9 +687,9 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             leaf), the 2 top_k most voted features' histograms summed (one
             more) and searched.  Ties rank the lower index first, as
             lax.top_k does.  With raw cells (`glob`) hists are the local
-            cells, and `settle(hsel, sel)` turns the selected features'
-            global f32 histograms, converted from their summed cells, into
-            the ones the search reads."""
+            cells, and `settle(hsel, sel)` sums the selected features'
+            cells (the same exchange) and turns their global f32
+            histograms into the ones the search reads."""
             Q = hists.shape[0]
             k_vote = min(top_k, F)
             S = min(2 * k_vote, F)
@@ -712,11 +712,10 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                              dim=1).values                        # [Q, S]
             hsel = torch.stack([hists[q].index_select(0, sel[q])
                                 for q in range(Q)])
-            hsel = yield from xchg("sum", hsel)
             if glob:
-                hsel = settle(cells_to_hist(hsel, hs), sel)
+                hsel = yield from settle(hsel, sel)
             else:
-                hsel = deq(hsel)
+                hsel = deq((yield from xchg("sum", hsel)))
             out = []
             for q in range(Q):
                 cons = {k: v[q:q + 1] for k, v in constraints.items()}
@@ -784,6 +783,7 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             GV.index_copy_(0, i, mask[None])
 
         def settle_root(hsel, sel):
+            hsel = cells_to_hist((yield from xchg("sum", hsel)), hs)
             full, mask = spread(hsel[0], sel[0])
             GH[0], GV[0] = full, mask
             return hsel
@@ -1003,9 +1003,6 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
                     gslot = pslot.clamp(min=0) if pooled else bl
                     gh_parent = _take(GH, gslot)
                     gv_parent = _take(GV, gslot)
-                    if pooled:
-                        # an evicted parent holds no global histogram
-                        gv_parent = gv_parent & live
             else:
                 if pooled:
                     # evicted: rebuild from the parent's contiguous rows,
@@ -1060,21 +1057,34 @@ def make_partitioned_grower(meta: FeatureMeta, cfg: GrowerConfig,
             settled = {}
 
             def settle(hsel, sel):
-                """The children's selected global histograms: the
-                smaller's converted from its cells; the larger's the
-                parent's less the smaller's where both hold the feature
-                (the serial grower's subtraction), else converted from its
-                own cells.  Keeps both children's [G] histograms."""
+                """The children's selected global histograms from their
+                local cells hsel: the smaller's converted from its summed
+                cells; the larger's the parent's less the smaller's where
+                both hold the feature (the serial grower's subtraction),
+                else converted from its own.  An evicted parent (pool)
+                holds none: its rebuilt cells of the smaller's selection
+                cross in the same exchange and are converted, as the
+                serial pooled grower converts the rebuilt parent.  Keeps
+                both children's [G] histograms."""
                 ls = left_smaller
                 s_sel, b_sel = (torch.where(ls, sel[0], sel[1]),
                                 torch.where(ls, sel[1], sel[0]))
+                if pooled:
+                    hsel = torch.cat([hsel, rebuilt_local.index_select(
+                        0, s_sel)[None]])
+                hsel = cells_to_hist((yield from xchg("sum", hsel)), hs)
                 s_full, s_mask = spread(torch.where(ls, hsel[0], hsel[1]),
                                         s_sel)
                 b_own, b_mask = spread(torch.where(ls, hsel[1], hsel[0]),
                                        b_sel)
-                derived = gv_parent & s_mask
+                gh_p, gv_p = gh_parent, gv_parent
+                if pooled:
+                    rebuilt_full, _ = spread(hsel[2], s_sel)
+                    gh_p = torch.where(live, gh_parent, rebuilt_full)
+                    gv_p = torch.where(live, gv_parent, s_mask)
+                derived = gv_p & s_mask
                 b_full = torch.where(derived[:, None, None],
-                                     gh_parent - s_full, b_own)
+                                     gh_p - s_full, b_own)
                 b_mask = b_mask | derived
                 settled["left"] = (torch.where(ls, s_full, b_full),
                                    torch.where(ls, s_mask, b_mask))

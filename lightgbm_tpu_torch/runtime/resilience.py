@@ -27,11 +27,10 @@ The reference survives multi-hour training through periodic snapshots
   under `sentinel_nonfinite=abort|rollback`, with the fill's non-finite
   flag beside them (see `sentinel_check`).
 
-* **Fault injection** (`LGBM_TPU_FAULT`): the faults whose injection point
-  the port has (`FAULT_TABLE`): training, publish, serving and the online
-  trainer's.  A fault the JAX package injects where the port has no such
-  point yet is refused, naming the ROADMAP item that brings it
-  (`UNPORTED_FAULTS`).
+* **Fault injection** (`LGBM_TPU_FAULT`): every fault of the JAX
+  package's table (`FAULT_TABLE`), at the port's own injection points:
+  training, publish, serving, the online trainer's, the fleet's spawns
+  and the shared-memory ring's clients.
 
 * **Platform probe** (`probe_platform`, `resolve_backend`): one
   short-deadline child process initializes CUDA through torch and reports
@@ -75,7 +74,7 @@ __all__ = [
     "maybe_torn_publish", "maybe_die_at_publish", "maybe_die_at_spawn",
     "maybe_fail_predict", "DevicePredictFault", "maybe_poison_rows",
     "maybe_flip_labels", "maybe_regress_model", "snapshot_model_text",
-    "FAULT_TABLE", "FAULT_NAMES", "UNPORTED_FAULTS", "probe_platform",
+    "FAULT_TABLE", "FAULT_NAMES", "maybe_die_at_ring", "probe_platform",
     "resolve_backend", "BackendUnavailable",
 ]
 
@@ -151,15 +150,15 @@ FAULT_TABLE: Dict[str, Dict[str, str]] = {
         "injects_at": "ServingRuntime.start, after the prewarm pass and "
                       "before /healthz readiness (maybe_die_at_spawn on "
                       "the K-th spawn ordinal)"},
+    "die_at_ring": {
+        "arg": "K",
+        "injects_at": "ShmClient ring produce, right after the K-th "
+                      "request frame is published with its response "
+                      "unread (maybe_die_at_ring): the crashed-client "
+                      "reclamation path"},
 }
 
 FAULT_NAMES = tuple(FAULT_TABLE)
-
-#: the JAX package's faults whose injection point the port does not have
-#: yet, with the ROADMAP queue A item that brings it
-UNPORTED_FAULTS: Dict[str, str] = {
-    "die_at_ring": "6, its second slice (the shared-memory ring)",
-}
 
 
 def _fault_spec() -> Dict[str, Optional[str]]:
@@ -174,11 +173,6 @@ def _fault_spec() -> Dict[str, Optional[str]]:
         if not tok:
             continue
         name, _, arg = tok.partition(":")
-        if name in UNPORTED_FAULTS:
-            raise NotImplementedError(
-                "fault %r in LGBM_TPU_FAULT=%r has no injection point in "
-                "the PyTorch package yet (ROADMAP queue A item %s)"
-                % (name, raw, UNPORTED_FAULTS[name]))
         if name not in FAULT_NAMES:
             raise ValueError(
                 "unknown fault %r in LGBM_TPU_FAULT=%r (known: %s)"
@@ -352,6 +346,24 @@ def maybe_die_at_spawn(spawn_ordinal: Optional[int] = None) -> None:
     sys.stderr.write("[%s] FAULT die_at_spawn: abrupt exit during spawn "
                      "#%d (prewarmed, never ready)\n"
                      % (wallclock(), spawn_ordinal))
+    sys.stderr.flush()
+    os._exit(137)
+
+
+def maybe_die_at_ring(frames_in_flight: int) -> None:
+    """`die_at_ring:K` kills a shared-memory ring client the instant its
+    K-th request frame is published with the response still unread: the
+    server holds a mapped segment with live admissions aliasing it and a
+    peer that will never drain the response ring.  The server must see
+    the death on the control socket, drain the in-flight work, unmap with
+    no leaked mapping and keep serving every other client."""
+    if not fault_active("die_at_ring"):
+        return
+    if int(fault_arg("die_at_ring", "1")) != int(frames_in_flight):
+        return
+    sys.stderr.write("[%s] FAULT die_at_ring: abrupt client exit with "
+                     "%d frames in flight in the ring\n"
+                     % (wallclock(), frames_in_flight))
     sys.stderr.flush()
     os._exit(137)
 

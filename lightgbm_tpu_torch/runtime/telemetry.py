@@ -184,6 +184,29 @@ METRIC_TABLE: Dict[str, Dict[str, Any]] = {
     "lgbm_serve_recoveries_total": {
         "type": "counter", "labels": (),
         "help": "Probe-based recoveries host->device"},
+    "lgbm_serve_bytes_total": {
+        "type": "counter", "labels": ("path", "dir"),
+        "help": "Binary wire-plane bytes moved (headers + payloads), "
+                "path=tcp/uds/shm, dir=rx/tx"},
+    "lgbm_shm_sessions_total": {
+        "type": "counter", "labels": ("event",),
+        "help": "SHM ring sessions by lifecycle event: ready/closed/"
+                "reclaimed (peer died with work in flight)/torn "
+                "(protocol violation)/rejected_setup/leaked"},
+    "lgbm_shm_frames_total": {
+        "type": "counter", "labels": ("outcome",),
+        "help": "SHM ring frames by outcome: completed/rejected/"
+                "bad_crc (rejected in place, counters stay in sync)"},
+    "lgbm_shm_doorbell_syscalls_total": {
+        "type": "counter", "labels": ("op",),
+        "help": "Every syscall the ring doorbell makes, op=ring (wake "
+                "peer)/wait (poll)/drain (eventfd read) — zero in the "
+                "spin-hot steady state, which BENCH_WIRE measures"},
+    "lgbm_serve_frames_total": {
+        "type": "counter", "labels": ("outcome",),
+        "help": "Binary wire frames by outcome: completed/rejected or "
+                "the torn-frame class (truncated_header/short_payload/"
+                "bad_crc/bad_magic/bad_version/bad_dtype/oversized)"},
     "lgbm_serve_class_requests_total": {
         "type": "counter", "labels": ("cls", "outcome"),
         "help": "Serving requests by priority class (cls=p0 highest..pN "
@@ -207,6 +230,16 @@ METRIC_TABLE: Dict[str, Dict[str, Any]] = {
         "type": "gauge", "labels": (),
         "help": "1 while the policy holds the lowest priority class in "
                 "load-shed mode, else 0"},
+    "lgbm_loadgen_offered_total": {
+        "type": "counter", "labels": ("cls",),
+        "help": "Requests the load generator offered (open-loop "
+                "arrivals), by priority class - the shed-rate "
+                "denominator the sim artifact scrapes"},
+    "lgbm_loadgen_verified_total": {
+        "type": "counter", "labels": ("result",),
+        "help": "Load-generator response verifications, result=ok/"
+                "wrong_generation/mismatch/unverifiable (byte-identity "
+                "vs the offline predictor for the reported generation)"},
     "lgbm_ingest_quarantined_total": {
         "type": "counter", "labels": ("reason",),
         "help": "Rows the ingest quarantine dropped before they could "
@@ -240,6 +273,21 @@ METRIC_TABLE: Dict[str, Dict[str, Any]] = {
         "type": "histogram", "labels": ("kind",),
         "help": "Wall time of one prewarm pass (manifest read + bucket "
                 "precompiles before readiness opens)"},
+    "lgbm_fleet_replicas": {
+        "type": "gauge", "labels": ("state",),
+        "help": "Serving replica processes as the fleet controller sees "
+                "them, state=target/alive/ready (runtime/fleet.py "
+                "control loop)"},
+    "lgbm_fleet_scale_events_total": {
+        "type": "counter", "labels": ("action",),
+        "help": "Fleet controller actions applied, action=spawn/retire/"
+                "relaunch/shed_on/shed_off (scale decisions come from "
+                "runtime/policy.FleetScalePolicy)"},
+    "lgbm_fleet_reaction_seconds": {
+        "type": "histogram", "labels": (),
+        "help": "Scale-up reaction time: first SLO-breach sample of a "
+                "pressure streak to the first scrape with windowed p99 "
+                "back under the SLO"},
     "lgbm_serve_resident_models": {
         "type": "gauge", "labels": (),
         "help": "Model entries currently loaded in this serving runtime "

@@ -18,9 +18,9 @@ convert_model's C++ is the JAX package's string for string and compiles
 to the model's predictions; task=doctor's bundle carries probe.json and a
 crashing task leaves a bundle; without device_type=cpu every task but
 doctor fails on a machine without CUDA with the port's message, `python
--m lightgbm_tpu_torch` with a non-zero exit; serve's binary data-plane
-knobs are refused naming their ROADMAP item, task=serve answers on the
-JSON-lines front end and drains on SIGTERM, task=serve without
+-m lightgbm_tpu_torch` with a non-zero exit; task=serve answers on the
+JSON-lines front end and, with serve_wire_port / serve_wire_uds, on the
+binary wire and the shared-memory ring, and drains on SIGTERM; task=serve without
 device_type=cpu fails without a card, and a machine list that does not
 name this host is refused before any connection;
 LGBM_TPU_METRICS_FILE and compile_cache_dir are read."""
@@ -307,18 +307,59 @@ def test_module_entry_without_cpu_exits_non_zero(run, tmp_path):
     assert not (tmp_path / "m.txt").exists()
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["task=serve", "serve_wire_port=0"], "item 6, its second slice"),
-    (["task=serve", "serve_wire_uds=/nonexistent/serve.sock"],
-     "item 6, its second slice")])
-def test_what_waits_is_refused_naming_its_item(run, argv, item,
-                                               monkeypatch):
-    """task=serve and task=train_online run since their slice landed;
-    serve's binary data plane (the wire and the SHM ring) waits for the
-    next and is refused before anything starts."""
-    monkeypatch.setenv("LGBM_TPU_DOCTOR_ON_CRASH", "0")
-    with pytest.raises(NotImplementedError, match=item):
-        tapp.Application(argv + ["input_model=" + run["tm"]] + CPU).run()
+@pytest.mark.parametrize("knob", ["serve_wire_port=0",
+                                  "serve_wire_uds=%s"])
+def test_what_waits_is_refused_naming_its_item(run, knob, tmp_path):
+    """serve's binary data-plane knobs, which the port refused until its
+    wire and ring existed, now answer: `python -m lightgbm_tpu_torch
+    task=serve` with serve_wire_port=0 (or serve_wire_uds=path) prints
+    the wire's contract line, a wire request (and, on the Unix socket, a
+    shared-memory ring request) is answered with the offline device
+    predict of the model as float32 values, and SIGTERM closes the wire
+    and drains the runtime to exit 0."""
+    import signal
+    from lightgbm_tpu_torch.runtime import shm_ring, wire
+    if "%s" in knob:
+        knob = knob % (tmp_path / "serve.sock")
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
+               LGBM_TPU_DOCTOR_ON_CRASH="0")
+    p = subprocess.Popen([sys.executable, "-m", "lightgbm_tpu_torch",
+                          "task=serve", "input_model=" + run["tm"],
+                          "serve_port=0", knob] + CPU, env=env,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+    X = _data(n=5, seed=9)[0]
+    want = lt.Booster(params={"device_type": "cpu"},
+                      model_file=run["tm"]).predict(X, device=True)
+    try:
+        head = []
+        for line in p.stdout:
+            head.append(line)
+            if line.startswith("wire ") or len(head) > 50:
+                break
+        if knob.startswith("serve_wire_port"):
+            assert line.startswith("wire (tcp) on 127.0.0.1:"), head
+            clients = [wire.WireClient(
+                ("127.0.0.1", int(line.rsplit(":", 1)[1])))]
+        else:
+            path = knob.split("=", 1)[1]
+            assert line.strip() == "wire (uds) on %s" % path, head
+            clients = [wire.WireClient(path), shm_ring.ShmClient(path)]
+        for c in clients:
+            with c:
+                out = c.predict(X)
+            assert out["served_by"] == "device" and out["generation"] == 0
+            assert np.array_equal(out["values"][:, 0],
+                                  want.astype(np.float32))
+        p.send_signal(signal.SIGTERM)
+        _, err = p.communicate(timeout=60)
+    finally:
+        if p.poll() is None:
+            p.kill()
+    assert p.returncode == 0, err[-2000:]
+    stats = json.loads(err.split("serve: final stats: ")[1].splitlines()[0])
+    assert stats["completed"] == len(clients)
+    assert stats["batches_host"] == 0
 
 
 def test_serve_answers_and_drains_on_sigterm(run, tmp_path):

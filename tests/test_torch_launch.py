@@ -216,3 +216,23 @@ def test_cli_trains_over_two_ranks(launched):
     assert "Tree=2" in a["cli_model"]
     assert "[tree_learner: data]" in a["cli_model"]
     assert a["cli_down"] and b["cli_down"]
+
+
+def test_booster_set_network_trains_over_two_ranks(tmp_path):
+    """Booster.set_network brings two ranks up from a machine list of
+    localhost ports (as LGBM_NetworkInit does); tree_learner=data then
+    trains over the group and, under the card's fixed-point histograms,
+    writes the serial model byte for byte; free_network tears the group
+    down."""
+    X, y = _xy(n=1200, seed=5)
+    params = {"objective": "binary", "num_leaves": 7, "verbose": -1,
+              "min_data_in_leaf": 20, "min_gain_to_split": 0.01}
+    out = W.run_ranks(tmp_path, "set_network",
+                      (_free_ports(2), params, {"X": X, "y": y}, 3),
+                      world=2, timeout=240, group=False)
+    for r in out:
+        assert r["up"] == 2 and r["down"]
+        assert r["mode"] == "data" and r["world"] == 2
+        assert r["model"] == r["serial"]
+        assert r["model"].count("Tree=") == 3
+    assert out[0]["model"] == out[1]["model"]

@@ -101,36 +101,61 @@ def test_voting_full_vote_equals_data(runs):
 
 
 #: the card's arithmetic on two ranks: (case, extra params, whether the
-#: model must be the serial one byte for byte)
+#: model must be the serial one byte for byte, seed of `_problem`).  With
+#: a histogram pool the serial run takes the same pool.
+POOL = dict(histogram_pool_size=0.05)
 CARD_CASES = [
-    ("data", dict(tree_learner="data"), True),
-    ("voting full vote", dict(tree_learner="voting", top_k=3), True),
-    ("voting restricted", dict(tree_learner="voting", top_k=1), False),
-    ("feature", dict(tree_learner="feature"), True),
-]
+    ("data", dict(tree_learner="data"), True, 4),
+    ("voting full vote", dict(tree_learner="voting", top_k=3), True, 4),
+    ("voting restricted", dict(tree_learner="voting", top_k=1), False, 4),
+    ("feature", dict(tree_learner="feature"), True, 4),
+] + [
+    ("%s pooled seed %d" % (name, seed), dict(extra, **POOL), True, seed)
+    for seed in (4, 5)
+    for name, extra in (("data", dict(tree_learner="data")),
+                        ("voting full vote",
+                         dict(tree_learner="voting", top_k=3)),
+                        ("feature", dict(tree_learner="feature")))]
+
+
+def _serial_key(extra, seed):
+    return seed, extra.get("histogram_pool_size")
 
 
 @pytest.fixture(scope="module")
 def card_runs(tmp_path_factory):
-    data = _problem(seed=4)
-    jobs = [(dict(PARAMS, **extra), data, ROUNDS)
-            for _, extra, _ in CARD_CASES]
-    jobs.append((PARAMS, data, ROUNDS))
+    """Every case's ranks, then the serial runs they are held to, on one
+    spawn; returns ({case index: (rank 0, rank 1)}, {serial key: rank 0's
+    serial run})."""
+    data = {seed: _problem(seed=seed) for seed in (4, 5)}
+    jobs = [(dict(PARAMS, **extra), data[seed], ROUNDS)
+            for _, extra, _, seed in CARD_CASES]
+    keys = sorted({_serial_key(extra, seed)
+                   for _, extra, _, seed in CARD_CASES},
+                  key=lambda k: (k[0], k[1] or 0))
+    jobs += [(dict(PARAMS, **({} if pool is None else
+                              dict(histogram_pool_size=pool))),
+              data[seed], ROUNDS) for seed, pool in keys]
     tmp = tmp_path_factory.mktemp("card")
-    return W.run_ranks(tmp, "card_jobs", (jobs,), world=2)
+    out = W.run_ranks(tmp, "card_jobs", (jobs,), world=2)
+    n = len(CARD_CASES)
+    return ({i: (out[0][i], out[1][i]) for i in range(n)},
+            {k: out[0][n + j] for j, k in enumerate(keys)})
 
 
 @pytest.mark.parametrize("i", range(len(CARD_CASES)),
-                         ids=[c for c, _, _ in CARD_CASES])
+                         ids=[c for c, _, _, _ in CARD_CASES])
 def test_card_arithmetic_is_the_serial_tree(card_runs, i):
     """Under the card's fixed-point histograms (raw int64 cells on the
     wire): data, feature and a vote that selects every feature (2 top_k
-    >= F) write the serial model byte for byte; the restricted vote
-    (2 top_k < F) grows trees of its own.  Every rank's model is rank
-    0's."""
-    case, extra, exact = CARD_CASES[i]
-    r0, r1 = card_runs[0][i], card_runs[1][i]
-    serial = card_runs[0][-1]
+    >= F) write the serial model byte for byte, with a histogram pool
+    too (the serial run with the same pool: an evicted parent's larger
+    child is the rebuilt parent less the smaller child, as the serial
+    pooled grower subtracts); the restricted vote (2 top_k < F) grows
+    trees of its own.  Every rank's model is rank 0's."""
+    case, extra, exact, seed = CARD_CASES[i]
+    (r0, r1), serials = card_runs[0][i], card_runs[1]
+    serial = serials[_serial_key(extra, seed)]
     assert serial["mode"] is None
     assert r0["mode"] == extra["tree_learner"] and r0["world"] == 2
     assert r1["model"] == r0["model"]

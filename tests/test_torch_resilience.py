@@ -23,6 +23,8 @@ from lightgbm_tpu_torch.boosting import gbdt as tgbdt
 from lightgbm_tpu_torch.models.gbdt_model import GBDTModel
 from lightgbm_tpu_torch.runtime import resilience, syncs
 
+REPO = str(pathlib.Path(__file__).resolve().parents[1])
+
 # one intra-op thread: the pytest-xdist workers share the cores
 torch.set_num_threads(1)
 
@@ -65,32 +67,39 @@ def test_fault_spec_parsing(monkeypatch):
     monkeypatch.setenv("LGBM_TPU_FAULT", "explode_reactor")
     with pytest.raises(ValueError, match="unknown fault"):
         resilience.fault_active("die_at_iter")
-    # the table names what the JAX package's table names, or refuses it
-    assert set(resilience.FAULT_TABLE) | set(resilience.UNPORTED_FAULTS) \
-        == set(jres.FAULT_TABLE)
+    # the table names what the JAX package's table names
+    assert set(resilience.FAULT_TABLE) == set(jres.FAULT_TABLE)
     for name, row in resilience.FAULT_TABLE.items():
         assert row["arg"] == jres.FAULT_TABLE[name]["arg"]
 
 
-@pytest.mark.parametrize("name,item", [("slow_stage", None),
-                                       ("torn_write", None),
-                                       ("die_at_predict", None),
-                                       ("die_at_ring",
-                                        "item 6, its second slice")])
-def test_unported_faults_refused_naming_their_item(monkeypatch, name, item):
-    """The serving, publish and online faults are injected since their
-    slice; die_at_ring (the shared-memory ring) alone is refused, naming
-    the slice that brings it."""
+@pytest.mark.parametrize("name", ["slow_stage", "torn_write",
+                                  "die_at_predict", "die_at_ring"])
+def test_unported_faults_refused_naming_their_item(monkeypatch, name):
+    """Every fault of the JAX package's table has its injection point in
+    the port (no fault is refused any more): each parses beside another
+    and stands in FAULT_TABLE; die_at_ring fires, killing the ring client
+    with the JAX package's exit code at its K-th frame in flight, and
+    not before."""
     monkeypatch.setenv("LGBM_TPU_FAULT", "nan_grad:1,%s:3" % name)
-    if item is None:
-        assert resilience.fault_active("nan_grad")
-        assert resilience.fault_arg(name) == "3"
-        assert name in resilience.FAULT_TABLE
-        assert name not in resilience.UNPORTED_FAULTS
-    else:
-        assert list(resilience.UNPORTED_FAULTS) == [name]
-        with pytest.raises(NotImplementedError, match=item):
-            resilience.fault_active("nan_grad")
+    assert resilience.fault_active("nan_grad")
+    assert resilience.fault_active(name)
+    assert resilience.fault_arg(name) == "3"
+    assert name in resilience.FAULT_TABLE
+    assert not hasattr(resilience, "UNPORTED_FAULTS")
+    if name == "die_at_ring":
+        code = ("from lightgbm_tpu_torch.runtime import resilience as r\n"
+                "r.maybe_die_at_ring(1)\nr.maybe_die_at_ring(2)\n"
+                "print('alive', flush=True)\nr.maybe_die_at_ring(3)\n"
+                "print('survived', flush=True)\n")
+        env = dict(os.environ, LGBM_TPU_FAULT="die_at_ring:3",
+                   PYTHONPATH=REPO)
+        out = subprocess.run([sys.executable, "-c", code], env=env,
+                             capture_output=True, text=True, timeout=60)
+        assert out.returncode == 137
+        assert out.stdout.split() == ["alive"]
+        assert "FAULT die_at_ring" in out.stderr
+        assert "3 frames in flight" in out.stderr
 
 
 def test_backoff_is_bounded_jittered_deterministic():

@@ -42,6 +42,19 @@ LEDGER_ROWS = ("lgbm_xla_compiles_total", "lgbm_xla_compile_seconds",
                "lgbm_xla_retraces_total", "lgbm_program_cache_events_total",
                "lgbm_compile_cache_events_total")
 
+#: rows whose help is the JAX package's help cut short before a closing
+#: remark about that package's own history
+TRIMMED_HELP = ("lgbm_fleet_reaction_seconds",)
+
+#: the wire, SHM ring, load generator and fleet families
+DATA_PLANE_ROWS = ("lgbm_serve_bytes_total", "lgbm_serve_frames_total",
+                   "lgbm_shm_sessions_total", "lgbm_shm_frames_total",
+                   "lgbm_shm_doorbell_syscalls_total",
+                   "lgbm_loadgen_offered_total",
+                   "lgbm_loadgen_verified_total", "lgbm_fleet_replicas",
+                   "lgbm_fleet_scale_events_total",
+                   "lgbm_fleet_reaction_seconds")
+
 
 def _registry(**kw):
     return telemetry.MetricsRegistry(table=dict(TEST_TABLE), **kw)
@@ -436,9 +449,13 @@ def test_metric_table_rows_equal_jax():
         assert row["type"] == jt[name]["type"], name
         assert tuple(row["labels"]) == tuple(jt[name]["labels"]), name
         assert row.get("max_label_sets") == jt[name].get("max_label_sets")
-        if name not in LEDGER_ROWS:
+        if name in TRIMMED_HELP:
+            assert jt[name]["help"].startswith(row["help"]), name
+            assert dict(row, help=None) == dict(jt[name], help=None), name
+        elif name not in LEDGER_ROWS:
             assert row == jt[name], name
     assert set(LEDGER_ROWS) <= set(telemetry.METRIC_TABLE)
+    assert set(DATA_PLANE_ROWS) <= set(telemetry.METRIC_TABLE)
     # the one bucket layout
     assert telemetry.LATENCY_BUCKETS_S == jtelemetry.LATENCY_BUCKETS_S
     assert telemetry.OVERFLOW_LABEL == jtelemetry.OVERFLOW_LABEL

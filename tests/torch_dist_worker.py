@@ -201,6 +201,32 @@ def _launch(rank, world, ports, data_path, out_dir):
     return out
 
 
+def _set_network(rank, world, ports, params, data, rounds):
+    """Booster.set_network / free_network under the card's arithmetic:
+    the serial model first, then set_network over a machine list of
+    localhost ports and tree_learner=data over the group it brought up,
+    then free_network."""
+    import torch.distributed as dist
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.boosting import grower2
+    from lightgbm_tpu_torch.ops import cuda_segment
+    cuda_segment.histogram_route = card_route
+    grower2.exact_exchange = lambda dev: True
+    serial = _train(rank, world, params, data, rounds)
+    bst = lt.Booster(params={"device_type": "cpu"},
+                     model_str=serial["model"])
+    ml = ",".join("127.0.0.1:%d" % p for p in ports)
+    assert bst.set_network(ml, local_listen_port=ports[rank],
+                           listen_time_out=2, num_machines=2) is bst
+    up = dist.is_initialized() and dist.get_world_size()
+    out = _train(rank, world, dict(params, tree_learner="data"), data,
+                 rounds)
+    assert bst.free_network() is bst
+    return {"serial": serial["model"], "model": out["model"],
+            "mode": out["mode"], "world": out["world"], "up": up,
+            "down": not dist.is_initialized()}
+
+
 def _find_bin(rank, world, cases):
     """parallel/find_bin.py on each rank's block: cases = [(sample,
     max_bin)]; returns each case's bounds."""
@@ -256,5 +282,6 @@ def _steps(rank, world, X, y, cfg_kw, max_bin):
 
 
 TASKS = {"train": _train, "jobs": _jobs, "card_jobs": _card_jobs,
+         "set_network": _set_network,
          "echo": _echo, "launch": _launch,
          "find_bin": _find_bin, "steps": _steps}
