@@ -524,13 +524,39 @@ class Booster:
         else:
             raise LightGBMError("Booster needs train_set or model file")
 
+    # -- the model, behind the dispatch pipeline's barrier
+    def _drain(self) -> None:
+        """Drain the engine's dispatch pipeline so that model reads see
+        every dispatched tree (the JAX package's Booster._drain; a no-op
+        for a loaded model and for an empty pipeline): update() may
+        return with up to pipeline_depth trees still being assembled."""
+        engine = self.__dict__.get("_engine")
+        if engine is not None:
+            engine.flush()
+
+    @property
+    def _model(self) -> GBDTModel:
+        """The model.  Every read drains the dispatch pipeline first, so
+        each entry point that observes the model (current_iteration,
+        num_trees, save_model, model_to_string, dump_model,
+        feature_importance, predict, refit, get_leaf_output,
+        shuffle_models, pickling, ...), and any caller that reads it
+        directly, sees every dispatched tree.  A pure model read never
+        truncates an open boosting window."""
+        self._drain()
+        return self._gbdt_model
+
+    @_model.setter
+    def _model(self, model: GBDTModel) -> None:
+        self._gbdt_model = model
+
     # -- pickling: the model string (reference basic.py Booster
     # __getstate__ / __setstate__); the engine and the device state are
     # not carried
     def __getstate__(self) -> Dict:
         state = self.__dict__.copy()
         for key in ("_engine", "train_set", "_valid_data", "_objective",
-                    "_dev_predictor", "_dev_pred_key", "_model"):
+                    "_dev_predictor", "_dev_pred_key", "_gbdt_model"):
             state.pop(key, None)
         state["_model_str"] = self._model.save_model_to_string()
         return state
@@ -729,13 +755,26 @@ class Booster:
         return self
 
     def host_syncs_per_tree(self) -> List[int]:
-        """Blocking device-to-host reads each trained tree paid."""
+        """Blocking device-to-host reads each trained tree paid, wherever
+        they happened: its own fetch (on the critical path at
+        pipeline_depth=0, the assembler's pipeline_drain at depth >= 1;
+        a boosting window's one window_drain counts with the window's
+        first tree) and any sync its dispatch made."""
+        self._drain()
         return list(self._engine.host_syncs) if self._engine else []
+
+    def critical_syncs_per_tree(self) -> List[int]:
+        """Of host_syncs_per_tree, the reads each tree paid on the
+        tree-to-tree critical path: 1 a tree at pipeline_depth=0 (its
+        tree_fetch), 0 at depth >= 1 on the fused path."""
+        self._drain()
+        return list(self._engine.critical_syncs) if self._engine else []
 
     def split_rounds_per_tree(self) -> Optional[float]:
         """Mean sequential grower rounds per trained tree: splits per tree
         on the one-leaf loop, fewer once tpu_frontier_batch > 1 commits
         several splits per round (None before the first tree)."""
+        self._drain()
         return self._engine.split_rounds_per_tree() if self._engine else None
 
     @property
@@ -786,13 +825,30 @@ class Booster:
         """(name, metric, value, is_higher_better) for every metric of
         every validation set, in the order they were added, then
         feval(preds, dataset)'s on each set."""
-        out = self._engine.eval_valid()
+        return self._engine.eval_valid() + self._valid_feval(feval)
+
+    def _valid_feval(self, feval) -> List:
+        out = []
         if feval is not None:
             for i, (name, ds) in enumerate(self._valid_data):
                 mname, val, hib = feval(
                     self._feval_preds(self._engine.raw_valid_score(i)), ds)
                 out.append((name, mname, val, hib))
         return out
+
+    def eval_round(self, feval=None, include_train: bool = False):
+        """One evaluation round, (train results, valid results), off a
+        SINGLE packed fetch of the round's scores (`GBDT.eval_all`; the
+        JAX package's Booster.eval_round), so metric_freq=1 pays one
+        round trip, not one a dataset.  A pipeline barrier: the round
+        drains the pipeline and settles an open boosting window.  A
+        custom metric reads the scores again, a fetch a set."""
+        train_res, valid_res = self._engine.eval_all(include_train)
+        if include_train and feval is not None:
+            name, val, hib = feval(
+                self._engine.raw_train_score().reshape(-1), self.train_set)
+            train_res.append(("training", name, val, hib))
+        return train_res, valid_res + self._valid_feval(feval)
 
     def eval(self, data: Dataset, name: str, feval=None) -> List:
         """The config's metrics (and feval) of the current model on an

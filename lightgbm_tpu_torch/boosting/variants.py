@@ -171,6 +171,15 @@ class DART(GBDT):
         K = self.num_tree_per_iteration
         return self.model.trees[(self.num_init_iteration + i) * K + k]
 
+    def _pipelined(self, custom=None) -> bool:
+        """DART trains synchronously at every pipeline_depth: its
+        normalization must know whether the iteration split (the
+        synchronous loop skips it on a no-split stop), and the next
+        iteration's drop candidates and replays read every host tree, so
+        a deferred host half would be waited for within the iteration
+        anyway."""
+        return False
+
     def train_one_iter(self, grad=None, hess=None) -> bool:
         self._dropping_trees()
         stopped = super().train_one_iter(grad, hess)

@@ -96,10 +96,14 @@ class Config:
         # (lightgbm_tpu/config.py).  Honoured here: tpu_frontier_batch,
         # gradient_quantization / gradient_quant_dtype, tpu_profile_phases
         # (the phase timers, Booster.phase_timings) and sentinel_nonfinite
-        # (off | abort | rollback; boosting/gbdt.py, runtime/resilience.py).
-        # No-ops of this package, because by contract they leave the model
+        # (off | abort | rollback; boosting/gbdt.py, runtime/resilience.py),
+        # pipeline_depth (trees the device runs ahead of the host's Tree
+        # assembly, 0..8; boosting/pipeline.py) and boost_window
+        # (iterations dispatched at once with one wait for their records;
+        # boosting/gbdt.py), which change the dispatch, never the model.
+        # A no-op of this package, because by contract it leaves the model
         # unchanged: tpu_histogram_impl (engine selection; the port has one
-        # engine), pipeline_depth and boost_window (dispatch shape).
+        # engine).
         self.tpu_histogram_impl = "auto"  # auto | pallas | lax
         self.tpu_profile_phases = False
         self.tpu_frontier_batch = 1

@@ -97,12 +97,22 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
                           evaluation_result_list=None)
         for cb in callbacks_before:
             cb(env)
+        eng = booster._engine
+        # the boosting window's look-ahead (the JAX package's
+        # engine.py:81-86): with an eval round every iteration the window
+        # must not run ahead at all; otherwise it may run to the end
+        eng._win_horizon = 1 if (is_valid_contain_train or eng.valid_sets) \
+            else num_boost_round - i
         is_finished = booster.update(fobj=fobj)
+        # one packed fetch an eval round (Booster.eval_round), which is
+        # also the dispatch pipeline's barrier
         evaluation_result_list = []
-        if is_valid_contain_train:
-            evaluation_result_list = [(train_data_name, m, v, h) for
-                                      (_, m, v, h) in booster.eval_train(feval)]
-        evaluation_result_list.extend(booster.eval_valid(feval))
+        if is_valid_contain_train or eng.valid_sets:
+            train_res, valid_res = booster.eval_round(
+                feval, include_train=is_valid_contain_train)
+            evaluation_result_list = [(train_data_name, m, v, h)
+                                      for (_, m, v, h) in train_res]
+            evaluation_result_list.extend(valid_res)
         env = CallbackEnv(model=booster, params=params, iteration=i,
                           begin_iteration=0, end_iteration=num_boost_round,
                           evaluation_result_list=evaluation_result_list)
@@ -120,8 +130,10 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
     booster.best_score = collections.defaultdict(dict)
     for name, metric, value, _ in evaluation_result_list:
         booster.best_score[name][metric] = value
-    if booster._engine is not None:
-        booster._engine.timer.report()
+    # the returned Booster's model holds every dispatched tree (a run
+    # without eval rounds meets no other barrier)
+    booster._engine.flush()
+    booster._engine.timer.report()
     return booster
 
 

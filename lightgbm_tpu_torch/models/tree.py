@@ -66,6 +66,12 @@ class Tree:
         self.cat_boundaries_inner: List[int] = [0]
         self.cat_threshold_inner: List[int] = []
         self.shrinkage = 1.0
+        # training-side only, not serialized: the f32 shrunk leaf outputs
+        # the engine added to its validation scores (its leaf_value_f32 *
+        # f32(lr); empty for a stump, which adds nothing), so a validation
+        # set added later replays the same bits; None where the engine
+        # did not add them so (a loaded tree, RF) or they went stale
+        self.valid_out: Optional[np.ndarray] = None
 
     # -- training-side mutation ---------------------------------------------
     def split(self, leaf: int, feature: int, threshold_bin: int,
@@ -128,6 +134,7 @@ class Tree:
         self.leaf_value[: self.num_leaves] *= rate
         self.internal_value[: self.num_leaves - 1] *= rate
         self.shrinkage *= rate
+        self.valid_out = None
 
     # -- prediction ----------------------------------------------------------
     def predict(self, X: np.ndarray) -> np.ndarray:

@@ -498,6 +498,7 @@ class ContinuousTrainer:
         return bst
 
     def _model_text(self, booster) -> str:
+        # Booster._model drains the dispatch pipeline: every tree
         return booster._model.save_model_to_string()
 
     def _total_iter(self) -> int:
@@ -770,6 +771,8 @@ class ContinuousTrainer:
                     self.wd("prewarm: compile from manifest")
                     throwaway = self._build_booster(X, y, q)
                     throwaway.update()
+                    # its assembler's worker ends with the drain
+                    throwaway._drain()
                     outcome = "manifest_ok"
         except BaseException as e:   # noqa: BLE001 — never block the loop
             outcome = "error"

@@ -213,8 +213,8 @@ def maybe_die_or_preempt(booster) -> None:
       this process, which the PreemptionGuard turns into
       write-final-snapshot-then-exit at the iteration boundary.
 
-    The port dispatches no tree ahead of its fetch, so the completed
-    iterations are the model's.
+    The completed iterations are the model's once the dispatch pipeline
+    has drained (the JAX package's resilience.py:231).
     """
     spec = _fault_spec()
     if "die_at_iter" not in spec and "sigterm_at_iter" not in spec:
@@ -222,6 +222,7 @@ def maybe_die_or_preempt(booster) -> None:
     eng = getattr(booster, "_engine", None)
     if eng is None:
         return
+    eng.flush()
     done = int(eng.model.current_iteration)
     if "die_at_iter" in spec and done >= int(spec["die_at_iter"] or 0):
         sys.stderr.write("[%s] FAULT die_at_iter: abrupt exit after %d "
@@ -1084,6 +1085,9 @@ def _capture(booster):
     eng = booster._engine
     if eng is None:
         raise RuntimeError("capture_training_state needs a training Booster")
+    # every dispatched tree in the model and an open boosting window
+    # settled at the reported iteration (the JAX package's :1081)
+    eng.flush(sync_scores=True)
     score, perm = _scores_and_order(eng)
     state: Dict[str, Any] = {
         "version": 1,

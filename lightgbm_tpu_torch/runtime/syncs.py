@@ -5,9 +5,15 @@ through this module, so one counter answers "how many times per
 iteration does the host wait for the card, and where?":
 
 * `tree_fetch`: the grower's small outputs of one tree, one packed
-  transfer (`gbdt._fetch_packed`);
-* `eval_fetch`: scores fetched for the metrics (`raw_train_score`,
-  `raw_valid_score`);
+  transfer (`gbdt._fetch_packed`), at pipeline_depth=0;
+* `pipeline_drain`: the same record of one tree at pipeline_depth >= 1,
+  waited for by the assembler's worker thread (`boosting/pipeline.py`),
+  off the critical path;
+* `window_drain`: the stacked records of a boosting window's J*K trees
+  (boost_window=J), one wait for the whole window, off the critical
+  path at pipeline_depth >= 1;
+* `eval_fetch`: scores fetched for the metrics, one packed transfer an
+  eval round (`GBDT.eval_all`, `raw_train_score`, `raw_valid_score`);
 * `predict_fetch`: one micro-batch's output of the device predictor
   (`wait_event`);
 * `profile_sync`: a phase timer's wait at the end of each timed phase
@@ -17,14 +23,17 @@ Each event is recorded under its label and under whether the calling
 thread sits on the tree-to-tree critical path (marked with
 `critical_path`, as the JAX package's dispatch loop is).  The counters
 are process-global and only grow; a consumer takes a `snapshot` before a
-region and diffs with `delta` after it.  Every event also feeds the
+region and diffs with `delta` after it.  `thread_counts` reads the
+calling thread's own (total, critical) events, which the engine diffs
+to attribute a tree's syncs while the assembler's worker records its
+drains beside them.  Every event also feeds the
 metrics registry (`telemetry.count_sync`), as in the JAX package, so a
 scrape sees the same sync profile.
 """
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -56,11 +65,20 @@ class critical_path:
         _tls.depth = getattr(_tls, "depth", 1) - 1
 
 
+def thread_counts() -> Tuple[int, int]:
+    """(total, critical-path) events recorded by the calling thread so
+    far."""
+    return getattr(_tls, "total", 0), getattr(_tls, "critical", 0)
+
+
 def record(label: str) -> None:
-    """Count one blocking host sync under `label` (seam-internal; call
-    sites use `device_get`)."""
+    """Count one blocking host sync under `label` (call sites that wait
+    by other means, as the assembler's event poll, record here; the rest
+    use `device_get`)."""
     global _total, _critical_total
     crit = _on_critical_path()
+    _tls.total = getattr(_tls, "total", 0) + 1
+    _tls.critical = getattr(_tls, "critical", 0) + int(crit)
     with _lock:
         _counts[label] = _counts.get(label, 0) + 1
         _total += 1

@@ -109,6 +109,23 @@ METRIC_TABLE: Dict[str, Dict[str, Any]] = {
         "type": "counter", "labels": ("label",),
         "help": "Sync-audit events recorded ON the tree->tree critical "
                 "path (pinned 0 at pipeline_depth=1 fused fast path)"},
+    "lgbm_pipeline_queue_depth": {
+        "type": "gauge", "labels": (),
+        "help": "Host halves pending-or-running in the async tree "
+                "assembler (bounded at pipeline_depth)"},
+    "lgbm_pipeline_drain_seconds": {
+        "type": "histogram", "labels": (),
+        "help": "Dispatch-to-append latency of one tree's deferred host "
+                "half (queue wait + packed fetch + Tree assembly)"},
+    "lgbm_window_iterations_total": {
+        "type": "counter", "labels": (),
+        "help": "Boosting iterations trained inside fused boost_window "
+                "scan dispatches (J iterations per device program)"},
+    "lgbm_window_truncations_total": {
+        "type": "counter", "labels": (),
+        "help": "Open boosting windows settled mid-window at an "
+                "observation point (eval/snapshot/rollback) by exact "
+                "snapshot replay"},
     "lgbm_span_seconds": {
         "type": "histogram", "labels": ("span",),
         "help": "Named span durations (watchdog stage closes land here; "

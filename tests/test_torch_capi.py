@@ -207,6 +207,35 @@ def compile_c_program(src: str, out: str) -> None:
     assert cc.returncode == 0, cc.stderr
 
 
+def test_update_then_save_drains_the_pipeline(built, problem, monkeypatch,
+                                              tmp_path):
+    """The C ABI reaches the engine through Booster, so its model reads
+    drain the dispatch pipeline: two LGBM_BoosterUpdateOneIter calls at
+    pipeline_depth=2 whose trees are still held in the assembler (their
+    record waits gated, the gate opened 0.3 s later), then
+    LGBM_BoosterSaveModelToString holds both trees: lt.train's file at
+    depth 0 up to its parameters."""
+    from lightgbm_tpu_torch.boosting import gbdt as tgbdt
+    gate = threading.Event()
+    real = tgbdt.GBDT._wait_record
+
+    def gated(slot, label):
+        gate.wait()
+        return real(slot, label)
+
+    monkeypatch.setattr(tgbdt.GBDT, "_wait_record", staticmethod(gated))
+    X, y, w = problem
+    bst = _c_train(capi, X, y, w, C_CPU + " pipeline_depth=2", rounds=2)
+    threading.Timer(0.3, gate.set).start()
+    text = bst.model_to_string()
+    ref = lt.train(dict(CPU, pipeline_depth=0),
+                   lt.Dataset(X, label=y, weight=w), 2, verbose_eval=False)
+    want = _save_text(ref, tmp_path / "py.txt")
+    assert text.count("Tree=") == 2
+    assert text.split("\nparameters:\n")[0] == \
+        want.split("\nparameters:\n")[0]
+
+
 def test_c_program_trains_through_the_port(built, problem, tmp_path):
     X, y, w = problem
     cache = str(tmp_path / "train.bin")

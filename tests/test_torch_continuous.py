@@ -185,7 +185,9 @@ def test_publishes_every_cycle_and_saves_final_model(runs):
         for st in ("ingest", "train", "snapshot", "publish"):
             assert "cycle %d: %s" % (c, st) in names, names
     train = [s for s in trail["stages"] if s["name"] == "cycle 2: train"][0]
-    assert train["syncs"] == {"tree_fetch": 2}
+    # the two trees' fetches, the assembler's at the default
+    # pipeline_depth=1 (the cycle's iteration reads drain it)
+    assert train["syncs"] == {"pipeline_drain": 2}
     assert train["program_builds"] == {}      # nothing rebuilt
     pub = [s for s in trail["stages"] if s["name"] == "cycle 2: publish"][0]
     assert pub["publish_latency_s"] >= 0

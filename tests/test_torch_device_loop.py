@@ -262,6 +262,8 @@ def test_eval_fetch_counted_apart():
                    valid_sets=[lt.Dataset(X[1500:], label=y[1500:])],
                    evals_result=evals, verbose_eval=False)
     by = tsyncs.snapshot()["by_label"]
-    assert by["tree_fetch"] == 3
+    # the trees' fetches: the assembler's at the default pipeline_depth=1
+    assert by["pipeline_drain"] == 3
+    assert "tree_fetch" not in by
     assert by.get("eval_fetch", 0) >= 3
     assert bst.host_syncs_per_tree() == [1] * 3

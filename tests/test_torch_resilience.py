@@ -256,7 +256,11 @@ def _resume_matches(params, classes, total=8, cut=4, **data_kw):
         if i + 1 == cut:
             before = syncs.snapshot()
             state = resilience.capture_training_state(a)
-            assert syncs.delta(before)["by_label"] == {"snapshot": 1}
+            # one fetch of its own; the capture drains the pipeline first,
+            # so the last tree's own drain may land inside it
+            by = syncs.delta(before)["by_label"]
+            assert by.pop("pipeline_drain", 0) <= 1
+            assert by == {"snapshot": 1}
             text = a._model.save_model_to_string()
     b = lt.Booster(_cpu(params), a.train_set,
                    init_model=GBDTModel.load_model_from_string(text))

@@ -474,15 +474,17 @@ def _train(rounds=4, **extra):
 
 def test_training_instruments_and_sync_audit_gauges():
     """Every Booster.update runs inside train_iteration: the iteration
-    histogram and counter, the per-iteration sync gauges (1 blocking
-    sync, the tree's fetch, on the critical path) and the sync bridge's
-    counters by label."""
+    histogram and counter, the per-iteration sync gauges and the sync
+    bridge's counters by label.  At pipeline_depth=0 each iteration pays
+    1 blocking sync, the tree's fetch, on the critical path; at the
+    default pipeline_depth=1 the critical-path gauge is 0 and the fetches
+    are the assembler's pipeline_drain (the JAX package's pin)."""
     it_hist = telemetry.histogram("lgbm_train_iteration_seconds")
     it_cnt = telemetry.counter("lgbm_train_iterations_total")
     fetches = telemetry.counter("lgbm_host_syncs_total")
     h0, c0 = it_hist.state()["count"], it_cnt.total()
     f0 = fetches.value(label="tree_fetch")
-    _train(rounds=5)
+    _train(rounds=5, pipeline_depth=0)
     assert it_cnt.total() == c0 + 5
     assert it_hist.state()["count"] == h0 + 5
     g = telemetry.gauge("lgbm_train_host_syncs_per_iter")
@@ -491,6 +493,15 @@ def test_training_instruments_and_sync_audit_gauges():
     assert fetches.value(label="tree_fetch") == f0 + 5
     assert telemetry.counter("lgbm_host_syncs_critical_total").value(
         label="tree_fetch") >= 5
+    d0 = telemetry.histogram("lgbm_pipeline_drain_seconds").state()["count"]
+    p0 = fetches.value(label="pipeline_drain")
+    _train(rounds=5)
+    assert it_cnt.total() == c0 + 10
+    assert g.value(path="critical") == 0.0
+    assert fetches.value(label="pipeline_drain") == p0 + 5
+    assert fetches.value(label="tree_fetch") == f0 + 5
+    assert telemetry.histogram(
+        "lgbm_pipeline_drain_seconds").state()["count"] == d0 + 5
 
 
 def test_telemetry_disabled_training_still_works():
@@ -502,8 +513,9 @@ def test_telemetry_disabled_training_still_works():
         assert bst.current_iteration() == 2
         assert telemetry.counter(
             "lgbm_train_iterations_total").total() == c0
-        # the sync seam's own counters keep counting
-        assert syncs.delta(s0)["by_label"]["tree_fetch"] == 2
+        # the sync seam's own counters keep counting (the trees' fetches,
+        # the assembler's at the default pipeline_depth=1)
+        assert syncs.delta(s0)["by_label"]["pipeline_drain"] == 2
     finally:
         telemetry.set_enabled(prev)
 
